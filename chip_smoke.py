@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure raises, so the exit code
+is non-zero):
+
+1. environment: the card, its power limit, torch / CUDA / nvcc versions;
+2. build: compiles the CUDA kernels from ``src/repro_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   at the main path's shapes and at ragged ones, with its time, the plain
+   version's, a one-call PyTorch yardstick where there is one, and the
+   least time the card could take for the same work;
+4. main path: federated training of the paper's CNN_MNIST at full width
+   (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
+   10 examples, eval on 2048 test examples every round) through
+   ``run_federated_reference`` for FedAvg, FedMMD and FedFusion-conv;
+   each run's kernel launch counts must equal the path's formula;
+5. trace: one round per algorithm under ``torch.profiler`` (a separate
+   run): device kernels launched, the device's busy share of the wall
+   time, and the kernels taking the most device time;
+6. card vs CPU: the same initial state and data trained 2 rounds on the
+   card (kernels) and on the CPU (plain versions) must agree;
+7. the kernel table.
+
+The line before the last is the kernel table; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+rest of the repository beside it, the script exits non-zero and prints
+no result.  float32 products run in full float32: TF32 is switched off
+for matmuls and for cuDNN convolutions.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+WIDTHS = (1.0, 2.0, 4.0, 8.0, 16.0)
+FIG4 = dict(clients_per_round=10, local_steps=4, local_batch=10, lr=0.08,
+            mmd_lambda=0.1)
+EVAL_EXAMPLES = 2048
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip()
+
+
+def time_ms(torch, fn, *, launches=20, repeats=15, warmup=5):
+    """Median over ``repeats`` of CUDA-event time for ``launches``
+    back-to-back calls, divided by ``launches``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def bound(n_bytes, n_flops):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gram_sum_work(n, m, d, n_widths):
+    """Bytes (x, y, sigma in; one scalar out) and float32 operations (dot
+    products, norms, the d2 identity and clamp, and per width a scale, a
+    divide, an exp and an add) of one Gram sum."""
+    n_bytes = 4 * ((n + m) * d + 2)
+    n_flops = 2 * n * m * d + 2 * (n + m) * d + n * m * (4 + 5 * n_widths)
+    return n_bytes, n_flops
+
+
+def fusion_conv_work(T, C):
+    """Bytes (f_g, f_l, W in; out) and flops (2 T 2C C) of one fusion conv."""
+    return 4 * (3 * T * C + 2 * C * C), 4 * T * C * C
+
+
+def check_kernels(torch, mk_mmd, fusion_conv):
+    """Phase 3.  Returns the kernel-table rows (without launches)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (scale * torch.randn(*shape, generator=gen) + shift).to(dev)
+
+    rows = {}
+    # -- K1: Gram sum ---------------------------------------------------
+    k1_err = 0.0
+    for n, m, d in [(10, 10, 64), (32, 32, 64), (37, 53, 64)]:
+        x, y = randn(n, d), randn(m, d, scale=0.5, shift=1.0)
+        sigma = torch.tensor(30.0, device=dev)
+        got = mk_mmd.gram_sum_cuda(x, y, sigma, WIDTHS)
+        want = mk_mmd.gram_sum_plain(x, y, sigma, WIDTHS)
+        again = mk_mmd.gram_sum_cuda(x, y, sigma, WIDTHS)
+        torch.cuda.synchronize()
+        err = abs(got.item() - want.item())
+        # float32 sums of n*m positive terms: a few ulp of the total
+        tol = 1e-5 * abs(want.item())
+        emit("kernels", kernel="gram_sum", shape=[n, m, d], value=got.item(),
+             plain=want.item(), abs_err=err, tol=tol,
+             bitwise_repeat=bool(torch.equal(got, again)))
+        if err > tol or not torch.equal(got, again):
+            raise AssertionError(f"gram_sum kernel disagrees at {(n, m, d)}")
+        if (n, m, d) == (10, 10, 64):
+            k1_err = err
+    # its autograd gradient against autograd through the plain version
+    xs, ys = randn(10, 64), randn(10, 64, scale=0.5, shift=1.0)
+    sigma = torch.tensor(30.0, device=dev)
+    grads = []
+    for fn in (mk_mmd.gram_sum, mk_mmd.gram_sum_plain):
+        x = xs.clone().requires_grad_(True)
+        y = ys.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(x, y, sigma, WIDTHS), (x, y)))
+    g_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    # the gradient is a difference of two float32 sums that cancel in
+    # part: rtol 1e-4, atol 1e-6 of the gradient's scale
+    g_ok = all(torch.allclose(a, b, rtol=1e-4,
+                              atol=1e-6 * b.abs().max().item())
+               for a, b in zip(*grads))
+    emit("kernels", kernel="gram_sum_grad", shape=[10, 10, 64],
+         abs_err=g_err, rtol=1e-4, ok=g_ok)
+    if not g_ok:
+        raise AssertionError("gram_sum gradient disagrees with autograd")
+
+    x, y = randn(10, 64), randn(10, 64, scale=0.5, shift=1.0)
+    ms = time_ms(torch, lambda: mk_mmd.gram_sum_cuda(x, y, sigma, WIDTHS))
+    plain_ms = time_ms(torch, lambda: mk_mmd.gram_sum_plain(x, y, sigma,
+                                                            WIDTHS))
+    bound_ms, bound_by = bound(*gram_sum_work(10, 10, 64, len(WIDTHS)))
+    rows["gram_sum"] = dict(
+        name="gram_sum", route="cuda",
+        source="src/repro_torch/csrc/gram_sum.cu",
+        replaces="src/repro/kernels/mk_mmd.py:74", max_abs_err=k1_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
+    emit("kernels", kernel="gram_sum", shape=[10, 10, 64], kernel_ms=ms,
+         plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+         bound_by=bound_by)
+
+    # -- K2: fusion conv --------------------------------------------------
+    for T, C in [(490, 64), (100352, 64), (1001, 64), (77, 40)]:
+        fg, fl = randn(T, C), randn(T, C)
+        w = randn(2 * C, C, scale=1.0 / math.sqrt(2 * C))
+        got = fusion_conv.fusion_conv_cuda(fg, fl, w)
+        want = fusion_conv.fusion_conv_plain(fg, fl, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # K = 2C float32 products summed in another order than cuBLAS
+        tol = 1e-5 * want.abs().max().item()
+        line = dict(kernel="fusion_conv", shape=[T, C], abs_err=err, tol=tol)
+        if C == 64 and T in (490, 100352):
+            lib = lambda: torch.mm(torch.cat((fg, fl), -1), w)  # noqa: E731
+            line.update(
+                kernel_ms=time_ms(torch, lambda: fusion_conv.fusion_conv_cuda(
+                    fg, fl, w)),
+                plain_ms=time_ms(torch, lambda: fusion_conv.fusion_conv_plain(
+                    fg, fl, w)),
+                library_ms=time_ms(torch, lib))
+            line["bound_ms"], line["bound_by"] = bound(*fusion_conv_work(T, C))
+            if T == 490:
+                rows["fusion_conv"] = dict(
+                    name="fusion_conv", route="cuda",
+                    source="src/repro_torch/csrc/fusion_conv.cu",
+                    replaces="src/repro/kernels/fusion_conv.py:45",
+                    max_abs_err=err, ms=line["kernel_ms"],
+                    plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
+                    bound_by=line["bound_by"],
+                    library_ms=line["library_ms"])
+        emit("kernels", **line)
+        if err > tol:
+            raise AssertionError(f"fusion_conv kernel disagrees at {(T, C)}")
+    return rows
+
+
+def trace_round(torch, run_federated_reference, bundle, fl, data,
+                device="cuda"):
+    """One round traced with ``torch.profiler`` after one untraced round:
+    wall time, device kernels launched, the share of the wall time during
+    which a kernel ran, and the kernels taking the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start = []
+
+    def after_round(r, state, metrics):
+        if r == 0:
+            torch.cuda.synchronize()
+            prof.start()
+            start.append(time.perf_counter())
+
+    run_federated_reference(bundle, fl, data, rounds=2, seed=0,
+                            eval_examples=EVAL_EXAMPLES, device=device,
+                            callback=after_round)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start[0]
+    prof.stop()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        count_us = by_name.setdefault(e.name, [0, 0.0])
+        count_us[0] += 1
+        count_us[1] += e.time_range.end - e.time_range.start
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):          # union of the kernel intervals
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(wall_ms=1e3 * wall, device_ops=len(spans),
+                device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / wall,
+                top=[{"name": n[:80], "count": c, "ms": us / 1e3}
+                     for n, (c, us) in top])
+
+
+def mnist_data(FederatedDataset, class_images, partition, seed=0):
+    x, y = class_images(600, shape=(28, 28, 1), seed=0, noise=0.2,
+                        template_seed=0)
+    xt, yt = class_images(205, shape=(28, 28, 1), seed=1, noise=0.2,
+                          template_seed=0)
+    return FederatedDataset(partition(x, y, 100, shards_per_client=2),
+                            {"x": xt, "y": yt}, seed=seed)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda finds no CUDA device")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        sys.exit(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+                 "checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.configs import CNN_MNIST, FLConfig
+    from repro_torch.core import init_global_state
+    from repro_torch.data import (FederatedDataset,
+                                  artificial_noniid_partition, class_images)
+    from repro_torch.fl.server import run_federated_reference
+    from repro_torch.kernels import build, fusion_conv, mk_mmd
+    from repro_torch.models import make_bundle
+    from repro_torch.tree import tree_leaves
+
+    # 1. environment ------------------------------------------------------
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    emit("environment", card=card, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         nvcc=run([build.nvcc_path(), "--version"]).splitlines()[-1],
+         triton=triton_version, tf32_matmul=False, tf32_cudnn=False)
+
+    # 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = build.build()
+    ptxas = {n: [ln.split("info    : ")[-1] for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, log in build.BUILD_LOG.items()}
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries={n: str(p.relative_to(ROOT)) for n, p in libs.items()},
+         ptxas=ptxas)
+
+    # 3. kernels vs plain on the card ------------------------------------
+    rows = check_kernels(torch, mk_mmd, fusion_conv)
+
+    # 4. main path --------------------------------------------------------
+    bundle = make_bundle(CNN_MNIST)
+    n_params = sum(t.numel() for t in tree_leaves(
+        bundle.init(torch.Generator().manual_seed(0))))
+    steps, clients = FIG4["local_steps"], FIG4["clients_per_round"]
+    launches = {"gram_sum": 0, "fusion_conv": 0}
+    for algorithm, mode, rounds in [
+            ("fedavg", "client_parallel", 3),
+            ("fedmmd", "client_parallel", 3),
+            ("fedfusion", "client_parallel", 3),
+            ("fedmmd", "client_sequential", 1),
+            ("fedfusion", "client_sequential", 1)]:
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", **FIG4)
+        data = mnist_data(FederatedDataset, class_images,
+                          artificial_noniid_partition)
+        stamps = []
+        mk_mmd.gram_sum_cuda.launches = 0
+        fusion_conv.fusion_conv_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_federated_reference(
+            bundle, fl, data, rounds=rounds, seed=0, mode=mode,
+            eval_examples=EVAL_EXAMPLES,
+            callback=lambda r, s, m: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"gram_sum": mk_mmd.gram_sum_cuda.launches,
+               "fusion_conv": fusion_conv.fusion_conv_cuda.launches}
+        want = {"gram_sum": (3 * steps * clients * rounds
+                             if algorithm == "fedmmd" else 0),
+                "fusion_conv": (steps * clients * rounds + rounds
+                                if algorithm == "fedfusion" else 0)}
+        hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss",
+                                   "bytes_up", "bytes_down")}
+                for h in res.comm.history]
+        steady = (rounds - 1) / (stamps[-1] - stamps[0]) if rounds > 1 \
+            else None
+        emit("main_path", model=CNN_MNIST.name, params=n_params,
+             algorithm=algorithm, fusion_op="conv", mode=mode,
+             rounds=rounds, rounds_per_s=rounds / wall,
+             steady_rounds_per_s=steady, launches=got, expected=want,
+             history=hist)
+        if got != want:
+            raise AssertionError(f"{algorithm}/{mode}: kernel launches {got}"
+                                 f" != {want}")
+        if not all(math.isfinite(h["local_loss"]) and math.isfinite(h["loss"])
+                   for h in hist):
+            raise AssertionError(f"{algorithm}/{mode}: non-finite loss")
+        for k in launches:
+            launches[k] += got[k]
+
+    # 5. one traced round per algorithm (torch.profiler; a separate run, so
+    # the rounds/s above are untraced) ------------------------------------
+    for algorithm in ("fedavg", "fedmmd", "fedfusion"):
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", **FIG4)
+        data = mnist_data(FederatedDataset, class_images,
+                          artificial_noniid_partition)
+        emit("trace", algorithm=algorithm, fusion_op="conv",
+             mode="client_parallel",
+             **trace_round(torch, run_federated_reference, bundle, fl, data))
+
+    # 6. card vs CPU ------------------------------------------------------
+    # Same initial state and data; 2 rounds x 10 clients x 4 SGD steps.
+    # float32 results differ by summation order (cuDNN vs oneDNN convs,
+    # cuDNN's run-to-run choices, the kernels vs the plain versions), ~1e-6
+    # relative per op, and SGD at lr 0.08 compounds it over 80 steps (the
+    # FedMMD loss even rises between these rounds).  The check holds the
+    # card-vs-CPU difference to 1% of the change training made, both the
+    # largest element and the L2 norm over all parameters: a wrong
+    # gradient or a missing loss term differs by the order of the change
+    # itself.
+    for algorithm in ("fedmmd", "fedfusion"):
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", **FIG4)
+        s0 = init_global_state(bundle, fl, torch.Generator().manual_seed(7),
+                               device="cpu")
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            data = mnist_data(FederatedDataset, class_images,
+                              artificial_noniid_partition)
+            res = run_federated_reference(bundle, fl, data, rounds=2,
+                                          global_state=s0, device=dev,
+                                          eval_examples=EVAL_EXAMPLES)
+            finals[dev] = (torch.cat([t.cpu().flatten() for t in
+                                      tree_leaves(res.global_state)]),
+                           res.comm.history[-1])
+        start = torch.cat([t.flatten() for t in tree_leaves(s0)])
+        diff = finals["cuda"][0] - finals["cpu"][0]
+        change = finals["cpu"][0] - start
+        ratio_max = diff.abs().max().item() / change.abs().max().item()
+        ratio_l2 = (diff.norm() / change.norm()).item()
+        emit("card_vs_cpu", algorithm=algorithm, fusion_op="conv", rounds=2,
+             max_abs_diff=diff.abs().max().item(),
+             max_change=change.abs().max().item(), ratio_max=ratio_max,
+             ratio_l2=ratio_l2, limit=0.01,
+             acc={d: finals[d][1]["acc"] for d in finals},
+             loss={d: finals[d][1]["loss"] for d in finals})
+        if not ratio_max <= 0.01 or not ratio_l2 <= 0.01:
+            raise AssertionError(f"{algorithm}: card and CPU disagree "
+                                 f"(ratios {ratio_max}, {ratio_l2})")
+
+    # 7. kernel table -----------------------------------------------------
+    table = [dict(rows[k], launches=launches[k]) for k in
+             ("gram_sum", "fusion_conv")]
+    table = [{k: r[k] for k in ("name", "route", "source", "replaces",
+                                "launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+             for r in table]
+    print(card, flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

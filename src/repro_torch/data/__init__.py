@@ -1,0 +1,11 @@
+"""Synthetic images, client partitions and the federated loader (numpy
+copies of ``repro.data`` with the same rng streams)."""
+from repro_torch.data.federated import FederatedDataset
+from repro_torch.data.partition import (artificial_noniid_partition,
+                                        class_split_partition, iid_partition,
+                                        permuted_partition)
+from repro_torch.data.synth import class_images
+
+__all__ = ["FederatedDataset", "artificial_noniid_partition",
+           "class_split_partition", "iid_partition", "permuted_partition",
+           "class_images"]

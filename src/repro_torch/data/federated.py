@@ -1,0 +1,107 @@
+"""Federated image-data loader (copy of ``repro/data/federated.py``
+without the chaos layer, ``TemplateClients`` and token data): samples
+clients per round and builds the stacked round batch the round fn
+consumes ([n_clients, local_steps, B, ...]).
+
+The numpy rng stream is draw-for-draw the JAX package's, so for one seed
+both packages sample the same cohorts and the same batches.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+# Above this federation size ``sample_clients`` switches from numpy's
+# permutation-based ``choice`` to Floyd's O(C) without-replacement draw
+# (the same threshold as the JAX package, so the streams agree).
+_FLOYD_THRESHOLD = 4096
+
+
+class FederatedDataset:
+    """Holds per-client datasets + a held-out test set."""
+
+    def __init__(self, clients: List[Dict[str, np.ndarray]],
+                 test: Dict[str, np.ndarray], *, seed: int = 0):
+        self.clients = clients
+        self.test = test
+        self._sizes = None          # client_sizes cache (shards are frozen)
+        self._seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def n_clients(self) -> int:
+        return len(self.clients)
+
+    def client_sizes(self) -> np.ndarray:
+        """Per-client example counts [N], computed once and cached."""
+        if self._sizes is None:
+            self._sizes = np.array([len(c["x"]) for c in self.clients],
+                                   np.float32)
+        return self._sizes
+
+    def sample_clients(self, n: int) -> np.ndarray:
+        """Sample n distinct client ids; raises ``ValueError`` when
+        ``n > n_clients``.  Federations above ``_FLOYD_THRESHOLD`` use
+        Floyd's algorithm (O(n) rng calls), smaller ones numpy's
+        permutation ``choice``."""
+        if n > self.n_clients:
+            raise ValueError(
+                f"cannot sample {n} distinct clients from a federation of "
+                f"{self.n_clients}; lower clients_per_round")
+        n_total = self.n_clients
+        if n_total > _FLOYD_THRESHOLD:
+            seen = set()
+            picks = []
+            for j in range(n_total - n, n_total):
+                t = int(self._rng.integers(0, j + 1))
+                pick = t if t not in seen else j
+                seen.add(pick)
+                picks.append(pick)
+            cids = np.array(picks, np.int64)
+        else:
+            cids = self._rng.choice(n_total, size=n, replace=False)
+        if len(np.unique(cids)) != len(cids):
+            raise ValueError(
+                f"sample_clients returned duplicate cids: {cids}")
+        return cids
+
+    def _draw(self, client: Dict[str, np.ndarray], n: int) -> Dict[str, np.ndarray]:
+        size = len(client["x"])
+        idx = self._rng.choice(size, size=n, replace=size < n)
+        return {k: v[idx] for k, v in client.items() if k != "perm"}
+
+    def round_batch(self, client_ids, local_steps: int, batch: int):
+        """Returns (batches, n_examples):
+        batches: dict of arrays [n_clients, local_steps, batch, ...]
+        n_examples: [n_clients] (n_t for weighting).
+        """
+        per_client = []
+        for cid in client_ids:
+            steps = [self._draw(self.clients[cid], batch)
+                     for _ in range(local_steps)]
+            per_client.append({k: np.stack([s[k] for s in steps])
+                               for k in steps[0]})
+        stacked = {k: np.stack([pc[k] for pc in per_client])
+                   for k in per_client[0]}
+        sizes = self.client_sizes()[np.asarray(client_ids)]
+        return stacked, sizes
+
+    def skip_round_sampling(self, n_rounds: int, clients_per_round: int,
+                            local_steps: int, batch: int) -> None:
+        """Re-seed the sampling rng and consume exactly the draws the first
+        ``n_rounds`` rounds make (``sample_clients`` + ``round_batch``, same
+        order) without materializing batches."""
+        self._rng = np.random.default_rng(self._seed)
+        for _ in range(n_rounds):
+            cids = self.sample_clients(clients_per_round)
+            for cid in cids:
+                size = len(self.clients[cid]["x"])
+                for _ in range(local_steps):
+                    self._rng.choice(size, size=batch, replace=size < batch)
+
+    def test_batch(self, n: Optional[int] = None) -> Dict[str, np.ndarray]:
+        if n is None:
+            return dict(self.test)
+        idx = self._rng.choice(len(self.test["x"]), size=n, replace=False)
+        return {k: v[idx] for k, v in self.test.items()}

@@ -1,0 +1,113 @@
+"""Communication-cost accounting (port of ``repro/fl/comm.py``).
+
+The paper's metric is *communication rounds to reach an accuracy
+milestone*; raw bytes are accounted too (down = global model broadcast,
+up = local model + fusion module returns).  Byte counts follow the
+parameter trees' shapes and dtypes, so they equal the JAX package's.
+"""
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves
+
+
+def tree_bytes(tree) -> int:
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(tree)))
+
+
+def json_safe(v: Any) -> Any:
+    """One value -> something ``json.dump`` accepts (tensors and numpy
+    scalars become numbers or lists; anything else unknown becomes str)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (np.bool_, np.integer)):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, dict):
+        return {str(k): json_safe(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [json_safe(x) for x in v]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if hasattr(v, "ndim"):
+        arr = np.asarray(v)
+        return arr.item() if arr.ndim == 0 else arr.tolist()
+    return str(v)
+
+
+@dataclass
+class CommLog:
+    rounds: int = 0
+    bytes_up: int = 0
+    bytes_down: int = 0
+    history: List[Dict] = field(default_factory=list)
+    _model_b: Optional[int] = field(default=None, repr=False)
+    _fusion_b: Optional[int] = field(default=None, repr=False)
+
+    def bind_sizes(self, global_state) -> "CommLog":
+        """Precompute the model/fusion wire sizes once; afterwards
+        ``log_round`` accepts ``global_state=None``."""
+        self._model_b = tree_bytes(global_state["model"])
+        self._fusion_b = tree_bytes(global_state.get("fusion", ()))
+        return self
+
+    def log_round(self, global_state, n_clients: int, metrics: Dict):
+        """Account one uncompressed, full-participation round: each of the
+        ``n_clients`` participants downloads and uploads the raw model,
+        plus FedFusion's fusion module both ways."""
+        if global_state is None:
+            if self._model_b is None:
+                raise RuntimeError(
+                    "CommLog.log_round(global_state=None) requires "
+                    "bind_sizes(global_state) to have been called first")
+            model_b, fusion_b = self._model_b, self._fusion_b
+        else:
+            model_b = tree_bytes(global_state["model"])
+            fusion_b = tree_bytes(global_state.get("fusion", ()))
+        down = up = n_clients * (model_b + fusion_b)
+        self.rounds += 1
+        self.bytes_down += down
+        self.bytes_up += up
+        self.history.append({"round": self.rounds, "bytes_up": up,
+                             "bytes_down": down,
+                             "bytes_up_ideal": n_clients * (model_b
+                                                            + fusion_b),
+                             "cum_bytes_up": self.bytes_up, **metrics})
+
+    def rounds_to(self, key: str, threshold: float) -> int:
+        """First round where history[key] >= threshold (-1 if never)."""
+        for h in self.history:
+            if h.get(key, -np.inf) >= threshold:
+                return h["round"]
+        return -1
+
+    def to_records(self) -> List[Dict]:
+        """History as plain-JSON round records plus a final
+        ``{"kind": "summary", "schema": 2}`` record with the run totals
+        (record schema v2 of the JAX package)."""
+        records = [{"kind": "round",
+                    **{k: json_safe(v) for k, v in h.items()}}
+                   for h in self.history]
+        records.append({"kind": "summary", "schema": 2,
+                        "rounds": self.rounds,
+                        "bytes_up": self.bytes_up,
+                        "bytes_down": self.bytes_down})
+        return records
+
+    def save(self, path: str) -> str:
+        """Write :meth:`to_records` as JSONL; returns ``path``."""
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            for rec in self.to_records():
+                f.write(json.dumps(rec) + "\n")
+        return path

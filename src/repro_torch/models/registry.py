@@ -1,0 +1,65 @@
+"""Uniform ModelBundle API (port of ``repro/models/registry.py``, CNN half).
+
+The FL core is written against this protocol:
+    bundle.init(generator)           -> params (on the CPU)
+    bundle.extract(params, batch)    -> (features, aux)   # trunk only
+    bundle.head(params, features)    -> logits
+    bundle.apply(params, batch)      -> {'features','logits','aux'}
+    bundle.pool(features)            -> [B, C] pooled features (for MMD)
+    bundle.labels(batch)             -> targets for the loss
+    bundle.loss_kind                 -> 'classify'
+    bundle.feature_channels          -> fusion channel width C
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import CNNConfig
+from repro_torch.models import cnn as cnn_mod
+
+
+@dataclass(frozen=True)
+class ModelBundle:
+    name: str
+    config: CNNConfig
+    init: Callable[..., Any]
+    extract: Callable[..., Any]
+    head: Callable[..., Any]
+    apply: Callable[..., Dict[str, Any]]
+    pool: Callable[..., Any]
+    labels: Callable[[Dict[str, Any]], Any]
+    loss_kind: str
+    feature_channels: int
+
+
+def make_bundle(cfg: CNNConfig, dtype=torch.float32) -> ModelBundle:
+    if not isinstance(cfg, CNNConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: only the paper's CNNs are ported; the "
+            "transformer bundle is a later slice")
+    return _cnn_bundle(cfg, dtype)
+
+
+def _cnn_bundle(cfg: CNNConfig, dtype) -> ModelBundle:
+    def init(generator):
+        return cnn_mod.cnn_init(cfg, generator, dtype)
+
+    def extract(params, batch):
+        return cnn_mod.cnn_extract(cfg, params, batch["x"]), 0.0
+
+    def head(params, feats):
+        return cnn_mod.cnn_head(cfg, params, feats)
+
+    def apply(params, batch):
+        return cnn_mod.cnn_apply(cfg, params, batch["x"])
+
+    def pool(feats):           # [B,h,w,C] -> [B,C]
+        return feats.mean(dim=(1, 2))
+
+    return ModelBundle(
+        name=cfg.name, config=cfg, init=init, extract=extract, head=head,
+        apply=apply, pool=pool, labels=lambda b: b["y"],
+        loss_kind="classify", feature_channels=cfg.conv_channels[-1])

@@ -1,0 +1,140 @@
+"""The plain versions of the port's K1 (MK-MMD Gram sum) and K2 (FedFusion
+conv) against the JAX package's Pallas kernels, run in interpret mode on
+the CPU, and the autograd.Functions' backward against ``jax.grad`` of the
+JAX oracles.  The CUDA kernels run only on the card; ``test_torch_cuda.py``
+holds them against these plain versions there.
+
+Tolerances: the forward values are float32 sums of a few thousand terms
+taken in another order than XLA takes them, so they agree to a few ulp of
+the sum (rtol 1e-5; atol 1e-5 for outputs near zero).  Gradients are
+differences of two such sums that cancel in part, so they are held to
+rtol 1e-4 with an atol of 1e-6 of the gradient's own scale.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_inputs import WIDTHS, fusion_inputs, rng_pair
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.fusion_conv import fusion_conv as j_fusion_conv
+from repro.kernels.mk_mmd import gram_sum as j_gram_sum
+from repro_torch.kernels import fusion_conv as tfc
+from repro_torch.kernels import mk_mmd as tmk
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+
+# --------------------------------------------------------------------------
+# plain versions on the CPU vs the Pallas kernels in interpret mode
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,m,d", [(8, 8, 4), (10, 10, 64), (37, 53, 64),
+                                   (130, 70, 16)])
+def test_gram_sum_plain_matches_pallas(n, m, d):
+    x, y = rng_pair(n, m, d, n * m + d)
+    sigma = 3.7
+    want = j_gram_sum(jnp.asarray(x), jnp.asarray(y), sigma, WIDTHS,
+                      interpret=True)
+    got = tmk.gram_sum_plain(torch.from_numpy(x), torch.from_numpy(y),
+                             torch.tensor(sigma), WIDTHS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    # the differentiable entry takes the plain version on the CPU
+    got2 = tmk.gram_sum(torch.from_numpy(x), torch.from_numpy(y),
+                        torch.tensor(sigma), WIDTHS)
+    assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("shape,C", [((10, 7, 7), 64), ((490,), 64),
+                                     ((3, 5, 7), 16), ((77,), 40)])
+def test_fusion_conv_plain_matches_pallas(shape, C):
+    fg, fl, w = fusion_inputs(shape, C, sum(shape) + C)
+    want = j_fusion_conv(jnp.asarray(fg), jnp.asarray(fl), jnp.asarray(w),
+                         interpret=True)
+    got = tfc.fusion_conv_plain(*map(torch.from_numpy, (fg, fl, w)))
+    assert tuple(got.shape) == shape + (C,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    got2 = tops.fused_fusion_conv(*map(torch.from_numpy, (fg, fl, w)))
+    np.testing.assert_allclose(got2.numpy(), got.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,d", [(10, 10, 64), (16, 16, 8), (37, 53, 64)])
+def test_mk_mmd2_matches_pallas_and_oracles(n, m, d):
+    x, y = rng_pair(n, m, d, 7 + n)
+    want_pallas = jops.mk_mmd2(jnp.asarray(x), jnp.asarray(y), WIDTHS,
+                               impl="pallas_interpret")
+    want_jnp = jref.mk_mmd2_ref(jnp.asarray(x), jnp.asarray(y), WIDTHS)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    got = tops.mk_mmd2(tx, ty, WIDTHS)
+    got_ref = tref.mk_mmd2_ref(tx, ty, WIDTHS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_jnp), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_ref.numpy(), np.asarray(want_jnp),
+                               rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# gradients: the autograd.Functions' closed-form backward vs jax.grad
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,m,d", [(10, 10, 64), (37, 53, 16)])
+def test_mk_mmd2_grad_matches_jax(n, m, d):
+    x, y = rng_pair(n, m, d, 11 + m)
+    jgx, jgy = jax.grad(lambda a, b: jref.mk_mmd2_ref(a, b, WIDTHS),
+                        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y).requires_grad_(True)
+    gx, gy = torch.autograd.grad(tops.mk_mmd2(tx, ty, WIDTHS), (tx, ty))
+    for got, want in ((gx, jgx), (gy, jgy)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+def test_gram_sum_closed_form_grad_matches_autograd_of_plain():
+    x, y = rng_pair(21, 13, 32, 5)
+    sigma = torch.tensor(9.0)
+    grads = []
+    for fn in (tmk.gram_sum, tmk.gram_sum_plain):
+        tx = torch.from_numpy(x).requires_grad_(True)
+        ty = torch.from_numpy(y).requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(tx, ty, sigma, WIDTHS), (tx, ty)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("shape,C", [((2, 7, 7), 64), ((5,), 12)])
+def test_fusion_conv_grad_matches_jax(shape, C):
+    fg, fl, w = fusion_inputs(shape, C, 3 + C)
+    cot = np.random.default_rng(1).standard_normal(shape + (C,)).astype(
+        np.float32)
+
+    def jloss(a, b, c):
+        return jnp.sum(jref.fusion_conv_ref(a, b, c) * cot)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (fg, fl, w)))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (fg, fl, w)]
+    loss = (tops.fused_fusion_conv(*ts) * torch.from_numpy(cot)).sum()
+    got = torch.autograd.grad(loss, ts)
+    for g, jg in zip(got, want):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4,
+                                   atol=1e-6 * np.abs(jg).max())
+
+
+def test_fusion_conv_grad_skips_frozen_stream():
+    """With E_g frozen (FedFusion training) no gradient reaches it."""
+    fg, fl, w = map(torch.from_numpy, fusion_inputs((4,), 8, 0))
+    fl.requires_grad_(True)
+    w.requires_grad_(True)
+    out = tops.fused_fusion_conv(fg, fl, w)
+    gfl, gw = torch.autograd.grad(out.sum(), (fl, w))
+    assert fg.grad is None and gfl.shape == fl.shape and gw.shape == w.shape

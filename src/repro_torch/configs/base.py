@@ -2,7 +2,7 @@
 and federated-learning halves).
 
 ``FLConfig`` keeps the fields the federated training path reads, with the
-same names, defaults and validation as the JAX package.  The codec,
+same names, defaults and validation as the JAX package.  The
 participation and controller fields exist so a config that asks for them
 is representable; the port's server refuses those settings until they are
 ported.
@@ -70,6 +70,8 @@ class FLConfig:
     optimizer: str = "sgd"            # sgd | adam
     uplink_codec: str = "identity"    # client -> server delta codec
     downlink_codec: str = "identity"  # server -> client broadcast codec
+    topk_frac: float = 0.05           # kept fraction (topk / mask / lowrank)
+    quant_bits: int = 8               # the "quant" codec's bit width
     participation: str = "full_sync"
     controller: str = "static"
 
@@ -90,6 +92,12 @@ class FLConfig:
             raise ValueError(
                 f"unknown downlink_codec {self.downlink_codec!r}; choose "
                 f"from {CODEC_NAMES}")
+        if not 0.0 < self.topk_frac <= 1.0:
+            raise ValueError(f"topk_frac={self.topk_frac!r} must be in "
+                             "(0, 1]")
+        if self.quant_bits not in (4, 8):
+            raise ValueError(f"quant_bits={self.quant_bits!r} must be 4 "
+                             "or 8")
         if self.participation not in PARTICIPATION_NAMES:
             raise ValueError(
                 f"unknown participation {self.participation!r}; choose from "

@@ -1,6 +1,7 @@
 """The paper's contribution on PyTorch (port of ``repro.core``).
 
     make_round_fn(bundle, fl_config, mode)  -> one federated round
+    make_compressed_round_fn(bundle, fl_config, mode, uplink, downlink)
     init_global_state(bundle, fl_config, generator, device)
     fusion_init / fusion_apply / fusion_aggregate
     mmd_loss
@@ -13,10 +14,11 @@ from repro_torch.core.losses import (accuracy, cross_entropy,
                                      masked_cross_entropy,
                                      masked_cross_entropy_sum)
 from repro_torch.core.mmd import mmd_loss
-from repro_torch.core.rounds import init_global_state, make_round_fn
+from repro_torch.core.rounds import (init_global_state,
+                                     make_compressed_round_fn, make_round_fn)
 
 __all__ = ["FUSION_OPS", "fusion_aggregate", "fusion_apply", "fusion_init",
            "make_local_loss", "make_local_trainer", "accuracy",
            "cross_entropy", "masked_accuracy", "masked_accuracy_sum",
            "masked_cross_entropy", "masked_cross_entropy_sum", "mmd_loss",
-           "init_global_state", "make_round_fn"]
+           "init_global_state", "make_compressed_round_fn", "make_round_fn"]

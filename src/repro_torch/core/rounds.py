@@ -1,5 +1,6 @@
 """One federated round (port of ``repro/core/rounds.py``: ``make_round_fn``
-without sharding, telemetry or participation, and ``init_global_state``).
+and ``make_compressed_round_fn`` without sharding, telemetry,
+participation or controllers, and ``init_global_state``).
 
 * ``client_parallel`` trains every client of the round from the same
   global state, stacks their trainables on a leading client axis and
@@ -77,6 +78,97 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
                 fl, global_state, {k: acc[k] for k in extra_keys}))
         return new_state, {"local_loss":
                            mean_over_clients(torch.stack(losses))}
+
+    return round_fn
+
+
+def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
+                             uplink, downlink):
+    """A federated round with the wire path routed through codecs.
+
+    Returns round_fn(global_state, client_batches, n_examples, lr,
+    ef_state, down_mirror, noise=(None, None)) -> (new_global_state,
+    metrics, new_ef_state, new_down_mirror):
+
+      1. downlink: the server encodes the model *update* against the
+         mirror of what clients hold, ``downlink.encode(model - mirror)``,
+         statelessly (the mirror gap already carries every dropped unit of
+         mass), and every client trains from ``bcast = mirror +
+         decode(payload)``, which becomes the next mirror;
+      2. each client encodes its delta against ``bcast`` with its EF row
+         and the server decodes it;
+      3. the server applies ``sum_i w_i * decoded_i`` to its FULL-PRECISION
+         model, so downlink codec error never accumulates in it.
+
+    The algorithm's extra state (FedFusion's fusion module) rides
+    uncompressed.  ``ef_state``: per uplink leaf a [n_clients, n] tensor
+    of the round's EF rows, or None for a stateless uplink.  ``noise``:
+    (downlink offsets, per-client uplink offsets), each a list of per-leaf
+    tensors or None (the codec's deterministic variant).
+    """
+    if mode not in FL_MODES:
+        raise ValueError(f"unknown fl mode {mode!r}")
+    algo = _algorithm(fl)
+    extra_keys = algo.extra_state
+    trainer = make_local_trainer(bundle, fl)
+
+    def round_fn(global_state, client_batches, n_examples, lr, ef_state,
+                 down_mirror, noise=(None, None)):
+        down_noise, up_noise = noise
+        weights = normalize_weights(n_examples)
+        n_clients = weights.shape[0]
+        gm = global_state["model"]
+        down_payload, _ = downlink.encode(
+            tree_map(lambda m, w: m - w, gm, down_mirror), None, down_noise)
+        bcast = tree_map(lambda w, d: w + d.to(w.dtype), down_mirror,
+                         downlink.decode(down_payload))
+        gx = algo.extra_from_state(global_state)
+
+        def client(c):
+            trainable, loss = trainer(bcast, gx, {k: v[c] for k, v in
+                                                  client_batches.items()}, lr)
+            delta = tree_map(lambda a, b: a - b, trainable["model"], bcast)
+            ef = None if ef_state is None else [e[c] for e in ef_state]
+            payload, new_ef = uplink.encode(
+                delta, ef, None if up_noise is None else up_noise[c])
+            out = {"delta": uplink.decode(payload)}
+            out.update({k: trainable[k] for k in extra_keys})
+            return out, new_ef, loss
+
+        losses, efs = [], []
+        if mode == "client_parallel":
+            outs = []
+            for c in range(n_clients):
+                out, new_ef, loss = client(c)
+                outs.append(out)
+                efs.append(new_ef)
+                losses.append(loss)
+            stacked = tree_map(lambda *xs: torch.stack(xs), *outs)
+            delta = weighted_mean(stacked["delta"], weights)
+            extras = algo.aggregate_extras(
+                fl, global_state, {k: stacked[k] for k in extra_keys},
+                weights)
+        else:
+            acc = {"delta": zeros_like_tree(gm)}
+            for k in extra_keys:
+                acc[k] = zeros_like_tree(global_state[k])
+            for c in range(n_clients):
+                out, new_ef, loss = client(c)
+                acc = {k: running_update(acc[k], out[k], weights[c])
+                       for k in acc}
+                efs.append(new_ef)
+                losses.append(loss)
+            delta = acc["delta"]
+            extras = algo.finalize_extra_sums(
+                fl, global_state, {k: acc[k] for k in extra_keys})
+        new_state: Dict[str, Any] = {
+            "model": tree_map(lambda g, d: g + d.to(g.dtype), gm, delta)}
+        new_state.update(extras)
+        new_ef = (None if ef_state is None else
+                  [torch.stack(rows) for rows in zip(*efs)])
+        return (new_state, {"local_loss":
+                            mean_over_clients(torch.stack(losses))},
+                new_ef, bcast)
 
     return round_fn
 

@@ -1,0 +1,259 @@
+// The wire codecs' elementwise kernels, f32, for sm_90a:
+//
+//   K3 quant_pack    q = clip(floor(x / scale + u), -qmax, qmax)
+//                    int8: one int8 code per element (qmax = 127);
+//                    int4: code + 8 as a nibble, two per byte, element 2j
+//                    in the low nibble and 2j + 1 in the high one (qmax 7)
+//   K4 quant_unpack  codes -> f32 code * scale (nibble split for int4)
+//   K5 topk_select   out = |x| >= t ? x : 0
+//
+// Replace the TPU kernels src/repro/kernels/compress_pack.py:quant_pack
+// (_quant_pack_kernel), quant_unpack (_quant_unpack_kernel) and
+// topk_select (_topk_select_kernel).  The Pallas kernels view the flat
+// tensor as [rows, 128] lanes padded to 8-row tiles; here each kernel walks
+// the flat [n] tensor with a grid-stride loop and masks the tail itself,
+// so nothing is padded or sliced around the call.
+//
+// What bounds them on the card: one pass, no reuse, a handful of
+// operations per element.  Bytes bound all three: K3 reads x and u and
+// writes the codes (9 bytes an element for int8, 8.5 for int4), K4 reads
+// the codes and writes f32 (5 and 4.5), K5 reads and writes f32 (8).  The
+// design moves each byte once with 16-byte loads where the pointers allow
+// (four elements a thread for int8, eight for int4) and keeps no
+// intermediate in device memory.  scale and t are read from device memory
+// by every thread, so the host never waits for them.
+//
+// Bit-exactness with the plain PyTorch version and the JAX oracle: x /
+// scale is an IEEE round-to-nearest division (__fdiv_rn, never a multiply
+// by the reciprocal), u is added after it with __fadd_rn, then floorf and
+// the clamp; each output byte is written by one thread.  Build without
+// --use_fast_math and without -prec-div=false.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 8;   // 8 blocks per SM of an H100
+
+__device__ __forceinline__ float quantize(float x, float u, float s,
+                                          float qmax) {
+  const float q = floorf(__fadd_rn(__fdiv_rn(x, s), u));
+  return fminf(fmaxf(q, -qmax), qmax);
+}
+
+__device__ __forceinline__ uint32_t nibble(float x, float u, float s) {
+  return (uint32_t)(int)(quantize(x, u, s, 7.f) + 8.f);
+}
+
+// ---------------------------------------------------------------- K3 -----
+
+__global__ void quant_pack_i8_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ scale,
+                                     int8_t* __restrict__ out, long long n,
+                                     int vec) {
+  const float s = *scale;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const long long groups = n / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* u4 = reinterpret_cast<const float4*>(u);
+    char4* o4 = reinterpret_cast<char4*>(out);
+    for (long long g = tid; g < groups; g += stride) {
+      const float4 a = x4[g], b = u4[g];
+      char4 c;
+      c.x = (signed char)(int)quantize(a.x, b.x, s, 127.f);
+      c.y = (signed char)(int)quantize(a.y, b.y, s, 127.f);
+      c.z = (signed char)(int)quantize(a.z, b.z, s, 127.f);
+      c.w = (signed char)(int)quantize(a.w, b.w, s, 127.f);
+      o4[g] = c;
+    }
+    done = groups * 4;
+  }
+  for (long long i = done + tid; i < n; i += stride)
+    out[i] = (int8_t)(int)quantize(x[i], u[i], s, 127.f);
+}
+
+// n is even; thread-owned output bytes j hold elements 2j (low), 2j+1 (high)
+__global__ void quant_pack_i4_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ scale,
+                                     uint8_t* __restrict__ out, long long n,
+                                     int vec) {
+  const float s = *scale;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long m = n / 2;
+  long long done = 0;
+  if (vec) {
+    // eight elements -> four output bytes per thread and step
+    const long long groups = n / 8;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* u4 = reinterpret_cast<const float4*>(u);
+    uint32_t* o4 = reinterpret_cast<uint32_t*>(out);
+    for (long long g = tid; g < groups; g += stride) {
+      const float4 a0 = x4[2 * g], a1 = x4[2 * g + 1];
+      const float4 b0 = u4[2 * g], b1 = u4[2 * g + 1];
+      const uint32_t w =
+          (nibble(a0.x, b0.x, s) | nibble(a0.y, b0.y, s) << 4) |
+          (nibble(a0.z, b0.z, s) | nibble(a0.w, b0.w, s) << 4) << 8 |
+          (nibble(a1.x, b1.x, s) | nibble(a1.y, b1.y, s) << 4) << 16 |
+          (nibble(a1.z, b1.z, s) | nibble(a1.w, b1.w, s) << 4) << 24;
+      o4[g] = w;   // little-endian: byte 0 holds elements 0 and 1
+    }
+    done = groups * 4;
+  }
+  for (long long j = done + tid; j < m; j += stride)
+    out[j] = (uint8_t)(nibble(x[2 * j], u[2 * j], s) |
+                       nibble(x[2 * j + 1], u[2 * j + 1], s) << 4);
+}
+
+// ---------------------------------------------------------------- K4 -----
+
+__global__ void quant_unpack_i8_kernel(const int8_t* __restrict__ q,
+                                       const float* __restrict__ scale,
+                                       float* __restrict__ out, long long n,
+                                       int vec) {
+  const float s = *scale;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const long long groups = n / 4;
+    const char4* q4 = reinterpret_cast<const char4*>(q);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long g = tid; g < groups; g += stride) {
+      const char4 c = q4[g];
+      o4[g] = make_float4(__fmul_rn((float)c.x, s), __fmul_rn((float)c.y, s),
+                          __fmul_rn((float)c.z, s), __fmul_rn((float)c.w, s));
+    }
+    done = groups * 4;
+  }
+  for (long long i = done + tid; i < n; i += stride)
+    out[i] = __fmul_rn((float)q[i], s);
+}
+
+// out has n elements, n <= 2 * (bytes of q); byte j feeds 2j and 2j + 1
+__global__ void quant_unpack_i4_kernel(const uint8_t* __restrict__ q,
+                                       const float* __restrict__ scale,
+                                       float* __restrict__ out, long long n,
+                                       int vec) {
+  const float s = *scale;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;   // bytes handled by the vector loop
+  if (vec) {
+    // four bytes -> eight floats per thread and step
+    const long long groups = n / 8;
+    const uint32_t* q4 = reinterpret_cast<const uint32_t*>(q);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long g = tid; g < groups; g += stride) {
+      const uint32_t w = q4[g];
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = __fmul_rn((float)((int)((w >> (4 * k)) & 0xFu) - 8), s);
+      o4[2 * g] = make_float4(v[0], v[1], v[2], v[3]);
+      o4[2 * g + 1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    done = groups * 4;
+  }
+  const long long m = (n + 1) / 2;
+  for (long long j = done + tid; j < m; j += stride) {
+    const uint32_t b = q[j];
+    out[2 * j] = __fmul_rn((float)((int)(b & 0xFu) - 8), s);
+    if (2 * j + 1 < n)
+      out[2 * j + 1] = __fmul_rn((float)((int)(b >> 4) - 8), s);
+  }
+}
+
+// ---------------------------------------------------------------- K5 -----
+
+__device__ __forceinline__ float keep(float x, float t) {
+  return fabsf(x) >= t ? x : 0.f;
+}
+
+__global__ void topk_select_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ thresh,
+                                   float* __restrict__ out, long long n,
+                                   int vec) {
+  const float t = *thresh;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const long long groups = n / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long g = tid; g < groups; g += stride) {
+      const float4 a = x4[g];
+      o4[g] = make_float4(keep(a.x, t), keep(a.y, t), keep(a.z, t),
+                          keep(a.w, t));
+    }
+    done = groups * 4;
+  }
+  for (long long i = done + tid; i < n; i += stride) out[i] = keep(x[i], t);
+}
+
+int blocks_for(long long work) {
+  long long b = (work + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, u [n] f32, scale [1] f32, all on the device.  bits 8: out int8 [n];
+// bits 4: n even, out uint8 [n / 2].  vec != 0 promises 16-byte aligned x
+// and u and a 4-byte aligned out.  Returns cudaGetLastError().
+int quant_pack_f32(const float* x, const float* u, const float* scale,
+                   void* out, long long n, int bits, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || (bits != 8 && bits != 4) || (bits == 4 && n % 2))
+    return (int)cudaErrorInvalidValue;
+  if (bits == 8)
+    quant_pack_i8_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0,
+                           s>>>(x, u, scale, static_cast<int8_t*>(out), n,
+                                vec);
+  else
+    quant_pack_i4_kernel<<<blocks_for(vec ? n / 8 + 3 : n / 2), kThreads, 0,
+                           s>>>(x, u, scale, static_cast<uint8_t*>(out), n,
+                                vec);
+  return (int)cudaGetLastError();
+}
+
+// bits 8: q int8 [n]; bits 4: q uint8 [(n + 1) / 2] or more.  scale [1],
+// out f32 [n].  vec != 0 promises a 4-byte aligned q and a 16-byte aligned
+// out.  Returns cudaGetLastError().
+int quant_unpack_f32(const void* q, const float* scale, float* out,
+                     long long n, int bits, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
+  if (bits == 8)
+    quant_unpack_i8_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0,
+                             s>>>(static_cast<const int8_t*>(q), scale, out,
+                                  n, vec);
+  else
+    quant_unpack_i4_kernel<<<blocks_for(vec ? n / 8 + 4 : (n + 1) / 2),
+                             kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(q), scale, out, n, vec);
+  return (int)cudaGetLastError();
+}
+
+// x, out [n] f32, thresh [1] f32, on the device.  vec != 0 promises
+// 16-byte aligned x and out.  Returns cudaGetLastError().
+int topk_select_f32(const float* x, const float* thresh, float* out,
+                    long long n, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  topk_select_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0, s>>>(
+      x, thresh, out, n, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -3,7 +3,8 @@
 The paper's metric is *communication rounds to reach an accuracy
 milestone*; raw bytes are accounted too (down = global model broadcast,
 up = local model + fusion module returns).  Byte counts follow the
-parameter trees' shapes and dtypes, so they equal the JAX package's.
+parameter trees' shapes and dtypes and the codecs' wire sizes, so they
+equal the JAX package's.
 """
 from __future__ import annotations
 
@@ -59,10 +60,21 @@ class CommLog:
         self._fusion_b = tree_bytes(global_state.get("fusion", ()))
         return self
 
-    def log_round(self, global_state, n_clients: int, metrics: Dict):
-        """Account one uncompressed, full-participation round: each of the
-        ``n_clients`` participants downloads and uploads the raw model,
-        plus FedFusion's fusion module both ways."""
+    def log_round(self, global_state, n_clients: int, metrics: Dict, *,
+                  wire_up: Optional[int] = None,
+                  wire_down: Optional[int] = None,
+                  n_down: Optional[int] = None):
+        """Account one full-participation round.
+
+        ``wire_up`` / ``wire_down``: codec-reported bytes per client for the
+        model payload (``repro_torch.compress``); None charges the raw
+        model size.  FedFusion's fusion module crosses the wire
+        uncompressed both ways, to and from the ``n_clients``
+        participants.  ``n_down``: receivers of the model broadcast
+        (default ``n_clients``); a mirror-based downlink codec is a
+        multicast stream every client must hear, so the server passes the
+        federation size there.
+        """
         if global_state is None:
             if self._model_b is None:
                 raise RuntimeError(
@@ -72,7 +84,11 @@ class CommLog:
         else:
             model_b = tree_bytes(global_state["model"])
             fusion_b = tree_bytes(global_state.get("fusion", ()))
-        down = up = n_clients * (model_b + fusion_b)
+        n_down = n_clients if n_down is None else n_down
+        down = (n_down * (model_b if wire_down is None else wire_down)
+                + n_clients * fusion_b)
+        up = n_clients * ((model_b if wire_up is None else wire_up)
+                          + fusion_b)
         self.rounds += 1
         self.bytes_down += down
         self.bytes_up += up

@@ -1,11 +1,14 @@
 """Public wrappers over the ported kernels (port of
-``repro/kernels/ops.py``, K1 and K2).
+``repro/kernels/ops.py``, K1 to K5).
 
 There is no ``impl`` switch: each kernel module runs its CUDA kernel for
 tensors on the card and its plain version for tensors on the CPU.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import compress_pack
 from repro_torch.kernels.fusion_conv import fusion_conv
 from repro_torch.kernels.mk_mmd import gram_sum
 
@@ -30,3 +33,30 @@ def mk_mmd2(x, y, widths):
 def fused_fusion_conv(f_g, f_l, w):
     """FedFusion conv operator: W . concat(f_g, f_l) along channels."""
     return fusion_conv(f_g.contiguous(), f_l.contiguous(), w.contiguous())
+
+
+def _scalar(v, like):
+    """``v`` (a number or a tensor) as a float32 [1] tensor on ``like``'s
+    device."""
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=like.device).reshape(1)
+
+
+def quantize_pack(x, scale, noise, *, bits=8):
+    """Fused stochastic-quantize + bit-pack of a flat float32 tensor: int8
+    codes, or nibble-packed uint8 for ``bits=4`` (the wire format of
+    ``repro_torch.compress``)."""
+    return compress_pack.quant_pack(x.float().contiguous(), _scalar(scale, x),
+                                    noise.float().contiguous(), bits=bits)
+
+
+def quantize_unpack(packed, scale, *, bits=8, n=None):
+    """Unpack quantized codes back to float32 [n]."""
+    return compress_pack.quant_unpack(packed.contiguous(),
+                                      _scalar(scale, packed), bits=bits, n=n)
+
+
+def topk_threshold_select(x, thresh):
+    """Dense top-k select: keep entries with |x| >= thresh, zero the rest."""
+    return compress_pack.topk_select(x.float().contiguous(),
+                                     _scalar(thresh, x))

@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for the ported kernels (port of
-``repro/kernels/ref.py``, K1 and K2).  They define the semantics the
+``repro/kernels/ref.py``, K1 to K5).  They define the semantics the
 kernels and :mod:`repro_torch.kernels.ops` are held to; the per-kernel
 plain versions live beside each kernel (``gram_sum_plain``,
 ``fusion_conv_plain``)."""
@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.kernels.fusion_conv import fusion_conv_plain
 
-__all__ = ["mk_mmd2_ref", "fusion_conv_ref"]
+__all__ = ["mk_mmd2_ref", "fusion_conv_ref", "quant_pack_ref",
+           "quant_unpack_ref", "topk_select_ref"]
 
 
 def mk_mmd2_ref(x, y, widths, *, median_heuristic=True):
@@ -35,3 +36,41 @@ def mk_mmd2_ref(x, y, widths, *, median_heuristic=True):
 
 
 fusion_conv_ref = fusion_conv_plain
+
+
+def quant_pack_ref(x, scale, noise, *, bits):
+    """Fused stochastic-quantize + pack oracle (the codecs' wire format).
+
+    x [n] float; scale a scalar (the wire step size); noise [n] in [0, 1),
+    the stochastic-rounding offsets (0.5 = deterministic round-half-up).
+    ``bits=8``: int8 codes in [-127, 127].  ``bits=4``: codes in [-7, 7]
+    stored as ``code + 8`` nibbles, two per uint8 (element 2i in the low
+    nibble, 2i+1 in the high one); n must be even.
+    """
+    if bits not in (4, 8):
+        raise ValueError(f"quant_pack_ref bits={bits!r} must be 4 or 8")
+    qmax = 127 if bits == 8 else 7
+    q = torch.floor(x.float() / scale + noise).clamp(-qmax, qmax)
+    if bits == 8:
+        return q.to(torch.int8)
+    u = (q + 8).to(torch.uint8).reshape(-1, 2)
+    return u[:, 0] | (u[:, 1] << 4)
+
+
+def quant_unpack_ref(packed, scale, *, bits, n):
+    """Inverse of :func:`quant_pack_ref`: packed codes -> float32 [n]."""
+    if bits not in (4, 8):
+        raise ValueError(f"quant_unpack_ref bits={bits!r} must be 4 or 8")
+    if bits == 8:
+        return packed.float() * scale
+    low = (packed & 0xF).to(torch.int32) - 8
+    high = ((packed >> 4) & 0xF).to(torch.int32) - 8
+    q = torch.stack((low, high), -1).reshape(-1)[:n]
+    return q.float() * scale
+
+
+def topk_select_ref(x, thresh):
+    """Magnitude threshold select: keep x where |x| >= thresh, else 0.
+    With thresh = the k-th largest |x| this is the dense form of top-k
+    sparsification (the decode of the topk codec's encode)."""
+    return torch.where(x.abs() >= thresh, x, torch.zeros_like(x))

@@ -1,0 +1,271 @@
+"""The port's wire codecs and their kernels' plain versions (K3
+``quant_pack``, K4 ``quant_unpack``, K5 ``topk_select``) against the JAX
+package on the CPU: the Pallas kernels in interpret mode, the jnp oracles
+in ``repro.kernels.ref`` and the JAX codecs.
+
+Everything here is held to exact equality: the codes, scales, unpacked
+values, top-k payloads, residuals and wire sizes are the results of the
+same IEEE float32 operations (a division, an add, a floor, a clamp, one
+multiply) on the same inputs, so any difference is a fault.  The
+stochastic-rounding offsets are the ones JAX draws, handed to the port as
+inputs (``jax.random`` cannot be reproduced in PyTorch).  Top-k inputs are
+tie-free where the two frameworks could order ties differently, and index
+sets are sorted before they are compared.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import compress as jcomp
+from repro.configs.base import FLConfig as JFL
+from repro.configs.cnn_paper import CNN_MNIST as J_MNIST
+from repro.core import init_global_state as j_init_global_state
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.registry import make_bundle as j_make_bundle
+from repro_torch import compress as tcomp
+from repro_torch.configs import FLConfig as TFL
+from repro_torch.interop import state_from_numpy
+from repro_torch.kernels import compress_pack as tcp
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.tree import tree_leaves
+
+
+def _quant_inputs(n, bits, seed, clamp=False):
+    """x ~ N(0, 1) float32, offsets in [0, 1) and the codec's scale;
+    ``clamp`` halves the scale so the largest entries hit +-qmax."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    u = rng.random(n, dtype=np.float32)
+    qmax = 127 if bits == 8 else 7
+    scale = np.float32(np.abs(x).max()) / np.float32(qmax)
+    if clamp:
+        scale = np.float32(scale * np.float32(0.5))
+    return x, u, np.float32(scale)
+
+
+QUANT_CASES = [(8, 10), (8, 1001), (8, 2048), (8, 4097), (4, 10),
+               (4, 2048), (4, 4098)]
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["scaled", "clamped"])
+@pytest.mark.parametrize("bits,n", QUANT_CASES)
+def test_quant_pack_unpack_plain_match_pallas_and_ref(bits, n, clamp):
+    x, u, scale = _quant_inputs(n, bits, 10 * n + bits, clamp)
+    want = np.asarray(jops.quantize_pack(jnp.asarray(x), scale,
+                                         jnp.asarray(u), bits=bits,
+                                         impl="pallas_interpret"))
+    assert np.array_equal(want, np.asarray(jref.quant_pack_ref(
+        jnp.asarray(x), scale, jnp.asarray(u), bits=bits)))
+    tx, tu = torch.from_numpy(x), torch.from_numpy(u)
+    ts = torch.tensor([scale])
+    got = tcp.quant_pack_plain(tx, ts, tu, bits=bits)
+    assert got.dtype == (torch.int8 if bits == 8 else torch.uint8)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(tref.quant_pack_ref(tx, ts, tu, bits=bits), got)
+    assert torch.equal(tcp.quant_pack(tx, ts, tu, bits=bits), got)
+    assert torch.equal(tops.quantize_pack(tx, float(scale), tu, bits=bits),
+                       got)
+    if clamp:
+        codes = got.int() if bits == 8 else torch.stack(
+            ((got & 0xF).int() - 8, (got >> 4).int() - 8), -1)
+        assert codes.abs().max().item() == (127 if bits == 8 else 7)
+    # unpack: exact, the same single multiply on the same codes
+    want_y = np.asarray(jops.quantize_unpack(jnp.asarray(want), scale,
+                                             bits=bits, n=n,
+                                             impl="pallas_interpret"))
+    got_y = tcp.quant_unpack_plain(got, ts, bits=bits, n=n)
+    assert got_y.dtype == torch.float32 and got_y.shape == (n,)
+    assert np.array_equal(got_y.numpy(), want_y)
+    assert torch.equal(tref.quant_unpack_ref(got, ts, bits=bits, n=n), got_y)
+    assert torch.equal(tops.quantize_unpack(got, float(scale), bits=bits,
+                                            n=n), got_y)
+
+
+def test_quant_unpack_refuses_n_beyond_the_codes():
+    q = torch.zeros(5, dtype=torch.uint8)
+    assert tcp.quant_unpack_plain(q, torch.ones(1), bits=4, n=9).shape == (9,)
+    with pytest.raises(ValueError, match="outside"):
+        tcp.quant_unpack_plain(q, torch.ones(1), bits=4, n=11)
+    with pytest.raises(ValueError, match="even"):
+        tcp.quant_pack_plain(torch.zeros(3), torch.ones(1), torch.zeros(3),
+                             bits=4)
+    with pytest.raises(ValueError, match="bits"):
+        tcp.quant_pack_plain(torch.zeros(4), torch.ones(1), torch.zeros(4),
+                             bits=2)
+
+
+@pytest.mark.parametrize("n,k", [(10, 3), (1001, 40), (4096, 400),
+                                 (1500, 1)])
+def test_topk_select_plain_matches_pallas_and_ref(n, k):
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal(n).astype(np.float32)
+    t = np.sort(np.abs(x))[-k]
+    x[0], x[-1] = -t, t            # entries exactly at the threshold
+    want = np.asarray(jops.topk_threshold_select(jnp.asarray(x), t,
+                                                 impl="pallas_interpret"))
+    assert np.array_equal(want, np.asarray(jref.topk_select_ref(
+        jnp.asarray(x), t)))
+    tx = torch.from_numpy(x)
+    got = tcp.topk_select_plain(tx, torch.tensor([t]))
+    assert np.array_equal(got.numpy(), want)
+    assert got[0].item() == -t and got[-1].item() == t      # |x| == t kept
+    assert torch.equal(tref.topk_select_ref(tx, torch.tensor(t)), got)
+    assert torch.equal(tcp.topk_select(tx, torch.tensor([t])), got)
+    assert torch.equal(tops.topk_threshold_select(tx, float(t)), got)
+
+
+# --------------------------------------------------------------------------
+# the codecs against the JAX codecs
+# --------------------------------------------------------------------------
+
+def _tree(seed):
+    """A tree with an odd leaf (11), a 4097-element one and a 2-D one, in
+    sorted key order so both packages flatten it alike."""
+    rng = np.random.default_rng(seed)
+    return {"b": rng.standard_normal(11).astype(np.float32),
+            "deep": {"v": rng.standard_normal(130).astype(np.float32)},
+            "w": rng.standard_normal((37, 24)).astype(np.float32),
+            "z": rng.standard_normal(4097).astype(np.float32)}
+
+
+def _jax_offsets(key, sizes):
+    """The offsets the JAX quant codec draws for ``key``: one split per
+    leaf (``codec.py:113``), then ``uniform(k, (pn,))`` (``quant.py:45``)."""
+    return [np.asarray(jax.random.uniform(k, (n,), jnp.float32))
+            for k, n in zip(jax.random.split(key, len(sizes)), sizes)]
+
+
+@pytest.mark.parametrize("stochastic", [True, False],
+                         ids=["offsets", "deterministic"])
+@pytest.mark.parametrize("name", ["int8", "int4"])
+def test_quant_codec_matches_jax(name, stochastic):
+    tree = _tree(3)
+    jc = jcomp.make_codec(name).bind(tree)
+    tc = tcomp.make_codec(name).bind(state_from_numpy(tree))
+    key = jax.random.PRNGKey(11) if stochastic else None
+    jpay, _ = jc.encode(jax.tree.map(jnp.asarray, tree), jc.init_state(),
+                        key)
+    noise = (None if key is None else
+             [torch.tensor(u) for u in _jax_offsets(key, tc.noise_sizes())])
+    tpay, state = tc.encode(state_from_numpy(tree), None, noise)
+    assert state == [None] * 4
+    for jp, tp in zip(jpay, tpay):
+        assert np.array_equal(tp["q"].numpy(), np.asarray(jp["q"]))
+        assert np.array_equal(tp["scale"].numpy(), np.asarray(jp["scale"]))
+    for got, want in zip(tree_leaves(tc.decode(tpay)),
+                         jax.tree.leaves(jc.decode(jpay))):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    assert tc.nbytes(tpay) == jc.nbytes(jpay) == tc.wire_bytes() \
+        == jc.wire_bytes()
+
+
+@pytest.mark.parametrize("error_feedback", [True, False],
+                         ids=["ef", "noef"])
+def test_topk_codec_matches_jax(error_feedback):
+    name = "topk" if error_feedback else "topk_noef"
+    jc = jcomp.make_codec(name, topk_frac=0.1).bind(_tree(0))
+    tc = tcomp.make_codec(name, topk_frac=0.1).bind(state_from_numpy(_tree(0)))
+    jstate, tstate = jc.init_state(), tc.init_state()
+    for step in range(2):                # the second encode reads the EF
+        tree = _tree(step)
+        jpay, jstate = jc.encode(jax.tree.map(jnp.asarray, tree), jstate)
+        tpay, tstate = tc.encode(state_from_numpy(tree), tstate)
+        for jp, tp in zip(jpay, tpay):
+            assert tp["idx"].dtype == torch.int32
+            jo, to = np.argsort(np.asarray(jp["idx"])), np.argsort(
+                tp["idx"].numpy())
+            assert np.array_equal(tp["idx"].numpy()[to],
+                                  np.asarray(jp["idx"])[jo])
+            assert np.array_equal(tp["val"].numpy()[to],
+                                  np.asarray(jp["val"])[jo])
+        for got, want in zip(tree_leaves(tc.decode(tpay)),
+                             jax.tree.leaves(jc.decode(jpay))):
+            assert np.array_equal(got.numpy(), np.asarray(want))
+        if error_feedback:
+            for got, want in zip(tstate, jstate):
+                assert np.array_equal(got.numpy(), np.asarray(want))
+        else:
+            assert tstate == [None] * 4
+        assert tc.nbytes(tpay) == jc.nbytes(jpay) == tc.wire_bytes()
+
+
+def test_topk_residual_is_the_exact_complement_under_ties():
+    tc = tcomp.make_codec("topk", topk_frac=0.25).bind({"v": torch.zeros(8)})
+    x = torch.tensor([1.0, -1.0, 1.0, 1.0, 0.5, 0.0, -1.0, 2.0])
+    pay, (res,) = tc.encode({"v": x})
+    sent = tc.decode(pay)["v"]
+    assert torch.equal(sent + res, x)
+    assert (sent != 0).sum().item() == 2 and sent[7].item() == 2.0
+
+
+@pytest.fixture(scope="module")
+def mnist_model():
+    jb = j_make_bundle(J_MNIST)
+    s = j_init_global_state(jb, JFL(), jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, s["model"])
+
+
+# per-message bytes at CNN_MNIST's published width (1,663,370 parameters
+# in 8 leaves)
+MNIST_WIRE = [("identity", {}, 6_653_480), ("int8", {}, 1_663_402),
+              ("int4", {}, 831_717), ("quant", dict(quant_bits=4), 831_717),
+              ("quant", {}, 1_663_402),
+              ("topk", dict(topk_frac=1 / 16), 831_688),
+              ("topk_noef", dict(topk_frac=1 / 16), 831_688),
+              ("topk", {}, 665_360)]
+
+
+@pytest.mark.parametrize("name,kw,want", MNIST_WIRE,
+                         ids=[f"{n}-{i}" for i, (n, _, _) in
+                              enumerate(MNIST_WIRE)])
+def test_wire_bytes_match_jax_at_full_width(mnist_model, name, kw, want):
+    jc = jcomp.make_codec(name, **kw).bind(mnist_model)
+    model = state_from_numpy(mnist_model)
+    tc = tcomp.make_codec(name, **kw).bind(model)
+    assert len(tree_leaves(model)) == 8
+    assert tc.wire_bytes() == jc.wire_bytes() == want
+    payload, _ = tc.encode(model)
+    assert tc.nbytes(payload) == want
+
+
+MAKE_ERRORS = [("topk", dict(topk_frac=0.0)), ("topk_noef",
+                                               dict(topk_frac=1.5)),
+               ("mask", dict(topk_frac=0.0)), ("lowrank", dict(topk_frac=-1)),
+               ("quant", dict(quant_bits=5)), ("int16", {}), ("bogus", {})]
+
+
+@pytest.mark.parametrize("name,kw", MAKE_ERRORS,
+                         ids=[n for n, _ in MAKE_ERRORS])
+def test_make_codec_errors_match_jax(name, kw):
+    with pytest.raises(ValueError) as jerr:
+        jcomp.make_codec(name, **kw)
+    with pytest.raises(ValueError) as terr:
+        tcomp.make_codec(name, **kw)
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("name", ["mask", "lowrank"])
+def test_sketch_codecs_are_not_ported(name):
+    jcomp.make_codec(name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcomp.make_codec(name)
+
+
+def test_codec_names_and_config_fields_match_jax():
+    assert tcomp.CODEC_NAMES == jcomp.CODEC_NAMES
+    for kw in (dict(topk_frac=0.0), dict(topk_frac=1.01),
+               dict(quant_bits=16)):
+        with pytest.raises(ValueError) as jerr:
+            JFL(**kw)
+        with pytest.raises(ValueError) as terr:
+            TFL(**kw)
+        assert str(terr.value) == str(jerr.value)
+    t, j = TFL(), JFL()
+    assert (t.topk_frac, t.quant_bits) == (j.topk_frac, j.quant_bits)
+    assert dataclasses.replace(t, uplink_codec="int4").compressed

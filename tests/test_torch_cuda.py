@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 Gram sum, K2 fusion conv) against their plain
-PyTorch versions on the card, and the wrappers' refusals.
+"""The CUDA kernels (K1 Gram sum, K2 fusion conv, K3 quant pack, K4 quant
+unpack, K5 top-k select) against their plain PyTorch versions on the
+card, and the wrappers' refusals.
 
 Imports torch and the port only (no JAX), so it runs on the GPU machine:
 
@@ -10,15 +11,22 @@ the Gram sum is a float32 sum of n*m positive terms taken in another order
 than the plain version's, so the two agree to rtol 1e-5; the fusion conv
 sums K = 2C products per output, held to 1e-5 of the output's scale; the
 gradient is a difference of two sums that cancel in part, held to rtol
-1e-4 with an atol of 1e-6 of its scale.
+1e-4 with an atol of 1e-6 of its scale.  K3, K4 and K5 are the same IEEE
+float32 operations as their plain versions and are held with
+``torch.equal``.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 from _torch_inputs import WIDTHS, fusion_inputs, rng_pair
 
+from repro_torch.kernels import compress_pack as tcp
 from repro_torch.kernels import fusion_conv as tfc
 from repro_torch.kernels import mk_mmd as tmk
 from repro_torch.kernels import ops as tops
+from repro_torch.tree import tree_leaves
 
 
 @pytest.fixture
@@ -108,3 +116,146 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
                           (1.0,) * 9)
     with pytest.raises(ValueError):
         tfc.fusion_conv_cuda(x.T, x.T, torch.zeros(8, 4, device=cuda_device))
+
+
+# --------------------------------------------------------------------------
+# the wire-codec kernels K3 / K4 / K5
+# --------------------------------------------------------------------------
+
+def _codec_launches():
+    return (tcp.quant_pack_cuda.launches, tcp.quant_unpack_cuda.launches,
+            tcp.topk_select_cuda.launches)
+
+
+def test_codec_wrappers_refuse_cpu_tensors():
+    x, u, s = torch.ones(8), torch.full((8,), 0.5), torch.ones(1)
+    before = _codec_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.quant_pack_cuda(x, s, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.quant_unpack_cuda(torch.zeros(8, dtype=torch.int8), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.topk_select_cuda(x, s)
+    # the CPU path runs the plain versions and launches nothing
+    tcp.quant_unpack(tcp.quant_pack(x, s, u), s)
+    tcp.topk_select(x, s)
+    assert _codec_launches() == before
+
+
+def _quant_case(n, bits, seed, device, clamp=False):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    u = torch.from_numpy(rng.random(n, dtype=np.float32))
+    scale = x.abs().max() / (127 if bits == 8 else 7)
+    if clamp:
+        scale = scale * 0.5
+    return x.to(device), u.to(device), scale.reshape(1).to(device)
+
+
+QUANT_CASES = [(8, 1_605_632), (8, 10), (8, 1001), (8, 4097), (4, 1_605_632),
+               (4, 10), (4, 1002), (4, 4098)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clamp", [False, True], ids=["scaled", "clamped"])
+@pytest.mark.parametrize("bits,n", QUANT_CASES)
+def test_quant_kernels_match_plain(cuda_device, bits, n, clamp):
+    x, u, scale = _quant_case(n, bits, n + bits, cuda_device, clamp)
+    before = _codec_launches()
+    got = tcp.quant_pack_cuda(x, scale, u, bits=bits)
+    want = tcp.quant_pack_plain(x, scale, u, bits=bits)
+    y = tcp.quant_unpack_cuda(got, scale, bits=bits, n=n)
+    y_plain = tcp.quant_unpack_plain(got, scale, bits=bits, n=n)
+    torch.cuda.synchronize()
+    assert _codec_launches() == (before[0] + 1, before[1] + 1, before[2])
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(y, y_plain)
+    # the same codes from the CPU's plain version
+    assert torch.equal(got.cpu(), tcp.quant_pack_plain(
+        x.cpu(), scale.cpu(), u.cpu(), bits=bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_kernels_take_unaligned_views(cuda_device, bits):
+    x, u, scale = _quant_case(4099, bits, bits, cuda_device)
+    xs, us = x[1:4097], u[3:4099]          # contiguous, not 16-byte aligned
+    got = tcp.quant_pack_cuda(xs, scale, us, bits=bits)
+    assert torch.equal(got, tcp.quant_pack_plain(xs, scale, us, bits=bits))
+    q = got[1:]                             # not 4-byte aligned
+    n = q.numel() if bits == 8 else 2 * q.numel() - 1    # odd n for int4
+    assert torch.equal(tcp.quant_unpack_cuda(q, scale, bits=bits, n=n),
+                       tcp.quant_unpack_plain(q, scale, bits=bits, n=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1_605_632, 100_352), (10, 3), (1001, 40),
+                                 (4097, 1)])
+def test_topk_select_kernel_matches_plain(cuda_device, n, k):
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    t = x.abs().sort().values[-k]
+    x[0], x[-1] = -t, t                     # entries exactly at t are kept
+    x, t = x.to(cuda_device), t.reshape(1).to(cuda_device)
+    before = tcp.topk_select_cuda.launches
+    got = tcp.topk_select_cuda(x, t)
+    torch.cuda.synchronize()
+    assert tcp.topk_select_cuda.launches == before + 1
+    assert torch.equal(got, tcp.topk_select_plain(x, t))
+    assert got[0] == -t[0] and got[-1] == t[0]
+    assert torch.equal(tcp.topk_select_cuda(x[1:], t),
+                       tcp.topk_select_plain(x[1:], t))
+
+
+@pytest.mark.cuda
+def test_codec_wrappers_refuse_bad_inputs(cuda_device):
+    x = torch.zeros(8, device=cuda_device)
+    s = torch.ones(1, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):      # a host scale
+        tcp.quant_pack_cuda(x, torch.ones(1), x)
+    with pytest.raises(ValueError):                    # non-contiguous
+        tcp.quant_pack_cuda(torch.zeros(16, device=cuda_device)[::2], s, x)
+    with pytest.raises(ValueError):                    # wrong dtype
+        tcp.quant_pack_cuda(x.double(), s, x)
+    with pytest.raises(ValueError):                    # odd n at int4
+        tcp.quant_pack_cuda(x[:7], s, x[:7], bits=4)
+    with pytest.raises(ValueError):
+        tcp.quant_unpack_cuda(torch.zeros(8, dtype=torch.uint8,
+                                          device=cuda_device), s, bits=8)
+    with pytest.raises(ValueError):
+        tcp.quant_unpack_cuda(torch.zeros(4, dtype=torch.uint8,
+                                          device=cuda_device), s, bits=4,
+                              n=9)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.topk_select_cuda(x, torch.ones(1))
+    with pytest.raises(ValueError):
+        tcp.topk_select_cuda(torch.zeros(4, 2, device=cuda_device), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,down", [("int8", "int4"), ("topk", "identity")])
+def test_compressed_round_launches_codec_kernels(cuda_device, up, down):
+    from repro_torch.configs import CNN_MNIST, FLConfig
+    from repro_torch.data import (FederatedDataset,
+                                  artificial_noniid_partition, class_images)
+    from repro_torch.fl.server import run_federated_reference
+    from repro_torch.models import make_bundle
+    bundle = make_bundle(dataclasses.replace(
+        CNN_MNIST, input_shape=(12, 12, 1), conv_channels=(4, 8),
+        fc_units=(16,)))
+    x, y = class_images(10, shape=(12, 12, 1), seed=0, template_seed=0)
+    data = FederatedDataset(artificial_noniid_partition(x, y, 4), {"x": x,
+                                                                   "y": y})
+    fl = FLConfig(clients_per_round=3, local_steps=1, local_batch=4,
+                  uplink_codec=up, downlink_codec=down, topk_frac=1 / 16)
+    L, C, R = 8, 3, 2
+    tcp.quant_pack_cuda.launches = tcp.quant_unpack_cuda.launches = 0
+    res = run_federated_reference(bundle, fl, data, rounds=R,
+                                  eval_examples=20, device=cuda_device)
+    torch.cuda.synchronize()
+    want = (L * C * R if up == "int8" else 0) + (L * R if down == "int4"
+                                                 else 0)
+    assert (tcp.quant_pack_cuda.launches,
+            tcp.quant_unpack_cuda.launches) == (want, want)
+    assert all(t.is_cuda and bool(torch.isfinite(t).all())
+               for t in tree_leaves(res.global_state))

@@ -117,7 +117,7 @@ def test_full_width_single_step_matches_jax(algorithm):
 
 
 @pytest.mark.parametrize("kw,opt", [
-    (dict(uplink_codec="int8"), {}),
+    (dict(uplink_codec="mask"), {}),
     (dict(participation="deadline"), {}),
     (dict(controller="ef_ratio"), {}),
     ({}, dict(checkpoint_dir="ckpt")),

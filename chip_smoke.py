@@ -11,21 +11,29 @@ is non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at ragged ones, with its time, the plain
    version's, a one-call PyTorch yardstick where there is one, and the
-   least time the card could take for the same work;
+   least time the card could take for the same work (K6 / K7: exact, K7
+   in place, the scratch-row duplicates);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
    ``run_federated_reference`` for FedAvg, FedMMD and FedFusion-conv, then
    with fig. 7's wire codecs (int8, top-k with error feedback, int4 up
-   with int8 down); each run's kernel launch counts must equal the path's
-   formula;
+   with int8 down); then the engine (``run_federated``, 40 rounds in
+   8-round chunks, each a CUDA graph replay, eval folded into the chunk)
+   for FedAvg, FedFusion-conv with a top-k uplink on the dense and on the
+   host EF store, and FedMMD client-sequential with an int8 uplink, beside
+   the same configuration's reference rounds/s over 12 rounds; each run's
+   kernel launch counts must equal the path's formula and its bytes the
+   reference's; then FedAvg with ``superstep_rounds="auto"`` beside the
+   fixed 8;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
-   device time;
+   device time; then the last (steady) chunk of two engine runs;
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
-   without codecs;
+   without codecs; then the engine's graph replays against the reference
+   loop on the card (cuDNN deterministic, 40 rounds), which must be equal;
 7. the kernel table.
 
 The line before the last is the kernel table; the last line is
@@ -58,7 +66,18 @@ FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 # names of the kernels in src/repro_torch/csrc, as the profiler shows them
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
                "fusion_conv_kernel", "quant_pack_i", "quant_unpack_i",
-               "topk_select_kernel")
+               "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel")
+ENGINE_CHUNK = 8            # superstep_rounds of the engine runs
+# rounds of each engine run (phases 4 and 6): five chunks, so the steady
+# rate spans four replays and the fifth chunk refills the first of the
+# engine's four pinned staging pools
+ENGINE_ROUNDS = 5 * ENGINE_CHUNK
+REF_ROUNDS = 12             # the reference run beside each engine run
+# the engine runs of phases 4 and 6: algorithm, mode, uplink, EF store
+ENGINE_RUNS = [("fedavg", "client_parallel", "identity", "device"),
+               ("fedfusion", "client_parallel", "topk", "device"),
+               ("fedfusion", "client_parallel", "topk", "host"),
+               ("fedmmd", "client_sequential", "int8", "device")]
 
 
 def emit(phase, **fields):
@@ -89,6 +108,24 @@ def time_ms(torch, fn, *, launches=20, repeats=15, warmup=5, sets=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def spread(rates):
+    """n, min, median and max of a list of rates (None when empty)."""
+    if not rates:
+        return None
+    return dict(n=len(rates), min=min(rates),
+                median=statistics.median(rates), max=max(rates))
+
+
+def chunk_rates(chunk_times):
+    """Rounds/s of each engine chunk after the first: its rounds over its
+    period on the engine's CUDA events (its start to the next chunk's
+    start, the last one's to the end of the run)."""
+    ends = [c["start_ms"] for c in chunk_times[1:]] \
+        + [chunk_times[-1]["end_ms"]]
+    return [1e3 * (c["r1"] - c["r0"]) / (e - c["start_ms"])
+            for c, e in zip(chunk_times[1:], ends[1:])]
 
 
 def bound(n_bytes, n_flops):
@@ -343,6 +380,111 @@ def check_codec_kernels(torch, compress_pack, QuantCodec):
     return rows
 
 
+def ef_work(k, n):
+    """Bytes of one K6 or K7 call (k rows of n float32 read, k written, k
+    int64 ids read) and its operations (none: it only moves data)."""
+    return 8 * k * n + 8 * k, 0
+
+
+def check_ef_kernels(torch, compress_pack):
+    """Phase 3 for K6 / K7: each against its plain version on the card
+    with ``torch.equal`` (both only move bytes), at the FC leaf's table
+    [100, 1,605,632] with 10 ids, an odd trailing shape and a view 4 bytes
+    off 16-byte alignment; K7 in place (same storage, the other rows and
+    the bytes around the view bit-identical); duplicate ids that target
+    a scratch row.  Returns the table rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    err = {"ef_gather": 0.0, "ef_scatter": 0.0}
+    for shape, k, kind in [((100, FC_LEAF), 10, "aligned"),
+                           ((37, 3, 7), 5, "odd trailing shape"),
+                           ((9, 1024), 4, "unaligned view")]:
+        n_el = math.prod(shape)
+        base = torch.randn(n_el + 1, generator=gen).to(dev)
+        table = (base[1:] if kind == "unaligned view" else base[:n_el]
+                 ).view(shape)
+        idx = torch.randperm(shape[0], generator=gen)[:k].to(dev)
+        new = torch.randn((k,) + shape[1:], generator=gen).to(dev)
+        got = compress_pack.ef_gather_cuda(table, idx)
+        want = compress_pack.ef_gather_plain(table, idx)
+        before = base.clone()
+        want_table = compress_pack.ef_scatter_plain(table.clone(), idx, new)
+        ptr = table.data_ptr()
+        compress_pack.ef_scatter_cuda(table, idx, new)
+        torch.cuda.synchronize()
+        keep = torch.ones(shape[0], dtype=torch.bool, device=dev)
+        keep[idx] = False
+        old = (before[1:] if kind == "unaligned view" else before[:n_el]
+               ).view(shape)
+        outside = (before[0] == base[0]) if kind == "unaligned view" \
+            else (before[n_el] == base[n_el])
+        err["ef_gather"] = max(err["ef_gather"],
+                               (got - want).abs().max().item())
+        err["ef_scatter"] = max(err["ef_scatter"],
+                                (table - want_table).abs().max().item())
+        ok = dict(gather=torch.equal(got, want),
+                  scatter=torch.equal(table, want_table),
+                  in_place=table.data_ptr() == ptr,
+                  untouched_rows=torch.equal(table[keep], old[keep]),
+                  outside_view=bool(outside))
+        emit("kernels", kernel="ef_gather+ef_scatter", shape=list(shape),
+             k=k, case=kind, vector_path=bool(
+                 ptr % 16 == 0 and math.prod(shape[1:]) % 4 == 0), **ok)
+        if not all(ok.values()):
+            raise AssertionError(f"ef kernels disagree at {shape}: {ok}")
+    # duplicate ids may only target a scratch row past the table
+    table = torch.randn(5, 40, generator=gen).to(dev)
+    scratch = torch.cat([table, torch.zeros(1, 40, device=dev)])
+    new = torch.randn(4, 40, generator=gen).to(dev)
+    safe_idx = torch.tensor([3, 5, 1, 5], dtype=torch.int32, device=dev)
+    out = compress_pack.ef_scatter_cuda(scratch, safe_idx, new)[:5]
+    want = table.clone()
+    want[torch.tensor([3, 1])] = new[torch.tensor([0, 2])]
+    ok = torch.equal(out, want)
+    err["ef_scatter"] = max(err["ef_scatter"], (out - want).abs().max().item())
+    emit("kernels", kernel="ef_scatter", case="scratch-row duplicates",
+         equal=ok, max_abs_err=err)
+    if not ok:
+        raise AssertionError("ef_scatter: owned rows wrong with scratch-row "
+                             "duplicates")
+
+    # times at the FC leaf's table, 8 id sets (different rows each call)
+    k, sets = 10, 8
+    table = torch.randn(100, FC_LEAF, generator=gen).to(dev)
+    ids = [torch.randperm(100, generator=gen)[:k].to(dev)
+           for _ in range(sets)]
+    news = [torch.randn(k, FC_LEAF, generator=gen).to(dev)
+            for _ in range(sets)]
+    cases = {
+        "ef_gather": (
+            lambda i: compress_pack.ef_gather_cuda(table, ids[i]),
+            lambda i: compress_pack.ef_gather_plain(table, ids[i]),
+            lambda i: torch.index_select(table, 0, ids[i]),
+            "src/repro/kernels/compress_pack.py:197"),
+        "ef_scatter": (
+            lambda i: compress_pack.ef_scatter_cuda(table, ids[i], news[i]),
+            lambda i: compress_pack.ef_scatter_plain(table, ids[i], news[i]),
+            lambda i: table.index_copy_(0, ids[i], news[i]),
+            "src/repro/kernels/compress_pack.py:236"),
+    }
+    rows = {}
+    for name, (kern, plain, lib, replaces) in cases.items():
+        ms = time_ms(torch, kern, sets=sets)
+        plain_ms = time_ms(torch, plain, sets=sets)
+        library_ms = time_ms(torch, lib, sets=sets)
+        bound_ms, bound_by = bound(*ef_work(k, FC_LEAF))
+        rows[name] = dict(name=name, route="cuda",
+                          source="src/repro_torch/csrc/ef_rows.cu",
+                          replaces=replaces, max_abs_err=err[name], ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        emit("kernels", kernel=name, shape=[100, FC_LEAF], k=k,
+             kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound_ms, bound_by=bound_by,
+             gbytes_per_s=ef_work(k, FC_LEAF)[0] / ms / 1e6)
+    return rows
+
+
 def trace_round(torch, run_federated_reference, bundle, fl, data,
                 device="cuda"):
     """One round traced with ``torch.profiler`` after one untraced round:
@@ -373,11 +515,7 @@ def trace_round(torch, run_federated_reference, bundle, fl, data,
         count_us = by_name.setdefault(e.name, [0, 0.0])
         count_us[0] += 1
         count_us[1] += e.time_range.end - e.time_range.start
-    busy_us, reach = 0.0, float("-inf")
-    for lo, hi in sorted(spans):          # union of the kernel intervals
-        if hi > reach:
-            busy_us += hi - max(lo, reach)
-            reach = hi
+    busy_us = union_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     ours = [{"name": n[:80], "count": c, "ms": us / 1e3,
              "us_per_launch": us / c}
@@ -388,6 +526,72 @@ def trace_round(torch, run_federated_reference, bundle, fl, data,
                 device_busy_share=busy_us / 1e6 / wall,
                 top=[{"name": n[:80], "count": c, "ms": us / 1e3}
                      for n, (c, us) in top], ours=ours)
+
+
+def union_us(spans):
+    """Length of the union of (start, end) intervals."""
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    return busy_us
+
+
+def trace_engine(torch, run_federated, bundle, fl, data, rounds, store):
+    """A whole engine run under ``torch.profiler``, read over its last
+    (steady) chunk: the device activities that carry the correlation id
+    of the host's last ``cudaGraphLaunch`` (the kernels of that replay),
+    from the exported trace.  Their union is the replay's busy time; the
+    chunk's period (the engine's own CUDA events, from its start to the
+    end of the run) is the time it had."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run_federated(bundle, fl, data, rounds=rounds, seed=0,
+                            eval_examples=EVAL_EXAMPLES,
+                            superstep_rounds=ENGINE_CHUNK, ef_store=store)
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "traces" / f"engine_{fl.algorithm}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in trace
+                      if e.get("name") == "cudaGraphLaunch"
+                      and "correlation" in e.get("args", {}))
+    device = [e for e in trace if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset")]
+    last = res.stats["chunk_times"][-1]
+    period = last["end_ms"] - last["start_ms"]
+    out = dict(graph_launches=len(launches), device_ops_whole_run=len(device),
+               event_replay_ms=last["run_ms"], event_chunk_ms=period,
+               event_busy_share=last["run_ms"] / period,
+               chunk_rounds=last["r1"] - last["r0"])
+    if not launches:
+        return out
+    corr = launches[-1][1]
+    replay = [e for e in device if e["args"].get("correlation") == corr]
+    out["profiler_sees_graph_kernels"] = bool(replay)
+    if not replay:
+        return out
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in replay]
+    busy = union_us(spans)
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    kernels = {}
+    for e in replay:
+        c = kernels.setdefault(e["name"][:60], [0, 0.0])
+        c[0] += 1
+        c[1] += e.get("dur", 0.0) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    out.update(replay_device_ops=len(replay), replay_span_ms=span / 1e3,
+               device_busy_ms=busy / 1e3,
+               device_busy_share=busy / 1e3 / period,
+               top=[{"name": n, "count": c, "ms": ms} for n, (c, ms) in top],
+               ours=[{"name": n, "count": c, "ms": ms}
+                     for n, (c, ms) in sorted(kernels.items())
+                     if any(k in n for k in OUR_KERNELS)])
+    return out
 
 
 def mnist_data(FederatedDataset, class_images, partition, seed=0):
@@ -415,7 +619,8 @@ def main():
     from repro_torch.core import init_global_state
     from repro_torch.data import (FederatedDataset,
                                   artificial_noniid_partition, class_images)
-    from repro_torch.fl.server import run_federated_reference
+    from repro_torch.engine import chunk_schedule
+    from repro_torch.fl.server import run_federated, run_federated_reference
     from repro_torch.kernels import build, compress_pack, fusion_conv, mk_mmd
     from repro_torch.models import make_bundle
     from repro_torch.tree import tree_leaves
@@ -447,6 +652,7 @@ def main():
     # 3. kernels vs plain on the card ------------------------------------
     rows = check_kernels(torch, mk_mmd, fusion_conv)
     rows.update(check_codec_kernels(torch, compress_pack, QuantCodec))
+    rows.update(check_ef_kernels(torch, compress_pack))
 
     # 4. main path --------------------------------------------------------
     bundle = make_bundle(CNN_MNIST)
@@ -458,8 +664,25 @@ def main():
                 "fusion_conv": fusion_conv.fusion_conv_cuda,
                 "quant_pack": compress_pack.quant_pack_cuda,
                 "quant_unpack": compress_pack.quant_unpack_cuda,
-                "topk_select": compress_pack.topk_select_cuda}
+                "topk_select": compress_pack.topk_select_cuda,
+                "ef_gather": compress_pack.ef_gather_cuda,
+                "ef_scatter": compress_pack.ef_scatter_cuda}
     launches = dict.fromkeys(counters, 0)
+
+    def per_round_launches(algorithm, up, down, eval_rounds):
+        """Kernel launches of one round of this configuration (the codec
+        kernels once per leaf per client, K1 three times per local step,
+        K2 once per local step and once per eval, K6 / K7 once per EF leaf
+        with a top-k uplink); the reference loop's EF gather and scatter
+        are tensor indexing, so ``ef=False`` there."""
+        quant = (n_leaves * clients * (up in ("int8", "int4"))
+                 + n_leaves * (down in ("int8", "int4")))
+        ef = n_leaves * (up == "topk")
+        return {"gram_sum": 3 * steps * clients * (algorithm == "fedmmd"),
+                "fusion_conv": (steps * clients + eval_rounds)
+                * (algorithm == "fedfusion"),
+                "quant_pack": quant, "quant_unpack": quant,
+                "topk_select": 0, "ef_gather": ef, "ef_scatter": ef}
     for algorithm, mode, rounds, up, down in [
             ("fedavg", "client_parallel", 3, "identity", "identity"),
             ("fedmmd", "client_parallel", 3, "identity", "identity"),
@@ -486,14 +709,9 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: c.launches for k, c in counters.items()}
-        quant = (n_leaves * clients * rounds * (up in ("int8", "int4"))
-                 + n_leaves * rounds * (down in ("int8", "int4")))
-        want = {"gram_sum": (3 * steps * clients * rounds
-                             if algorithm == "fedmmd" else 0),
-                "fusion_conv": (steps * clients * rounds + rounds
-                                if algorithm == "fedfusion" else 0),
-                "quant_pack": quant, "quant_unpack": quant,
-                "topk_select": 0}
+        want = {k: v * rounds for k, v in
+                per_round_launches(algorithm, up, down, 1).items()}
+        want["ef_gather"] = want["ef_scatter"] = 0
         hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss",
                                    "bytes_up", "bytes_down")}
                 for h in res.comm.history]
@@ -515,19 +733,166 @@ def main():
         for k in launches:
             launches[k] += got[k]
 
-    # 5. one traced round per algorithm, and one with int8 codecs both
-    # ways (torch.profiler; a separate run, so the rounds/s above are
-    # untraced) ------------------------------------------------------------
-    for algorithm, codec in [("fedavg", "identity"), ("fedmmd", "identity"),
-                             ("fedfusion", "identity"), ("fedavg", "int8"),
-                             ("fedmmd", "int4")]:
+    # the engine: 8-round chunks replayed from captured CUDA graphs, eval
+    # folded into the chunk, beside the reference loop's rounds/s of the
+    # same configuration (measured in the same call)
+    K, rounds = ENGINE_CHUNK, ENGINE_ROUNDS
+
+    def engine_run(fl, mode, store, superstep_rounds):
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        res = run_federated(bundle, fl, mnist_data(
+            FederatedDataset, class_images, artificial_noniid_partition),
+            rounds=rounds, seed=0, mode=mode, eval_examples=EVAL_EXAMPLES,
+            superstep_rounds=superstep_rounds, ef_store=store)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = res.stats
+        hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
+                for h in res.comm.history]
+        line = dict(rounds=rounds, superstep_rounds=st["chunk_rounds"],
+                    chunks=st["chunks"], rounds_per_s=rounds / wall,
+                    steady_rounds_per_s=st["steady_rounds_per_s"],
+                    steady_chunk_rounds_per_s=spread(
+                        chunk_rates(st["chunk_times"])),
+                    graphs=st["graphs"], chunk_times=st["chunk_times"],
+                    memory_reserved_before=reserved0,
+                    memory_reserved_after=torch.cuda.memory_reserved(),
+                    ef_page_bytes=st.get("ef_page_bytes"),
+                    host_wait_s=st["host_wait_s"],
+                    metrics_wait_s=st["metrics_wait_s"],
+                    staging_pool_hits=st["staging_pool_hits"],
+                    bytes_up=res.comm.bytes_up,
+                    bytes_down=res.comm.bytes_down, history=hist)
+        finite = all(math.isfinite(h["local_loss"]) and math.isfinite(h["loss"])
+                     for h in hist)
+        got = {k: c.launches for k, c in counters.items()}
+        return res, line, got, finite
+
+    byte_keys = ("bytes_up", "bytes_down", "bytes_up_ideal")
+    fedavg_k8 = None
+    for algorithm, mode, up, store in ENGINE_RUNS:
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", uplink_codec=up,
+                      topk_frac=TOPK_FRAC, **FIG4)
+        res, line, got, finite = engine_run(fl, mode, store, K)
+        st = res.stats
+        per_replay = {k: v * K for k, v in
+                      per_round_launches(algorithm, up, "identity",
+                                         1).items()}
+        # Python counters tick in the two warm-up runs and the capture of
+        # each graph (never on a replay), and once per EF leaf for the
+        # host store's patch of every chunk after the first
+        patch = n_leaves * (st["chunks"] - 1) * (store == "host"
+                                                 and up == "topk")
+        want = {k: 3 * v + (patch if k == "ef_gather" else 0)
+                for k, v in per_replay.items()}
+        graphs = st["graphs"]
+        device_launches = {
+            k: sum(g["launches_per_replay"][k] * (g["replays"] + 2)
+                   for g in graphs) + (patch if k == "ef_gather" else 0)
+            for k in counters}
+        # the same configuration through the reference loop
+        stamps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = run_federated_reference(
+            bundle, fl, mnist_data(FederatedDataset, class_images,
+                                   artificial_noniid_partition),
+            rounds=REF_ROUNDS, seed=0, mode=mode,
+            eval_examples=EVAL_EXAMPLES,
+            callback=lambda r, s_, m: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        ref_bytes = {k: ref.comm.history[0][k] for k in byte_keys}
+        bytes_ok = (all({k: h[k] for k in byte_keys} == ref_bytes
+                        for h in res.comm.history + ref.comm.history)
+                    and res.comm.bytes_up == rounds * ref_bytes["bytes_up"])
+        checks = dict(
+            graphs=st["cuda_graphs"] and len(graphs) == 1
+            and graphs[0]["rounds"] == K
+            and graphs[0]["replays"] == rounds // K,
+            launches_per_replay=graphs[0]["launches_per_replay"]
+            == per_replay,
+            launches=got == want, bytes=bytes_ok, finite=finite)
+        emit("engine", model=CNN_MNIST.name, algorithm=algorithm,
+             fusion_op="conv", mode=mode, uplink=up, ef_store=st["ef_store"],
+             **line, reference_rounds=REF_ROUNDS,
+             reference_rounds_per_s=REF_ROUNDS / ref_wall,
+             reference_steady_rounds_per_s=(REF_ROUNDS - 1)
+             / (stamps[-1] - stamps[0]),
+             reference_steady_round_rounds_per_s=spread(
+                 [1 / (b - a) for a, b in zip(stamps, stamps[1:])]),
+             launches=got, expected=want, device_launches=device_launches,
+             reference_bytes=ref_bytes, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"engine {algorithm}/{up}/{store}: "
+                                 f"{checks}")
+        for k in launches:
+            launches[k] += got[k]
+        if algorithm == "fedavg":
+            fedavg_k8 = (res, line)
+
+    # superstep_rounds="auto" against the fixed 8 (FedAvg, the run above):
+    # calibration captures a 1- and an 8-round graph and times one replay
+    # of each; only the graphs of the run's own chunk lengths remain
+    fl = FLConfig(algorithm="fedavg", uplink_codec="identity", **FIG4)
+    res, line, got, finite = engine_run(fl, "client_parallel", "device",
+                                        "auto")
+    st = res.stats
+    lengths = [b - a for a, b in chunk_schedule(0, rounds,
+                                                st["chunk_rounds"])]
+    calib_rounds = 1 + 8 - (8 if st["chunk_rounds"] == 8 else 0)
+    want = {k: 3 * v * (calib_rounds + sum(g["rounds"] for g in st["graphs"]))
+            for k, v in per_round_launches("fedavg", "identity", "identity",
+                                           1).items()}
+    checks = dict(
+        graphs=sorted(g["rounds"] for g in st["graphs"])
+        == sorted(set(lengths)) and all(
+            g["replays"] == lengths.count(g["rounds"]) for g in st["graphs"]),
+        launches=got == want, finite=finite,
+        bytes=[{k: h[k] for k in byte_keys} for h in res.comm.history]
+        == [{k: h[k] for k in byte_keys}
+            for h in fedavg_k8[0].comm.history])
+    emit("engine_auto", model=CNN_MNIST.name, algorithm="fedavg",
+         calibration_s=st["calibration_s"], **line,
+         fixed_8=dict((k, fedavg_k8[1][k]) for k in (
+             "rounds_per_s", "steady_rounds_per_s",
+             "steady_chunk_rounds_per_s", "graphs", "memory_reserved_before",
+             "memory_reserved_after")),
+         launches=got, expected=want, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"engine auto: {checks}")
+
+    # 5. one traced round per algorithm, and with codecs (torch.profiler;
+    # a separate run, so the rounds/s above are untraced); then the steady
+    # chunk of two engine runs ---------------------------------------------
+    for algorithm, up, down in [("fedavg", "identity", "identity"),
+                                ("fedmmd", "identity", "identity"),
+                                ("fedfusion", "identity", "identity"),
+                                ("fedavg", "int8", "int8"),
+                                ("fedmmd", "int4", "int4"),
+                                ("fedfusion", "topk", "identity")]:
         fl = FLConfig(algorithm=algorithm, fusion_op="conv",
-                      uplink_codec=codec, downlink_codec=codec, **FIG4)
+                      uplink_codec=up, downlink_codec=down,
+                      topk_frac=TOPK_FRAC, **FIG4)
         data = mnist_data(FederatedDataset, class_images,
                           artificial_noniid_partition)
         emit("trace", algorithm=algorithm, fusion_op="conv",
-             mode="client_parallel", uplink=codec, downlink=codec,
+             mode="client_parallel", uplink=up, downlink=down,
              **trace_round(torch, run_federated_reference, bundle, fl, data))
+    for algorithm, up in [("fedavg", "identity"), ("fedfusion", "topk")]:
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", uplink_codec=up,
+                      topk_frac=TOPK_FRAC, **FIG4)
+        data = mnist_data(FederatedDataset, class_images,
+                          artificial_noniid_partition)
+        emit("trace_engine", algorithm=algorithm, fusion_op="conv",
+             mode="client_parallel", uplink=up, ef_store="device",
+             rounds=2 * ENGINE_CHUNK,
+             **trace_engine(torch, run_federated, bundle, fl, data,
+                            2 * ENGINE_CHUNK, "device"))
 
     # 6. card vs CPU ------------------------------------------------------
     # Same initial state and data; 2 rounds x 10 clients x 4 SGD steps.
@@ -605,6 +970,70 @@ def main():
             raise AssertionError(f"{algorithm}/{up}/{down}: card and CPU "
                                  f"disagree (ratios {ratio_max}, "
                                  f"{ratio_l2})")
+
+    # the engine against the reference loop on the card, 40 rounds (five
+    # 8-round chunks: four replays with refilled static inputs, the host
+    # store's patch and write-back between chunks, the first pinned
+    # staging pool reused) from the same seed.  cuDNN's default
+    # weight-gradient algorithms differ run to run, so both run with its
+    # deterministic algorithms; then the graph replays compute what the
+    # eager loop computes.  The CommLog history must be equal, and the
+    # final model exactly equal (were it not, it would be held to phase
+    # 6's 1% of the training change, with the differing op named).  The
+    # host EF store must equal the dense one exactly.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    finals = {}
+    try:
+        for algorithm, mode, up, store in ENGINE_RUNS:
+            fl = FLConfig(algorithm=algorithm, fusion_op="conv",
+                          uplink_codec=up, topk_frac=TOPK_FRAC, **FIG4)
+            out = {}
+            for name, fn, kw in [
+                    ("reference", run_federated_reference, {}),
+                    ("engine", run_federated,
+                     dict(superstep_rounds=ENGINE_CHUNK, ef_store=store))]:
+                out[name] = fn(bundle, fl, mnist_data(
+                    FederatedDataset, class_images,
+                    artificial_noniid_partition), rounds=ENGINE_ROUNDS,
+                    seed=0, mode=mode, eval_examples=EVAL_EXAMPLES, **kw)
+            replays = sum(g["replays"] for g in
+                          out["engine"].stats["graphs"])
+            eng, ref = (torch.cat([t.flatten() for t in
+                                   tree_leaves(out[k].global_state)]).cpu()
+                        for k in ("engine", "reference"))
+            s0 = init_global_state(bundle, fl,
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
+            change = ref - torch.cat([t.flatten() for t in tree_leaves(s0)])
+            diff = eng - ref
+            exact = torch.equal(eng, ref)
+            hist_equal = out["engine"].comm.history == \
+                out["reference"].comm.history
+            ratio_max = diff.abs().max().item() / change.abs().max().item()
+            ratio_l2 = (diff.norm() / change.norm()).item()
+            finals[(algorithm, up, store)] = eng
+            ok = hist_equal and replays == ENGINE_ROUNDS // ENGINE_CHUNK \
+                and (exact or (ratio_max <= 0.01 and ratio_l2 <= 0.01))
+            emit("engine_vs_reference", algorithm=algorithm, mode=mode,
+                 uplink=up, ef_store=store, rounds=ENGINE_ROUNDS,
+                 replays=replays,
+                 cudnn_deterministic=True, exact=exact,
+                 history_equal=hist_equal,
+                 max_abs_diff=diff.abs().max().item(),
+                 max_change=change.abs().max().item(), ratio_max=ratio_max,
+                 ratio_l2=ratio_l2, limit=0.01, ok=ok)
+            if not ok:
+                raise AssertionError(f"engine {algorithm}/{up}/{store} "
+                                     "disagrees with the reference loop")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(finals[("fedfusion", "topk", "host")],
+                       finals[("fedfusion", "topk", "device")])
+    emit("engine_vs_reference", compare="host EF store vs dense",
+         exact=same)
+    if not same:
+        raise AssertionError("the host EF store differs from the dense one")
 
     # 7. kernel table -----------------------------------------------------
     table = [dict(rows[k], launches=launches[k]) for k in counters]

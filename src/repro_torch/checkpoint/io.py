@@ -1,0 +1,127 @@
+"""Checkpointing (port of ``repro/checkpoint/io.py``): parameter trees <->
+``.npz`` with path-encoded keys, and the server's ``meta.json``.
+
+Keys are the ``/``-joined tree paths the JAX package writes (a dict key as
+itself, a list or tuple position ``i`` as ``#i``), so ``state.npz``,
+``ef.npz`` and ``meta.json`` have the JAX package's key layout.  Arrays are
+stored in the port's own layout (conv weights OIHW, EF leaves in the
+port's leaf order); :mod:`repro_torch.interop` maps parameter trees
+between the two.  ``None`` leaves (a stateless codec's EF state) are not
+written, as JAX's tree flattening drops its empty ones.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["save_tree", "load_tree", "ef_disk_layout", "save_server_state",
+           "restore_server_state"]
+
+# transient-OSError retry for checkpoint writes (networked or overlaid
+# filesystems throw sporadic EIO/ESTALE); a persistent failure still
+# raises after the last attempt
+_SAVE_ATTEMPTS = 3
+_SAVE_BACKOFF_S = 0.05
+
+
+def _retry_save(write) -> None:
+    for attempt in range(_SAVE_ATTEMPTS):
+        try:
+            write()
+            return
+        except OSError:
+            if attempt == _SAVE_ATTEMPTS - 1:
+                raise
+            time.sleep(_SAVE_BACKOFF_S * (2 ** attempt))
+
+
+def _paths(tree, prefix=()):
+    """(path, leaf) pairs in leaf order; None leaves are skipped."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (f"#{i}",))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_tree(path: str, tree) -> None:
+    """Write ``tree`` (tensors or arrays, on any device) to ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flat = {k: _host(v) for k, v in _paths(tree)}   # fetch once
+    _retry_save(lambda: np.savez(path, **flat))
+
+
+def load_tree(path: str, like, device=None):
+    """Restore ``path`` into the structure of ``like``: each leaf a tensor
+    with the ``like`` leaf's dtype, on ``device`` (default: the ``like``
+    leaf's device, the CPU for numpy leaves)."""
+    data = np.load(path)
+    it = iter(_paths(like))
+
+    def leaf(v):
+        if v is None:
+            return None
+        key, _ = next(it)
+        t = torch.from_numpy(np.array(data[key]))
+        dev = device if device is not None else (
+            v.device if isinstance(v, torch.Tensor) else "cpu")
+        dtype = v.dtype if isinstance(v, torch.Tensor) else t.dtype
+        return t.to(device=dev, dtype=dtype)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return leaf(t)
+
+    return walk(like)
+
+
+def ef_disk_layout(ef, *, n_clients: int = None):
+    """Any engine EF backing as the compact on-disk ``[N, ...]`` layout:
+    the dense table (as numpy) or a cohort-paged store (anything with
+    ``to_dense(n_clients)``, i.e.
+    :class:`repro_torch.engine.efstore.HostEFStore`), so a dense run's
+    checkpoint resumes under a paged one and the other way round."""
+    if hasattr(ef, "to_dense"):
+        if n_clients is None:
+            raise ValueError("paged EF store needs n_clients to rebuild "
+                             "the dense disk layout")
+        return ef.to_dense(n_clients)
+    return [None if x is None else _host(x) for x in ef]
+
+
+def save_server_state(dirpath: str, global_state, round_idx: int,
+                      extra: Dict | None = None) -> None:
+    os.makedirs(dirpath, exist_ok=True)
+    save_tree(os.path.join(dirpath, "state.npz"), global_state)
+    meta = {"round": round_idx, **(extra or {})}
+    meta_path = os.path.join(dirpath, "meta.json")
+
+    def write_meta():
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+
+    _retry_save(write_meta)
+
+
+def restore_server_state(dirpath: str, like, device=None) -> Tuple[Any, int]:
+    state = load_tree(os.path.join(dirpath, "state.npz"), like, device)
+    with open(os.path.join(dirpath, "meta.json")) as f:
+        meta = json.load(f)
+    return state, meta["round"]

@@ -1,7 +1,8 @@
 """Federated image-data loader (copy of ``repro/data/federated.py``
 without the chaos layer, ``TemplateClients`` and token data): samples
 clients per round and builds the stacked round batch the round fn
-consumes ([n_clients, local_steps, B, ...]).
+consumes ([n_clients, local_steps, B, ...]), or K rounds of them at once
+for the engine (``round_chunk``).
 
 The numpy rng stream is draw-for-draw the JAX package's, so for one seed
 both packages sample the same cohorts and the same batches.
@@ -86,6 +87,40 @@ class FederatedDataset:
                    for k in per_client[0]}
         sizes = self.client_sizes()[np.asarray(client_ids)]
         return stacked, sizes
+
+    def round_chunk(self, n_rounds: int, clients_per_round: int,
+                    local_steps: int, batch: int, *, pool=None):
+        """Sample ``n_rounds`` consecutive rounds for the engine: (cids
+        [K, C] int32, batches {k: [K, C, steps, B, ...]}, sizes [K, C]
+        float32).  Each round draws as ``sample_clients`` then
+        ``round_batch`` do, in the same order, so the stream matches the
+        one-round-at-a-time loop draw for draw.
+
+        ``pool`` (a ``repro_torch.engine.pipeline.StagingPool``): the
+        stacked arrays are written into its reusable (pinned) buffers
+        instead of fresh memory; the caller must not refill the pool while
+        a copy out of it is still in flight."""
+        cids_l, batch_l, size_l = [], [], []
+        for _ in range(n_rounds):
+            cids = self.sample_clients(clients_per_round)
+            b, s = self.round_batch(cids, local_steps, batch)
+            cids_l.append(cids)
+            batch_l.append(b)
+            size_l.append(s)
+
+        def _stack(name, parts, dtype=None):
+            dtype = dtype or parts[0].dtype
+            shape = (len(parts),) + parts[0].shape
+            out = pool.take(name, shape, dtype) if pool is not None else \
+                np.empty(shape, dtype)
+            for i, p in enumerate(parts):
+                out[i] = p
+            return out
+
+        stacked = {k: _stack(f"batch/{k}", [b[k] for b in batch_l])
+                   for k in batch_l[0]}
+        return (_stack("cids", cids_l, np.int32), stacked,
+                _stack("sizes", size_l, np.float32))
 
     def skip_round_sampling(self, n_rounds: int, clients_per_round: int,
                             local_steps: int, batch: int) -> None:

@@ -1,5 +1,23 @@
-"""Evaluation helpers of the port (``repro.engine.evaljit``); the
-device-resident engine itself is a later slice."""
-from repro_torch.engine.evaljit import make_eval_fn, pad_eval_batch
+"""The port's device-resident engine (``repro.engine`` for one device):
+K-round supersteps captured as CUDA graphs on the card, a host prefetch
+pipeline, deferred metrics and the cohort-paged EF store.
 
-__all__ = ["make_eval_fn", "pad_eval_batch"]
+    run_federated_engine   — the engine behind ``repro_torch.fl.server``
+    make_plain_superstep / make_compressed_superstep — K-round chunks
+    HostPrefetcher / StagingPool / WritebackLane — host pipeline
+    MetricsPump            — asynchronous metrics into the CommLog
+    make_eval_fn / pad_eval_batch — fixed-shape evaluation
+"""
+from repro_torch.engine.engine import (ServerResult, chunk_schedule,
+                                       run_federated_engine)
+from repro_torch.engine.evaljit import make_eval_fn, pad_eval_batch
+from repro_torch.engine.metrics import MetricsPump
+from repro_torch.engine.pipeline import (HostPrefetcher, StagingPool,
+                                         WritebackLane)
+from repro_torch.engine.superstep import (make_compressed_superstep,
+                                          make_plain_superstep)
+
+__all__ = ["ServerResult", "chunk_schedule", "run_federated_engine",
+           "make_eval_fn", "pad_eval_batch", "MetricsPump",
+           "HostPrefetcher", "StagingPool", "WritebackLane",
+           "make_compressed_superstep", "make_plain_superstep"]

@@ -1,0 +1,718 @@
+"""Device-resident federated training engine (port of
+``repro/engine/engine.py`` for one device).
+
+``run_federated_engine`` trains in K-round chunks instead of one
+Python-dispatched round at a time:
+
+* chunk schedule — the round range is cut where the host must see state
+  (eval and checkpoint rounds) and otherwise into ``superstep_rounds``
+  chunks; with eval every round the evaluator is folded into the chunk,
+  so the chunk size survives.  ``superstep_rounds="auto"`` times a 1- and
+  an 8-round chunk and picks the size (:func:`_auto_chunk_rounds`); on the
+  card the chosen length's calibration graph serves the run and the other
+  is freed;
+* CUDA graphs — on the card each chunk length is captured once as a
+  ``torch.cuda.CUDAGraph`` over the superstep (the counterpart of the JAX
+  package's jitted ``lax.scan`` with donated buffers): static input
+  buffers (batches, sizes, lrs, cids, noise, the EF page) and the carried
+  state (global state, EF table, broadcast mirror, all allocated outside
+  the graph and updated in place) keep their addresses, and every chunk
+  copies its staged arrays into the static inputs with
+  ``copy_(..., non_blocking=True)`` and replays.  A failed capture raises;
+  the engine never runs a chunk eagerly on the card.  On the CPU the same
+  superstep runs eagerly;
+* host pipeline — a prefetch thread samples the next chunk's clients and
+  batches into pinned staging buffers (``HostPrefetcher``,
+  ``StagingPool``) while the current chunk trains, and metrics return
+  through ``MetricsPump``, so the host waits for the card only at
+  checkpoints, callbacks and the end of the run;
+* boundary eval — reads the live state: it is queued on the stream that
+  replays the chunks, so it runs before the next replay writes the state
+  (the JAX engine's snapshot guards a donated buffer, which has no
+  counterpart here);
+* EF store — ``ef_store="device"`` keeps the dense ``[N, n]`` table on
+  the card; ``"host"`` the cohort-paged store
+  (``repro_torch.engine.efstore``: only a ``[K*C, n]`` page is on the
+  card); ``"auto"`` pages once the dense table would pass
+  ``_EF_STORE_AUTO_BYTES``.  ``ef.npz`` keeps the compact ``[N, n]``
+  layout either way, so checkpoints resume across stores;
+* equivalence — the sampling stream, the learning rates, the noise and
+  the per-round math are the reference loop's
+  (``repro_torch.fl.server.run_federated_reference``), so the engine's
+  final model and ``CommLog`` history equal it.
+
+Kernel launch counts: a kernel wrapper's ``launches`` counter ticks when
+Python calls it, i.e. during a graph's two warm-up runs and its capture,
+never on a replay.  ``stats["graphs"]`` records, per captured chunk
+length, the launches one replay makes (counted during capture) and the
+number of replays; the kernels a run launched on the device are
+``sum(launches_per_replay * (replays + 2))`` over the graphs (the two
+warm-up runs execute too), plus the eager launches outside graphs (the
+EF pager's patch: one K6 per EF leaf per chunk after the first).
+"""
+from __future__ import annotations
+
+import copy
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.io import (ef_disk_layout, load_tree,
+                                       restore_server_state,
+                                       save_server_state, save_tree)
+from repro_torch.compress import make_codec
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.rounds import init_global_state
+from repro_torch.device import resolve_device
+from repro_torch.engine.efstore import EFPager, HostEFStore, plan_chunk_static
+from repro_torch.engine.evaljit import make_eval_fn, pad_eval_batch
+from repro_torch.engine.metrics import MetricsPump
+from repro_torch.engine.pipeline import HostPrefetcher, StagingPool
+from repro_torch.engine.superstep import (make_compressed_superstep,
+                                          make_plain_superstep)
+from repro_torch.models.registry import ModelBundle
+from repro_torch.optim import exp_decay_per_round
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["ServerResult", "chunk_schedule", "run_federated_engine"]
+
+_NON_METRIC_KEYS = frozenset(
+    ("round", "bytes_up", "bytes_down", "bytes_up_ideal", "cum_bytes_up"))
+
+# adaptive chunk sizing: pick K so the per-chunk dispatch overhead is at
+# most this fraction of the chunk's time, within [lo, hi]
+_AUTO_TARGET_OVERHEAD = 0.05
+_AUTO_BOUNDS = (8, 256)
+
+# ef_store="auto": keep the dense device table while the projected
+# [n_clients, n] EF footprint stays under this (1 GiB), page past it
+_EF_STORE_AUTO_BYTES = 1 << 30
+
+# staging pools in the ring: the prefetch queue's depth (2), the chunk
+# being consumed and the chunk being built, so a pool is always released
+# before it is refilled
+_STAGING_SLOTS = 4
+
+
+@dataclass
+class ServerResult:
+    global_state: Dict
+    comm: "repro_torch.fl.comm.CommLog"  # noqa: F821 (lazy import)
+    stats: Optional[Dict] = field(default=None, compare=False)
+
+
+def chunk_schedule(start: int, rounds: int, chunk: int, *,
+                   eval_every: Optional[int] = None,
+                   ckpt_every: Optional[int] = None,
+                   per_round: bool = False) -> List[Tuple[int, int]]:
+    """Cut [start, rounds) into chunks.
+
+    Boundaries land where the host must observe state: after round r when
+    ``(r+1) % eval_every == 0`` (eval) or ``(r+1) % ckpt_every == 0``
+    (checkpoint).  ``per_round=True`` (callback users) gives one-round
+    chunks.  Pass ``eval_every=None`` when evaluation is folded into the
+    chunk: it then imposes no boundary.
+    """
+    bounds = []
+    r = start
+    while r < rounds:
+        if per_round:
+            end = r + 1
+        else:
+            end = min(r + max(1, chunk), rounds)
+            for every in (eval_every, ckpt_every):
+                if every:
+                    end = min(end, (r // every + 1) * every)
+        bounds.append((r, end))
+        r = end
+    return bounds
+
+
+def _calibration_source(data, seed: int):
+    """A shallow clone of ``data`` with an independent rng stream, so
+    chunk-size calibration never advances the run's sampling stream."""
+    clone = copy.copy(data)
+    clone._rng = np.random.default_rng(seed ^ 0xCA11B)
+    return clone
+
+
+def _auto_chunk_rounds(timed: Callable[[int], float], *,
+                       target=_AUTO_TARGET_OVERHEAD, bounds=_AUTO_BOUNDS):
+    """Pick the chunk size from measured dispatch overhead.
+
+    ``timed(K)`` returns the seconds of one K-round chunk (compiled,
+    on throwaway state).  With ``t_K ~ overhead + K * per_round`` the 1-
+    and 8-round times identify both terms, and K is chosen so overhead
+    stays below ``target`` of the chunk.  Results do not depend on K."""
+    t1, t8 = timed(1), timed(8)
+    per_round = max((t8 - t1) / 7.0, 1e-7)
+    overhead = max(t1 - per_round, 0.0)
+    lo, hi = bounds
+    return int(np.clip(round(overhead / (per_round * target)), lo, hi))
+
+
+def _refuse_unported(fl, *, mesh, telemetry, runlog, halt_on_nonfinite,
+                     profile_dir):
+    slice4 = "ROADMAP Queue 1, slice 4"
+    if fl.participation != "full_sync":
+        raise NotImplementedError(
+            f"participation {fl.participation!r} is not ported ({slice4})")
+    if fl.controller != "static":
+        raise NotImplementedError(
+            f"compression controller {fl.controller!r} is not ported "
+            f"({slice4})")
+    for name, value in (("telemetry", telemetry), ("runlog", runlog),
+                        ("halt_on_nonfinite", halt_on_nonfinite),
+                        ("profile_dir", profile_dir)):
+        if value:
+            raise NotImplementedError(f"{name} is not ported ({slice4})")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the sharded engine is not ported (ROADMAP Queue 1, "
+            "slice 5)")
+
+
+def _copy_into(dst, src):
+    """``dst``'s leaves take ``src``'s values in place, matched by key (a
+    converted JAX state orders its dict keys otherwise)."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def _kernel_counters():
+    from repro_torch.kernels import compress_pack, fusion_conv, mk_mmd
+    return {"gram_sum": mk_mmd.gram_sum_cuda,
+            "fusion_conv": fusion_conv.fusion_conv_cuda,
+            "quant_pack": compress_pack.quant_pack_cuda,
+            "quant_unpack": compress_pack.quant_unpack_cuda,
+            "topk_select": compress_pack.topk_select_cuda,
+            "ef_gather": compress_pack.ef_gather_cuda,
+            "ef_scatter": compress_pack.ef_scatter_cuda}
+
+
+def _launches():
+    return {k: fn.launches for k, fn in _kernel_counters().items()}
+
+
+class _GraphStep:
+    """One chunk length on the card: its static inputs and its graph.
+
+    ``body(inputs)`` runs the superstep on the carried state (in place)
+    and returns the stacked metrics.  ``carried`` lists every tensor the
+    body writes in place; the two warm-up runs restore it afterwards, so
+    capturing never changes the run's state.
+    """
+
+    def __init__(self, n_rounds: int, inputs: Dict, body: Callable,
+                 carried: List[torch.Tensor]):
+        self.n_rounds = n_rounds
+        self.inputs = inputs
+        self.replays = 0
+        snapshot = [t.clone() for t in carried]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                body(inputs)
+                for t, s in zip(carried, snapshot):
+                    t.copy_(s)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        self.warmup_s = time.perf_counter() - t0
+        del snapshot
+        # the graph's private memory pool: what capture reserves beyond
+        # the emptied cache (torch.cuda.graph empties it on entry, too)
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        mid = _launches()
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = body(inputs)
+        self.capture_s = time.perf_counter() - t0
+        after = _launches()
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved0
+        self.launches_per_replay = {k: after[k] - mid[k] for k in after}
+        self._ptrs = [t.data_ptr() for t in carried + self._input_leaves()]
+        self._carried = carried
+
+    def _input_leaves(self):
+        return [t for t in tree_leaves(self.inputs) if t is not None]
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        ptrs = [t.data_ptr() for t in self._carried + self._input_leaves()]
+        if ptrs != self._ptrs:
+            raise RuntimeError("a captured buffer moved: the graph would "
+                               "read or write stale memory")
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
+
+    def stats(self) -> Dict:
+        return {"rounds": self.n_rounds, "replays": self.replays,
+                "warmup_s": self.warmup_s, "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes,
+                "launches_per_replay": self.launches_per_replay}
+
+
+def _stack_noise(noise_fn, r0: int, r1: int, n_clients: int):
+    """The chunk's offsets as (down per leaf [K, n], up per leaf [K, C,
+    n]), drawn round by round in ``noise_fn``'s order; None where a
+    direction draws nothing."""
+    drawn = [noise_fn(r, n_clients) for r in range(r0, r1)]
+    down = up = None
+    if drawn[0][0] is not None:
+        down = [torch.stack([d[i] for d, _ in drawn])
+                for i in range(len(drawn[0][0]))]
+    if drawn[0][1] is not None:
+        up = [torch.stack([torch.stack([c[i] for c in u]) for _, u in drawn])
+              for i in range(len(drawn[0][1][0]))]
+    return down, up
+
+
+def _chunk_times(marks, m_end, on_card):
+    """[{r0, r1, start_ms, run_ms}] from each chunk's (start, run, done)
+    marks, plus the run's end as ``end_ms`` of the last entry."""
+    if not marks:
+        return []
+
+    def ms(a, b):
+        return a.elapsed_time(b) if on_card else 1e3 * (b - a)
+
+    t0 = marks[0][2]
+    out = [{"r0": r0, "r1": r1, "start_ms": ms(t0, m0),
+            "run_ms": ms(m1, m2)} for r0, r1, m0, m1, m2 in marks]
+    out[-1]["end_ms"] = ms(t0, m_end)
+    return out
+
+
+def _steady_rate(chunk_times):
+    """Rounds per second from the second chunk's start to the run's end
+    (None with fewer than two chunks)."""
+    if len(chunk_times) < 2:
+        return None
+    span = chunk_times[-1]["end_ms"] - chunk_times[1]["start_ms"]
+    rounds = chunk_times[-1]["r1"] - chunk_times[1]["r0"]
+    return 1e3 * rounds / span if span > 0 else None
+
+
+def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
+                         rounds: int, seed: int = 0,
+                         mode: str = "client_parallel",
+                         eval_every: int = 1, eval_examples: int = 2048,
+                         verbose: bool = False,
+                         checkpoint_dir: Optional[str] = None,
+                         checkpoint_every: int = 10,
+                         callback: Optional[Callable] = None,
+                         superstep_rounds=8, prefetch: bool = True,
+                         ef_store: str = "auto",
+                         mesh=None, telemetry=False, runlog=None,
+                         halt_on_nonfinite: bool = False,
+                         profile_dir: Optional[str] = None,
+                         global_state=None,
+                         noise_fn: Optional[Callable] = None,
+                         device=None) -> ServerResult:
+    """Engine-backed server loop (see the module docstring) on ``device``
+    (the card unless another device is named).
+
+    Same arguments and result as the reference loop, plus
+    ``superstep_rounds`` (rounds per chunk, or ``"auto"``), ``prefetch``
+    (background staging) and ``ef_store`` (``"device"`` | ``"host"`` |
+    ``"auto"``).
+    ``global_state`` (e.g. a converted JAX state) replaces the seeded
+    initial state and is copied, never updated in place; ``noise_fn(r,
+    n_clients)`` supplies the quant codecs' offsets (default
+    ``repro_torch.fl.server.make_noise_source``).  A ``callback(r, state,
+    metrics)`` forces one-round chunks; the state it gets is live and
+    valid until it returns.
+
+    ``mesh``, ``telemetry``, ``runlog``, ``halt_on_nonfinite``,
+    ``profile_dir``, partial participation and adaptive controllers are
+    not ported and raise ``NotImplementedError``.
+    """
+    from repro_torch.fl.comm import CommLog
+    from repro_torch.fl.server import make_noise_source
+
+    _refuse_unported(fl, mesh=mesh, telemetry=telemetry, runlog=runlog,
+                     halt_on_nonfinite=halt_on_nonfinite,
+                     profile_dir=profile_dir)
+    if ef_store not in ("auto", "device", "host"):
+        raise ValueError(f"ef_store={ef_store!r} not in "
+                         "('auto', 'device', 'host')")
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    c_round = min(fl.clients_per_round, data.n_clients)
+
+    if global_state is None:
+        global_state = init_global_state(
+            bundle, fl, torch.Generator().manual_seed(seed), device)
+    else:   # a private copy: the engine updates its state in place
+        global_state = tree_map(
+            lambda t: torch.as_tensor(t).to(device, copy=True).contiguous(),
+            global_state)
+    start_round = 0
+    if checkpoint_dir and os.path.exists(
+            os.path.join(checkpoint_dir, "meta.json")):
+        global_state, start_round = restore_server_state(
+            checkpoint_dir, global_state, device)
+        # replay the consumed sampling stream: resumed == uninterrupted
+        data.skip_round_sampling(start_round, c_round, fl.local_steps,
+                                 fl.local_batch)
+    lr_at = exp_decay_per_round(fl.lr, fl.lr_decay)
+    comm = CommLog().bind_sizes(global_state)
+
+    # --- wire codecs: EF store (dense table | cohort-paged) + mirror -----
+    compressed = fl.compressed
+    wire_up = wire_down = None
+    uplink = downlink = None
+    ef_template = ef_all = down_mirror = None
+    ef_paged = False
+    store = pager = None
+    ef_path = None
+    if compressed:
+        uplink = make_codec(fl.uplink_codec, topk_frac=fl.topk_frac,
+                            quant_bits=fl.quant_bits)
+        downlink = make_codec(fl.downlink_codec, topk_frac=fl.topk_frac,
+                              quant_bits=fl.quant_bits)
+        uplink.bind(global_state["model"])
+        downlink.bind(global_state["model"])
+        wire_up, wire_down = uplink.wire_bytes(), downlink.wire_bytes()
+        ef_template = uplink.init_state()
+        store = HostEFStore(ef_template)
+        if store.n_leaves == 0:
+            ef_paged = False       # stateless uplink: nothing to page
+        elif ef_store == "auto":
+            ef_paged = (data.n_clients * store.row_nbytes()
+                        > _EF_STORE_AUTO_BYTES)
+        else:
+            ef_paged = ef_store == "host"
+        ef_path = (os.path.join(checkpoint_dir, "ef.npz")
+                   if checkpoint_dir else None)
+        resume_ef = bool(start_round and ef_path and os.path.exists(ef_path))
+        ef_like = [None if z is None else
+                   torch.empty((data.n_clients,) + tuple(z.shape),
+                               device="meta") for z in ef_template]
+        if resume_ef:   # ef.npz is always the compact [n_clients, ...] layout
+            ef_dense, mirror = load_tree(
+                ef_path, (ef_like, global_state["model"]), "cpu")
+            down_mirror = tree_map(lambda t: t.to(device), mirror)
+        else:
+            ef_dense = None
+            down_mirror = tree_map(torch.clone, global_state["model"])
+        if ef_paged:
+            pager = EFPager(store, device)
+            if ef_dense is not None:
+                store.from_dense(ef_dense)
+        elif store.n_leaves:
+            ef_all = ([t.to(device) for t in ef_dense] if ef_dense
+                      is not None else
+                      [torch.zeros(z.shape, device=device) for z in ef_like])
+        if noise_fn is None:
+            noise_fn = make_noise_source(uplink, downlink, seed, device)
+    uses_noise = compressed and (uplink.uses_noise or downlink.uses_noise)
+
+    def save_ef():
+        if ef_paged:
+            pager.flush()
+            ef_src = store
+        else:
+            ef_src = ef_all if ef_all is not None else ef_template
+        save_tree(ef_path, (ef_disk_layout(ef_src, n_clients=data.n_clients),
+                            down_mirror))
+
+    # --- fixed-shape evaluation -----------------------------------------
+    test_args = ()
+    eval_fn = None
+    eval_in_chunk = False
+    if eval_every:
+        test_batch, test_mask = pad_eval_batch(data.test_batch(),
+                                               eval_examples, device)
+        eval_fn = make_eval_fn(bundle, fl)
+        eval_in_chunk = eval_every == 1 and callback is None
+        if eval_in_chunk:
+            test_args = (test_batch, test_mask)
+
+    # --- chunk staging (prefetch thread) ----------------------------------
+    pools = ([StagingPool(pin=True) for _ in range(_STAGING_SLOTS)]
+             if on_card else None)
+    n_built = [0]
+
+    def build_chunk(r0, r1, src=None):
+        pool = None
+        if pools is not None and src is None:
+            pool = pools[n_built[0] % len(pools)]
+            n_built[0] += 1
+            pool.acquire()
+        cids, batches, sizes = (src or data).round_chunk(
+            r1 - r0, c_round, fl.local_steps, fl.local_batch, pool=pool)
+
+        def host(name, arr):
+            return pool.tensor(name) if pool is not None \
+                else torch.from_numpy(arr)
+
+        staged = {"pool": pool,
+                  "batches": {k: host(f"batch/{k}", v)
+                              for k, v in batches.items()},
+                  "sizes": host("sizes", sizes),
+                  "lrs": torch.tensor([lr_at(r) for r in range(r0, r1)],
+                                      dtype=torch.float32)}
+        if compressed:
+            staged["cids"] = host("cids", cids)
+            if ef_paged:
+                if src is None:
+                    plan, page = pager.stage(cids, pool=pool)
+                    page = [host(f"ef_page/{i}", p)
+                            for i, p in enumerate(page)]
+                else:   # calibration: a throwaway zero page
+                    plan = plan_chunk_static(cids)
+                    page = [torch.from_numpy(p)
+                            for p in pager.zero_page(plan)]
+                staged["cids"] = torch.from_numpy(plan.vcids)
+                staged["ef_page"] = page
+                staged["ef_plan"] = plan
+        return staged
+
+    def draw_noise(r0, r1, fn):
+        return _stack_noise(fn, r0, r1, c_round) if uses_noise \
+            else (None, None)
+
+    # --- the chunk body: superstep on the carried state, in place --------
+    supersteps: Dict[int, Callable] = {}
+
+    def body_for(n_rounds):
+        if n_rounds not in supersteps:
+            ev = eval_fn if eval_in_chunk else None
+            if compressed:
+                supersteps[n_rounds] = make_compressed_superstep(
+                    bundle, fl, mode, n_rounds, uplink, downlink, eval_fn=ev)
+            else:
+                supersteps[n_rounds] = make_plain_superstep(
+                    bundle, fl, mode, n_rounds, eval_fn=ev)
+        superstep = supersteps[n_rounds]
+
+        def body(inputs):
+            if compressed:
+                ef = inputs["ef_page"] if ef_paged else ef_all
+                new_state, mstack, _, new_mirror = superstep(
+                    global_state, ef, down_mirror, inputs["batches"],
+                    inputs["sizes"], inputs["lrs"], inputs["cids"],
+                    inputs["noise"], *test_args)
+                _copy_into(down_mirror, new_mirror)
+            else:
+                new_state, mstack = superstep(
+                    global_state, inputs["batches"], inputs["sizes"],
+                    inputs["lrs"], *test_args)
+            _copy_into(global_state, new_state)
+            return mstack
+        return body
+
+    def carried(inputs):
+        leaves = tree_leaves(global_state)
+        if compressed:
+            leaves += tree_leaves(down_mirror)
+            leaves += inputs["ef_page"] if ef_paged else (ef_all or [])
+        return leaves
+
+    graphs: Dict[int, _GraphStep] = {}
+
+    def load_inputs(n_rounds, staged, noise, cache=graphs):
+        """The chunk's inputs on the device: on the card copied into the
+        chunk length's static buffers (those of its graph in ``cache``, or
+        new), on the CPU the staged tensors themselves.  Returns (inputs,
+        graph or None)."""
+        src = {"batches": staged["batches"], "sizes": staged["sizes"],
+               "lrs": staged["lrs"]}
+        if compressed:
+            src["cids"] = staged["cids"]
+            src["noise"] = noise
+        if not on_card:
+            if compressed and ef_paged:
+                src["ef_page"] = [torch.empty_like(p)
+                                  for p in staged["ef_page"]]
+            return src, None
+        step = cache.get(n_rounds)
+        if step is None:
+            inputs = tree_map(lambda t: None if t is None else
+                              torch.empty(t.shape, dtype=t.dtype,
+                                          device=device), src)
+            if compressed and ef_paged:
+                inputs["ef_page"] = [torch.zeros(p.shape, device=device)
+                                     for p in staged["ef_page"]]
+        else:
+            inputs = step.inputs
+        for d, s in zip(tree_leaves({k: v for k, v in inputs.items()
+                                     if k != "ef_page"}),
+                        tree_leaves(src)):
+            if d is not None:
+                d.copy_(s, non_blocking=True)
+        return inputs, step
+
+    def captured(n_rounds, inputs, step, cache=graphs):
+        """On the card, the chunk length's graph (captured on first use
+        around the loaded inputs, kept in ``cache``); None on the CPU."""
+        if on_card and step is None:
+            step = cache[n_rounds] = _GraphStep(
+                n_rounds, inputs, body_for(n_rounds), carried(inputs))
+        return step
+
+    def run_chunk(n_rounds, inputs, step):
+        """Replay (card) or run (CPU) one chunk; returns its metrics."""
+        return step.replay() if on_card else body_for(n_rounds)(inputs)
+
+    def release(staged):
+        if staged["pool"] is not None:
+            ev = torch.cuda.Event()
+            ev.record()
+            staged["pool"].release(ev)
+
+    # --- chunk size: fixed or calibrated ----------------------------------
+    chunk_rounds = superstep_rounds
+    calibration_s = None
+    if superstep_rounds == "auto":
+        t_calib = time.perf_counter()
+        calib = _calibration_source(data, seed)
+        calib_graphs: Dict[int, _GraphStep] = {}
+        calib_noise = (make_noise_source(uplink, downlink, seed ^ 0xCA11B,
+                                         device) if uses_noise else None)
+
+        def timed(n_rounds):
+            staged = build_chunk(0, n_rounds, src=calib)
+            inputs, step = load_inputs(
+                n_rounds, staged, draw_noise(0, n_rounds, calib_noise),
+                calib_graphs)
+            if compressed and ef_paged:
+                for d, s in zip(inputs["ef_page"], staged["ef_page"]):
+                    d.copy_(s)
+            state0 = [t.clone() for t in carried(inputs)]
+            step = captured(n_rounds, inputs, step,    # outside the timing
+                            calib_graphs)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_chunk(n_rounds, inputs, step)
+            if on_card:
+                torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            for t, s in zip(carried(inputs), state0):
+                t.copy_(s)
+            return elapsed
+
+        chunk_rounds = _auto_chunk_rounds(timed)
+        # the chosen length's graph serves the run (its calibration replay
+        # is not one of the run's); the other graphs and their private
+        # pools are freed
+        kept = calib_graphs.pop(chunk_rounds, None)
+        if kept is not None:
+            kept.replays = 0
+            graphs[chunk_rounds] = kept
+        calib_graphs.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        calibration_s = time.perf_counter() - t_calib
+        if verbose:
+            print(f"engine: auto chunk size -> {chunk_rounds} rounds")
+
+    # --- schedule, prefetch pipeline, metrics -----------------------------
+    schedule = chunk_schedule(
+        start_round, rounds, chunk_rounds,
+        eval_every=None if eval_in_chunk else eval_every,
+        ckpt_every=checkpoint_every if checkpoint_dir else None,
+        per_round=callback is not None)
+    prefetcher = HostPrefetcher(build_chunk, schedule, enabled=prefetch)
+    pump = MetricsPump(comm, c_round, wire_up=wire_up, wire_down=wire_down,
+                       n_down=(data.n_clients
+                               if compressed and fl.downlink_codec
+                               != "identity" else None),
+                       verbose=verbose)
+    # chunk timing: CUDA events on the dispatch stream (the card's own
+    # timeline, no host sync), host clock on the CPU
+    marks: List[Tuple[int, int, object, object, object]] = []
+
+    def mark():
+        if not on_card:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    t_run = time.perf_counter()
+    try:
+        with pump:
+            for r0, r1, staged in prefetcher:
+                n_rounds = r1 - r0
+                m_start = mark()
+                inputs, step = load_inputs(
+                    n_rounds, staged, draw_noise(r0, r1, noise_fn))
+                if compressed and ef_paged:
+                    page = [p.to(device, non_blocking=True)
+                            for p in staged["ef_page"]]
+                    pager.patch(staged["ef_plan"], page, inputs["ef_page"])
+                release(staged)
+                step = captured(n_rounds, inputs, step)
+                m_run = mark()
+                mstack = run_chunk(n_rounds, inputs, step)
+                marks.append((r0, r1, m_start, m_run, mark()))
+                if compressed and ef_paged:
+                    pager.complete(staged["ef_plan"], inputs["ef_page"])
+                eval_metrics = None
+                if eval_every and not eval_in_chunk and r1 % eval_every == 0:
+                    eval_metrics = eval_fn(global_state, test_batch,
+                                           test_mask)
+                pump.submit(mstack, eval_metrics)
+                if callback is not None:      # one-round chunks
+                    pump.drain()
+                    metrics = {k: v for k, v in comm.history[-1].items()
+                               if k not in _NON_METRIC_KEYS}
+                    callback(r0, global_state, metrics)
+                if checkpoint_dir and r1 % checkpoint_every == 0:
+                    save_server_state(checkpoint_dir, global_state, r1,
+                                      extra={"algorithm": fl.algorithm})
+                    if compressed:
+                        save_ef()
+    finally:
+        if pager is not None:
+            pager.close()
+        prefetcher.close()
+    m_end = mark()
+    if on_card:
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    chunk_times = _chunk_times(marks, m_end, on_card)
+
+    if checkpoint_dir:
+        save_server_state(checkpoint_dir, global_state, rounds,
+                          extra={"algorithm": fl.algorithm})
+        if compressed:
+            save_ef()
+    stats = {
+        "device": str(device),
+        "cuda_graphs": on_card,
+        "chunk_rounds": chunk_rounds,
+        "calibration_s": calibration_s,
+        "chunks": len(schedule),
+        "run_s": run_s,
+        # per chunk: start (ms after the first chunk's start) and the ms
+        # of its superstep (the graph replay on the card), on the card's
+        # timeline; steady rate = rounds after the first chunk over the
+        # time from the second chunk's start to the end of the run
+        "chunk_times": chunk_times,
+        "steady_rounds_per_s": _steady_rate(chunk_times),
+        "eval_in_chunk": eval_in_chunk,
+        "host_wait_s": prefetcher.wait_s,
+        "metrics_wait_s": pump.wait_s,
+        "staging_pool_hits": sum(p.hits for p in pools) if pools else 0,
+        "staging_pool_misses": sum(p.misses for p in pools) if pools else 0,
+        "ef_store": ("host" if ef_paged else "device") if compressed
+                    else None,
+        "graphs": [graphs[k].stats() for k in sorted(graphs)],
+    }
+    if ef_paged:
+        stats["ef_page_bytes"] = pager.page_rows_max * store.row_nbytes()
+        stats["ef_store_rows"] = store.n_rows
+        stats["ef_patched_rows"] = pager.patched_rows
+        stats["ef_stall_s"] = pager.stall_s
+    return ServerResult(global_state=global_state, comm=comm, stats=stats)

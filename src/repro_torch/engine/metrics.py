@@ -1,0 +1,139 @@
+"""Deferred metrics (port of ``repro/engine/metrics.py``): a chunk's
+stacked ``[K]`` device metrics reach the ``CommLog`` through a worker
+thread, so the dispatch thread never waits for the card mid-run.
+
+On the card, ``submit`` enqueues a ``copy_(..., non_blocking=True)`` of
+every metric into page-locked host memory and records a CUDA event after
+the copies; the worker waits on that event (never on
+``torch.cuda.synchronize()``), then reads the host copies.  The copies are
+enqueued on the dispatch stream before the next graph replay, so they
+finish before the replay overwrites the graph's static outputs.  On the
+CPU the copy is synchronous and the worker only logs.
+
+``MetricsPump`` is a context manager: a clean exit drains every pending
+chunk into the ``CommLog``, an exception cancels what is queued without
+blocking the raising thread.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["MetricsPump"]
+
+
+def _to_host(tree: Optional[Dict[str, torch.Tensor]]):
+    """(host copies, event or None): pinned non-blocking copies plus an
+    event after them for card tensors, plain clones for CPU tensors."""
+    if not tree:
+        return tree, None
+    event = None
+    out = {}
+    for k, v in tree.items():
+        if v.device.type == "cuda":
+            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host.copy_(v, non_blocking=True)
+            out[k] = host
+        else:
+            out[k] = v.detach().clone()
+    if any(v.device.type == "cuda" for v in tree.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return out, event
+
+
+class MetricsPump:
+    """Feed per-round metrics into a ``repro_torch.fl.comm.CommLog``
+    without blocking.
+
+    ``comm`` must have its wire sizes bound (``comm.bind_sizes``): the
+    pump logs with ``global_state=None``.  ``wire_up`` / ``wire_down`` /
+    ``n_down`` are the per-run constants of ``CommLog.log_round``.
+    """
+
+    def __init__(self, comm, n_clients: int, *,
+                 wire_up: Optional[int] = None,
+                 wire_down: Optional[int] = None,
+                 n_down: Optional[int] = None,
+                 verbose: bool = False, max_pending: int = 4):
+        self._comm = comm
+        self._n_clients = n_clients
+        self._wire = dict(wire_up=wire_up, wire_down=wire_down,
+                          n_down=n_down)
+        self._verbose = verbose
+        self._max_pending = max_pending
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="engine-metrics")
+        self._pending: deque = deque()
+        self.wait_s = 0.0    # dispatch-thread time blocked on metrics
+
+    def __enter__(self) -> "MetricsPump":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+        return False
+
+    def submit(self, metrics_stack, eval_metrics=None):
+        """Queue one chunk: ``metrics_stack`` maps names to [K] tensors;
+        ``eval_metrics`` (0-d tensors, or None) merge into the chunk's last
+        round (the engine cuts chunks at eval rounds).  Blocks only when
+        more than ``max_pending`` chunks are queued (``wait_s``)."""
+        stack, ev_stack = _to_host(metrics_stack)
+        evals, ev_eval = _to_host(eval_metrics)
+
+        def fetch():
+            for ev in (ev_stack, ev_eval):
+                if ev is not None:
+                    ev.synchronize()
+            return ({k: v.numpy() for k, v in stack.items()},
+                    None if evals is None else
+                    {k: v.numpy() for k, v in evals.items()})
+
+        self._pending.append(self._pool.submit(fetch))
+        while len(self._pending) > self._max_pending:
+            t0 = time.perf_counter()
+            fetched = self._pending.popleft().result()
+            self.wait_s += time.perf_counter() - t0
+            self._log(fetched)
+
+    def drain(self):
+        """Resolve every pending chunk into the CommLog (host blocks)."""
+        t0 = time.perf_counter()
+        while self._pending:
+            self._log(self._pending.popleft().result())
+        self.wait_s += time.perf_counter() - t0
+
+    def close(self):
+        self.drain()
+        self._pool.shutdown(wait=True)
+
+    def abort(self):
+        """Exception path: cancel queued fetches and retire the worker
+        without draining."""
+        while self._pending:
+            self._pending.popleft().cancel()
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def _log(self, fetched):
+        stack, ev = fetched
+        n_rounds = (len(next(iter(stack.values()))) if stack
+                    else (1 if ev is not None else 0))
+        for k in range(n_rounds):
+            metrics = {key: float(v[k]) for key, v in stack.items()}
+            if ev is not None and k == n_rounds - 1:
+                metrics.update({key: float(np.asarray(v))
+                                for key, v in ev.items()})
+            self._comm.log_round(None, self._n_clients, metrics,
+                                 **self._wire)
+            if self._verbose:
+                print(f"round {self._comm.rounds:4d} " +
+                      " ".join(f"{k2}={v2:.4f}" for k2, v2 in
+                               metrics.items()))

@@ -1,33 +1,40 @@
-"""Federated server loop (port of ``repro/fl/server.py``: ``evaluate`` and
-``run_federated_reference`` with and without wire codecs; paper Alg. 1 /
-Alg. 2), one Python-dispatched round at a time."""
+"""Federated server loop (port of ``repro/fl/server.py``; paper Alg. 1 /
+Alg. 2).
+
+``run_federated`` is the flat-keyword wrapper over
+:class:`repro_torch.fl.api.FederatedTrainer`, which drives the engine
+(``repro_torch.engine``: K-round chunks, captured as CUDA graphs on the
+card).  ``run_federated_reference`` is the one-Python-dispatched-round-at-
+a-time loop, kept as the engine's equivalence oracle and as the baseline
+its rounds/s are measured against.
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
 from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint.io import (load_tree, restore_server_state,
+                                       save_server_state, save_tree)
 from repro_torch.compress import make_codec
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.rounds import (init_global_state,
                                      make_compressed_round_fn, make_round_fn)
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.engine.engine import ServerResult
 from repro_torch.engine.evaljit import make_eval_fn, pad_eval_batch
 from repro_torch.fl.comm import CommLog
 from repro_torch.models.registry import ModelBundle
 from repro_torch.optim import exp_decay_per_round
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["ServerResult", "evaluate", "make_noise_source",
+__all__ = ["ServerResult", "evaluate", "make_noise_source", "run_federated",
            "run_federated_reference"]
 
-
-@dataclass
-class ServerResult:
-    global_state: Dict
-    comm: CommLog
+# the codec salt of the JAX loop's key derivation ("comp")
+_NOISE_SALT = 0x636f6d70
 
 
 def evaluate(bundle: ModelBundle, fl: FLConfig, global_state, batch,
@@ -45,17 +52,21 @@ def evaluate(bundle: ModelBundle, fl: FLConfig, global_state, batch,
 def make_noise_source(uplink, downlink, seed: int, device) -> Callable:
     """The default stochastic-rounding offsets of a compressed run:
     ``noise_fn(r, n_clients) -> (downlink offsets, per-client uplink
-    offsets)``, drawn with ``torch.rand`` from one generator on ``device``
-    seeded from ``seed``.  Each round draws the downlink's leaves first,
-    then the clients in positional order, leaf by leaf; a codec without
-    noise draws nothing and gets None."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    offsets)``, drawn with ``torch.rand`` on ``device`` from a generator
+    seeded by ``(seed, r)``, so a round's offsets depend on its index
+    only (as JAX's ``fold_in(key, r)``) and a resumed run draws what an
+    uninterrupted one would.  Each round draws the downlink's leaves
+    first, then the clients in positional order, leaf by leaf; a codec
+    without noise draws nothing and gets None."""
+    gen = torch.Generator(device=device)
 
     def draw(codec):
         return [torch.rand(n, generator=gen, device=device)
                 for n in codec.noise_sizes()]
 
     def noise_fn(r, n_clients):
+        gen.manual_seed((seed * 0x9E3779B1 + _NOISE_SALT * 0x85EBCA77 + r)
+                        % (1 << 63))
         down = draw(downlink) if downlink.uses_noise else None
         up = ([draw(uplink) for _ in range(n_clients)]
               if uplink.uses_noise else None)
@@ -64,12 +75,50 @@ def make_noise_source(uplink, downlink, seed: int, device) -> Callable:
     return noise_fn
 
 
+def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
+                  *, rounds: int, seed: int = 0,
+                  mode: str = "client_parallel", eval_every: int = 1,
+                  eval_examples: int = 2048, verbose: bool = False,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: int = 10,
+                  callback: Optional[Callable] = None,
+                  superstep_rounds=8, prefetch: bool = True,
+                  ef_store: str = "auto",
+                  mesh=None, telemetry=False, runlog=None,
+                  halt_on_nonfinite: bool = False,
+                  profile_dir: Optional[str] = None, global_state=None,
+                  noise_fn: Optional[Callable] = None,
+                  device=None) -> ServerResult:
+    """Flat-keyword wrapper over :class:`repro_torch.fl.api.FederatedTrainer`
+    (the engine): the keywords map onto ``RunOptions``; ``global_state``
+    and ``noise_fn`` go to ``fit``.  On the card every chunk runs as a
+    CUDA graph replay; results equal :func:`run_federated_reference` on
+    the same seed and configuration."""
+    from repro_torch.fl.api import (CheckpointOptions, EngineOptions,
+                                    EvalOptions, FederatedTrainer,
+                                    RunOptions)
+    opts = RunOptions(
+        mode=mode, seed=seed, verbose=verbose, device=device,
+        eval=EvalOptions(every=eval_every, examples=eval_examples),
+        checkpoint=CheckpointOptions(dir=checkpoint_dir,
+                                     every=checkpoint_every),
+        engine=EngineOptions(superstep_rounds=superstep_rounds,
+                             prefetch=prefetch, ef_store=ef_store, mesh=mesh,
+                             telemetry=telemetry, runlog=runlog,
+                             halt_on_nonfinite=halt_on_nonfinite,
+                             profile_dir=profile_dir))
+    return FederatedTrainer(bundle, fl, data, opts).fit(
+        rounds, callback=callback, global_state=global_state,
+        noise_fn=noise_fn)
+
+
 def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
                             data: FederatedDataset, *, rounds: int,
                             seed: int = 0, mode: str = "client_parallel",
                             eval_every: int = 1, eval_examples: int = 2048,
                             verbose: bool = False,
                             checkpoint_dir: Optional[str] = None,
+                            checkpoint_every: int = 10,
                             callback: Optional[Callable] = None,
                             global_state=None,
                             noise_fn: Optional[Callable] = None,
@@ -88,8 +137,14 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
     supplies the quant codecs' offsets (default
     :func:`make_noise_source` from ``seed``).
 
-    Partial participation, adaptive controllers, checkpoints and the
-    sketch codecs are not ported yet and raise ``NotImplementedError``.
+    ``checkpoint_dir``: every ``checkpoint_every`` rounds and at the end,
+    the state goes to ``state.npz`` + ``meta.json`` (and, compressed, the
+    EF table and the mirror to ``ef.npz``); a directory that holds a
+    checkpoint resumes from it, replaying the sampling stream, so the
+    resumed run equals the uninterrupted one.
+
+    Partial participation, adaptive controllers and the sketch codecs are
+    not ported yet and raise ``NotImplementedError``.
     """
     device = resolve_device(device)
     if fl.participation != "full_sync":
@@ -98,14 +153,20 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
     if fl.controller != "static":
         raise NotImplementedError(
             "adaptive compression controllers are not ported")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet")
     if global_state is None:
         global_state = init_global_state(
             bundle, fl, torch.Generator().manual_seed(seed), device)
     else:
         global_state = tree_map(lambda t: torch.as_tensor(t).to(device),
                                 global_state)
+    start_round = 0
+    if checkpoint_dir and os.path.exists(
+            os.path.join(checkpoint_dir, "meta.json")):
+        global_state, start_round = restore_server_state(
+            checkpoint_dir, global_state, device)
+        # same stream replay as the engine: resumed == uninterrupted
+        data.skip_round_sampling(start_round, fl.clients_per_round,
+                                 fl.local_steps, fl.local_batch)
     lr_at = exp_decay_per_round(fl.lr, fl.lr_decay)
     comm = CommLog()
     test = data.test_batch()
@@ -129,12 +190,29 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
                    for s in uplink.init_state()]
                   if uplink.stateful else None)
         down_mirror = global_state["model"]
+        ef_path = (os.path.join(checkpoint_dir, "ef.npz")
+                   if checkpoint_dir else None)
+        if start_round and ef_path and os.path.exists(ef_path):
+            like = [None if z is None else
+                    torch.empty((data.n_clients,) + tuple(z.shape),
+                                device="meta") for z in uplink.init_state()]
+            ef_disk, down_mirror = load_tree(ef_path, (like, down_mirror),
+                                             device)
+            if ef_all is not None:
+                ef_all = list(ef_disk)
         if noise_fn is None:
             noise_fn = make_noise_source(uplink, downlink, seed, device)
     else:
         round_fn = make_round_fn(bundle, fl, mode)
 
-    for r in range(rounds):
+    def save(round_idx):
+        save_server_state(checkpoint_dir, global_state, round_idx,
+                          extra={"algorithm": fl.algorithm})
+        if compressed:
+            save_tree(ef_path, (ef_all if ef_all is not None
+                                else uplink.init_state(), down_mirror))
+
+    for r in range(start_round, rounds):
         cids = data.sample_clients(fl.clients_per_round)
         batches, sizes = data.round_batch(cids, fl.local_steps,
                                           fl.local_batch)
@@ -165,4 +243,8 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
                   " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if callback is not None:
             callback(r, global_state, metrics)
+        if checkpoint_dir and (r + 1) % checkpoint_every == 0:
+            save(r + 1)
+    if checkpoint_dir:
+        save(rounds)
     return ServerResult(global_state=global_state, comm=comm)

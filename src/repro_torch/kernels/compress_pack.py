@@ -1,16 +1,20 @@
-"""The wire codecs' kernels (port of ``repro/kernels/compress_pack.py``, K3
-``quant_pack``, K4 ``quant_unpack`` and K5 ``topk_select``).
+"""The wire codecs' kernels and the EF table's row movers (port of
+``repro/kernels/compress_pack.py``: K3 ``quant_pack``, K4 ``quant_unpack``,
+K5 ``topk_select``, K6 ``ef_gather`` and K7 ``ef_scatter``).
 
     quant_pack    q = clip(floor(x / scale + u), +-qmax) as int8 codes, or
                   as ``code + 8`` nibbles two per uint8 (element 2i low)
     quant_unpack  codes -> float32 code * scale
     topk_select   x where |x| >= t, else 0
+    ef_gather     rows idx[j] of a [N, ...] table -> [k, ...]
+    ef_scatter    rows [k, ...] written into the table at idx, in place
 
-Each function runs the CUDA kernel ``csrc/compress_pack.cu`` for tensors
-on the card and its plain PyTorch version for tensors on the CPU; the two
-are bit-identical.  ``scale`` and ``thresh`` are one-element float32
-tensors on the data's device, so the host never reads them.  No
-gradients: the codecs work on deltas after training.
+Each function runs its CUDA kernel (``csrc/compress_pack.cu`` for K3–K5,
+``csrc/ef_rows.cu`` for K6 and K7) for tensors on the card and its plain
+PyTorch version for tensors on the CPU; the two are bit-identical.
+``scale`` and ``thresh`` are one-element float32 tensors on the data's
+device, and the EF ids stay on the device, so the host never reads them.
+No gradients: the codecs work on deltas after training.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["quant_pack", "quant_unpack", "topk_select", "quant_pack_plain",
-           "quant_unpack_plain", "topk_select_plain", "quant_pack_cuda",
-           "quant_unpack_cuda", "topk_select_cuda"]
+__all__ = ["quant_pack", "quant_unpack", "topk_select", "ef_gather",
+           "ef_scatter", "quant_pack_plain", "quant_unpack_plain",
+           "topk_select_plain", "ef_gather_plain", "ef_scatter_plain",
+           "quant_pack_cuda", "quant_unpack_cuda", "topk_select_cuda",
+           "ef_gather_cuda", "ef_scatter_cuda"]
 
 
 def _check_bits(name, bits):
@@ -79,6 +85,17 @@ def topk_select_plain(x, thresh):
     return torch.where(x.abs() >= thresh.reshape(1), x, torch.zeros_like(x))
 
 
+def ef_gather_plain(table, idx):
+    """table [N, ...], idx [k] int -> rows idx as [k, ...]."""
+    return table.index_select(0, idx)
+
+
+def ef_scatter_plain(table, idx, rows):
+    """Writes rows [k, ...] into table [N, ...] at idx, in place; returns
+    the table."""
+    return table.index_copy_(0, idx.long(), rows)
+
+
 # --------------------------------------------------------------------------
 # CUDA launchers
 # --------------------------------------------------------------------------
@@ -91,6 +108,17 @@ def _kernels():
     lib.quant_unpack_f32.argtypes = [p, p, p, ll, i, i, p]
     lib.topk_select_f32.argtypes = [p, p, p, ll, i, p]
     for fn in (lib.quant_pack_f32, lib.quant_unpack_f32, lib.topk_select_f32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _ef_kernels():
+    lib = build.load("ef_rows")
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ef_gather_f32.argtypes = [p, p, i, p, ll, ll, i, p]
+    lib.ef_scatter_f32.argtypes = [p, p, i, p, ll, ll, i, p]
+    for fn in (lib.ef_gather_f32, lib.ef_scatter_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -187,6 +215,96 @@ def topk_select_cuda(x, thresh):
 
 topk_select_cuda.launches = 0
 
+_EF_MAX_ROWS = 65535       # the kernels' grid.y holds one id each
+
+
+def _ef_table(kernel, table):
+    """The table's row length n (elements per row) after the checks."""
+    if table.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got table on "
+                         f"{table.device}")
+    if table.dtype != torch.float32 or table.dim() < 1 \
+            or not table.is_contiguous():
+        raise ValueError(
+            f"{kernel}: table must be a contiguous float32 [N, ...] tensor, "
+            f"got {table.dtype} {tuple(table.shape)} "
+            f"(contiguous={table.is_contiguous()})")
+    n = 1
+    for d in table.shape[1:]:
+        n *= d
+    return n
+
+
+def _ef_ids(kernel, idx, table):
+    """idx as a contiguous 1-D int32/int64 tensor on the table's device.
+    Ids given on the CPU are range-checked here; ids on the card are the
+    caller's contract (the kernels read them on the device only)."""
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{kernel}: idx must be a 1-D int32 or int64 "
+                         f"tensor, got {idx.dtype} {tuple(idx.shape)}")
+    if idx.numel() > _EF_MAX_ROWS:
+        raise ValueError(f"{kernel}: {idx.numel()} ids, at most "
+                         f"{_EF_MAX_ROWS}")
+    if idx.device.type == "cpu":
+        n_rows = table.shape[0]
+        if idx.numel() and not (0 <= int(idx.min()) and
+                                int(idx.max()) < n_rows):
+            raise IndexError(f"{kernel}: ids outside [0, {n_rows})")
+        idx = idx.to(table.device)
+    elif idx.device != table.device:
+        raise ValueError(f"{kernel}: idx on {idx.device}, table on "
+                         f"{table.device}")
+    return idx.contiguous()
+
+
+def ef_gather_cuda(table, idx):
+    """Launches K6: table float32 [N, ...] contiguous on a CUDA device,
+    idx [k] int32/int64 -> rows idx as a new [k, ...] tensor."""
+    n = _ef_table("ef_gather_cuda", table)
+    idx = _ef_ids("ef_gather_cuda", idx, table)
+    k = idx.numel()
+    out = torch.empty((k,) + tuple(table.shape[1:]), device=table.device,
+                      dtype=torch.float32)
+    if k == 0 or n == 0:
+        return out
+    vec = int(n % 4 == 0) * _aligned((table, 16), (out, 16))
+    _launch("ef_gather", _ef_kernels().ef_gather_f32, table.device,
+            table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+            out.data_ptr(), k, n, vec)
+    ef_gather_cuda.launches += 1
+    return out
+
+
+ef_gather_cuda.launches = 0
+
+
+def ef_scatter_cuda(table, idx, rows):
+    """Launches K7: writes rows float32 [k, ...] into table float32 [N, ...]
+    (contiguous, on a CUDA device) at idx, in place: only the k selected
+    rows are written, the table keeps its storage.  Returns the table."""
+    n = _ef_table("ef_scatter_cuda", table)
+    idx = _ef_ids("ef_scatter_cuda", idx, table)
+    k = idx.numel()
+    want = (k,) + tuple(table.shape[1:])
+    if rows.device != table.device or rows.dtype != torch.float32 \
+            or tuple(rows.shape) != want or not rows.is_contiguous():
+        raise ValueError(
+            f"ef_scatter_cuda: rows must be a contiguous float32 {want} "
+            f"tensor on {table.device}, got {rows.dtype} "
+            f"{tuple(rows.shape)} on {rows.device} "
+            f"(contiguous={rows.is_contiguous()})")
+    if k == 0 or n == 0:
+        return table
+    vec = int(n % 4 == 0) * _aligned((table, 16), (rows, 16))
+    _launch("ef_scatter", _ef_kernels().ef_scatter_f32, table.device,
+            table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+            rows.data_ptr(), k, n, vec)
+    ef_scatter_cuda.launches += 1
+    return table
+
+
+ef_scatter_cuda.launches = 0
+
 
 # --------------------------------------------------------------------------
 # dispatch: the plain version for CPU tensors only
@@ -211,3 +329,18 @@ def topk_select(x, thresh):
     if x.device.type == "cpu":
         return topk_select_plain(x, thresh)
     return topk_select_cuda(x, thresh)
+
+
+def ef_gather(table, idx):
+    """K6 on the card, its plain version for tensors on the CPU."""
+    if table.device.type == "cpu":
+        return ef_gather_plain(table, idx)
+    return ef_gather_cuda(table, idx)
+
+
+def ef_scatter(table, idx, rows):
+    """K7 on the card (in place), its plain version for tensors on the
+    CPU; returns the table."""
+    if table.device.type == "cpu":
+        return ef_scatter_plain(table, idx, rows)
+    return ef_scatter_cuda(table, idx, rows)

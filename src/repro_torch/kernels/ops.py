@@ -1,5 +1,5 @@
 """Public wrappers over the ported kernels (port of
-``repro/kernels/ops.py``, K1 to K5).
+``repro/kernels/ops.py``, K1 to K7).
 
 There is no ``impl`` switch: each kernel module runs its CUDA kernel for
 tensors on the card and its plain version for tensors on the CPU.
@@ -60,3 +60,15 @@ def topk_threshold_select(x, thresh):
     """Dense top-k select: keep entries with |x| >= thresh, zero the rest."""
     return compress_pack.topk_select(x.float().contiguous(),
                                      _scalar(thresh, x))
+
+
+def ef_gather(table, idx):
+    """Rows ``idx [k]`` of the EF table ``[N, ...]`` as a new ``[k, ...]``
+    tensor (K6)."""
+    return compress_pack.ef_gather(table, idx)
+
+
+def ef_scatter(table, idx, rows):
+    """Writes ``rows [k, ...]`` into the EF table at ``idx`` in place (K7)
+    and returns the table: only the k selected rows are written."""
+    return compress_pack.ef_scatter(table, idx, rows)

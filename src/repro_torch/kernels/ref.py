@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for the ported kernels (port of
-``repro/kernels/ref.py``, K1 to K5).  They define the semantics the
+``repro/kernels/ref.py``, K1 to K7).  They define the semantics the
 kernels and :mod:`repro_torch.kernels.ops` are held to; the per-kernel
 plain versions live beside each kernel (``gram_sum_plain``,
 ``fusion_conv_plain``)."""
@@ -10,7 +10,8 @@ import torch
 from repro_torch.kernels.fusion_conv import fusion_conv_plain
 
 __all__ = ["mk_mmd2_ref", "fusion_conv_ref", "quant_pack_ref",
-           "quant_unpack_ref", "topk_select_ref"]
+           "quant_unpack_ref", "topk_select_ref", "ef_gather_ref",
+           "ef_scatter_ref"]
 
 
 def mk_mmd2_ref(x, y, widths, *, median_heuristic=True):
@@ -74,3 +75,18 @@ def topk_select_ref(x, thresh):
     With thresh = the k-th largest |x| this is the dense form of top-k
     sparsification (the decode of the topk codec's encode)."""
     return torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
+
+
+def ef_gather_ref(table, idx):
+    """Row gather of the error-feedback table: table [N, ...] (one row per
+    federation client), idx [k] int (the round's sampled client ids) ->
+    the [k, ...] rows the round fn threads as per-client EF state."""
+    return table.index_select(0, idx)
+
+
+def ef_scatter_ref(table, idx, rows):
+    """Row scatter, in place: writes rows [k, ...] into table [N, ...] at
+    idx and returns the table.  ``idx`` must be unique (the sampler
+    asserts it) except for a scratch row whose contents are discarded;
+    with duplicates one of the writes wins, in no set order."""
+    return table.index_copy_(0, idx.long(), rows)

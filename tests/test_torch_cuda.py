@@ -259,3 +259,200 @@ def test_compressed_round_launches_codec_kernels(cuda_device, up, down):
             tcp.quant_unpack_cuda.launches) == (want, want)
     assert all(t.is_cuda and bool(torch.isfinite(t).all())
                for t in tree_leaves(res.global_state))
+
+
+# --------------------------------------------------------------------------
+# the EF row movers K6 ef_gather / K7 ef_scatter (held with torch.equal:
+# both kernels only move bytes)
+# --------------------------------------------------------------------------
+
+def _ef_launches():
+    return tcp.ef_gather_cuda.launches, tcp.ef_scatter_cuda.launches
+
+
+def test_ef_wrappers_refuse_cpu_tensors():
+    table, idx = torch.zeros(4, 3), torch.tensor([1, 2])
+    before = _ef_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.ef_gather_cuda(table, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.ef_scatter_cuda(table, idx, torch.ones(2, 3))
+    # the CPU path runs the plain versions and launches nothing
+    assert torch.equal(tcp.ef_gather(table, idx), torch.zeros(2, 3))
+    assert tcp.ef_scatter(table, idx, torch.ones(2, 3)) is table
+    assert torch.equal(table[1:3], torch.ones(2, 3))
+    assert _ef_launches() == before
+
+
+EF_CASES = [((100, 1_605_632), 10), ((37, 3, 7), 5), ((64, 1001), 64),
+            ((8, 4), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape,k", EF_CASES)
+def test_ef_kernels_match_plain(cuda_device, shape, k, dtype):
+    rng = np.random.default_rng(shape[0] + k)
+    table = torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    rows = torch.from_numpy(rng.standard_normal(
+        (k,) + shape[1:]).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.choice(shape[0], k, replace=False)).to(
+        dtype).to(cuda_device)
+    before = _ef_launches()
+    got = tcp.ef_gather_cuda(table, idx)
+    assert torch.equal(got, tcp.ef_gather_plain(table, idx))
+    want = tcp.ef_scatter_plain(table.clone(), idx, rows)
+    ptr = table.data_ptr()
+    assert tcp.ef_scatter_cuda(table, idx, rows) is table
+    torch.cuda.synchronize()
+    assert table.data_ptr() == ptr                  # in place
+    assert torch.equal(table, want)                 # untouched rows too
+    assert _ef_launches() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_ef_kernels_take_unaligned_views(cuda_device):
+    N, n, k = 9, 1024, 4
+    base = torch.randn(N * n + 1, device=cuda_device)
+    table = base[1:].view(N, n)                     # 4 bytes off 16
+    assert table.data_ptr() % 16
+    idx = torch.tensor([7, 0, 3, 8], device=cuda_device)
+    rows = torch.randn(k, n, device=cuda_device)
+    assert torch.equal(tcp.ef_gather_cuda(table, idx), table[idx])
+    want = base.clone()
+    want[1:].view(N, n)[idx] = rows
+    tcp.ef_scatter_cuda(table, idx, rows)
+    assert torch.equal(base, want)          # the element before untouched
+
+
+@pytest.mark.cuda
+def test_ef_scatter_scratch_row_duplicates(cuda_device):
+    """Duplicate ids may only target a scratch row past the table; owned
+    rows come out exact (tests/test_kernels.py pins the JAX contract)."""
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.standard_normal((5, 40)).astype(
+        np.float32)).to(cuda_device)
+    scratch = torch.cat([table, torch.zeros(1, 40, device=cuda_device)])
+    rows = torch.from_numpy(rng.standard_normal((4, 40)).astype(
+        np.float32)).to(cuda_device)
+    safe_idx = torch.tensor([3, 5, 1, 5], dtype=torch.int32,
+                            device=cuda_device)
+    out = tcp.ef_scatter_cuda(scratch, safe_idx, rows)[:5]
+    want = table.clone()
+    want[torch.tensor([3, 1])] = rows[torch.tensor([0, 2])]
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_ef_wrappers_refuse_bad_inputs(cuda_device):
+    t = torch.zeros(4, 6, device=cuda_device)
+    i = torch.tensor([0, 1], device=cuda_device)
+    with pytest.raises(ValueError):
+        tcp.ef_gather_cuda(t.T, i)                  # not contiguous
+    with pytest.raises(ValueError):
+        tcp.ef_gather_cuda(t.double(), i)
+    with pytest.raises(ValueError):
+        tcp.ef_gather_cuda(t, i.reshape(1, 2))
+    with pytest.raises(ValueError):
+        tcp.ef_scatter_cuda(t, i, torch.zeros(2, 5, device=cuda_device))
+    with pytest.raises(IndexError):                 # CPU ids are checked
+        tcp.ef_gather_cuda(t, torch.tensor([0, 4]))
+
+
+# --------------------------------------------------------------------------
+# the engine on the card: chunks replayed from captured CUDA graphs equal
+# the one-round-at-a-time reference loop.  cuDNN's deterministic
+# algorithms are on: its default weight-gradient algorithms differ run to
+# run, which no comparison of two runs could hold exactly.
+# --------------------------------------------------------------------------
+
+def _small_engine_setup():
+    from repro_torch.configs import CNN_MNIST
+    from repro_torch.data import (FederatedDataset,
+                                  artificial_noniid_partition, class_images)
+    from repro_torch.models import make_bundle
+    bundle = make_bundle(dataclasses.replace(
+        CNN_MNIST, input_shape=(12, 12, 1), conv_channels=(4, 8),
+        fc_units=(16,)))
+    x, y = class_images(10, shape=(12, 12, 1), seed=0, template_seed=0)
+
+    def data():
+        return FederatedDataset(artificial_noniid_partition(x, y, 4),
+                                {"x": x[:30], "y": y[:30]})
+    return bundle, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,store", [("identity", "device"),
+                                      ("topk", "device"), ("topk", "host"),
+                                      ("int8", "device")])
+def test_engine_graph_replay_matches_reference(cuda_device, up, store):
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl.server import run_federated, run_federated_reference
+    bundle, data = _small_engine_setup()
+    fl = FLConfig(algorithm="fedfusion" if up == "topk" else "fedavg",
+                  fusion_op="conv", clients_per_round=3, local_steps=2,
+                  local_batch=4, uplink_codec=up, topk_frac=1 / 16)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = run_federated_reference(bundle, fl, data(), rounds=4,
+                                      eval_examples=32, device=cuda_device)
+        before = _ef_launches()
+        eng = run_federated(bundle, fl, data(), rounds=4, eval_examples=32,
+                            superstep_rounds=2, ef_store=store,
+                            device=cuda_device)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    graphs = eng.stats["graphs"]
+    assert eng.stats["cuda_graphs"] and len(graphs) == 1
+    assert graphs[0]["rounds"] == 2 and graphs[0]["replays"] == 2
+    per = graphs[0]["launches_per_replay"]
+    n_ef = 8 if up == "topk" else 0                 # EF leaves
+    assert (per["ef_gather"], per["ef_scatter"]) == (2 * n_ef, 2 * n_ef)
+    patch = n_ef if store == "host" else 0          # second chunk's patch
+    # the counters tick in Python only: two warm-up runs and the capture
+    got = _ef_launches()
+    assert got[0] - before[0] == 3 * 2 * n_ef + patch
+    assert got[1] - before[1] == 3 * 2 * n_ef
+    for a, b in zip(tree_leaves(eng.global_state),
+                    tree_leaves(ref.global_state)):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    assert eng.comm.history == ref.comm.history
+
+
+@pytest.mark.cuda
+def test_engine_auto_chunk_keeps_only_the_runs_graphs(cuda_device):
+    """superstep_rounds="auto" captures a 1- and an 8-round graph to time
+    them; only the graphs of the run's own chunk lengths remain, each
+    replayed once per chunk of its length, and the run equals the
+    reference loop."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.engine import chunk_schedule
+    from repro_torch.fl.server import run_federated, run_federated_reference
+    bundle, data = _small_engine_setup()
+    fl = FLConfig(algorithm="fedavg", clients_per_round=3, local_steps=2,
+                  local_batch=4)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = run_federated_reference(bundle, fl, data(), rounds=10,
+                                      eval_examples=32, device=cuda_device)
+        eng = run_federated(bundle, fl, data(), rounds=10, eval_examples=32,
+                            superstep_rounds="auto", device=cuda_device)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    st = eng.stats
+    lengths = [r1 - r0 for r0, r1 in chunk_schedule(0, 10,
+                                                     st["chunk_rounds"])]
+    assert st["calibration_s"] > 0 and len(lengths) == st["chunks"]
+    assert sorted(g["rounds"] for g in st["graphs"]) == sorted(set(lengths))
+    for g in st["graphs"]:
+        assert g["replays"] == lengths.count(g["rounds"])
+    for a, b in zip(tree_leaves(eng.global_state),
+                    tree_leaves(ref.global_state)):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    assert eng.comm.history == ref.comm.history

@@ -138,3 +138,59 @@ def test_fusion_conv_grad_skips_frozen_stream():
     out = tops.fused_fusion_conv(fg, fl, w)
     gfl, gw = torch.autograd.grad(out.sum(), (fl, w))
     assert fg.grad is None and gfl.shape == fl.shape and gw.shape == w.shape
+
+
+# --------------------------------------------------------------------------
+# K6 ef_gather / K7 ef_scatter: plain versions vs the Pallas kernels in
+# interpret mode, exact (both only move bytes)
+# --------------------------------------------------------------------------
+
+from repro.kernels import compress_pack as jcp  # noqa: E402
+from repro_torch.kernels import compress_pack as tcp  # noqa: E402
+
+
+@pytest.mark.parametrize("shape,k", [((10, 300), 4), ((7, 3, 5), 3),
+                                     ((40, 1001), 40), ((5, 128), 1)])
+def test_ef_rows_plain_match_pallas(shape, k):
+    rng = np.random.default_rng(shape[0] + k)
+    table = rng.standard_normal(shape).astype(np.float32)
+    rows = rng.standard_normal((k,) + shape[1:]).astype(np.float32)
+    idx = rng.choice(shape[0], k, replace=False).astype(np.int32)
+    want_g = np.asarray(jcp.ef_gather(jnp.asarray(table), jnp.asarray(idx),
+                                      interpret=True))
+    want_s = np.asarray(jcp.ef_scatter(jnp.asarray(table), jnp.asarray(idx),
+                                       jnp.asarray(rows), interpret=True))
+    tt = torch.from_numpy(table.copy())
+    ti = torch.from_numpy(idx)
+    np.testing.assert_array_equal(tcp.ef_gather_plain(tt, ti).numpy(), want_g)
+    np.testing.assert_array_equal(
+        tops.ef_gather(tt, ti.long()).numpy(), want_g)
+    np.testing.assert_array_equal(
+        tref.ef_gather_ref(tt, ti).numpy(), want_g)
+    out = tcp.ef_scatter_plain(tt, ti, torch.from_numpy(rows))
+    assert out is tt                                    # in place
+    np.testing.assert_array_equal(tt.numpy(), want_s)
+    again = torch.from_numpy(table.copy())
+    tops.ef_scatter(again, ti, torch.from_numpy(rows))
+    np.testing.assert_array_equal(again.numpy(), want_s)
+    np.testing.assert_array_equal(tref.ef_scatter_ref(
+        torch.from_numpy(table.copy()), ti, torch.from_numpy(rows)).numpy(),
+        want_s)
+
+
+def test_ef_scatter_plain_scratch_row_duplicates_match_pallas():
+    """Duplicate ids may only target a scratch row: owned rows come out
+    exact, as the JAX contract (tests/test_kernels.py) pins."""
+    rng = np.random.default_rng(11)
+    table = np.concatenate([rng.standard_normal((5, 40)),
+                            np.zeros((1, 40))]).astype(np.float32)
+    rows = rng.standard_normal((4, 40)).astype(np.float32)
+    safe_idx = np.array([3, 5, 1, 5], np.int32)
+    want = np.asarray(jcp.ef_scatter(jnp.asarray(table),
+                                     jnp.asarray(safe_idx),
+                                     jnp.asarray(rows), interpret=True))
+    got = tcp.ef_scatter_plain(torch.from_numpy(table.copy()),
+                               torch.from_numpy(safe_idx),
+                               torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(got[:5], want[:5])
+    np.testing.assert_array_equal(got[[3, 1]], rows[[0, 2]])

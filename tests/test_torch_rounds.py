@@ -120,7 +120,7 @@ def test_full_width_single_step_matches_jax(algorithm):
     (dict(uplink_codec="mask"), {}),
     (dict(participation="deadline"), {}),
     (dict(controller="ef_ratio"), {}),
-    ({}, dict(checkpoint_dir="ckpt")),
+    (dict(uplink_codec="lowrank"), {}),
 ])
 def test_unported_settings_raise(kw, opt):
     tb = make_bundle(dataclasses.replace(T_MNIST, **NARROW))

@@ -12,7 +12,9 @@ is non-zero):
    at the main path's shapes and at ragged ones, with its time, the plain
    version's, a one-call PyTorch yardstick where there is one, and the
    least time the card could take for the same work (K6 / K7: exact, K7
-   in place, the scratch-row duplicates);
+   in place, the scratch-row duplicates; K8a flash attention forward and
+   K9 flash-decode at gemma3-1b's and smollm-135m's serve shapes, against
+   ``scaled_dot_product_attention`` as the yardstick);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -26,15 +28,27 @@ is non-zero):
    kernel launch counts must equal the path's formula and its bytes the
    reference's; then FedAvg with ``superstep_rounds="auto"`` beside the
    fixed 8;
+4b. serve: the transformer LMs at full width through
+   ``repro_torch.launch.serve`` (``attn_impl="pallas"``): gemma3-1b, then
+   smollm-135m, random weights from seed 0, batch 4, 1,024-token prompts,
+   32 greedy tokens, after one warm-up run: prefill ms, decode ms per step,
+   tokens/s, peak memory; K8a must launch once per attention layer per
+   prefill and K9 once per attention layer per decode step; the last
+   decode step's logits must match ``forward_seq`` over the same 1,056
+   tokens (full depth, so gemma3-1b's ring caches have rolled);
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
-   device time; then the last (steady) chunk of two engine runs;
+   device time; then the last (steady) chunk of two engine runs; and one
+   gemma3-1b prefill and one decode step (taken during phase 4b);
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
    loop on the card (cuDNN deterministic, 40 rounds), which must be equal;
-7. the kernel table.
+   then serving: gemma3-1b at full width cut to 6 layers, a 576-token
+   prompt and 4 greedy steps, the same weights on the card and the CPU;
+7. the kernel table, after a line naming the TPU kernels still to port
+   (K8b, K8c: the flash backward).
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -66,7 +80,9 @@ FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 # names of the kernels in src/repro_torch/csrc, as the profiler shows them
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
                "fusion_conv_kernel", "quant_pack_i", "quant_unpack_i",
-               "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel")
+               "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel",
+               "flash_fwd_kernel", "decode_split_kernel",
+               "decode_combine_kernel")
 ENGINE_CHUNK = 8            # superstep_rounds of the engine runs
 # rounds of each engine run (phases 4 and 6): five chunks, so the steady
 # rate spans four replays and the fifth chunk refills the first of the
@@ -485,6 +501,160 @@ def check_ef_kernels(torch, compress_pack):
     return rows
 
 
+def visible_pairs(S, window):
+    """(query, key) pairs a causal attention over S positions computes,
+    with a sliding window or without."""
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(p + 1, window) for p in range(S))
+
+
+def flash_fwd_work(B, S, H, KV, hd, window):
+    """Bytes (q, k, v in; o, lse out) and float32 operations (two products
+    of hd per visible pair and head: q.k and p.v) of one K8a call."""
+    n_bytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B * H * S)
+    return n_bytes, 4 * B * H * hd * visible_pairs(S, window)
+
+
+def flash_decode_work(B, valid, H, KV, hd):
+    """Bytes (q, the valid rows of both caches, valid_len in; o out) and
+    operations (q.k and p.v per valid position and head) of one K9 call."""
+    n_bytes = 4 * (2 * B * H * hd + 2 * B * valid * KV * hd + 1)
+    return n_bytes, 4 * B * H * hd * valid
+
+
+# K8a cases of phase 3: gemma3-1b's global and local layers, smollm-135m's
+# layers, a ragged length; B = 4 and S = 1,024 as the serve phase prefills
+FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None),
+               ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
+               ("smollm-135m", 4, 1024, 9, 3, 64, None),
+               ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512)]
+# K9 cases: gemma3-1b's global cache (max_len 1,056) at several lengths,
+# its full local ring, smollm-135m's cache
+DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
+                                                          1056)),
+                ("gemma3-1b local", 4, 512, 4, 1, 256, (512,)),
+                ("smollm-135m", 4, 1056, 9, 3, 64, (1025, 1056))]
+# float32 reorderings over at most 1,056 keys put the kernels' outputs a
+# few 1e-7 from the plain versions' (|o| < 4, |lse| < 15): 1e-4 bounds
+# them with room; a wrong mask or tile moves them by O(0.1)
+ATTN_TOL = 1e-4
+
+
+def check_attention_kernels(torch, flash_attn, decode_attn):
+    """Phase 3 for K8a / K9: each against its plain version on the card at
+    the serve shapes, with its time, the plain version's,
+    ``scaled_dot_product_attention``'s on the same function, and its
+    bound.  Returns the table rows."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def sdpa_mask(S, window):
+        pos = torch.arange(S, device=dev)
+        return ((pos[None, :] <= pos[:, None])
+                & ((pos[:, None] - pos[None, :]) < window))
+
+    rows, err = {}, {"flash_fwd": 0.0, "flash_decode": 0.0}
+    for case, B, S, H, KV, hd, window in FLASH_CASES:
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        o_err = (o - o_p).abs().max().item()
+        lse_err = (lse - lse_p).abs().max().item()
+        err["flash_fwd"] = max(err["flash_fwd"], o_err, lse_err)
+        line = dict(kernel="flash_fwd", case=case, shape=[B, S, H, KV, hd],
+                    window=window, o_abs_err=o_err, lse_abs_err=lse_err,
+                    tol=ATTN_TOL)
+        if S == 1024:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = None if window is None else sdpa_mask(S, window)
+            line.update(
+                kernel_ms=time_ms(torch, lambda: flash_attn.flash_fwd_cuda(
+                    q, k, v, window=window), launches=10, repeats=9),
+                plain_ms=time_ms(torch, lambda: flash_attn.flash_fwd_plain(
+                    q, k, v, window=window), launches=3, repeats=5),
+                library_ms=time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                        enable_gqa=True), launches=10, repeats=9))
+            line["bound_ms"], line["bound_by"] = bound(
+                *flash_fwd_work(B, S, H, KV, hd, window))
+            line["gflop_per_s"] = flash_fwd_work(
+                B, S, H, KV, hd, window)[1] / line["kernel_ms"] / 1e6
+            if case == "gemma3-1b global":
+                rows["flash_fwd"] = dict(
+                    name="flash_fwd", route="cuda",
+                    source="src/repro_torch/csrc/flash_attn.cu",
+                    replaces="src/repro/kernels/flash_attn.py:125",
+                    ms=line["kernel_ms"], plain_ms=line["plain_ms"],
+                    bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                    library_ms=line["library_ms"])
+        emit("kernels", **line)
+        if not (o_err <= ATTN_TOL and lse_err <= ATTN_TOL):
+            raise AssertionError(f"flash_fwd kernel disagrees: {case}")
+
+    for case, B, L, H, KV, hd, valids in DECODE_CASES:
+        sets = 8                    # 8 caches together exceed the L2 cache
+        qs = [randn(B, 1, H, hd) for _ in range(sets)]
+        ks = [randn(B, L, KV, hd) for _ in range(sets)]
+        vs = [randn(B, L, KV, hd) for _ in range(sets)]
+        for valid in valids:
+            vl = torch.tensor([valid], dtype=torch.int32, device=dev)
+            got = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
+            want = decode_attn.flash_decode_plain(qs[0], ks[0], vs[0], vl)
+            again = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err["flash_decode"] = max(err["flash_decode"], e)
+            line = dict(kernel="flash_decode", case=case,
+                        shape=[B, L, H, KV, hd], valid_len=valid,
+                        abs_err=e, tol=ATTN_TOL,
+                        bitwise_repeat=bool(torch.equal(got, again)))
+            if valid == L:
+                mask = (torch.arange(L, device=dev) < vl)[None, None, None]
+                qt = [t.transpose(1, 2).contiguous() for t in qs]
+                kt = [t.transpose(1, 2).contiguous() for t in ks]
+                vt = [t.transpose(1, 2).contiguous() for t in vs]
+                line.update(
+                    kernel_ms=time_ms(torch, lambda i: decode_attn
+                                      .flash_decode_cuda(qs[i], ks[i],
+                                                         vs[i], vl),
+                                      sets=sets),
+                    plain_ms=time_ms(torch, lambda i: decode_attn
+                                     .flash_decode_plain(qs[i], ks[i],
+                                                         vs[i], vl),
+                                     sets=sets),
+                    library_ms=time_ms(
+                        torch, lambda i: F.scaled_dot_product_attention(
+                            qt[i], kt[i], vt[i], attn_mask=mask,
+                            enable_gqa=True), sets=sets))
+                line["bound_ms"], line["bound_by"] = bound(
+                    *flash_decode_work(B, valid, H, KV, hd))
+                line["gbytes_per_s"] = flash_decode_work(
+                    B, valid, H, KV, hd)[0] / line["kernel_ms"] / 1e6
+                if case == "gemma3-1b global":
+                    rows["flash_decode"] = dict(
+                        name="flash_decode", route="cuda",
+                        source="src/repro_torch/csrc/decode_attn.cu",
+                        replaces="src/repro/kernels/decode_attn.py:80",
+                        ms=line["kernel_ms"], plain_ms=line["plain_ms"],
+                        bound_ms=line["bound_ms"],
+                        bound_by=line["bound_by"],
+                        library_ms=line["library_ms"])
+            emit("kernels", **line)
+            if not (e <= ATTN_TOL and torch.equal(got, again)):
+                raise AssertionError(f"flash_decode kernel disagrees: "
+                                     f"{case}, valid_len {valid}")
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    return rows
+
+
 def trace_round(torch, run_federated_reference, bundle, fl, data,
                 device="cuda"):
     """One round traced with ``torch.profiler`` after one untraced round:
@@ -507,6 +677,14 @@ def trace_round(torch, run_federated_reference, bundle, fl, data,
     torch.cuda.synchronize()
     wall = time.perf_counter() - start[0]
     prof.stop()
+    return profile_summary(torch, prof, wall)
+
+
+def profile_summary(torch, prof, wall):
+    """Device kernels a stopped profiler saw over ``wall`` seconds: their
+    count, the share of the wall time during which one ran, the kernels
+    taking the most device time, and the device time of the repository's
+    own kernels (``csrc/``)."""
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -526,6 +704,21 @@ def trace_round(torch, run_federated_reference, bundle, fl, data,
                 device_busy_share=busy_us / 1e6 / wall,
                 top=[{"name": n[:80], "count": c, "ms": us / 1e3}
                      for n, (c, us) in top], ours=ours)
+
+
+def trace_call(torch, fn):
+    """``fn()`` under ``torch.profiler``: its result and
+    :func:`profile_summary` of its run."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
+    return out, profile_summary(torch, prof, wall)
 
 
 def union_us(spans):
@@ -603,6 +796,140 @@ def mnist_data(FederatedDataset, class_images, partition, seed=0):
                             {"x": xt, "y": yt}, seed=seed)
 
 
+# the serve phase: batch 4, prompts of 1,024 tokens (longer than
+# gemma3-1b's 512 window, so its local caches roll), 32 greedy tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+SERVE_ARCHS = ("gemma3-1b", "smollm-135m")
+# decode logits vs a forward over the same tokens, and card vs CPU: the
+# two sides sum in other orders (cuBLAS at M = 4 and M = 4,096, the kernels
+# and the plain versions, oneDNN on the CPU), ~1e-6 of the logits' scale a
+# layer; 1e-3 of max |logit| bounds that over 26 layers with room, and a
+# wrong mask, cache slot or ring roll moves logits by O(1)
+SERVE_TOL = 1e-3
+
+
+def serve_params(torch, tfm, get_config, name, **replace):
+    """``name``'s config with ``attn_impl="pallas"`` (and ``replace``),
+    random weights drawn on the card from seed 0, and its param count."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(name), attn_impl="pallas",
+                              **replace)
+    params = tfm.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    return cfg, params
+
+
+def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params):
+    """The serve phase for one model: prefill and greedy decode once to
+    warm up, then once measured with the kernel counts set to 0 just
+    before (prefill ms on the host clock, each decode step's period on CUDA
+    events, peak memory), then the full-depth check: the last decode
+    step's logits against ``forward_seq`` over the same tokens.  Returns
+    the phase line and the measured run's launches."""
+    from repro_torch.tree import tree_leaves
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    tokens = serve.make_prompts(cfg, B, P, seed=0, device="cuda")
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    with torch.no_grad():
+        last, cache = serve.prefill(cfg, params, tokens, P + G)
+        serve.greedy_decode(cfg, params, cache, last, P, G)
+        del last, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        flash_attn.flash_fwd_cuda.launches = 0
+        decode_attn.flash_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        last, cache = serve.prefill(cfg, params, tokens, P + G)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        k8_prefill = flash_attn.flash_fwd_cuda.launches
+        toks, step_logits, step_ms = serve.greedy_decode(cfg, params, cache,
+                                                         last, P, G)
+        last_logits = step_logits[:, -1]
+        launches = {"flash_fwd": flash_attn.flash_fwd_cuda.launches,
+                    "flash_decode": decode_attn.flash_decode_cuda.launches}
+        peak = torch.cuda.max_memory_allocated()
+        del cache
+        out = tfm.forward_seq(cfg, params,
+                              {"tokens": torch.cat([tokens, toks], 1)},
+                              want_logits=False)
+        want = tfm.head_apply(cfg, params, out["features"][:, -1])
+        rel = ((last_logits - want).abs().max() / want.abs().max()).item()
+    steady = step_ms[1:]
+    med = statistics.median(steady)
+    checks = dict(
+        k8a_per_prefill=k8_prefill == n_attn,
+        k8a_in_decode=launches["flash_fwd"] == k8_prefill,
+        k9_per_step=launches["flash_decode"] == n_attn * G,
+        consistency=rel <= SERVE_TOL,
+        finite=bool(torch.isfinite(last_logits).all()),
+        tokens_in_vocab=bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+    line = dict(
+        model=cfg.name, attn_impl=cfg.attn_impl,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        layers=cfg.n_layers, attention_layers=n_attn, batch=B,
+        prompt_len=P, gen_len=G, max_len=P + G, prefill_ms=prefill_ms,
+        prefill_tokens_per_s=B * P / prefill_ms * 1e3,
+        decode_ms_per_step=dict(median=med, min=min(steady),
+                                max=max(steady), steps="2-32"),
+        first_step_ms=step_ms[0], decode_ms_total=sum(step_ms),
+        decode_tokens_per_s=B / med * 1e3,
+        params_bytes=4 * sum(t.numel() for t in tree_leaves(params)),
+        allocated_at_start_bytes=start_bytes, peak_memory_bytes=peak,
+        peak_above_start_bytes=peak - start_bytes,
+        k8a_launches_per_prefill=k8_prefill,
+        k9_launches_per_step=launches["flash_decode"] / G,
+        consistency_rel_err=rel, consistency_limit=SERVE_TOL,
+        ids0=toks[0].tolist(), checks=checks)
+    return line, launches
+
+
+def serve_greedy_logits(torch, serve, cfg, params, tokens, steps):
+    """``serve.prefill`` then ``serve.greedy_decode`` for ``steps`` steps:
+    the last logits of the prefill and of each step, on the CPU."""
+    P = tokens.shape[1]
+    with torch.no_grad():
+        last, cache = serve.prefill(cfg, params, tokens, P + steps)
+        _, logits, _ = serve.greedy_decode(cfg, params, cache, last, P, steps)
+    return [last.cpu()] + list(logits.cpu().unbind(1))
+
+
+def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map):
+    """Phase 6 for serving: gemma3-1b at full width cut to one cycle of 6
+    layers (5 local, 1 global), batch 1, a 576-token prompt (longer than
+    the window) and 4 greedy steps, the same weights on the card (kernels)
+    and on the CPU (plain versions).  Step 0 is the prefill's last row.
+    The logits must agree within SERVE_TOL of their scale, and the tokens
+    unless the top-2 margin is below it."""
+    pattern = get_config("gemma3-1b").block_pattern[:6]
+    cfg, params = serve_params(torch, tfm, get_config, "gemma3-1b",
+                               n_layers=6, block_pattern=pattern)
+    tokens = serve.make_prompts(cfg, 1, 576, seed=0, device="cpu")
+    card = serve_greedy_logits(torch, serve, cfg, params, tokens.cuda(), 4)
+    cpu = serve_greedy_logits(torch, serve, cfg,
+                              tree_map(lambda t: t.cpu(), params), tokens, 4)
+    del params
+    steps = []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        top2 = b.topk(2, -1).values
+        steps.append(dict(
+            step=i, rel_err=((a - b).abs().max() / b.abs().max()).item(),
+            top2_margin=((top2[:, 0] - top2[:, 1]).min()
+                         / b.abs().max()).item(),
+            same_token=torch.equal(a.argmax(-1), b.argmax(-1))))
+        if not steps[-1]["same_token"]:
+            break           # the two sides decode other tokens from here
+    ok = all(st["rel_err"] <= SERVE_TOL
+             and (st["same_token"] or st["top2_margin"] < SERVE_TOL)
+             for st in steps)
+    emit("card_vs_cpu_serve", model=cfg.name, layers=cfg.n_layers,
+         pattern=list(pattern), batch=1, prompt_len=576, decode_steps=4,
+         steps=steps, limit=SERVE_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"serving: card and CPU disagree: {steps}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -621,9 +948,13 @@ def main():
                                   artificial_noniid_partition, class_images)
     from repro_torch.engine import chunk_schedule
     from repro_torch.fl.server import run_federated, run_federated_reference
-    from repro_torch.kernels import build, compress_pack, fusion_conv, mk_mmd
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (build, compress_pack, decode_attn,
+                                     flash_attn, fusion_conv, mk_mmd)
+    from repro_torch.launch import serve
     from repro_torch.models import make_bundle
-    from repro_torch.tree import tree_leaves
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
 
     # 1. environment ------------------------------------------------------
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -653,6 +984,7 @@ def main():
     rows = check_kernels(torch, mk_mmd, fusion_conv)
     rows.update(check_codec_kernels(torch, compress_pack, QuantCodec))
     rows.update(check_ef_kernels(torch, compress_pack))
+    rows.update(check_attention_kernels(torch, flash_attn, decode_attn))
 
     # 4. main path --------------------------------------------------------
     bundle = make_bundle(CNN_MNIST)
@@ -866,6 +1198,34 @@ def main():
     if not all(checks.values()):
         raise AssertionError(f"engine auto: {checks}")
 
+    # 4b. serve: gemma3-1b, then smollm-135m, at full width ---------------
+    # (K8a and K9 counted over each measured run; phase 5's serving trace
+    # is taken while gemma3-1b's weights are on the card)
+    serve_launches = {"flash_fwd": 0, "flash_decode": 0}
+    for name in SERVE_ARCHS:
+        cfg, params = serve_params(torch, tfm, get_config, name)
+        line, got = serve_run(torch, serve, tfm, flash_attn, decode_attn,
+                              cfg, params)
+        emit("serve", **line)
+        if not all(line["checks"].values()):
+            raise AssertionError(f"serve {name}: {line['checks']}")
+        for k in serve_launches:
+            serve_launches[k] += got[k]
+        if name == "gemma3-1b":
+            P = SERVE_PROMPT
+            tokens = serve.make_prompts(cfg, SERVE_BATCH, P, seed=0,
+                                        device="cuda")
+            with torch.no_grad():
+                (last, cache), pre = trace_call(torch, lambda: serve.prefill(
+                    cfg, params, tokens, P + SERVE_GEN))
+                _, step = trace_call(torch, lambda: tfm.decode_step(
+                    cfg, params, last.argmax(-1)[:, None], cache, P))
+            emit("trace_serve", model=cfg.name, batch=SERVE_BATCH,
+                 prompt_len=P, prefill=pre, decode_step=step)
+            del last, cache
+        del params
+        torch.cuda.empty_cache()
+
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
     # chunk of two engine runs ---------------------------------------------
@@ -1035,8 +1395,17 @@ def main():
     if not same:
         raise AssertionError("the host EF store differs from the dense one")
 
+    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map)
+
     # 7. kernel table -----------------------------------------------------
-    table = [dict(rows[k], launches=launches[k]) for k in counters]
+    emit("kernels_to_port", kernels=[
+        {"name": "flash_bwd_dq", "replaces":
+         "src/repro/kernels/flash_attn.py:302", "slice": "LM training"},
+        {"name": "flash_bwd_dkv", "replaces":
+         "src/repro/kernels/flash_attn.py:322", "slice": "LM training"}])
+    launches.update(serve_launches)
+    table = [dict(rows[k], launches=launches[k])
+             for k in (*counters, *serve_launches)]
     table = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                 "launches", "max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")}

@@ -1,7 +1,28 @@
-"""Model and federated-learning configurations of the port."""
-from repro_torch.configs.base import CNNConfig, FLConfig
+"""Model and federated-learning configurations of the port.
+
+``ARCH_CONFIGS`` holds the transformer architectures the port serves so
+far (the dense attention family); :func:`get_config` of any other JAX
+architecture raises a ``KeyError`` that names the slice that brings it.
+"""
+from repro_torch.configs.base import ArchConfig, CNNConfig, FLConfig
 from repro_torch.configs.cnn_paper import CNN_CIFAR, CNN_MNIST
+from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3_1B
+from repro_torch.configs.smollm_135m import CONFIG as SMOLLM_135M
 
 CNN_CONFIGS = {c.name: c for c in (CNN_MNIST, CNN_CIFAR)}
+ARCH_CONFIGS = {c.name: c for c in (GEMMA3_1B, SMOLLM_135M)}
 
-__all__ = ["CNNConfig", "FLConfig", "CNN_CONFIGS", "CNN_MNIST", "CNN_CIFAR"]
+
+def get_config(name: str) -> ArchConfig:
+    if name not in ARCH_CONFIGS:
+        raise KeyError(
+            f"arch {name!r} is not ported yet (ported: "
+            f"{sorted(ARCH_CONFIGS)}); the other families (MoE, SSM, "
+            "hybrid, VLM, audio) come with the LM training slice "
+            "(ROADMAP Queue 1, slice 6)")
+    return ARCH_CONFIGS[name]
+
+
+__all__ = ["ArchConfig", "CNNConfig", "FLConfig", "CNN_CONFIGS",
+           "CNN_MNIST", "CNN_CIFAR", "ARCH_CONFIGS", "GEMMA3_1B",
+           "SMOLLM_135M", "get_config"]

@@ -1,5 +1,8 @@
-"""Configuration dataclasses (port of ``repro/configs/base.py``, the CNN
-and federated-learning halves).
+"""Configuration dataclasses (port of ``repro/configs/base.py``).
+
+``ArchConfig`` keeps every field, default and check of the JAX package's,
+with ``param_count`` and ``reduced()``, so any JAX architecture config is
+representable; the model code refuses the families it does not run yet.
 
 ``FLConfig`` keeps the fields the federated training path reads, with the
 same names, defaults and validation as the JAX package.  The
@@ -9,9 +12,16 @@ ported.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
+# Block kinds appearing in ``ArchConfig.block_pattern``.
+ATTN_GLOBAL = "attn_global"     # full causal attention
+ATTN_LOCAL = "attn_local"       # sliding-window causal attention
+RGLRU = "rglru"                 # RecurrentGemma RG-LRU recurrent block
+SSD = "ssd"                     # Mamba-2 state-space-duality block
+
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 FL_MODES = ("client_parallel", "client_sequential")
 
 # Wire codecs, participation policies and compression controllers of the
@@ -110,3 +120,189 @@ class FLConfig:
     def compressed(self) -> bool:
         return (self.uplink_codec, self.downlink_codec) != \
             ("identity", "identity")
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A transformer-family architecture from the assigned pool."""
+
+    name: str
+    family: str                     # one of FAMILIES
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    block_pattern: Tuple[str, ...] = ()   # () -> all ATTN_GLOBAL
+
+    # --- attention details ---
+    sliding_window: int = 4096      # window for ATTN_LOCAL blocks
+    rope_theta: float = 10_000.0
+    partial_rotary_pct: float = 1.0
+    mrope: bool = False             # Qwen2-VL multimodal RoPE (3 sections)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0               # 0 -> d_ff
+    dense_residual: bool = False    # Arctic: dense FFN in parallel with MoE
+    moe_capacity: float = 1.25      # expert capacity factor (train/prefill)
+
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 64
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+
+    # --- RG-LRU (recurrentgemma) ---
+    lru_width: int = 0              # 0 -> d_model
+
+    # --- encoder / modality frontend stubs ---
+    n_enc_layers: int = 0           # whisper encoder depth (0 = decoder-only)
+    n_audio_frames: int = 1500      # stub encoder sequence length
+    n_vision_tokens: int = 0        # VLM: number of stub patch embeddings
+
+    # --- misc ---
+    norm_eps: float = 1e-6
+    act: str = "silu"               # "silu" (SwiGLU) or "gelu" (plain MLP)
+    tie_embeddings: bool = True
+    max_seq_len: int = 524_288
+
+    # --- distribution plan ---
+    fl_mode: str = "client_parallel"
+    source: str = ""                # citation bracket from the assignment
+
+    # --- performance knobs ---
+    remat: str = "none"             # none | attn | layer  (activation ckpt)
+    attn_impl: str = "jnp"          # jnp (plain torch) | pallas (K8a / K9)
+    serve_expert_parallel: bool = False  # shard experts over data at serve
+    moe_shard_capacity: bool = False     # capacity dim over 'model' (no vmap)
+    moe_dispatch: str = "gather"         # gather | a2a
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: family {self.family!r} not in "
+                             f"{FAMILIES}")
+        if self.fl_mode not in FL_MODES:
+            raise ValueError(f"{self.name}: fl_mode {self.fl_mode!r} not in "
+                             f"{FL_MODES}")
+        if self.remat not in ("none", "attn", "layer"):
+            raise ValueError(f"{self.name}: remat {self.remat!r} must be "
+                             "'none', 'attn' or 'layer'")
+        if self.attn_impl not in ("jnp", "pallas"):
+            raise ValueError(f"{self.name}: attn_impl {self.attn_impl!r} "
+                             "must be 'jnp' or 'pallas'")
+        if self.moe_dispatch not in ("gather", "a2a"):
+            raise ValueError(f"{self.name}: moe_dispatch "
+                             f"{self.moe_dispatch!r} must be 'gather' or "
+                             "'a2a'")
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // max(self.n_heads, 1))
+        if not self.block_pattern:
+            object.__setattr__(self, "block_pattern",
+                               (ATTN_GLOBAL,) * self.n_layers)
+        if len(self.block_pattern) != self.n_layers:
+            raise ValueError(
+                f"{self.name}: pattern len {len(self.block_pattern)} != "
+                f"{self.n_layers}")
+        if self.n_experts and not 0 < self.top_k <= self.n_experts:
+            raise ValueError(f"{self.name}: top_k {self.top_k} must be in "
+                             f"(0, n_experts={self.n_experts}]")
+        if self.moe_d_ff == 0:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
+        if self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (the JAX package's formula)."""
+        d, h, kv, hd = (self.d_model, self.n_heads, self.n_kv_heads,
+                        self.head_dim)
+        per_attn = d * h * hd + 2 * d * kv * hd + h * hd * d    # q,k,v,o
+        mlp_mult = 3 if self.act == "silu" else 2
+        per_dense_ff = mlp_mult * d * self.d_ff
+        n = 0
+        for blk in self.block_pattern:
+            if blk in (ATTN_GLOBAL, ATTN_LOCAL):
+                n += per_attn
+            elif blk == RGLRU:
+                w = self.lru_width
+                n += 3 * d * w + 2 * w * w + 5 * w
+            elif blk == SSD:
+                d_in = self.ssm_expand * d
+                n += 2 * d * d_in + d_in * self.ssm_state * 2 + d_in * d
+            if self.n_experts:
+                n += (self.n_experts * mlp_mult * d * self.moe_d_ff
+                      + d * self.n_experts)
+                if self.dense_residual:
+                    n += per_dense_ff
+            elif blk not in (SSD,):
+                n += per_dense_ff
+            n += 2 * d  # norms
+        n += self.vocab_size * d  # embedding (tied head)
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        if self.n_enc_layers:
+            n += self.n_enc_layers * (per_attn + per_dense_ff + 2 * d)
+            n += self.n_layers * per_attn  # decoder cross-attention
+        return n
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: 2 layers, d_model<=256, <=4 experts, tiny
+        vocab; keeps the family shape (block kinds, GQA flavour)."""
+        d = min(self.d_model, 256)
+        heads = max(2, min(self.n_heads, 4))
+        if self.n_kv_heads == self.n_heads:
+            kv = heads
+        elif self.n_kv_heads == 1:
+            kv = 1
+        else:
+            kv = 2
+        kinds = [k for k in (SSD, RGLRU, ATTN_LOCAL, ATTN_GLOBAL)
+                 if k in self.block_pattern]
+        pattern = tuple((kinds * 2)[:2]) if kinds else (ATTN_GLOBAL,
+                                                        ATTN_GLOBAL)
+        n_exp = min(self.n_experts, 4)
+        half = (d // heads) // 2
+        t_sec = half * 2 // 8
+        h_sec = half * 3 // 8
+        sections = (t_sec, h_sec, half - t_sec - h_sec)
+        return replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=d,
+            n_heads=heads,
+            n_kv_heads=kv,
+            head_dim=d // heads,
+            d_ff=min(self.d_ff, 512) or 512,
+            moe_d_ff=min(self.moe_d_ff, 256) if self.n_experts else 0,
+            vocab_size=min(self.vocab_size, 512),
+            mrope_sections=sections,
+            block_pattern=pattern,
+            sliding_window=64,
+            n_experts=n_exp,
+            top_k=min(self.top_k, n_exp) if n_exp else 0,
+            ssm_state=min(self.ssm_state, 16),
+            ssm_chunk=8,
+            ssm_head_dim=16,
+            lru_width=d,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_audio_frames=16,
+            n_vision_tokens=min(self.n_vision_tokens, 8),
+            max_seq_len=512,
+        )
+
+
+def local_global_pattern(n_layers: int, local: int, global_: int,
+                         window_kind: str = ATTN_LOCAL) -> Tuple[str, ...]:
+    """`local:global` repeating pattern, e.g. gemma3's 5:1."""
+    pat = []
+    cycle = [window_kind] * local + [ATTN_GLOBAL] * global_
+    while len(pat) < n_layers:
+        pat.extend(cycle)
+    return tuple(pat[:n_layers])

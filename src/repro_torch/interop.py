@@ -1,9 +1,12 @@
 """Carries parameter trees between the JAX package and the port.
 
-The trees have the same keys on both sides (``{"model": {"convs": [{"w",
-"b"}...], "fcs": [...], "head": {...}}, "fusion": {...}}``).  The only
-layout difference is the conv weights: the JAX package stores them HWIO,
-the port OIHW.  Pull a JAX tree to numpy first
+The trees have the same keys on both sides: the federated state
+(``{"model": {"convs": [{"w", "b"}...], "fcs": [...], "head": {...}},
+"fusion": {...}}``) and the transformers' parameter and KV-cache trees
+(``{"embed", "final_norm", "cycles": (...), "tail": (...)}``, tuples kept
+as tuples).  The only layout difference is the CNNs' conv weights: the JAX
+package stores them HWIO, the port OIHW; every other leaf carries across
+unchanged.  Pull a JAX tree to numpy first
 (``jax.tree.map(np.asarray, tree)``); this module imports numpy and torch
 only.
 """

@@ -1,5 +1,6 @@
 """Public wrappers over the ported kernels (port of
-``repro/kernels/ops.py``, K1 to K7).
+``repro/kernels/ops.py``, K1 to K7 and K9; K8a is reached through
+``kernels.flash_attn.make_flash_attention``, as in the JAX package).
 
 There is no ``impl`` switch: each kernel module runs its CUDA kernel for
 tensors on the card and its plain version for tensors on the CPU.
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import compress_pack
+from repro_torch.kernels.decode_attn import flash_decode
 from repro_torch.kernels.fusion_conv import fusion_conv
 from repro_torch.kernels.mk_mmd import gram_sum
 
@@ -72,3 +74,10 @@ def ef_scatter(table, idx, rows):
     """Writes ``rows [k, ...]`` into the EF table at ``idx`` in place (K7)
     and returns the table: only the k selected rows are written."""
     return compress_pack.ef_scatter(table, idx, rows)
+
+
+def gqa_flash_decode(q, k_cache, v_cache, valid_len=None):
+    """One-token GQA decode attention against a KV cache (K9): q
+    [B,1,H,hd], caches [B,L,KV,hd], positions >= ``valid_len`` masked."""
+    return flash_decode(q.contiguous(), k_cache.contiguous(),
+                        v_cache.contiguous(), valid_len)

@@ -1,17 +1,19 @@
 """Plain PyTorch oracles for the ported kernels (port of
-``repro/kernels/ref.py``, K1 to K7).  They define the semantics the
-kernels and :mod:`repro_torch.kernels.ops` are held to; the per-kernel
-plain versions live beside each kernel (``gram_sum_plain``,
-``fusion_conv_plain``)."""
+``repro/kernels/ref.py``, K1 to K7, K8a and K9).  They define the
+semantics the kernels and :mod:`repro_torch.kernels.ops` are held to; the
+per-kernel plain versions live beside each kernel (``gram_sum_plain``,
+``fusion_conv_plain``, ``flash_fwd_plain``, ``flash_decode_plain``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attn import flash_decode_plain
+from repro_torch.kernels.flash_attn import flash_fwd_plain
 from repro_torch.kernels.fusion_conv import fusion_conv_plain
 
 __all__ = ["mk_mmd2_ref", "fusion_conv_ref", "quant_pack_ref",
            "quant_unpack_ref", "topk_select_ref", "ef_gather_ref",
-           "ef_scatter_ref"]
+           "ef_scatter_ref", "flash_fwd_ref", "decode_attn_ref"]
 
 
 def mk_mmd2_ref(x, y, widths, *, median_heuristic=True):
@@ -90,3 +92,11 @@ def ef_scatter_ref(table, idx, rows):
     asserts it) except for a scratch row whose contents are discarded;
     with duplicates one of the writes wins, in no set order."""
     return table.index_copy_(0, idx.long(), rows)
+
+
+# GQA flash attention forward (K8a): (o, lse [B, KV, rep, S]) of causal /
+# sliding-window attention; GQA flash-decode (K9): one query token against
+# a [B, L, KV, hd] cache, positions >= valid_len masked.  Both the masked
+# full softmax in float32.
+flash_fwd_ref = flash_fwd_plain
+decode_attn_ref = flash_decode_plain

@@ -1,19 +1,85 @@
-"""Layer primitives of the port (``repro/models/layers.py:dense_init``)."""
+"""Layer primitives of the port (port of ``repro/models/layers.py``):
+the fan-in init, RMS / layer norms, the MLP (SwiGLU or plain GELU) and
+the embedding table.  Weights are ``[in, out]`` and applied as ``x @ w``,
+as in the JAX package."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale=None):
-    """Truncated-normal (±2σ) fan-in init (LeCun-style), drawn on the CPU
-    from ``generator``.  Same distribution as the JAX init; the numbers
-    differ, since torch and ``jax.random`` are different generators."""
+    """Truncated-normal (±2σ) fan-in init (LeCun-style), drawn from
+    ``generator`` on the generator's device.  Same distribution as the JAX
+    init; the numbers differ, since torch and ``jax.random`` are different
+    generators."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * scale).to(dtype)
+
+
+def rmsnorm_init(dim, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-6):
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps=1e-6):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def norm_init(kind, dim, dtype=torch.float32, device=None):
+    if kind == "layernorm":
+        return layernorm_init(dim, dtype, device)
+    return rmsnorm_init(dim, dtype, device)
+
+
+def norm_apply(kind, params, x, eps=1e-6):
+    if kind == "layernorm":
+        return layernorm(params, x, eps)
+    return rmsnorm(params, x, eps)
+
+
+def mlp_init(generator, d_model, d_ff, act, dtype=torch.float32):
+    """SwiGLU (``act="silu"``: w1, w2, w3) or plain GELU MLP (w1, w2)."""
+    p = {"w1": dense_init(generator, (d_model, d_ff), dtype),
+         "w2": dense_init(generator, (d_ff, d_model), dtype)}
+    if act == "silu":
+        p["w3"] = dense_init(generator, (d_model, d_ff), dtype)
+    return p
+
+
+def mlp_apply(params, x, act):
+    h = x @ params["w1"]
+    if act == "silu":
+        h = F.silu(h) * (x @ params["w3"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return h @ params["w2"]
+
+
+def embed_init(generator, vocab, d_model, dtype=torch.float32):
+    return {"table": dense_init(generator, (vocab, d_model), dtype,
+                                scale=1.0)}

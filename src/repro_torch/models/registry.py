@@ -1,4 +1,6 @@
-"""Uniform ModelBundle API (port of ``repro/models/registry.py``, CNN half).
+"""Uniform ModelBundle API (port of ``repro/models/registry.py``: the CNN
+half, and the transformers' ``decode_step`` / ``init_cache``; the
+transformer ``ModelBundle`` comes with the LM training slice).
 
 The FL core is written against this protocol:
     bundle.init(generator)           -> params (on the CPU)
@@ -17,8 +19,9 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.configs.base import CNNConfig
+from repro_torch.configs.base import ArchConfig, CNNConfig
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import transformer as tfm
 
 
 @dataclass(frozen=True)
@@ -63,3 +66,12 @@ def _cnn_bundle(cfg: CNNConfig, dtype) -> ModelBundle:
         name=cfg.name, config=cfg, init=init, extract=extract, head=head,
         apply=apply, pool=pool, labels=lambda b: b["y"],
         loss_kind="classify", feature_channels=cfg.conv_channels[-1])
+
+
+def decode_step(cfg: ArchConfig, params, tokens, cache, pos):
+    return tfm.decode_step(cfg, params, tokens, cache, pos)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None):
+    return tfm.init_cache(cfg, batch, max_len, dtype, device)

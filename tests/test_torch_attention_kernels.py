@@ -1,0 +1,137 @@
+"""The plain versions of K8a (flash attention forward) and K9 (flash-decode)
+against the JAX Pallas kernels in interpret mode, and the port's plain
+attention functions against the JAX package's, on the same seeded numpy
+inputs.
+
+Tolerance: float32 throughout.  The Pallas kernels sum each row's
+softmax in blocks with online rescaling, the plain versions in one full
+softmax; the two orders agree to a few float32 ulps of the output's scale,
+held at atol 1e-5 / rtol 1e-4 (o, lse and the decode output alike).  The
+Pallas blocks are small here (16 positions) so several of them, and their
+rescaling, run.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attn import flash_decode as j_flash_decode
+from repro.kernels.flash_attn import flash_fwd as j_flash_fwd
+from repro.models import attention as jattn
+from repro_torch.kernels import decode_attn, flash_attn, ops, ref
+from repro_torch.models import attention as tattn
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _qkv(B, Sq, Sk, H, KV, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", [
+    (2, 64, 4, 1, 64, None, True),      # rep 4 (gemma3's), whole blocks
+    (1, 50, 6, 2, 64, 16, True),        # rep 3, window, ragged S
+    (1, 40, 2, 2, 256, None, True),     # rep 1, hd 256, ragged S
+    (1, 33, 4, 1, 256, 8, True),        # rep 4, hd 256, window, ragged S
+    (1, 24, 3, 1, 64, None, False),     # rep 3, bidirectional
+])
+def test_flash_fwd_plain_matches_pallas(B, S, H, KV, hd, window, causal):
+    q, k, v = _qkv(B, S, S, H, KV, hd, seed=S + H + hd)
+    o_j, lse_j = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale=hd ** -0.5, causal=causal, window=window,
+                             q_block=16, kv_block=16, interpret=True)
+    o, lse = flash_attn.flash_fwd(*map(torch.from_numpy, (q, k, v)),
+                                  causal=causal, window=window)
+    assert tuple(lse.shape) == (B, KV, H // KV, S)
+    _close(o, o_j)
+    _close(lse, np.asarray(lse_j)[..., :S])
+    # the oracle in kernels/ref.py is the same plain version
+    o_ref, lse_ref = ref.flash_fwd_ref(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal, window=window)
+    assert torch.equal(o_ref, o) and torch.equal(lse_ref, lse)
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd", [(2, 40, 4, 1, 64),
+                                         (1, 24, 6, 2, 256),
+                                         (3, 48, 3, 3, 64)])
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_flash_decode_plain_matches_pallas(B, L, H, KV, hd, frac):
+    q, k, v = _qkv(B, 1, L, H, KV, hd, seed=L + H)
+    valid = max(1, int(frac * L))
+    want = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          valid, block_l=16, interpret=True)
+    want_ref = jref.decode_attn_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), valid)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for got in (decode_attn.flash_decode(tq, tk, tv, valid),
+                decode_attn.flash_decode(tq, tk, tv, torch.tensor(valid)),
+                ops.gqa_flash_decode(tq, tk, tv, valid),
+                ref.decode_attn_ref(tq, tk, tv, valid)):
+        _close(got, want)
+        _close(got, want_ref)
+
+
+def test_flash_decode_valid_len_defaults_to_the_whole_cache():
+    q, k, v = _qkv(2, 1, 32, 4, 2, 64, seed=5)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert torch.equal(ops.gqa_flash_decode(tq, tk, tv),
+                       ops.gqa_flash_decode(tq, tk, tv, 32))
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,window,causal", [
+    (40, 40, 0, None, True),
+    (40, 40, 0, 12, True),
+    (8, 40, 32, None, True),            # continuation of a prefill
+    (8, 40, 32, 12, True),
+    (20, 30, 0, None, False),           # bidirectional, Sq != Sk
+])
+def test_plain_flash_attention_matches_jax(Sq, Sk, q_offset, window, causal):
+    q, k, v = _qkv(2, Sq, Sk, 6, 2, 16, seed=Sq + Sk)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), window=window, q_block=16,
+                                 kv_block=16, q_offset=q_offset,
+                                 causal=causal)
+    got = tattn.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                window=window, q_offset=q_offset,
+                                causal=causal)
+    _close(got, want)
+    want_ref = jattn.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), window=window,
+                                         q_offset=q_offset, causal=causal)
+    _close(tattn.reference_attention(*map(torch.from_numpy, (q, k, v)),
+                                     window=window, q_offset=q_offset,
+                                     causal=causal), want_ref)
+
+
+@pytest.mark.parametrize("cache_len,window", [(None, None), (21, None),
+                                              (30, 8), (None, 8)])
+def test_plain_decode_attention_matches_jax(cache_len, window):
+    q, k, v = _qkv(2, 1, 30, 4, 2, 16, seed=11)
+    want = jattn.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), cache_len=cache_len,
+                                  window=window)
+    got = tattn.decode_attention(*map(torch.from_numpy, (q, k, v)),
+                                 cache_len=cache_len, window=window)
+    _close(got, want)
+
+
+def test_decode_attention_kernel_hook_is_called():
+    q, k, v = map(torch.from_numpy, _qkv(1, 1, 8, 2, 1, 16, seed=0))
+    seen = []
+
+    def kernel(*args):
+        seen.append(args[3])
+        return torch.zeros_like(q)
+
+    out = tattn.decode_attention(q, k, v, cache_len=5, kernel=kernel)
+    assert seen == [5] and torch.equal(out, torch.zeros_like(q))

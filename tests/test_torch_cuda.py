@@ -1,6 +1,7 @@
 """The CUDA kernels (K1 Gram sum, K2 fusion conv, K3 quant pack, K4 quant
-unpack, K5 top-k select) against their plain PyTorch versions on the
-card, and the wrappers' refusals.
+unpack, K5 top-k select, K6 / K7 EF rows, K8a flash attention forward, K9
+flash-decode) against their plain PyTorch versions on the card, the
+wrappers' refusals, and the engine and the serving path on the card.
 
 Imports torch and the port only (no JAX), so it runs on the GPU machine:
 
@@ -13,7 +14,9 @@ sums K = 2C products per output, held to 1e-5 of the output's scale; the
 gradient is a difference of two sums that cancel in part, held to rtol
 1e-4 with an atol of 1e-6 of its scale.  K3, K4 and K5 are the same IEEE
 float32 operations as their plain versions and are held with
-``torch.equal``.
+``torch.equal``.  K8a and K9 sum each softmax row in another order than
+the plain versions' full softmax (tiles with online rescaling, cache
+slices merged in a second pass): atol 1e-5 / rtol 1e-4.
 """
 import dataclasses
 
@@ -23,10 +26,12 @@ import torch
 from _torch_inputs import WIDTHS, fusion_inputs, rng_pair
 
 from repro_torch.kernels import compress_pack as tcp
+from repro_torch.kernels import decode_attn as tda
+from repro_torch.kernels import flash_attn as tfa
 from repro_torch.kernels import fusion_conv as tfc
 from repro_torch.kernels import mk_mmd as tmk
 from repro_torch.kernels import ops as tops
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -456,3 +461,159 @@ def test_engine_auto_chunk_keeps_only_the_runs_graphs(cuda_device):
                     tree_leaves(ref.global_state)):
         assert torch.equal(a, b), (a - b).abs().max().item()
     assert eng.comm.history == ref.comm.history
+
+
+# --------------------------------------------------------------------------
+# K8a flash attention forward and K9 flash-decode
+# --------------------------------------------------------------------------
+
+def _attn_launches():
+    return tfa.flash_fwd_cuda.launches, tda.flash_decode_cuda.launches
+
+
+def _randn(rng, shape, device):
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+def test_attention_wrappers_refuse_cpu_tensors():
+    q, kv = torch.zeros(1, 8, 4, 64), torch.zeros(1, 8, 1, 64)
+    valid = torch.tensor([3], dtype=torch.int32)
+    before = _attn_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        tda.flash_decode_cuda(q[:, :1], kv, kv, valid)
+    # the CPU path runs the plain versions and launches nothing
+    tfa.flash_fwd(q, kv, kv, window=4)
+    tda.flash_decode(q[:, :1], kv, kv, valid)
+    assert _attn_launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 64, 4, 1, 64, None),
+    (1, 1000, 4, 1, 256, 512),          # gemma3's heads, ragged, window
+    (2, 77, 9, 3, 64, 16),              # smollm's heads (rep 3), ragged
+    (1, 130, 8, 4, 128, None),
+    (1, 50, 2, 2, 256, None),           # rep 1
+])
+def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
+                                        window):
+    rng = np.random.default_rng(S + H)
+    q = _randn(rng, (B, S, H, hd), cuda_device)
+    k = _randn(rng, (B, S, KV, hd), cuda_device)
+    v = _randn(rng, (B, S, KV, hd), cuda_device)
+    before = tfa.flash_fwd_cuda.launches
+    o, lse = tfa.flash_fwd_cuda(q, k, v, window=window)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.launches == before + 1
+    torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-4)
+    assert torch.equal(o, tfa.flash_fwd_cuda(q, k, v, window=window)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,hd,valid", [
+    (4, 1056, 4, 1, 256, 1), (4, 1056, 4, 1, 256, 600),
+    (4, 1056, 4, 1, 256, 1056),         # gemma3's global cache
+    (4, 512, 4, 1, 256, 512),           # gemma3's full local ring
+    (2, 100, 9, 3, 64, 37),             # smollm's heads (rep 3)
+    (1, 40, 8, 8, 128, 40),             # rep 1
+])
+def test_flash_decode_kernel_matches_plain(cuda_device, B, L, H, KV, hd,
+                                           valid):
+    rng = np.random.default_rng(L + valid)
+    q = _randn(rng, (B, 1, H, hd), cuda_device)
+    k = _randn(rng, (B, L, KV, hd), cuda_device)
+    v = _randn(rng, (B, L, KV, hd), cuda_device)
+    vl = torch.tensor([valid], dtype=torch.int32, device=cuda_device)
+    before = tda.flash_decode_cuda.launches
+    got = tda.flash_decode_cuda(q, k, v, vl)
+    want = tda.flash_decode_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tda.flash_decode_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert torch.equal(got, tda.flash_decode_cuda(q, k, v, vl))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_never_take_the_plain_path_on_the_card(
+        cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tfa, "flash_fwd_plain", refuse)
+    monkeypatch.setattr(tda, "flash_decode_plain", refuse)
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 16, 4, 64), cuda_device)
+    kv = _randn(rng, (1, 16, 1, 64), cuda_device)
+    before = _attn_launches()
+    tfa.make_flash_attention(window=8)(q, kv, kv)
+    tops.gqa_flash_decode(q[:, :1], kv, kv, 5)
+    torch.cuda.synchronize()
+    assert _attn_launches() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_bad_inputs(cuda_device):
+    z = torch.zeros
+    kw = dict(device=cuda_device)
+    valid = torch.tensor([1], dtype=torch.int32, **kw)
+    with pytest.raises(ValueError, match="shapes"):       # hd 32
+        tfa.flash_fwd_cuda(z(1, 8, 2, 32, **kw), z(1, 8, 1, 32, **kw),
+                           z(1, 8, 1, 32, **kw))
+    with pytest.raises(ValueError, match="float32"):
+        tfa.flash_fwd_cuda(z(1, 8, 2, 64, dtype=torch.float64, **kw),
+                           z(1, 8, 1, 64, **kw), z(1, 8, 1, 64, **kw))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd_cuda(z(1, 2, 8, 64, **kw).transpose(1, 2),
+                           z(1, 8, 1, 64, **kw), z(1, 8, 1, 64, **kw))
+    flat = z(1 + 8 * 2 * 64, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_fwd_cuda(flat[1:].view(1, 8, 2, 64), z(1, 8, 1, 64, **kw),
+                           z(1, 8, 1, 64, **kw))
+    with pytest.raises(ValueError, match="shapes"):       # rep 16 > 8
+        tda.flash_decode_cuda(z(1, 1, 16, 64, **kw), z(1, 8, 1, 64, **kw),
+                              z(1, 8, 1, 64, **kw), valid)
+    with pytest.raises(ValueError, match="int32"):
+        tda.flash_decode_cuda(z(1, 1, 4, 64, **kw), z(1, 8, 1, 64, **kw),
+                              z(1, 8, 1, 64, **kw), valid.long())
+    q = z(1, 8, 2, 64, requires_grad=True, **kw)
+    o = tfa.make_flash_attention()(q, z(1, 8, 1, 64, **kw),
+                                   z(1, 8, 1, 64, **kw))
+    with pytest.raises(NotImplementedError, match="K8b"):
+        o.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "smollm-135m"])
+def test_serve_runs_on_the_card(cuda_device, arch, capsys):
+    """launch.serve at reduced size, 2 decode steps: K8a once per layer
+    per prefill, K9 once per layer per decode step, and the card's tokens
+    equal the CPU's from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    before = _attn_launches()
+    serve.main(["--arch", arch, "--prompt-len", "80", "--gen-len", "2",
+                "--batch", "2"])
+    assert "decode 2 tokens" in capsys.readouterr().out
+    n_layers = get_config(arch).reduced().n_layers
+    assert _attn_launches() == (before[0] + n_layers,
+                                before[1] + 2 * n_layers)
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="pallas")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+    tokens = serve.make_prompts(cfg, 2, 80, device="cpu")
+    got = {}
+    with torch.no_grad():
+        for dev in ("cpu", cuda_device):
+            p = tree_map(lambda t, dev=dev: t.to(dev), params)
+            last, cache = serve.prefill(cfg, p, tokens.to(dev), 82)
+            toks, logits, _ = serve.greedy_decode(cfg, p, cache, last, 80, 2)
+            got[str(dev)] = (toks.cpu(), logits.cpu())
+    cpu, card = got["cpu"], got[str(cuda_device)]
+    assert torch.equal(cpu[0], card[0])
+    torch.testing.assert_close(card[1], cpu[1], atol=1e-3, rtol=1e-3)

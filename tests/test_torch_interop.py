@@ -13,16 +13,20 @@ import pytest
 import torch
 
 import repro_torch
+from repro.configs import ARCH_CONFIGS as J_ARCHS
 from repro.configs.base import FLConfig as JFL
 from repro.configs.cnn_paper import CNN_CIFAR as J_CIFAR
 from repro.core import init_global_state as j_init_global_state
+from repro.models import transformer as j_tfm
 from repro.models.registry import make_bundle as j_make_bundle
-from repro_torch.configs import CNN_CIFAR, FLConfig
+from repro_torch.configs import CNN_CIFAR, FLConfig, get_config
 from repro_torch.core import init_global_state
 from repro_torch.data import FederatedDataset, class_images, iid_partition
 from repro_torch.fl.server import run_federated_reference
 from repro_torch.interop import state_from_numpy, state_to_numpy
+from repro_torch.launch import serve
 from repro_torch.models import make_bundle
+from repro_torch.models import transformer as tfm
 
 SRC = os.path.dirname(os.path.dirname(repro_torch.__file__))
 
@@ -47,6 +51,32 @@ def test_state_round_trips(algorithm, op):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("which", ["params", "cache"])
+def test_transformer_trees_round_trip(which):
+    """gemma3-1b reduced: a 2-kind cycle (local, global); the JAX tree
+    crosses exactly, tuples stay tuples, and its structure, shapes and
+    dtypes are those of the port's own init_params / init_cache."""
+    jcfg = J_ARCHS["gemma3-1b"].reduced()
+    cfg = get_config("gemma3-1b").reduced()
+    if which == "params":
+        jtree = j_tfm.init_params(jcfg, jax.random.PRNGKey(0))
+        own = tfm.init_params(cfg, torch.Generator(), device="cpu")
+    else:
+        jtree = j_tfm.init_cache(jcfg, 2, 70)
+        own = tfm.init_cache(cfg, 2, 70, device="cpu")
+    jtree = jax.tree.map(np.asarray, jtree)
+    port = state_from_numpy(jtree)
+    assert isinstance(port["cycles"], tuple) and len(port["cycles"]) == 2
+    assert jax.tree.structure(port) == jax.tree.structure(own)
+    for a, b in zip(jax.tree.leaves(port), jax.tree.leaves(own)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    back = state_to_numpy(port)
+    assert jax.tree.structure(back) == jax.tree.structure(jtree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jtree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
 def test_port_native_state_round_trips():
     bundle = make_bundle(CNN_CIFAR)
     fl = FLConfig(algorithm="fedfusion", fusion_op="conv")
@@ -62,6 +92,9 @@ def test_package_imports_no_jax_and_no_repro():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.kernels.mk_mmd" in modules
+    assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attn",
+            "repro_torch.kernels.decode_attn"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -98,3 +131,12 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         run_federated_reference(bundle, FLConfig(clients_per_round=2), data,
                                 rounds=1)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.make_prompts(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "smollm-135m"])

@@ -14,7 +14,9 @@ is non-zero):
    least time the card could take for the same work (K6 / K7: exact, K7
    in place, the scratch-row duplicates; K8a flash attention forward and
    K9 flash-decode at gemma3-1b's and smollm-135m's serve shapes, against
-   ``scaled_dot_product_attention`` as the yardstick);
+   ``scaled_dot_product_attention`` as the yardstick; K8b / K8c, the flash
+   backward, at smollm-135m's and gemma3-1b's training shapes and a ragged
+   one, against that function's backward, and bitwise repeatable);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -36,19 +38,32 @@ is non-zero):
    prefill and K9 once per attention layer per decode step; the last
    decode step's logits must match ``forward_seq`` over the same 1,056
    tokens (full depth, so gemma3-1b's ring caches have rolled);
+4c. train: federated LM training at full width and full depth through
+   ``repro_torch.launch.train`` (``attn_impl="pallas"``, random weights
+   from seed 0): smollm-135m at sequence length 1,024, global batch 8, 3
+   rounds each of FedAvg, FedMMD and FedFusion-conv; gemma3-1b at 1,024 and
+   batch 4, 2 rounds of FedAvg; then ``run_federated_reference`` with the
+   smollm-135m bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
+   local steps of 4 sequences of 512, eval on 8 test sequences): ms per
+   local step, tokens/s, peak memory, each round's loss, and K1 / K2 / K8a /
+   K8b / K8c launches, which must equal the path's formula;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
    device time; then the last (steady) chunk of two engine runs; and one
-   gemma3-1b prefill and one decode step (taken during phase 4b);
+   gemma3-1b prefill and one decode step (taken during phase 4b); and one
+   smollm-135m FedFusion-conv local step (after phase 4c);
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
    loop on the card (cuDNN deterministic, 40 rounds), which must be equal;
    then serving: gemma3-1b at full width cut to 6 layers, a 576-token
    prompt and 4 greedy steps, the same weights on the card and the CPU;
+   then LM training: smollm-135m at full width cut to 2 layers,
+   FedFusion-conv through the ``launch.train`` loop, 2 rounds, batch 2,
+   sequence length 256, from the same state on the card and the CPU;
 7. the kernel table, after a line naming the TPU kernels still to port
-   (K8b, K8c: the flash backward).
+   (none).
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -81,7 +96,8 @@ FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
                "fusion_conv_kernel", "quant_pack_i", "quant_unpack_i",
                "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel",
-               "flash_fwd_kernel", "decode_split_kernel",
+               "flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel", "decode_split_kernel",
                "decode_combine_kernel")
 ENGINE_CHUNK = 8            # superstep_rounds of the engine runs
 # rounds of each engine run (phases 4 and 6): five chunks, so the steady
@@ -655,6 +671,327 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
     return rows
 
 
+def flash_bwd_work(B, S, H, KV, hd, window):
+    """Bytes and float32 operations of one K8b call (q, do, k, v, lse, D
+    in; dq out; three products of hd per visible pair and query head: s,
+    dp and dq) and of one K8c call (the same inputs; dk, dv out; four
+    products: s, dp, dv and dk), by kernel name."""
+    pairs = B * H * visible_pairs(S, window)
+    q_el, kv_el, row_el = B * S * H * hd, B * S * KV * hd, B * H * S
+    return {"flash_bwd_dq": (4 * (3 * q_el + 2 * kv_el + 2 * row_el),
+                             6 * hd * pairs),
+            "flash_bwd_dkv": (4 * (2 * q_el + 4 * kv_el + 2 * row_el),
+                              8 * hd * pairs)}
+
+
+# K8b / K8c cases of phase 3: phase 4c's training shapes (smollm-135m at
+# batch 8, gemma3-1b's global and local layers at batch 4, S = 1,024) and a
+# ragged length at hd 128
+FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
+                   ("gemma3-1b global", 4, 1024, 4, 1, 256, None),
+                   ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
+                   ("ragged", 4, 1000, 8, 2, 128, None)]
+# dq sums over up to S keys and dk / dv over up to S * rep rows, in another
+# order than the plain version's full products: a few 1e-7 of each
+# gradient's largest element.  1e-4 of it bounds that with room (target
+# 1e-5); a wrong mask, tile or row map moves the gradients by O(1e-2).
+BWD_TOL = 1e-4
+
+
+def check_flash_bwd_kernels(torch, flash_attn):
+    """Phase 3 for K8b / K8c: each against the plain backward on the card
+    (error relative to each gradient's largest element), run twice on the
+    same inputs (bitwise equal), with its time, the plain backward's (all
+    three gradients), ``scaled_dot_product_attention``'s backward alone in
+    float32 over the same visible pairs (all three gradients), and its
+    bound.  Returns the table rows."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    rows, err = {}, dict.fromkeys(names, 0.0)
+    for case, B, S, H, KV, hd, window in FLASH_BWD_CASES:
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        do = randn(B, S, H, hd)
+        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        dcap = flash_attn.flash_dcap(do, o, KV)
+        kw = dict(window=window)
+
+        def dq_call():
+            return flash_attn.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw)
+
+        def dkv_call():
+            return flash_attn.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw)
+
+        def plain_call():
+            return flash_attn.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+
+        got = (dq_call(), *dkv_call())
+        again = (dq_call(), *dkv_call())
+        want = plain_call()
+        torch.cuda.synchronize()
+        scale = [b.abs().max().item() for b in want]
+        abs_err = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        rel = [e / m for e, m in zip(abs_err, scale)]
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(t).all()) for t in got + want)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], rel[0])
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], rel[1], rel[2])
+        line = dict(kernel="flash_bwd_dq+flash_bwd_dkv", case=case,
+                    shape=[B, S, H, KV, hd], window=window,
+                    rel_err=dict(zip(("dq", "dk", "dv"), rel)),
+                    abs_err=dict(zip(("dq", "dk", "dv"), abs_err)),
+                    max_abs=dict(zip(("dq", "dk", "dv"), scale)),
+                    tol=BWD_TOL, bitwise_repeat=repeat, finite=finite)
+        del got, again, want
+        if S == 1024:
+            work = flash_bwd_work(B, S, H, KV, hd, window)
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            mask = None
+            if window is not None:
+                pos = torch.arange(S, device=dev)
+                mask = ((pos[None, :] <= pos[:, None])
+                        & ((pos[:, None] - pos[None, :]) < window))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            timing = dict(
+                plain_ms=time_ms(torch, plain_call, launches=3, repeats=5),
+                library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), launches=5,
+                    repeats=7))
+            for name, call in zip(names, (dq_call, dkv_call)):
+                ms = time_ms(torch, call, launches=10, repeats=9)
+                bound_ms, bound_by = bound(*work[name])
+                timing[name] = dict(
+                    kernel_ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                    gflop_per_s=work[name][1] / ms / 1e6)
+                if case == "smollm-135m":
+                    rows[name] = dict(
+                        name=name, route="cuda",
+                        source="src/repro_torch/csrc/flash_attn_bwd.cu",
+                        replaces="src/repro/kernels/flash_attn.py:"
+                        + ("302" if name == "flash_bwd_dq" else "322"),
+                        ms=ms, plain_ms=timing["plain_ms"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=timing["library_ms"])
+            line.update(timing)
+            del out, qt, kt, vt
+        emit("kernels", **line)
+        if not (max(rel) <= BWD_TOL and repeat and finite):
+            raise AssertionError(f"flash backward kernels disagree: {case}")
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    return rows
+
+
+# phase 4c: model, algorithm, sequence length, global batch, rounds
+TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3),
+              ("smollm-135m", "fedmmd", 1024, 8, 3),
+              ("smollm-135m", "fedfusion", 1024, 8, 3),
+              ("gemma3-1b", "fedavg", 1024, 4, 2)]
+TRAIN_LR = 0.05             # launch.train's default
+
+
+def lm_launches(cfg, algorithm, steps, evals=0):
+    """Kernel launches of ``steps`` local steps and ``evals`` evaluations of
+    an LM bundle: K8a once per attention layer per forward (the local
+    stream, the frozen global stream of FedMMD and FedFusion, each eval),
+    K8b and K8c once per attention layer per backward, K1 three times a
+    FedMMD step (xx, yy, xy), K2 once a FedFusion-conv step and eval (its
+    backward is plain products)."""
+    L = sum(k.startswith("attn") for k in cfg.block_pattern)
+    two_stream = algorithm in ("fedmmd", "fedfusion")
+    return {"gram_sum": 3 * steps * (algorithm == "fedmmd"),
+            "fusion_conv": (steps + evals) * (algorithm == "fedfusion"),
+            "flash_fwd": L * (steps * (1 + two_stream) + evals),
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
+
+
+def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
+               fl_plan, tree_leaves):
+    """Phase 4c's ``launch.train`` runs; returns their summed launches."""
+    import dataclasses
+    total = dict.fromkeys(counters, 0)
+    for name, algorithm, S, B, rounds in TRAIN_RUNS:
+        cfg = dataclasses.replace(get_config(name), attn_impl="pallas")
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
+                      lr=TRAIN_LR)
+        shape = InputShape("custom_train", S, B, "train")
+        plan = fl_plan(cfg, shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        for counter in counters.values():
+            counter.launches = 0
+        t0 = time.perf_counter()
+        state, records = train.train_rounds(cfg, fl, shape, rounds=rounds,
+                                            device="cuda", log=None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = {k: c.launches for k, c in counters.items()}
+        steps_per_round = plan.n_clients * plan.local_steps
+        want = lm_launches(cfg, algorithm, rounds * steps_per_round)
+        steady = [r["ms"] for r in records[1:]]
+        step_ms = [ms / steps_per_round for ms in steady]
+        tokens = steps_per_round * plan.client_batch * S
+        losses = [r["loss"] for r in records]
+        checks = dict(launches=got == want,
+                      finite=all(math.isfinite(x) for x in losses))
+        emit("train", model=name, algorithm=algorithm, fusion_op="conv",
+             attn_impl=cfg.attn_impl,
+             params=sum(t.numel() for t in tree_leaves(state["model"])),
+             layers=cfg.n_layers, seq_len=S, global_batch=B,
+             clients=plan.n_clients, local_steps=plan.local_steps,
+             client_batch=plan.client_batch, rounds=rounds, wall_s=wall,
+             round_ms=[r["ms"] for r in records],
+             ms_per_local_step=dict(median=statistics.median(step_ms),
+                                    min=min(step_ms), max=max(step_ms),
+                                    rounds=f"2-{rounds}"),
+             tokens_per_s=tokens / statistics.median(steady) * 1e3,
+             allocated_at_start_bytes=start, peak_memory_bytes=peak,
+             peak_above_start_bytes=peak - start, losses=losses,
+             launches=got, expected=want, checks=checks)
+        del state
+        if not all(checks.values()):
+            raise AssertionError(f"train {name}/{algorithm}: {checks}")
+        for k in total:
+            total[k] += got[k]
+    return total
+
+
+def train_reference(torch, counters, get_config, FLConfig, make_bundle,
+                    init_global_state, run_federated_reference,
+                    FederatedDataset, token_stream, source_partition):
+    """Phase 4c's ``run_federated_reference`` run with the smollm-135m
+    bundle; returns its launches.  Eval runs on 8 test sequences (its
+    default 2,048 would make [2,048, 512, 49,152] logits)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
+                  clients_per_round=4, local_steps=2, local_batch=4,
+                  lr=TRAIN_LR)
+    S, rounds, n_test = 512, 2, 8
+    toks, src = token_stream(128, S, vocab=cfg.vocab_size, n_sources=8)
+    test, _ = token_stream(n_test, S, vocab=cfg.vocab_size, n_sources=8,
+                           seed=1)
+    data = FederatedDataset(source_partition(toks, src, 8),
+                            {"tokens": test}, seed=0)
+    state = init_global_state(bundle, fl, torch.Generator(device="cuda")
+                              .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for counter in counters.values():
+        counter.launches = 0
+    stamps = [time.perf_counter()]
+    res = run_federated_reference(
+        bundle, fl, data, rounds=rounds, eval_examples=n_test,
+        global_state=state, device="cuda",
+        callback=lambda r, s_, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: c.launches for k, c in counters.items()}
+    steps = rounds * fl.clients_per_round * fl.local_steps
+    want = lm_launches(cfg, "fedfusion", steps, evals=rounds)
+    hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
+            for h in res.comm.history]
+    checks = dict(launches=got == want, finite=all(
+        math.isfinite(h["local_loss"]) and math.isfinite(h["loss"])
+        for h in hist))
+    round_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    emit("train_reference", model=cfg.name, algorithm="fedfusion",
+         fusion_op="conv", clients=8, clients_per_round=4, local_steps=2,
+         local_batch=4, seq_len=S, rounds=rounds, eval_sequences=n_test,
+         round_s=round_s,
+         # round 2's time (its aggregation and eval included) per step
+         ms_per_local_step=1e3 * round_s[-1]
+         / (fl.clients_per_round * fl.local_steps),
+         tokens_per_s=fl.clients_per_round * fl.local_steps * 4 * S
+         / round_s[-1], peak_above_start_bytes=peak - start,
+         bytes_up=res.comm.bytes_up, history=hist, launches=got,
+         expected=want, checks=checks)
+    del res, state
+    if not all(checks.values()):
+        raise AssertionError(f"train reference: {checks}")
+    return got
+
+
+def trace_local_step(torch, get_config, FLConfig, make_bundle,
+                     init_global_state, make_local_trainer, make_algorithm,
+                     token_stream):
+    """Phase 5 for LM training: one smollm-135m FedFusion-conv local step
+    (batch 8, S = 1,024) under ``torch.profiler``, after one untraced."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv", local_steps=1,
+                  lr=TRAIN_LR)
+    state = init_global_state(bundle, fl, torch.Generator(device="cuda")
+                              .manual_seed(0), device="cuda")
+    toks = torch.from_numpy(token_stream(8, 1024, vocab=cfg.vocab_size,
+                                         n_sources=1)[0]).long().cuda()
+    batch = {"tokens": toks[None, :, :-1], "labels": toks[None, :, 1:]}
+    gx = make_algorithm("fedfusion").extra_from_state(state)
+    trainer = make_local_trainer(bundle, fl)
+    trainer(state["model"], gx, batch, TRAIN_LR)
+    _, summary = trace_call(torch, lambda: trainer(state["model"], gx, batch,
+                                                   TRAIN_LR))
+    emit("trace_train", model=cfg.name, algorithm="fedfusion",
+         fusion_op="conv", batch=8, seq_len=1024, **summary)
+
+
+def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                      make_bundle, init_global_state, tree_leaves):
+    """Phase 6 for LM training: smollm-135m at full width cut to 2 layers,
+    FedFusion-conv through ``launch.train``'s loop, 2 rounds of 2 local
+    steps at batch 2 and S = 256, from the same state on the card (K8a,
+    K8b, K8c, K2) and on the CPU (plain versions).  The final parameters
+    must agree within 1% of the change training made (largest element and
+    L2 norm), as the FL runs above."""
+    import dataclasses
+    base = get_config("smollm-135m")
+    cfg = dataclasses.replace(base, n_layers=2,
+                              block_pattern=base.block_pattern[:2],
+                              attn_impl="pallas")
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv", local_steps=2,
+                  lr=TRAIN_LR)
+    shape = InputShape("custom_train", 256, 2, "train")
+    s0 = init_global_state(make_bundle(cfg), fl,
+                           torch.Generator(device="cuda").manual_seed(7),
+                           device="cpu")
+    finals, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        state, records = train.train_rounds(cfg, fl, shape, rounds=2,
+                                            device=dev, global_state=s0,
+                                            log=None)
+        finals[dev] = torch.cat([t.cpu().flatten()
+                                 for t in tree_leaves(state)])
+        losses[dev] = [r["loss"] for r in records]
+    start = torch.cat([t.flatten() for t in tree_leaves(s0)])
+    diff = finals["cuda"] - finals["cpu"]
+    change = finals["cpu"] - start
+    ratio_max = diff.abs().max().item() / change.abs().max().item()
+    ratio_l2 = (diff.norm() / change.norm()).item()
+    ok = ratio_max <= 0.01 and ratio_l2 <= 0.01
+    emit("card_vs_cpu_train", model=cfg.name, layers=2, algorithm="fedfusion",
+         fusion_op="conv", rounds=2, batch=2, seq_len=256,
+         max_abs_diff=diff.abs().max().item(),
+         max_change=change.abs().max().item(), ratio_max=ratio_max,
+         ratio_l2=ratio_l2, limit=0.01, losses=losses, ok=ok)
+    if not ok:
+        raise AssertionError(f"LM training: card and CPU disagree (ratios "
+                             f"{ratio_max}, {ratio_l2})")
+
+
 def trace_round(torch, run_federated_reference, bundle, fl, data,
                 device="cuda"):
     """One round traced with ``torch.profiler`` after one untraced round:
@@ -699,11 +1036,33 @@ def profile_summary(torch, prof, wall):
              "us_per_launch": us / c}
             for n, (c, us) in sorted(by_name.items())
             if any(k in n for k in OUR_KERNELS)]
+    by_kind = {}
+    for n, (c, us) in by_name.items():
+        kind = kernel_kind(n)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     return dict(wall_ms=1e3 * wall, device_ops=len(spans),
                 device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / 1e6 / wall,
                 top=[{"name": n[:80], "count": c, "ms": us / 1e3}
-                     for n, (c, us) in top], ours=ours)
+                     for n, (c, us) in top], ours=ours, ms_by_kind=by_kind)
+
+
+def kernel_kind(name):
+    """A device activity's kind, for the traces' time by kind: the
+    repository's kernels, matrix products (cuBLAS / CUTLASS), elementwise
+    passes, reductions (softmax and norms included), copies, the rest."""
+    low = name.lower()
+    if any(k in name for k in OUR_KERNELS):
+        return "repo_kernels"
+    if "gemm" in low or "cutlass" in low:
+        return "gemm"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low or "softmax" in low or "norm" in low:
+        return "reduce"
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copy"
+    return "other"
 
 
 def trace_call(torch, fn):
@@ -942,16 +1301,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.compress import QuantCodec
-    from repro_torch.configs import CNN_MNIST, FLConfig
-    from repro_torch.core import init_global_state
+    from repro_torch.configs import CNN_MNIST, FLConfig, InputShape
+    from repro_torch.core import init_global_state, make_local_trainer
     from repro_torch.data import (FederatedDataset,
-                                  artificial_noniid_partition, class_images)
+                                  artificial_noniid_partition, class_images,
+                                  source_partition, token_stream)
+    from repro_torch.fl.api import make_algorithm
     from repro_torch.engine import chunk_schedule
     from repro_torch.fl.server import run_federated, run_federated_reference
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, compress_pack, decode_attn,
                                      flash_attn, fusion_conv, mk_mmd)
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.specs import fl_plan
     from repro_torch.models import make_bundle
     from repro_torch.models import transformer as tfm
     from repro_torch.tree import tree_leaves, tree_map
@@ -985,6 +1347,7 @@ def main():
     rows.update(check_codec_kernels(torch, compress_pack, QuantCodec))
     rows.update(check_ef_kernels(torch, compress_pack))
     rows.update(check_attention_kernels(torch, flash_attn, decode_attn))
+    rows.update(check_flash_bwd_kernels(torch, flash_attn))
 
     # 4. main path --------------------------------------------------------
     bundle = make_bundle(CNN_MNIST)
@@ -1226,6 +1589,22 @@ def main():
         del params
         torch.cuda.empty_cache()
 
+    # 4c. train: the LM training path at full width ---------------------
+    lm_counters = {"gram_sum": mk_mmd.gram_sum_cuda,
+                   "fusion_conv": fusion_conv.fusion_conv_cuda,
+                   "flash_fwd": flash_attn.flash_fwd_cuda,
+                   "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,
+                   "flash_bwd_dkv": flash_attn.flash_bwd_dkv_cuda}
+    train_launches = train_runs(torch, train, lm_counters, get_config,
+                                FLConfig, InputShape, fl_plan, tree_leaves)
+    ref_launches = train_reference(
+        torch, lm_counters, get_config, FLConfig, make_bundle,
+        init_global_state, run_federated_reference, FederatedDataset,
+        token_stream, source_partition)
+    for k, n in ref_launches.items():
+        train_launches[k] += n
+    torch.cuda.empty_cache()
+
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
     # chunk of two engine runs ---------------------------------------------
@@ -1253,6 +1632,11 @@ def main():
              rounds=2 * ENGINE_CHUNK,
              **trace_engine(torch, run_federated, bundle, fl, data,
                             2 * ENGINE_CHUNK, "device"))
+
+    trace_local_step(torch, get_config, FLConfig, make_bundle,
+                     init_global_state, make_local_trainer, make_algorithm,
+                     token_stream)
+    torch.cuda.empty_cache()
 
     # 6. card vs CPU ------------------------------------------------------
     # Same initial state and data; 2 rounds x 10 clients x 4 SGD steps.
@@ -1396,16 +1780,18 @@ def main():
         raise AssertionError("the host EF store differs from the dense one")
 
     serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map)
+    train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                      make_bundle, init_global_state, tree_leaves)
 
-    # 7. kernel table -----------------------------------------------------
-    emit("kernels_to_port", kernels=[
-        {"name": "flash_bwd_dq", "replaces":
-         "src/repro/kernels/flash_attn.py:302", "slice": "LM training"},
-        {"name": "flash_bwd_dkv", "replaces":
-         "src/repro/kernels/flash_attn.py:322", "slice": "LM training"}])
+    # 7. kernel table: launches summed over the main paths' measured runs
+    # (the CNN FL runs of phase 4, serving, LM training) --------------------
+    emit("kernels_to_port", kernels=[])
     launches.update(serve_launches)
-    table = [dict(rows[k], launches=launches[k])
-             for k in (*counters, *serve_launches)]
+    for k, n in train_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    order = (*counters, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "flash_decode")
+    table = [dict(rows[k], launches=launches[k]) for k in order]
     table = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                 "launches", "max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")}

@@ -123,6 +123,29 @@ class FLConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """One of the assigned (seq_len, global_batch) evaluation shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    def __post_init__(self):
+        if self.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"{self.name}: kind {self.kind!r} must be "
+                             "'train', 'prefill' or 'decode'")
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """A transformer-family architecture from the assigned pool."""
 

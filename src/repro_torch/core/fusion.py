@@ -23,17 +23,19 @@ FUSION_OPS = ("conv", "multi", "single")
 
 def fusion_init(op: str, channels: int, generator: torch.Generator,
                 dtype=torch.float32):
-    """Fusion params on the CPU."""
+    """Fusion params on the generator's device."""
     if op == "conv":
         # initialise at "average the two streams": W = 0.5 * [I; I]
-        eye = torch.eye(channels, dtype=dtype)
+        eye = torch.eye(channels, dtype=dtype, device=generator.device)
         w = torch.cat([0.5 * eye, 0.5 * eye], dim=0)
         noise = dense_init(generator, (2 * channels, channels), dtype) * 0.01
         return {"w": w + noise}
     if op == "multi":
-        return {"lam": torch.full((channels,), 0.5, dtype=dtype)}
+        return {"lam": torch.full((channels,), 0.5, dtype=dtype,
+                                  device=generator.device)}
     if op == "single":
-        return {"lam": torch.full((), 0.5, dtype=dtype)}
+        return {"lam": torch.full((), 0.5, dtype=dtype,
+                                  device=generator.device)}
     raise ValueError(op)
 
 

@@ -176,8 +176,9 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
 def init_global_state(bundle: ModelBundle, fl: FLConfig,
                       generator: torch.Generator, device=None):
     """Server line 1: the global model (+ the algorithm's extra state),
-    drawn on the CPU from ``generator`` and moved to ``device`` (the card
-    unless another device is named)."""
+    drawn from ``generator`` on its own device (a CUDA generator draws on
+    the card) and placed on ``device`` (the card unless another device is
+    named)."""
     device = resolve_device(device)
     algo = _algorithm(fl)
     state: Dict[str, Any] = {"model": bundle.init(generator)}

@@ -1,11 +1,13 @@
-"""Synthetic images, client partitions and the federated loader (numpy
-copies of ``repro.data`` with the same rng streams)."""
+"""Synthetic images and token streams, client partitions and the
+federated loader (numpy copies of ``repro.data`` with the same rng
+streams)."""
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.data.partition import (artificial_noniid_partition,
                                         class_split_partition, iid_partition,
-                                        permuted_partition)
-from repro_torch.data.synth import class_images
+                                        permuted_partition,
+                                        source_partition)
+from repro_torch.data.synth import class_images, token_stream
 
 __all__ = ["FederatedDataset", "artificial_noniid_partition",
            "class_split_partition", "iid_partition", "permuted_partition",
-           "class_images"]
+           "source_partition", "class_images", "token_stream"]

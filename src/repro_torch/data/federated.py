@@ -1,8 +1,10 @@
-"""Federated image-data loader (copy of ``repro/data/federated.py``
-without the chaos layer, ``TemplateClients`` and token data): samples
-clients per round and builds the stacked round batch the round fn
-consumes ([n_clients, local_steps, B, ...]), or K rounds of them at once
-for the engine (``round_chunk``).
+"""Federated data loader for images and tokens (copy of
+``repro/data/federated.py`` without the chaos layer and
+``TemplateClients``): samples clients per round and builds the stacked
+round batch the round fn consumes ([n_clients, local_steps, B, ...]), or K
+rounds of them at once for the engine (``round_chunk``).  Token clients
+hold ``{"tokens": [n, S+1]}``; their batches carry ``tokens`` and
+``labels`` [.., S], the next tokens.
 
 The numpy rng stream is draw-for-draw the JAX package's, so for one seed
 both packages sample the same cohorts and the same batches.
@@ -37,7 +39,8 @@ class FederatedDataset:
     def client_sizes(self) -> np.ndarray:
         """Per-client example counts [N], computed once and cached."""
         if self._sizes is None:
-            self._sizes = np.array([len(c["x"]) for c in self.clients],
+            key = _key(self.clients[0])
+            self._sizes = np.array([len(c[key]) for c in self.clients],
                                    np.float32)
         return self._sizes
 
@@ -68,7 +71,7 @@ class FederatedDataset:
         return cids
 
     def _draw(self, client: Dict[str, np.ndarray], n: int) -> Dict[str, np.ndarray]:
-        size = len(client["x"])
+        size = len(client[_key(client)])
         idx = self._rng.choice(size, size=n, replace=size < n)
         return {k: v[idx] for k, v in client.items() if k != "perm"}
 
@@ -86,7 +89,7 @@ class FederatedDataset:
         stacked = {k: np.stack([pc[k] for pc in per_client])
                    for k in per_client[0]}
         sizes = self.client_sizes()[np.asarray(client_ids)]
-        return stacked, sizes
+        return _to_batch(stacked), sizes
 
     def round_chunk(self, n_rounds: int, clients_per_round: int,
                     local_steps: int, batch: int, *, pool=None):
@@ -128,15 +131,31 @@ class FederatedDataset:
         ``n_rounds`` rounds make (``sample_clients`` + ``round_batch``, same
         order) without materializing batches."""
         self._rng = np.random.default_rng(self._seed)
+        key = _key(self.clients[0])
         for _ in range(n_rounds):
             cids = self.sample_clients(clients_per_round)
             for cid in cids:
-                size = len(self.clients[cid]["x"])
+                size = len(self.clients[cid][key])
                 for _ in range(local_steps):
                     self._rng.choice(size, size=batch, replace=size < batch)
 
     def test_batch(self, n: Optional[int] = None) -> Dict[str, np.ndarray]:
         if n is None:
-            return dict(self.test)
-        idx = self._rng.choice(len(self.test["x"]), size=n, replace=False)
-        return {k: v[idx] for k, v in self.test.items()}
+            return _to_batch(dict(self.test))
+        idx = self._rng.choice(len(self.test[_key(self.test)]), size=n,
+                               replace=False)
+        return _to_batch({k: v[idx] for k, v in self.test.items()})
+
+
+def _key(d: Dict[str, np.ndarray]) -> str:
+    """The array that counts examples: images or token sequences."""
+    return "x" if "x" in d else "tokens"
+
+
+def _to_batch(d: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Map raw arrays to model-batch keys (tokens -> tokens+labels)."""
+    if "tokens" in d:
+        toks = d.pop("tokens")
+        d["tokens"] = toks[..., :-1]
+        d["labels"] = toks[..., 1:]
+    return d

@@ -1,5 +1,6 @@
-"""The paper's client-partition schemes for images (§4.1), copied from
-``repro/data/partition.py`` with the same numpy rng streams."""
+"""The paper's client-partition schemes for images (§4.1), and the
+by-source split of token data, copied from ``repro/data/partition.py``
+with the same numpy rng streams."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -57,4 +58,21 @@ def permuted_partition(x, y, n_clients, *, seed=0
         xf = part["x"].reshape(len(part["x"]), -1)[:, perm]
         out.append({"x": xf.reshape(part["x"].shape), "y": part["y"],
                     "perm": perm})
+    return out
+
+
+def source_partition(tokens, src, n_clients, *, sources_per_client=1,
+                     seed=0) -> List[Dict[str, np.ndarray]]:
+    """Non-IID LM partition: each client gets sequences from a subset of
+    sources (analogue of the class-shard split for token data)."""
+    rng = np.random.default_rng(seed)
+    n_sources = int(src.max()) + 1
+    src_ids = rng.permutation(n_sources)
+    out = []
+    for c in range(n_clients):
+        take = src_ids[(c * sources_per_client) % n_sources:
+                       (c * sources_per_client) % n_sources
+                       + sources_per_client]
+        idx = np.isin(src, take)
+        out.append({"tokens": tokens[idx]})
     return out

@@ -1,8 +1,11 @@
-"""Synthetic image data (copy of ``repro/data/synth.py:class_images``).
+"""Synthetic data (copy of ``repro/data/synth.py``: ``class_images`` and
+``token_stream``).
 
-K Gaussian-blob class templates plus pixel noise, shaped like MNIST
-(28x28x1) or CIFAR (32x32x3).  The numpy rng stream is draw-for-draw the
-JAX package's, so both packages see the same images for one seed.
+Images: K Gaussian-blob class templates plus pixel noise, shaped like
+MNIST (28x28x1) or CIFAR (32x32x3).  Tokens: per-source skewed unigram
+streams with a learnable bigram twist.  The numpy rng streams are
+draw-for-draw the JAX package's, so both packages see the same data for
+one seed.
 """
 from __future__ import annotations
 
@@ -46,3 +49,28 @@ def class_images(n_per_class, *, n_classes=10, shape=(28, 28, 1), seed=0,
     y = np.concatenate(ys)
     perm = rng.permutation(len(x))
     return x[perm].astype(np.float32), y[perm]
+
+
+def token_stream(n_seqs, seq_len, *, vocab, n_sources=10, seed=0, alpha=0.3):
+    """Returns tokens [N, seq_len+1] int32, source [N] int32.
+
+    Each source s has a Dirichlet-skewed unigram distribution over a
+    source-specific vocab slice, plus a shared bigram "grammar" so there's
+    real next-token signal to learn.
+    """
+    rng = np.random.default_rng(seed)
+    vocab_eff = min(vocab, 4096)  # keep the generator cheap; ids < vocab
+    probs = rng.dirichlet(np.full(vocab_eff, alpha), size=n_sources)
+    shift = rng.integers(1, vocab_eff, size=n_sources)
+
+    toks = np.zeros((n_seqs, seq_len + 1), np.int64)
+    src = rng.integers(0, n_sources, size=n_seqs)
+    for i in range(n_seqs):
+        s = src[i]
+        draws = rng.choice(vocab_eff, size=seq_len + 1, p=probs[s])
+        # deterministic bigram twist: every even position continues the
+        # previous token's "phrase" (strong learnable structure)
+        for t in range(1, seq_len + 1, 2):
+            draws[t] = (draws[t - 1] + shift[s]) % vocab_eff
+        toks[i] = draws
+    return toks.astype(np.int32), src.astype(np.int32)

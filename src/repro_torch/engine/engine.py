@@ -331,12 +331,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     valid until it returns.
 
     ``mesh``, ``telemetry``, ``runlog``, ``halt_on_nonfinite``,
-    ``profile_dir``, partial participation and adaptive controllers are
-    not ported and raise ``NotImplementedError``.
+    ``profile_dir``, partial participation, adaptive controllers and LM
+    bundles are not ported and raise ``NotImplementedError``.
     """
     from repro_torch.fl.comm import CommLog
     from repro_torch.fl.server import make_noise_source
 
+    if bundle.loss_kind == "lm":
+        raise NotImplementedError(
+            f"{bundle.name}: the engine does not run LM bundles yet (ROADMAP "
+            "Queue 1, slice 6: the engine for LM bundles); train through "
+            "repro_torch.fl.server.run_federated_reference or "
+            "repro_torch.launch.train")
     _refuse_unported(fl, mesh=mesh, telemetry=telemetry, runlog=runlog,
                      halt_on_nonfinite=halt_on_nonfinite,
                      profile_dir=profile_dir)

@@ -20,7 +20,9 @@ from repro_torch.core.losses import masked_accuracy, masked_cross_entropy
 def make_eval_fn(bundle, fl):
     """``eval_metrics(global_state, batch, mask) -> {acc, loss}`` (0-d
     tensors).  Deployment-time logits come from the plugin's
-    ``deploy_logits`` hook."""
+    ``deploy_logits`` hook.  For an LM bundle the labels are [B, S] next
+    tokens: next-token accuracy and CE over every position of the valid
+    sequences."""
     from repro_torch.fl.api import make_algorithm
     algo = make_algorithm(fl.algorithm)
 
@@ -39,8 +41,10 @@ def pad_eval_batch(batch, max_examples: int = 2048, device="cpu"
                    ) -> Tuple[Dict, torch.Tensor]:
     """Truncate to ``max_examples``, zero-pad to a power-of-two bucket
     (capped at ``max_examples``).  Returns (padded batch on ``device``,
-    [bucket] bool mask).  An empty batch raises ``ValueError``."""
-    n = min(len(batch["x"]), max_examples)
+    [bucket] bool mask).  Image batches count ``x``, token batches
+    ``tokens``.  An empty batch raises ``ValueError``."""
+    key = "x" if "x" in batch else "tokens"
+    n = min(len(batch[key]), max_examples)
     if n == 0:
         raise ValueError(
             "pad_eval_batch: the evaluation batch has 0 examples — masked "

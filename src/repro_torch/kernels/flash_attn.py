@@ -8,11 +8,16 @@ Causal and sliding-window masks come from position arithmetic.  Tensors on
 the card run the CUDA kernel ``csrc/flash_attn.cu``; tensors on the CPU run
 :func:`flash_fwd_plain`, a masked full softmax in float32.
 
+``flash_bwd(q, k, v, o, lse, do)`` returns ``(dq, dk, dv)``: tensors on
+the card run K8b (``dq``) and K8c (``dk``, ``dv``) of
+``csrc/flash_attn_bwd.cu`` after ``D = rowsum(do * o)`` in float32 (laid
+out like lse, computed outside the kernels as the JAX package does);
+tensors on the CPU run :func:`flash_bwd_plain`, the same formulas over
+the full masked matrices in float32.
+
 ``make_flash_attention`` returns ``flash(q, k, v) -> o`` as a
-``torch.autograd.Function``.  Its backward is the Pallas package's two
-backward kernels (K8b ``dq``, K8c ``dk``/``dv``), which come with the LM
-training slice: until then it raises, on the card and on the CPU, rather
-than differentiate through the plain version.
+``torch.autograd.Function`` whose forward is K8a and whose backward is K8b
+and K8c (on the card; the plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -46,73 +51,168 @@ def masked_softmax_attention(q, k, v, mask):
     return o.reshape(B, Sq, H, hd).to(q.dtype), lse
 
 
-def flash_fwd_plain(q, k, v, *, causal=True, window=None):
-    """(o, lse) in plain PyTorch: the masked full softmax in float32."""
-    pos = torch.arange(q.shape[1], device=q.device)
-    mask = torch.ones(len(pos), len(pos), dtype=torch.bool, device=q.device)
+def causal_mask(S, *, causal=True, window=None, device=None):
+    """[S, S] bool, True where key k is visible from query p: k <= p
+    (causal) and p - k < window."""
+    pos = torch.arange(S, device=device)
+    mask = torch.ones(S, S, dtype=torch.bool, device=device)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= (pos[:, None] - pos[None, :]) < window
+    return mask
+
+
+def flash_fwd_plain(q, k, v, *, causal=True, window=None):
+    """(o, lse) in plain PyTorch: the masked full softmax in float32."""
+    mask = causal_mask(q.shape[1], causal=causal, window=window,
+                       device=q.device)
     return masked_softmax_attention(q, k, v, mask)
 
 
+def flash_dcap(do, o, KV):
+    """D = rowsum(do * o) in float32, laid out like lse: do, o [B,S,H,hd]
+    with H = KV * rep -> [B,KV,rep,S]."""
+    B, S, H, _ = do.shape
+    d = (do.float() * o.float()).sum(-1)
+    return d.reshape(B, S, KV, H // KV).permute(0, 2, 3, 1).contiguous()
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None):
+    """(dq, dk, dv) in plain PyTorch from the full masked matrices in
+    float32, with the formulas of the JAX kernels: p = exp(s - lse),
+    ds = p (do v^T - D), dq = ds k * scale, dk = ds^T q * scale summed over
+    the rep heads of a group, dv = p^T do likewise."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    mask = causal_mask(S, causal=causal, window=window, device=q.device)
+    qh = q.reshape(B, S, KV, rep, hd).float()
+    doh = do.reshape(B, S, KV, rep, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qh, kf) * scale
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", doh, vf)
+    ds = p * (dp - flash_dcap(do, o, KV)[..., None])
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qh) * scale
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, doh)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(fn, window, **tensors):
+    """The kernels' contract, raised as ValueError: contiguous 16-byte
+    aligned float32 on one CUDA device; q (and do) [B,S,H,hd], k / v
+    [B,S,KV,hd] with hd in {64, 128, 256} and 1 <= H/KV <= 64; lse (and
+    D) [B,KV,H/KV,S].  Returns (B, S, H, KV, hd)."""
+    q = tensors["q"]
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {q.device}")
+    for name, t in tensors.items():
+        if t.device != q.device or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.dim() != 4:
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous 4-d float32 "
+                f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    B, S, H, hd = q.shape
+    k = tensors["k"]
+    KV = k.shape[2]
+    heads_ok = KV >= 1 and H % KV == 0 and 1 <= H // KV <= MAX_REP
+    want = {"q": (B, S, H, hd), "do": (B, S, H, hd), "k": (B, S, KV, hd),
+            "v": (B, S, KV, hd)}
+    if heads_ok:
+        want["lse"] = want["dcap"] = (B, KV, H // KV, S)
+    if not heads_ok or hd not in HEAD_DIMS or S < 1 or B < 1 \
+            or any(tuple(t.shape) != want.get(n) for n, t in tensors.items()):
+        raise ValueError(
+            f"{fn}: shapes " + ", ".join(f"{n} {tuple(t.shape)}"
+                                         for n, t in tensors.items())
+            + f" (want q [B,S,KV*rep,hd], k/v [B,S,KV,hd], lse [B,KV,rep,S] "
+            f"with hd in {HEAD_DIMS} and 1 <= rep <= {MAX_REP})")
+    if q.numel() >= 2 ** 31:
+        raise ValueError(f"{fn}: {tuple(q.shape)} too large")
+    if any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError(f"{fn}: every tensor must start 16-byte aligned "
+                         "(the kernels read float4s); pass a copy")
+    if window is not None and window < 1:
+        raise ValueError(f"{fn}: window={window!r} must be >= 1")
+    return B, S, H, KV, hd
+
+
 @functools.cache
-def _kernel():
-    lib = build.load("flash_attn")
-    fn = lib.flash_fwd_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+def _kernel(name):
+    lib = build.load("flash_attn_bwd" if name.startswith("flash_bwd")
+                     else "flash_attn")
+    fn = getattr(lib, name)
+    n_ptrs = {"flash_fwd_f32": 5, "flash_bwd_dq_f32": 7,
+              "flash_bwd_dkv_f32": 8}[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def _launch(name, tensors, dims, causal, window):
+    with torch.cuda.device(tensors[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel(name)(*(t.data_ptr() for t in tensors), *dims,
+                           int(causal), 0 if window is None else int(window),
+                           float(dims[-1] ** -0.5), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def flash_fwd_cuda(q, k, v, *, causal=True, window=None):
-    """Launches ``csrc/flash_attn.cu``: q [B,S,H,hd], k/v [B,S,KV,hd],
-    contiguous 16-byte aligned float32 on one CUDA device, hd in
-    {64, 128, 256}, 1 <= H/KV <= 64 -> (o [B,S,H,hd], lse [B,KV,H/KV,S])."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd_cuda needs CUDA tensors, got {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.float32 \
-                or not t.is_contiguous() or t.dim() != 4:
-            raise ValueError(
-                f"flash_fwd_cuda: {name} must be a contiguous 4-d float32 "
-                f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device} (contiguous={t.is_contiguous()})")
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if k.shape != (B, S, KV, hd) or v.shape != k.shape or KV < 1 \
-            or H % KV or not 1 <= H // KV <= MAX_REP or hd not in HEAD_DIMS \
-            or S < 1 or B < 1:
-        raise ValueError(
-            f"flash_fwd_cuda: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} (want [B,S,KV*rep,hd], [B,S,KV,hd] with "
-            f"hd in {HEAD_DIMS} and 1 <= rep <= {MAX_REP})")
-    if q.numel() >= 2 ** 31:
-        raise ValueError(f"flash_fwd_cuda: {tuple(q.shape)} too large")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_fwd_cuda: q, k and v must start 16-byte "
-                         "aligned (the kernel reads float4s); pass a copy")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_fwd_cuda: window={window!r} must be >= 1")
-    fn = _kernel()
+    """Launches K8a (``csrc/flash_attn.cu``): q [B,S,H,hd], k/v
+    [B,S,KV,hd], contiguous 16-byte aligned float32 on one CUDA device, hd
+    in {64, 128, 256}, 1 <= H/KV <= 64 -> (o [B,S,H,hd], lse
+    [B,KV,H/KV,S])."""
+    B, S, H, KV, hd = _check("flash_fwd_cuda", window, q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, KV, H // KV, S), dtype=torch.float32,
                       device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), B, S, H, KV, hd, int(causal),
-                0 if window is None else int(window), float(hd ** -0.5),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
+    _launch("flash_fwd_f32", (q, k, v, o, lse), (B, S, H, KV, hd), causal,
+            window)
     flash_fwd_cuda.launches += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
+    """Launches K8b (``csrc/flash_attn_bwd.cu``): q, do [B,S,H,hd], k/v
+    [B,S,KV,hd], lse and D = rowsum(do * o) [B,KV,H/KV,S], under K8a's
+    contract -> dq [B,S,H,hd]."""
+    dims = _check("flash_bwd_dq_cuda", window, q=q, k=k, v=v, do=do,
+                  lse=lse, dcap=dcap)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq_f32", (q, k, v, do, lse, dcap, dq), dims, causal,
+            window)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
+    """Launches K8c (``csrc/flash_attn_bwd.cu``): the inputs of
+    :func:`flash_bwd_dq_cuda` -> (dk, dv) [B,S,KV,hd]."""
+    dims = _check("flash_bwd_dkv_cuda", window, q=q, k=k, v=v, do=do,
+                  lse=lse, dcap=dcap)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv_f32", (q, k, v, do, lse, dcap, dk, dv), dims,
+            causal, window)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
 
 
 def flash_fwd(q, k, v, *, causal=True, window=None):
@@ -123,22 +223,38 @@ def flash_fwd(q, k, v, *, causal=True, window=None):
     return flash_fwd_cuda(q, k, v, causal=causal, window=window)
 
 
+def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
+    """(dq, dk, dv): K8b and K8c for tensors on the card, the plain
+    version for tensors on the CPU."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                               window=window)
+    dcap = flash_dcap(do, o, k.shape[2])
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, dcap, causal=causal,
+                           window=window)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, causal=causal,
+                                window=window)
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        return flash_fwd(q, k, v, causal=causal, window=window)[0]
+        o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the flash attention backward (K8b dq, K8c dk/dv of "
-            "repro/kernels/flash_attn.py) is not ported yet: it comes with "
-            "the LM training slice (ROADMAP Queue 1); use attn_impl='jnp' "
-            "to train through plain attention")
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
+                               causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def make_flash_attention(*, causal=True, window=None):
-    """Returns flash(q, k, v) -> o (K8a forward; no backward yet).
+    """Returns flash(q, k, v) -> o: K8a forward, K8b / K8c backward.
 
     q [B,S,H,hd]; k,v [B,S,KV,hd] with H = KV*rep.
     """

@@ -22,14 +22,15 @@ def _conv_init(generator, k, cin, cout, dtype):
     return {
         "w": dense_init(generator, (cout, cin, k, k), dtype,
                         scale=1.0 / (k * (cin ** 0.5))),
-        "b": torch.zeros((cout,), dtype=dtype),
+        "b": torch.zeros((cout,), dtype=dtype, device=generator.device),
     }
 
 
 def cnn_init(cfg: CNNConfig, generator: torch.Generator,
              dtype=torch.float32):
-    """Params on the CPU: ``{"convs": [{"w", "b"}...], "fcs": [...],
-    "head": {...}}`` as in the JAX package (conv ``w`` OIHW)."""
+    """Params on the generator's device: ``{"convs": [{"w", "b"}...],
+    "fcs": [...], "head": {...}}`` as in the JAX package (conv ``w``
+    OIHW)."""
     convs = []
     cin = cfg.input_shape[-1]
     for cout in cfg.conv_channels:
@@ -40,10 +41,12 @@ def cnn_init(cfg: CNNConfig, generator: torch.Generator,
     d = h * w * cin
     for units in cfg.fc_units:
         fcs.append({"w": dense_init(generator, (d, units), dtype),
-                    "b": torch.zeros((units,), dtype=dtype)})
+                    "b": torch.zeros((units,), dtype=dtype,
+                                     device=generator.device)})
         d = units
     head = {"w": dense_init(generator, (d, cfg.n_classes), dtype),
-            "b": torch.zeros((cfg.n_classes,), dtype=dtype)}
+            "b": torch.zeros((cfg.n_classes,), dtype=dtype,
+                             device=generator.device)}
     return {"convs": convs, "fcs": fcs, "head": head}
 
 

@@ -1,21 +1,20 @@
-"""Uniform ModelBundle API (port of ``repro/models/registry.py``: the CNN
-half, and the transformers' ``decode_step`` / ``init_cache``; the
-transformer ``ModelBundle`` comes with the LM training slice).
+"""Uniform ModelBundle API over the paper's CNNs and the transformer LMs
+(port of ``repro/models/registry.py``).
 
 The FL core is written against this protocol:
-    bundle.init(generator)           -> params (on the CPU)
+    bundle.init(generator)           -> params (on the generator's device)
     bundle.extract(params, batch)    -> (features, aux)   # trunk only
     bundle.head(params, features)    -> logits
     bundle.apply(params, batch)      -> {'features','logits','aux'}
     bundle.pool(features)            -> [B, C] pooled features (for MMD)
     bundle.labels(batch)             -> targets for the loss
-    bundle.loss_kind                 -> 'classify'
+    bundle.loss_kind                 -> 'lm' | 'classify'
     bundle.feature_channels          -> fusion channel width C
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Union
 
 import torch
 
@@ -27,7 +26,7 @@ from repro_torch.models import transformer as tfm
 @dataclass(frozen=True)
 class ModelBundle:
     name: str
-    config: CNNConfig
+    config: Union[ArchConfig, CNNConfig]
     init: Callable[..., Any]
     extract: Callable[..., Any]
     head: Callable[..., Any]
@@ -38,12 +37,15 @@ class ModelBundle:
     feature_channels: int
 
 
-def make_bundle(cfg: CNNConfig, dtype=torch.float32) -> ModelBundle:
-    if not isinstance(cfg, CNNConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only the paper's CNNs are ported; the "
-            "transformer bundle is a later slice")
-    return _cnn_bundle(cfg, dtype)
+def make_bundle(cfg: Union[ArchConfig, CNNConfig], dtype=torch.float32
+                ) -> ModelBundle:
+    if isinstance(cfg, CNNConfig):
+        return _cnn_bundle(cfg, dtype)
+    if isinstance(cfg, ArchConfig):
+        return _transformer_bundle(cfg, dtype)
+    raise NotImplementedError(f"{type(cfg).__name__}: make_bundle builds "
+                              "the CNNs (CNNConfig) and the transformer LMs "
+                              "(ArchConfig) only")
 
 
 def _cnn_bundle(cfg: CNNConfig, dtype) -> ModelBundle:
@@ -66,6 +68,36 @@ def _cnn_bundle(cfg: CNNConfig, dtype) -> ModelBundle:
         name=cfg.name, config=cfg, init=init, extract=extract, head=head,
         apply=apply, pool=pool, labels=lambda b: b["y"],
         loss_kind="classify", feature_channels=cfg.conv_channels[-1])
+
+
+def _transformer_bundle(cfg: ArchConfig, dtype) -> ModelBundle:
+    def init(generator):
+        return tfm.init_params(cfg, generator, dtype, generator.device)
+
+    def extract(params, batch):
+        out = tfm.forward_seq(cfg, params, batch, want_logits=False)
+        return out["features"], out["aux"]
+
+    def head(params, feats):
+        return tfm.head_apply(cfg, params, feats)
+
+    def apply(params, batch):
+        return tfm.forward_seq(cfg, params, batch)
+
+    def pool(feats):           # [B,S,d] -> [B,d]
+        return feats.mean(dim=1)
+
+    def labels(batch):
+        # next-token prediction: labels[t] = tokens[t+1]; last target is pad
+        if "labels" in batch:
+            return batch["labels"]
+        toks = batch["tokens"]
+        return torch.cat([toks[:, 1:], toks[:, -1:]], dim=1)
+
+    return ModelBundle(
+        name=cfg.name, config=cfg, init=init, extract=extract, head=head,
+        apply=apply, pool=pool, labels=labels, loss_kind="lm",
+        feature_channels=cfg.d_model)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos):

@@ -24,6 +24,10 @@ attention in torch ops.
 written into their slot; the returned cache is the same tensors), where the
 JAX package returns a new cache from ``dynamic_update_slice``.
 
+``forward_seq`` trains: gradients reach the stacked ``cycles`` leaves
+through the per-cycle indexing, and under ``attn_impl == "pallas"`` the
+attention backward is K8b / K8c (``kernels/flash_attn.py``).
+
 Not ported yet, and refused with ``NotImplementedError``: MoE FFNs, SSD and
 RG-LRU blocks, the encoder and cross-attention, VLM and audio inputs
 (M-RoPE, stub embeddings), and ``remat`` (ROADMAP Queue 1, slice 6).
@@ -44,7 +48,7 @@ from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
 from repro_torch.models.rope import apply_rope
 from repro_torch.tree import tree_map
 
-_LATER = "(ROADMAP Queue 1, slice 6: the LM training slice)"
+_LATER = "(ROADMAP Queue 1, slice 6: the other model families)"
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -64,7 +68,8 @@ def _check_supported(cfg: ArchConfig) -> None:
                                   f"ported yet {_LATER}")
     if cfg.remat != "none":
         raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r} is not "
-                                  f"ported yet {_LATER}")
+                                  "ported yet (ROADMAP Queue 1, slice 6: "
+                                  "activation checkpointing)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The CUDA kernels (K1 Gram sum, K2 fusion conv, K3 quant pack, K4 quant
-unpack, K5 top-k select, K6 / K7 EF rows, K8a flash attention forward, K9
-flash-decode) against their plain PyTorch versions on the card, the
-wrappers' refusals, and the engine and the serving path on the card.
+unpack, K5 top-k select, K6 / K7 EF rows, K8a flash attention forward, K8b
+/ K8c its backward, K9 flash-decode) against their plain PyTorch versions
+on the card, the wrappers' refusals, and the engine, the serving path and
+an LM training step on the card.
 
 Imports torch and the port only (no JAX), so it runs on the GPU machine:
 
@@ -16,7 +17,10 @@ gradient is a difference of two sums that cancel in part, held to rtol
 float32 operations as their plain versions and are held with
 ``torch.equal``.  K8a and K9 sum each softmax row in another order than
 the plain versions' full softmax (tiles with online rescaling, cache
-slices merged in a second pass): atol 1e-5 / rtol 1e-4.
+slices merged in a second pass): atol 1e-5 / rtol 1e-4.  K8b and K8c sum
+dq over up to S keys and dk / dv over up to S * rep rows in another order
+than the plain version's full products: rtol 1e-4 with an atol of 1e-5 of
+each gradient's largest element.
 """
 import dataclasses
 
@@ -471,6 +475,10 @@ def _attn_launches():
     return tfa.flash_fwd_cuda.launches, tda.flash_decode_cuda.launches
 
 
+def _bwd_launches():
+    return tfa.flash_bwd_dq_cuda.launches, tfa.flash_bwd_dkv_cuda.launches
+
+
 def _randn(rng, shape, device):
     return torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(device)
@@ -479,15 +487,21 @@ def _randn(rng, shape, device):
 def test_attention_wrappers_refuse_cpu_tensors():
     q, kv = torch.zeros(1, 8, 4, 64), torch.zeros(1, 8, 1, 64)
     valid = torch.tensor([3], dtype=torch.int32)
-    before = _attn_launches()
+    lse = torch.zeros(1, 1, 4, 8)
+    before = _attn_launches() + _bwd_launches()
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd_cuda(q, kv, kv)
     with pytest.raises(ValueError, match="CUDA"):
         tda.flash_decode_cuda(q[:, :1], kv, kv, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq_cuda(q, kv, kv, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv_cuda(q, kv, kv, q, lse, lse)
     # the CPU path runs the plain versions and launches nothing
-    tfa.flash_fwd(q, kv, kv, window=4)
+    o, lse = tfa.flash_fwd(q, kv, kv, window=4)
+    tfa.flash_bwd(q, kv, kv, o, lse, q, window=4)
     tda.flash_decode(q[:, :1], kv, kv, valid)
-    assert _attn_launches() == before
+    assert _attn_launches() + _bwd_launches() == before
 
 
 @pytest.mark.cuda
@@ -512,6 +526,62 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
     torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-4)
     assert torch.equal(o, tfa.flash_fwd_cuda(q, k, v, window=window)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 64, 4, 1, 64, None),
+    (1, 1000, 4, 1, 256, 512),          # gemma3's heads, ragged, window
+    (1, 300, 4, 1, 256, None),          # hd 256, no window
+    (2, 77, 9, 3, 64, 16),              # smollm's heads (rep 3), ragged
+    (1, 130, 8, 4, 128, None),
+    (1, 20, 4, 1, 128, 8),              # S below one tile
+    (1, 50, 2, 2, 256, None),           # rep 1
+    (1, 9, 64, 1, 64, None),            # rep 64: one position a tile
+])
+def test_flash_bwd_kernels_match_plain(cuda_device, B, S, H, KV, hd,
+                                       window):
+    """K8b and K8c against the plain backward, launched once each, and
+    bitwise equal when run again on the same inputs."""
+    rng = np.random.default_rng(S + H + hd)
+    q = _randn(rng, (B, S, H, hd), cuda_device)
+    k = _randn(rng, (B, S, KV, hd), cuda_device)
+    v = _randn(rng, (B, S, KV, hd), cuda_device)
+    do = _randn(rng, (B, S, H, hd), cuda_device)
+    o, lse = tfa.flash_fwd_plain(q, k, v, window=window)
+    want = tfa.flash_bwd_plain(q, k, v, o, lse, do, window=window)
+    dcap = tfa.flash_dcap(do, o, KV)
+    before = _bwd_launches()
+    dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, window=window)
+    dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, window=window)
+    torch.cuda.synchronize()
+    assert _bwd_launches() == (before[0] + 1, before[1] + 1)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(dq, tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap,
+                                                 window=window))
+    again = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, window=window)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_on_the_card_matches_the_cpu(cuda_device):
+    """The autograd.Function's gradients on the card (K8a, K8b, K8c)
+    against the same function on the CPU (plain versions)."""
+    rng = np.random.default_rng(5)
+    shapes = [(2, 70, 9, 64), (2, 70, 3, 64), (2, 70, 3, 64)]
+    base = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    do = rng.standard_normal(shapes[0]).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        x = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in base]
+        o = tfa.make_flash_attention(window=24)(*x)
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            o, x, torch.from_numpy(do).to(dev))]
+    for got, ref in zip(grads[str(cuda_device)], grads["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -545,15 +615,18 @@ def test_attention_kernels_never_take_the_plain_path_on_the_card(
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(tfa, "flash_fwd_plain", refuse)
+    monkeypatch.setattr(tfa, "flash_bwd_plain", refuse)
     monkeypatch.setattr(tda, "flash_decode_plain", refuse)
     rng = np.random.default_rng(0)
-    q = _randn(rng, (1, 16, 4, 64), cuda_device)
-    kv = _randn(rng, (1, 16, 1, 64), cuda_device)
-    before = _attn_launches()
-    tfa.make_flash_attention(window=8)(q, kv, kv)
-    tops.gqa_flash_decode(q[:, :1], kv, kv, 5)
+    q = _randn(rng, (1, 16, 4, 64), cuda_device).requires_grad_(True)
+    kv = _randn(rng, (1, 16, 1, 64), cuda_device).requires_grad_(True)
+    before = _attn_launches() + _bwd_launches()
+    o = tfa.make_flash_attention(window=8)(q, kv, kv)
+    torch.autograd.grad(o.sum(), (q, kv))
+    tops.gqa_flash_decode(q[:, :1].detach(), kv.detach(), kv.detach(), 5)
     torch.cuda.synchronize()
-    assert _attn_launches() == (before[0] + 1, before[1] + 1)
+    assert _attn_launches() + _bwd_launches() == tuple(
+        n + 1 for n in before)
 
 
 @pytest.mark.cuda
@@ -580,11 +653,79 @@ def test_attention_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         tda.flash_decode_cuda(z(1, 1, 4, 64, **kw), z(1, 8, 1, 64, **kw),
                               z(1, 8, 1, 64, **kw), valid.long())
-    q = z(1, 8, 2, 64, requires_grad=True, **kw)
-    o = tfa.make_flash_attention()(q, z(1, 8, 1, 64, **kw),
-                                   z(1, 8, 1, 64, **kw))
-    with pytest.raises(NotImplementedError, match="K8b"):
-        o.sum().backward()
+    # the backward's wrappers take K8a's contract, and lse / D [B,KV,rep,S]
+    q, kv, lse = z(1, 8, 2, 64, **kw), z(1, 8, 1, 64, **kw), z(1, 1, 2, 8, **kw)
+    for fn in (tfa.flash_bwd_dq_cuda, tfa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="shapes"):
+            fn(q, kv, kv, q, z(1, 1, 2, 7, **kw), lse)
+        with pytest.raises(ValueError, match="shapes"):
+            fn(q, kv, kv, z(1, 7, 2, 64, **kw), lse, lse)
+        with pytest.raises(ValueError, match="float32"):
+            fn(q, kv, kv, q, lse, lse.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, kv, kv, z(1, 2, 8, 64, **kw).transpose(1, 2), lse, lse)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, kv, kv, flat[1:].view(1, 8, 2, 64), lse, lse)
+        with pytest.raises(ValueError, match="window"):
+            fn(q, kv, kv, q, lse, lse, window=0)
+
+
+@pytest.mark.cuda
+def test_init_global_state_draws_on_a_card_generator(cuda_device):
+    """A CUDA generator draws the LM weights and FedFusion's conv fusion
+    weights on the card (W = 0.5 [I; I] plus noise, built there too)."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import init_global_state
+    from repro_torch.models import make_bundle
+    cfg = get_config("gemma3-1b").reduced()
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = init_global_state(make_bundle(cfg), fl, gen, device=cuda_device)
+    assert all(t.device.type == "cuda" for t in tree_leaves(state))
+    w, d = state["fusion"]["w"], cfg.d_model
+    eye = torch.eye(d, device=cuda_device)
+    assert (w[:d] - 0.5 * eye).abs().max() < 0.1
+    assert (w[d:] - 0.5 * eye).abs().max() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "smollm-135m"])
+def test_lm_local_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """One FedFusion-conv local step of the reduced LM (S = 80, longer
+    than gemma3's reduced window) on the card (K8a for both streams, K8b,
+    K8c, K2) and on the CPU from the same state: the trained parameters
+    agree within 1% of the change the step made (largest element), and
+    the kernels launch once per attention layer per forward / backward."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import init_global_state, make_local_trainer
+    from repro_torch.fl.api import make_algorithm
+    from repro_torch.models import make_bundle
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv", local_steps=1)
+    state = init_global_state(bundle, fl, torch.Generator().manual_seed(1),
+                              device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2, 81)))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    before = _attn_launches()[0], *_bwd_launches()
+    for dev in ("cpu", cuda_device):
+        st = tree_map(lambda t, dev=dev: t.to(dev), state)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        trainable, loss = make_local_trainer(bundle, fl)(
+            st["model"], make_algorithm("fedfusion").extra_from_state(st),
+            b, 0.05)
+        out[str(dev)] = torch.cat([t.cpu().flatten()
+                                   for t in tree_leaves(trainable)])
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (_attn_launches()[0], *_bwd_launches()) == (
+        before[0] + 2 * L, before[1] + L, before[2] + L)
+    start = torch.cat([t.flatten() for t in tree_leaves(
+        {"model": state["model"], "fusion": state["fusion"]})])
+    change = (out["cpu"] - start).abs().max()
+    assert (out[str(cuda_device)] - out["cpu"]).abs().max() <= 1e-2 * change
 
 
 @pytest.mark.cuda

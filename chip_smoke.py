@@ -11,12 +11,17 @@ is non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at ragged ones, with its time, the plain
    version's, a one-call PyTorch yardstick where there is one, and the
-   least time the card could take for the same work (K6 / K7: exact, K7
-   in place, the scratch-row duplicates; K8a flash attention forward and
-   K9 flash-decode at gemma3-1b's and smollm-135m's serve shapes, against
-   ``scaled_dot_product_attention`` as the yardstick; K8b / K8c, the flash
-   backward, at smollm-135m's and gemma3-1b's training shapes and a ragged
-   one, against that function's backward, and bitwise repeatable);
+   least time the card could take for the same work (K4 also over whole
+   messages, one launch per 64 leaves: CNN_MNIST's eight leaves at int8
+   and int4, odd and unaligned leaves, 70 leaves, timed against one
+   ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
+   each piece of a K4 wrapper call;
+   K6 / K7: exact, K7 in place, the scratch-row duplicates; K8a flash
+   attention forward and K9 flash-decode at gemma3-1b's and smollm-135m's
+   serve shapes, against ``scaled_dot_product_attention`` as the
+   yardstick; K8b / K8c, the flash backward, at smollm-135m's and
+   gemma3-1b's training shapes and two ragged ones, against that
+   function's backward, and bitwise repeatable, with K8c's segment plan);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -27,7 +32,8 @@ is non-zero):
    for FedAvg, FedFusion-conv with a top-k uplink on the dense and on the
    host EF store, and FedMMD client-sequential with an int8 uplink, beside
    the same configuration's reference rounds/s over 12 rounds; each run's
-   kernel launch counts must equal the path's formula and its bytes the
+   kernel launch counts must equal the path's formula (K3 once per leaf of
+   a quantized message, K4 once per message) and its bytes the
    reference's; then FedAvg with ``superstep_rounds="auto"`` beside the
    fixed 8;
 4b. serve: the transformer LMs at full width through
@@ -94,7 +100,8 @@ TOPK_FRAC = 1 / 16          # benchmarks/fig7_compression.py
 FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 # names of the kernels in src/repro_torch/csrc, as the profiler shows them
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
-               "fusion_conv_kernel", "quant_pack_i", "quant_unpack_i",
+               "fusion_conv_kernel", "quant_pack_i",
+               "quant_unpack_multi_kernel",
                "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel",
                "flash_fwd_kernel", "flash_bwd_dq_kernel",
                "flash_bwd_dkv_kernel", "decode_split_kernel",
@@ -289,11 +296,13 @@ def codec_work(kernel, n, bits=8):
             "topk_select": (8 * n + 4, 3 * n)}[kernel]
 
 
-def check_codec_kernels(torch, compress_pack, QuantCodec):
+def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
     """Phase 3 for K3 / K4 / K5: each against its plain version on the
     card with ``torch.equal`` (the same IEEE float32 operations), at the
     FC leaf's size and ragged ones, with inputs that hit the clamp and
-    entries exactly at the top-k threshold.  Returns the table rows."""
+    entries exactly at the top-k threshold; K4 also over whole messages
+    (``leaf_sizes``: CNN_MNIST's leaves), as the codecs decode them.
+    Returns the table rows (K4's: one CNN_MNIST int8 message)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     rows = {}
@@ -341,6 +350,45 @@ def check_codec_kernels(torch, compress_pack, QuantCodec):
         emit("kernels", kernel="QuantCodec", bits=bits, n=4097, equal=ok)
         if not ok:
             raise AssertionError(f"QuantCodec bits={bits} card != CPU")
+
+    def message(sizes, bits):
+        """Codes and a scale a leaf (int4: ceil(n / 2) bytes)."""
+        packed, scales = [], []
+        for n in sizes:
+            x, u, scale = inputs(n + (n % 2 if bits == 4 else 0), bits)
+            packed.append(compress_pack.quant_pack_cuda(x, scale, u,
+                                                        bits=bits))
+            scales.append(scale)
+        return packed, scales
+
+    # K4 over whole messages: CNN_MNIST's eight leaves, an odd int4 leaf
+    # and views off the 4-byte boundary, and 70 leaves (two launches)
+    for bits in (8, 4):
+        for case, sizes in [("cnn_mnist", list(leaf_sizes)),
+                            ("odd_unaligned", [4097, 33, 1000]),
+                            ("70_leaves", [37 * i + 1 for i in range(70)])]:
+            packed, scales = message(sizes, bits)
+            if case == "odd_unaligned":
+                packed = [q[1:] for q in packed]
+                sizes = [q.numel() if bits == 8 else 2 * q.numel() - 1
+                         for q in packed]
+            before = compress_pack.quant_unpack_cuda.launches
+            got = compress_pack.quant_unpack_multi_cuda(packed, scales,
+                                                        bits=bits, ns=sizes)
+            launched = compress_pack.quant_unpack_cuda.launches - before
+            want = compress_pack.quant_unpack_multi_plain(packed, scales,
+                                                          bits=bits, ns=sizes)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            y_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            err["quant_unpack"] = max(err["quant_unpack"], y_err)
+            ok = equal and launched == -(-len(sizes) // 64)
+            emit("kernels", kernel="quant_unpack_multi", case=case,
+                 bits=bits, leaves=len(sizes), elements=sum(sizes),
+                 launches=launched, equal=equal, max_abs_err=y_err)
+            if not ok:
+                raise AssertionError(f"quant_unpack_multi {case} bits={bits}"
+                                     f": equal={equal}, {launched} launches")
     for n, k in [(FC_LEAF, FC_LEAF // 16), (10, 3), (1001, 40)]:
         x = torch.randn(n, generator=gen)
         t = x.abs().sort().values[-k]
@@ -381,19 +429,54 @@ def check_codec_kernels(torch, compress_pack, QuantCodec):
             lambda i: compress_pack.topk_select_plain(xs[i][0], ts[i]),
             None, "src/repro/kernels/compress_pack.py:252"),
     }
+    leaf = {}
     for name, (kern, plain, lib, replaces) in cases.items():
         ms = time_ms(torch, kern, sets=sets)
         plain_ms = time_ms(torch, plain, sets=sets)
         library_ms = None if lib is None else time_ms(torch, lib, sets=sets)
         bound_ms, bound_by = bound(*codec_work(name, n))
-        rows[name] = dict(name=name, route="cuda",
-                          source="src/repro_torch/csrc/compress_pack.cu",
-                          replaces=replaces, max_abs_err=err[name], ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+        if name == "quant_unpack":   # K4's row is the message's, below
+            leaf = dict(leaf_kernel_ms=ms, leaf_mul_ms=library_ms)
+        else:
+            rows[name] = dict(name=name, route="cuda",
+                              source="src/repro_torch/csrc/compress_pack.cu",
+                              replaces=replaces, max_abs_err=err[name],
+                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
         emit("kernels", kernel=name, bits=8, n=n, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              bound_by=bound_by)
+    # K4 as the codecs call it: one CNN_MNIST int8 message a call (8 sets,
+    # > 50 MB together), against eight single-leaf wrapper calls, eight
+    # ``torch.mul``s and one ``torch._foreach_mul`` over the leaves (the
+    # row's one-call yardstick)
+    msgs = [message(leaf_sizes, 8) for _ in range(sets)]
+    msg_calls = {
+        "foreach_mul_ms": lambda i: torch._foreach_mul(*msgs[i]),
+        "kernel_ms": lambda i: compress_pack.quant_unpack_multi_cuda(
+            *msgs[i], ns=leaf_sizes),
+        "per_leaf_calls_ms": lambda i: [
+            compress_pack.quant_unpack_cuda(q, sc, n=m)
+            for q, sc, m in zip(*msgs[i], leaf_sizes)],
+        "mul_x8_ms": lambda i: [torch.mul(q, sc) for q, sc in zip(*msgs[i])],
+        "plain_ms": lambda i: compress_pack.quant_unpack_multi_plain(
+            *msgs[i], ns=leaf_sizes),
+    }
+    msg_ms = {k: time_ms(torch, f, sets=sets) for k, f in msg_calls.items()}
+    work = [codec_work("quant_unpack", m) for m in leaf_sizes]
+    bound_ms, bound_by = bound(sum(w[0] for w in work),
+                               sum(w[1] for w in work))
+    rows["quant_unpack"] = dict(
+        name="quant_unpack", route="cuda",
+        source="src/repro_torch/csrc/compress_pack.cu",
+        replaces="src/repro/kernels/compress_pack.py:140",
+        max_abs_err=err["quant_unpack"], ms=msg_ms["kernel_ms"],
+        plain_ms=msg_ms["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=msg_ms["foreach_mul_ms"])
+    emit("kernels", kernel="quant_unpack_multi", case="cnn_mnist", bits=8,
+         leaves=len(leaf_sizes), elements=sum(leaf_sizes), **msg_ms,
+         library_ms=msg_ms["foreach_mul_ms"], **leaf, bound_ms=bound_ms,
+         bound_by=bound_by)
     # int4 pack / unpack at the same size (no one-call yardstick)
     for name, kern, plain in [
             ("quant_pack", lambda i: compress_pack.quant_pack_cuda(
@@ -410,6 +493,57 @@ def check_codec_kernels(torch, compress_pack, QuantCodec):
              plain_ms=time_ms(torch, plain, sets=sets), library_ms=None,
              bound_ms=bound_ms, bound_by=bound_by)
     return rows
+
+
+def launch_path_split(torch, compress_pack, n_calls=2_000):
+    """Host nanoseconds per call of each piece of a K4 wrapper call
+    (``time.perf_counter_ns`` around ``n_calls`` calls of the piece alone,
+    best of three): the checks, the allocation, the device and stream
+    lookup, the one-leaf table, the ctypes launch itself, the whole
+    wrapper call and ``torch.mul``.  Pieces that launch decode 1,024
+    codes, so the device keeps up with the host."""
+    import array
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 1024
+    q = torch.zeros(n, dtype=torch.int8, device=dev)
+    scale = torch.ones(1, device=dev)
+    out = torch.empty(n, device=dev)
+    fn = compress_pack._fn("quant_unpack_multi_f32")
+    raw = torch._C._cuda_getCurrentRawStream
+    stream = raw(dev.index)
+    leaf = [q.data_ptr(), scale.data_ptr(), out.data_ptr(), n, 8, 1]
+    table = array.array("q", leaf)
+    pieces = {
+        "checks": lambda: (
+            compress_pack._cuda_device("k", q),
+            compress_pack._check("k", "packed", q, dev, torch.int8),
+            compress_pack._check("k", "scale", scale, dev, torch.float32, 1),
+            compress_pack._unpack_n(q, 8, None)),
+        "torch.empty": lambda: torch.empty(n, device=dev,
+                                           dtype=torch.float32),
+        "current_device + raw stream": lambda: (
+            torch.cuda.current_device() == dev.index and raw(dev.index)),
+        "one-leaf table": lambda: array.array("q", leaf).buffer_info(),
+        "ctypes launch": lambda: fn(table.buffer_info()[0], 1, stream),
+        "quant_unpack_cuda (whole call)": lambda: compress_pack
+        .quant_unpack_cuda(q, scale),
+        "torch.mul (yardstick)": lambda: torch.mul(q, scale),
+    }
+    split = {}
+    with torch.cuda.device(dev):
+        for name, piece in pieces.items():
+            best = None
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter_ns()
+                for _ in range(n_calls):
+                    piece()
+                t1 = time.perf_counter_ns()
+                torch.cuda.synchronize()
+                best = (t1 - t0) / n_calls if best is None \
+                    else min(best, (t1 - t0) / n_calls)
+            split[name] = best
+    return split
 
 
 def ef_work(k, n):
@@ -685,12 +819,13 @@ def flash_bwd_work(B, S, H, KV, hd, window):
 
 
 # K8b / K8c cases of phase 3: phase 4c's training shapes (smollm-135m at
-# batch 8, gemma3-1b's global and local layers at batch 4, S = 1,024) and a
-# ragged length at hd 128
+# batch 8, gemma3-1b's global and local layers at batch 4, S = 1,024), a
+# ragged length at hd 128 and gemma3-1b's local layer at a ragged length
 FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
                    ("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                    ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
-                   ("ragged", 4, 1000, 8, 2, 128, None)]
+                   ("ragged", 4, 1000, 8, 2, 128, None),
+                   ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512)]
 # dq sums over up to S keys and dk / dv over up to S * rep rows, in another
 # order than the plain version's full products: a few 1e-7 of each
 # gradient's largest element.  1e-4 of it bounds that with room (target
@@ -741,8 +876,17 @@ def check_flash_bwd_kernels(torch, flash_attn):
         finite = all(bool(torch.isfinite(t).all()) for t in got + want)
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], rel[0])
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], rel[1], rel[2])
+        plan = flash_attn.dkv_plan(
+            B, S, H, KV, hd, True, window,
+            n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
         line = dict(kernel="flash_bwd_dq+flash_bwd_dkv", case=case,
                     shape=[B, S, H, KV, hd], window=window,
+                    dkv_plan=dict(key_tile=plan.key_tile, rows=plan.rows,
+                                  seg=plan.seg,
+                                  max_segments=plan.max_ns,
+                                  units=B * KV * sum(
+                                      -(-n // plan.seg)
+                                      for n in plan.n_tiles)),
                     rel_err=dict(zip(("dq", "dk", "dv"), rel)),
                     abs_err=dict(zip(("dq", "dk", "dv"), abs_err)),
                     max_abs=dict(zip(("dq", "dk", "dv"), scale)),
@@ -1344,7 +1488,12 @@ def main():
 
     # 3. kernels vs plain on the card ------------------------------------
     rows = check_kernels(torch, mk_mmd, fusion_conv)
-    rows.update(check_codec_kernels(torch, compress_pack, QuantCodec))
+    mnist_sizes = [t.numel() for t in tree_leaves(
+        make_bundle(CNN_MNIST).init(torch.Generator()))]
+    rows.update(check_codec_kernels(torch, compress_pack, QuantCodec,
+                                    mnist_sizes))
+    emit("launch_path", kernel="quant_unpack", n=1024, calls=2_000,
+         host_ns_per_call=launch_path_split(torch, compress_pack))
     rows.update(check_ef_kernels(torch, compress_pack))
     rows.update(check_attention_kernels(torch, flash_attn, decode_attn))
     rows.update(check_flash_bwd_kernels(torch, flash_attn))
@@ -1365,18 +1514,20 @@ def main():
     launches = dict.fromkeys(counters, 0)
 
     def per_round_launches(algorithm, up, down, eval_rounds):
-        """Kernel launches of one round of this configuration (the codec
-        kernels once per leaf per client, K1 three times per local step,
+        """Kernel launches of one round of this configuration (K3 once per
+        leaf of each quantized message, K4 once per message of up to 64
+        leaves, K1 three times per local step,
         K2 once per local step and once per eval, K6 / K7 once per EF leaf
         with a top-k uplink); the reference loop's EF gather and scatter
         are tensor indexing, so ``ef=False`` there."""
-        quant = (n_leaves * clients * (up in ("int8", "int4"))
-                 + n_leaves * (down in ("int8", "int4")))
+        messages = (clients * (up in ("int8", "int4"))
+                    + (down in ("int8", "int4")))
         ef = n_leaves * (up == "topk")
         return {"gram_sum": 3 * steps * clients * (algorithm == "fedmmd"),
                 "fusion_conv": (steps * clients + eval_rounds)
                 * (algorithm == "fedfusion"),
-                "quant_pack": quant, "quant_unpack": quant,
+                "quant_pack": n_leaves * messages,
+                "quant_unpack": -(-n_leaves // 64) * messages,
                 "topk_select": 0, "ef_gather": ef, "ef_scatter": ef}
     for algorithm, mode, rounds, up, down in [
             ("fedavg", "client_parallel", 3, "identity", "identity"),

@@ -27,8 +27,9 @@ class Codec:
 
     Subclasses implement the per-leaf hooks ``_encode_leaf(x_flat, state,
     noise, i)`` -> (leaf_payload, new_leaf_state), ``_decode_leaf(payload,
-    i)`` -> x_flat and ``_leaf_wire_bytes(i)``; the base class handles
-    flatten / unflatten, shape restore and byte accounting.
+    i)`` -> x_flat and ``_leaf_wire_bytes(i)``, or ``_decode_leaves(payload)``
+    -> [x_flat, ...] to decode a whole message at once; the base class
+    handles flatten / unflatten, shape restore and byte accounting.
     """
 
     name = "identity"
@@ -57,6 +58,9 @@ class Codec:
 
     def _decode_leaf(self, payload, i):
         return payload
+
+    def _decode_leaves(self, payload):
+        return [self._decode_leaf(p, i) for i, p in enumerate(payload)]
 
     def _init_leaf_state(self, i):
         return None
@@ -94,8 +98,8 @@ class Codec:
 
     def decode(self, payload):
         """payload -> tree (shapes and dtypes of the bound template)."""
-        leaves = [self._decode_leaf(p, i).reshape(self._shapes[i])
-                  .to(self._dtypes[i]) for i, p in enumerate(payload)]
+        leaves = [x.reshape(self._shapes[i]).to(self._dtypes[i])
+                  for i, x in enumerate(self._decode_leaves(payload))]
         return tree_unflatten(self._template, leaves)
 
     def nbytes(self, payload) -> int:

@@ -5,8 +5,9 @@ Per leaf: scale = max(max|x|, 1e-12) / qmax, codes = clip(floor(x/scale +
 u), +-qmax) with u the caller's uniform offsets (unbiased stochastic
 rounding; u = 0.5 without noise).  int4 codes are nibble-packed two per
 byte, so the wire payload is n/8 of float32.  The scale stays on the
-device as a one-element tensor: no host sync.  Quantize + pack and unpack
-run K3 and K4 (``repro_torch.kernels.compress_pack``) on the card.
+device as a one-element tensor: no host sync.  Quantize + pack runs K3
+once per leaf, and a message decodes with one K4 launch for all its leaves
+(``repro_torch.kernels.compress_pack.quant_unpack_multi``) on the card.
 """
 from __future__ import annotations
 
@@ -50,10 +51,10 @@ class QuantCodec(Codec):
                                           bits=self.bits)
         return {"q": packed, "scale": scale}, state
 
-    def _decode_leaf(self, payload, i):
-        y = compress_pack.quant_unpack(payload["q"], payload["scale"],
-                                       bits=self.bits, n=self.padded_n(i))
-        return y[:self._n(i)]
+    def _decode_leaves(self, payload):
+        return compress_pack.quant_unpack_multi(
+            [p["q"] for p in payload], [p["scale"] for p in payload],
+            bits=self.bits, ns=[self._n(i) for i in range(len(payload))])
 
     def _leaf_wire_bytes(self, i) -> int:
         pn = self.padded_n(i)

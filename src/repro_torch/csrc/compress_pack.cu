@@ -4,7 +4,9 @@
 //                    int8: one int8 code per element (qmax = 127);
 //                    int4: code + 8 as a nibble, two per byte, element 2j
 //                    in the low nibble and 2j + 1 in the high one (qmax 7)
-//   K4 quant_unpack  codes -> f32 code * scale (nibble split for int4)
+//   K4 quant_unpack  codes -> f32 code * scale (nibble split for int4), for
+//                    up to 64 leaves of a message in one launch (one leaf
+//                    is a message of one)
 //   K5 topk_select   out = |x| >= t ? x : 0
 //
 // Replace the TPU kernels src/repro/kernels/compress_pack.py:quant_pack
@@ -21,7 +23,10 @@
 // design moves each byte once with 16-byte loads where the pointers allow
 // (four elements a thread for int8, eight for int4) and keeps no
 // intermediate in device memory.  scale and t are read from device memory
-// by every thread, so the host never waits for them.
+// by every thread, so the host never waits for them.  At a CNN leaf's size
+// the device work is a few microseconds, less than the host's cost of a
+// launch, so K4 decodes a whole message (every leaf of a client's update)
+// in one launch: the wrapper is paid once per message, not once per leaf.
 //
 // Bit-exactness with the plain PyTorch version and the JAX oracle: x /
 // scale is an IEEE round-to-nearest division (__fdiv_rn, never a multiply
@@ -113,13 +118,12 @@ __global__ void quant_pack_i4_kernel(const float* __restrict__ x,
 
 // ---------------------------------------------------------------- K4 -----
 
-__global__ void quant_unpack_i8_kernel(const int8_t* __restrict__ q,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out, long long n,
-                                       int vec) {
-  const float s = *scale;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// One leaf's codes -> f32, walked by the threads tid, tid + stride, ...
+// of the leaf's share of the grid
+__device__ __forceinline__ void unpack_i8(const int8_t* __restrict__ q,
+                                          float s, float* __restrict__ out,
+                                          long long n, int vec,
+                                          long long tid, long long stride) {
   long long done = 0;
   if (vec) {
     const long long groups = n / 4;
@@ -137,13 +141,10 @@ __global__ void quant_unpack_i8_kernel(const int8_t* __restrict__ q,
 }
 
 // out has n elements, n <= 2 * (bytes of q); byte j feeds 2j and 2j + 1
-__global__ void quant_unpack_i4_kernel(const uint8_t* __restrict__ q,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out, long long n,
-                                       int vec) {
-  const float s = *scale;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void unpack_i4(const uint8_t* __restrict__ q,
+                                          float s, float* __restrict__ out,
+                                          long long n, int vec,
+                                          long long tid, long long stride) {
   long long done = 0;   // bytes handled by the vector loop
   if (vec) {
     // four bytes -> eight floats per thread and step
@@ -168,6 +169,47 @@ __global__ void quant_unpack_i4_kernel(const uint8_t* __restrict__ q,
     if (2 * j + 1 < n)
       out[2 * j + 1] = __fmul_rn((float)((int)(b >> 4) - 8), s);
   }
+}
+
+// K4 over many leaves in one launch.  The leaf table travels by value as
+// the kernel's parameter (as PyTorch's multi_tensor_apply passes its
+// tensor lists), so the launch needs no device copy of it and can be
+// captured in a CUDA graph; 64 leaves take 2,376 bytes of the 4 KB
+// parameter space.  Leaf l owns blocks [block_start[l], block_start[l+1])
+// and walks its elements with those blocks alone, as a grid-stride loop
+// over that range.
+constexpr int kMaxLeaves = 64;
+
+struct UnpackLeaves {
+  const void* q[kMaxLeaves];
+  const float* scale[kMaxLeaves];
+  float* out[kMaxLeaves];
+  long long n[kMaxLeaves];
+  int block_start[kMaxLeaves + 1];
+  unsigned char flags[kMaxLeaves];   // bit 0: int4 codes; bit 1: vec
+  int count;
+};
+
+__global__ void quant_unpack_multi_kernel(
+    const __grid_constant__ UnpackLeaves t) {
+  const int blk = blockIdx.x;
+  int lo = 0, hi = t.count;   // the leaf whose block range holds blk
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (t.block_start[mid] <= blk) lo = mid; else hi = mid;
+  }
+  const long long nb = t.block_start[lo + 1] - t.block_start[lo];
+  const long long tid =
+      (long long)(blk - t.block_start[lo]) * blockDim.x + threadIdx.x;
+  const long long stride = nb * blockDim.x;
+  const float s = *t.scale[lo];
+  const int vec = (t.flags[lo] >> 1) & 1;
+  if (t.flags[lo] & 1)
+    unpack_i4(static_cast<const uint8_t*>(t.q[lo]), s, t.out[lo], t.n[lo],
+              vec, tid, stride);
+  else
+    unpack_i8(static_cast<const int8_t*>(t.q[lo]), s, t.out[lo], t.n[lo],
+              vec, tid, stride);
 }
 
 // ---------------------------------------------------------------- K5 -----
@@ -204,6 +246,13 @@ int blocks_for(long long work) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// K4's grid for one leaf: one thread per 4 (int8) or 8 (int4) codes on the
+// vector path, one per element (int8) or byte (int4) otherwise
+int unpack_blocks(long long n, int bits, int vec) {
+  if (bits == 8) return blocks_for(vec ? n / 4 + 3 : n);
+  return blocks_for(vec ? n / 8 + 4 : (n + 1) / 2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,21 +276,34 @@ int quant_pack_f32(const float* x, const float* u, const float* scale,
   return (int)cudaGetLastError();
 }
 
-// bits 8: q int8 [n]; bits 4: q uint8 [(n + 1) / 2] or more.  scale [1],
-// out f32 [n].  vec != 0 promises a 4-byte aligned q and a 16-byte aligned
-// out.  Returns cudaGetLastError().
-int quant_unpack_f32(const void* q, const float* scale, float* out,
-                     long long n, int bits, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
-  if (bits == 8)
-    quant_unpack_i8_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0,
-                             s>>>(static_cast<const int8_t*>(q), scale, out,
-                                  n, vec);
-  else
-    quant_unpack_i4_kernel<<<blocks_for(vec ? n / 8 + 4 : (n + 1) / 2),
-                             kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(q), scale, out, n, vec);
+// K4 over count <= 64 leaves in one launch.  leaves holds six int64 per
+// leaf: the codes' address, the scale's address ([1] f32), the output's
+// address (f32 [n]), n, bits (8: int8 [n]; 4: uint8 [(n + 1) / 2] or more)
+// and vec (non-zero promises 4-byte aligned codes and a 16-byte aligned
+// output).  leaves lies in host memory; the device addresses in it do not.
+// Returns cudaGetLastError().
+int quant_unpack_multi_f32(const long long* leaves, int count,
+                           void* stream) {
+  if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  UnpackLeaves t;
+  int blocks = 0;
+  for (int l = 0; l < count; ++l) {
+    const long long* e = leaves + 6 * l;
+    const long long n = e[3];
+    const int bits = (int)e[4], vec = e[5] != 0;
+    if (n < 1 || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
+    t.q[l] = reinterpret_cast<const void*>(e[0]);
+    t.scale[l] = reinterpret_cast<const float*>(e[1]);
+    t.out[l] = reinterpret_cast<float*>(e[2]);
+    t.n[l] = n;
+    t.flags[l] = (unsigned char)((bits == 4) | (vec << 1));
+    t.block_start[l] = blocks;
+    blocks += unpack_blocks(n, bits, vec);
+  }
+  t.block_start[count] = blocks;
+  t.count = count;
+  quant_unpack_multi_kernel<<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(t);
   return (int)cudaGetLastError();
 }
 

@@ -20,18 +20,23 @@
 // accumulators in registers; p is recomputed from the saved lse (no online
 // softmax).  The two-kernel split is kept: K8c owns its keys, and summing
 // over all rows of a query tile sums over the rep heads of the group, so
-// no block writes another's output: no atomics, and the results are
-// bitwise repeatable.
+// dq, dk and dv need no float atomics.
 //
 //   K8b  one block per (b, g, 64 rows = 64 / rep positions); walks the
 //        32-key tiles visible to those rows.  Per tile: s = Q K^T and
 //        dp = dO V^T (each thread 4 rows x 2 keys, float4 loads along hd),
 //        ds into shared memory (transposed), then dq[64 x hd] += ds K.
-//   K8c  one block per (b, g, 32 keys); walks the 64-row query tiles that
-//        can see them (positions k0 .. k0 + 31 + window - 1, causal from
-//        k0).  Per tile: s, dp as in K8b, p and ds into shared memory, then
-//        dv[32 x hd] += p^T dO and dk[32 x hd] += ds^T Q.  Keys that no
-//        query sees get zeros.
+//   K8c  one work unit per (b, g, key tile, segment): a key tile (32 or
+//        64 keys) is seen by the query tiles at positions k0 .. k0 + KT - 1
+//        + window - 1 (causal from k0), and those tiles are cut into
+//        segments of at most seg tiles; every key tile's first segment is
+//        scheduled before any second one.  Per
+//        tile: s, dp as in K8b, p and ds into shared memory, then
+//        dv[KT x hd] += p^T dO and dk[KT x hd] += ds^T Q.  A key tile with
+//        one segment writes dk / dv; with several, each unit writes partial
+//        sums to a float32 scratch and the last unit of the key tile (an
+//        integer ticket; no float atomics) adds them in segment order.
+//        Keys that no query sees get zeros.
 //
 // Tiles wholly above the diagonal or outside the window are never visited
 // (the Pallas kernels visit and mask all of them).  Q, dO, K and V tiles are
@@ -40,7 +45,8 @@
 // banks, and the same K tile serves s = Q K^T (along hd) and ds K (along
 // keys), so no transposed copy is needed.  Products are FFMA in f32 (no
 // TF32), exp is expf: the numbers follow the f32 reference up to summation
-// order.
+// order, and every sum is taken in a fixed order, so the results are
+// bitwise repeatable.
 //
 // What bounds it on the card: per visible (query head, key) pair, K8b does
 // three products of hd (s, dp, dq) and K8c four (s, dp, dv, dk), 2 * hd
@@ -49,13 +55,27 @@
 // take 21 us at 3.35 TB/s: operations.  Shared memory at hd = 256 is the
 // constraint: K8b holds 209 KB (Q, dO: 64 x 260 floats each; K, V: 32 x
 // 260; ds^T), K8c 219 KB (the same, with p and ds 64 x 36 each), one block
-// per SM; at hd = 64 shared memory admits three (61 KB, 71 KB) and the
-// registers two.  This first version loads each K / V (K8b) or Q / dO
-// (K8c) tile synchronously after a barrier; prefetching the next tile,
-// tensor cores (wgmma on TF32 or bf16) and TMA are later work.  ptxas
-// (-Xptxas=-v, kernels/build.py, nvcc 12.9): K8b 116 / 124 / 164
-// registers at hd 64 / 128 / 256, K8c 120 / 128 / 168, no spills and no
-// stack frame.
+// per SM.  K8b loads each K / V tile synchronously after a barrier.  K8c
+// attacks three limits, each of which was timed alone before it was kept
+// (PERF.md): (1) causal load imbalance -- a
+// causal layer's first key tile sees every query tile, its last only one,
+// and gemma3-1b's 128 key tiles fill one wave of 132 SMs, so the longest
+// sets the time: segments split the long key tiles (0.63x at gemma3-1b's
+// global layer, 0.83x at smollm-135m); (2) synchronous tile loads -- with
+// prefetch the next tile's dO and D, then Q and lse, arrive by 16- and
+// 4-byte cp.async into the padded rows while the current tile's dk pass
+// and the next tile's dp run, in the same buffers (two 64-row buffers do
+// not fit beside K and V at hd 256; 32-row double-buffered tiles were
+// slower); it pays at hd 128 and 256, not at hd 64; (3) shared-memory
+// traffic -- 64-key units at hd 64 and 128 give each thread 16 s / dp
+// outputs instead of 8 and double the FFMAs each dO / Q value read from
+// shared memory feeds.  At hd 256 the units keep 32 keys (64 do not fit):
+// counting one shared-memory wavefront per quarter warp of a 128-bit load,
+// the s / dp products take 24 wavefronts per 32 FFMAs a warp, so shared
+// memory, not the FMA units, bounds them (a count, not a profile).  Tensor
+// cores (wgmma on TF32 or bf16) and TMA are later work.  ptxas
+// (-Xptxas=-v, nvcc 12.9): K8c 128 registers at hd 64 (12 bytes
+// spilled), 128-208 at hd 128, 168 at hd 256.
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,44 +92,42 @@ struct Tile {
   static constexpr int CM = HD / NCG;
   static constexpr int NRG = kThreads / NCG;
   static constexpr int RM = kRows / NRG;        // K8b: dq rows a thread owns
-  static constexpr int KM = kKT / NRG;          // K8c: dk / dv keys a thread owns
   static constexpr int TS = kRows + 4;          // K8b: row stride of ds^T
-  static constexpr int PS = kKT + 4;            // K8c: row stride of p, ds
   static constexpr int DQ_FLOATS =
       2 * kRows * RS + 2 * kKT * RS + kKT * TS + 2 * kRows;
-  static constexpr int DKV_FLOATS =
-      2 * kRows * RS + 2 * kKT * RS + 2 * kRows * PS + 2 * kRows;
 };
 
-// Blocks per SM the register budget must allow (shared memory admits 3 /
-// 2 / 1 of K8b at hd 64 / 128 / 256 and 3 / 1 / 1 of K8c).
+// Blocks per SM the register budget must allow for K8b (shared memory
+// admits 3 / 2 / 1 at hd 64 / 128 / 256).
 template <int HD>
 constexpr int kMinBlocks = HD == 256 ? 1 : 2;
 
-// acc[i][j] += a_i . b_j over hd for the thread's rows tr * 4 + i of A and
+// acc[i][j] += a_i . b_j over hd for the thread's rows tr * RI + i of A and
 // keys tc + 16 j of B (both [rows][RS] in shared memory): s = Q K^T or
 // dp = dO V^T.  Within a quarter warp the 8 threads share tr (one A
 // address, broadcast) and read 8 neighbouring keys (32 distinct banks).
-template <int HD>
+template <int HD, int RI, int KJ>
 __device__ __forceinline__ void row_key_products(const float* A,
                                                  const float* Bk, int tr,
-                                                 int tc, float (&acc)[4][2]) {
-  constexpr int RS = Tile<HD>::RS;
+                                                 int tc, float (&acc)[RI][KJ]) {
+  constexpr int RS = HD + 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < HD; d += 4) {
-    float4 a[4], b[2];
+    float4 a[RI], b[KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(tr * 4 + i) * RS + d]);
+    for (int i = 0; i < RI; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&A[(tr * RI + i) * RS + d]);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < KJ; ++j)
       b[j] = *reinterpret_cast<const float4*>(&Bk[(tc + 16 * j) * RS + d]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
         acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
         acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
@@ -150,10 +168,9 @@ __device__ __forceinline__ void load_cols(const float* row, int cg,
   }
 }
 
-// Rows [0, 64) of the query tile at positions p0 .. p0 + n_pos - 1 of
-// q and do into Qs / dOs ([64][RS], zeros past nrows), and their lse and
-// D into lse_s / d_s.
-template <int HD>
+// Rows [0, QR) of the query tile at positions p0 .. of q and do into Qs /
+// dOs ([QR][RS], zeros past nrows), and their lse and D into lse_s / d_s.
+template <int HD, int QR = kRows>
 __device__ __forceinline__ void load_query_tile(
     const float* __restrict__ q, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dcap,
@@ -162,7 +179,7 @@ __device__ __forceinline__ void load_query_tile(
   constexpr int RS = Tile<HD>::RS;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-  for (int e = tid; e < kRows * HD / 4; e += kThreads) {
+  for (int e = tid; e < QR * HD / 4; e += kThreads) {
     const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
     float4 a = zero, c = zero;
     if (r < nrows) {
@@ -174,7 +191,7 @@ __device__ __forceinline__ void load_query_tile(
     *reinterpret_cast<float4*>(&Qs[r * RS + d]) = a;
     *reinterpret_cast<float4*>(&dOs[r * RS + d]) = c;
   }
-  if (tid < kRows) {
+  if (tid < QR) {
     float l = 0.f, dd = 0.f;
     if (tid < nrows) {
       const size_t i =
@@ -187,8 +204,9 @@ __device__ __forceinline__ void load_query_tile(
   }
 }
 
-// Keys k0 .. k0 + 31 of k and v into Ks / Vs ([32][RS], zeros past S).
-template <int HD>
+// Keys k0 .. k0 + KT - 1 of k and v into Ks / Vs ([KT][RS], zeros past
+// S).
+template <int HD, int KT = kKT>
 __device__ __forceinline__ void load_key_tile(const float* __restrict__ k,
                                               const float* __restrict__ v,
                                               float* Ks, float* Vs,
@@ -197,7 +215,7 @@ __device__ __forceinline__ void load_key_tile(const float* __restrict__ k,
   constexpr int RS = Tile<HD>::RS;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-  for (int e = tid; e < kKT * HD / 4; e += kThreads) {
+  for (int e = tid; e < KT * HD / 4; e += kThreads) {
     const int kk = e / (HD / 4), d = 4 * (e % (HD / 4));
     float4 a = zero, c = zero;
     if (k0 + kk < S) {
@@ -263,8 +281,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[4][2], dp[4][2];
-    row_key_products<HD>(Qs, Ks, tr, tc, s);
-    row_key_products<HD>(dOs, Vs, tr, tc, dp);
+    row_key_products<HD, 4, 2>(Qs, Ks, tr, tc, s);
+    row_key_products<HD, 4, 2>(dOs, Vs, tr, tc, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = tr * 4 + i;
@@ -306,103 +324,319 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- K8c ----
+//
+// K8c's tiles, one build per head dim: KT keys a unit (64 at hd 64 and
+// 128; 32 at hd 256, where 64 do not fit), 64 query rows a tile, and how
+// the next query tile's Q, dO, lse and D arrive (PF):
+//   0  synchronously, after a barrier (hd 64, where prefetch costs 5%);
+//   1  in place by cp.async (hd 128 and 256): the tile's dv pass (p, dO)
+//      runs before its dk pass (ds, Q), so dO's buffer is refilled during
+//      the dk pass and Q's during the next tile's dp = dO V^T: one buffer
+//      each, no more shared memory than PF 0 (a second 64-row buffer does
+//      not fit at hd 256).
+// Per tile, s and dp are 4 x KJ register tiles a thread (rows tr * 4 + i,
+// keys tc + 16 j); dk and dv are KM x CM register tiles a thread (keys
+// rg * KM + i, float4 column groups cg, cg + NCG, ...).
 template <int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
+struct DkvTile {
+  static constexpr int KT = HD == 256 ? 32 : 64;
+  static constexpr int PF = HD == 64 ? 0 : 1;
+  static constexpr int QR = kRows;
+  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  static constexpr int PS = KT + 4;             // row stride of p, ds
+  static constexpr int RI = QR / 16;
+  static constexpr int KJ = KT / 16;
+  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
+  static constexpr int CM = HD / NCG;
+  static constexpr int NRG = kThreads / NCG;
+  static constexpr int KM = KT / NRG;
+  static constexpr int FLOATS = 2 * KT * RS + 2 * QR * RS + 2 * QR
+                                + 2 * QR * PS;   // K, V, Q, dO, lse, D, p, ds
+  // two blocks a SM where shared memory admits them (232,448 bytes, 1 KB
+  // of it reserved per block), else one
+  static constexpr int MIN_BLOCKS = 2 * (FLOATS * 4 + 1024) <= 232448 ? 2 : 1;
+  static_assert(KM >= 1 && KT % 16 == 0, "tile shape");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups (the newest) are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, QR) of the query tile at positions p0 .. of x (q or do, [B, S,
+// H, hd]) into Xs ([QR][RS]) and their y (lse or D, [B, KV, rep, S]) into
+// ys, as 16- and 4-byte cp.async copies; rows past nrows are zero-filled
+// (source size 0).
+template <int HD, int QR>
+__device__ __forceinline__ void issue_rows(const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           float* Xs, float* ys, int b,
+                                           int g, int p0, int nrows, int S,
+                                           int H, int KV, int rep, int tid) {
+  constexpr int RS = HD + 4;
+#pragma unroll 4
+  for (int e = tid; e < QR * HD / 4; e += kThreads) {
+    const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
+    const bool ok = r < nrows;
+    const size_t off = ok ? ((size_t)(b * S + p0 + r / rep) * H + g * rep +
+                             r % rep) * HD + d
+                          : 0;
+    cp_async16(&Xs[r * RS + d], x + off, ok);
+  }
+  if (tid < QR) {
+    const bool ok = tid < nrows;
+    const size_t i =
+        ok ? ((size_t)(b * KV + g) * rep + tid % rep) * S + p0 + tid / rep
+           : 0;
+    cp_async4(&ys[tid], y + i, ok);
+  }
+}
+
+// K8c work unit u: segment sg (slowest), then the (b, g) group, then the
+// key tile j (fastest), so every group's first segments come before any
+// group's later ones.  Key tile j is seen by query tiles t_lo .. t_hi;
+// its segment sg walks tiles t_lo + sg * seg .. (at most seg of them), and
+// units past the tile's ns segments exit at once.  With one segment the
+// unit writes dk / dv; with more, each writes its partial sums to part,
+// and the last of them to finish (an integer ticket a key tile) adds the
+// partials in segment order, so the result does not depend on which unit
+// finishes last.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, DkvTile<HD>::MIN_BLOCKS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dcap, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, int H, int KV, int rep,
-                     int positions, int causal, int window, float scale) {
-  using T = Tile<HD>;
-  constexpr int RS = T::RS, PS = T::PS;
+                     float* __restrict__ dv, float* __restrict__ part,
+                     int* __restrict__ tickets, int S, int H, int KV,
+                     int rep, int positions, int causal, int window,
+                     float scale, int n_groups, int n_key_tiles, int seg,
+                     int max_ns) {
+  using T = DkvTile<HD>;
+  constexpr int KT = T::KT, QR = T::QR, RS = T::RS, PS = T::PS;
+  constexpr int RI = T::RI, KJ = T::KJ;
+  constexpr bool PREFETCH = T::PF == 1;
+  constexpr int KM = T::KM, CM = T::CM, NCG = T::NCG;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][RS]
-  float* dOs = Qs + kRows * RS;                  // [kRows][RS]
-  float* Ks = dOs + kRows * RS;                  // [kKT][RS]
-  float* Vs = Ks + kKT * RS;                     // [kKT][RS]
-  float* Ps = Vs + kKT * RS;                     // [kRows][PS]  p
-  float* dSs = Ps + kRows * PS;                  // [kRows][PS]  ds
-  float* lse_s = dSs + kRows * PS;               // [kRows]
-  float* d_s = lse_s + kRows;                    // [kRows]
+  float* Ks = reinterpret_cast<float*>(smem4);   // [KT][RS]
+  float* Vs = Ks + KT * RS;                      // [KT][RS]
+  float* Ps = Vs + KT * RS;                      // [QR][PS]  p
+  float* dSs = Ps + QR * PS;                     // [QR][PS]  ds
+  float* Qs = dSs + QR * PS;                     // [QR][RS]
+  float* dOs = Qs + QR * RS;                     // [QR][RS]
+  float* lse_s = dOs + QR * RS;                  // [QR]
+  float* d_s = lse_s + QR;                       // [QR]
+  __shared__ int last_unit;
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * kKT;   // the first key tiles see the most rows
-  const int b = blockIdx.y / KV;
-  const int g = blockIdx.y % KV;
-  const size_t kv_base = (size_t)b * S * KV + g;
-  load_key_tile<HD>(k, v, Ks, Vs, kv_base, KV, S, k0, tid);
-
-  const int tr = tid / 16, tc = tid % 16;           // s / dp layout
-  const int rg = tid / T::NCG, cg = tid % T::NCG;   // dk / dv layout
-  float acc_k[T::KM][T::CM], acc_v[T::KM][T::CM];
-#pragma unroll
-  for (int i = 0; i < T::KM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::CM; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  // positions that can see keys k0 .. k0 + kKT - 1
+  const int per_seg = n_groups * n_key_tiles;
+  const int sg = blockIdx.x / per_seg;
+  const int tile = blockIdx.x % per_seg;         // (b, g) * n_key_tiles + j
+  const int bg = tile / n_key_tiles, j = tile % n_key_tiles;
+  const int b = bg / KV, g = bg % KV;
+  const int k0 = j * KT;
+  // positions that can see keys k0 .. k0 + KT - 1
   const int p_lo = causal ? k0 : 0;
-  const int p_hi = window > 0 ? min(S - 1, k0 + kKT - 1 + window - 1) : S - 1;
-  for (int t = p_lo / positions; t <= p_hi / positions; ++t) {
-    const int q0 = t * positions;
-    const int nrows = min(positions, S - q0) * rep;
-    __syncthreads();   // the previous tile's Q, dO, p and ds are consumed
-    load_query_tile<HD>(q, dout, lse, dcap, Qs, dOs, lse_s, d_s, b, g, q0,
-                        nrows, S, H, KV, rep, tid);
-    __syncthreads();
+  const int p_hi = window > 0 ? min(S - 1, k0 + KT - 1 + window - 1) : S - 1;
+  const int t_lo = p_lo / positions, t_hi = p_hi / positions;
+  const int ns = (t_hi - t_lo + seg) / seg;
+  if (sg >= ns) return;
+  const int t_begin = t_lo + sg * seg;
+  const int t_end = min(t_hi + 1, t_begin + seg);
 
-    float s[4][2], dp[4][2];
-    row_key_products<HD>(Qs, Ks, tr, tc, s);
-    row_key_products<HD>(dOs, Vs, tr, tc, dp);
+  const size_t kv_base = (size_t)b * S * KV + g;
+  load_key_tile<HD, KT>(k, v, Ks, Vs, kv_base, KV, S, k0, tid);
+
+  const int tr = tid / 16, tc = tid % 16;        // s / dp layout
+  const int rg = tid / NCG, cg = tid % NCG;      // dk / dv layout
+  float acc_k[KM][CM], acc_v[KM][CM];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr * 4 + i;
+  for (int i = 0; i < KM; ++i)
+#pragma unroll
+    for (int c = 0; c < CM; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  auto rows_of = [&](int t) { return min(positions, S - t * positions) * rep; };
+  auto issue_dout = [&](int t) {
+    issue_rows<HD, QR>(dout, dcap, dOs, d_s, b, g, t * positions, rows_of(t),
+                       S, H, KV, rep, tid);
+  };
+  auto issue_q = [&](int t) {
+    issue_rows<HD, QR>(q, lse, Qs, lse_s, b, g, t * positions, rows_of(t), S,
+                       H, KV, rep, tid);
+  };
+  if constexpr (PREFETCH) {    // two groups: dO and D, then Q and lse
+    issue_dout(t_begin);
+    cp_async_commit();
+    issue_q(t_begin);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int q0 = t * positions;
+    const int nrows = rows_of(t);
+
+    float s[RI][KJ], dp[RI][KJ];
+    if constexpr (PREFETCH) {
+      cp_async_wait<1>();    // dO and D of this tile have landed
+      __syncthreads();       // (the first time: K and V too)
+      row_key_products<HD, RI, KJ>(dOs, Vs, tr, tc, dp);
+      cp_async_wait<0>();    // Q and lse
+      __syncthreads();
+      row_key_products<HD, RI, KJ>(Qs, Ks, tr, tc, s);
+    } else {
+      __syncthreads();   // the previous tile's Q, dO, p and ds are consumed
+      load_query_tile<HD, QR>(q, dout, lse, dcap, Qs, dOs, lse_s, d_s, b, g,
+                              q0, nrows, S, H, KV, rep, tid);
+      __syncthreads();
+      row_key_products<HD, RI, KJ>(Qs, Ks, tr, tc, s);
+      row_key_products<HD, RI, KJ>(dOs, Vs, tr, tc, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = tr * RI + i;
       const int qp = q0 + r / rep;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = tc + 16 * j;
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int key = tc + 16 * jj;
         const bool ok = r < nrows && visible(qp, k0 + key, S, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        const float p = ok ? expf(s[i][jj] * scale - lse_s[r]) : 0.f;
         Ps[r * PS + key] = p;
-        dSs[r * PS + key] = p * (dp[i][j] - d_s[r]);
+        dSs[r * PS + key] = p * (dp[i][jj] - d_s[r]);
       }
     }
     __syncthreads();
 
-    // dv += p^T dO, dk += ds^T Q over the tile's rows (rows past nrows
-    // hold zeros; the bound is the same for the whole block)
+    // dv += p^T dO, dk += ds^T Q over the tile's rows (the bound is the
+    // same for the whole block): acc[i][c] += w[r][key i] * x[r][col c]
+    auto accumulate = [&](const float* W, const float* X,
+                          float (&acc)[KM][CM]) {
 #pragma unroll 2
-    for (int r = 0; r < nrows; ++r) {
-      float pk[T::KM], sk[T::KM], o[T::CM], qq[T::CM];
-      load_row<T::KM>(&Ps[r * PS + rg * T::KM], pk);
-      load_row<T::KM>(&dSs[r * PS + rg * T::KM], sk);
-      load_cols<HD>(&dOs[r * RS], cg, o);
-      load_cols<HD>(&Qs[r * RS], cg, qq);
+      for (int r = 0; r < nrows; ++r) {
+        float w[KM], x[CM];
+        load_row<KM>(&W[r * PS + rg * KM], w);
 #pragma unroll
-      for (int i = 0; i < T::KM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::CM; ++j) {
-          acc_v[i][j] = fmaf(pk[i], o[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(sk[i], qq[j], acc_k[i][j]);
+        for (int c = 0; c < CM; c += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              &X[r * RS + (c / 4) * NCG * 4 + cg * 4]);
+          x[c] = a.x; x[c + 1] = a.y; x[c + 2] = a.z; x[c + 3] = a.w;
         }
+#pragma unroll
+        for (int i = 0; i < KM; ++i)
+#pragma unroll
+          for (int c = 0; c < CM; ++c) acc[i][c] = fmaf(w[i], x[c], acc[i][c]);
+      }
+    };
+    if constexpr (PREFETCH) {
+      accumulate(Ps, dOs, acc_v);
+      __syncthreads();       // dO and D consumed: refill them
+      if (t + 1 < t_end) issue_dout(t + 1);
+      cp_async_commit();
+      accumulate(dSs, Qs, acc_k);
+      __syncthreads();       // Q, lse, p and ds consumed
+      if (t + 1 < t_end) issue_q(t + 1);
+      cp_async_commit();
+    } else {
+#pragma unroll 2
+      for (int r = 0; r < nrows; ++r) {
+        float pk[KM], sk[KM], o[CM], qq[CM];
+        load_row<KM>(&Ps[r * PS + rg * KM], pk);
+        load_row<KM>(&dSs[r * PS + rg * KM], sk);
+#pragma unroll
+        for (int c = 0; c < CM; c += 4) {
+          const int col = (c / 4) * NCG * 4 + cg * 4;
+          const float4 a =
+              *reinterpret_cast<const float4*>(&dOs[r * RS + col]);
+          const float4 e = *reinterpret_cast<const float4*>(&Qs[r * RS + col]);
+          o[c] = a.x; o[c + 1] = a.y; o[c + 2] = a.z; o[c + 3] = a.w;
+          qq[c] = e.x; qq[c + 1] = e.y; qq[c + 2] = e.z; qq[c + 3] = e.w;
+        }
+#pragma unroll
+        for (int i = 0; i < KM; ++i)
+#pragma unroll
+          for (int c = 0; c < CM; ++c) {
+            acc_v[i][c] = fmaf(pk[i], o[c], acc_v[i][c]);
+            acc_k[i][c] = fmaf(sk[i], qq[c], acc_k[i][c]);
+          }
+      }
     }
   }
 
+  if (ns > 1) {
+    // this unit's partial sums, then the key tile's ticket
+    float* mine = part + ((size_t)tile * max_ns + sg) * (2 * KT * HD);
 #pragma unroll
-  for (int i = 0; i < T::KM; ++i) {
-    const int kp = k0 + rg * T::KM + i;
+    for (int i = 0; i < KM; ++i)
+#pragma unroll
+      for (int c = 0; c < CM; c += 4) {
+        const int off = (rg * KM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        *reinterpret_cast<float4*>(&mine[off]) = make_float4(
+            acc_k[i][c], acc_k[i][c + 1], acc_k[i][c + 2], acc_k[i][c + 3]);
+        *reinterpret_cast<float4*>(&mine[KT * HD + off]) = make_float4(
+            acc_v[i][c], acc_v[i][c + 1], acc_v[i][c + 2], acc_v[i][c + 3]);
+      }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_unit = atomicAdd(&tickets[tile], 1) == ns - 1;
+    __syncthreads();
+    if (!last_unit) return;
+    __threadfence();
+    // the last unit: sum the ns partials in segment order (read through
+    // L2: other SMs wrote them)
+    const float* first = part + (size_t)tile * max_ns * (2 * KT * HD);
+#pragma unroll
+    for (int i = 0; i < KM; ++i)
+#pragma unroll
+      for (int c = 0; c < CM; c += 4) {
+        const int off = (rg * KM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+        for (int p = 0; p < ns; ++p) {
+          const float* src = first + (size_t)p * (2 * KT * HD);
+          const float4 a = __ldcg(reinterpret_cast<const float4*>(&src[off]));
+          const float4 e =
+              __ldcg(reinterpret_cast<const float4*>(&src[KT * HD + off]));
+          sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+          sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+        }
+        acc_k[i][c] = sk.x; acc_k[i][c + 1] = sk.y;
+        acc_k[i][c + 2] = sk.z; acc_k[i][c + 3] = sk.w;
+        acc_v[i][c] = sv.x; acc_v[i][c + 1] = sv.y;
+        acc_v[i][c + 2] = sv.z; acc_v[i][c + 3] = sv.w;
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    const int kp = k0 + rg * KM + i;
     if (kp >= S) continue;
     const size_t off = (kv_base + (size_t)kp * KV) * HD;
 #pragma unroll
-    for (int j = 0; j < T::CM; j += 4) {
-      const int c = (j / 4) * T::NCG * 4 + cg * 4;
-      *reinterpret_cast<float4*>(&dk[off + c]) =
-          make_float4(acc_k[i][j] * scale, acc_k[i][j + 1] * scale,
-                      acc_k[i][j + 2] * scale, acc_k[i][j + 3] * scale);
-      *reinterpret_cast<float4*>(&dv[off + c]) = make_float4(
-          acc_v[i][j], acc_v[i][j + 1], acc_v[i][j + 2], acc_v[i][j + 3]);
+    for (int c = 0; c < CM; c += 4) {
+      const int col = (c / 4) * NCG * 4 + cg * 4;
+      *reinterpret_cast<float4*>(&dk[off + col]) =
+          make_float4(acc_k[i][c] * scale, acc_k[i][c + 1] * scale,
+                      acc_k[i][c + 2] * scale, acc_k[i][c + 3] * scale);
+      *reinterpret_cast<float4*>(&dv[off + col]) = make_float4(
+          acc_v[i][c], acc_v[i][c + 1], acc_v[i][c + 2], acc_v[i][c + 3]);
     }
   }
 }
@@ -438,18 +672,27 @@ int launch_dq(const float* q, const float* k, const float* v,
 template <int HD>
 int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* dcap,
-               float* dk, float* dv, int B, int S, int H, int KV, int causal,
-               int window, float scale, cudaStream_t stream) {
+               float* dk, float* dv, float* part, int* tickets, int B,
+               int S, int H, int KV, int causal, int window, float scale,
+               int seg, int max_ns, cudaStream_t stream) {
   const int rep = H / KV;
   const int positions = kRows / rep;
-  const size_t smem = Tile<HD>::DKV_FLOATS * sizeof(float);
+  constexpr int KT = DkvTile<HD>::KT;
+  const int n_key_tiles = (S + KT - 1) / KT;
+  const size_t smem = DkvTile<HD>::FLOATS * sizeof(float);
   static bool attr_set = false;
-  if (const int err = set_smem(flash_bwd_dkv_kernel<HD>, smem, attr_set))
+  if (const int err =
+          set_smem(flash_bwd_dkv_kernel<HD>, smem, attr_set))
     return err;
-  dim3 grid((S + kKT - 1) / kKT, B * KV);
-  flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dcap, dk, dv, S, H, KV, rep, positions, causal,
-      window, scale);
+  if (max_ns > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        tickets, 0, sizeof(int) * (size_t)B * KV * n_key_tiles, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long units = (long long)max_ns * B * KV * n_key_tiles;
+  flash_bwd_dkv_kernel<HD><<<(unsigned)units, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dcap, dk, dv, part, tickets, S, H, KV, rep,
+      positions, causal, window, scale, B * KV, n_key_tiles, seg, max_ns);
   return (int)cudaGetLastError();
 }
 
@@ -485,24 +728,35 @@ int flash_bwd_dq_f32(const float* q, const float* k, const float* v,
   }
 }
 
-// The same inputs -> dk, dv [B, S, KV, hd].
+// The same inputs -> dk, dv [B, S, KV, hd], by K8c (64 keys a unit at hd
+// 64 and 128, 32 at hd 256).  Each key tile's visible query tiles are split
+// into segments of at most seg tiles.  When some key tile has more than
+// one (max_ns > 1), part holds B * KV * ceil(S / keys) * max_ns * 2 *
+// keys * hd floats of scratch and tickets B * KV * ceil(S / keys) ints
+// (zeroed here, on the stream); else both may be null.  Returns
+// cudaGetLastError().
 int flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* dcap,
-                      float* dk, float* dv, int B, int S, int H, int KV,
-                      int hd, int causal, int window, float scale,
-                      void* stream) {
-  if (bad_shape(B, S, H, KV)) return (int)cudaErrorInvalidValue;
+                      float* dk, float* dv, float* part, int* tickets, int B,
+                      int S, int H, int KV, int hd, int causal, int window,
+                      float scale, int seg, int max_ns, void* stream) {
+  if (bad_shape(B, S, H, KV) || seg < 1 || max_ns < 1 ||
+      (max_ns > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, dcap, dk, dv, B, S, H, KV,
-                            causal, window, scale, st);
+      return launch_dkv<64>(q, k, v, dout, lse, dcap, dk, dv, part, tickets,
+                            B, S, H, KV, causal, window, scale, seg, max_ns,
+                            st);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, dcap, dk, dv, B, S, H, KV,
-                             causal, window, scale, st);
+      return launch_dkv<128>(q, k, v, dout, lse, dcap, dk, dv, part,
+                             tickets, B, S, H, KV, causal, window, scale, seg,
+                             max_ns, st);
     case 256:
-      return launch_dkv<256>(q, k, v, dout, lse, dcap, dk, dv, B, S, H, KV,
-                             causal, window, scale, st);
+      return launch_dkv<256>(q, k, v, dout, lse, dcap, dk, dv, part,
+                             tickets, B, S, H, KV, causal, window, scale, seg,
+                             max_ns, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@ K5 ``topk_select``, K6 ``ef_gather`` and K7 ``ef_scatter``).
 
     quant_pack    q = clip(floor(x / scale + u), +-qmax) as int8 codes, or
                   as ``code + 8`` nibbles two per uint8 (element 2i low)
-    quant_unpack  codes -> float32 code * scale
+    quant_unpack  codes -> float32 code * scale; ``quant_unpack_multi``
+                  decodes every leaf of a message in one launch
     topk_select   x where |x| >= t, else 0
     ef_gather     rows idx[j] of a [N, ...] table -> [k, ...]
     ef_scatter    rows [k, ...] written into the table at idx, in place
@@ -18,6 +19,7 @@ No gradients: the codecs work on deltas after training.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -25,11 +27,14 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["quant_pack", "quant_unpack", "topk_select", "ef_gather",
-           "ef_scatter", "quant_pack_plain", "quant_unpack_plain",
+__all__ = ["quant_pack", "quant_unpack", "quant_unpack_multi",
+           "topk_select", "ef_gather", "ef_scatter", "quant_pack_plain",
+           "quant_unpack_plain", "quant_unpack_multi_plain",
            "topk_select_plain", "ef_gather_plain", "ef_scatter_plain",
-           "quant_pack_cuda", "quant_unpack_cuda", "topk_select_cuda",
-           "ef_gather_cuda", "ef_scatter_cuda"]
+           "quant_pack_cuda", "quant_unpack_cuda", "quant_unpack_multi_cuda",
+           "topk_select_cuda", "ef_gather_cuda", "ef_scatter_cuda"]
+
+MAX_LEAVES = 64     # leaves one K4 launch decodes (the kernel's leaf table)
 
 
 def _check_bits(name, bits):
@@ -80,6 +85,14 @@ def quant_unpack_plain(packed, scale, *, bits=8, n=None):
     return q.float() * scale.reshape(1)
 
 
+def quant_unpack_multi_plain(packed, scales, *, bits=8, ns=None):
+    """:func:`quant_unpack_plain` over the leaves of a message: packed and
+    scales are lists, ns a list of element counts (None: all the codes)."""
+    ns = [None] * len(packed) if ns is None else ns
+    return [quant_unpack_plain(q, s, bits=bits, n=n)
+            for q, s, n in zip(packed, scales, ns)]
+
+
 def topk_select_plain(x, thresh):
     """x [n], thresh [1] -> x where |x| >= thresh, else 0."""
     return torch.where(x.abs() >= thresh.reshape(1), x, torch.zeros_like(x))
@@ -105,9 +118,10 @@ def _kernels():
     lib = build.load("compress_pack")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.quant_pack_f32.argtypes = [p, p, p, p, ll, i, i, p]
-    lib.quant_unpack_f32.argtypes = [p, p, p, ll, i, i, p]
+    lib.quant_unpack_multi_f32.argtypes = [p, i, p]
     lib.topk_select_f32.argtypes = [p, p, p, ll, i, p]
-    for fn in (lib.quant_pack_f32, lib.quant_unpack_f32, lib.topk_select_f32):
+    for fn in (lib.quant_pack_f32, lib.quant_unpack_multi_f32,
+               lib.topk_select_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -123,19 +137,38 @@ def _ef_kernels():
     return lib
 
 
+_FNS = {}
+
+
+def _fn(name):
+    """The ctypes function ``name``, looked up once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        lib = _ef_kernels() if name.startswith("ef_") else _kernels()
+        fn = _FNS[name] = getattr(lib, name)
+    return fn
+
+
 def _check(kernel, name, t, device, dtype, numel=None):
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel} needs CUDA tensors, got {name} on "
-                         f"{t.device}")
+    """What the C side cannot check: a contiguous 1-D tensor of ``dtype``
+    on ``device`` (a CUDA device), of ``numel`` elements if given."""
     if t.device != device or t.dtype != dtype or t.dim() != 1 \
-            or not t.is_contiguous():
+            or not t.is_contiguous() \
+            or (numel is not None and t.numel() != numel):
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} needs CUDA tensors, got {name} on "
+                             f"{t.device}")
+        want = "" if numel is None else f" of {numel} elements"
         raise ValueError(
-            f"{kernel}: {name} must be a contiguous 1-D {dtype} tensor on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"{kernel}: {name} must be a contiguous 1-D {dtype} tensor{want} "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
-    if numel is not None and t.numel() != numel:
-        raise ValueError(f"{kernel}: {name} has {t.numel()} elements, "
-                         f"want {numel}")
+
+
+def _cuda_device(kernel, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {t.device}")
+    return t.device
 
 
 def _aligned(*pairs):
@@ -144,8 +177,16 @@ def _aligned(*pairs):
 
 
 def _launch(kernel, fn, device, *args):
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    """Calls ``fn(*args, stream)`` on ``device``'s current stream (read on
+    every call, as a raw handle: a CUDA graph captures on a side stream),
+    switching devices only when ``device`` is not the current one."""
+    index = device.index
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if torch.cuda.current_device() == index:
+        rc = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
@@ -154,7 +195,7 @@ def quant_pack_cuda(x, scale, noise, *, bits=8):
     """Launches K3: x, noise float32 [n] and scale float32 [1], contiguous
     on one CUDA device -> int8 [n] or uint8 [n/2]."""
     _check_bits("quant_pack_cuda", bits)
-    dev = x.device
+    dev = _cuda_device("quant_pack_cuda", x)
     _check("quant_pack_cuda", "x", x, dev, torch.float32)
     n = x.numel()
     _check("quant_pack_cuda", "noise", noise, dev, torch.float32, n)
@@ -165,7 +206,7 @@ def quant_pack_cuda(x, scale, noise, *, bits=8):
     out = torch.empty(n if bits == 8 else n // 2, device=dev,
                       dtype=torch.int8 if bits == 8 else torch.uint8)
     vec = _aligned((x, 16), (noise, 16), (out, 4))
-    _launch("quant_pack", _kernels().quant_pack_f32, dev, x.data_ptr(),
+    _launch("quant_pack", _fn("quant_pack_f32"), dev, x.data_ptr(),
             noise.data_ptr(), scale.data_ptr(), out.data_ptr(), n, bits, vec)
     quant_pack_cuda.launches += 1
     return out
@@ -175,10 +216,11 @@ quant_pack_cuda.launches = 0
 
 
 def quant_unpack_cuda(packed, scale, *, bits=8, n=None):
-    """Launches K4: packed int8 [n] (bits 8) or uint8 [m >= n/2] (bits 4)
-    and scale float32 [1], contiguous on one CUDA device -> float32 [n]."""
+    """Launches K4 (the multi-leaf kernel with a one-leaf table): packed
+    int8 [n] (bits 8) or uint8 [m >= n/2] (bits 4) and scale float32 [1],
+    contiguous on one CUDA device -> float32 [n]."""
     _check_bits("quant_unpack_cuda", bits)
-    dev = packed.device
+    dev = _cuda_device("quant_unpack_cuda", packed)
     _check("quant_unpack_cuda", "packed", packed, dev,
            torch.int8 if bits == 8 else torch.uint8)
     _check("quant_unpack_cuda", "scale", scale, dev, torch.float32, 1)
@@ -186,20 +228,77 @@ def quant_unpack_cuda(packed, scale, *, bits=8, n=None):
     if n == 0:
         raise ValueError("quant_unpack_cuda: n must be positive")
     out = torch.empty(n, device=dev, dtype=torch.float32)
-    vec = _aligned((packed, 4), (out, 16))
-    _launch("quant_unpack", _kernels().quant_unpack_f32, dev,
-            packed.data_ptr(), scale.data_ptr(), out.data_ptr(), n, bits, vec)
-    quant_unpack_cuda.launches += 1
+    q_ptr, out_ptr = packed.data_ptr(), out.data_ptr()
+    _unpack_launch(dev, [q_ptr, scale.data_ptr(), out_ptr, n, bits,
+                         q_ptr % 4 == 0 and out_ptr % 16 == 0])
     return out
 
 
 quant_unpack_cuda.launches = 0
 
 
+def quant_unpack_multi_cuda(packed, scales, *, bits=8, ns=None):
+    """K4 over the leaves of a message, up to 64 leaves a launch: packed
+    and scales are lists of :func:`quant_unpack_cuda`'s inputs on one CUDA
+    device, ns their element counts (None: all the codes).  Returns one
+    float32 [n] view per leaf of a single flat buffer (each leaf starts
+    16-byte aligned).  Each launch adds one to ``quant_unpack_cuda``'s
+    count."""
+    _check_bits("quant_unpack_multi_cuda", bits)
+    n_leaves = len(packed)
+    if not n_leaves or len(scales) != n_leaves \
+            or (ns is not None and len(ns) != n_leaves):
+        raise ValueError(f"quant_unpack_multi_cuda: {n_leaves} code "
+                         f"tensors, {len(scales)} scales and "
+                         f"{None if ns is None else len(ns)} counts")
+    dev = _cuda_device("quant_unpack_multi_cuda", packed[0])
+    dtype = torch.int8 if bits == 8 else torch.uint8
+    f32 = torch.float32
+    # per leaf: codes, scale, output offset (filled in below), n, bits, vec
+    table, split, keep, total = [], [], [], 0
+    for i in range(n_leaves):
+        q, s = packed[i], scales[i]
+        if q.dtype != dtype or s.dtype != f32 or q.device != dev \
+                or s.device != dev or q.dim() != 1 or s.numel() != 1 \
+                or not q.is_contiguous():
+            _check("quant_unpack_multi_cuda", f"packed[{i}]", q, dev, dtype)
+            _check("quant_unpack_multi_cuda", f"scales[{i}]", s, dev, f32, 1)
+        cap = q.numel() * (1 if bits == 8 else 2)
+        n = cap if ns is None else ns[i]
+        if not 0 < n <= cap:
+            raise ValueError(f"quant_unpack_multi_cuda: n={n} outside [1, "
+                             f"{cap}] for leaf {i} at {bits} bits")
+        q_ptr = q.data_ptr()
+        table += (q_ptr, s.data_ptr(), total, n, bits, q_ptr % 4 == 0)
+        pad = -n % 4 if i + 1 < n_leaves else 0   # next leaf 16-byte aligned
+        split += (n, pad) if pad else (n,)
+        keep += (True, False) if pad else (True,)
+        total += n + pad
+    out = torch.empty(total, device=dev, dtype=f32)
+    base = out.data_ptr()
+    for j in range(2, len(table), 6):
+        table[j] = base + 4 * table[j]
+        table[j + 3] = table[j + 3] and base % 16 == 0
+    _unpack_launch(dev, table)
+    return [v for v, leaf in zip(out.split_with_sizes(split), keep) if leaf]
+
+
+def _unpack_launch(dev, table):
+    """K4 over a leaf table (six ints a leaf: codes, scale and output
+    addresses, n, bits, vec), one launch per 64 leaves, each counted on
+    ``quant_unpack_cuda``."""
+    fn = _fn("quant_unpack_multi_f32")
+    for lo in range(0, len(table), 6 * MAX_LEAVES):
+        chunk = array.array("q", table[lo:lo + 6 * MAX_LEAVES])
+        _launch("quant_unpack", fn, dev, chunk.buffer_info()[0],
+                len(chunk) // 6)
+        quant_unpack_cuda.launches += 1
+
+
 def topk_select_cuda(x, thresh):
     """Launches K5: x float32 [n] and thresh float32 [1], contiguous on one
     CUDA device -> float32 [n]."""
-    dev = x.device
+    dev = _cuda_device("topk_select_cuda", x)
     _check("topk_select_cuda", "x", x, dev, torch.float32)
     _check("topk_select_cuda", "thresh", thresh, dev, torch.float32, 1)
     n = x.numel()
@@ -207,7 +306,7 @@ def topk_select_cuda(x, thresh):
         raise ValueError("topk_select_cuda: empty input")
     out = torch.empty_like(x)
     vec = _aligned((x, 16), (out, 16))
-    _launch("topk_select", _kernels().topk_select_f32, dev, x.data_ptr(),
+    _launch("topk_select", _fn("topk_select_f32"), dev, x.data_ptr(),
             thresh.data_ptr(), out.data_ptr(), n, vec)
     topk_select_cuda.launches += 1
     return out
@@ -268,7 +367,7 @@ def ef_gather_cuda(table, idx):
     if k == 0 or n == 0:
         return out
     vec = int(n % 4 == 0) * _aligned((table, 16), (out, 16))
-    _launch("ef_gather", _ef_kernels().ef_gather_f32, table.device,
+    _launch("ef_gather", _fn("ef_gather_f32"), table.device,
             table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
             out.data_ptr(), k, n, vec)
     ef_gather_cuda.launches += 1
@@ -296,7 +395,7 @@ def ef_scatter_cuda(table, idx, rows):
     if k == 0 or n == 0:
         return table
     vec = int(n % 4 == 0) * _aligned((table, 16), (rows, 16))
-    _launch("ef_scatter", _ef_kernels().ef_scatter_f32, table.device,
+    _launch("ef_scatter", _fn("ef_scatter_f32"), table.device,
             table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
             rows.data_ptr(), k, n, vec)
     ef_scatter_cuda.launches += 1
@@ -322,6 +421,14 @@ def quant_unpack(packed, scale, *, bits=8, n=None):
     if packed.device.type == "cpu":
         return quant_unpack_plain(packed, scale, bits=bits, n=n)
     return quant_unpack_cuda(packed, scale, bits=bits, n=n)
+
+
+def quant_unpack_multi(packed, scales, *, bits=8, ns=None):
+    """K4 over a message's leaves in one launch (per 64 leaves) on the
+    card, the plain version leaf by leaf for tensors on the CPU."""
+    if packed[0].device.type == "cpu":
+        return quant_unpack_multi_plain(packed, scales, bits=bits, ns=ns)
+    return quant_unpack_multi_cuda(packed, scales, bits=bits, ns=ns)
 
 
 def topk_select(x, thresh):

@@ -13,7 +13,8 @@ the card run K8b (``dq``) and K8c (``dk``, ``dv``) of
 ``csrc/flash_attn_bwd.cu`` after ``D = rowsum(do * o)`` in float32 (laid
 out like lse, computed outside the kernels as the JAX package does);
 tensors on the CPU run :func:`flash_bwd_plain`, the same formulas over
-the full masked matrices in float32.
+the full masked matrices in float32.  K8c's work units (a key tile and a
+segment of the query tiles that see it) come from :func:`dkv_plan`.
 
 ``make_flash_attention`` returns ``flash(q, k, v) -> o`` as a
 ``torch.autograd.Function`` whose forward is K8a and whose backward is K8b
@@ -22,7 +23,9 @@ and K8c (on the card; the plain versions on the CPU).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -31,6 +34,9 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 64        # query heads per KV head: the kernel's 64-row tile
+# keys a K8c work unit owns, by head dim (csrc/flash_attn_bwd.cu DkvTile)
+DKV_KEYS = {64: 64, 128: 64, 256: 32}
+_SMEM_PER_SM = 232448   # bytes of shared memory an H100 SM gives its blocks
 
 
 def masked_softmax_attention(q, k, v, mask):
@@ -103,6 +109,74 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None):
             dv.to(v.dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class DkvPlan:
+    """K8c's schedule for one shape.  Key tile j (keys j * key_tile ..) is
+    seen by the query tiles t_lo .. t_hi of ``positions`` positions each
+    (``rows`` (position, head) rows); ``n_tiles[j]`` counts them.  Its
+    segments are the runs of at most ``seg`` of those tiles from t_lo on,
+    ``ceil(n_tiles[j] / seg)`` of them; ``max_ns`` is the most any key tile
+    has.  The kernel launches ``max_ns * B * KV * len(n_tiles)`` units and
+    the ones past their key tile's segments exit at once."""
+    key_tile: int
+    rows: int
+    positions: int
+    seg: int
+    max_ns: int
+    t_lo: tuple
+    n_tiles: tuple
+
+    def segments(self, j):
+        """(first, end) query tiles of key tile j's segments, in order."""
+        lo, n = self.t_lo[j], self.n_tiles[j]
+        return [(lo + a, lo + min(a + self.seg, n))
+                for a in range(0, n, self.seg)]
+
+    def scratch_floats(self, B, KV, hd):
+        """Floats of partial sums the launch needs (0: none)."""
+        if self.max_ns == 1:
+            return 0
+        return (B * KV * len(self.n_tiles) * self.max_ns * 2
+                * self.key_tile * hd)
+
+
+def _dkv_blocks_per_sm(hd, key_tile, rows):
+    """K8c blocks an SM holds: two where shared memory admits them (the
+    kernel's __launch_bounds__ asks the registers for the same)."""
+    rs, ps = hd + 4, key_tile + 4
+    floats = 2 * key_tile * rs + 2 * rows * rs + 2 * rows + 2 * rows * ps
+    return 2 if 2 * (4 * floats + 1024) <= _SMEM_PER_SM else 1
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_plan(B, S, H, KV, hd, causal=True, window=None, *, n_sm=132):
+    """K8c's :class:`DkvPlan` for q [B,S,H,hd], k/v [B,S,KV,hd] on a card
+    of ``n_sm`` SMs.  The segment length is a quarter of the tiles each of
+    the card's block slots would walk under a perfect balance (at least
+    2), so that the longest unit is short beside a slot's share; a key
+    tile shorter than that stays whole."""
+    kt = DKV_KEYS[hd]
+    rows = 64
+    positions = rows // (H // KV)
+    t_lo, n_tiles = [], []
+    for k0 in range(0, S, kt):
+        p_lo = k0 if causal else 0
+        p_hi = S - 1 if window is None else min(S - 1, k0 + kt + window - 2)
+        t_lo.append(p_lo // positions)
+        n_tiles.append(p_hi // positions - p_lo // positions + 1)
+    longest = max(n_tiles)
+    slots = n_sm * _dkv_blocks_per_sm(hd, kt, rows)
+    seg = min(max(2, math.ceil(B * KV * sum(n_tiles) / slots / 4)), longest)
+    max_ns = -(-longest // seg)
+    return DkvPlan(kt, rows, positions, seg, max_ns, tuple(t_lo),
+                   tuple(n_tiles))
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(fn, window, **tensors):
     """The kernels' contract, raised as ValueError: contiguous 16-byte
     aligned float32 on one CUDA device; q (and do) [B,S,H,hd], k / v
@@ -149,19 +223,24 @@ def _kernel(name):
                      else "flash_attn")
     fn = getattr(lib, name)
     n_ptrs = {"flash_fwd_f32": 5, "flash_bwd_dq_f32": 7,
-              "flash_bwd_dkv_f32": 8}[name]
+              "flash_bwd_dkv_f32": 10}[name]
+    # K8c also takes its schedule (seg, max_ns)
+    n_plan = 2 if name == "flash_bwd_dkv_f32" else 0
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * n_plan
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, tensors, dims, causal, window):
+def _launch(name, tensors, dims, causal, window, ptrs=(), plan=()):
+    """``name``(tensors' pointers, ptrs, dims, causal, window, scale, plan,
+    stream) on the tensors' device and its current stream."""
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(name)(*(t.data_ptr() for t in tensors), *dims,
+        rc = _kernel(name)(*(t.data_ptr() for t in tensors), *ptrs, *dims,
                            int(causal), 0 if window is None else int(window),
-                           float(dims[-1] ** -0.5), stream)
+                           float(dims[-1] ** -0.5), *plan, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -202,12 +281,26 @@ flash_bwd_dq_cuda.launches = 0
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
     """Launches K8c (``csrc/flash_attn_bwd.cu``): the inputs of
-    :func:`flash_bwd_dq_cuda` -> (dk, dv) [B,S,KV,hd]."""
+    :func:`flash_bwd_dq_cuda` -> (dk, dv) [B,S,KV,hd], scheduled by
+    :func:`dkv_plan`."""
     dims = _check("flash_bwd_dkv_cuda", window, q=q, k=k, v=v, do=do,
                   lse=lse, dcap=dcap)
+    B, S, H, KV, hd = dims
+    plan = dkv_plan(B, S, H, KV, hd, bool(causal), window,
+                    n_sm=_sm_count(q.device.index))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    floats = plan.scratch_floats(B, KV, hd)
+    scratch = part = tickets = None
+    if floats:
+        # partial sums, then one int32 ticket per key tile (zeroed by the
+        # launch)
+        scratch = torch.empty(floats + B * KV * len(plan.n_tiles),
+                              dtype=torch.float32, device=q.device)
+        part = scratch.data_ptr()
+        tickets = part + 4 * floats
     _launch("flash_bwd_dkv_f32", (q, k, v, do, lse, dcap, dk, dv), dims,
-            causal, window)
+            causal, window, ptrs=(part, tickets),
+            plan=(plan.seg, plan.max_ns))
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 

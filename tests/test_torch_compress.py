@@ -87,6 +87,36 @@ def test_quant_pack_unpack_plain_match_pallas_and_ref(bits, n, clamp):
                                             n=n), got_y)
 
 
+@pytest.mark.parametrize("bits,sizes", [
+    (8, [800, 32, 3, 1001]),                   # mixed sizes
+    (4, [7, 4097, 10, 1]),                     # odd int4 leaves
+    (4, [5 if i % 2 else 8 for i in range(70)]),  # more than a launch holds
+], ids=["int8-mixed", "int4-odd", "int4-70-leaves"])
+def test_quant_unpack_multi_plain_matches_pallas(bits, sizes):
+    """K4's message decode (one launch per 64 leaves on the card) against
+    the Pallas ``quant_unpack`` kernel in interpret mode, leaf by leaf:
+    exact."""
+    packed, scales, want = [], [], []
+    for i, n in enumerate(sizes):
+        x, u, scale = _quant_inputs(n + (n % 2 if bits == 4 else 0), bits,
+                                    100 * i + n)
+        q = tcp.quant_pack_plain(torch.from_numpy(x), torch.tensor([scale]),
+                                 torch.from_numpy(u), bits=bits)
+        packed.append(q)
+        scales.append(torch.tensor([scale]))
+        want.append(np.asarray(jops.quantize_unpack(
+            jnp.asarray(q.numpy()), scale, bits=bits, n=n,
+            impl="pallas_interpret")))
+    got = tcp.quant_unpack_multi_plain(packed, scales, bits=bits, ns=sizes)
+    assert len(got) == len(sizes)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and np.array_equal(g.numpy(), w)
+    # the dispatching wrapper takes the plain version for CPU tensors
+    for g, w in zip(tcp.quant_unpack_multi(packed, scales, bits=bits,
+                                           ns=sizes), got):
+        assert torch.equal(g, w)
+
+
 def test_quant_unpack_refuses_n_beyond_the_codes():
     q = torch.zeros(5, dtype=torch.uint8)
     assert tcp.quant_unpack_plain(q, torch.ones(1), bits=4, n=9).shape == (9,)

@@ -144,9 +144,12 @@ def test_codec_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tcp.quant_unpack_cuda(torch.zeros(8, dtype=torch.int8), s)
     with pytest.raises(ValueError, match="CUDA"):
+        tcp.quant_unpack_multi_cuda([torch.zeros(8, dtype=torch.int8)], [s])
+    with pytest.raises(ValueError, match="CUDA"):
         tcp.topk_select_cuda(x, s)
     # the CPU path runs the plain versions and launches nothing
     tcp.quant_unpack(tcp.quant_pack(x, s, u), s)
+    tcp.quant_unpack_multi([tcp.quant_pack(x, s, u)] * 2, [s, s])
     tcp.topk_select(x, s)
     assert _codec_launches() == before
 
@@ -195,6 +198,48 @@ def test_quant_kernels_take_unaligned_views(cuda_device, bits):
     n = q.numel() if bits == 8 else 2 * q.numel() - 1    # odd n for int4
     assert torch.equal(tcp.quant_unpack_cuda(q, scale, bits=bits, n=n),
                        tcp.quant_unpack_plain(q, scale, bits=bits, n=n))
+
+
+# CNN_MNIST's eight leaves (conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b)
+MNIST_LEAVES = [800, 32, 51_200, 64, 1_605_632, 512, 5_120, 10]
+
+
+def _message(sizes, bits, seed, device):
+    """One code tensor and scale a leaf (int4 leaves hold ceil(n / 2)
+    bytes) from seeded numpy draws."""
+    rng = np.random.default_rng(seed)
+    packed, scales = [], []
+    for n in sizes:
+        x, u, scale = _quant_case(n + (n % 2 if bits == 4 else 0), bits,
+                                  int(rng.integers(1 << 30)), device)
+        packed.append(tcp.quant_pack_cuda(x, scale, u, bits=bits))
+        scales.append(scale)
+    return packed, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["cnn_mnist", "odd_unaligned", "70_leaves"])
+def test_quant_unpack_multi_matches_plain(cuda_device, bits, case):
+    """K4 over a whole message equals the plain version leaf by leaf, in
+    one launch per 64 leaves."""
+    sizes = {"cnn_mnist": MNIST_LEAVES, "odd_unaligned": [4097, 33, 1000],
+             "70_leaves": [37 * i + 1 for i in range(70)]}[case]
+    packed, scales = _message(sizes, bits, len(sizes) + bits, cuda_device)
+    if case == "odd_unaligned":
+        # views that start off the 4-byte boundary
+        packed = [q[1:] for q in packed]
+        sizes = [q.numel() if bits == 8 else 2 * q.numel() - 1
+                 for q in packed]
+    before = tcp.quant_unpack_cuda.launches
+    got = tcp.quant_unpack_multi_cuda(packed, scales, bits=bits, ns=sizes)
+    torch.cuda.synchronize()
+    assert tcp.quant_unpack_cuda.launches == before + -(-len(sizes) // 64)
+    want = tcp.quant_unpack_multi_plain(packed, scales, bits=bits, ns=sizes)
+    assert [t.numel() for t in got] == sizes
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert g.data_ptr() % 16 == 0
 
 
 @pytest.mark.cuda
@@ -262,10 +307,12 @@ def test_compressed_round_launches_codec_kernels(cuda_device, up, down):
     res = run_federated_reference(bundle, fl, data, rounds=R,
                                   eval_examples=20, device=cuda_device)
     torch.cuda.synchronize()
-    want = (L * C * R if up == "int8" else 0) + (L * R if down == "int4"
+    # K3 once per leaf of a message, K4 once per message
+    pack = (L * C * R if up == "int8" else 0) + (L * R if down == "int4"
                                                  else 0)
+    unpack = (C * R if up == "int8" else 0) + (R if down == "int4" else 0)
     assert (tcp.quant_pack_cuda.launches,
-            tcp.quant_unpack_cuda.launches) == (want, want)
+            tcp.quant_unpack_cuda.launches) == (pack, unpack)
     assert all(t.is_cuda and bool(torch.isfinite(t).all())
                for t in tree_leaves(res.global_state))
 
@@ -562,6 +609,46 @@ def test_flash_bwd_kernels_match_plain(cuda_device, B, S, H, KV, hd,
     assert torch.equal(dq, tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap,
                                                  window=window))
     again = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, window=window)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+DKV_SHAPES = [                   # B, S, H, KV, hd, window, split
+    (2, 300, 9, 3, 64, None, True),    # smollm's heads, many segments
+    (2, 300, 2, 2, 64, 30, False),     # rep 1, window: one segment each
+    (1, 1000, 4, 1, 256, 512, True),   # gemma3 local, ragged
+    (1, 520, 4, 1, 256, None, True),   # gemma3 global
+    (1, 260, 8, 2, 128, 40, True),     # window ends mid-tile
+    (1, 9, 64, 1, 64, None, True),     # rep 64: one position a tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window,split", DKV_SHAPES)
+def test_flash_bwd_dkv_builds_and_schedules_match_plain(
+        cuda_device, B, S, H, KV, hd, window, split):
+    """K8c at each head dim, with one segment a key tile and with many,
+    against the plain backward within 1e-4 of each gradient's largest
+    element, and bitwise equal when run again."""
+    rng = np.random.default_rng(S + H + hd)
+    q = _randn(rng, (B, S, H, hd), cuda_device)
+    k = _randn(rng, (B, S, KV, hd), cuda_device)
+    v = _randn(rng, (B, S, KV, hd), cuda_device)
+    do = _randn(rng, (B, S, H, hd), cuda_device)
+    o, lse = tfa.flash_fwd_plain(q, k, v, window=window)
+    _, want_k, want_v = tfa.flash_bwd_plain(q, k, v, o, lse, do,
+                                            window=window)
+    dcap = tfa.flash_dcap(do, o, KV)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tfa.dkv_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
+    assert (plan.max_ns > 1) == split
+    kw = dict(window=window)
+    before = tfa.flash_bwd_dkv_cuda.launches
+    dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw)
+    again = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dkv_cuda.launches == before + 2
+    for got, ref in zip((dk, dv), (want_k, want_v)):
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 

@@ -10,6 +10,11 @@ ulps of the gradients' scale (|grad| up to ~10 here), held at rtol 1e-4 /
 atol 1e-5.  The Pallas blocks are small (16) so that several of them, and
 the masks of partial blocks, run; the lengths are ragged (not multiples
 of 16), one shorter than two blocks.
+
+K8c's schedule (``flash_attn.dkv_plan``: key tiles cut into segments of
+query tiles, partial sums added in segment order, the visibility of each
+tile) is emulated in plain PyTorch, tile by tile as the kernel walks it,
+and held to ``jax.vjp`` at 1e-5 of each gradient's largest element.
 """
 import jax
 import jax.numpy as jnp
@@ -76,3 +81,112 @@ def test_flash_dcap_is_the_rowsum_in_lse_layout():
     assert d.shape == (2, 2, 3, 5) and d.is_contiguous()
     # head g * rep + r of position p lands at [b, g, r, p]
     torch.testing.assert_close(d[1, 1, 2, 4], (do[1, 4, 5] * o[1, 4, 5]).sum())
+
+
+def _dkv_emulated(q, k, v, do, lse, dcap, plan, causal, window):
+    """dk, dv as K8c computes them under ``plan``: for each (b, g) and key
+    tile, each segment's partial sums over its query tiles' (position,
+    head) rows, visible pairs only, then the partials added in segment
+    order."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    kt, positions = plan.key_tile, plan.positions
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for g in range(KV):
+            heads = slice(g * rep, (g + 1) * rep)
+            for j, k0 in enumerate(range(0, S, kt)):
+                keys = torch.arange(k0, min(k0 + kt, S))
+                kt_, vt = k[b, keys, g], v[b, keys, g]
+                partials = []
+                for t0, t1 in plan.segments(j):
+                    acc_k = torch.zeros(len(keys), hd)
+                    acc_v = torch.zeros(len(keys), hd)
+                    for t in range(t0, t1):
+                        q0 = t * positions
+                        npos = min(positions, S - q0)
+                        qt = q[b, q0:q0 + npos, heads].reshape(-1, hd)
+                        dot = do[b, q0:q0 + npos, heads].reshape(-1, hd)
+                        l_r = lse[b, g, :, q0:q0 + npos].T.reshape(-1)
+                        d_r = dcap[b, g, :, q0:q0 + npos].T.reshape(-1)
+                        pos = q0 + torch.arange(npos * rep) // rep
+                        vis = torch.ones(len(pos), len(keys), dtype=bool)
+                        if causal:
+                            vis &= keys[None, :] <= pos[:, None]
+                        if window is not None:
+                            vis &= (pos[:, None] - keys[None, :]) < window
+                        s = qt @ kt_.T * scale
+                        p = torch.where(vis, torch.exp(s - l_r[:, None]),
+                                        torch.zeros_like(s))
+                        ds = p * (dot @ vt.T - d_r[:, None])
+                        acc_v += p.T @ dot
+                        acc_k += ds.T @ qt
+                    partials.append((acc_k, acc_v))
+                total_k, total_v = partials[0]
+                for pk, pv in partials[1:]:
+                    total_k, total_v = total_k + pk, total_v + pv
+                dk[b, keys, g] = total_k * scale
+                dv[b, keys, g] = total_v
+    return dk, dv
+
+
+DKV_CASES = [       # B, S, H, KV, hd, window, most segments a key tile
+    (1, 100, 3, 1, 64, None, 3),     # rep 3, ragged
+    (2, 70, 4, 1, 64, 8, 3),         # rep 4, window ends mid-tile
+    (1, 50, 4, 1, 256, 8, 2),        # gemma3's rep, hd 256
+    (1, 50, 4, 1, 256, None, 2),
+    (1, 200, 2, 2, 64, 24, 1),       # rep 1, window: one segment each
+    (1, 77, 6, 2, 128, None, 2),     # rep 3, hd 128
+    (1, 20, 64, 1, 64, None, 10),    # rep 64: one position a tile
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,max_ns", DKV_CASES)
+def test_dkv_schedule_emulation_matches_pallas(B, S, H, KV, hd, window,
+                                               max_ns):
+    q, k, v, do = _inputs(B, S, H, KV, hd, seed=S + 7 * H + hd)
+    want = _jax_grads(q, k, v, do, window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attn.flash_fwd_plain(tq, tk, tv, window=window)
+    dcap = flash_attn.flash_dcap(tdo, o, KV)
+    plan = flash_attn.dkv_plan(B, S, H, KV, hd, True, window)
+    # every key tile has at least one segment, and the case has the
+    # segments it names
+    assert min(plan.n_tiles) >= 1 and plan.max_ns == max_ns
+    got = _dkv_emulated(tq, tk, tv, tdo, lse, dcap, plan, True, window)
+    for g, w in zip(got, want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+def _visible_tiles(S, rep, window, plan, j):
+    """Query tiles holding a position that sees a key of key tile j."""
+    kt, positions = plan.key_tile, plan.positions
+    keys = np.arange(j * kt, min((j + 1) * kt, S))
+    tiles = set()
+    for p in range(S):
+        d = p - keys
+        if np.any((d >= 0) & ((window is None) | (d < (window or 1)))):
+            tiles.add(p // positions)
+    return tiles
+
+
+@pytest.mark.parametrize("S,H,KV,hd,window", [
+    (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
+    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5)])
+def test_dkv_plan_covers_exactly_the_visible_tiles(S, H, KV, hd, window):
+    """Each key tile's segments tile [t_lo, t_hi] without gap or overlap,
+    that range is exactly the query tiles that see the key tile, and the
+    default segment length splits gemma3-1b's long causal key tiles."""
+    plan = flash_attn.dkv_plan(4, S, H, KV, hd, True, window)
+    for j in range(len(plan.n_tiles)):
+        segs = plan.segments(j)
+        covered = [t for a, e in segs for t in range(a, e)]
+        assert covered == sorted(set(covered))
+        assert all(e - a <= plan.seg for a, e in segs)
+        assert set(covered) == _visible_tiles(S, H // KV, window, plan, j)
+    assert plan.max_ns == max(-(-n // plan.seg) for n in plan.n_tiles)
+    if (S, window, hd) == (1024, None, 256):
+        assert plan.max_ns > 1

@@ -21,7 +21,9 @@ is non-zero):
    serve shapes, against ``scaled_dot_product_attention`` as the
    yardstick; K8b / K8c, the flash backward, at smollm-135m's and
    gemma3-1b's training shapes and two ragged ones, against that
-   function's backward, and bitwise repeatable, with K8c's segment plan);
+   function's backward, and bitwise repeatable, with K8b's and K8c's
+   segment plans; K2 at the CNN's shapes and smollm-135m's LM fusion
+   (8,192 x 576), against ``torch.mm(torch.cat(...))``, with its tiling);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -117,6 +119,14 @@ ENGINE_RUNS = [("fedavg", "client_parallel", "identity", "device"),
                ("fedfusion", "client_parallel", "topk", "device"),
                ("fedfusion", "client_parallel", "topk", "host"),
                ("fedmmd", "client_sequential", "int8", "device")]
+
+
+def ptxas_summary(log):
+    """Each kernel's registers and spills from ``nvcc -Xptxas=-v``'s log,
+    after the (mangled) name of the kernel they belong to."""
+    return [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln
+            or "Compiling entry function" in ln]
 
 
 def emit(phase, **fields):
@@ -250,17 +260,27 @@ def check_kernels(torch, mk_mmd, fusion_conv):
          bound_by=bound_by)
 
     # -- K2: fusion conv --------------------------------------------------
-    for T, C in [(490, 64), (100352, 64), (1001, 64), (77, 40)]:
+    # the CNN's training and eval shapes, smollm-135m's LM fusion, ragged
+    # ones, and C % 4 != 0 (the kernel's scalar path)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for T, C in [(490, 64), (100352, 64), (8192, 576), (1001, 64), (77, 40),
+                 (33, 30)]:
         fg, fl = randn(T, C), randn(T, C)
         w = randn(2 * C, C, scale=1.0 / math.sqrt(2 * C))
         got = fusion_conv.fusion_conv_cuda(fg, fl, w)
+        again = fusion_conv.fusion_conv_cuda(fg, fl, w)
         want = fusion_conv.fusion_conv_plain(fg, fl, w)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         # K = 2C float32 products summed in another order than cuBLAS
         tol = 1e-5 * want.abs().max().item()
-        line = dict(kernel="fusion_conv", shape=[T, C], abs_err=err, tol=tol)
-        if C == 64 and T in (490, 100352):
+        plan = fusion_conv.conv_plan(T, C, n_sm)
+        line = dict(kernel="fusion_conv", shape=[T, C], abs_err=err, tol=tol,
+                    bitwise_repeat=bool(torch.equal(got, again)),
+                    plan=dict(tokens=plan.tokens, channels=plan.channels,
+                              k_split=plan.k_split,
+                              blocks=plan.blocks(T, C)))
+        if (T, C) in ((490, 64), (100352, 64), (8192, 576)):
             lib = lambda: torch.mm(torch.cat((fg, fl), -1), w)  # noqa: E731
             line.update(
                 kernel_ms=time_ms(torch, lambda: fusion_conv.fusion_conv_cuda(
@@ -279,7 +299,7 @@ def check_kernels(torch, mk_mmd, fusion_conv):
                     bound_by=line["bound_by"],
                     library_ms=line["library_ms"])
         emit("kernels", **line)
-        if err > tol:
+        if err > tol or not line["bitwise_repeat"]:
             raise AssertionError(f"fusion_conv kernel disagrees at {(T, C)}")
     return rows
 
@@ -876,11 +896,14 @@ def check_flash_bwd_kernels(torch, flash_attn):
         finite = all(bool(torch.isfinite(t).all()) for t in got + want)
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], rel[0])
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], rel[1], rel[2])
-        plan = flash_attn.dkv_plan(
-            B, S, H, KV, hd, True, window,
-            n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = flash_attn.dkv_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
+        qplan = flash_attn.dq_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
         line = dict(kernel="flash_bwd_dq+flash_bwd_dkv", case=case,
                     shape=[B, S, H, KV, hd], window=window,
+                    dq_plan=dict(key_tile=qplan.key_tile, rows=qplan.rows,
+                                 seg=qplan.seg, max_segments=qplan.max_ns,
+                                 units=qplan.units(B, KV)),
                     dkv_plan=dict(key_tile=plan.key_tile, rows=plan.rows,
                                   seg=plan.seg,
                                   max_segments=plan.max_ns,
@@ -1479,9 +1502,7 @@ def main():
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = build.build()
-    ptxas = {n: [ln.split("info    : ")[-1] for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in build.BUILD_LOG.items()}
+    ptxas = {n: ptxas_summary(log) for n, log in build.BUILD_LOG.items()}
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: str(p.relative_to(ROOT)) for n, p in libs.items()},
          ptxas=ptxas)

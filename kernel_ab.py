@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Times K2 (fusion conv) and K8b / K8c (the flash backward) of one or
+more source trees on one NVIDIA GPU, in turns, for A/B comparisons.
+
+    python3 kernel_ab.py [--root DIR ...] [--only fusion_conv|flash_bwd]
+
+Each ``--root`` is a checkout (or a ``git archive``) holding
+``src/repro_torch``; the default is this script's own. Give the trees in
+the order they should run (for instance parent, change, change, parent):
+the trees' kernels are built first, all at once, each into its tree's own
+``build/``; then each tree runs in a process of its own, one after the
+other, and prints one JSON line per measurement:
+
+- ``fusion_conv`` at (T, C) = (490, 64) (the CNN's training shape, with
+  the kernel's device microseconds a launch from ``torch.profiler``),
+  (100,352, 64) (eval) and (8,192, 576) (smollm-135m's LM fusion): the
+  wrapper's time, ``torch.mm(torch.cat((f_g, f_l), -1), w)``'s and the
+  bound;
+- ``flash_bwd`` at ``chip_smoke.FLASH_BWD_CASES``: K8b's and K8c's times,
+  the float32 backward of ``scaled_dot_product_attention`` (all three
+  gradients) and each kernel's bound.
+
+Every result is checked against the kernel's plain version on the same
+inputs (K2 within 1e-5 of the output's largest element, K8b / K8c within
+``chip_smoke.BWD_TOL`` of each gradient's), and a check that fails makes
+the run exit non-zero. The first line names the card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402
+
+K2_SHAPES = [(490, 64), (100352, 64), (8192, 576)]
+
+
+def emit(**fields):
+    print(json.dumps(fields), flush=True)
+
+
+def device_us(torch, fn, name, launches=50):
+    """Mean device microseconds of the activities named ``name`` over
+    ``launches`` calls of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    return sum(spans) / len(spans) if spans else None
+
+
+def time_fusion_conv(torch, fusion_conv, tag):
+    gen = torch.Generator().manual_seed(0)
+    ok = True
+    for T, C in K2_SHAPES:
+        fg = torch.randn(T, C, generator=gen).cuda()
+        fl = torch.randn(T, C, generator=gen).cuda()
+        w = (torch.randn(2 * C, C, generator=gen) / math.sqrt(2 * C)).cuda()
+        got = fusion_conv.fusion_conv_cuda(fg, fl, w)
+        want = fusion_conv.fusion_conv_plain(fg, fl, w)
+        again = fusion_conv.fusion_conv_cuda(fg, fl, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        bound_ms, bound_by = cs.bound(*cs.fusion_conv_work(T, C))
+        line = dict(
+            tree=tag, kernel="fusion_conv", shape=[T, C], abs_err=err,
+            tol=tol, bitwise_repeat=bool(torch.equal(got, again)),
+            kernel_ms=cs.time_ms(torch, lambda: fusion_conv.fusion_conv_cuda(
+                fg, fl, w)),
+            library_ms=cs.time_ms(torch, lambda: torch.mm(
+                torch.cat((fg, fl), -1), w)),
+            bound_ms=bound_ms, bound_by=bound_by)
+        if T == 490:
+            line["device_us"] = device_us(
+                torch, lambda: fusion_conv.fusion_conv_cuda(fg, fl, w),
+                "fusion_conv")
+            line["library_device_us"] = device_us(
+                torch, lambda: torch.mm(torch.cat((fg, fl), -1), w), "gemm")
+        emit(**line)
+        ok &= err <= tol and line["bitwise_repeat"]
+    return ok
+
+
+def time_flash_bwd(torch, flash_attn, tag):
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(4)
+    ok = True
+    for case, B, S, H, KV, hd, window in cs.FLASH_BWD_CASES:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen).cuda()
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        do = randn(B, S, H, hd)
+        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        dcap = flash_attn.flash_dcap(do, o, KV)
+        kw = dict(window=window)
+
+        def dq_call():
+            return flash_attn.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw)
+
+        def dkv_call():
+            return flash_attn.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw)
+
+        got = (dq_call(), *dkv_call())
+        again = (dq_call(), *dkv_call())
+        want = flash_attn.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, want)]
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
+        line = dict(tree=tag, kernel="flash_bwd", case=case,
+                    shape=[B, S, H, KV, hd], window=window,
+                    rel_err=dict(zip(("dq", "dk", "dv"), rel)),
+                    bitwise_repeat=repeat)
+        work = cs.flash_bwd_work(B, S, H, KV, hd, window)
+        for name, call in (("flash_bwd_dq", dq_call),
+                           ("flash_bwd_dkv", dkv_call)):
+            line[name] = dict(zip(("bound_ms", "bound_by"),
+                                  cs.bound(*work[name])),
+                              kernel_ms=cs.time_ms(torch, call, launches=10,
+                                                   repeats=9))
+        if S == 1024:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            mask = None
+            if window is not None:
+                pos = torch.arange(S, device=q.device)
+                mask = ((pos[None, :] <= pos[:, None])
+                        & ((pos[:, None] - pos[None, :]) < window))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            line["library_ms"] = cs.time_ms(
+                torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True),
+                launches=5, repeats=7)
+            del out, qt, kt, vt
+        emit(**line)
+        ok &= max(rel) <= cs.BWD_TOL and repeat
+    return ok
+
+
+def run_one(root, only, build_only):
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: torch.cuda finds no CUDA device")
+    src = Path(root).resolve() / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        sys.exit(f"kernel_ab: {src / 'repro_torch'} not found")
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build, flash_attn, fusion_conv
+    tag = root
+    if build_only:
+        build.build(("fusion_conv", "flash_attn", "flash_attn_bwd"))
+        emit(tree=tag, ptxas={n: cs.ptxas_summary(log)
+                              for n, log in build.BUILD_LOG.items()})
+        return
+    ok = True
+    if only in (None, "fusion_conv"):
+        ok &= time_fusion_conv(torch, fusion_conv, tag)
+    if only in (None, "flash_bwd"):
+        ok &= time_flash_bwd(torch, flash_attn, tag)
+    if not ok:
+        sys.exit(f"kernel_ab: a kernel of {tag} disagrees with its plain "
+                 "version")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append",
+                    help="a source tree to time (repeatable; default: "
+                         "this checkout)")
+    ap.add_argument("--only", choices=("fusion_conv", "flash_bwd"),
+                    help="time one kernel family only")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--build-only", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        return run_one(args.one, args.only, args.build_only)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: torch.cuda finds no CUDA device")
+    print(cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"]), flush=True)
+    roots = args.root or [str(HERE)]
+    builds = {root: subprocess.Popen([sys.executable, __file__, "--one", root,
+                                      "--build-only"])
+              for root in dict.fromkeys(roots)}
+    failed = [root for root, proc in builds.items() if proc.wait()]
+    if failed:
+        sys.exit(f"kernel_ab: the build failed for {failed}")
+    only = [] if args.only is None else ["--only", args.only]
+    for root in roots:
+        rc = subprocess.run([sys.executable, __file__, "--one", root,
+                             *only]).returncode
+        if rc:
+            failed.append(root)
+    if failed:
+        sys.exit(f"kernel_ab: failed on {failed}")
+
+
+if __name__ == "__main__":
+    main()

@@ -22,10 +22,13 @@
 // over all rows of a query tile sums over the rep heads of the group, so
 // dq, dk and dv need no float atomics.
 //
-//   K8b  one block per (b, g, 64 rows = 64 / rep positions); walks the
-//        32-key tiles visible to those rows.  Per tile: s = Q K^T and
-//        dp = dO V^T (each thread 4 rows x 2 keys, float4 loads along hd),
-//        ds into shared memory (transposed), then dq[64 x hd] += ds K.
+//   K8b  one work unit per (b, g, query tile of 64 rows = 64 / rep
+//        positions, segment): walks the key tiles (64 keys at hd 64, 32 at
+//        hd 128 and 256) visible to those rows, cut into segments where
+//        the plan says so.  Per tile: dp = dO V^T and s = Q K^T (each
+//        thread 4 rows x 4 or 2 keys, float4 loads along hd), ds into
+//        shared memory (transposed), then dq[64 x hd] += ds K.  Split
+//        query tiles add their partials as K8c's key tiles do.
 //   K8c  one work unit per (b, g, key tile, segment): a key tile (32 or
 //        64 keys) is seen by the query tiles at positions k0 .. k0 + KT - 1
 //        + window - 1 (causal from k0), and those tiles are cut into
@@ -55,9 +58,23 @@
 // take 21 us at 3.35 TB/s: operations.  Shared memory at hd = 256 is the
 // constraint: K8b holds 209 KB (Q, dO: 64 x 260 floats each; K, V: 32 x
 // 260; ds^T), K8c 219 KB (the same, with p and ds 64 x 36 each), one block
-// per SM.  K8b loads each K / V tile synchronously after a barrier.  K8c
-// attacks three limits, each of which was timed alone before it was kept
-// (PERF.md): (1) causal load imbalance -- a
+// per SM.  K8b and K8c each attack three limits, each timed alone
+// before it was kept (PERF.md).  K8b: (1) dispatch order --
+// the units go segment, then query tile from the last (longest) to the
+// first, then group, so every group's longest tiles start in the first
+// wave (at gemma3-1b's global layer, 256 units at one an SM, a grid with
+// the query tile fastest starts two groups' longest tiles only in the
+// second wave; this order takes 0.60x of its time); the
+// plan (kernels/flash_attn.py dq_plan) cuts query tiles into segments
+// only where a list-scheduling model of the card's block slots says the
+// last wave would be ragged (gemma3-1b's local layer, 0.88x; at the
+// global layer and smollm-135m segments cost 5-13%); (2) synchronous
+// K / V loads -- they arrive by cp.async in place, V during s and the dq
+// pass, K during the next tile's dp (0.98x at hd 256; a wash at hd 64 /
+// 128, where a two-stage ring costs a block an SM and is slower); (3)
+// shared-memory traffic -- 64-key tiles at hd 64 (0.91x; at hd 128 they
+// leave one block an SM and are slower).  K8c: (1) causal load imbalance
+// -- a
 // causal layer's first key tile sees every query tile, its last only one,
 // and gemma3-1b's 128 key tiles fill one wave of 132 SMs, so the longest
 // sets the time: segments split the long key tiles (0.63x at gemma3-1b's
@@ -74,14 +91,14 @@
 // the s / dp products take 24 wavefronts per 32 FFMAs a warp, so shared
 // memory, not the FMA units, bounds them (a count, not a profile).  Tensor
 // cores (wgmma on TF32 or bf16) and TMA are later work.  ptxas
-// (-Xptxas=-v, nvcc 12.9): K8c 128 registers at hd 64 (12 bytes
-// spilled), 128-208 at hd 128, 168 at hd 256.
+// (-Xptxas=-v, nvcc 12.9): K8b 128 registers at hd 64 and 128, 168 at
+// hd 256, no spills; K8c 128 at hd 64 (12 bytes spilled), 208 at hd 128,
+// 168 at hd 256.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kRows = 64;          // (position, head) rows per query tile
-constexpr int kKT = 32;            // keys per tile
 constexpr int kThreads = 256;
 
 template <int HD>
@@ -90,17 +107,7 @@ struct Tile {
   // output register tiles: NCG groups of float4 columns, CM columns each
   static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
   static constexpr int CM = HD / NCG;
-  static constexpr int NRG = kThreads / NCG;
-  static constexpr int RM = kRows / NRG;        // K8b: dq rows a thread owns
-  static constexpr int TS = kRows + 4;          // K8b: row stride of ds^T
-  static constexpr int DQ_FLOATS =
-      2 * kRows * RS + 2 * kKT * RS + kKT * TS + 2 * kRows;
 };
-
-// Blocks per SM the register budget must allow for K8b (shared memory
-// admits 3 / 2 / 1 at hd 64 / 128 / 256).
-template <int HD>
-constexpr int kMinBlocks = HD == 256 ? 1 : 2;
 
 // acc[i][j] += a_i . b_j over hd for the thread's rows tr * RI + i of A and
 // keys tc + 16 j of B (both [rows][RS] in shared memory): s = Q K^T or
@@ -206,7 +213,7 @@ __device__ __forceinline__ void load_query_tile(
 
 // Keys k0 .. k0 + KT - 1 of k and v into Ks / Vs ([KT][RS], zeros past
 // S).
-template <int HD, int KT = kKT>
+template <int HD, int KT>
 __device__ __forceinline__ void load_key_tile(const float* __restrict__ k,
                                               const float* __restrict__ v,
                                               float* Ks, float* Vs,
@@ -232,132 +239,6 @@ __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
                                         int window) {
   return kp < S && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
 }
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dcap, float* __restrict__ dq,
-                    int S, int H, int KV, int rep, int positions, int causal,
-                    int window, float scale) {
-  using T = Tile<HD>;
-  constexpr int RS = T::RS, TS = T::TS;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][RS]
-  float* dOs = Qs + kRows * RS;                  // [kRows][RS]
-  float* Ks = dOs + kRows * RS;                  // [kKT][RS]
-  float* Vs = Ks + kKT * RS;                     // [kKT][RS]
-  float* dSt = Vs + kKT * RS;                    // [kKT][TS]  ds^T
-  float* lse_s = dSt + kKT * TS;                 // [kRows]
-  float* d_s = lse_s + kRows;                    // [kRows]
-
-  const int tid = threadIdx.x;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * positions;  // heavy first
-  const int b = blockIdx.y / KV;
-  const int g = blockIdx.y % KV;
-  const int n_pos = min(positions, S - q0);
-  const int nrows = n_pos * rep;
-  load_query_tile<HD>(q, dout, lse, dcap, Qs, dOs, lse_s, d_s, b, g, q0,
-                      nrows, S, H, KV, rep, tid);
-
-  const int tr = tid / 16, tc = tid % 16;           // s / dp layout
-  const int rg = tid / T::NCG, cg = tid % T::NCG;   // dq layout
-  float acc[T::RM][T::CM];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::CM; ++j) acc[i][j] = 0.f;
-
-  const int q_last = q0 + n_pos - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? q_last : S - 1;
-  const size_t kv_base = (size_t)b * S * KV + g;   // row (b, 0, g)
-  for (int t = k_lo / kKT; t <= k_hi / kKT; ++t) {
-    const int k0 = t * kKT;
-    __syncthreads();   // the previous tile's K, V and ds^T are consumed
-    load_key_tile<HD>(k, v, Ks, Vs, kv_base, KV, S, k0, tid);
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-    row_key_products<HD, 4, 2>(Qs, Ks, tr, tc, s);
-    row_key_products<HD, 4, 2>(dOs, Vs, tr, tc, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr * 4 + i;
-      const int qp = q0 + r / rep;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = tc + 16 * j;
-        const bool ok = r < nrows && visible(qp, k0 + key, S, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSt[key * TS + r] = p * (dp[i][j] - d_s[r]);
-      }
-    }
-    __syncthreads();
-
-    // dq += ds K
-#pragma unroll 4
-    for (int kk = 0; kk < kKT; ++kk) {
-      float a[T::RM], kb[T::CM];
-      load_row<T::RM>(&dSt[kk * TS + rg * T::RM], a);
-      load_cols<HD>(&Ks[kk * RS], cg, kb);
-#pragma unroll
-      for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::CM; ++j) acc[i][j] = fmaf(a[i], kb[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    const int r = rg * T::RM + i;
-    if (r >= nrows) continue;
-    float* row =
-        dq + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD;
-#pragma unroll
-    for (int j = 0; j < T::CM; j += 4)
-      *reinterpret_cast<float4*>(&row[(j / 4) * T::NCG * 4 + cg * 4]) =
-          make_float4(acc[i][j] * scale, acc[i][j + 1] * scale,
-                      acc[i][j + 2] * scale, acc[i][j + 3] * scale);
-  }
-}
-
-// ---------------------------------------------------------------- K8c ----
-//
-// K8c's tiles, one build per head dim: KT keys a unit (64 at hd 64 and
-// 128; 32 at hd 256, where 64 do not fit), 64 query rows a tile, and how
-// the next query tile's Q, dO, lse and D arrive (PF):
-//   0  synchronously, after a barrier (hd 64, where prefetch costs 5%);
-//   1  in place by cp.async (hd 128 and 256): the tile's dv pass (p, dO)
-//      runs before its dk pass (ds, Q), so dO's buffer is refilled during
-//      the dk pass and Q's during the next tile's dp = dO V^T: one buffer
-//      each, no more shared memory than PF 0 (a second 64-row buffer does
-//      not fit at hd 256).
-// Per tile, s and dp are 4 x KJ register tiles a thread (rows tr * 4 + i,
-// keys tc + 16 j); dk and dv are KM x CM register tiles a thread (keys
-// rg * KM + i, float4 column groups cg, cg + NCG, ...).
-template <int HD>
-struct DkvTile {
-  static constexpr int KT = HD == 256 ? 32 : 64;
-  static constexpr int PF = HD == 64 ? 0 : 1;
-  static constexpr int QR = kRows;
-  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
-  static constexpr int PS = KT + 4;             // row stride of p, ds
-  static constexpr int RI = QR / 16;
-  static constexpr int KJ = KT / 16;
-  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
-  static constexpr int CM = HD / NCG;
-  static constexpr int NRG = kThreads / NCG;
-  static constexpr int KM = KT / NRG;
-  static constexpr int FLOATS = 2 * KT * RS + 2 * QR * RS + 2 * QR
-                                + 2 * QR * PS;   // K, V, Q, dO, lse, D, p, ds
-  // two blocks a SM where shared memory admits them (232,448 bytes, 1 KB
-  // of it reserved per block), else one
-  static constexpr int MIN_BLOCKS = 2 * (FLOATS * 4 + 1024) <= 232448 ? 2 : 1;
-  static_assert(KM >= 1 && KT % 16 == 0, "tile shape");
-};
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
@@ -411,6 +292,256 @@ __device__ __forceinline__ void issue_rows(const float* __restrict__ x,
     cp_async4(&ys[tid], y + i, ok);
   }
 }
+
+// Keys k0 .. k0 + KT - 1 of x (k or v, [B, S, KV, hd]) into Xs ([KT][RS])
+// as 16-byte cp.async copies; keys past S are zero-filled.
+template <int HD, int KT>
+__device__ __forceinline__ void issue_keys(const float* __restrict__ x,
+                                           float* Xs, size_t kv_base, int KV,
+                                           int S, int k0, int tid) {
+  constexpr int RS = HD + 4;
+#pragma unroll 4
+  for (int e = tid; e < KT * HD / 4; e += kThreads) {
+    const int kk = e / (HD / 4), d = 4 * (e % (HD / 4));
+    const bool ok = k0 + kk < S;
+    const size_t off = ok ? (kv_base + (size_t)(k0 + kk) * KV) * HD + d : 0;
+    cp_async16(&Xs[kk * RS + d], x + off, ok);
+  }
+}
+
+// ---------------------------------------------------------------- K8b ----
+//
+// K8b's tiles, one build per head dim: 64 query rows a unit, KT keys a
+// tile (64 at hd 64; 32 at hd 128, where 64 would leave one block an SM,
+// and at hd 256, where 64 do not fit).  Per tile, s and dp are 4 x KJ
+// register tiles a thread (rows tr * 4 + i, keys tc + 16 j); dq is an RM x
+// CM register tile a thread (rows rg * RM + i, float4 column groups cg,
+// cg + NCG, ...).
+template <int HD>
+struct DqTile {
+  static constexpr int KT = HD == 64 ? 64 : 32;
+  static constexpr int QR = kRows;
+  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  static constexpr int TS = QR + 4;             // row stride of ds^T
+  static constexpr int KJ = KT / 16;
+  static constexpr int NCG = Tile<HD>::NCG;
+  static constexpr int CM = Tile<HD>::CM;
+  static constexpr int NRG = kThreads / NCG;
+  static constexpr int RM = QR / NRG;
+  static constexpr int FLOATS = 2 * QR * RS + 2 * KT * RS + KT * TS
+                                + 2 * QR;        // Q, dO, K, V, ds^T, lse, D
+  // two blocks a SM where shared memory admits them (232,448 bytes, 1 KB
+  // of it reserved per block), else one
+  static constexpr int MIN_BLOCKS = 2 * (FLOATS * 4 + 1024) <= 232448 ? 2 : 1;
+  static_assert(KT % 16 == 0 && RM % 2 == 0, "tile shape");
+};
+
+// K8b work unit u: segment sg (slowest), then the query tile t from the
+// last (the longest under a causal mask) to the first, then the (b, g)
+// group (fastest), so every group's longest tiles are dispatched before
+// any group's shorter ones.  Query tile t sees key tiles j_lo .. j_hi; its
+// segment sg walks j_lo + sg * seg .. (at most seg of them), and units
+// past the tile's ns segments exit at once.  With one segment the unit
+// writes dq; with more, each writes its partial sum to part, and the last
+// of them to finish (an integer ticket a query tile) adds the partials in
+// segment order, so the result does not depend on which unit finishes
+// last.  Key tiles arrive in place by cp.async: a tile runs dp = dO V^T,
+// then s = Q K^T, then dq += ds K, so V's buffer is refilled during s and
+// the dq pass and K's during the next tile's dp, one buffer each (a second
+// one does not fit at hd 256).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, DqTile<HD>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dcap, float* __restrict__ dq,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int S, int H, int KV, int rep, int positions, int causal,
+                    int window, float scale, int n_groups, int n_qtiles,
+                    int seg, int max_ns) {
+  using T = DqTile<HD>;
+  constexpr int KT = T::KT, QR = T::QR, RS = T::RS, TS = T::TS, KJ = T::KJ;
+  constexpr int RM = T::RM, CM = T::CM, NCG = T::NCG;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [QR][RS]
+  float* dOs = Qs + QR * RS;                     // [QR][RS]
+  float* Ks = dOs + QR * RS;                     // [KT][RS]
+  float* Vs = Ks + KT * RS;                      // [KT][RS]
+  float* dSt = Vs + KT * RS;                     // [KT][TS]  ds^T
+  float* lse_s = dSt + KT * TS;                  // [QR]
+  float* d_s = lse_s + QR;                       // [QR]
+  __shared__ int last_unit;
+
+  const int tid = threadIdx.x;
+  const int per_seg = n_groups * n_qtiles;
+  const int sg = blockIdx.x / per_seg;
+  const int rest = blockIdx.x % per_seg;
+  const int t = n_qtiles - 1 - rest / n_groups;  // heavy first
+  const int bg = rest % n_groups;
+  const int b = bg / KV, g = bg % KV;
+  const int q0 = t * positions;
+  const int n_pos = min(positions, S - q0);
+  const int nrows = n_pos * rep;
+  // key tiles visible from positions q0 .. q0 + n_pos - 1
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? q0 + n_pos - 1 : S - 1;
+  const int j_lo = k_lo / KT, j_hi = k_hi / KT;
+  const int ns = (j_hi - j_lo + seg) / seg;
+  if (sg >= ns) return;
+  const int j_begin = j_lo + sg * seg;
+  const int j_end = min(j_hi + 1, j_begin + seg);
+
+  const size_t kv_base = (size_t)b * S * KV + g;   // row (b, 0, g)
+  auto issue_kv = [&](const float* x, float* Xs, int j) {
+    issue_keys<HD, KT>(x, Xs, kv_base, KV, S, j * KT, tid);
+  };
+  issue_rows<HD, QR>(dout, dcap, dOs, d_s, b, g, q0, nrows, S, H, KV, rep,
+                     tid);
+  issue_rows<HD, QR>(q, lse, Qs, lse_s, b, g, q0, nrows, S, H, KV, rep, tid);
+  issue_kv(v, Vs, j_begin);     // two groups: the query tile and V, then K
+  cp_async_commit();
+  issue_kv(k, Ks, j_begin);
+  cp_async_commit();
+
+  const int tr = tid / 16, tc = tid % 16;        // s / dp layout
+  const int rg = tid / NCG, cg = tid % NCG;      // dq layout
+  float acc[RM][CM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < CM; ++c) acc[i][c] = 0.f;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int k0 = j * KT;
+    float dp[4][KJ], s[4][KJ];
+    cp_async_wait<1>();          // V (the first time: the query tile too)
+    __syncthreads();
+    row_key_products<HD, 4, KJ>(dOs, Vs, tr, tc, dp);
+    cp_async_wait<0>();          // K
+    __syncthreads();             // (and V consumed: refill it)
+    if (j + 1 < j_end) issue_kv(v, Vs, j + 1);
+    cp_async_commit();
+    row_key_products<HD, 4, KJ>(Qs, Ks, tr, tc, s);
+    // ds^T: the thread's 4 rows of key tc + 16 jj as one float4
+#pragma unroll
+    for (int jj = 0; jj < KJ; ++jj) {
+      const int key = tc + 16 * jj;
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tr * 4 + i;
+        const bool ok = r < nrows &&
+                        visible(q0 + r / rep, k0 + key, S, causal, window);
+        const float p = ok ? expf(s[i][jj] * scale - lse_s[r]) : 0.f;
+        ds[i] = p * (dp[i][jj] - d_s[r]);
+      }
+      *reinterpret_cast<float4*>(&dSt[key * TS + tr * 4]) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+
+    // dq += ds K
+#pragma unroll 4
+    for (int kk = 0; kk < KT; ++kk) {
+      float a[RM], kb[CM];
+      load_row<RM>(&dSt[kk * TS + rg * RM], a);
+      load_cols<HD>(&Ks[kk * RS], cg, kb);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < CM; ++c) acc[i][c] = fmaf(a[i], kb[c], acc[i][c]);
+    }
+    __syncthreads();             // K and ds^T consumed: refill K
+    if (j + 1 < j_end) issue_kv(k, Ks, j + 1);
+    cp_async_commit();
+  }
+
+  if (ns > 1) {
+    // this unit's partial sum, then the query tile's ticket
+    const int tile = bg * n_qtiles + t;
+    float* mine = part + ((size_t)tile * max_ns + sg) * (QR * HD);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int c = 0; c < CM; c += 4)
+        *reinterpret_cast<float4*>(
+            &mine[(rg * RM + i) * HD + (c / 4) * NCG * 4 + cg * 4]) =
+            make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2],
+                        acc[i][c + 3]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_unit = atomicAdd(&tickets[tile], 1) == ns - 1;
+    __syncthreads();
+    if (!last_unit) return;
+    __threadfence();
+    // the last unit: sum the ns partials in segment order (read through
+    // L2: other SMs wrote them)
+    const float* first = part + (size_t)tile * max_ns * (QR * HD);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int c = 0; c < CM; c += 4) {
+        const int off = (rg * RM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int p = 0; p < ns; ++p) {
+          const float4 a = __ldcg(reinterpret_cast<const float4*>(
+              &first[(size_t)p * (QR * HD) + off]));
+          sum.x += a.x; sum.y += a.y; sum.z += a.z; sum.w += a.w;
+        }
+        acc[i][c] = sum.x; acc[i][c + 1] = sum.y;
+        acc[i][c + 2] = sum.z; acc[i][c + 3] = sum.w;
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = rg * RM + i;
+    if (r >= nrows) continue;
+    float* row =
+        dq + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD;
+#pragma unroll
+    for (int c = 0; c < CM; c += 4)
+      *reinterpret_cast<float4*>(&row[(c / 4) * NCG * 4 + cg * 4]) =
+          make_float4(acc[i][c] * scale, acc[i][c + 1] * scale,
+                      acc[i][c + 2] * scale, acc[i][c + 3] * scale);
+  }
+}
+
+// ---------------------------------------------------------------- K8c ----
+//
+// K8c's tiles, one build per head dim: KT keys a unit (64 at hd 64 and
+// 128; 32 at hd 256, where 64 do not fit), 64 query rows a tile, and how
+// the next query tile's Q, dO, lse and D arrive (PF):
+//   0  synchronously, after a barrier (hd 64, where prefetch costs 5%);
+//   1  in place by cp.async (hd 128 and 256): the tile's dv pass (p, dO)
+//      runs before its dk pass (ds, Q), so dO's buffer is refilled during
+//      the dk pass and Q's during the next tile's dp = dO V^T: one buffer
+//      each, no more shared memory than PF 0 (a second 64-row buffer does
+//      not fit at hd 256).
+// Per tile, s and dp are 4 x KJ register tiles a thread (rows tr * 4 + i,
+// keys tc + 16 j); dk and dv are KM x CM register tiles a thread (keys
+// rg * KM + i, float4 column groups cg, cg + NCG, ...).
+template <int HD>
+struct DkvTile {
+  static constexpr int KT = HD == 256 ? 32 : 64;
+  static constexpr int PF = HD == 64 ? 0 : 1;
+  static constexpr int QR = kRows;
+  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  static constexpr int PS = KT + 4;             // row stride of p, ds
+  static constexpr int RI = QR / 16;
+  static constexpr int KJ = KT / 16;
+  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
+  static constexpr int CM = HD / NCG;
+  static constexpr int NRG = kThreads / NCG;
+  static constexpr int KM = KT / NRG;
+  static constexpr int FLOATS = 2 * KT * RS + 2 * QR * RS + 2 * QR
+                                + 2 * QR * PS;   // K, V, Q, dO, lse, D, p, ds
+  // two blocks a SM where shared memory admits them (232,448 bytes, 1 KB
+  // of it reserved per block), else one
+  static constexpr int MIN_BLOCKS = 2 * (FLOATS * 4 + 1024) <= 232448 ? 2 : 1;
+  static_assert(KM >= 1 && KT % 16 == 0, "tile shape");
+};
 
 // K8c work unit u: segment sg (slowest), then the (b, g) group, then the
 // key tile j (fastest), so every group's first segments come before any
@@ -654,18 +785,25 @@ int set_smem(Kernel kernel, size_t smem, bool& done) {
 template <int HD>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* dcap,
-              float* dq, int B, int S, int H, int KV, int causal, int window,
-              float scale, cudaStream_t stream) {
+              float* dq, float* part, int* tickets, int B, int S, int H,
+              int KV, int causal, int window, float scale, int seg,
+              int max_ns, cudaStream_t stream) {
   const int rep = H / KV;
   const int positions = kRows / rep;
-  const size_t smem = Tile<HD>::DQ_FLOATS * sizeof(float);
+  const int n_qtiles = (S + positions - 1) / positions;
+  const size_t smem = DqTile<HD>::FLOATS * sizeof(float);
   static bool attr_set = false;
   if (const int err = set_smem(flash_bwd_dq_kernel<HD>, smem, attr_set))
     return err;
-  dim3 grid((S + positions - 1) / positions, B * KV);
-  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dcap, dq, S, H, KV, rep, positions, causal, window,
-      scale);
+  if (max_ns > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        tickets, 0, sizeof(int) * (size_t)B * KV * n_qtiles, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long units = (long long)max_ns * B * KV * n_qtiles;
+  flash_bwd_dq_kernel<HD><<<(unsigned)units, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dcap, dq, part, tickets, S, H, KV, rep, positions,
+      causal, window, scale, B * KV, n_qtiles, seg, max_ns);
   return (int)cudaGetLastError();
 }
 
@@ -706,23 +844,32 @@ extern "C" {
 
 // q, do, dq [B, S, H, hd]; k, v [B, S, KV, hd]; lse, D [B, KV, H / KV, S];
 // on the device, f32, contiguous.  hd in {64, 128, 256}, 1 <= H / KV <= 64,
-// window <= 0 for none.  Returns cudaGetLastError().
+// window <= 0 for none.  K8b (64 keys a tile at hd 64, 32 at hd 128 and
+// 256) splits each query tile's visible key tiles into segments of at
+// most seg tiles.  When some query tile has more than one (max_ns > 1),
+// part holds B * KV * ceil(S / positions) * max_ns * 64 * hd floats of
+// scratch and tickets B * KV * ceil(S / positions) ints (zeroed here, on
+// the stream), positions = 64 / (H / KV); else both may be null.  Returns
+// cudaGetLastError().
 int flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                      const float* dout, const float* lse, const float* dcap,
-                     float* dq, int B, int S, int H, int KV, int hd,
-                     int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, S, H, KV)) return (int)cudaErrorInvalidValue;
+                     float* dq, float* part, int* tickets, int B, int S,
+                     int H, int KV, int hd, int causal, int window,
+                     float scale, int seg, int max_ns, void* stream) {
+  if (bad_shape(B, S, H, KV) || seg < 1 || max_ns < 1 ||
+      (max_ns > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, dcap, dq, B, S, H, KV, causal,
-                           window, scale, st);
+      return launch_dq<64>(q, k, v, dout, lse, dcap, dq, part, tickets, B, S,
+                           H, KV, causal, window, scale, seg, max_ns, st);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, dcap, dq, B, S, H, KV,
-                            causal, window, scale, st);
+      return launch_dq<128>(q, k, v, dout, lse, dcap, dq, part, tickets, B,
+                            S, H, KV, causal, window, scale, seg, max_ns, st);
     case 256:
-      return launch_dq<256>(q, k, v, dout, lse, dcap, dq, B, S, H, KV,
-                            causal, window, scale, st);
+      return launch_dq<256>(q, k, v, dout, lse, dcap, dq, part, tickets, B,
+                            S, H, KV, causal, window, scale, seg, max_ns, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,17 +7,21 @@ directory named by a hash of the source and the flags
 (``build/kernels/<name>-<hash>/`` at the root of the checkout), so an
 edited source rebuilds and an unchanged one is reused.  Nothing prebuilt
 is committed.  A failed build raises :class:`KernelBuildError` with the
-compiler's output.
+compiler's output.  :func:`launch` calls a loaded kernel on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -94,3 +98,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _LIBS[name] = lib
     return lib
+
+
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """Calls ``fn(*args, stream)`` on ``device``'s current stream (read on
+    every call, as a raw handle: a CUDA graph captures on a side stream),
+    switching devices only when ``device`` is not the current one.  A
+    non-zero return (a CUDA error) raises RuntimeError."""
+    index = device.index
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if torch.cuda.current_device() == index:
+        rc = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, raw_stream(index))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -176,21 +176,6 @@ def _aligned(*pairs):
     return int(all(t.data_ptr() % a == 0 for t, a in pairs))
 
 
-def _launch(kernel, fn, device, *args):
-    """Calls ``fn(*args, stream)`` on ``device``'s current stream (read on
-    every call, as a raw handle: a CUDA graph captures on a side stream),
-    switching devices only when ``device`` is not the current one."""
-    index = device.index
-    raw_stream = torch._C._cuda_getCurrentRawStream
-    if torch.cuda.current_device() == index:
-        rc = fn(*args, raw_stream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args, raw_stream(index))
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-
-
 def quant_pack_cuda(x, scale, noise, *, bits=8):
     """Launches K3: x, noise float32 [n] and scale float32 [1], contiguous
     on one CUDA device -> int8 [n] or uint8 [n/2]."""
@@ -206,7 +191,7 @@ def quant_pack_cuda(x, scale, noise, *, bits=8):
     out = torch.empty(n if bits == 8 else n // 2, device=dev,
                       dtype=torch.int8 if bits == 8 else torch.uint8)
     vec = _aligned((x, 16), (noise, 16), (out, 4))
-    _launch("quant_pack", _fn("quant_pack_f32"), dev, x.data_ptr(),
+    build.launch("quant_pack", _fn("quant_pack_f32"), dev, x.data_ptr(),
             noise.data_ptr(), scale.data_ptr(), out.data_ptr(), n, bits, vec)
     quant_pack_cuda.launches += 1
     return out
@@ -290,7 +275,7 @@ def _unpack_launch(dev, table):
     fn = _fn("quant_unpack_multi_f32")
     for lo in range(0, len(table), 6 * MAX_LEAVES):
         chunk = array.array("q", table[lo:lo + 6 * MAX_LEAVES])
-        _launch("quant_unpack", fn, dev, chunk.buffer_info()[0],
+        build.launch("quant_unpack", fn, dev, chunk.buffer_info()[0],
                 len(chunk) // 6)
         quant_unpack_cuda.launches += 1
 
@@ -306,7 +291,7 @@ def topk_select_cuda(x, thresh):
         raise ValueError("topk_select_cuda: empty input")
     out = torch.empty_like(x)
     vec = _aligned((x, 16), (out, 16))
-    _launch("topk_select", _fn("topk_select_f32"), dev, x.data_ptr(),
+    build.launch("topk_select", _fn("topk_select_f32"), dev, x.data_ptr(),
             thresh.data_ptr(), out.data_ptr(), n, vec)
     topk_select_cuda.launches += 1
     return out
@@ -367,7 +352,7 @@ def ef_gather_cuda(table, idx):
     if k == 0 or n == 0:
         return out
     vec = int(n % 4 == 0) * _aligned((table, 16), (out, 16))
-    _launch("ef_gather", _fn("ef_gather_f32"), table.device,
+    build.launch("ef_gather", _fn("ef_gather_f32"), table.device,
             table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
             out.data_ptr(), k, n, vec)
     ef_gather_cuda.launches += 1
@@ -395,7 +380,7 @@ def ef_scatter_cuda(table, idx, rows):
     if k == 0 or n == 0:
         return table
     vec = int(n % 4 == 0) * _aligned((table, 16), (rows, 16))
-    _launch("ef_scatter", _fn("ef_scatter_f32"), table.device,
+    build.launch("ef_scatter", _fn("ef_scatter_f32"), table.device,
             table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
             rows.data_ptr(), k, n, vec)
     ef_scatter_cuda.launches += 1

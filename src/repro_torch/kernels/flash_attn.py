@@ -13,8 +13,10 @@ the card run K8b (``dq``) and K8c (``dk``, ``dv``) of
 ``csrc/flash_attn_bwd.cu`` after ``D = rowsum(do * o)`` in float32 (laid
 out like lse, computed outside the kernels as the JAX package does);
 tensors on the CPU run :func:`flash_bwd_plain`, the same formulas over
-the full masked matrices in float32.  K8c's work units (a key tile and a
-segment of the query tiles that see it) come from :func:`dkv_plan`.
+the full masked matrices in float32.  K8b's work units (a query tile and
+a segment of the key tiles it sees) come from :func:`dq_plan`, K8c's (a
+key tile and a segment of the query tiles that see it) from
+:func:`dkv_plan`.
 
 ``make_flash_attention`` returns ``flash(q, k, v) -> o`` as a
 ``torch.autograd.Function`` whose forward is K8a and whose backward is K8b
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 import math
 
 import torch
@@ -34,8 +37,10 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 64        # query heads per KV head: the kernel's 64-row tile
-# keys a K8c work unit owns, by head dim (csrc/flash_attn_bwd.cu DkvTile)
+# keys a K8c work unit owns, and keys a K8b tile holds, by head dim
+# (csrc/flash_attn_bwd.cu DkvTile, DqTile)
 DKV_KEYS = {64: 64, 128: 64, 256: 32}
+DQ_KEYS = {64: 64, 128: 32, 256: 32}
 _SMEM_PER_SM = 232448   # bytes of shared memory an H100 SM gives its blocks
 
 
@@ -172,9 +177,94 @@ def dkv_plan(B, S, H, KV, hd, causal=True, window=None, *, n_sm=132):
                    tuple(n_tiles))
 
 
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
+@dataclasses.dataclass(frozen=True)
+class DqPlan:
+    """K8b's schedule for one shape.  Query tile t (``positions``
+    positions from t * positions, ``rows`` (position, head) rows) sees the
+    key tiles j_lo[t] .. of ``key_tile`` keys each; ``n_tiles[t]`` counts
+    them.  Its segments are the runs of at most ``seg`` of those key tiles
+    from j_lo on, ``ceil(n_tiles[t] / seg)`` of them; ``max_ns`` is the
+    most any query tile has.  The kernel launches ``max_ns * B * KV *
+    len(n_tiles)`` units, segment slowest, then the query tile from the
+    last to the first (heavy first under a causal mask), then the (b, g)
+    group; the ones past their query tile's segments exit at once."""
+    key_tile: int
+    rows: int
+    positions: int
+    seg: int
+    max_ns: int
+    j_lo: tuple
+    n_tiles: tuple
+
+    def segments(self, t):
+        """(first, end) key tiles of query tile t's segments, in order."""
+        lo, n = self.j_lo[t], self.n_tiles[t]
+        return [(lo + a, lo + min(a + self.seg, n))
+                for a in range(0, n, self.seg)]
+
+    def units(self, B, KV):
+        """Work units that do work (the launch has max_ns * B * KV *
+        len(n_tiles))."""
+        return B * KV * sum(-(-n // self.seg) for n in self.n_tiles)
+
+    def scratch_floats(self, B, KV, hd):
+        """Floats of partial sums the launch needs (0: none)."""
+        if self.max_ns == 1:
+            return 0
+        return B * KV * len(self.n_tiles) * self.max_ns * self.rows * hd
+
+
+def _dq_blocks_per_sm(hd, key_tile, rows):
+    """K8b blocks an SM holds: two where shared memory admits them (the
+    kernel's __launch_bounds__ asks the registers for the same)."""
+    rs = hd + 4
+    floats = 2 * rows * rs + 2 * key_tile * rs + key_tile * (rows + 4) \
+        + 2 * rows
+    return 2 if 2 * (4 * floats + 1024) <= _SMEM_PER_SM else 1
+
+
+def _dq_makespan(n_tiles, seg, groups, slots):
+    """Key-tile steps until K8b's last unit ends when the card's ``slots``
+    block slots take the units in launch order, each the moment a slot
+    is free.  A unit costs its key tiles, one more for loading its query
+    tile, and half one more when its query tile is split (the partial
+    sum's write and read)."""
+    free = [0.0] * slots
+    for sg in range(-(-max(n_tiles) // seg)):
+        for n in reversed(n_tiles):
+            if sg * seg >= n:
+                continue
+            cost = min(seg, n - sg * seg) + 1 + (0.5 if n > seg else 0)
+            for _ in range(groups):
+                heapq.heapreplace(free, free[0] + cost)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def dq_plan(B, S, H, KV, hd, causal=True, window=None, *, n_sm=132):
+    """K8b's :class:`DqPlan` for q [B,S,H,hd], k/v [B,S,KV,hd] on a card
+    of ``n_sm`` SMs.  The segment length is the longest query tile's key
+    tiles cut in 1, 2, 3 or 4, whichever :func:`_dq_makespan` finds
+    ends soonest (ties to the longer segment): splitting pays only where
+    the last wave would be ragged, as at gemma3-1b's local layer, where
+    every unit of the first wave ends together and the second wave's
+    longest units start only then."""
+    kt = DQ_KEYS[hd]
+    rows = 64
+    positions = rows // (H // KV)
+    j_lo, n_tiles = [], []
+    for q0 in range(0, S, positions):
+        k_lo = 0 if window is None else max(0, q0 - window + 1)
+        k_hi = min(S, q0 + positions) - 1 if causal else S - 1
+        j_lo.append(k_lo // kt)
+        n_tiles.append(k_hi // kt - k_lo // kt + 1)
+    longest = max(n_tiles)
+    slots = n_sm * _dq_blocks_per_sm(hd, kt, rows)
+    seg = min(dict.fromkeys(-(-longest // d) for d in (1, 2, 3, 4)),
+              key=lambda g: (_dq_makespan(n_tiles, g, B * KV, slots), -g))
+    max_ns = -(-longest // seg)
+    return DqPlan(kt, rows, positions, seg, max_ns, tuple(j_lo),
+                  tuple(n_tiles))
 
 
 def _check(fn, window, **tensors):
@@ -222,15 +312,28 @@ def _kernel(name):
     lib = build.load("flash_attn_bwd" if name.startswith("flash_bwd")
                      else "flash_attn")
     fn = getattr(lib, name)
-    n_ptrs = {"flash_fwd_f32": 5, "flash_bwd_dq_f32": 7,
+    n_ptrs = {"flash_fwd_f32": 5, "flash_bwd_dq_f32": 9,
               "flash_bwd_dkv_f32": 10}[name]
-    # K8c also takes its schedule (seg, max_ns)
-    n_plan = 2 if name == "flash_bwd_dkv_f32" else 0
+    # K8b and K8c also take their schedule (seg, max_ns)
+    n_plan = 0 if name == "flash_fwd_f32" else 2
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * n_plan
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch(floats, n_tickets, device):
+    """(partials pointer, tickets pointer, buffer) for a split schedule:
+    ``floats`` float32 partial sums, then ``n_tickets`` int32 tickets (the
+    launch zeroes them); (None, None, None) when nothing is split.  The
+    caller keeps the buffer alive until the launch is queued."""
+    if not floats:
+        return None, None, None
+    scratch = torch.empty(floats + n_tickets, dtype=torch.float32,
+                          device=device)
+    part = scratch.data_ptr()
+    return part, part + 4 * floats, scratch
 
 
 def _launch(name, tensors, dims, causal, window, ptrs=(), plan=()):
@@ -266,12 +369,17 @@ flash_fwd_cuda.launches = 0
 def flash_bwd_dq_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
     """Launches K8b (``csrc/flash_attn_bwd.cu``): q, do [B,S,H,hd], k/v
     [B,S,KV,hd], lse and D = rowsum(do * o) [B,KV,H/KV,S], under K8a's
-    contract -> dq [B,S,H,hd]."""
+    contract -> dq [B,S,H,hd], scheduled by :func:`dq_plan`."""
     dims = _check("flash_bwd_dq_cuda", window, q=q, k=k, v=v, do=do,
                   lse=lse, dcap=dcap)
+    B, S, H, KV, hd = dims
+    plan = dq_plan(B, S, H, KV, hd, bool(causal), window,
+                   n_sm=build.sm_count(q.device.index))
     dq = torch.empty_like(q)
+    part, tickets, scratch = _scratch(plan.scratch_floats(B, KV, hd),
+                                      B * KV * len(plan.n_tiles), q.device)
     _launch("flash_bwd_dq_f32", (q, k, v, do, lse, dcap, dq), dims, causal,
-            window)
+            window, ptrs=(part, tickets), plan=(plan.seg, plan.max_ns))
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -287,17 +395,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
                   lse=lse, dcap=dcap)
     B, S, H, KV, hd = dims
     plan = dkv_plan(B, S, H, KV, hd, bool(causal), window,
-                    n_sm=_sm_count(q.device.index))
+                    n_sm=build.sm_count(q.device.index))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    floats = plan.scratch_floats(B, KV, hd)
-    scratch = part = tickets = None
-    if floats:
-        # partial sums, then one int32 ticket per key tile (zeroed by the
-        # launch)
-        scratch = torch.empty(floats + B * KV * len(plan.n_tiles),
-                              dtype=torch.float32, device=q.device)
-        part = scratch.data_ptr()
-        tickets = part + 4 * floats
+    part, tickets, scratch = _scratch(plan.scratch_floats(B, KV, hd),
+                                      B * KV * len(plan.n_tiles), q.device)
     _launch("flash_bwd_dkv_f32", (q, k, v, do, lse, dcap, dk, dv), dims,
             causal, window, ptrs=(part, tickets),
             plan=(plan.seg, plan.max_ns))

@@ -3,15 +3,17 @@
     out = E_g @ W[:C] + E_l @ W[C:]      (paper Eq. 6, no concatenation)
 
 ``fusion_conv`` is differentiable in all three inputs.  Its forward runs
-the CUDA kernel ``csrc/fusion_conv.cu`` for tensors on the card and
-:func:`fusion_conv_plain` for tensors on the CPU; its backward is the two
-plain products dE = dO W_{g|l}^T and dW = [E_g; E_l]^T dO.  The Pallas
+the CUDA kernel ``csrc/fusion_conv.cu`` for tensors on the card, tiled by
+:func:`conv_plan`, and :func:`fusion_conv_plain` for tensors on the CPU;
+its backward is the two plain products dE = dO W_{g|l}^T and
+dW = [E_g; E_l]^T dO.  The Pallas
 kernel defines no VJP, so there is no TPU backward kernel to port; a
 backward kernel is later work.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -25,19 +27,54 @@ def fusion_conv_plain(f_g, f_l, w):
     return f_g @ w[:C] + f_l @ w[C:]
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """One of K2's tilings (``csrc/fusion_conv.cu`` ``Small`` / ``Large``):
+    blocks of ``tokens`` x ``channels`` outputs; K = 2C walked in slices
+    of ``k_slice``, each slice's depth split evenly among ``k_split``
+    thread groups, whose sums are added in group order at the end."""
+    plan: int            # the kernel's plan argument
+    tokens: int
+    channels: int
+    k_slice: int
+    k_split: int
+
+    def blocks(self, T, C):
+        return -(-T // self.tokens) * -(-C // self.channels)
+
+    def group_depths(self, C, group):
+        """The depths k in [0, 2C) that thread group ``group`` sums."""
+        q = self.k_slice // self.k_split
+        return [k for s in range(0, 2 * C, self.k_slice)
+                for k in range(s + group * q, s + (group + 1) * q)
+                if k < 2 * C]
+
+
+SMALL = ConvPlan(0, 16, 32, 32, 4)
+LARGE = ConvPlan(1, 128, 64, 16, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(T, C, n_sm=132):
+    """K2's tiling for f_g, f_l [T, C] on a card of ``n_sm`` SMs: the
+    large tiles where they give every SM a block, else the small ones."""
+    return LARGE if LARGE.blocks(T, C) >= n_sm else SMALL
+
+
 @functools.cache
 def _kernel():
     lib = build.load("fusion_conv")
     fn = lib.fusion_conv_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def fusion_conv_cuda(f_g, f_l, w):
     """Launches ``csrc/fusion_conv.cu``: f_g, f_l [..., C] and w [2C, C],
-    contiguous float32 on one CUDA device -> [..., C]."""
+    contiguous float32 on one CUDA device -> [..., C], tiled by
+    :func:`conv_plan` and launched by :func:`build.launch`."""
     if f_g.device.type != "cuda":
         raise ValueError(
             f"fusion_conv_cuda needs CUDA tensors, got {f_g.device}")
@@ -59,15 +96,10 @@ def fusion_conv_cuda(f_g, f_l, w):
         raise ValueError(f"fusion_conv_cuda: empty input {tuple(f_g.shape)}")
     if f_g.numel() >= 2 ** 31:
         raise ValueError(f"fusion_conv_cuda: {tuple(f_g.shape)} too large")
-    fn = _kernel()
+    plan = conv_plan(T, C, build.sm_count(f_g.device.index)).plan
     out = torch.empty_like(f_g)
-    with torch.cuda.device(f_g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(f_g.data_ptr(), f_l.data_ptr(), w.data_ptr(), out.data_ptr(),
-                T, C, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fusion_conv kernel launch failed: CUDA error {rc}")
+    build.launch("fusion_conv", _kernel(), f_g.device, f_g.data_ptr(),
+                 f_l.data_ptr(), w.data_ptr(), out.data_ptr(), T, C, plan)
     fusion_conv_cuda.launches += 1
     return out
 

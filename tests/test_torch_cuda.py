@@ -99,8 +99,12 @@ def test_gram_sum_kernel_grad_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,C", [(490, 64), (100352, 64), (1001, 64),
-                                 (77, 40), (130, 100)])
+                                 (77, 40), (130, 100), (8192, 576), (33, 30),
+                                 (20000, 30)])
 def test_fusion_conv_kernel_matches_plain(cuda_device, T, C):
+    """K2 at the CNN's shapes, smollm-135m's LM fusion (8,192 x 576), ragged
+    ones and C % 4 != 0 (the scalar path, in both tilings), bitwise equal
+    when run again."""
     torch.backends.cuda.matmul.allow_tf32 = False
     fg, fl, w = (torch.from_numpy(a).to(cuda_device)
                  for a in fusion_inputs((T,), C, T + C))
@@ -111,6 +115,37 @@ def test_fusion_conv_kernel_matches_plain(cuda_device, T, C):
     assert tfc.fusion_conv_cuda.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, tfc.fusion_conv_cuda(fg, fl, w))
+
+
+@pytest.mark.cuda
+def test_fusion_conv_cases_reach_both_tilings(cuda_device):
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plans = {tfc.conv_plan(T, C, n_sm) for T, C in
+             [(490, 64), (100352, 64), (8192, 576), (33, 30), (20000, 30)]}
+    assert plans == {tfc.SMALL, tfc.LARGE}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C", [(490, 64), (20000, 64)])
+def test_fusion_conv_kernel_takes_unaligned_views(cuda_device, T, C):
+    """Inputs that start 4 bytes past a 16-byte boundary take the scalar
+    path of the same kernel."""
+    fg, fl, w = (torch.from_numpy(a).to(cuda_device)
+                 for a in fusion_inputs((T,), C, 7))
+    views = []
+    for x in (fg, fl, w):
+        buf = torch.empty(x.numel() + 1, device=cuda_device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        views.append(view)
+    assert all(v.data_ptr() % 16 for v in views)
+    got = tfc.fusion_conv_cuda(*views)
+    want = tfc.fusion_conv_plain(fg, fl, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, tfc.fusion_conv_cuda(*views))
 
 
 @pytest.mark.cuda
@@ -125,6 +160,18 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
                           (1.0,) * 9)
     with pytest.raises(ValueError):
         tfc.fusion_conv_cuda(x.T, x.T, torch.zeros(8, 4, device=cuda_device))
+    # K2's lean launch path still checks shapes, types and devices
+    before = tfc.fusion_conv_cuda.launches
+    with pytest.raises(ValueError, match="shapes"):
+        tfc.fusion_conv_cuda(x, x, torch.zeros(8, 8, device=cuda_device))
+    with pytest.raises(ValueError, match="shapes"):
+        tfc.fusion_conv_cuda(x, x[:3], torch.zeros(16, 8, device=cuda_device))
+    with pytest.raises(ValueError, match="float32"):
+        tfc.fusion_conv_cuda(x, x.double(),
+                             torch.zeros(16, 8, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA|float32"):
+        tfc.fusion_conv_cuda(x, x, torch.zeros(16, 8))
+    assert tfc.fusion_conv_cuda.launches == before
 
 
 # --------------------------------------------------------------------------
@@ -585,6 +632,7 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
     (1, 20, 4, 1, 128, 8),              # S below one tile
     (1, 50, 2, 2, 256, None),           # rep 1
     (1, 9, 64, 1, 64, None),            # rep 64: one position a tile
+    (4, 1024, 4, 1, 256, 512),          # gemma3 local: K8b splits its tiles
 ])
 def test_flash_bwd_kernels_match_plain(cuda_device, B, S, H, KV, hd,
                                        window):
@@ -650,6 +698,41 @@ def test_flash_bwd_dkv_builds_and_schedules_match_plain(
     for got, ref in zip((dk, dv), (want_k, want_v)):
         assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+DQ_SHAPES = [                    # B, S, H, KV, hd, window, split
+    (4, 1024, 4, 1, 256, 512, True),   # gemma3 local: a ragged last wave
+    (4, 1024, 4, 1, 256, None, False),  # gemma3 global: longest first
+    (2, 300, 9, 3, 64, None, True),    # smollm's heads, 64-key tiles
+    (2, 130, 8, 4, 128, 40, True),     # window ends mid-tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window,split", DQ_SHAPES)
+def test_flash_bwd_dq_schedules_match_plain(cuda_device, B, S, H, KV, hd,
+                                           window, split):
+    """K8b with its query tiles whole and split into segments, against the
+    plain backward within 1e-4 of dq's largest element, and bitwise equal
+    when run again."""
+    rng = np.random.default_rng(S + H + hd)
+    q = _randn(rng, (B, S, H, hd), cuda_device)
+    k = _randn(rng, (B, S, KV, hd), cuda_device)
+    v = _randn(rng, (B, S, KV, hd), cuda_device)
+    do = _randn(rng, (B, S, H, hd), cuda_device)
+    o, lse = tfa.flash_fwd_plain(q, k, v, window=window)
+    want = tfa.flash_bwd_plain(q, k, v, o, lse, do, window=window)[0]
+    dcap = tfa.flash_dcap(do, o, KV)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tfa.dq_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
+    assert (plan.max_ns > 1) == split
+    before = tfa.flash_bwd_dq_cuda.launches
+    dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, window=window)
+    again = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dq_cuda.launches == before + 2
+    assert (dq - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(dq, again)
 
 
 @pytest.mark.cuda

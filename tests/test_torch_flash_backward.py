@@ -13,8 +13,10 @@ of 16), one shorter than two blocks.
 
 K8c's schedule (``flash_attn.dkv_plan``: key tiles cut into segments of
 query tiles, partial sums added in segment order, the visibility of each
-tile) is emulated in plain PyTorch, tile by tile as the kernel walks it,
-and held to ``jax.vjp`` at 1e-5 of each gradient's largest element.
+tile) and K8b's (``flash_attn.dq_plan``: query tiles cut into segments of
+key tiles, likewise) are emulated in plain PyTorch, tile by tile as the
+kernels walk them, and held to ``jax.vjp`` at 1e-5 of each gradient's
+largest element.
 """
 import jax
 import jax.numpy as jnp
@@ -190,3 +192,109 @@ def test_dkv_plan_covers_exactly_the_visible_tiles(S, H, KV, hd, window):
     assert plan.max_ns == max(-(-n // plan.seg) for n in plan.n_tiles)
     if (S, window, hd) == (1024, None, 256):
         assert plan.max_ns > 1
+
+
+def _dq_emulated(q, k, v, do, lse, dcap, plan, causal, window):
+    """dq as K8b computes it under ``plan``: for each (b, g) and query
+    tile, each segment's partial sum over its key tiles, visible pairs
+    only, then the partials added in segment order."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    kt, positions = plan.key_tile, plan.positions
+    dq = torch.zeros_like(q)
+    for b in range(B):
+        for g in range(KV):
+            heads = slice(g * rep, (g + 1) * rep)
+            for t, q0 in enumerate(range(0, S, positions)):
+                npos = min(positions, S - q0)
+                qt = q[b, q0:q0 + npos, heads].reshape(-1, hd)
+                dot = do[b, q0:q0 + npos, heads].reshape(-1, hd)
+                l_r = lse[b, g, :, q0:q0 + npos].T.reshape(-1)
+                d_r = dcap[b, g, :, q0:q0 + npos].T.reshape(-1)
+                pos = q0 + torch.arange(npos * rep) // rep
+                partials = []
+                for j0, j1 in plan.segments(t):
+                    acc = torch.zeros(npos * rep, hd)
+                    for j in range(j0, j1):
+                        keys = torch.arange(j * kt, min((j + 1) * kt, S))
+                        vis = torch.ones(len(pos), len(keys), dtype=bool)
+                        if causal:
+                            vis &= keys[None, :] <= pos[:, None]
+                        if window is not None:
+                            vis &= (pos[:, None] - keys[None, :]) < window
+                        kj, vj = k[b, keys, g], v[b, keys, g]
+                        s = qt @ kj.T * scale
+                        p = torch.where(vis, torch.exp(s - l_r[:, None]),
+                                        torch.zeros_like(s))
+                        acc += p * (dot @ vj.T - d_r[:, None]) @ kj
+                    partials.append(acc)
+                total = partials[0]
+                for part in partials[1:]:
+                    total = total + part
+                dq[b, q0:q0 + npos, heads] = (total * scale).reshape(
+                    npos, rep, hd)
+    return dq
+
+
+DQ_CASES = [        # B, S, H, KV, hd, window, most segments a query tile
+    (1, 100, 3, 1, 64, None, 2),     # rep 3, ragged: 2 key tiles at most
+    (2, 150, 4, 1, 64, None, 3),     # rep 4: a tile sees up to 3 key tiles
+    (1, 70, 4, 1, 256, 8, 2),        # gemma3's rep, hd 256, window
+    (1, 100, 4, 1, 256, None, 4),    # hd 256: 32-key tiles, up to 4 a tile
+    (1, 200, 2, 2, 64, 24, 2),       # rep 1, window ends mid-tile
+    (1, 150, 6, 2, 128, None, 3),    # rep 3, hd 128: segments of 2 tiles
+    (1, 20, 64, 1, 64, None, 1),     # rep 64: one position a tile
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,max_ns", DQ_CASES)
+def test_dq_schedule_emulation_matches_pallas(B, S, H, KV, hd, window,
+                                              max_ns):
+    q, k, v, do = _inputs(B, S, H, KV, hd, seed=S + 5 * H + hd)
+    want = _jax_grads(q, k, v, do, window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attn.flash_fwd_plain(tq, tk, tv, window=window)
+    dcap = flash_attn.flash_dcap(tdo, o, KV)
+    plan = flash_attn.dq_plan(B, S, H, KV, hd, True, window)
+    # every query tile sees a key tile, and the case has the segments it
+    # names
+    assert min(plan.n_tiles) >= 1 and plan.max_ns == max_ns
+    got = _dq_emulated(tq, tk, tv, tdo, lse, dcap, plan, True, window)
+    np.testing.assert_allclose(got.numpy(), want[0], rtol=0,
+                               atol=1e-5 * np.abs(want[0]).max())
+
+
+def _visible_key_tiles(S, rep, window, plan, t):
+    """Key tiles holding a key that a position of query tile t sees."""
+    kt, positions = plan.key_tile, plan.positions
+    pos = np.arange(t * positions, min((t + 1) * positions, S))
+    keys = np.arange(S)
+    d = pos[:, None] - keys[None, :]
+    seen = np.any((d >= 0) & ((window is None) | (d < (window or 1))), 0)
+    return set((keys[seen] // kt).tolist())
+
+
+@pytest.mark.parametrize("S,H,KV,hd,window", [
+    (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
+    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5)])
+def test_dq_plan_covers_exactly_the_visible_tiles(S, H, KV, hd, window):
+    """Each query tile's segments tile its key range without gap or
+    overlap, that range is exactly the key tiles its positions see, and
+    the segment length splits gemma3-1b's local layer (its last wave would
+    be ragged) and leaves its global layer and smollm-135m's whole (the
+    longest units go first there and the rest fill in behind them)."""
+    plan = flash_attn.dq_plan(4, S, H, KV, hd, True, window)
+    assert len(plan.n_tiles) == -(-S // plan.positions)
+    for t in range(len(plan.n_tiles)):
+        segs = plan.segments(t)
+        covered = [j for a, e in segs for j in range(a, e)]
+        assert covered == sorted(set(covered))
+        assert all(e - a <= plan.seg for a, e in segs)
+        assert set(covered) == _visible_key_tiles(S, H // KV, window, plan,
+                                                  t)
+    assert plan.max_ns == max(-(-n // plan.seg) for n in plan.n_tiles)
+    assert plan.units(4, KV) <= plan.max_ns * 4 * KV * len(plan.n_tiles)
+    if (S, hd) == (1024, 256) or (S, hd) == (1024, 64):
+        assert (plan.max_ns > 1) == (window is not None)

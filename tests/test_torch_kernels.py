@@ -2,7 +2,10 @@
 conv) against the JAX package's Pallas kernels, run in interpret mode on
 the CPU, and the autograd.Functions' backward against ``jax.grad`` of the
 JAX oracles.  The CUDA kernels run only on the card; ``test_torch_cuda.py``
-holds them against these plain versions there.
+holds them against these plain versions there.  K2's tile plan
+(``fusion_conv.conv_plan``) is checked here, and the order in which its
+split of K is summed is emulated in plain PyTorch and held to the Pallas
+kernel at 1e-5 of the output's largest element.
 
 Tolerances: the forward values are float32 sums of a few thousand terms
 taken in another order than XLA takes them, so they agree to a few ulp of
@@ -61,6 +64,62 @@ def test_fusion_conv_plain_matches_pallas(shape, C):
     got2 = tops.fused_fusion_conv(*map(torch.from_numpy, (fg, fl, w)))
     np.testing.assert_allclose(got2.numpy(), got.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+# K2's tile plan: every shape gets a tiling, the large one only where it
+# gives every SM a block, and each tiling's split of K = 2C among its
+# thread groups takes every depth exactly once
+CONV_SHAPES = [(490, 64), (100352, 64), (8192, 576), (1001, 64), (77, 40),
+               (130, 100), (33, 30), (20000, 30), (1, 1), (16896, 64)]
+
+
+@pytest.mark.parametrize("T,C", CONV_SHAPES)
+def test_conv_plan_tiles_every_shape(T, C):
+    for n_sm in (132, 114):
+        plan = tfc.conv_plan(T, C, n_sm)
+        assert plan in (tfc.SMALL, tfc.LARGE)
+        assert plan.blocks(T, C) * plan.tokens * plan.channels >= T * C
+        assert (plan is tfc.LARGE) == (tfc.LARGE.blocks(T, C) >= n_sm)
+    # the CNN's training shape gets the small tiles, the LM's the large
+    if (T, C) == (490, 64):
+        assert tfc.conv_plan(T, C) is tfc.SMALL
+    if (T, C) == (8192, 576):
+        assert tfc.conv_plan(T, C) is tfc.LARGE
+
+
+@pytest.mark.parametrize("plan", [tfc.SMALL, tfc.LARGE], ids=["small",
+                                                              "large"])
+@pytest.mark.parametrize("C", [1, 30, 40, 64, 100, 576])
+def test_conv_plan_split_covers_k_exactly_once(plan, C):
+    depths = [k for g in range(plan.k_split)
+              for k in plan.group_depths(C, g)]
+    assert sorted(depths) == list(range(2 * C))
+    assert plan.k_slice % (4 * plan.k_split) == 0
+
+
+def _conv_emulated(fg, fl, w, plan):
+    """K2's sums as the kernel takes them under ``plan``: each thread
+    group's depths in order, then the groups' sums added in group order."""
+    a = torch.cat((fg, fl), -1)
+    out = None
+    for g in range(plan.k_split):
+        ks = plan.group_depths(fg.shape[-1], g)
+        part = torch.zeros(fg.shape[:-1] + (w.shape[1],))
+        for k in ks:
+            part = part + a[..., k:k + 1] * w[k]
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("shape,C", [((490,), 64), ((77,), 40), ((33,), 30)])
+def test_fusion_conv_split_emulation_matches_pallas(shape, C):
+    fg, fl, w = fusion_inputs(shape, C, sum(shape) + 3 * C)
+    want = np.asarray(j_fusion_conv(jnp.asarray(fg), jnp.asarray(fl),
+                                    jnp.asarray(w), interpret=True))
+    for plan in (tfc.SMALL, tfc.LARGE):
+        got = _conv_emulated(*map(torch.from_numpy, (fg, fl, w)), plan)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("n,m,d", [(10, 10, 64), (16, 16, 8), (37, 53, 64)])

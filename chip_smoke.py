@@ -11,13 +11,17 @@ is non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at ragged ones, with its time, the plain
    version's, a one-call PyTorch yardstick where there is one, and the
-   least time the card could take for the same work (K4 also over whole
+   least time the card could take for the same work (K1's fused MK-MMD
+   term, forward and backward, at the CNN's and the LM's pooled features,
+   with the whole term's forward + dx against the three-Gram-sum route;
+   K4 also over whole
    messages, one launch per 64 leaves: CNN_MNIST's eight leaves at int8
    and int4, odd and unaligned leaves, 70 leaves, timed against one
    ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
    each piece of a K4 wrapper call;
    K6 / K7: exact, K7 in place, the scratch-row duplicates; K8a flash
-   attention forward and K9 flash-decode at gemma3-1b's and smollm-135m's
+   attention forward (bitwise repeatable, with ``flash_attn.fwd_plan``'s
+   modelled makespan) and K9 flash-decode at gemma3-1b's and smollm-135m's
    serve shapes, against ``scaled_dot_product_attention`` as the
    yardstick; K8b / K8c, the flash backward, at smollm-135m's and
    gemma3-1b's training shapes and two ragged ones, against that
@@ -36,7 +40,8 @@ is non-zero):
    the same configuration's reference rounds/s over 12 rounds; each run's
    kernel launch counts must equal the path's formula (K3 once per leaf of
    a quantized message, K4 once per message) and its bytes the
-   reference's; then FedAvg with ``superstep_rounds="auto"`` beside the
+   reference's (FedMMD: the fused term once forward and once backward per
+   local step); then FedAvg with ``superstep_rounds="auto"`` beside the
    fixed 8;
 4b. serve: the transformer LMs at full width through
    ``repro_torch.launch.serve`` (``attn_impl="pallas"``): gemma3-1b, then
@@ -102,6 +107,7 @@ TOPK_FRAC = 1 / 16          # benchmarks/fig7_compression.py
 FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 # names of the kernels in src/repro_torch/csrc, as the profiler shows them
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
+               "mk_mmd2_fwd_kernel", "mk_mmd2_bwd_kernel",
                "fusion_conv_kernel", "quant_pack_i",
                "quant_unpack_multi_kernel",
                "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel",
@@ -192,6 +198,31 @@ def gram_sum_work(n, m, d, n_widths):
     return n_bytes, n_flops
 
 
+def mk_mmd2_work(n, m, d, n_widths, grad=False):
+    """Bytes (x, y in; MMD^2 and sigma out, or sigma and g in and dx out)
+    and float32 operations of one fused MK-MMD launch: the n^2 + nm + m^2
+    dot products, per pair the d2 identity and clamp and per width a
+    scale, a divide and an exp (and for the gradient a multiply), then
+    for dx two products of n + m rows per element."""
+    pairs = n * n + n * m + m * m
+    if not grad:
+        return (4 * ((n + m) * d + 2),
+                2 * d * pairs + pairs * (4 + 5 * n_widths) + 3 * n * m)
+    return (4 * ((n + m) * d + 2 + n * d),
+            2 * d * pairs + pairs * (4 + 7 * n_widths)
+            + n * d * (2 * (n + m) + 5))
+
+
+def mmd_term_ms(torch, term, x, y):
+    """Wall ms of one MMD term forward and its dx (y detached, as FedMMD's
+    global features are) through ``term``, as CUDA-event medians."""
+    xr = x.clone().requires_grad_(True)
+
+    def call():
+        torch.autograd.grad(term(xr, y, WIDTHS), xr)
+    return time_ms(torch, call)
+
+
 def fusion_conv_work(T, C):
     """Bytes (f_g, f_l, W in; out) and flops (2 T 2C C) of one fusion conv."""
     return 4 * (3 * T * C + 2 * C * C), 4 * T * C * C
@@ -258,6 +289,77 @@ def check_kernels(torch, mk_mmd, fusion_conv):
     emit("kernels", kernel="gram_sum", shape=[10, 10, 64], kernel_ms=ms,
          plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
          bound_by=bound_by)
+
+    # -- K1 fused: the whole MK-MMD term, one launch each way ------------
+    # at the CNN's pooled features (10 x 10 x 64) and the LM's (8 x 8 x
+    # 576), and at a ragged and a one-row shape; value and sigma within
+    # rtol 1e-5 (atol 1e-6: the term is O(0.1), a difference of three
+    # sums), dx and dy as the Gram sum's gradient; bitwise repeatable
+    g = torch.tensor([0.37], device=dev)
+    err = {"mk_mmd2": 0.0, "mk_mmd2_grad": 0.0}
+    for n, m, d in [(10, 10, 64), (8, 8, 576), (37, 53, 64), (1, 1, 64)]:
+        x, y = randn(n, d), randn(m, d, scale=0.5, shift=1.0)
+        out = mk_mmd.mk_mmd2_cuda(x, y, WIDTHS)
+        dx, dy = mk_mmd.mk_mmd2_grad_cuda(x, y, out[1:], g, WIDTHS)
+        again = mk_mmd.mk_mmd2_cuda(x, y, WIDTHS)
+        dx2, dy2 = mk_mmd.mk_mmd2_grad_cuda(x, y, again[1:], g, WIDTHS)
+        value, sigma = mk_mmd.mk_mmd2_plain(x, y, WIDTHS)
+        want = mk_mmd.mk_mmd2_grad_plain(x, y, out[1], g, WIDTHS)
+        torch.cuda.synchronize()
+        v_err = max(abs(out[0].item() - value.item()),
+                    abs(out[1].item() - sigma.item()))
+        v_ok = (abs(out[0].item() - value.item())
+                <= 1e-5 * abs(value.item()) + 1e-6
+                and abs(out[1].item() - sigma.item())
+                <= 1e-5 * abs(sigma.item()))
+        g_err = max((a - b).abs().max().item() for a, b in zip((dx, dy),
+                                                                want))
+        g_ok = all(torch.allclose(a, b, rtol=1e-4,
+                                  atol=1e-6 * b.abs().max().item())
+                   for a, b in zip((dx, dy), want))
+        repeat = (torch.equal(out, again) and torch.equal(dx, dx2)
+                  and torch.equal(dy, dy2))
+        line = dict(kernel="mk_mmd2", shape=[n, m, d], value=out[0].item(),
+                    plain=value.item(), sigma=out[1].item(),
+                    abs_err=v_err, grad_abs_err=g_err, ok=v_ok and g_ok,
+                    bitwise_repeat=repeat)
+        if (n, m, d) in ((10, 10, 64), (8, 8, 576)):
+            line.update(
+                kernel_ms=time_ms(torch, lambda: mk_mmd.mk_mmd2_cuda(
+                    x, y, WIDTHS)),
+                grad_kernel_ms=time_ms(torch, lambda: mk_mmd.mk_mmd2_grad_cuda(
+                    x, y, out[1:], g, WIDTHS, True, False)),
+                plain_ms=time_ms(torch, lambda: mk_mmd.mk_mmd2_plain(
+                    x, y, WIDTHS)),
+                grad_plain_ms=time_ms(
+                    torch, lambda: mk_mmd.mk_mmd2_grad_plain(
+                        x, y, out[1], g, WIDTHS, True, False)),
+                # the whole term forward + dx: the fused route against
+                # three Gram sums with the closed-form backward
+                term_ms=mmd_term_ms(torch, mk_mmd.mk_mmd2, x, y),
+                term_gram_ms=mmd_term_ms(torch, mk_mmd.mk_mmd2_gram, x, y))
+            line["bound_ms"], line["bound_by"] = bound(
+                *mk_mmd2_work(n, m, d, len(WIDTHS)))
+            line["grad_bound_ms"], line["grad_bound_by"] = bound(
+                *mk_mmd2_work(n, m, d, len(WIDTHS), grad=True))
+            if (n, m, d) == (10, 10, 64):
+                for name, pre in (("mk_mmd2", ""), ("mk_mmd2_grad", "grad_")):
+                    rows[name] = dict(
+                        name=name, route="cuda",
+                        source="src/repro_torch/csrc/gram_sum.cu",
+                        replaces="src/repro/kernels/mk_mmd.py:74",
+                        ms=line[pre + "kernel_ms"],
+                        plain_ms=line[pre + "plain_ms"],
+                        bound_ms=line[pre + "bound_ms"],
+                        bound_by=line[pre + "bound_by"], library_ms=None)
+        emit("kernels", **line)
+        err["mk_mmd2"] = max(err["mk_mmd2"], v_err)
+        err["mk_mmd2_grad"] = max(err["mk_mmd2_grad"], g_err)
+        if not (v_ok and g_ok and repeat):
+            raise AssertionError(f"the fused MK-MMD kernels disagree at "
+                                 f"{(n, m, d)}: {line}")
+    for name in err:
+        rows[name]["max_abs_err"] = err[name]
 
     # -- K2: fusion conv --------------------------------------------------
     # the CNN's training and eval shapes, smollm-135m's LM fusion, ragged
@@ -732,14 +834,22 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
     for case, B, S, H, KV, hd, window in FLASH_CASES:
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
         o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        o2, lse2 = flash_attn.flash_fwd_cuda(q, k, v, window=window)
         o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
         torch.cuda.synchronize()
         o_err = (o - o_p).abs().max().item()
         lse_err = (lse - lse_p).abs().max().item()
+        repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+        del o2, lse2
         err["flash_fwd"] = max(err["flash_fwd"], o_err, lse_err)
+        plan = flash_attn.fwd_plan(B, S, H, KV, hd, True, window,
+                                   n_sm=torch.cuda.get_device_properties(
+                                       0).multi_processor_count)
         line = dict(kernel="flash_fwd", case=case, shape=[B, S, H, KV, hd],
                     window=window, o_abs_err=o_err, lse_abs_err=lse_err,
-                    tol=ATTN_TOL)
+                    tol=ATTN_TOL, bitwise_repeat=repeat,
+                    plan=dict(key_tile=plan.key_tile, slots=plan.slots,
+                              makespan=plan.makespan, ideal=plan.ideal))
         if S == 1024:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             mask = None if window is None else sdpa_mask(S, window)
@@ -765,7 +875,7 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                     bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                     library_ms=line["library_ms"])
         emit("kernels", **line)
-        if not (o_err <= ATTN_TOL and lse_err <= ATTN_TOL):
+        if not (o_err <= ATTN_TOL and lse_err <= ATTN_TOL and repeat):
             raise AssertionError(f"flash_fwd kernel disagrees: {case}")
 
     for case, B, L, H, KV, hd, valids in DECODE_CASES:
@@ -970,12 +1080,14 @@ def lm_launches(cfg, algorithm, steps, evals=0):
     """Kernel launches of ``steps`` local steps and ``evals`` evaluations of
     an LM bundle: K8a once per attention layer per forward (the local
     stream, the frozen global stream of FedMMD and FedFusion, each eval),
-    K8b and K8c once per attention layer per backward, K1 three times a
-    FedMMD step (xx, yy, xy), K2 once a FedFusion-conv step and eval (its
+    K8b and K8c once per attention layer per backward, the fused MK-MMD
+    term once forward and once backward a FedMMD step (8 pooled rows a
+    side: no Gram-sum launch), K2 once a FedFusion-conv step and eval (its
     backward is plain products)."""
     L = sum(k.startswith("attn") for k in cfg.block_pattern)
     two_stream = algorithm in ("fedmmd", "fedfusion")
-    return {"gram_sum": 3 * steps * (algorithm == "fedmmd"),
+    mmd = steps * (algorithm == "fedmmd")
+    return {"gram_sum": 0, "mk_mmd2": mmd, "mk_mmd2_grad": mmd,
             "fusion_conv": (steps + evals) * (algorithm == "fedfusion"),
             "flash_fwd": L * (steps * (1 + two_stream) + evals),
             "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
@@ -1526,6 +1638,8 @@ def main():
     steps, clients = FIG4["local_steps"], FIG4["clients_per_round"]
     n_leaves = len(tree_leaves(bundle.init(torch.Generator())))
     counters = {"gram_sum": mk_mmd.gram_sum_cuda,
+                "mk_mmd2": mk_mmd.mk_mmd2_cuda,
+                "mk_mmd2_grad": mk_mmd.mk_mmd2_grad_cuda,
                 "fusion_conv": fusion_conv.fusion_conv_cuda,
                 "quant_pack": compress_pack.quant_pack_cuda,
                 "quant_unpack": compress_pack.quant_unpack_cuda,
@@ -1537,14 +1651,16 @@ def main():
     def per_round_launches(algorithm, up, down, eval_rounds):
         """Kernel launches of one round of this configuration (K3 once per
         leaf of each quantized message, K4 once per message of up to 64
-        leaves, K1 three times per local step,
-        K2 once per local step and once per eval, K6 / K7 once per EF leaf
-        with a top-k uplink); the reference loop's EF gather and scatter
-        are tensor indexing, so ``ef=False`` there."""
+        leaves, the fused MK-MMD term once forward and once backward per
+        FedMMD local step (10 rows a side: no Gram-sum launch), K2 once
+        per local step and once per eval, K6 / K7 once per EF leaf with a
+        top-k uplink); the reference loop's EF gather and scatter are
+        tensor indexing, so ``ef=False`` there."""
         messages = (clients * (up in ("int8", "int4"))
                     + (down in ("int8", "int4")))
         ef = n_leaves * (up == "topk")
-        return {"gram_sum": 3 * steps * clients * (algorithm == "fedmmd"),
+        mmd = steps * clients * (algorithm == "fedmmd")
+        return {"gram_sum": 0, "mk_mmd2": mmd, "mk_mmd2_grad": mmd,
                 "fusion_conv": (steps * clients + eval_rounds)
                 * (algorithm == "fedfusion"),
                 "quant_pack": n_leaves * messages,
@@ -1763,6 +1879,8 @@ def main():
 
     # 4c. train: the LM training path at full width ---------------------
     lm_counters = {"gram_sum": mk_mmd.gram_sum_cuda,
+                   "mk_mmd2": mk_mmd.mk_mmd2_cuda,
+                   "mk_mmd2_grad": mk_mmd.mk_mmd2_grad_cuda,
                    "fusion_conv": fusion_conv.fusion_conv_cuda,
                    "flash_fwd": flash_attn.flash_fwd_cuda,
                    "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,

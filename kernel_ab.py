@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times K2 (fusion conv) and K8b / K8c (the flash backward) of one or
-more source trees on one NVIDIA GPU, in turns, for A/B comparisons.
+"""Times K1 (the FedMMD term), K2 (fusion conv), K8a (flash attention
+forward) and K8b / K8c (the flash backward) of one or more source trees on
+one NVIDIA GPU, in turns, for A/B comparisons.
 
-    python3 kernel_ab.py [--root DIR ...] [--only fusion_conv|flash_bwd]
+    python3 kernel_ab.py [--root DIR ...]
+                         [--only mk_mmd|fusion_conv|flash_fwd|flash_bwd]
 
 Each ``--root`` is a checkout (or a ``git archive``) holding
 ``src/repro_torch``; the default is this script's own. Give the trees in
@@ -11,19 +13,31 @@ the trees' kernels are built first, all at once, each into its tree's own
 ``build/``; then each tree runs in a process of its own, one after the
 other, and prints one JSON line per measurement:
 
+- ``mk_mmd`` at (n, m, d) = (10, 10, 64) (the CNN's pooled features)
+  and (8, 8, 576) (the LM's): the tree's ``ops.mk_mmd2`` forward and dx
+  (y detached, as FedMMD's global features are), whichever route the tree
+  takes (three Gram sums and eager ops, or the fused term), as wall ms
+  and as device kernels and device microseconds a term under
+  ``torch.profiler``;
 - ``fusion_conv`` at (T, C) = (490, 64) (the CNN's training shape, with
   the kernel's device microseconds a launch from ``torch.profiler``),
   (100,352, 64) (eval) and (8,192, 576) (smollm-135m's LM fusion): the
   wrapper's time, ``torch.mm(torch.cat((f_g, f_l), -1), w)``'s and the
   bound;
+- ``flash_fwd`` at ``chip_smoke.FLASH_CASES``: K8a's time and device
+  microseconds a launch, ``scaled_dot_product_attention``'s, the bound and
+  ``flash_attn.fwd_plan``'s modelled makespan where the tree has it;
 - ``flash_bwd`` at ``chip_smoke.FLASH_BWD_CASES``: K8b's and K8c's times,
   the float32 backward of ``scaled_dot_product_attention`` (all three
   gradients) and each kernel's bound.
 
-Every result is checked against the kernel's plain version on the same
-inputs (K2 within 1e-5 of the output's largest element, K8b / K8c within
-``chip_smoke.BWD_TOL`` of each gradient's), and a check that fails makes
-the run exit non-zero. The first line names the card and its power limit.
+Every result is checked against a plain version on the same inputs (the
+MMD term and its dx against autograd through the formula in float64 at
+rtol 1e-5 / 1e-4, K2 within 1e-5 of the output's largest element, K8a
+within ``chip_smoke.ATTN_TOL``, K8b / K8c within ``chip_smoke.BWD_TOL``
+of each gradient's largest element, all bitwise repeatable), and a check
+that fails makes the run exit non-zero. The first line names the card and
+its power limit.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ sys.path.insert(0, str(HERE))
 import chip_smoke as cs  # noqa: E402
 
 K2_SHAPES = [(490, 64), (100352, 64), (8192, 576)]
+MMD_SHAPES = [(10, 10, 64), (8, 8, 576)]
 
 
 def emit(**fields):
@@ -91,6 +106,119 @@ def time_fusion_conv(torch, fusion_conv, tag):
                 torch, lambda: torch.mm(torch.cat((fg, fl), -1), w), "gemm")
         emit(**line)
         ok &= err <= tol and line["bitwise_repeat"]
+    return ok
+
+
+def mmd2_oracle(torch, x, y):
+    """MMD^2 in float64 by autograd-able ops (the repository's formula:
+    sigma the stop-grad mean of the unclamped cross d2 + 1e-8, each Gram
+    sum over d2 clamped at 0)."""
+    x, y = x.double(), y.double()
+
+    def sq(a, b):
+        return ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
+                - 2.0 * (a @ b.T))
+
+    dxy = sq(x, y)
+    sigma = dxy.mean().detach() + 1e-8
+
+    def kmean(d2):
+        return sum(torch.exp(-d2.clamp_min(0.0) / (2.0 * w * sigma))
+                   for w in cs.WIDTHS).mean() / len(cs.WIDTHS)
+
+    return kmean(sq(x, x)) + kmean(sq(y, y)) - 2.0 * kmean(dxy)
+
+
+def time_mk_mmd(torch, ops, tag):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(6)
+    ok = True
+    for n, m, d in MMD_SHAPES:
+        x = torch.randn(n, d, generator=gen).cuda()
+        y = (0.5 * torch.randn(m, d, generator=gen) + 1.0).cuda()
+        xr = x.clone().requires_grad_(True)
+
+        def term():
+            value = ops.mk_mmd2(xr, y, cs.WIDTHS)
+            return value, torch.autograd.grad(value, xr)[0]
+
+        value, dx = term()
+        value2, dx2 = term()
+        xd = x.double().requires_grad_(True)
+        want = mmd2_oracle(torch, xd, y)
+        (want_dx,) = torch.autograd.grad(want, xd)
+        err = abs(value.item() - want.item())
+        dx_err = (dx.double() - want_dx).abs().max().item()
+        good = (err <= 1e-5 * abs(want.item()) + 1e-6
+                and dx_err <= 1e-4 * want_dx.abs().max().item()
+                and torch.equal(value, value2) and torch.equal(dx, dx2))
+        term()
+        torch.cuda.synchronize()
+        calls = 50
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                term()
+            torch.cuda.synchronize()
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = e.time_range.end - e.time_range.start
+                spans.append(us)
+                by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        emit(tree=tag, kernel="mk_mmd", shape=[n, m, d], abs_err=err,
+             dx_abs_err=dx_err, ok=good,
+             term_ms=cs.time_ms(torch, term),
+             device_ops_per_term=len(spans) / calls,
+             device_us_per_term=sum(spans) / calls,
+             top_device_us_per_term={k: us / calls for k, us in top})
+        ok &= good
+    return ok
+
+
+def time_flash_fwd(torch, flash_attn, tag):
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(3)
+    ok = True
+    for case, B, S, H, KV, hd, window in cs.FLASH_CASES:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen).cuda()
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+
+        def call():
+            return flash_attn.flash_fwd_cuda(q, k, v, window=window)
+
+        (o, lse), (o2, lse2) = call(), call()
+        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
+        err = max((o - o_p).abs().max().item(),
+                  (lse - lse_p).abs().max().item())
+        repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+        del o, lse, o2, lse2, o_p, lse_p
+        bound_ms, bound_by = cs.bound(*cs.flash_fwd_work(B, S, H, KV, hd,
+                                                        window))
+        line = dict(tree=tag, kernel="flash_fwd", case=case,
+                    shape=[B, S, H, KV, hd], window=window, abs_err=err,
+                    tol=cs.ATTN_TOL, bitwise_repeat=repeat,
+                    kernel_ms=cs.time_ms(torch, call, launches=10, repeats=9),
+                    device_us=device_us(torch, call, "flash_fwd", 20),
+                    bound_ms=bound_ms, bound_by=bound_by)
+        if hasattr(flash_attn, "fwd_plan"):
+            plan = flash_attn.fwd_plan(B, S, H, KV, hd, True, window)
+            line["plan"] = dict(makespan=plan.makespan, ideal=plan.ideal)
+        if S == 1024:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = None
+            if window is not None:
+                pos = torch.arange(S, device=q.device)
+                mask = ((pos[None, :] <= pos[:, None])
+                        & ((pos[:, None] - pos[None, :]) < window))
+            line["library_ms"] = cs.time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True), launches=10, repeats=9)
+            del qt, kt, vt
+        emit(**line)
+        ok &= err <= cs.ATTN_TOL and repeat
     return ok
 
 
@@ -162,17 +290,25 @@ def run_one(root, only, build_only):
         sys.exit(f"kernel_ab: {src / 'repro_torch'} not found")
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import build, flash_attn, fusion_conv
+    from repro_torch.kernels import build, flash_attn, fusion_conv, ops
     tag = root
     if build_only:
-        build.build(("fusion_conv", "flash_attn", "flash_attn_bwd"))
+        sources = {"mk_mmd": ("gram_sum",), "fusion_conv": ("fusion_conv",),
+                   "flash_fwd": ("flash_attn",),
+                   "flash_bwd": ("flash_attn", "flash_attn_bwd")}
+        build.build(dict.fromkeys(s for name in only or sources
+                                  for s in sources[name]))
         emit(tree=tag, ptxas={n: cs.ptxas_summary(log)
                               for n, log in build.BUILD_LOG.items()})
         return
     ok = True
-    if only in (None, "fusion_conv"):
+    if not only or "mk_mmd" in only:
+        ok &= time_mk_mmd(torch, ops, tag)
+    if not only or "fusion_conv" in only:
         ok &= time_fusion_conv(torch, fusion_conv, tag)
-    if only in (None, "flash_bwd"):
+    if not only or "flash_fwd" in only:
+        ok &= time_flash_fwd(torch, flash_attn, tag)
+    if not only or "flash_bwd" in only:
         ok &= time_flash_bwd(torch, flash_attn, tag)
     if not ok:
         sys.exit(f"kernel_ab: a kernel of {tag} disagrees with its plain "
@@ -184,8 +320,10 @@ def main():
     ap.add_argument("--root", action="append",
                     help="a source tree to time (repeatable; default: "
                          "this checkout)")
-    ap.add_argument("--only", choices=("fusion_conv", "flash_bwd"),
-                    help="time one kernel family only")
+    ap.add_argument("--only", action="append",
+                    choices=("mk_mmd", "fusion_conv", "flash_fwd",
+                             "flash_bwd"),
+                    help="time these kernel families only (repeatable)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",
                     help=argparse.SUPPRESS)
@@ -198,13 +336,13 @@ def main():
     print(cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
                   "--format=csv,noheader"]), flush=True)
     roots = args.root or [str(HERE)]
+    only = [a for name in args.only or () for a in ("--only", name)]
     builds = {root: subprocess.Popen([sys.executable, __file__, "--one", root,
-                                      "--build-only"])
+                                      "--build-only", *only])
               for root in dict.fromkeys(roots)}
     failed = [root for root, proc in builds.items() if proc.wait()]
     if failed:
         sys.exit(f"kernel_ab: the build failed for {failed}")
-    only = [] if args.only is None else ["--only", args.only]
     for root in roots:
         rc = subprocess.run([sys.executable, __file__, "--one", root,
                              *only]).returncode

@@ -16,265 +16,330 @@
 // in registers.  The tile's rows are (position, head) pairs: all rep query
 // heads of the group are taken together, so each K / V tile is read from
 // device memory once per group (the GQA saving of the Pallas block
-// (1, qb, 1, rep, hd)).  64 rows a block (64 / rep positions), 32 keys a
-// tile, 256 threads.
+// (1, qb, 1, rep, hd)).  64 rows a block (64 / rep positions), KT keys a
+// tile (FwdTile below), 256 threads.
 //
-//   scores   S[64 x 32] = Q K^T: each thread a 4-row x 2-key register tile,
-//            Q (transposed) and K (transposed) staged in shared memory;
+//   scores   S[64 x KT] = Q K^T: each thread a 4-row x KT/16-key register
+//            tile (rows tr * 4 + i, keys tc + 16 j), float4 loads along hd
+//            from Q and K kept row by row with a stride of hd + 4 floats
+//            (a quarter warp's 8 keys land on 32 distinct banks);
 //   softmax  masks by position arithmetic (causal, window, the ragged edge
-//            k < S) with the finite -1e30 JAX uses; row max and sum over
-//            the 16 lanes that share a row, by xor shuffles (every lane
-//            gets the same value, so the state stays consistent);
-//   P V      acc[64 x hd] += P[64 x 32] V[32 x hd]: each thread a register
+//            k < S) with the finite -1e30 JAX uses, only on tiles that
+//            cross the diagonal, the window's edge or S; row max and sum
+//            over the 16 lanes that share a row, by xor shuffles (every
+//            lane gets the same value, so the state stays consistent); p
+//            goes to shared memory transposed, 4 rows a float4;
+//   P V      acc[64 x hd] += P[64 x KT] V[KT x hd]: each thread a register
 //            tile of RM rows x CM columns, rescaled by the row's correction.
 //
 // Tiles wholly above the diagonal or wholly outside the window are never
 // visited (the Pallas kernel visits and masks all of them): causal work is
-// halved and a local layer costs O(S * window).  Blocks of the last query
-// tiles, which have the most keys, are scheduled first.  Products are FFMA
-// in f32 (no TF32), exp is expf: the numbers follow the f32 reference up to
-// summation order.
+// halved and a local layer costs O(S * window).  Products are FFMA in f32
+// (no TF32), exp is expf: the numbers follow the f32 reference up to
+// summation order, and every sum is taken in a fixed order, so the results
+// are bitwise repeatable.
 //
 // What bounds it on the card: 4 * B * H * hd FLOP per visible (query, key)
 // pair against 67 TFLOP/s f32, ~6-9 GFLOP a gemma3-1b layer at B = 4,
 // S = 1024, and ~42 MB of q, k, v, o (12 us at 3.35 TB/s): operations.
-// This first version runs on the FMA units from shared memory, one block
-// of 256 threads per SM at hd = 256 (148 KB of shared memory); the next
-// K / V tile's float4 loads are issued into registers before the current
-// tile's products, so device-memory latency hides behind them.  Tensor
-// cores (wgmma on TF32 or bf16) and TMA are later work.
+// On the FMA units the shared-memory pipe is the nearer limit: counting one
+// wavefront per quarter warp of a 128-bit load, a 4 x 2 score tile takes
+// 24 wavefronts per 32 FFMA instructions a warp, 3:1 against the FMA pipe.
+// Four changes against that and the dispatch (each timed alone, PERF.md):
+// (1) dispatch order -- a 1-D grid, query tile slowest from the heaviest
+// (the last, under a causal mask) and the (b, g) group fastest, so every
+// group's longest tiles start in the first wave (a grid with the tile
+// fastest starts two of gemma3-1b's four groups' longest tiles only in the
+// second wave); (2) K / V arrive by cp.async in place, K during the
+// tile's P V and V during the next tile's scores, one buffer each (a
+// second one does not fit beside 64-key tiles at hd 256); (3) wider tiles
+// -- 64 keys at hd 64 and 256 (a 4 x 4 score tile, 16 wavefronts per 32
+// FFMAs; at hd 128 they would leave one block an SM), the P V tile 8 x 8
+// at hd 256 and 8 x 4 at hd 128, and at hd 64, where 64 x 64 outputs
+// give 256 threads only 4 x 4 each, two groups of 128 threads that take
+// half the keys each with 8 x 4 tiles and add at the end (two blocks an
+// SM: the register budget of three spills); (4) per-element masks only on
+// the tiles that need them.  Tensor cores (wgmma on TF32 or bf16) and TMA
+// are later work.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kRows = 64;          // (position, head) rows per block
-constexpr int kKT = 32;            // keys per tile
 constexpr int kThreads = 256;
-constexpr int kQS = kRows + 4;     // row stride of Q^T and P^T in shared
-constexpr int kKS = kKT + 4;       // row stride of K^T in shared
 constexpr float kNegInf = -1e30f;
 
+// K8a's tiles, one build per head dim: KT keys a tile; the P V step runs
+// in KS groups of threads, group h taking keys h * KT / KS .. of each tile
+// and adding its sums to group 0's at the end, each thread an RM x CM
+// register tile (rows rg * RM + i, float4 column groups cg, cg + NCG,
+// ...); blocks an SM as shared memory admits them, at most MAX_BLOCKS
+// (the __launch_bounds__ asks the registers for the same).
 template <int HD>
-struct Tile {
-  // P V register tile: NCG column groups of CM columns, NRG row groups of RM
+struct FwdTile {
+  static constexpr int KT = HD == 128 ? 32 : 64;
+  static constexpr int KS = HD == 64 ? 2 : 1;
+  static constexpr int MAX_BLOCKS = 2;
+  static constexpr int RS = HD + 4;             // row stride of Q, K, V
+  static constexpr int PS = kRows + 4;          // row stride of P^T
+  static constexpr int KJ = KT / 16;
   static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
   static constexpr int CM = HD / NCG;
-  static constexpr int NRG = kThreads / NCG;
+  static constexpr int NRG = kThreads / KS / NCG;
   static constexpr int RM = kRows / NRG;
-  static constexpr int SMEM_FLOATS =
-      HD * kQS + HD * kKS + kKT * HD + kKT * kQS + kRows;
+  static constexpr int FLOATS = kRows * RS + 2 * KT * RS + KT * PS + kRows;
+  static constexpr int FIT = 232448 / (FLOATS * 4 + 1024);
+  static constexpr int MIN_BLOCKS = FIT < MAX_BLOCKS ? FIT : MAX_BLOCKS;
+  static_assert(KT % (16 * KS) == 0 && RM % 4 == 0 && MIN_BLOCKS >= 1,
+                "tile shape");
 };
 
-// One K / V tile in registers: each thread's share as float4s, the loads
-// of a whole tile in flight together.  V is read row by row (float4 e of
-// the tile is row e / (HD/4)), so its stores into Vs[kk][d] are
-// contiguous.  K is stored transposed, Ks[d][kk]: a warp takes 16 rows x
-// 2 neighbouring float4s (whole 32-byte sectors), so that each of its four
-// scalar stores lands on 32 distinct banks (kKS = 36: bank 16 d4 + 4 c + kk).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups (the newest) are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The 64 rows of the query tile at positions q0 .. into Qs ([kRows][RS]),
+// as 16-byte cp.async copies; rows past nrows are zero-filled.
 template <int HD>
-struct KVRegs {
-  static constexpr int N = kKT * HD / 4 / kThreads;
-  float4 k[N], v[N];
-
-  __device__ static void k_slot(int e, int& kk, int& d) {
-    const int lane = e % 32, w = e / 32;
-    kk = lane % 16 + 16 * (w % 2);
-    d = 4 * (2 * (w / 2) + lane / 16);
+__device__ __forceinline__ void issue_query(const float* __restrict__ q,
+                                            float* Qs, int b, int g, int q0,
+                                            int nrows, int S, int H, int rep,
+                                            int tid) {
+  constexpr int RS = HD + 4;
+#pragma unroll 4
+  for (int e = tid; e < kRows * HD / 4; e += kThreads) {
+    const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
+    const bool ok = r < nrows;
+    const size_t off = ok ? ((size_t)(b * S + q0 + r / rep) * H + g * rep +
+                             r % rep) * HD + d
+                          : 0;
+    cp_async16(&Qs[r * RS + d], q + off, ok);
   }
+}
 
-  __device__ static void v_slot(int e, int& kk, int& d) {
-    kk = e / (HD / 4);
-    d = 4 * (e % (HD / 4));
+// Keys k0 .. k0 + KT - 1 of x (k or v, [B, S, KV, hd]) into Xs ([KT][RS])
+// as 16-byte cp.async copies; keys past S are zero-filled.
+template <int HD, int KT>
+__device__ __forceinline__ void issue_keys(const float* __restrict__ x,
+                                           float* Xs, size_t kv_base, int KV,
+                                           int S, int k0, int tid) {
+  constexpr int RS = HD + 4;
+#pragma unroll 4
+  for (int e = tid; e < KT * HD / 4; e += kThreads) {
+    const int kk = e / (HD / 4), d = 4 * (e % (HD / 4));
+    const bool ok = k0 + kk < S;
+    const size_t off = ok ? (kv_base + (size_t)(k0 + kk) * KV) * HD + d : 0;
+    cp_async16(&Xs[kk * RS + d], x + off, ok);
   }
+}
 
-  __device__ void load(const float* __restrict__ kg,
-                       const float* __restrict__ vg, size_t kv_base, int KV,
-                       int S, int k0, int tid) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+// s[i][j] = q_r . k_c over hd for the thread's rows r = tr * 4 + i and keys
+// c = tc + 16 j.  Within a quarter warp the 8 threads share tr (one Q
+// address, broadcast) and read 8 neighbouring keys (32 distinct banks).
+template <int HD, int KJ>
+__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
+                                       int tr, int tc, float (&s)[4][KJ]) {
+  constexpr int RS = HD + 4;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = tid + i * kThreads;          // float4 of the tile
-      int kk, d;
-      k_slot(e, kk, d);
-      k[i] = k0 + kk < S ? __ldg(reinterpret_cast<const float4*>(
-                               kg + (kv_base + (size_t)(k0 + kk) * KV) * HD
-                               + d))
-                         : zero;
-      v_slot(e, kk, d);
-      v[i] = k0 + kk < S ? __ldg(reinterpret_cast<const float4*>(
-                               vg + (kv_base + (size_t)(k0 + kk) * KV) * HD
-                               + d))
-                         : zero;
-    }
-  }
-
-  __device__ void store(float* Ks, float* Vs, int tid) const {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = tid + i * kThreads;
-      int kk, d;
-      k_slot(e, kk, d);
-      Ks[(d + 0) * kKS + kk] = k[i].x;
-      Ks[(d + 1) * kKS + kk] = k[i].y;
-      Ks[(d + 2) * kKS + kk] = k[i].z;
-      Ks[(d + 3) * kKS + kk] = k[i].w;
-      v_slot(e, kk, d);
-      *reinterpret_cast<float4*>(&Vs[kk * HD + d]) = v[i];
-    }
+    for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[4], b[KJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&Qs[(tr * 4 + i) * RS + d]);
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+      b[j] = *reinterpret_cast<const float4*>(&Ks[(tc + 16 * j) * RS + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
   }
-};
+}
 
-// Blocks per SM the register budget must allow: shared memory admits one
-// at hd = 256 (148 KB), two at 128 (79 KB), five at 64 (44 KB).
-template <int HD>
-constexpr int kMinBlocks = HD == 256 ? 1 : HD == 128 ? 2 : 3;
+// The online-softmax step of one tile: masks (MASKED: per element), the
+// running max and sum of the thread's 4 rows, p into Ps (P^T, 4 rows a
+// float4) and each row's correction into rowc.
+template <int KJ, bool MASKED>
+__device__ __forceinline__ void softmax_step(
+    float (&s)[4][KJ], float (&m)[4], float (&l)[4], float* Ps, float* rowc,
+    int tr, int tc, int q0, int k0, int nrows, int rep, int S, int causal,
+    int window, float scale) {
+  constexpr int PS = kRows + 4;
+  float p[4][KJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tr * 4 + i;
+    const int qp = q0 + r / rep;
+    bool ok[KJ];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int kp = k0 + tc + 16 * j;
+      ok[j] = !MASKED ||
+              (r < nrows && kp < S && (!causal || kp <= qp) &&
+               (window <= 0 || qp - kp < window));
+      s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    const float corr = expf(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      p[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+      sum += p[i][j];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l[i] = l[i] * corr + sum;
+    m[i] = m_new;
+    if (tc == 0) rowc[r] = corr;
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    *reinterpret_cast<float4*>(&Ps[(tc + 16 * j) * PS + tr * 4]) =
+        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+}
 
+// Block u: query tile rank u / n_groups (0 the heaviest), group
+// u % n_groups; tile t = n_qt - 1 - rank.  K arrives during the last
+// tile's P V, V during this tile's scores (in place, one buffer each).
 template <int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
+__global__ void __launch_bounds__(kThreads, FwdTile<HD>::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int KV, int rep,
-                 int positions, int causal, int window, float scale) {
-  using T = Tile<HD>;
+                 int positions, int causal, int window, float scale,
+                 int n_qt, int n_groups) {
+  using T = FwdTile<HD>;
+  constexpr int KT = T::KT, RS = T::RS, PS = T::PS, KJ = T::KJ;
+  constexpr int RM = T::RM, CM = T::CM, NCG = T::NCG;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [HD][kQS]  Q^T
-  float* Ks = Qs + HD * kQS;                     // [HD][kKS]  K^T
-  float* Vs = Ks + HD * kKS;                     // [kKT][HD]
-  float* Ps = Vs + kKT * HD;                     // [kKT][kQS] P^T
-  float* rowc = Ps + kKT * kQS;                  // [kRows]
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][RS]
+  float* Ks = Qs + kRows * RS;                   // [KT][RS]
+  float* Vs = Ks + KT * RS;                      // [KT][RS]
+  float* Ps = Vs + KT * RS;                      // [KT][PS]  P^T
+  float* rowc = Ps + KT * PS;                    // [kRows]
 
   const int tid = threadIdx.x;
-  const int n_qt = gridDim.x;
-  const int q0 = (n_qt - 1 - blockIdx.x) * positions;  // heavy tiles first
-  const int b = blockIdx.y / KV;
-  const int g = blockIdx.y % KV;
+  const int u = blockIdx.x;
+  const int q0 = (n_qt - 1 - u / n_groups) * positions;
+  const int bg = u % n_groups;
+  const int b = bg / KV, g = bg % KV;
   const int n_pos = min(positions, S - q0);
   const int nrows = n_pos * rep;
-
-  // Q tile, transposed: row r is position q0 + r / rep, head g*rep + r % rep
-  // (a warp takes 16 rows x 2 neighbouring float4s, as for K)
-#pragma unroll 4
-  for (int e = tid; e < kRows * HD / 4; e += kThreads) {
-    const int lane = e % 32, w = e / 32;
-    const int r = lane % 16 + 16 * (w % 4), d = 4 * (2 * (w / 4) + lane / 16);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nrows)
-      val = __ldg(reinterpret_cast<const float4*>(
-          q + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD
-          + d));
-    Qs[(d + 0) * kQS + r] = val.x;
-    Qs[(d + 1) * kQS + r] = val.y;
-    Qs[(d + 2) * kQS + r] = val.z;
-    Qs[(d + 3) * kQS + r] = val.w;
-  }
-
-  // scores / softmax layout: 16 row groups x 16 key groups
-  const int tr = tid / 16, tc = tid % 16;
-  // P V layout
-  const int rg = tid / T::NCG, cg = tid % T::NCG;
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = kNegInf; l[i] = 0.f; }
-  float acc[T::RM][T::CM];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::CM; ++j) acc[i][j] = 0.f;
-
   const int q_last = q0 + n_pos - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_hi = causal ? q_last : S - 1;
+  const int t_lo = k_lo / KT, t_hi = k_hi / KT;
   const size_t kv_base = (size_t)b * S * KV + g;   // row (b, 0, g)
 
-  // the next K / V tile is loaded into registers while this one computes
-  KVRegs<HD> next;
-  const int t_lo = k_lo / kKT, t_hi = k_hi / kKT;
-  next.load(k, v, kv_base, KV, S, t_lo * kKT, tid);
+  issue_query<HD>(q, Qs, b, g, q0, nrows, S, H, rep, tid);
+  issue_keys<HD, KT>(k, Ks, kv_base, KV, S, t_lo * KT, tid);
+  cp_async_commit();               // the query tile and K, then V
+  issue_keys<HD, KT>(v, Vs, kv_base, KV, S, t_lo * KT, tid);
+  cp_async_commit();
+
+  const int tr = tid / 16, tc = tid % 16;        // score / softmax layout
+  constexpr int KS = T::KS, GT = kThreads / KS;
+  const int h = tid / GT;                        // P V layout
+  const int rg = tid % GT / NCG, cg = tid % NCG;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { m[i] = kNegInf; l[i] = 0.f; }
+  float acc[RM][CM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CM; ++j) acc[i][j] = 0.f;
+
   for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kKT;
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    next.store(Ks, Vs, tid);
+    const int k0 = t * KT;
+    cp_async_wait<1>();            // K (the first time: the query tile too)
     __syncthreads();
-    if (t < t_hi) next.load(k, v, kv_base, KV, S, k0 + kKT, tid);
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qs[d * kQS + tr * 4]);
-      const float2 kb = *reinterpret_cast<const float2*>(&Ks[d * kKS + tc * 2]);
-      s[0][0] = fmaf(qa.x, kb.x, s[0][0]); s[0][1] = fmaf(qa.x, kb.y, s[0][1]);
-      s[1][0] = fmaf(qa.y, kb.x, s[1][0]); s[1][1] = fmaf(qa.y, kb.y, s[1][1]);
-      s[2][0] = fmaf(qa.z, kb.x, s[2][0]); s[2][1] = fmaf(qa.z, kb.y, s[2][1]);
-      s[3][0] = fmaf(qa.w, kb.x, s[3][0]); s[3][1] = fmaf(qa.w, kb.y, s[3][1]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr * 4 + i;
-      const int qp = q0 + r / rep;
-      bool ok[2];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + tc * 2 + j;
-        ok[j] = r < nrows && kp < S && (!causal || kp <= qp) &&
-                (window <= 0 || qp - kp < window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(tc * 2 + j) * kQS + r] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-      if (tc == 0) rowc[r] = corr;
-    }
-    __syncthreads();
+    float s[4][KJ];
+    scores<HD, KJ>(Qs, Ks, tr, tc, s);
+    const bool inside = k0 + KT <= S && (!causal || k0 + KT - 1 <= q0) &&
+                        (window <= 0 || q_last - k0 < window);
+    if (inside)
+      softmax_step<KJ, false>(s, m, l, Ps, rowc, tr, tc, q0, k0, nrows, rep,
+                              S, causal, window, scale);
+    else
+      softmax_step<KJ, true>(s, m, l, Ps, rowc, tr, tc, q0, k0, nrows, rep,
+                             S, causal, window, scale);
+    cp_async_wait<0>();            // V
+    __syncthreads();               // P visible; K consumed: refill it
+    if (t < t_hi) issue_keys<HD, KT>(k, Ks, kv_base, KV, S, k0 + KT, tid);
+    cp_async_commit();
 
 #pragma unroll
-    for (int i = 0; i < T::RM; ++i) {
-      const float c = rowc[rg * T::RM + i];
+    for (int i = 0; i < RM; ++i) {
+      const float c = rowc[rg * RM + i];
 #pragma unroll
-      for (int j = 0; j < T::CM; ++j) acc[i][j] *= c;
+      for (int j = 0; j < CM; ++j) acc[i][j] *= c;
     }
 #pragma unroll 4
-    for (int kk = 0; kk < kKT; ++kk) {
-      float pr[T::RM], vv[T::CM];
+    for (int kk = h * (KT / KS); kk < (h + 1) * (KT / KS); ++kk) {
+      float pr[RM], vv[CM];
 #pragma unroll
-      for (int i = 0; i < T::RM; i += 4) {
+      for (int i = 0; i < RM; i += 4) {
         const float4 t4 =
-            *reinterpret_cast<const float4*>(&Ps[kk * kQS + rg * T::RM + i]);
+            *reinterpret_cast<const float4*>(&Ps[kk * PS + rg * RM + i]);
         pr[i] = t4.x; pr[i + 1] = t4.y; pr[i + 2] = t4.z; pr[i + 3] = t4.w;
       }
 #pragma unroll
-      for (int j = 0; j < T::CM; j += 4) {
+      for (int j = 0; j < CM; j += 4) {
         const float4 t4 = *reinterpret_cast<const float4*>(
-            &Vs[kk * HD + (j / 4) * T::NCG * 4 + cg * 4]);
+            &Vs[kk * RS + (j / 4) * NCG * 4 + cg * 4]);
         vv[j] = t4.x; vv[j + 1] = t4.y; vv[j + 2] = t4.z; vv[j + 3] = t4.w;
       }
 #pragma unroll
-      for (int i = 0; i < T::RM; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < T::CM; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
+        for (int j = 0; j < CM; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
     }
+    __syncthreads();               // V and P consumed: refill V
+    if (t < t_hi) issue_keys<HD, KT>(v, Vs, kv_base, KV, S, k0 + KT, tid);
+    cp_async_commit();
   }
 
   __syncthreads();
+  if (KS > 1 && h == 1) {          // group 1's sums, through Q's buffer
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CM; j += 4)
+        *reinterpret_cast<float4*>(
+            &Qs[(rg * RM + i) * HD + (j / 4) * NCG * 4 + cg * 4]) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
+                        acc[i][j + 3]);
+  }
   if (tc == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -287,21 +352,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
+  if (h > 0) return;
+  if (KS > 1) {
 #pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    const int r = rg * T::RM + i;
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CM; j += 4) {
+        const float4 t4 = *reinterpret_cast<const float4*>(
+            &Qs[(rg * RM + i) * HD + (j / 4) * NCG * 4 + cg * 4]);
+        acc[i][j] += t4.x; acc[i][j + 1] += t4.y;
+        acc[i][j + 2] += t4.z; acc[i][j + 3] += t4.w;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = rg * RM + i;
     if (r >= nrows) continue;
     const float lc = rowc[r];
     float* orow =
         o + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD;
 #pragma unroll
-    for (int j = 0; j < T::CM; j += 4) {
+    for (int j = 0; j < CM; j += 4) {
       float4 out;
       out.x = acc[i][j] / lc;
       out.y = acc[i][j + 1] / lc;
       out.z = acc[i][j + 2] / lc;
       out.w = acc[i][j + 3] / lc;
-      *reinterpret_cast<float4*>(&orow[(j / 4) * T::NCG * 4 + cg * 4]) = out;
+      *reinterpret_cast<float4*>(&orow[(j / 4) * NCG * 4 + cg * 4]) = out;
     }
   }
 }
@@ -312,7 +389,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
            float scale, cudaStream_t stream) {
   const int rep = H / KV;
   const int positions = kRows / rep;
-  const size_t smem = Tile<HD>::SMEM_FLOATS * sizeof(float);
+  const size_t smem = FwdTile<HD>::FLOATS * sizeof(float);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -321,9 +398,10 @@ int launch(const float* q, const float* k, const float* v, float* o,
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  dim3 grid((S + positions - 1) / positions, B * KV);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, S, H, KV, rep, positions, causal, window, scale);
+  const int n_qt = (S + positions - 1) / positions;
+  flash_fwd_kernel<HD><<<n_qt * B * KV, kThreads, smem, stream>>>(
+      q, k, v, o, lse, S, H, KV, rep, positions, causal, window, scale, n_qt,
+      B * KV);
   return (int)cudaGetLastError();
 }
 

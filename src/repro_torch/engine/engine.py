@@ -185,6 +185,8 @@ def _copy_into(dst, src):
 def _kernel_counters():
     from repro_torch.kernels import compress_pack, fusion_conv, mk_mmd
     return {"gram_sum": mk_mmd.gram_sum_cuda,
+            "mk_mmd2": mk_mmd.mk_mmd2_cuda,
+            "mk_mmd2_grad": mk_mmd.mk_mmd2_grad_cuda,
             "fusion_conv": fusion_conv.fusion_conv_cuda,
             "quant_pack": compress_pack.quant_pack_cuda,
             "quant_unpack": compress_pack.quant_unpack_cuda,

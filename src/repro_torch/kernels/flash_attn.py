@@ -6,7 +6,10 @@ with H = KV * rep -> o [B,S,H,hd], lse [B,KV,rep,S] float32 (the JAX
 layout pads lse to whole Pallas blocks; here it has exactly S columns).
 Causal and sliding-window masks come from position arithmetic.  Tensors on
 the card run the CUDA kernel ``csrc/flash_attn.cu``; tensors on the CPU run
-:func:`flash_fwd_plain`, a masked full softmax in float32.
+:func:`flash_fwd_plain`, a masked full softmax in float32.  The kernel's
+dispatch order (query tiles from the heaviest, every (b, g) group's tile of
+one rank before the next rank) is :func:`fwd_plan`'s, which also models its
+time on the card's block slots.
 
 ``flash_bwd(q, k, v, o, lse, do)`` returns ``(dq, dk, dv)``: tensors on
 the card run K8b (``dq``) and K8c (``dk``, ``dv``) of
@@ -38,9 +41,11 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 64        # query heads per KV head: the kernel's 64-row tile
 # keys a K8c work unit owns, and keys a K8b tile holds, by head dim
-# (csrc/flash_attn_bwd.cu DkvTile, DqTile)
+# (csrc/flash_attn_bwd.cu DkvTile, DqTile); keys a K8a tile holds
+# (csrc/flash_attn.cu FwdTile)
 DKV_KEYS = {64: 64, 128: 64, 256: 32}
 DQ_KEYS = {64: 64, 128: 32, 256: 32}
+FWD_KEYS = {64: 64, 128: 32, 256: 64}
 _SMEM_PER_SM = 232448   # bytes of shared memory an H100 SM gives its blocks
 
 
@@ -223,21 +228,79 @@ def _dq_blocks_per_sm(hd, key_tile, rows):
     return 2 if 2 * (4 * floats + 1024) <= _SMEM_PER_SM else 1
 
 
+def _slot_makespan(costs, slots):
+    """When the last of ``costs`` (in launch order) ends if the card's
+    ``slots`` block slots take them in that order, each the moment a slot
+    is free."""
+    free = [0.0] * slots
+    for cost in costs:
+        heapq.heapreplace(free, free[0] + cost)
+    return max(free)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """K8a's schedule for one shape.  Query tile t (``positions``
+    positions from t * positions) sees ``n_tiles[t]`` key tiles of
+    ``key_tile`` keys.  The launch has ``len(n_tiles) * groups`` blocks in
+    the order :meth:`costs` lists them: tile rank slowest (the last tile
+    first), the (b, g) group fastest.  ``makespan`` is the time in key-tile
+    steps until the last block ends on ``slots`` block slots (a block
+    costs its key tiles and one more for its query tile), ``ideal`` the
+    total cost over the slots."""
+    key_tile: int
+    positions: int
+    groups: int
+    slots: int
+    n_tiles: tuple
+
+    def costs(self):
+        return [n + 1 for n in reversed(self.n_tiles)
+                for _ in range(self.groups)]
+
+    @property
+    def makespan(self):
+        return _slot_makespan(self.costs(), self.slots)
+
+    @property
+    def ideal(self):
+        return sum(self.costs()) / self.slots
+
+
+def _fwd_blocks_per_sm(hd, key_tile, rows=64):
+    """K8a blocks an SM holds: as many as shared memory admits, at most
+    two (csrc/flash_attn.cu FwdTile)."""
+    floats = rows * (hd + 4) + 2 * key_tile * (hd + 4) \
+        + key_tile * (rows + 4) + rows
+    return min(2, _SMEM_PER_SM // (4 * floats + 1024))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B, S, H, KV, hd, causal=True, window=None, *, n_sm=132):
+    """K8a's :class:`FwdPlan` for q [B,S,H,hd], k/v [B,S,KV,hd] on a card
+    of ``n_sm`` SMs."""
+    kt = FWD_KEYS[hd]
+    positions = 64 // (H // KV)
+    n_tiles = []
+    for q0 in range(0, S, positions):
+        k_lo = 0 if window is None else max(0, q0 - window + 1)
+        k_hi = min(S, q0 + positions) - 1 if causal else S - 1
+        n_tiles.append(k_hi // kt - k_lo // kt + 1)
+    return FwdPlan(kt, positions, B * KV, n_sm * _fwd_blocks_per_sm(hd, kt),
+                   tuple(n_tiles))
+
+
 def _dq_makespan(n_tiles, seg, groups, slots):
     """Key-tile steps until K8b's last unit ends when the card's ``slots``
     block slots take the units in launch order, each the moment a slot
     is free.  A unit costs its key tiles, one more for loading its query
     tile, and half one more when its query tile is split (the partial
     sum's write and read)."""
-    free = [0.0] * slots
-    for sg in range(-(-max(n_tiles) // seg)):
-        for n in reversed(n_tiles):
-            if sg * seg >= n:
-                continue
-            cost = min(seg, n - sg * seg) + 1 + (0.5 if n > seg else 0)
-            for _ in range(groups):
-                heapq.heapreplace(free, free[0] + cost)
-    return max(free)
+    costs = [min(seg, n - sg * seg) + 1 + (0.5 if n > seg else 0)
+             for sg in range(-(-max(n_tiles) // seg))
+             for n in reversed(n_tiles) if sg * seg < n
+             for _ in range(groups)]
+    return _slot_makespan(costs, slots)
 
 
 @functools.lru_cache(maxsize=256)
@@ -339,13 +402,10 @@ def _scratch(floats, n_tickets, device):
 def _launch(name, tensors, dims, causal, window, ptrs=(), plan=()):
     """``name``(tensors' pointers, ptrs, dims, causal, window, scale, plan,
     stream) on the tensors' device and its current stream."""
-    with torch.cuda.device(tensors[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(name)(*(t.data_ptr() for t in tensors), *ptrs, *dims,
-                           int(causal), 0 if window is None else int(window),
-                           float(dims[-1] ** -0.5), *plan, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    build.launch(name, _kernel(name), tensors[0].device,
+                 *(t.data_ptr() for t in tensors), *ptrs, *dims, int(causal),
+                 0 if window is None else int(window),
+                 float(dims[-1] ** -0.5), *plan)
 
 
 def flash_fwd_cuda(q, k, v, *, causal=True, window=None):

@@ -1,7 +1,10 @@
 """The plain versions of K8a (flash attention forward) and K9 (flash-decode)
 against the JAX Pallas kernels in interpret mode, and the port's plain
 attention functions against the JAX package's, on the same seeded numpy
-inputs.
+inputs.  K8a's tile walk (``flash_attn.fwd_plan``: key tiles per query
+tile, per-element masks only on the tiles that cross the diagonal, the
+window's edge or S) is emulated in plain PyTorch and held to the Pallas
+kernel, and its dispatch order is checked against the parent's.
 
 Tolerance: float32 throughout.  The Pallas kernels sum each row's
 softmax in blocks with online rescaling, the plain versions in one full
@@ -135,3 +138,114 @@ def test_decode_attention_kernel_hook_is_called():
 
     out = tattn.decode_attention(q, k, v, cache_len=5, kernel=kernel)
     assert seen == [5] and torch.equal(out, torch.zeros_like(q))
+
+
+# --------------------------------------------------------------------------
+# K8a's schedule: the tiles it walks, the masks it skips, its dispatch order
+# --------------------------------------------------------------------------
+
+def _fwd_emulated(q, k, v, plan, causal, window):
+    """K8a's tile walk in plain PyTorch: for each query tile of
+    ``plan.positions`` positions, the key tiles of ``plan.key_tile`` keys
+    from the first one a position sees, ``plan.n_tiles[t]`` of them, with an
+    online softmax; per-element masks only on tiles that cross the
+    diagonal, the window's edge or S, as the kernel's ``inside`` test
+    decides.  Returns (o, lse) in the plain version's layout."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rep, kt, P = H // KV, plan.key_tile, plan.positions
+    qh = q.reshape(B, S, KV, rep, hd)
+    o = torch.zeros(B, S, KV, rep, hd)
+    lse = torch.zeros(B, KV, rep, S)
+    for t, n in enumerate(plan.n_tiles):
+        q0 = t * P
+        qp = torch.arange(q0, min(q0 + P, S))
+        k_lo = 0 if window is None else max(0, q0 - window + 1)
+        qt = qh[:, qp]                                  # [B, P, KV, rep, hd]
+        m = torch.full((B, len(qp), KV, rep), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for j in range(k_lo // kt, k_lo // kt + n):
+            kp = torch.arange(j * kt, (j + 1) * kt)
+            ks, vs = (torch.zeros(B, kt, KV, hd) for _ in range(2))
+            ks[:, kp < S], vs[:, kp < S] = k[:, kp[kp < S]], v[:, kp[kp < S]]
+            s = torch.einsum("bpgrd,bkgd->bpgrk", qt, ks) * hd ** -0.5
+            inside = (j * kt + kt <= S
+                      and (not causal or j * kt + kt - 1 <= q0)
+                      and (window is None or qp[-1] - j * kt < window))
+            if not inside:
+                d = qp[:, None] - kp[None, :]
+                ok = (kp[None, :] < S) & ((d >= 0) | (not causal))
+                if window is not None:
+                    ok &= d < window
+                s = torch.where(ok[None, :, None, None, :], s,
+                                torch.full_like(s, -1e30))
+                p_mask = ok[None, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            if not inside:
+                p = torch.where(p_mask, p, torch.zeros_like(p))
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bpgrk,bkgd->bpgrd", p, vs)
+            m = m_new
+        o[:, qp] = acc / l[..., None]
+        lse[..., qp] = (m + torch.log(l)).permute(0, 2, 3, 1)
+    return o.reshape(B, S, H, hd), lse
+
+
+FWD_CASES = [       # B, S, H, KV, hd, window, causal
+    (1, 100, 3, 1, 64, None, True),     # rep 3: 21 positions, 64-key tiles
+    (2, 150, 4, 1, 64, 40, True),       # window ends mid-tile
+    (1, 140, 4, 1, 256, None, True),    # hd 256: 64-key tiles
+    (1, 130, 8, 4, 128, 24, True),      # hd 128: 32-key tiles
+    (1, 90, 2, 2, 64, None, False),     # no causal mask
+    (1, 20, 64, 1, 64, None, True),     # rep 64: one position a tile
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", FWD_CASES)
+def test_fwd_schedule_emulation_matches_pallas(B, S, H, KV, hd, window,
+                                               causal):
+    q, k, v = _qkv(B, S, S, H, KV, hd, seed=S + 7 * H + hd)
+    o_j, lse_j = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale=hd ** -0.5, causal=causal, window=window,
+                             q_block=16, kv_block=16, interpret=True)
+    plan = flash_attn.fwd_plan(B, S, H, KV, hd, causal, window)
+    o, lse = _fwd_emulated(*map(torch.from_numpy, (q, k, v)), plan, causal,
+                           window)
+    _close(o, o_j)
+    _close(lse, np.asarray(lse_j)[..., :S])
+
+
+@pytest.mark.parametrize("S,H,KV,hd,window", [
+    (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
+    (1000, 4, 1, 256, 512), (333, 3, 3, 128, None), (37, 64, 1, 64, 5)])
+def test_fwd_plan_order_is_heavy_first_and_covers_the_visible_tiles(
+        S, H, KV, hd, window):
+    """Each query tile walks exactly the key tiles its positions see; the
+    launch order puts every group's tile of one rank before the next rank,
+    the longest first under a causal mask; and on the card's block slots
+    that order ends no later than the parent's grid, whose (b, g) groups
+    took their tiles in turn."""
+    B, rep = 4, H // KV
+    plan = flash_attn.fwd_plan(B, S, H, KV, hd, True, window)
+    kt, P = plan.key_tile, plan.positions
+    assert (kt, P) == (flash_attn.FWD_KEYS[hd], 64 // rep)
+    assert len(plan.n_tiles) == -(-S // P)
+    keys = np.arange(S)
+    for t, n in enumerate(plan.n_tiles):
+        pos = np.arange(t * P, min((t + 1) * P, S))
+        d = pos[:, None] - keys[None, :]
+        seen = np.any((d >= 0) & ((window is None) | (d < (window or 1))), 0)
+        tiles = sorted(set((keys[seen] // kt).tolist()))
+        assert tiles == list(range(tiles[0], tiles[0] + n))
+    costs = plan.costs()
+    assert len(costs) == B * KV * len(plan.n_tiles)
+    assert costs[:B * KV] == [max(plan.n_tiles) + 1] * (B * KV)
+    if window is None:
+        assert costs == sorted(costs, reverse=True)
+    by_group = [n + 1 for _ in range(B * KV) for n in reversed(plan.n_tiles)]
+    assert plan.makespan <= flash_attn._slot_makespan(by_group, plan.slots)
+    assert plan.makespan >= max(plan.ideal, max(costs))

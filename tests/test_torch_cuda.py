@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1 Gram sum, K2 fusion conv, K3 quant pack, K4 quant
-unpack, K5 top-k select, K6 / K7 EF rows, K8a flash attention forward, K8b
-/ K8c its backward, K9 flash-decode) against their plain PyTorch versions
+"""The CUDA kernels (K1 Gram sum and the fused MK-MMD term, K2 fusion
+conv, K3 quant pack, K4 quant unpack, K5 top-k select, K6 / K7 EF rows,
+K8a flash attention forward, K8b / K8c its backward, K9 flash-decode)
+against their plain PyTorch versions
 on the card, the wrappers' refusals, and the engine, the serving path and
 an LM training step on the card.
 
@@ -10,7 +11,9 @@ Imports torch and the port only (no JAX), so it runs on the GPU machine:
 
 Tests marked ``cuda`` skip where torch finds no CUDA device.  Tolerances:
 the Gram sum is a float32 sum of n*m positive terms taken in another order
-than the plain version's, so the two agree to rtol 1e-5; the fusion conv
+than the plain version's, so the two agree to rtol 1e-5; the fused MK-MMD
+term is a difference of three such sums, held to rtol 1e-5 with an atol of
+1e-6 (it is O(0.1)), and its gradients like the Gram sum's; the fusion conv
 sums K = 2C products per output, held to 1e-5 of the output's scale; the
 gradient is a difference of two sums that cancel in part, held to rtol
 1e-4 with an atol of 1e-6 of its scale.  K3, K4 and K5 are the same IEEE
@@ -63,6 +66,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             tfc.fusion_conv_cuda.launches) == before
 
 
+def test_fused_mk_mmd2_wrappers_refuse_cpu_tensors():
+    x, y = map(torch.from_numpy, rng_pair(4, 4, 8, 0))
+    before = _mmd_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.mk_mmd2_cuda(x, y, WIDTHS)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.mk_mmd2_grad_cuda(x, y, torch.ones(1), torch.ones(1), WIDTHS)
+    # the CPU path runs the plain versions and launches nothing
+    tx = x.clone().requires_grad_(True)
+    torch.autograd.grad(tops.mk_mmd2(tx, y, WIDTHS), tx)
+    assert _mmd_launches() == before
+
+
+def _mmd_launches():
+    return (tmk.mk_mmd2_cuda.launches, tmk.mk_mmd2_grad_cuda.launches,
+            tmk.gram_sum_cuda.launches)
+
+
 # --------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
@@ -95,6 +116,78 @@ def test_gram_sum_kernel_grad_matches_plain(cuda_device):
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(10, 10, 64), (8, 8, 576), (37, 53, 64),
+                                   (1, 1, 64), (64, 64, 300), (3, 60, 5)])
+def test_fused_mk_mmd2_kernels_match_plain(cuda_device, n, m, d):
+    """The fused forward (MMD^2 and sigma) and backward (dx, dy) against
+    the plain versions, one launch each, bitwise equal when run again."""
+    x, y = (torch.from_numpy(a).to(cuda_device)
+            for a in rng_pair(n, m, d, n + 2 * m))
+    g = torch.tensor([0.37], device=cuda_device)
+    before = _mmd_launches()
+    out = tmk.mk_mmd2_cuda(x, y, WIDTHS)
+    dx, dy = tmk.mk_mmd2_grad_cuda(x, y, out[1:], g, WIDTHS)
+    torch.cuda.synchronize()
+    assert _mmd_launches() == (before[0] + 1, before[1] + 1, before[2])
+    value, sigma = tmk.mk_mmd2_plain(x, y, WIDTHS)
+    torch.testing.assert_close(out[1], sigma, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(out[0], value, rtol=1e-5, atol=1e-6)
+    want = tmk.mk_mmd2_grad_plain(x, y, out[1], g, WIDTHS)
+    for got, w in zip((dx, dy), want):
+        torch.testing.assert_close(got, w, rtol=1e-4,
+                                   atol=1e-6 * w.abs().max().item())
+    again = tmk.mk_mmd2_cuda(x, y, WIDTHS)
+    assert torch.equal(out, again)
+    for a, b in zip((dx, dy), tmk.mk_mmd2_grad_cuda(x, y, again[1:], g,
+                                                    WIDTHS)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mk_mmd2_routes_by_shape_on_the_card(cuda_device):
+    """ops.mk_mmd2 on the card: n, m <= 64 take the fused term (one launch
+    each way, no dy for a detached y), larger ones three Gram sums; both
+    agree with autograd through the plain oracle."""
+    from repro_torch.kernels import ref as tref
+    for n, m, fused in ((10, 10, True), (100, 30, False)):
+        x, y = (torch.from_numpy(a).to(cuda_device)
+                for a in rng_pair(n, m, 48, n))
+        tx = x.clone().requires_grad_(True)
+        before = _mmd_launches()
+        (gx,) = torch.autograd.grad(tops.mk_mmd2(tx, y, WIDTHS), tx)
+        torch.cuda.synchronize()
+        want = (1, 1, 0) if fused else (0, 0, 3)
+        assert tuple(a - b for a, b in zip(_mmd_launches(), before)) == want
+        rx = x.clone().requires_grad_(True)
+        (wx,) = torch.autograd.grad(tref.mk_mmd2_ref(rx, y, WIDTHS), rx)
+        torch.testing.assert_close(gx, wx, rtol=1e-4,
+                                   atol=1e-6 * wx.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_fused_mk_mmd2_refuses_bad_inputs(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device)
+    one = torch.ones(1, device=cuda_device)
+    before = _mmd_launches()
+    with pytest.raises(ValueError, match="shapes"):
+        tmk.mk_mmd2_cuda(torch.zeros(65, 8, device=cuda_device), x, WIDTHS)
+    with pytest.raises(ValueError, match="shapes"):
+        tmk.mk_mmd2_cuda(x, torch.zeros(4, 7, device=cuda_device), WIDTHS)
+    with pytest.raises(ValueError, match="float32"):
+        tmk.mk_mmd2_cuda(x, x.double(), WIDTHS)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmk.mk_mmd2_cuda(x, torch.zeros(8, 4, device=cuda_device).T, WIDTHS)
+    with pytest.raises(ValueError, match="widths"):
+        tmk.mk_mmd2_cuda(x, x, (1.0,) * 9)
+    with pytest.raises(ValueError, match="sigma"):
+        tmk.mk_mmd2_grad_cuda(x, x, torch.ones(1), one, WIDTHS)
+    with pytest.raises(ValueError, match="g must"):
+        tmk.mk_mmd2_grad_cuda(x, x, one, torch.ones(2, device=cuda_device),
+                              WIDTHS)
+    assert _mmd_launches() == before
 
 
 @pytest.mark.cuda
@@ -599,27 +692,41 @@ def test_attention_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KV,hd,window", [
-    (2, 64, 4, 1, 64, None),
-    (1, 1000, 4, 1, 256, 512),          # gemma3's heads, ragged, window
-    (2, 77, 9, 3, 64, 16),              # smollm's heads (rep 3), ragged
-    (1, 130, 8, 4, 128, None),
-    (1, 50, 2, 2, 256, None),           # rep 1
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", [
+    (2, 64, 4, 1, 64, None, True),
+    (1, 1000, 4, 1, 256, 512, True),    # gemma3's heads, ragged, window
+    (2, 77, 9, 3, 64, 16, True),        # smollm's heads (rep 3), ragged
+    (1, 130, 8, 4, 128, None, True),
+    (1, 50, 2, 2, 256, None, True),     # rep 1
+    # chip_smoke.FLASH_CASES: gemma3-1b global and local, smollm-135m,
+    # gemma3-1b local at a ragged length
+    (4, 1024, 4, 1, 256, None, True),
+    (4, 1024, 4, 1, 256, 512, True),
+    (4, 1024, 9, 3, 64, None, True),
+    (4, 1000, 4, 1, 256, 512, True),
+    # hd 128 at rep 1, 2 and 8, lengths not a multiple of a tile
+    (2, 333, 3, 3, 128, None, True),
+    (1, 301, 4, 2, 128, 100, True),
+    (2, 257, 16, 2, 128, None, True),
+    (1, 200, 8, 1, 64, None, False),    # no causal mask
+    (1, 96, 4, 1, 256, 40, False),      # a window, no causal mask
 ])
 def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
-                                        window):
+                                        window, causal):
     rng = np.random.default_rng(S + H)
     q = _randn(rng, (B, S, H, hd), cuda_device)
     k = _randn(rng, (B, S, KV, hd), cuda_device)
     v = _randn(rng, (B, S, KV, hd), cuda_device)
+    kw = dict(window=window, causal=causal)
     before = tfa.flash_fwd_cuda.launches
-    o, lse = tfa.flash_fwd_cuda(q, k, v, window=window)
-    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, window=window)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert tfa.flash_fwd_cuda.launches == before + 1
     torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-4)
-    assert torch.equal(o, tfa.flash_fwd_cuda(q, k, v, window=window)[0])
+    o2, lse2 = tfa.flash_fwd_cuda(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
-"""The plain versions of the port's K1 (MK-MMD Gram sum) and K2 (FedFusion
-conv) against the JAX package's Pallas kernels, run in interpret mode on
-the CPU, and the autograd.Functions' backward against ``jax.grad`` of the
-JAX oracles.  The CUDA kernels run only on the card; ``test_torch_cuda.py``
+"""The plain versions of the port's K1 (MK-MMD Gram sum, and the fused
+MK-MMD term's forward and closed-form backward) and K2 (FedFusion conv)
+against the JAX package's Pallas kernels, run in interpret mode on the CPU,
+and the autograd.Functions' backward against ``jax.grad`` of the JAX
+oracles.  The CUDA kernels run only on the card; ``test_torch_cuda.py``
 holds them against these plain versions there.  K2's tile plan
 (``fusion_conv.conv_plan``) is checked here, and the order in which its
 split of K is summed is emulated in plain PyTorch and held to the Pallas
@@ -155,6 +156,52 @@ def test_mk_mmd2_grad_matches_jax(n, m, d):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n,m,d", [(10, 10, 64), (8, 8, 576), (37, 53, 64)])
+def test_mk_mmd2_plain_and_grad_match_pallas_and_jax_grad(n, m, d):
+    """The fused kernel's plain versions: MMD^2 against the Pallas Gram
+    sums in interpret mode, dx and dy (g = 1) against ``jax.grad`` of the
+    oracle, and dx through the autograd.Function on the CPU the same."""
+    x, y = rng_pair(n, m, d, 3 * n + m)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    want = jops.mk_mmd2(jx, jy, WIDTHS, impl="pallas_interpret")
+    jgx, jgy = jax.grad(lambda a, b: jref.mk_mmd2_ref(a, b, WIDTHS),
+                        argnums=(0, 1))(jx, jy)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    value, sigma = tmk.mk_mmd2_plain(tx, ty, WIDTHS)
+    np.testing.assert_allclose(value.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-6)
+    dx, dy = tmk.mk_mmd2_grad_plain(tx, ty, sigma, torch.tensor(1.0), WIDTHS)
+    rx = tx.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(tmk.MkMmd2.apply(rx, ty, WIDTHS), rx)
+    for got, jwant in ((dx, jgx), (dy, jgy), (gx, jgx)):
+        jwant = np.asarray(jwant)
+        np.testing.assert_allclose(got.numpy(), jwant, rtol=1e-4,
+                                   atol=1e-6 * np.abs(jwant).max())
+
+
+def test_mk_mmd2_skips_the_detached_side():
+    """FedMMD's global features are detached: the backward computes dx
+    only, and the gradient it gives is the full one's dx."""
+    x, y = map(torch.from_numpy, rng_pair(10, 12, 16, 2))
+    calls = []
+    real = tmk.mk_mmd2_grad_plain
+
+    def spy(*args):
+        calls.append(args[-2:])
+        return real(*args)
+
+    tmk.mk_mmd2_grad_plain = spy
+    try:
+        tx = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(tmk.mk_mmd2(tx, y, WIDTHS), tx)
+    finally:
+        tmk.mk_mmd2_grad_plain = real
+    assert calls == [(True, False)]
+    _, sigma = tmk.mk_mmd2_plain(x, y, WIDTHS)
+    torch.testing.assert_close(
+        gx, tmk.mk_mmd2_grad_plain(x, y, sigma, torch.tensor(1.0), WIDTHS)[0])
 
 
 def test_gram_sum_closed_form_grad_matches_autograd_of_plain():

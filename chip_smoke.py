@@ -14,16 +14,20 @@ is non-zero):
    least time the card could take for the same work (K1's fused MK-MMD
    term, forward and backward, at the CNN's and the LM's pooled features,
    with the whole term's forward + dx against the three-Gram-sum route;
-   K4 also over whole
+   K3 also over whole messages, scales included, two launches per 64
+   leaves: CNN_MNIST's eight leaves, odd, unaligned and zero leaves, 70
+   leaves, with offsets and without, timed per message (device ops and
+   microseconds too) against the per-leaf route; K4 also over whole
    messages, one launch per 64 leaves: CNN_MNIST's eight leaves at int8
    and int4, odd and unaligned leaves, 70 leaves, timed against one
    ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
    each piece of a K4 wrapper call;
    K6 / K7: exact, K7 in place, the scratch-row duplicates; K8a flash
    attention forward (bitwise repeatable, with ``flash_attn.fwd_plan``'s
-   modelled makespan) and K9 flash-decode at gemma3-1b's and smollm-135m's
-   serve shapes, against ``scaled_dot_product_attention`` as the
-   yardstick; K8b / K8c, the flash backward, at smollm-135m's and
+   modelled makespan) and K9 flash-decode (one launch) at gemma3-1b's and
+   smollm-135m's serve shapes and at rep 16, against
+   ``scaled_dot_product_attention`` as the yardstick, with its device
+   microseconds a call and their share of the bound; K8b / K8c, the flash backward, at smollm-135m's and
    gemma3-1b's training shapes and two ragged ones, against that
    function's backward, and bitwise repeatable, with K8b's and K8c's
    segment plans; K2 at the CNN's shapes and smollm-135m's LM fusion
@@ -38,8 +42,8 @@ is non-zero):
    for FedAvg, FedFusion-conv with a top-k uplink on the dense and on the
    host EF store, and FedMMD client-sequential with an int8 uplink, beside
    the same configuration's reference rounds/s over 12 rounds; each run's
-   kernel launch counts must equal the path's formula (K3 once per leaf of
-   a quantized message, K4 once per message) and its bytes the
+   kernel launch counts must equal the path's formula (K3 twice per
+   quantized message, K4 once per message) and its bytes the
    reference's (FedMMD: the fused term once forward and once backward per
    local step); then FedAvg with ``superstep_rounds="auto"`` beside the
    fixed 8;
@@ -109,11 +113,11 @@ FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
                "mk_mmd2_fwd_kernel", "mk_mmd2_bwd_kernel",
                "fusion_conv_kernel", "quant_pack_i",
+               "quant_amax_multi_kernel", "quant_pack_multi_kernel",
                "quant_unpack_multi_kernel",
                "topk_select_kernel", "ef_gather_kernel", "ef_scatter_kernel",
                "flash_fwd_kernel", "flash_bwd_dq_kernel",
-               "flash_bwd_dkv_kernel", "decode_split_kernel",
-               "decode_combine_kernel")
+               "flash_bwd_dkv_kernel", "flash_decode_kernel")
 ENGINE_CHUNK = 8            # superstep_rounds of the engine runs
 # rounds of each engine run (phases 4 and 6): five chunks, so the steady
 # rate spans four replays and the fifth chunk refills the first of the
@@ -163,6 +167,28 @@ def time_ms(torch, fn, *, launches=20, repeats=15, warmup=5, sets=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def device_per_call(torch, fn, calls=48, sets=8, tries=3):
+    """(device ops, device microseconds) a call of ``fn(i)`` under
+    ``torch.profiler``, call i taking input set i % ``sets``.  The trace
+    now and then loses most of a window's kernels, so the window is taken
+    ``tries`` times and the one with the most device activities counts."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(sets):
+        fn(i)
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i % sets)
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(spans) > len(best):
+            best = spans
+    return len(best) / calls, sum(best) / calls
 
 
 def spread(rates):
@@ -410,10 +436,12 @@ def codec_work(kernel, n, bits=8):
     """Bytes each input read once, each output written once, of one K3
     (x, u in; codes out), K4 (codes in; f32 out) or K5 (x in, x out) call
     on n elements, plus the [1] scale or threshold; and its float32
-    operations (K3: divide, add, floor, two-sided clamp; K4: convert,
-    multiply; K5: abs, compare, select)."""
+    operations (K3: divide, add, floor, two-sided clamp; a leaf's whole
+    encode also an abs and a max; K4: convert, multiply; K5: abs, compare,
+    select)."""
     code_b = n if bits == 8 else n // 2
     return {"quant_pack": (8 * n + code_b + 4, 5 * n),
+            "quant_encode": (8 * n + code_b + 4, 7 * n),
             "quant_unpack": (code_b + 4 * n + 4, 2 * n),
             "topk_select": (8 * n + 4, 3 * n)}[kernel]
 
@@ -472,6 +500,43 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
         emit("kernels", kernel="QuantCodec", bits=bits, n=4097, equal=ok)
         if not ok:
             raise AssertionError(f"QuantCodec bits={bits} card != CPU")
+
+    # K3 over whole messages, scales included, against the plain version:
+    # CNN_MNIST's eight leaves, odd and unaligned leaves (views 4 bytes off
+    # the 16-byte boundary), a leaf of zeros, and 70 leaves (two pairs of
+    # launches); with offsets and without
+    for bits in (8, 4):
+        for case, sizes in [("cnn_mnist", list(leaf_sizes)),
+                            ("odd_unaligned", [4097, 33, 1000, 1]),
+                            ("70_leaves", [37 * i + 1 for i in range(70)])]:
+            for with_noise in (True, False):
+                xs = [torch.randn(n + 1, generator=gen).to(dev)[1:]
+                      if case == "odd_unaligned" else
+                      torch.randn(n, generator=gen).to(dev) for n in sizes]
+                if case == "odd_unaligned":
+                    xs[-1] = torch.zeros(1, device=dev)
+                us = [torch.rand(n + (n % 2 if bits == 4 else 0),
+                                 generator=gen).to(dev) for n in sizes] \
+                    if with_noise else None
+                before = compress_pack.quant_pack_cuda.launches
+                got = compress_pack.quant_pack_multi_cuda(xs, us, bits=bits)
+                launched = compress_pack.quant_pack_cuda.launches - before
+                want = compress_pack.quant_pack_multi_plain(xs, us, bits=bits)
+                torch.cuda.synchronize()
+                equal = all(torch.equal(q, wq) and torch.equal(sc, ws)
+                            for (q, sc), (wq, ws) in zip(got, want))
+                code_err = max((q.int() - wq.int()).abs().max().item()
+                               for (q, _), (wq, _) in zip(got, want))
+                err["quant_pack"] = max(err["quant_pack"], code_err)
+                ok = equal and launched == 2 * -(-len(sizes) // 64)
+                emit("kernels", kernel="quant_pack_multi", case=case,
+                     bits=bits, offsets=with_noise, leaves=len(sizes),
+                     elements=sum(sizes), launches=launched, equal=equal,
+                     max_code_err=code_err)
+                if not ok:
+                    raise AssertionError(
+                        f"quant_pack_multi {case} bits={bits}: equal="
+                        f"{equal}, {launched} launches")
 
     def message(sizes, bits):
         """Codes and a scale a leaf (int4: ceil(n / 2) bytes)."""
@@ -551,7 +616,7 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
             lambda i: compress_pack.topk_select_plain(xs[i][0], ts[i]),
             None, "src/repro/kernels/compress_pack.py:252"),
     }
-    leaf = {}
+    leaf, leaf_pack = {}, {}
     for name, (kern, plain, lib, replaces) in cases.items():
         ms = time_ms(torch, kern, sets=sets)
         plain_ms = time_ms(torch, plain, sets=sets)
@@ -559,6 +624,8 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
         bound_ms, bound_by = bound(*codec_work(name, n))
         if name == "quant_unpack":   # K4's row is the message's, below
             leaf = dict(leaf_kernel_ms=ms, leaf_mul_ms=library_ms)
+        elif name == "quant_pack":   # K3's row is the message's, below
+            leaf_pack = dict(leaf_kernel_ms=ms, leaf_plain_ms=plain_ms)
         else:
             rows[name] = dict(name=name, route="cuda",
                               source="src/repro_torch/csrc/compress_pack.cu",
@@ -599,6 +666,46 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
          leaves=len(leaf_sizes), elements=sum(leaf_sizes), **msg_ms,
          library_ms=msg_ms["foreach_mul_ms"], **leaf, bound_ms=bound_ms,
          bound_by=bound_by)
+    # K3 as the codecs call it: one CNN_MNIST message a call, scales
+    # included (8 sets, > 50 MB together), against the per-leaf route
+    # (eager scales, one single-leaf K3 call a leaf) and the plain version
+    enc = [([torch.randn(m, generator=gen).to(dev) for m in leaf_sizes],
+            [torch.rand(m, generator=gen).to(dev) for m in leaf_sizes])
+           for _ in range(sets)]
+
+    def per_leaf(i):
+        for x, u in zip(*enc[i]):
+            scale = (x.abs().amax().clamp_min(1e-12) / 127).reshape(1)
+            compress_pack.quant_pack_cuda(x, scale, u)
+
+    for bits in (8, 4):
+        def call(i, bits=bits):
+            return compress_pack.quant_pack_multi_cuda(*enc[i], bits=bits)
+        enc_ms = {"kernel_ms": time_ms(torch, call, sets=sets),
+                  "plain_ms": time_ms(torch, lambda i: compress_pack
+                                      .quant_pack_multi_plain(
+                                          *enc[i], bits=bits), sets=sets)}
+        if bits == 8:
+            enc_ms["per_leaf_calls_ms"] = time_ms(torch, per_leaf, sets=sets)
+        ops_per_call, us = device_per_call(torch, call)
+        work = [codec_work("quant_encode", m + (m % 2) * (bits == 4), bits)
+                for m in leaf_sizes]
+        bound_ms, bound_by = bound(sum(w[0] for w in work),
+                                   sum(w[1] for w in work))
+        emit("kernels", kernel="quant_pack_multi", case="cnn_mnist",
+             bits=bits, leaves=len(leaf_sizes), elements=sum(leaf_sizes),
+             **enc_ms, **(leaf_pack if bits == 8 else {}),
+             device_ops_per_message=ops_per_call, device_us_per_message=us,
+             bound_ms=bound_ms, bound_by=bound_by,
+             bound_share_of_device=bound_ms * 1e3 / us)
+        if bits == 8:
+            rows["quant_pack"] = dict(
+                name="quant_pack", route="cuda",
+                source="src/repro_torch/csrc/compress_pack.cu",
+                replaces="src/repro/kernels/compress_pack.py:95",
+                max_abs_err=err["quant_pack"], ms=enc_ms["kernel_ms"],
+                plain_ms=enc_ms["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
     # int4 pack / unpack at the same size (no one-call yardstick)
     for name, kern, plain in [
             ("quant_pack", lambda i: compress_pack.quant_pack_cuda(
@@ -802,11 +909,14 @@ FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                ("smollm-135m", 4, 1024, 9, 3, 64, None),
                ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512)]
 # K9 cases: gemma3-1b's global cache (max_len 1,056) at several lengths,
-# its full local ring, smollm-135m's cache
+# its full local ring, smollm-135m's cache, and recurrentgemma-9b's heads
+# (16 query heads over one KV head of 256) on a cache of the same length
 DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                                                           1056)),
                 ("gemma3-1b local", 4, 512, 4, 1, 256, (512,)),
-                ("smollm-135m", 4, 1056, 9, 3, 64, (1025, 1056))]
+                ("smollm-135m", 4, 1056, 9, 3, 64, (1025, 1056)),
+                ("rep 16 (recurrentgemma-9b heads)", 4, 1056, 16, 1, 256,
+                 (17, 1056))]
 # float32 reorderings over at most 1,056 keys put the kernels' outputs a
 # few 1e-7 from the plain versions' (|o| < 4, |lse| < 15): 1e-4 bounds
 # them with room; a wrong mask or tile moves them by O(0.1)
@@ -888,13 +998,16 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
             got = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
             want = decode_attn.flash_decode_plain(qs[0], ks[0], vs[0], vl)
             again = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
+            # the valid length as decode_step holds it: int64, 0-d
+            as64 = decode_attn.flash_decode_cuda(
+                qs[0], ks[0], vs[0], torch.tensor(valid, device=dev))
             torch.cuda.synchronize()
             e = (got - want).abs().max().item()
             err["flash_decode"] = max(err["flash_decode"], e)
+            repeat = torch.equal(got, again) and torch.equal(got, as64)
             line = dict(kernel="flash_decode", case=case,
                         shape=[B, L, H, KV, hd], valid_len=valid,
-                        abs_err=e, tol=ATTN_TOL,
-                        bitwise_repeat=bool(torch.equal(got, again)))
+                        abs_err=e, tol=ATTN_TOL, bitwise_repeat=repeat)
             if valid == L:
                 mask = (torch.arange(L, device=dev) < vl)[None, None, None]
                 qt = [t.transpose(1, 2).contiguous() for t in qs]
@@ -917,6 +1030,12 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                     *flash_decode_work(B, valid, H, KV, hd))
                 line["gbytes_per_s"] = flash_decode_work(
                     B, valid, H, KV, hd)[0] / line["kernel_ms"] / 1e6
+                line["device_ops_per_call"], line["device_us_per_call"] = \
+                    device_per_call(torch, lambda i: decode_attn
+                                    .flash_decode_cuda(qs[i], ks[i], vs[i],
+                                                       vl), sets=sets)
+                line["bound_share_of_device"] = \
+                    line["bound_ms"] * 1e3 / line["device_us_per_call"]
                 if case == "gemma3-1b global":
                     rows["flash_decode"] = dict(
                         name="flash_decode", route="cuda",
@@ -927,7 +1046,7 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                         bound_by=line["bound_by"],
                         library_ms=line["library_ms"])
             emit("kernels", **line)
-            if not (e <= ATTN_TOL and torch.equal(got, again)):
+            if not (e <= ATTN_TOL and repeat):
                 raise AssertionError(f"flash_decode kernel disagrees: "
                                      f"{case}, valid_len {valid}")
     for name in rows:
@@ -1649,9 +1768,8 @@ def main():
     launches = dict.fromkeys(counters, 0)
 
     def per_round_launches(algorithm, up, down, eval_rounds):
-        """Kernel launches of one round of this configuration (K3 once per
-        leaf of each quantized message, K4 once per message of up to 64
-        leaves, the fused MK-MMD term once forward and once backward per
+        """Kernel launches of one round of this configuration (K3 twice per
+        quantized message of up to 64 leaves, K4 once, the fused MK-MMD term once forward and once backward per
         FedMMD local step (10 rows a side: no Gram-sum launch), K2 once
         per local step and once per eval, K6 / K7 once per EF leaf with a
         top-k uplink); the reference loop's EF gather and scatter are
@@ -1663,7 +1781,7 @@ def main():
         return {"gram_sum": 0, "mk_mmd2": mmd, "mk_mmd2_grad": mmd,
                 "fusion_conv": (steps * clients + eval_rounds)
                 * (algorithm == "fedfusion"),
-                "quant_pack": n_leaves * messages,
+                "quant_pack": 2 * -(-n_leaves // 64) * messages,
                 "quant_unpack": -(-n_leaves // 64) * messages,
                 "topk_select": 0, "ef_gather": ef, "ef_scatter": ef}
     for algorithm, mode, rounds, up, down in [
@@ -1968,20 +2086,20 @@ def main():
                 [t.to(dev) for t in offsets[r][0]],
                 [[t.to(dev) for t in c] for c in offsets[r][1][:n]]))
             codes[dev] = []
-            pack = compress_pack.quant_pack
+            pack = compress_pack.quant_pack_multi
 
             def recording_pack(*args, _log=codes[dev], **kw):
-                q = pack(*args, **kw)
-                _log.append(q.cpu())
-                return q
+                coded = pack(*args, **kw)
+                _log.extend(q.cpu() for q, _ in coded)
+                return coded
 
-            compress_pack.quant_pack = recording_pack
+            compress_pack.quant_pack_multi = recording_pack
             try:
                 res = run_federated_reference(
                     bundle, fl, data, rounds=2, global_state=s0, device=dev,
                     eval_examples=EVAL_EXAMPLES, noise_fn=noise_fn)
             finally:
-                compress_pack.quant_pack = pack
+                compress_pack.quant_pack_multi = pack
             finals[dev] = (torch.cat([t.cpu().flatten() for t in
                                       tree_leaves(res.global_state)]),
                            res.comm.history[-1])

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Times K1 (the FedMMD term), K2 (fusion conv), K8a (flash attention
-forward) and K8b / K8c (the flash backward) of one or more source trees on
-one NVIDIA GPU, in turns, for A/B comparisons.
+forward), K8b / K8c (the flash backward), K9 (flash-decode) and K3 (a
+quantized message's encode) of one or more source trees on one NVIDIA
+GPU, in turns, for A/B comparisons.
 
     python3 kernel_ab.py [--root DIR ...]
-                         [--only mk_mmd|fusion_conv|flash_fwd|flash_bwd]
+                         [--only mk_mmd|fusion_conv|flash_fwd|flash_bwd|
+                                 flash_decode|quant_encode]
 
 Each ``--root`` is a checkout (or a ``git archive``) holding
 ``src/repro_torch``; the default is this script's own. Give the trees in
@@ -29,14 +31,27 @@ other, and prints one JSON line per measurement:
   ``flash_attn.fwd_plan``'s modelled makespan where the tree has it;
 - ``flash_bwd`` at ``chip_smoke.FLASH_BWD_CASES``: K8b's and K8c's times,
   the float32 backward of ``scaled_dot_product_attention`` (all three
-  gradients) and each kernel's bound.
+  gradients) and each kernel's bound;
+- ``flash_decode`` at ``chip_smoke.DECODE_CASES`` with the cache full:
+  ``ops.gqa_flash_decode`` as a decode step calls it (the valid length a
+  0-d int64 tensor on the card), as wall ms over 8 input sets (larger than
+  L2 together), device ops and device microseconds a call under
+  ``torch.profiler``, and the bound (a shape the tree refuses is reported
+  as refused);
+- ``quant_encode``: ``QuantCodec(bits).bind(delta).encode(delta, None,
+  offsets)`` on a CNN_MNIST-shaped delta at int8 and int4, as the
+  reference loop and the engine call it, as wall ms a message over 8
+  messages, device ops and device microseconds a message, and the bound
+  (x and the offsets read once, the codes and scales written once).
 
 Every result is checked against a plain version on the same inputs (the
 MMD term and its dx against autograd through the formula in float64 at
 rtol 1e-5 / 1e-4, K2 within 1e-5 of the output's largest element, K8a
 within ``chip_smoke.ATTN_TOL``, K8b / K8c within ``chip_smoke.BWD_TOL``
-of each gradient's largest element, all bitwise repeatable), and a check
-that fails makes the run exit non-zero. The first line names the card and
+of each gradient's largest element, K9 within ``chip_smoke.ATTN_TOL``, the
+quantized message's codes and scales equal to the same codec's on the CPU,
+all bitwise repeatable), and a check that fails makes the run exit
+non-zero. The first line names the card and
 its power limit.
 """
 from __future__ import annotations
@@ -281,6 +296,83 @@ def time_flash_bwd(torch, flash_attn, tag):
     return ok
 
 
+def time_flash_decode(torch, ops, decode_attn, tag):
+    gen = torch.Generator().manual_seed(5)
+    ok = True
+    sets = 8                        # 8 caches together exceed the L2 cache
+    for case, B, L, H, KV, hd, _ in cs.DECODE_CASES:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen).cuda()
+        qs = [randn(B, 1, H, hd) for _ in range(sets)]
+        ks = [randn(B, L, KV, hd) for _ in range(sets)]
+        vs = [randn(B, L, KV, hd) for _ in range(sets)]
+        valid = torch.tensor(L, device="cuda")     # as decode_step has it
+
+        def call(i):
+            return ops.gqa_flash_decode(qs[i], ks[i], vs[i], valid)
+
+        line = dict(tree=tag, kernel="flash_decode", case=case,
+                    shape=[B, L, H, KV, hd], valid_len=L)
+        try:
+            got, again = call(0), call(0)
+        except ValueError as err:
+            emit(**line, refused=str(err)[:120])
+            continue
+        want = decode_attn.flash_decode_plain(qs[0], ks[0], vs[0], L)
+        err = (got - want).abs().max().item()
+        repeat = torch.equal(got, again)
+        ops_per_call, us = cs.device_per_call(torch, call)
+        bound_ms, bound_by = cs.bound(*cs.flash_decode_work(B, L, H, KV, hd))
+        emit(**line, abs_err=err, tol=cs.ATTN_TOL, bitwise_repeat=repeat,
+             wall_ms=cs.time_ms(torch, call, sets=sets),
+             device_ops_per_call=ops_per_call, device_us_per_call=us,
+             bound_ms=bound_ms, bound_by=bound_by,
+             bound_share_of_device=bound_ms * 1e3 / us)
+        ok &= err <= cs.ATTN_TOL and repeat
+    return ok
+
+
+def time_quant_encode(torch, QuantCodec, make_bundle, CNN_MNIST, tag):
+    from repro_torch.tree import tree_leaves, tree_map
+    template = make_bundle(CNN_MNIST).init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(8)
+    sizes = [t.numel() for t in tree_leaves(template)]
+    ok = True
+    for bits in (8, 4):
+        trees = [tree_map(lambda t: torch.randn(t.shape, generator=gen)
+                          .cuda(), template) for _ in range(8)]
+        codec = QuantCodec(bits).bind(trees[0])
+        noise = [[torch.rand(n, generator=gen).cuda()
+                  for n in codec.noise_sizes()] for _ in range(8)]
+
+        def call(i):
+            return codec.encode(trees[i], None, noise[i])
+
+        got, again = call(0)[0], call(0)[0]
+        cpu = QuantCodec(bits).bind(tree_map(lambda t: t.cpu(), trees[0]))
+        want = cpu.encode(tree_map(lambda t: t.cpu(), trees[0]), None,
+                          [u.cpu() for u in noise[0]])[0]
+        equal = all(torch.equal(g["q"].cpu(), w["q"])
+                    and torch.equal(g["scale"].cpu(), w["scale"])
+                    for g, w in zip(got, want))
+        repeat = all(torch.equal(g["q"], a["q"])
+                     and torch.equal(g["scale"], a["scale"])
+                     for g, a in zip(got, again))
+        ops_per_call, us = cs.device_per_call(torch, call)
+        code_b = sum(n if bits == 8 else (n + 1) // 2 for n in sizes)
+        n_bytes = 8 * sum(sizes) + code_b + 4 * len(sizes)
+        bound_ms, bound_by = cs.bound(n_bytes, 5 * sum(sizes))
+        emit(tree=tag, kernel="quant_encode", bits=bits, leaves=len(sizes),
+             elements=sum(sizes), equal_to_cpu=equal, bitwise_repeat=repeat,
+             wire_bytes=codec.nbytes(got),
+             wall_ms=cs.time_ms(torch, call, sets=8),
+             device_ops_per_message=ops_per_call,
+             device_us_per_message=us, bound_ms=bound_ms,
+             bound_by=bound_by, bound_share_of_device=bound_ms * 1e3 / us)
+        ok &= equal and repeat
+    return ok
+
+
 def run_one(root, only, build_only):
     import torch
     if not torch.cuda.is_available():
@@ -290,12 +382,15 @@ def run_one(root, only, build_only):
         sys.exit(f"kernel_ab: {src / 'repro_torch'} not found")
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import build, flash_attn, fusion_conv, ops
+    from repro_torch.kernels import (build, decode_attn, flash_attn,
+                                     fusion_conv, ops)
     tag = root
     if build_only:
         sources = {"mk_mmd": ("gram_sum",), "fusion_conv": ("fusion_conv",),
                    "flash_fwd": ("flash_attn",),
-                   "flash_bwd": ("flash_attn", "flash_attn_bwd")}
+                   "flash_bwd": ("flash_attn", "flash_attn_bwd"),
+                   "flash_decode": ("decode_attn",),
+                   "quant_encode": ("compress_pack",)}
         build.build(dict.fromkeys(s for name in only or sources
                                   for s in sources[name]))
         emit(tree=tag, ptxas={n: cs.ptxas_summary(log)
@@ -310,6 +405,14 @@ def run_one(root, only, build_only):
         ok &= time_flash_fwd(torch, flash_attn, tag)
     if not only or "flash_bwd" in only:
         ok &= time_flash_bwd(torch, flash_attn, tag)
+    if not only or "flash_decode" in only:
+        ok &= time_flash_decode(torch, ops, decode_attn, tag)
+    if not only or "quant_encode" in only:
+        from repro_torch.compress import QuantCodec
+        from repro_torch.configs import CNN_MNIST
+        from repro_torch.models import make_bundle
+        ok &= time_quant_encode(torch, QuantCodec, make_bundle, CNN_MNIST,
+                                tag)
     if not ok:
         sys.exit(f"kernel_ab: a kernel of {tag} disagrees with its plain "
                  "version")
@@ -322,7 +425,7 @@ def main():
                          "this checkout)")
     ap.add_argument("--only", action="append",
                     choices=("mk_mmd", "fusion_conv", "flash_fwd",
-                             "flash_bwd"),
+                             "flash_bwd", "flash_decode", "quant_encode"),
                     help="time these kernel families only (repeatable)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",

@@ -27,9 +27,10 @@ class Codec:
 
     Subclasses implement the per-leaf hooks ``_encode_leaf(x_flat, state,
     noise, i)`` -> (leaf_payload, new_leaf_state), ``_decode_leaf(payload,
-    i)`` -> x_flat and ``_leaf_wire_bytes(i)``, or ``_decode_leaves(payload)``
-    -> [x_flat, ...] to decode a whole message at once; the base class
-    handles flatten / unflatten, shape restore and byte accounting.
+    i)`` -> x_flat and ``_leaf_wire_bytes(i)``, or ``_encode_leaves(leaves,
+    state, noise)`` -> (payload, new_state) and ``_decode_leaves(payload)``
+    -> [x_flat, ...] to encode or decode a whole message at once; the base
+    class handles flatten / unflatten, shape restore and byte accounting.
     """
 
     name = "identity"
@@ -58,6 +59,14 @@ class Codec:
 
     def _decode_leaf(self, payload, i):
         return payload
+
+    def _encode_leaves(self, leaves, state, noise):
+        payload, new_state = [], []
+        for i, (x, s, u) in enumerate(zip(leaves, state, noise)):
+            p, ns = self._encode_leaf(x, s, u, i)
+            payload.append(p)
+            new_state.append(ns)
+        return payload, new_state
 
     def _decode_leaves(self, payload):
         return [self._decode_leaf(p, i) for i, p in enumerate(payload)]
@@ -89,12 +98,8 @@ class Codec:
             state = self.init_state()
         if noise is None:
             noise = [None] * len(leaves)
-        payload, new_state = [], []
-        for i, (x, s, u) in enumerate(zip(leaves, state, noise)):
-            p, ns = self._encode_leaf(x.reshape(-1).float(), s, u, i)
-            payload.append(p)
-            new_state.append(ns)
-        return payload, new_state
+        return self._encode_leaves([x.reshape(-1).float() for x in leaves],
+                                   state, noise)
 
     def decode(self, payload):
         """payload -> tree (shapes and dtypes of the bound template)."""

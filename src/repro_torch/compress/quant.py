@@ -5,13 +5,12 @@ Per leaf: scale = max(max|x|, 1e-12) / qmax, codes = clip(floor(x/scale +
 u), +-qmax) with u the caller's uniform offsets (unbiased stochastic
 rounding; u = 0.5 without noise).  int4 codes are nibble-packed two per
 byte, so the wire payload is n/8 of float32.  The scale stays on the
-device as a one-element tensor: no host sync.  Quantize + pack runs K3
-once per leaf, and a message decodes with one K4 launch for all its leaves
-(``repro_torch.kernels.compress_pack.quant_unpack_multi``) on the card.
+device as a one-element tensor: no host sync.  On the card a message
+encodes with two K3 launches for all its leaves, scales included
+(``repro_torch.kernels.compress_pack.quant_pack_multi``), and decodes with
+one K4 launch (``quant_unpack_multi``).
 """
 from __future__ import annotations
-
-import torch
 
 from repro_torch.compress.codec import Codec
 from repro_torch.kernels import compress_pack
@@ -39,17 +38,11 @@ class QuantCodec(Codec):
         """The length of each leaf's offsets for ``encode``."""
         return [self.padded_n(i) for i in range(len(self._shapes))]
 
-    def _encode_leaf(self, x, state, noise, i):
-        pn = self.padded_n(i)
-        if pn != x.shape[0]:
-            x = torch.nn.functional.pad(x, (0, pn - x.shape[0]))
-        qmax = 127 if self.bits == 8 else 7
-        scale = (x.abs().amax().clamp_min(1e-12) / qmax).reshape(1)
-        if noise is None:
-            noise = torch.full((pn,), 0.5, device=x.device)
-        packed = compress_pack.quant_pack(x, scale, noise.contiguous(),
-                                          bits=self.bits)
-        return {"q": packed, "scale": scale}, state
+    def _encode_leaves(self, leaves, state, noise):
+        coded = compress_pack.quant_pack_multi(
+            leaves, [u if u is None else u.contiguous() for u in noise],
+            bits=self.bits)
+        return [{"q": q, "scale": s} for q, s in coded], list(state)
 
     def _decode_leaves(self, payload):
         return compress_pack.quant_unpack_multi(

@@ -3,7 +3,9 @@
 //   K3 quant_pack    q = clip(floor(x / scale + u), -qmax, qmax)
 //                    int8: one int8 code per element (qmax = 127);
 //                    int4: code + 8 as a nibble, two per byte, element 2j
-//                    in the low nibble and 2j + 1 in the high one (qmax 7)
+//                    in the low nibble and 2j + 1 in the high one (qmax 7);
+//                    for up to 64 leaves of a message in two launches, the
+//                    scales included: scale = max(max|x|, 1e-12) / qmax
 //   K4 quant_unpack  codes -> f32 code * scale (nibble split for int4), for
 //                    up to 64 leaves of a message in one launch (one leaf
 //                    is a message of one)
@@ -27,6 +29,12 @@
 // the device work is a few microseconds, less than the host's cost of a
 // launch, so K4 decodes a whole message (every leaf of a client's update)
 // in one launch: the wrapper is paid once per message, not once per leaf.
+// K3 encodes a whole message in two launches from the same kind of leaf
+// table: quant_amax_multi_kernel takes each leaf's max|x| (an integer
+// atomicMax on the bits of |x|, exact and independent of order; the last
+// block of a leaf, by an integer ticket, turns it into the scale), then
+// quant_pack_multi_kernel packs every leaf with its scale.  The second pass
+// reads x again, from L2 at a message's size (6.7 MB for CNN_MNIST).
 //
 // Bit-exactness with the plain PyTorch version and the JAX oracle: x /
 // scale is an IEEE round-to-nearest division (__fdiv_rn, never a multiply
@@ -116,6 +124,136 @@ __global__ void quant_pack_i4_kernel(const float* __restrict__ x,
                        nibble(x[2 * j + 1], u[2 * j + 1], s) << 4);
 }
 
+// K3 over a whole message: each leaf's scale from its own x, then the
+// codes.  The leaf table travels by value, as K4's does; leaf l owns blocks
+// [block_start[l], block_start[l+1]) in both launches.  u may be null (the
+// deterministic u = 0.5).  An odd int4 leaf's last byte packs element n as
+// x = 0 with u[n] (its offsets have n + 1 entries), so nothing is padded.
+constexpr int kMaxLeaves = 64;
+
+struct PackLeaves {
+  const float* x[kMaxLeaves];
+  const float* u[kMaxLeaves];
+  void* out[kMaxLeaves];
+  float* scale[kMaxLeaves];
+  long long n[kMaxLeaves];
+  int block_start[kMaxLeaves + 1];
+  unsigned char vec[kMaxLeaves];     // 16-byte aligned x and u, 4-byte out
+  int count;
+  int int4;
+  unsigned* amax;                    // [kMaxLeaves] bits of max|x|, zero
+  int* tickets;                      // [kMaxLeaves], zero
+};
+
+// the leaf whose block range holds blk, and this thread's place in it
+__device__ __forceinline__ int leaf_of(const int* block_start, int count,
+                                       int blk) {
+  int lo = 0, hi = count;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (block_start[mid] <= blk) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void quant_amax_multi_kernel(const __grid_constant__ PackLeaves t) {
+  const int lo = leaf_of(t.block_start, t.count, blockIdx.x);
+  const int nb = t.block_start[lo + 1] - t.block_start[lo];
+  const long long tid =
+      (long long)(blockIdx.x - t.block_start[lo]) * blockDim.x + threadIdx.x;
+  const long long stride = (long long)nb * blockDim.x;
+  const float* x = t.x[lo];
+  const long long n = t.n[lo];
+  // |x| >= 0, so its bits order as unsigned ints (a NaN above every number)
+  unsigned m = 0u;
+  long long done = 0;
+  if (t.vec[lo]) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (long long g = tid; g < n / 4; g += stride) {
+      const float4 a = x4[g];
+      m = max(m, max(max(__float_as_uint(fabsf(a.x)), __float_as_uint(fabsf(a.y))),
+                     max(__float_as_uint(fabsf(a.z)), __float_as_uint(fabsf(a.w)))));
+    }
+    done = n / 4 * 4;
+  }
+  for (long long i = done + tid; i < n; i += stride)
+    m = max(m, __float_as_uint(fabsf(x[i])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  __shared__ unsigned warp_m[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_m[w]);
+  atomicMax(&t.amax[lo], m);
+  __threadfence();
+  if (atomicAdd(&t.tickets[lo], 1) != nb - 1) return;
+  // the leaf's last block: take the max (leaving 0 for the next message)
+  // and write the scale, max(max|x|, 1e-12) / qmax as one IEEE division
+  const float a = __uint_as_float(atomicExch(&t.amax[lo], 0u));
+  t.tickets[lo] = 0;
+  const float qmax = t.int4 ? 7.f : 127.f;
+  *t.scale[lo] = __fdiv_rn(a != a ? a : fmaxf(a, 1e-12f), qmax);
+}
+
+__global__ void quant_pack_multi_kernel(const __grid_constant__ PackLeaves t) {
+  const int lo = leaf_of(t.block_start, t.count, blockIdx.x);
+  const long long tid =
+      (long long)(blockIdx.x - t.block_start[lo]) * blockDim.x + threadIdx.x;
+  const long long stride =
+      (long long)(t.block_start[lo + 1] - t.block_start[lo]) * blockDim.x;
+  const float* __restrict__ x = t.x[lo];
+  const float* __restrict__ u = t.u[lo];
+  const long long n = t.n[lo];
+  const float s = *t.scale[lo];
+  long long done = 0;                  // elements handled by the vector loop
+  if (!t.int4) {
+    int8_t* __restrict__ out = static_cast<int8_t*>(t.out[lo]);
+    if (t.vec[lo]) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+      const float4* u4 = reinterpret_cast<const float4*>(u);
+      char4* o4 = reinterpret_cast<char4*>(out);
+      for (long long g = tid; g < n / 4; g += stride) {
+        const float4 a = x4[g];
+        const float4 b = u ? u4[g] : make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+        char4 c;
+        c.x = (signed char)(int)quantize(a.x, b.x, s, 127.f);
+        c.y = (signed char)(int)quantize(a.y, b.y, s, 127.f);
+        c.z = (signed char)(int)quantize(a.z, b.z, s, 127.f);
+        c.w = (signed char)(int)quantize(a.w, b.w, s, 127.f);
+        o4[g] = c;
+      }
+      done = n / 4 * 4;
+    }
+    for (long long i = done + tid; i < n; i += stride)
+      out[i] = (int8_t)(int)quantize(x[i], u ? u[i] : 0.5f, s, 127.f);
+    return;
+  }
+  uint8_t* __restrict__ out = static_cast<uint8_t*>(t.out[lo]);
+  if (t.vec[lo]) {
+    // eight elements -> four output bytes per thread and step
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* u4 = reinterpret_cast<const float4*>(u);
+    uint32_t* o4 = reinterpret_cast<uint32_t*>(out);
+    const float4 half = make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+    for (long long g = tid; g < n / 8; g += stride) {
+      const float4 a0 = x4[2 * g], a1 = x4[2 * g + 1];
+      const float4 b0 = u ? u4[2 * g] : half, b1 = u ? u4[2 * g + 1] : half;
+      o4[g] = (nibble(a0.x, b0.x, s) | nibble(a0.y, b0.y, s) << 4) |
+              (nibble(a0.z, b0.z, s) | nibble(a0.w, b0.w, s) << 4) << 8 |
+              (nibble(a1.x, b1.x, s) | nibble(a1.y, b1.y, s) << 4) << 16 |
+              (nibble(a1.z, b1.z, s) | nibble(a1.w, b1.w, s) << 4) << 24;
+    }
+    done = n / 8 * 8;
+  }
+  for (long long j = done / 2 + tid; j < (n + 1) / 2; j += stride) {
+    const long long e = 2 * j + 1;     // == n: the odd leaf's x = 0
+    out[j] = (uint8_t)(nibble(x[2 * j], u ? u[2 * j] : 0.5f, s) |
+                       nibble(e < n ? x[e] : 0.f, u ? u[e] : 0.5f, s) << 4);
+  }
+}
+
 // ---------------------------------------------------------------- K4 -----
 
 // One leaf's codes -> f32, walked by the threads tid, tid + stride, ...
@@ -178,7 +316,6 @@ __device__ __forceinline__ void unpack_i4(const uint8_t* __restrict__ q,
 // parameter space.  Leaf l owns blocks [block_start[l], block_start[l+1])
 // and walks its elements with those blocks alone, as a grid-stride loop
 // over that range.
-constexpr int kMaxLeaves = 64;
 
 struct UnpackLeaves {
   const void* q[kMaxLeaves];
@@ -193,11 +330,7 @@ struct UnpackLeaves {
 __global__ void quant_unpack_multi_kernel(
     const __grid_constant__ UnpackLeaves t) {
   const int blk = blockIdx.x;
-  int lo = 0, hi = t.count;   // the leaf whose block range holds blk
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) / 2;
-    if (t.block_start[mid] <= blk) lo = mid; else hi = mid;
-  }
+  const int lo = leaf_of(t.block_start, t.count, blk);
   const long long nb = t.block_start[lo + 1] - t.block_start[lo];
   const long long tid =
       (long long)(blk - t.block_start[lo]) * blockDim.x + threadIdx.x;
@@ -246,9 +379,10 @@ int blocks_for(long long work) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// K4's grid for one leaf: one thread per 4 (int8) or 8 (int4) codes on the
-// vector path, one per element (int8) or byte (int4) otherwise
-int unpack_blocks(long long n, int bits, int vec) {
+// K3's and K4's grid for one leaf: one thread per 4 (int8) or 8 (int4)
+// elements on the vector path, one per element (int8) or byte (int4)
+// otherwise
+int leaf_blocks(long long n, int bits, int vec) {
   if (bits == 8) return blocks_for(vec ? n / 4 + 3 : n);
   return blocks_for(vec ? n / 8 + 4 : (n + 1) / 2);
 }
@@ -276,6 +410,47 @@ int quant_pack_f32(const float* x, const float* u, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// K3 over count <= 64 leaves of a message in two launches (the scales, then
+// the codes).  leaves holds six int64 per leaf: x's address (f32 [n]), u's
+// (f32 [n], or [n + 1] for an odd int4 leaf; 0: u = 0.5), the codes'
+// (int8 [n] at bits 8, uint8 [ceil(n / 2)] at bits 4), the scale's ([1]
+// f32, written here), n, and vec (non-zero promises 16-byte aligned x and u
+// and 4-byte aligned codes).  slots: 2 * 64 ints on the device, zero before
+// the first call (each call leaves them zero).  leaves lies in host memory.
+// Returns cudaGetLastError().
+int quant_pack_multi_f32(const long long* leaves, int count, int bits,
+                         int* slots, void* stream) {
+  if (count < 1 || count > kMaxLeaves || (bits != 8 && bits != 4) || !slots)
+    return (int)cudaErrorInvalidValue;
+  PackLeaves t;
+  int blocks = 0;
+  for (int l = 0; l < count; ++l) {
+    const long long* e = leaves + 6 * l;
+    const long long n = e[4];
+    const int vec = e[5] != 0;
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    t.x[l] = reinterpret_cast<const float*>(e[0]);
+    t.u[l] = reinterpret_cast<const float*>(e[1]);
+    t.out[l] = reinterpret_cast<void*>(e[2]);
+    t.scale[l] = reinterpret_cast<float*>(e[3]);
+    t.n[l] = n;
+    t.vec[l] = (unsigned char)vec;
+    t.block_start[l] = blocks;
+    blocks += leaf_blocks(n, bits, vec);
+  }
+  t.block_start[count] = blocks;
+  t.count = count;
+  t.int4 = bits == 4;
+  t.amax = reinterpret_cast<unsigned*>(slots);
+  t.tickets = slots + kMaxLeaves;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quant_amax_multi_kernel<<<blocks, kThreads, 0, s>>>(t);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  quant_pack_multi_kernel<<<blocks, kThreads, 0, s>>>(t);
+  return (int)cudaGetLastError();
+}
+
 // K4 over count <= 64 leaves in one launch.  leaves holds six int64 per
 // leaf: the codes' address, the scale's address ([1] f32), the output's
 // address (f32 [n]), n, bits (8: int8 [n]; 4: uint8 [(n + 1) / 2] or more)
@@ -298,7 +473,7 @@ int quant_unpack_multi_f32(const long long* leaves, int count,
     t.n[l] = n;
     t.flags[l] = (unsigned char)((bits == 4) | (vec << 1));
     t.block_start[l] = blocks;
-    blocks += unpack_blocks(n, bits, vec);
+    blocks += leaf_blocks(n, bits, vec);
   }
   t.block_start[count] = blocks;
   t.count = count;

@@ -3,7 +3,9 @@
 K5 ``topk_select``, K6 ``ef_gather`` and K7 ``ef_scatter``).
 
     quant_pack    q = clip(floor(x / scale + u), +-qmax) as int8 codes, or
-                  as ``code + 8`` nibbles two per uint8 (element 2i low)
+                  as ``code + 8`` nibbles two per uint8 (element 2i low);
+                  ``quant_pack_multi`` encodes every leaf of a message,
+                  scales included, in two launches
     quant_unpack  codes -> float32 code * scale; ``quant_unpack_multi``
                   decodes every leaf of a message in one launch
     topk_select   x where |x| >= t, else 0
@@ -27,14 +29,16 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["quant_pack", "quant_unpack", "quant_unpack_multi",
-           "topk_select", "ef_gather", "ef_scatter", "quant_pack_plain",
+__all__ = ["quant_pack", "quant_pack_multi", "quant_unpack",
+           "quant_unpack_multi", "topk_select", "ef_gather", "ef_scatter",
+           "quant_pack_plain", "quant_pack_multi_plain",
            "quant_unpack_plain", "quant_unpack_multi_plain",
            "topk_select_plain", "ef_gather_plain", "ef_scatter_plain",
-           "quant_pack_cuda", "quant_unpack_cuda", "quant_unpack_multi_cuda",
-           "topk_select_cuda", "ef_gather_cuda", "ef_scatter_cuda"]
+           "quant_pack_cuda", "quant_pack_multi_cuda", "quant_unpack_cuda",
+           "quant_unpack_multi_cuda", "topk_select_cuda", "ef_gather_cuda",
+           "ef_scatter_cuda"]
 
-MAX_LEAVES = 64     # leaves one K4 launch decodes (the kernel's leaf table)
+MAX_LEAVES = 64     # leaves one K3 / K4 launch takes (the kernels' leaf table)
 
 
 def _check_bits(name, bits):
@@ -70,6 +74,31 @@ def quant_pack_plain(x, scale, noise, *, bits=8):
         return q.to(torch.int8)
     u = (q + 8).to(torch.uint8).reshape(-1, 2)
     return u[:, 0] | (u[:, 1] << 4)
+
+
+def quant_pack_multi_plain(xs, noises, *, bits=8):
+    """The leaves of a message -> [(codes, scale [1]), ...]: per leaf
+    scale = max(max|x|, 1e-12) / qmax and :func:`quant_pack_plain`, with an
+    odd int4 leaf padded by one zero and u = 0.5 where ``noises`` (a list of
+    offsets, each of the padded length, or None) gives none."""
+    _check_bits("quant_pack_multi", bits)
+    out = []
+    for i, x in enumerate(xs):
+        u = None if noises is None else noises[i]
+        n = x.shape[0]
+        pn = n + (n % 2 if bits == 4 else 0)
+        if pn != n:
+            x = torch.nn.functional.pad(x, (0, pn - n))
+        # a tensor divisor: on the card PyTorch multiplies by the
+        # reciprocal of a Python-number divisor, which is not the IEEE
+        # division of the CPU, of JAX and of the kernel
+        qmax = torch.full((1,), 127.0 if bits == 8 else 7.0,
+                          device=x.device)
+        scale = x.abs().amax().clamp_min(1e-12).reshape(1) / qmax
+        if u is None:
+            u = torch.full((pn,), 0.5, device=x.device)
+        out.append((quant_pack_plain(x, scale, u, bits=bits), scale))
+    return out
 
 
 def quant_unpack_plain(packed, scale, *, bits=8, n=None):
@@ -118,10 +147,11 @@ def _kernels():
     lib = build.load("compress_pack")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.quant_pack_f32.argtypes = [p, p, p, p, ll, i, i, p]
+    lib.quant_pack_multi_f32.argtypes = [p, i, i, p, p]
     lib.quant_unpack_multi_f32.argtypes = [p, i, p]
     lib.topk_select_f32.argtypes = [p, p, p, ll, i, p]
-    for fn in (lib.quant_pack_f32, lib.quant_unpack_multi_f32,
-               lib.topk_select_f32):
+    for fn in (lib.quant_pack_f32, lib.quant_pack_multi_f32,
+               lib.quant_unpack_multi_f32, lib.topk_select_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -198,6 +228,86 @@ def quant_pack_cuda(x, scale, noise, *, bits=8):
 
 
 quant_pack_cuda.launches = 0
+
+_SLOTS = {}
+
+
+def _pack_slots(dev):
+    """The device's K3 slots (64 max|x| bits, 64 tickets), int32 zeros made
+    once (each message leaves them zero), so the first message on a device
+    must be encoded outside a CUDA-graph capture."""
+    t = _SLOTS.get(dev.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "quant_pack_multi_cuda: the first call on a device must run "
+                "outside CUDA-graph capture (it makes the K3 slots)")
+        t = torch.zeros(2 * MAX_LEAVES, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)        # zero before any stream reads it
+        _SLOTS[dev.index] = t
+    return t
+
+
+def quant_pack_multi_cuda(xs, noises, *, bits=8):
+    """K3 over the leaves of a message: xs float32 [n] leaves, noises their
+    offsets (float32, of length n, or n + 1 for an odd int4 leaf) or None
+    (u = 0.5), contiguous on one CUDA device.  Each leaf's scale is
+    max(max|x|, 1e-12) / qmax, computed on the device.  Two launches per 64
+    leaves (max|x| and the scales, then the codes), each counted on
+    ``quant_pack_cuda``; no other device op.  Returns [(codes, scale), ...]:
+    the codes (int8 [n], or uint8 [ceil(n / 2)]) as views of one buffer,
+    each leaf starting 16-byte aligned, and the scales as [1] views of one
+    float32 buffer."""
+    _check_bits("quant_pack_multi_cuda", bits)
+    n_leaves = len(xs)
+    if not n_leaves or (noises is not None and len(noises) != n_leaves):
+        raise ValueError(f"quant_pack_multi_cuda: {n_leaves} leaves and "
+                         f"{None if noises is None else len(noises)} offsets")
+    dev = _cuda_device("quant_pack_multi_cuda", xs[0])
+    f32 = torch.float32
+    # per leaf: x, u, codes offset (made an address below), scale index, n,
+    # vec
+    table, split, keep, total = [], [], [], 0
+    for i, x in enumerate(xs):
+        if x.dtype != f32 or x.device != dev or x.dim() != 1 \
+                or not x.is_contiguous():
+            _check("quant_pack_multi_cuda", f"xs[{i}]", x, dev, f32)
+        n = x.numel()
+        if n == 0:
+            raise ValueError(f"quant_pack_multi_cuda: leaf {i} is empty")
+        pn = n + (n % 2 if bits == 4 else 0)
+        u = None if noises is None else noises[i]
+        u_ptr = 0
+        if u is not None:
+            if u.dtype != f32 or u.device != dev or u.dim() != 1 \
+                    or not u.is_contiguous() or u.numel() != pn:
+                _check("quant_pack_multi_cuda", f"noises[{i}]", u, dev, f32,
+                       pn)
+            u_ptr = u.data_ptr()
+        x_ptr = x.data_ptr()
+        table += (x_ptr, u_ptr, total, i, n, (x_ptr | u_ptr) % 16 == 0)
+        m = pn if bits == 8 else pn // 2
+        pad = -m % 16 if i + 1 < n_leaves else 0   # next leaf 16-byte aligned
+        split += (m, pad) if pad else (m,)
+        keep += (True, False) if pad else (True,)
+        total += m + pad
+    codes = torch.empty(total, device=dev,
+                        dtype=torch.int8 if bits == 8 else torch.uint8)
+    scales = torch.empty(n_leaves, device=dev, dtype=f32)
+    base, s_base = codes.data_ptr(), scales.data_ptr()
+    for j in range(2, len(table), 6):
+        table[j] += base
+        table[j + 1] = s_base + 4 * table[j + 1]
+        table[j + 3] = table[j + 3] and base % 4 == 0
+    fn, slots = _fn("quant_pack_multi_f32"), _pack_slots(dev).data_ptr()
+    for lo in range(0, len(table), 6 * MAX_LEAVES):
+        chunk = array.array("q", table[lo:lo + 6 * MAX_LEAVES])
+        build.launch("quant_pack_multi", fn, dev, chunk.buffer_info()[0],
+                     len(chunk) // 6, bits, slots)
+        quant_pack_cuda.launches += 2
+    views = [v for v, leaf in zip(codes.split_with_sizes(split), keep)
+             if leaf]
+    return list(zip(views, scales.split(1)))
 
 
 def quant_unpack_cuda(packed, scale, *, bits=8, n=None):
@@ -399,6 +509,15 @@ def quant_pack(x, scale, noise, *, bits=8):
     if x.device.type == "cpu":
         return quant_pack_plain(x, scale, noise, bits=bits)
     return quant_pack_cuda(x, scale, noise, bits=bits)
+
+
+def quant_pack_multi(xs, noises, *, bits=8):
+    """K3 over a message's leaves, scales included, in two launches (per 64
+    leaves) on the card; the plain version leaf by leaf for tensors on the
+    CPU."""
+    if xs[0].device.type == "cpu":
+        return quant_pack_multi_plain(xs, noises, bits=bits)
+    return quant_pack_multi_cuda(xs, noises, bits=bits)
 
 
 def quant_unpack(packed, scale, *, bits=8, n=None):

@@ -84,6 +84,112 @@ def test_flash_decode_plain_matches_pallas(B, L, H, KV, hd, frac):
         _close(got, want_ref)
 
 
+@pytest.mark.parametrize("valid", [1, 40, 131, 256])
+def test_flash_decode_plain_rep16_matches_pallas(valid):
+    """recurrentgemma-9b's heads (16 query heads over one KV head of 256):
+    the plain version against the Pallas kernel in interpret mode."""
+    q, k, v = _qkv(1, 1, 256, 16, 1, 256, seed=valid)
+    want = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          valid, block_l=64, interpret=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    _close(decode_attn.flash_decode(tq, tk, tv, valid), want)
+    _close(ops.gqa_flash_decode(tq, tk, tv, torch.tensor(valid)), want)
+
+
+# (B, L, KV, rep, hd): the serve shapes (gemma3-1b global and local,
+# smollm-135m, recurrentgemma-9b's rep 16), a one-position cache, a long
+# cache, many groups, and hd 128
+PLAN_CASES = [(4, 1056, 1, 4, 256), (4, 512, 1, 4, 256), (4, 1056, 3, 3, 64),
+              (4, 1056, 1, 16, 256), (1, 1, 1, 1, 64), (1, 131072, 8, 4, 128),
+              (512, 100, 64, 2, 64), (2, 33, 2, 5, 128)]
+
+
+@pytest.mark.parametrize("sm_count", [132, 1])
+@pytest.mark.parametrize("B,L,KV,rep,hd", PLAN_CASES)
+def test_decode_plan_covers_the_cache_once(B, L, KV, rep, hd, sm_count):
+    """K9's slices: every cache position in exactly one slice, the grid and
+    the shared memory within the card's limits, each block staging at least
+    32 KB where L allows and at most 64 KB, and no more blocks than fill
+    the card once unless the 64 KB cap forces them."""
+    plan = decode_attn.decode_plan(B, L, KV, rep, hd, sm_count)
+    starts = [s * plan.split for s in range(plan.n_split)]
+    covered = np.zeros(L, np.int64)
+    for s0 in starts:
+        covered[s0:s0 + plan.split] += 1
+    assert (covered == 1).all() and starts[-1] < L
+    assert plan.groups == B * KV <= decode_attn.MAX_GROUPS
+    assert 1 <= plan.n_split < 2 ** 31 and 1 <= plan.split <= L
+    assert plan.smem_bytes == 4 * (2 * plan.split * hd + rep * plan.split
+                                   + 2 * rep) <= decode_attn.SMEM_LIMIT
+    row = 8 * hd
+    assert plan.split * row <= decode_attn.MAX_SLICE_BYTES
+    assert (plan.split * row >= decode_attn.MIN_SLICE_BYTES
+            or plan.split == L)
+    fill = decode_attn.BLOCKS_PER_SM * sm_count
+    assert (plan.groups * (plan.n_split - 1) < fill
+            or plan.split == decode_attn.MAX_SLICE_BYTES // row)
+
+
+def test_decode_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="hd"):
+        decode_attn.decode_plan(1, 64, 1, 1, 80, 132)
+    with pytest.raises(ValueError, match="B \\* KV"):
+        decode_attn.decode_plan(65536, 64, 1, 1, 64, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_attn.decode_plan(1, 4096, 1, 4096, 256, 132)
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged in order: (M, sum l e^(m - M),
+    sum acc e^(m - M))."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    return (M, sum(l * torch.exp(m - M) for m, l, _ in parts),
+            sum(a * torch.exp(m - M)[..., None] for m, _, a in parts))
+
+
+def _split_merge(q, k, v, valid, split, chunk=None):
+    """K9's arithmetic in plain PyTorch: per slice of ``split`` positions
+    below ``valid`` the scores' max m, sum l and unnormalised P V, then the
+    slices merged in order as the last block of a group merges them (with
+    ``chunk``: chunks of that many slices first, then the chunks)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.reshape(B, KV, H // KV, hd)
+    parts = []
+    for l0 in range(0, valid, split):
+        ks, vs = k[:, l0:min(l0 + split, valid)], v[:, l0:min(l0 + split,
+                                                              valid)]
+        s = torch.einsum("bgrd,btgd->bgrt", qh, ks) * hd ** -0.5
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bgrt,btgd->bgrd", p, vs)))
+    if chunk is not None:
+        parts = [_merge(parts[c:c + chunk])
+                 for c in range(0, len(parts), chunk)]
+    _, den, num = _merge(parts)
+    return (num / den[..., None]).reshape(B, 1, H, hd)
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd,valid", [
+    (2, 200, 4, 1, 256, 200), (2, 200, 4, 1, 256, 17),
+    (1, 300, 16, 1, 256, 299), (2, 130, 9, 3, 64, 130),
+    (1, 64, 8, 8, 128, 1)])
+def test_flash_decode_split_merge_matches_pallas(B, L, H, KV, hd, valid):
+    """The kernel's slices (``decode_plan`` on a small card, so a cache of
+    a few hundred positions splits) merged in slice order, in one level and
+    in two (chunks of about sqrt(n) slices, then the chunks), agree with
+    the Pallas kernel in interpret mode."""
+    q, k, v = _qkv(B, 1, L, H, KV, hd, seed=L + valid)
+    plan = decode_attn.decode_plan(B, L, KV, H // KV, hd, 2)
+    want = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          valid, block_l=32, interpret=True)
+    for split in {plan.split, 7}:
+        n = -(-valid // split)
+        for chunk in (None, max(8, int(np.ceil(np.sqrt(n))))):
+            _close(_split_merge(*map(torch.from_numpy, (q, k, v)), valid,
+                                split, chunk), want)
+
+
 def test_flash_decode_valid_len_defaults_to_the_whole_cache():
     q, k, v = _qkv(2, 1, 32, 4, 2, 64, seed=5)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))

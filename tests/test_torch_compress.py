@@ -26,6 +26,7 @@ from repro.configs.cnn_paper import CNN_MNIST as J_MNIST
 from repro.core import init_global_state as j_init_global_state
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.compress_pack import quant_pack as j_quant_pack
 from repro.models.registry import make_bundle as j_make_bundle
 from repro_torch import compress as tcomp
 from repro_torch.configs import FLConfig as TFL
@@ -128,6 +129,110 @@ def test_quant_unpack_refuses_n_beyond_the_codes():
     with pytest.raises(ValueError, match="bits"):
         tcp.quant_pack_plain(torch.zeros(4), torch.ones(1), torch.zeros(4),
                              bits=2)
+
+
+def _message_tree(seed):
+    """A message's leaves: odd counts (int4 pads them), a leaf of all zeros
+    (its scale is 1e-12 / qmax), a one-element leaf and a 4097-element one,
+    in sorted key order so both packages flatten them alike."""
+    rng = np.random.default_rng(seed)
+    return {"a": rng.standard_normal(11).astype(np.float32),
+            "b": rng.standard_normal((6, 5)).astype(np.float32),
+            "c": np.zeros(7, np.float32),
+            "d": (3 * rng.standard_normal(4097)).astype(np.float32),
+            "e": np.float32([-0.25])}
+
+
+@pytest.mark.parametrize("stochastic", [True, False],
+                         ids=["offsets", "deterministic"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_pack_multi_plain_matches_jax(bits, stochastic):
+    """K3's message encode (two launches on the card) against the JAX quant
+    codec's encode and, leaf by leaf, the Pallas ``quant_pack`` kernel in
+    interpret mode on JAX's scale: codes and scales exactly equal."""
+    tree = _message_tree(5)
+    jc = jcomp.make_codec(f"int{bits}").bind(tree)
+    key = jax.random.PRNGKey(7) if stochastic else None
+    jpay, _ = jc.encode(jax.tree.map(jnp.asarray, tree), jc.init_state(),
+                        key)
+    leaves = [x.reshape(-1) for x in jax.tree.leaves(tree)]
+    sizes = [x.size + (x.size % 2 if bits == 4 else 0) for x in leaves]
+    offsets = (_jax_offsets(key, sizes) if stochastic
+               else [np.full(n, 0.5, np.float32) for n in sizes])
+    got = tcp.quant_pack_multi_plain(
+        [torch.from_numpy(x) for x in leaves],
+        [torch.tensor(u) for u in offsets] if stochastic else None,
+        bits=bits)
+    qmax = 127 if bits == 8 else 7
+    assert len(got) == len(leaves)
+    for (q, s), jp, x, u, pn in zip(got, jpay, leaves, offsets, sizes):
+        assert q.dtype == (torch.int8 if bits == 8 else torch.uint8)
+        assert np.array_equal(q.numpy(), np.asarray(jp["q"]))
+        assert s.shape == (1,)
+        assert np.array_equal(s.numpy(), np.asarray(jp["scale"]))
+        xp = jnp.pad(jnp.asarray(x), (0, pn - x.size))
+        scale = jnp.maximum(jnp.max(jnp.abs(xp)), 1e-12) / qmax
+        assert np.array_equal(s.numpy(), np.asarray(scale).reshape(1))
+        want = j_quant_pack(xp, scale, jnp.asarray(u), bits=bits,
+                            interpret=True)
+        assert np.array_equal(q.numpy(), np.asarray(want))
+    zero_scale = got[2][1]
+    assert torch.equal(zero_scale, torch.tensor([1e-12]) / qmax)
+    # the dispatching wrapper takes the plain version for CPU tensors
+    for (q, s), (q2, s2) in zip(got, tcp.quant_pack_multi(
+            [torch.from_numpy(x) for x in leaves],
+            [torch.tensor(u) for u in offsets] if stochastic else None,
+            bits=bits)):
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+def _per_leaf_encode(x, noise, bits):
+    """QuantCodec's per-leaf encode before the message hook: pad an odd
+    int4 leaf, the scale by eager ops, u = 0.5 without offsets, K3."""
+    n = x.shape[0]
+    pn = n + (n % 2 if bits == 4 else 0)
+    if pn != n:
+        x = torch.nn.functional.pad(x, (0, pn - n))
+    scale = (x.abs().amax().clamp_min(1e-12)
+             / (127 if bits == 8 else 7)).reshape(1)
+    if noise is None:
+        noise = torch.full((pn,), 0.5)
+    return tcp.quant_pack_plain(x, scale, noise, bits=bits), scale
+
+
+@pytest.mark.parametrize("stochastic", [True, False],
+                         ids=["offsets", "deterministic"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_codec_message_hook_equals_per_leaf_encode(bits, stochastic):
+    """The port's QuantCodec encodes a message through ``_encode_leaves``
+    (one ``quant_pack_multi`` call); its payload equals the per-leaf
+    encode it replaced exactly, and its wire size is unchanged."""
+    tree = state_from_numpy(_message_tree(6))
+    codec = tcomp.QuantCodec(bits).bind(tree)
+    rng = np.random.default_rng(bits)
+    noise = ([torch.from_numpy(rng.random(n, dtype=np.float32))
+              for n in codec.noise_sizes()] if stochastic else None)
+    payload, state = codec.encode(tree, None, noise)
+    assert state == [None] * len(payload)
+    leaves = [x.reshape(-1).float() for x in tree_leaves(tree)]
+    for i, (p, x) in enumerate(zip(payload, leaves)):
+        q, scale = _per_leaf_encode(x, None if noise is None else noise[i],
+                                    bits)
+        assert p["q"].dtype == q.dtype and torch.equal(p["q"], q)
+        assert p["scale"].shape == (1,) and torch.equal(p["scale"], scale)
+    assert codec.nbytes(payload) == codec.wire_bytes()
+
+
+def test_quant_pack_multi_refuses_bad_inputs():
+    x = [torch.zeros(4), torch.ones(3)]
+    with pytest.raises(ValueError, match="bits"):
+        tcp.quant_pack_multi_plain(x, None, bits=2)
+    with pytest.raises(ValueError, match="bits"):
+        tcp.quant_pack_multi_cuda(x, None, bits=2)
+    with pytest.raises(ValueError, match="offsets"):
+        tcp.quant_pack_multi_cuda(x, [torch.zeros(4)], bits=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.quant_pack_multi_cuda(x, None, bits=8)
 
 
 @pytest.mark.parametrize("n,k", [(10, 3), (1001, 40), (4096, 400),

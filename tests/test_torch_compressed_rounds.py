@@ -74,15 +74,16 @@ class _JaxRecQuant(jcomp.QuantCodec):
 
 
 class _TorchRecQuant(tcomp.QuantCodec):
-    """The port's quant codec, recording (leaf, codes) in call order."""
+    """The port's quant codec, recording (leaf, codes) in call order (a
+    message encodes all its leaves at once, in leaf order)."""
 
     def __init__(self, bits, log):
         super().__init__(bits)
         self.log = log
 
-    def _encode_leaf(self, x, state, noise, i):
-        p, s = super()._encode_leaf(x, state, noise, i)
-        self.log.append((i, p["q"].clone()))
+    def _encode_leaves(self, leaves, state, noise):
+        p, s = super()._encode_leaves(leaves, state, noise)
+        self.log.extend((i, leaf["q"].clone()) for i, leaf in enumerate(p))
         return p, s
 
 

@@ -282,12 +282,15 @@ def test_codec_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tcp.quant_pack_cuda(x, s, u)
     with pytest.raises(ValueError, match="CUDA"):
+        tcp.quant_pack_multi_cuda([x], [u])
+    with pytest.raises(ValueError, match="CUDA"):
         tcp.quant_unpack_cuda(torch.zeros(8, dtype=torch.int8), s)
     with pytest.raises(ValueError, match="CUDA"):
         tcp.quant_unpack_multi_cuda([torch.zeros(8, dtype=torch.int8)], [s])
     with pytest.raises(ValueError, match="CUDA"):
         tcp.topk_select_cuda(x, s)
     # the CPU path runs the plain versions and launches nothing
+    tcp.quant_pack_multi([x, x], None)
     tcp.quant_unpack(tcp.quant_pack(x, s, u), s)
     tcp.quant_unpack_multi([tcp.quant_pack(x, s, u)] * 2, [s, s])
     tcp.topk_select(x, s)
@@ -383,6 +386,72 @@ def test_quant_unpack_multi_matches_plain(cuda_device, bits, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [True, False], ids=["offsets", "half"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["cnn_mnist", "odd_unaligned", "70_leaves"])
+def test_quant_pack_multi_matches_plain(cuda_device, bits, case, offsets):
+    """K3 over a whole message, scales included, equals the plain version
+    leaf by leaf, in two launches per 64 leaves: odd int4 leaves, views off
+    the 16-byte boundary, a leaf of zeros, more leaves than a launch
+    takes, with the caller's offsets and with u = 0.5."""
+    sizes = {"cnn_mnist": MNIST_LEAVES, "odd_unaligned": [4097, 33, 1000, 1],
+             "70_leaves": [37 * i + 1 for i in range(70)]}[case]
+    rng = np.random.default_rng(len(sizes) + bits)
+    xs = [torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+          .to(cuda_device)[1:] if case == "odd_unaligned" else
+          torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+          .to(cuda_device) for n in sizes]
+    if case == "odd_unaligned":
+        xs[-1] = torch.zeros(1, device=cuda_device)
+    us = [torch.from_numpy(rng.random(n + (n % 2 if bits == 4 else 0),
+                                      dtype=np.float32)).to(cuda_device)
+          for n in sizes] if offsets else None
+    before = tcp.quant_pack_cuda.launches
+    got = tcp.quant_pack_multi_cuda(xs, us, bits=bits)
+    again = tcp.quant_pack_multi_cuda(xs, us, bits=bits)
+    torch.cuda.synchronize()
+    assert tcp.quant_pack_cuda.launches == before + 4 * -(-len(sizes) // 64)
+    want = tcp.quant_pack_multi_plain(xs, us, bits=bits)
+    assert len(got) == len(sizes)
+    for (q, sc), (q2, sc2), (wq, ws) in zip(got, again, want):
+        assert q.dtype == wq.dtype and torch.equal(q, wq)
+        assert sc.shape == (1,) and torch.equal(sc, ws)
+        assert torch.equal(q, q2) and torch.equal(sc, sc2)
+        assert q.data_ptr() % 16 == 0
+    # the same codes and scales from the CPU's plain version
+    cpu = tcp.quant_pack_multi_plain(
+        [x.cpu() for x in xs], None if us is None else [u.cpu() for u in us],
+        bits=bits)
+    for (q, sc), (cq, cs) in zip(got, cpu):
+        assert torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), cs)
+
+
+@pytest.mark.cuda
+def test_quant_pack_multi_replays_in_a_cuda_graph(cuda_device):
+    """K3's two launches captured once and replayed on new leaves: each
+    replay's codes and scales equal the plain version's (the max|x| slots
+    and tickets reset themselves)."""
+    rng = np.random.default_rng(3)
+    xs = [torch.zeros(n, device=cuda_device) for n in MNIST_LEAVES]
+    us = [torch.zeros(n, device=cuda_device) for n in MNIST_LEAVES]
+    tcp.quant_pack_multi_cuda(xs, us)               # slots made outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tcp.quant_pack_multi_cuda(xs, us)
+    for scale in (1.0, 1e-3, 0.0):
+        for x, u in zip(xs, us):
+            x.copy_(torch.from_numpy(scale * rng.standard_normal(
+                x.numel()).astype(np.float32)))
+            u.copy_(torch.from_numpy(rng.random(u.numel(),
+                                                dtype=np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        for (q, sc), (wq, ws) in zip(out, tcp.quant_pack_multi_plain(xs, us)):
+            assert torch.equal(q, wq) and torch.equal(sc, ws)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(1_605_632, 100_352), (10, 3), (1001, 40),
                                  (4097, 1)])
 def test_topk_select_kernel_matches_plain(cuda_device, n, k):
@@ -447,8 +516,9 @@ def test_compressed_round_launches_codec_kernels(cuda_device, up, down):
     res = run_federated_reference(bundle, fl, data, rounds=R,
                                   eval_examples=20, device=cuda_device)
     torch.cuda.synchronize()
-    # K3 once per leaf of a message, K4 once per message
-    pack = (L * C * R if up == "int8" else 0) + (L * R if down == "int4"
+    # K3 twice per message (max|x| and the scales, then the codes), K4
+    # once per message
+    pack = (2 * C * R if up == "int8" else 0) + (2 * R if down == "int4"
                                                  else 0)
     unpack = (C * R if up == "int8" else 0) + (R if down == "int4" else 0)
     assert (tcp.quant_pack_cuda.launches,
@@ -867,7 +937,13 @@ def test_flash_attention_backward_on_the_card_matches_the_cpu(cuda_device):
     (4, 1056, 4, 1, 256, 1056),         # gemma3's global cache
     (4, 512, 4, 1, 256, 512),           # gemma3's full local ring
     (2, 100, 9, 3, 64, 37),             # smollm's heads (rep 3)
+    (4, 1056, 9, 3, 64, 1), (4, 1056, 9, 3, 64, 1056),
     (1, 40, 8, 8, 128, 40),             # rep 1
+    (2, 300, 8, 8, 64, 1), (2, 300, 8, 8, 64, 150),
+    (2, 300, 8, 1, 128, 1), (2, 300, 8, 1, 128, 151),      # rep 8
+    (2, 300, 8, 1, 128, 300),
+    (4, 1056, 16, 1, 256, 1), (4, 1056, 16, 1, 256, 529),  # rep 16
+    (4, 1056, 16, 1, 256, 1056),
 ])
 def test_flash_decode_kernel_matches_plain(cuda_device, B, L, H, KV, hd,
                                            valid):
@@ -883,6 +959,52 @@ def test_flash_decode_kernel_matches_plain(cuda_device, B, L, H, KV, hd,
     assert tda.flash_decode_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
     assert torch.equal(got, tda.flash_decode_cuda(q, k, v, vl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 7])
+@pytest.mark.parametrize("valid", [1, 99, 300])
+def test_flash_decode_kernel_merges_many_slices(cuda_device, split, valid):
+    """A slice length far below the plan's (up to 300 slices a group, so
+    the last block merges them in several windows of weights), with the
+    valid length as an int64 on the card, a Python int and None."""
+    rng = np.random.default_rng(split + valid)
+    q = _randn(rng, (2, 1, 16, 64), cuda_device)
+    k = _randn(rng, (2, 300, 1, 64), cuda_device)
+    v = _randn(rng, (2, 300, 1, 64), cuda_device)
+    want = tda.flash_decode_plain(q, k, v, valid)
+    for vl in (torch.tensor(valid, device=cuda_device), valid):
+        got = tda.flash_decode_cuda(q, k, v, vl, split=split)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    if valid == 300:
+        torch.testing.assert_close(
+            tda.flash_decode_cuda(q, k, v, None, split=split), want,
+            atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_decode_replays_in_a_cuda_graph(cuda_device):
+    """One K9 call captured once and replayed at two valid lengths set on
+    the card: each replay equals the plain version, bitwise equal to an
+    eager call, and the self-resetting tickets stay zero."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (4, 1, 4, 256), cuda_device)
+    k = _randn(rng, (4, 1056, 1, 256), cuda_device)
+    v = _randn(rng, (4, 1056, 1, 256), cuda_device)
+    valid = torch.tensor(1, device=cuda_device)
+    tda.flash_decode_cuda(q, k, v, valid)            # tickets made outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.flash_decode_cuda(q, k, v, valid)
+    for n in (1056, 529, 1056):
+        valid.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, tda.flash_decode_plain(q, k, v, n),
+                                   atol=1e-5, rtol=1e-4)
+        assert torch.equal(out, tda.flash_decode_cuda(q, k, v, valid))
+    assert not tda._tickets(cuda_device, 1).any()
 
 
 @pytest.mark.cuda
@@ -924,12 +1046,19 @@ def test_attention_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         tfa.flash_fwd_cuda(flat[1:].view(1, 8, 2, 64), z(1, 8, 1, 64, **kw),
                            z(1, 8, 1, 64, **kw))
-    with pytest.raises(ValueError, match="shapes"):       # rep 16 > 8
-        tda.flash_decode_cuda(z(1, 1, 16, 64, **kw), z(1, 8, 1, 64, **kw),
-                              z(1, 8, 1, 64, **kw), valid)
-    with pytest.raises(ValueError, match="int32"):
+    with pytest.raises(ValueError, match="shapes"):       # hd 32
+        tda.flash_decode_cuda(z(1, 1, 16, 32, **kw), z(1, 8, 1, 32, **kw),
+                              z(1, 8, 1, 32, **kw), valid)
+    with pytest.raises(ValueError, match="shapes"):       # H % KV
+        tda.flash_decode_cuda(z(1, 1, 5, 64, **kw), z(1, 8, 2, 64, **kw),
+                              z(1, 8, 2, 64, **kw), valid)
+    with pytest.raises(ValueError, match="int32 or int64"):
         tda.flash_decode_cuda(z(1, 1, 4, 64, **kw), z(1, 8, 1, 64, **kw),
-                              z(1, 8, 1, 64, **kw), valid.long())
+                              z(1, 8, 1, 64, **kw), valid.float())
+    with pytest.raises(ValueError, match="aligned"):
+        tda.flash_decode_cuda(z(1 + 4 * 64, **kw)[1:].view(1, 1, 4, 64),
+                              z(1, 8, 1, 64, **kw), z(1, 8, 1, 64, **kw),
+                              valid)
     # the backward's wrappers take K8a's contract, and lse / D [B,KV,rep,S]
     q, kv, lse = z(1, 8, 2, 64, **kw), z(1, 8, 1, 64, **kw), z(1, 1, 2, 8, **kw)
     for fn in (tfa.flash_bwd_dq_cuda, tfa.flash_bwd_dkv_cuda):

@@ -22,16 +22,21 @@ is non-zero):
    and int4, odd and unaligned leaves, 70 leaves, timed against one
    ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
    each piece of a K4 wrapper call;
-   K6 / K7: exact, K7 in place, the scratch-row duplicates; K8a flash
-   attention forward (bitwise repeatable, with ``flash_attn.fwd_plan``'s
-   modelled makespan) and K9 flash-decode (one launch) at gemma3-1b's and
-   smollm-135m's serve shapes and at rep 16, against
-   ``scaled_dot_product_attention`` as the yardstick, with its device
-   microseconds a call and their share of the bound; K8b / K8c, the flash backward, at smollm-135m's and
-   gemma3-1b's training shapes and two ragged ones, against that
+   K5 also against ``hardshrink(x, nextafter(t, 0))``, bit for bit, and
+   both timed by device microseconds a call; K6 / K7: exact, K7 in place,
+   the scratch-row duplicates; K8a flash attention forward (bitwise
+   repeatable, with ``flash_attn.fwd_plan``'s modelled makespan) and K9
+   flash-decode (one launch) at the serve shapes of gemma3-1b,
+   smollm-135m, stablelm-3b (hd 80) and h2o-danube-3-4b (hd 120, its
+   4,096 window binding at a 4,608-token prompt) and at rep 16, against
+   ``scaled_dot_product_attention`` as the yardstick, with their device
+   microseconds a call and their share of the bound; K8b / K8c, the flash
+   backward, at the four models' training shapes, h2o-danube-3-4b's
+   window-bound 4,608 positions and two ragged ones, against that
    function's backward, and bitwise repeatable, with K8b's and K8c's
-   segment plans; K2 at the CNN's shapes and smollm-135m's LM fusion
-   (8,192 x 576), against ``torch.mm(torch.cat(...))``, with its tiling);
+   segment plans and device microseconds; K2 at the CNN's shapes and
+   smollm-135m's LM fusion (8,192 x 576), against
+   ``torch.mm(torch.cat(...))``, with its tiling);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -47,18 +52,22 @@ is non-zero):
    reference's (FedMMD: the fused term once forward and once backward per
    local step); then FedAvg with ``superstep_rounds="auto"`` beside the
    fixed 8;
-4b. serve: the transformer LMs at full width through
-   ``repro_torch.launch.serve`` (``attn_impl="pallas"``): gemma3-1b, then
-   smollm-135m, random weights from seed 0, batch 4, 1,024-token prompts,
-   32 greedy tokens, after one warm-up run: prefill ms, decode ms per step,
-   tokens/s, peak memory; K8a must launch once per attention layer per
-   prefill and K9 once per attention layer per decode step; the last
-   decode step's logits must match ``forward_seq`` over the same 1,056
-   tokens (full depth, so gemma3-1b's ring caches have rolled);
-4c. train: federated LM training at full width and full depth through
-   ``repro_torch.launch.train`` (``attn_impl="pallas"``, random weights
-   from seed 0): smollm-135m at sequence length 1,024, global batch 8, 3
-   rounds each of FedAvg, FedMMD and FedFusion-conv; gemma3-1b at 1,024 and
+4b. serve: the transformer LMs at full width and depth through
+   ``repro_torch.launch.serve`` (``attn_impl="pallas"``): gemma3-1b,
+   smollm-135m and stablelm-3b at batch 4 with 1,024-token prompts, then
+   h2o-danube-3-4b at batch 1 with a 4,608-token prompt (its 4,096 window
+   binds in prefill and the ring caches roll while decoding), random
+   weights from seed 0, 32 greedy tokens, after one warm-up run: prefill
+   ms, decode ms per step, tokens/s, peak memory; K8a must launch once per
+   attention layer per prefill and K9 once per attention layer per decode
+   step; the last decode step's logits must match ``forward_seq`` over the
+   same tokens;
+4c. train: federated LM training at full width (and full depth, unless
+   cut) through ``repro_torch.launch.train`` (``attn_impl="pallas"``,
+   random weights from seed 0): smollm-135m at sequence length 1,024,
+   global batch 8, 3 rounds each of FedAvg, FedMMD and FedFusion-conv;
+   gemma3-1b at 1,024 and batch 4, 2 rounds of FedAvg; stablelm-3b and
+   h2o-danube-3-4b at full width with the depth cut to 4 layers, 1,024 and
    batch 4, 2 rounds of FedAvg; then ``run_federated_reference`` with the
    smollm-135m bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
    local steps of 4 sequences of 512, eval on 8 test sequences): ms per
@@ -78,7 +87,9 @@ is non-zero):
    prompt and 4 greedy steps, the same weights on the card and the CPU;
    then LM training: smollm-135m at full width cut to 2 layers,
    FedFusion-conv through the ``launch.train`` loop, 2 rounds, batch 2,
-   sequence length 256, from the same state on the card and the CPU;
+   sequence length 256, from the same state on the card and the CPU; then
+   both serving and FedAvg training for stablelm-3b and h2o-danube-3-4b at
+   full width cut to 2 layers (hd 80 and 120);
 7. the kernel table, after a line naming the TPU kernels still to port
    (none).
 
@@ -446,6 +457,12 @@ def codec_work(kernel, n, bits=8):
             "topk_select": (8 * n + 4, 3 * n)}[kernel]
 
 
+def hardshrink_lambd(torch, t):
+    """The float32 just below the threshold t (t > 0, [1] on the card), as
+    a Python float: ``hardshrink(x, that)`` is K5's ``|x| >= t ? x : 0``."""
+    return torch.nextafter(t, torch.zeros_like(t)).item()
+
+
 def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
     """Phase 3 for K3 / K4 / K5: each against its plain version on the
     card with ``torch.equal`` (the same IEEE float32 operations), at the
@@ -453,6 +470,7 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
     entries exactly at the top-k threshold; K4 also over whole messages
     (``leaf_sizes``: CNN_MNIST's leaves), as the codecs decode them.
     Returns the table rows (K4's: one CNN_MNIST int8 message)."""
+    import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     rows = {}
@@ -576,6 +594,10 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
             if not ok:
                 raise AssertionError(f"quant_unpack_multi {case} bits={bits}"
                                      f": equal={equal}, {launched} launches")
+    # K5, and its one-call yardstick: hardshrink(x, nextafter(t, 0)) keeps
+    # |x| >= t and zeroes the rest, ties at t included (hardshrink(x, t)
+    # would drop them); it keeps NaNs where K5 zeroes them, so the inputs
+    # hold none
     for n, k in [(FC_LEAF, FC_LEAF // 16), (10, 3), (1001, 40)]:
         x = torch.randn(n, generator=gen)
         t = x.abs().sort().values[-k]
@@ -583,14 +605,18 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
         x, t = x.to(dev), t.reshape(1).to(dev)
         got = compress_pack.topk_select_cuda(x, t)
         want = compress_pack.topk_select_plain(x, t)
+        shrunk = F.hardshrink(x, hardshrink_lambd(torch, t))
         torch.cuda.synchronize()
         ok = torch.equal(got, want) and got[0].item() == -t.item()
+        lib_equal = torch.equal(got, shrunk)
         err["topk_select"] = max(err["topk_select"],
                                  (got - want).abs().max().item())
         emit("kernels", kernel="topk_select", n=n, k=k, equal=ok,
+             hardshrink_equal=lib_equal,
              kept=int((got != 0).sum()), max_abs_err=err["topk_select"])
-        if not ok:
-            raise AssertionError(f"topk_select kernel disagrees at n={n}")
+        if not (ok and lib_equal):
+            raise AssertionError(f"topk_select kernel disagrees at n={n} "
+                                 f"(plain {ok}, hardshrink {lib_equal})")
 
     # times at the FC leaf, over 8 input sets (> 50 MB L2 together)
     n, sets = FC_LEAF, 8
@@ -599,6 +625,7 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
               for x, u, s in xs] for b in (8, 4)}
     ts = [x.abs().kthvalue(n - n // 16 + 1).values.reshape(1)
           for x, _, _ in xs]
+    lambds = [hardshrink_lambd(torch, t) for t in ts]
     cases = {
         "quant_pack": (
             lambda i: compress_pack.quant_pack_cuda(xs[i][0], xs[i][2],
@@ -614,7 +641,8 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
         "topk_select": (
             lambda i: compress_pack.topk_select_cuda(xs[i][0], ts[i]),
             lambda i: compress_pack.topk_select_plain(xs[i][0], ts[i]),
-            None, "src/repro/kernels/compress_pack.py:252"),
+            lambda i: F.hardshrink(xs[i][0], lambds[i]),
+            "src/repro/kernels/compress_pack.py:252"),
     }
     leaf, leaf_pack = {}, {}
     for name, (kern, plain, lib, replaces) in cases.items():
@@ -632,9 +660,17 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
                               replaces=replaces, max_abs_err=err[name],
                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
+        extra = {}
+        if name == "topk_select":    # device time a call, K5 and hardshrink
+            for key, fn in (("", kern), ("library_", lib)):
+                ops_, us = device_per_call(torch, fn, sets=sets)
+                extra[key + "device_ops_per_call"] = ops_
+                extra[key + "device_us_per_call"] = us
+            extra["bound_share_of_device"] = \
+                bound_ms * 1e3 / extra["device_us_per_call"]
         emit("kernels", kernel=name, bits=8, n=n, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-             bound_by=bound_by)
+             bound_by=bound_by, **extra)
     # K4 as the codecs call it: one CNN_MNIST int8 message a call (8 sets,
     # > 50 MB together), against eight single-leaf wrapper calls, eight
     # ``torch.mul``s and one ``torch._foreach_mul`` over the leaves (the
@@ -903,23 +939,33 @@ def flash_decode_work(B, valid, H, KV, hd):
 
 
 # K8a cases of phase 3: gemma3-1b's global and local layers, smollm-135m's
-# layers, a ragged length; B = 4 and S = 1,024 as the serve phase prefills
+# layers, a ragged length; B = 4 and S = 1,024 as the serve phase prefills;
+# stablelm-3b's layers (hd 80), h2o-danube-3-4b's (hd 120) at its serve
+# prompt of 4,608 (the 4,096 window binds) and a ragged hd 80
 FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
                ("smollm-135m", 4, 1024, 9, 3, 64, None),
-               ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512)]
+               ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512),
+               ("stablelm-3b", 4, 1024, 32, 32, 80, None),
+               ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 4096),
+               ("stablelm-3b, ragged", 4, 1000, 32, 32, 80, None)]
 # K9 cases: gemma3-1b's global cache (max_len 1,056) at several lengths,
 # its full local ring, smollm-135m's cache, and recurrentgemma-9b's heads
-# (16 query heads over one KV head of 256) on a cache of the same length
+# (16 query heads over one KV head of 256) on a cache of the same length;
+# stablelm-3b's cache (hd 80), h2o-danube-3-4b's full ring (hd 120) and
+# its heads on a cache of 1,056
 DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                                                           1056)),
                 ("gemma3-1b local", 4, 512, 4, 1, 256, (512,)),
                 ("smollm-135m", 4, 1056, 9, 3, 64, (1025, 1056)),
                 ("rep 16 (recurrentgemma-9b heads)", 4, 1056, 16, 1, 256,
-                 (17, 1056))]
-# float32 reorderings over at most 1,056 keys put the kernels' outputs a
+                 (17, 1056)),
+                ("stablelm-3b", 4, 1056, 32, 32, 80, (1, 1025, 1056)),
+                ("h2o-danube-3-4b ring", 1, 4096, 32, 8, 120, (4096,)),
+                ("h2o-danube-3-4b heads", 1, 1056, 32, 8, 120, (529, 1056))]
+# float32 reorderings over at most 4,096 keys put the kernels' outputs a
 # few 1e-7 from the plain versions' (|o| < 4, |lse| < 15): 1e-4 bounds
-# them with room; a wrong mask or tile moves them by O(0.1)
+# them with room; a wrong mask, tile or missing column moves them by O(0.1)
 ATTN_TOL = 1e-4
 
 
@@ -960,30 +1006,36 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                     tol=ATTN_TOL, bitwise_repeat=repeat,
                     plan=dict(key_tile=plan.key_tile, slots=plan.slots,
                               makespan=plan.makespan, ideal=plan.ideal))
-        if S == 1024:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            mask = None if window is None else sdpa_mask(S, window)
-            line.update(
-                kernel_ms=time_ms(torch, lambda: flash_attn.flash_fwd_cuda(
-                    q, k, v, window=window), launches=10, repeats=9),
-                plain_ms=time_ms(torch, lambda: flash_attn.flash_fwd_plain(
-                    q, k, v, window=window), launches=3, repeats=5),
-                library_ms=time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                        enable_gqa=True), launches=10, repeats=9))
-            line["bound_ms"], line["bound_by"] = bound(
-                *flash_fwd_work(B, S, H, KV, hd, window))
-            line["gflop_per_s"] = flash_fwd_work(
-                B, S, H, KV, hd, window)[1] / line["kernel_ms"] / 1e6
-            if case == "gemma3-1b global":
-                rows["flash_fwd"] = dict(
-                    name="flash_fwd", route="cuda",
-                    source="src/repro_torch/csrc/flash_attn.cu",
-                    replaces="src/repro/kernels/flash_attn.py:125",
-                    ms=line["kernel_ms"], plain_ms=line["plain_ms"],
-                    bound_ms=line["bound_ms"], bound_by=line["bound_by"],
-                    library_ms=line["library_ms"])
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None if window is None else sdpa_mask(S, window)
+
+        def call(i=0):
+            return flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        line["device_ops_per_call"], line["device_us_per_call"] = \
+            device_per_call(torch, call, calls=10, sets=1)
+        line.update(
+            kernel_ms=time_ms(torch, call, launches=10, repeats=9),
+            plain_ms=time_ms(torch, lambda: flash_attn.flash_fwd_plain(
+                q, k, v, window=window), launches=3, repeats=5),
+            library_ms=time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True), launches=10, repeats=9))
+        line["bound_ms"], line["bound_by"] = bound(
+            *flash_fwd_work(B, S, H, KV, hd, window))
+        line["gflop_per_s"] = flash_fwd_work(
+            B, S, H, KV, hd, window)[1] / line["kernel_ms"] / 1e6
+        line["bound_share_of_device"] = \
+            line["bound_ms"] * 1e3 / line["device_us_per_call"]
+        if case == "gemma3-1b global":
+            rows["flash_fwd"] = dict(
+                name="flash_fwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn.py:125",
+                ms=line["kernel_ms"], plain_ms=line["plain_ms"],
+                bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                library_ms=line["library_ms"])
+        del qt, kt, vt
         emit("kernels", **line)
         if not (o_err <= ATTN_TOL and lse_err <= ATTN_TOL and repeat):
             raise AssertionError(f"flash_fwd kernel disagrees: {case}")
@@ -1068,13 +1120,18 @@ def flash_bwd_work(B, S, H, KV, hd, window):
 
 
 # K8b / K8c cases of phase 3: phase 4c's training shapes (smollm-135m at
-# batch 8, gemma3-1b's global and local layers at batch 4, S = 1,024), a
-# ragged length at hd 128 and gemma3-1b's local layer at a ragged length
+# batch 8, gemma3-1b's global and local layers, stablelm-3b's (hd 80) and
+# h2o-danube-3-4b's (hd 120) layers at batch 4, S = 1,024), a ragged
+# length at hd 128, gemma3-1b's local layer at a ragged length, and
+# h2o-danube-3-4b at 4,608 positions, where its 4,096 window binds
 FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
                    ("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                    ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
                    ("ragged", 4, 1000, 8, 2, 128, None),
-                   ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512)]
+                   ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512),
+                   ("stablelm-3b", 4, 1024, 32, 32, 80, None),
+                   ("h2o-danube-3-4b", 4, 1024, 32, 8, 120, None),
+                   ("h2o-danube-3-4b window", 1, 4608, 32, 8, 120, 4096)]
 # dq sums over up to S keys and dk / dv over up to S * rep rows, in another
 # order than the plain version's full products: a few 1e-7 of each
 # gradient's largest element.  1e-4 of it bounds that with room (target
@@ -1144,7 +1201,7 @@ def check_flash_bwd_kernels(torch, flash_attn):
                     max_abs=dict(zip(("dq", "dk", "dv"), scale)),
                     tol=BWD_TOL, bitwise_repeat=repeat, finite=finite)
         del got, again, want
-        if S == 1024:
+        if "ragged" not in case:
             work = flash_bwd_work(B, S, H, KV, hd, window)
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))
@@ -1164,10 +1221,14 @@ def check_flash_bwd_kernels(torch, flash_attn):
                     repeats=7))
             for name, call in zip(names, (dq_call, dkv_call)):
                 ms = time_ms(torch, call, launches=10, repeats=9)
+                ops_, us = device_per_call(torch, lambda i: call(), calls=10,
+                                           sets=1)
                 bound_ms, bound_by = bound(*work[name])
                 timing[name] = dict(
-                    kernel_ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                    gflop_per_s=work[name][1] / ms / 1e6)
+                    kernel_ms=ms, device_ops_per_call=ops_,
+                    device_us_per_call=us, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_share_of_device=bound_ms * 1e3
+                    / us, gflop_per_s=work[name][1] / ms / 1e6)
                 if case == "smollm-135m":
                     rows[name] = dict(
                         name=name, route="cuda",
@@ -1187,11 +1248,15 @@ def check_flash_bwd_kernels(torch, flash_attn):
     return rows
 
 
-# phase 4c: model, algorithm, sequence length, global batch, rounds
-TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3),
-              ("smollm-135m", "fedmmd", 1024, 8, 3),
-              ("smollm-135m", "fedfusion", 1024, 8, 3),
-              ("gemma3-1b", "fedavg", 1024, 4, 2)]
+# phase 4c: model, algorithm, sequence length, global batch, rounds, and
+# the depth it is cut to (None: full depth).  stablelm-3b (hd 80) and
+# h2o-danube-3-4b (hd 120) train at full width cut to 4 layers
+TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3, None),
+              ("smollm-135m", "fedmmd", 1024, 8, 3, None),
+              ("smollm-135m", "fedfusion", 1024, 8, 3, None),
+              ("gemma3-1b", "fedavg", 1024, 4, 2, None),
+              ("stablelm-3b", "fedavg", 1024, 4, 2, 4),
+              ("h2o-danube-3-4b", "fedavg", 1024, 4, 2, 4)]
 TRAIN_LR = 0.05             # launch.train's default
 
 
@@ -1217,8 +1282,13 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
     """Phase 4c's ``launch.train`` runs; returns their summed launches."""
     import dataclasses
     total = dict.fromkeys(counters, 0)
-    for name, algorithm, S, B, rounds in TRAIN_RUNS:
+    for name, algorithm, S, B, rounds, layers in TRAIN_RUNS:
         cfg = dataclasses.replace(get_config(name), attn_impl="pallas")
+        cuts = []
+        if layers is not None:
+            cuts.append(f"depth {cfg.n_layers} -> {layers} layers")
+            cfg = dataclasses.replace(cfg, n_layers=layers,
+                                      block_pattern=cfg.block_pattern[:layers])
         fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
                       lr=TRAIN_LR)
         shape = InputShape("custom_train", S, B, "train")
@@ -1246,8 +1316,9 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
         emit("train", model=name, algorithm=algorithm, fusion_op="conv",
              attn_impl=cfg.attn_impl,
              params=sum(t.numel() for t in tree_leaves(state["model"])),
-             layers=cfg.n_layers, seq_len=S, global_batch=B,
-             clients=plan.n_clients, local_steps=plan.local_steps,
+             layers=cfg.n_layers, cuts=cuts, head_dim=cfg.head_dim,
+             seq_len=S, global_batch=B, clients=plan.n_clients,
+             local_steps=plan.local_steps,
              client_batch=plan.client_batch, rounds=rounds, wall_s=wall,
              round_ms=[r["ms"] for r in records],
              ms_per_local_step=dict(median=statistics.median(step_ms),
@@ -1348,19 +1419,21 @@ def trace_local_step(torch, get_config, FLConfig, make_bundle,
 
 
 def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
-                      make_bundle, init_global_state, tree_leaves):
-    """Phase 6 for LM training: smollm-135m at full width cut to 2 layers,
-    FedFusion-conv through ``launch.train``'s loop, 2 rounds of 2 local
-    steps at batch 2 and S = 256, from the same state on the card (K8a,
-    K8b, K8c, K2) and on the CPU (plain versions).  The final parameters
-    must agree within 1% of the change training made (largest element and
-    L2 norm), as the FL runs above."""
+                      make_bundle, init_global_state, tree_leaves,
+                      name="smollm-135m", algorithm="fedfusion"):
+    """Phase 6 for LM training: ``name`` at full width cut to 2 layers,
+    ``algorithm`` (FedFusion-conv or FedAvg) through ``launch.train``'s
+    loop, 2 rounds of 2 local steps at batch 2 and S = 256, from the same
+    state on the card (K8a, K8b, K8c, and K2 for FedFusion) and on the CPU
+    (plain versions).  The final parameters must agree within 1% of the
+    change training made (largest element and L2 norm), as the FL runs
+    above."""
     import dataclasses
-    base = get_config("smollm-135m")
+    base = get_config(name)
     cfg = dataclasses.replace(base, n_layers=2,
                               block_pattern=base.block_pattern[:2],
                               attn_impl="pallas")
-    fl = FLConfig(algorithm="fedfusion", fusion_op="conv", local_steps=2,
+    fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
                   lr=TRAIN_LR)
     shape = InputShape("custom_train", 256, 2, "train")
     s0 = init_global_state(make_bundle(cfg), fl,
@@ -1380,14 +1453,15 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     ratio_max = diff.abs().max().item() / change.abs().max().item()
     ratio_l2 = (diff.norm() / change.norm()).item()
     ok = ratio_max <= 0.01 and ratio_l2 <= 0.01
-    emit("card_vs_cpu_train", model=cfg.name, layers=2, algorithm="fedfusion",
-         fusion_op="conv", rounds=2, batch=2, seq_len=256,
+    emit("card_vs_cpu_train", model=cfg.name, layers=2, head_dim=cfg.head_dim,
+         algorithm=algorithm, fusion_op="conv", rounds=2, batch=2,
+         seq_len=256,
          max_abs_diff=diff.abs().max().item(),
          max_change=change.abs().max().item(), ratio_max=ratio_max,
          ratio_l2=ratio_l2, limit=0.01, losses=losses, ok=ok)
     if not ok:
-        raise AssertionError(f"LM training: card and CPU disagree (ratios "
-                             f"{ratio_max}, {ratio_l2})")
+        raise AssertionError(f"LM training {cfg.name}: card and CPU disagree "
+                             f"(ratios {ratio_max}, {ratio_l2})")
 
 
 def trace_round(torch, run_federated_reference, bundle, fl, data,
@@ -1553,10 +1627,14 @@ def mnist_data(FederatedDataset, class_images, partition, seed=0):
                             {"x": xt, "y": yt}, seed=seed)
 
 
-# the serve phase: batch 4, prompts of 1,024 tokens (longer than
-# gemma3-1b's 512 window, so its local caches roll), 32 greedy tokens
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
-SERVE_ARCHS = ("gemma3-1b", "smollm-135m")
+# the serve phase: model, batch, prompt length; 32 greedy tokens each.
+# Prompts of 1,024 tokens at batch 4 (longer than gemma3-1b's 512 window,
+# so its local caches roll); h2o-danube-3-4b at batch 1 with a prompt of
+# 4,608, past its 4,096 window, so the window binds in prefill and the
+# ring caches roll during decode
+SERVE_GEN = 32
+SERVE_RUNS = [("gemma3-1b", 4, 1024), ("smollm-135m", 4, 1024),
+              ("stablelm-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4608)]
 # decode logits vs a forward over the same tokens, and card vs CPU: the
 # two sides sum in other orders (cuBLAS at M = 4 and M = 4,096, the kernels
 # and the plain versions, oneDNN on the CPU), ~1e-6 of the logits' scale a
@@ -1576,15 +1654,17 @@ def serve_params(torch, tfm, get_config, name, **replace):
     return cfg, params
 
 
-def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params):
-    """The serve phase for one model: prefill and greedy decode once to
+def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
+              P):
+    """The serve phase for one model at batch ``B`` and prompts of ``P``
+    tokens: prefill and greedy decode once to
     warm up, then once measured with the kernel counts set to 0 just
     before (prefill ms on the host clock, each decode step's period on CUDA
     events, peak memory), then the full-depth check: the last decode
     step's logits against ``forward_seq`` over the same tokens.  Returns
     the phase line and the measured run's launches."""
     from repro_torch.tree import tree_leaves
-    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    G = SERVE_GEN
     tokens = serve.make_prompts(cfg, B, P, seed=0, device="cuda")
     n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
     with torch.no_grad():
@@ -1652,16 +1732,17 @@ def serve_greedy_logits(torch, serve, cfg, params, tokens, steps):
     return [last.cpu()] + list(logits.cpu().unbind(1))
 
 
-def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map):
-    """Phase 6 for serving: gemma3-1b at full width cut to one cycle of 6
-    layers (5 local, 1 global), batch 1, a 576-token prompt (longer than
-    the window) and 4 greedy steps, the same weights on the card (kernels)
-    and on the CPU (plain versions).  Step 0 is the prefill's last row.
-    The logits must agree within SERVE_TOL of their scale, and the tokens
-    unless the top-2 margin is below it."""
-    pattern = get_config("gemma3-1b").block_pattern[:6]
-    cfg, params = serve_params(torch, tfm, get_config, "gemma3-1b",
-                               n_layers=6, block_pattern=pattern)
+def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map,
+                      name="gemma3-1b", layers=6):
+    """Phase 6 for serving: ``name`` at full width cut to ``layers`` layers
+    (gemma3-1b: one cycle of 6, 5 local and 1 global), batch 1, a 576-token
+    prompt (longer than gemma3-1b's window) and 4 greedy steps, the same
+    weights on the card (kernels) and on the CPU (plain versions).  Step 0
+    is the prefill's last row.  The logits must agree within SERVE_TOL of
+    their scale, and the tokens unless the top-2 margin is below it."""
+    pattern = get_config(name).block_pattern[:layers]
+    cfg, params = serve_params(torch, tfm, get_config, name,
+                               n_layers=layers, block_pattern=pattern)
     tokens = serve.make_prompts(cfg, 1, 576, seed=0, device="cpu")
     card = serve_greedy_logits(torch, serve, cfg, params, tokens.cuda(), 4)
     cpu = serve_greedy_logits(torch, serve, cfg,
@@ -1681,10 +1762,11 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map):
              and (st["same_token"] or st["top2_margin"] < SERVE_TOL)
              for st in steps)
     emit("card_vs_cpu_serve", model=cfg.name, layers=cfg.n_layers,
-         pattern=list(pattern), batch=1, prompt_len=576, decode_steps=4,
-         steps=steps, limit=SERVE_TOL, ok=ok)
+         head_dim=cfg.head_dim, pattern=list(pattern), batch=1,
+         prompt_len=576, decode_steps=4, steps=steps, limit=SERVE_TOL, ok=ok)
     if not ok:
-        raise AssertionError(f"serving: card and CPU disagree: {steps}")
+        raise AssertionError(f"serving {cfg.name}: card and CPU disagree: "
+                             f"{steps}")
 
 
 def main():
@@ -1967,29 +2049,27 @@ def main():
     if not all(checks.values()):
         raise AssertionError(f"engine auto: {checks}")
 
-    # 4b. serve: gemma3-1b, then smollm-135m, at full width ---------------
+    # 4b. serve: the four dense LMs at full width and depth ---------------
     # (K8a and K9 counted over each measured run; phase 5's serving trace
     # is taken while gemma3-1b's weights are on the card)
     serve_launches = {"flash_fwd": 0, "flash_decode": 0}
-    for name in SERVE_ARCHS:
+    for name, B, P in SERVE_RUNS:
         cfg, params = serve_params(torch, tfm, get_config, name)
         line, got = serve_run(torch, serve, tfm, flash_attn, decode_attn,
-                              cfg, params)
+                              cfg, params, B, P)
         emit("serve", **line)
         if not all(line["checks"].values()):
             raise AssertionError(f"serve {name}: {line['checks']}")
         for k in serve_launches:
             serve_launches[k] += got[k]
         if name == "gemma3-1b":
-            P = SERVE_PROMPT
-            tokens = serve.make_prompts(cfg, SERVE_BATCH, P, seed=0,
-                                        device="cuda")
+            tokens = serve.make_prompts(cfg, B, P, seed=0, device="cuda")
             with torch.no_grad():
                 (last, cache), pre = trace_call(torch, lambda: serve.prefill(
                     cfg, params, tokens, P + SERVE_GEN))
                 _, step = trace_call(torch, lambda: tfm.decode_step(
                     cfg, params, last.argmax(-1)[:, None], cache, P))
-            emit("trace_serve", model=cfg.name, batch=SERVE_BATCH,
+            emit("trace_serve", model=cfg.name, batch=B,
                  prompt_len=P, prefill=pre, decode_step=step)
             del last, cache
         del params
@@ -2190,6 +2270,13 @@ def main():
     serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map)
     train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
                       make_bundle, init_global_state, tree_leaves)
+    # the head dims 80 and 120 at 2 layers, full width
+    for name in ("stablelm-3b", "h2o-danube-3-4b"):
+        serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, name,
+                          layers=2)
+        train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                          make_bundle, init_global_state, tree_leaves, name,
+                          algorithm="fedavg")
 
     # 7. kernel table: launches summed over the main paths' measured runs
     # (the CNN FL runs of phase 4, serving, LM training) --------------------

@@ -29,9 +29,12 @@ other, and prints one JSON line per measurement:
 - ``flash_fwd`` at ``chip_smoke.FLASH_CASES``: K8a's time and device
   microseconds a launch, ``scaled_dot_product_attention``'s, the bound and
   ``flash_attn.fwd_plan``'s modelled makespan where the tree has it;
-- ``flash_bwd`` at ``chip_smoke.FLASH_BWD_CASES``: K8b's and K8c's times,
-  the float32 backward of ``scaled_dot_product_attention`` (all three
-  gradients) and each kernel's bound;
+  (for both, a shape the tree refuses, such as a head dim it has no
+  kernel for, is reported as refused);
+- ``flash_bwd`` at ``chip_smoke.FLASH_BWD_CASES``: K8b's and K8c's times
+  and device microseconds a launch, the float32 backward of
+  ``scaled_dot_product_attention`` (all three gradients) and each kernel's
+  bound;
 - ``flash_decode`` at ``chip_smoke.DECODE_CASES`` with the cache full:
   ``ops.gqa_flash_decode`` as a decode step calls it (the valid length a
   0-d int64 tensor on the card), as wall ms over 8 input sets (larger than
@@ -203,7 +206,12 @@ def time_flash_fwd(torch, flash_attn, tag):
         def call():
             return flash_attn.flash_fwd_cuda(q, k, v, window=window)
 
-        (o, lse), (o2, lse2) = call(), call()
+        try:
+            (o, lse), (o2, lse2) = call(), call()
+        except ValueError as err:
+            emit(tree=tag, kernel="flash_fwd", case=case,
+                 shape=[B, S, H, KV, hd], refused=str(err)[:160])
+            continue
         o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
         err = max((o - o_p).abs().max().item(),
                   (lse - lse_p).abs().max().item())
@@ -246,7 +254,12 @@ def time_flash_bwd(torch, flash_attn, tag):
             return torch.randn(*shape, generator=gen).cuda()
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
         do = randn(B, S, H, hd)
-        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        try:
+            o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        except ValueError as err:
+            emit(tree=tag, kernel="flash_bwd", case=case,
+                 shape=[B, S, H, KV, hd], refused=str(err)[:160])
+            continue
         dcap = flash_attn.flash_dcap(do, o, KV)
         kw = dict(window=window)
 
@@ -273,7 +286,8 @@ def time_flash_bwd(torch, flash_attn, tag):
             line[name] = dict(zip(("bound_ms", "bound_by"),
                                   cs.bound(*work[name])),
                               kernel_ms=cs.time_ms(torch, call, launches=10,
-                                                   repeats=9))
+                                                   repeats=9),
+                              device_us=device_us(torch, call, name, 20))
         if S == 1024:
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))

@@ -47,6 +47,14 @@
 // slice length (kernels/decode_attn.py:decode_plan) that fills the card once
 // with ~32 KB a block in flight, and a merge spread over many blocks (one
 // block merging 66 slices of 4 KB alone took longer than the whole read).
+//
+// Head dims 80 and 120 (stablelm-3b, h2o-danube-3-4b): staging, P V and
+// the merge take any hd that is a multiple of 4; a row's score is one
+// float4 a lane over 20 or 30 lanes (Row below), the other lanes adding
+// +0 * 0, so nothing is padded outside registers and the 12 or 2 idle
+// lanes cost only the dot's FFMAs (a row of 80 costs what one of 128
+// does).  Rows of 320 and 480 bytes are whole 32-byte sectors.  ptxas
+// (nvcc 12.9): 64 registers at hd 80 and 120, no spills.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -111,17 +119,26 @@ __device__ __forceinline__ float reduce8(const float (&v)[8], int lane) {
 }
 
 // A lane's share of one hd-row: NV loads of VEC floats, at (i * 32 + lane)
-// * VEC, so a warp reads the row in contiguous 128- or 256-byte pieces.
+// * VEC, so a warp reads the row in contiguous pieces of up to 128 or 512
+// bytes.  Where hd is not a multiple of 32 * VEC (80, 120: one float4 a
+// lane, lanes 20 .. 31 or 30 .. 31 past the row) the lanes past the row
+// hold zeros, and their +0 * 0 terms leave every dot product as it is.
 template <int HD>
 struct Row {
-  static constexpr int VEC = HD >= 128 ? 4 : 2;
-  static constexpr int NV = HD / (32 * VEC);
+  static constexpr int VEC = HD > 64 ? 4 : 2;
+  static constexpr int NV = (HD + 32 * VEC - 1) / (32 * VEC);
   static constexpr int PER_LANE = NV * VEC;
+  static_assert(HD % VEC == 0, "a row is whole VEC pieces");
 
   __device__ __forceinline__ static void load(const float* row, int lane,
                                               float* r) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
+      if (HD % (32 * VEC) != 0 && (i * 32 + lane) * VEC >= HD) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) r[VEC * i + e] = 0.f;
+        continue;
+      }
       const float* p = row + (i * 32 + lane) * VEC;
       if constexpr (VEC == 4) {
         const float4 a = *reinterpret_cast<const float4*>(p);
@@ -428,9 +445,10 @@ extern "C" {
 // n_split = ceil(L / split) and X = ceil(n_split / 8): scratch holds
 // B * KV * (n_split + X) * rep * (hd + 2) floats (unused, and may be null,
 // when n_split is 1); tickets B * KV * (X + 1) ints, zero before the first
-// call (each call leaves them zero).  hd in {64, 128, 256}, any
-// rep = H / KV >= 1, 1 <= split, B * KV <= 65535.  Returns
-// cudaGetLastError().
+// call (each call leaves them zero).  hd in {64, 80, 120, 128, 256} (the
+// head dims of the repository's configs; any other returns
+// cudaErrorInvalidValue), any rep = H / KV >= 1, 1 <= split,
+// B * KV <= 65535.  Returns cudaGetLastError().
 int flash_decode_f32(const float* q, const float* k, const float* v,
                      const void* valid, int valid_kind, int valid_host,
                      float* o, float* scratch, int* tickets, int B, int L,
@@ -445,6 +463,12 @@ int flash_decode_f32(const float* q, const float* k, const float* v,
     case 64:
       return launch<64>(q, k, v, valid, valid_kind, valid_host, o, scratch,
                         tickets, B, L, H, KV, split, st);
+    case 80:
+      return launch<80>(q, k, v, valid, valid_kind, valid_host, o, scratch,
+                        tickets, B, L, H, KV, split, st);
+    case 120:
+      return launch<120>(q, k, v, valid, valid_kind, valid_host, o, scratch,
+                         tickets, B, L, H, KV, split, st);
     case 128:
       return launch<128>(q, k, v, valid, valid_kind, valid_host, o, scratch,
                          tickets, B, L, H, KV, split, st);

@@ -61,6 +61,27 @@
 // SM: the register budget of three spills); (4) per-element masks only on
 // the tiles that need them.  Tensor cores (wgmma on TF32 or bf16) and TMA
 // are later work.
+//
+// Head dims 80 and 120 (stablelm-3b, h2o-danube-3-4b).  The P V register
+// tile spreads hd over float4 column groups that must divide the threads;
+// 20 and 30 groups do not.  So these two dims pad the tile's width in
+// shared memory only, to 96 and 128 (FwdTile::HP): hd 80 takes hd 64's
+// split P V (two groups of 128 threads, 8 column groups of 12 columns, 4
+// rows a thread, 64-key tiles), hd 120 hd 128's tiles.  Nothing is padded
+// in device memory: cp.async copies the hd real columns of each row; the
+// scores run over hd only; the padding columns of V feed only accumulators
+// that are never stored (they may read stale shared memory, which no
+// stored value depends on).  Cost: P V, half the operations, does 96 / 80
+// = 1.2x and 128 / 120 = 1.07x of its FFMAs, +10% and +3% of the kernel's;
+// the bound counts the real hd.  Rows are 320 and 480 bytes: whole 32-byte
+// sectors, so no sector holds two rows' bytes; where 64 bytes are fetched
+// at once, a 480-byte row at an odd offset of 32 touches 8 such pieces for
+// 7.5 (6.7% more, and the other half is the neighbouring head's row).  The
+// row stride HP + 4 (100, 132 floats; both 4 mod 32) keeps a quarter warp's
+// 8 neighbouring rows on 32 distinct banks, as 68 and 260 do.  At hd 80
+// the score loop is not unrolled (FwdTile::SU): unrolled twice, beside the
+// 48-float P V tile, it spilled 80 bytes (and ran 1% faster, PERF.md).
+// ptxas (nvcc 12.9): 128 registers at hd 80, 125 at hd 120, no spills.
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,20 +98,28 @@ constexpr float kNegInf = -1e30f;
 // (the __launch_bounds__ asks the registers for the same).
 template <int HD>
 struct FwdTile {
-  static constexpr int KT = HD == 128 ? 32 : 64;
-  static constexpr int KS = HD == 64 ? 2 : 1;
+  // the width the P V register tiles cover: hd where its float4 column
+  // groups divide the threads, else the next width that does (80 -> 96,
+  // 120 -> 128); columns hd .. HP - 1 are never stored
+  static constexpr int HP = HD == 80 ? 96 : HD == 120 ? 128 : HD;
+  static constexpr int KT = HP == 128 ? 32 : 64;
+  static constexpr int KS = HP <= 96 ? 2 : 1;
   static constexpr int MAX_BLOCKS = 2;
-  static constexpr int RS = HD + 4;             // row stride of Q, K, V
+  static constexpr int RS = HP + 4;             // row stride of Q, K, V
   static constexpr int PS = kRows + 4;          // row stride of P^T
   static constexpr int KJ = KT / 16;
-  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
-  static constexpr int CM = HD / NCG;
+  // the score loop's unroll along hd: at hd 80 the 4 x 12 P V tile
+  // leaves no registers for two steps in flight (80 bytes spilled)
+  static constexpr int SU = HD == 80 ? 1 : 2;
+  static constexpr int NCG = HP == 96 ? 8 : HP / 4 < 32 ? HP / 4 : 32;
+  static constexpr int CM = HP / NCG;
   static constexpr int NRG = kThreads / KS / NCG;
   static constexpr int RM = kRows / NRG;
   static constexpr int FLOATS = kRows * RS + 2 * KT * RS + KT * PS + kRows;
   static constexpr int FIT = 232448 / (FLOATS * 4 + 1024);
   static constexpr int MIN_BLOCKS = FIT < MAX_BLOCKS ? FIT : MAX_BLOCKS;
-  static_assert(KT % (16 * KS) == 0 && RM % 4 == 0 && MIN_BLOCKS >= 1,
+  static_assert(KT % (16 * KS) == 0 && RM % 4 == 0 && CM % 4 == 0 &&
+                    NCG * NRG * KS == kThreads && MIN_BLOCKS >= 1,
                 "tile shape");
 };
 
@@ -118,7 +147,7 @@ __device__ __forceinline__ void issue_query(const float* __restrict__ q,
                                             float* Qs, int b, int g, int q0,
                                             int nrows, int S, int H, int rep,
                                             int tid) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = FwdTile<HD>::RS;
 #pragma unroll 4
   for (int e = tid; e < kRows * HD / 4; e += kThreads) {
     const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
@@ -136,7 +165,7 @@ template <int HD, int KT>
 __device__ __forceinline__ void issue_keys(const float* __restrict__ x,
                                            float* Xs, size_t kv_base, int KV,
                                            int S, int k0, int tid) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = FwdTile<HD>::RS;
 #pragma unroll 4
   for (int e = tid; e < KT * HD / 4; e += kThreads) {
     const int kk = e / (HD / 4), d = 4 * (e % (HD / 4));
@@ -148,16 +177,17 @@ __device__ __forceinline__ void issue_keys(const float* __restrict__ x,
 
 // s[i][j] = q_r . k_c over hd for the thread's rows r = tr * 4 + i and keys
 // c = tc + 16 j.  Within a quarter warp the 8 threads share tr (one Q
-// address, broadcast) and read 8 neighbouring keys (32 distinct banks).
-template <int HD, int KJ>
+// address, broadcast) and read 8 neighbouring keys (32 distinct banks);
+// the loop along hd unrolled SU times.
+template <int HD, int KJ, int SU>
 __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
                                        int tr, int tc, float (&s)[4][KJ]) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = FwdTile<HD>::RS;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-#pragma unroll 2
+#pragma unroll (SU)
   for (int d = 0; d < HD; d += 4) {
     float4 a[4], b[KJ];
 #pragma unroll
@@ -239,7 +269,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int n_qt, int n_groups) {
   using T = FwdTile<HD>;
   constexpr int KT = T::KT, RS = T::RS, PS = T::PS, KJ = T::KJ;
-  constexpr int RM = T::RM, CM = T::CM, NCG = T::NCG;
+  constexpr int RM = T::RM, CM = T::CM, NCG = T::NCG, HP = T::HP;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][RS]
   float* Ks = Qs + kRows * RS;                   // [KT][RS]
@@ -284,7 +314,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();            // K (the first time: the query tile too)
     __syncthreads();
     float s[4][KJ];
-    scores<HD, KJ>(Qs, Ks, tr, tc, s);
+    scores<HD, KJ, T::SU>(Qs, Ks, tr, tc, s);
     const bool inside = k0 + KT <= S && (!causal || k0 + KT - 1 <= q0) &&
                         (window <= 0 || q_last - k0 < window);
     if (inside)
@@ -336,7 +366,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CM; j += 4)
         *reinterpret_cast<float4*>(
-            &Qs[(rg * RM + i) * HD + (j / 4) * NCG * 4 + cg * 4]) =
+            &Qs[(rg * RM + i) * HP + (j / 4) * NCG * 4 + cg * 4]) =
             make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
                         acc[i][j + 3]);
   }
@@ -359,7 +389,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CM; j += 4) {
         const float4 t4 = *reinterpret_cast<const float4*>(
-            &Qs[(rg * RM + i) * HD + (j / 4) * NCG * 4 + cg * 4]);
+            &Qs[(rg * RM + i) * HP + (j / 4) * NCG * 4 + cg * 4]);
         acc[i][j] += t4.x; acc[i][j + 1] += t4.y;
         acc[i][j + 2] += t4.z; acc[i][j + 3] += t4.w;
       }
@@ -373,12 +403,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         o + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD;
 #pragma unroll
     for (int j = 0; j < CM; j += 4) {
+      const int col = (j / 4) * NCG * 4 + cg * 4;
+      if (HP != HD && col >= HD) continue;       // a padding column
       float4 out;
       out.x = acc[i][j] / lc;
       out.y = acc[i][j + 1] / lc;
       out.z = acc[i][j + 2] / lc;
       out.w = acc[i][j + 3] / lc;
-      *reinterpret_cast<float4*>(&orow[(j / 4) * NCG * 4 + cg * 4]) = out;
+      *reinterpret_cast<float4*>(&orow[col]) = out;
     }
   }
 }
@@ -410,8 +442,10 @@ int launch(const float* q, const float* k, const float* v, float* o,
 extern "C" {
 
 // q [B, S, H, hd], k / v [B, S, KV, hd], o [B, S, H, hd] and lse
-// [B, KV, H / KV, S] on the device, f32, contiguous.  hd in {64, 128, 256},
-// 1 <= H / KV <= 64, window <= 0 for none.  Returns cudaGetLastError().
+// [B, KV, H / KV, S] on the device, f32, contiguous.  hd in {64, 80, 120,
+// 128, 256} (the head dims of the repository's configs; any other returns
+// cudaErrorInvalidValue), 1 <= H / KV <= 64, window <= 0 for none.
+// Returns cudaGetLastError().
 int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
                   float* lse, int B, int S, int H, int KV, int hd, int causal,
                   int window, float scale, void* stream) {
@@ -421,6 +455,10 @@ int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
   switch (hd) {
     case 64:
       return launch<64>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 80:
+      return launch<80>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 120:
+      return launch<120>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
     case 128:
       return launch<128>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
     case 256:

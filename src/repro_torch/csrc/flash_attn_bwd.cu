@@ -94,6 +94,22 @@
 // (-Xptxas=-v, nvcc 12.9): K8b 128 registers at hd 64 and 128, 168 at
 // hd 256, no spills; K8c 128 at hd 64 (12 bytes spilled), 208 at hd 128,
 // 168 at hd 256.
+//
+// Head dims 80 and 120 (stablelm-3b, h2o-danube-3-4b): the output tiles'
+// float4 column groups must divide the threads, and 20 or 30 do not, so
+// the tiles cover a width padded in shared memory only (Tile::HP): 96 at
+// hd 80 (8 column groups of 12 columns: dq a 2 x 12 register tile a
+// thread, dk and dv 2 x 12 each), 128 at hd 120 (hd 128's tiles).  Rows
+// are copied with their hd real columns; s and dp run over hd only; the
+// padding columns feed only accumulators that are never stored, nor
+// written to the partial sums.  Cost: the dq pass (a third of K8b's
+// products) and the dv and dk passes (half of K8c's) do 1.2x (hd 80) and
+// 1.07x (hd 120) of their FFMAs: +7% / +10% and +2% / +3%; the bound
+// counts the real hd.  Key tiles: K8b 32 at both (two blocks an SM), K8c
+// 64 (one block an SM, as at hd 128).  The row strides 100 and 132 floats
+// (4 mod 32) keep a quarter warp on 32 distinct banks; rows of 320 and 480
+// bytes are whole 32-byte sectors (csrc/flash_attn.cu).  ptxas: K8b 128
+// registers at hd 80 and 120, K8c 168 and 214, no spills.
 #include <cuda_runtime.h>
 
 namespace {
@@ -103,10 +119,20 @@ constexpr int kThreads = 256;
 
 template <int HD>
 struct Tile {
-  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  // the width the output register tiles cover: hd where its float4 column
+  // groups divide the threads, else the next width that does (80 -> 96,
+  // 120 -> 128); columns hd .. HP - 1 are never stored
+  static constexpr int HP = HD == 80 ? 96 : HD == 120 ? 128 : HD;
+  static constexpr int RS = HP + 4;             // row stride of Q, dO, K, V
   // output register tiles: NCG groups of float4 columns, CM columns each
-  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
-  static constexpr int CM = HD / NCG;
+  static constexpr int NCG = HP == 96 ? 8 : HP / 4 < 32 ? HP / 4 : 32;
+  static constexpr int CM = HP / NCG;
+  static_assert(CM % 4 == 0 && kThreads % NCG == 0, "column groups");
+
+  // a padding column group (col >= hd): never stored
+  static __device__ __forceinline__ bool pad(int col) {
+    return HP != HD && col >= HD;
+  }
 };
 
 // acc[i][j] += a_i . b_j over hd for the thread's rows tr * RI + i of A and
@@ -117,7 +143,7 @@ template <int HD, int RI, int KJ>
 __device__ __forceinline__ void row_key_products(const float* A,
                                                  const float* Bk, int tr,
                                                  int tc, float (&acc)[RI][KJ]) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = Tile<HD>::RS;
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -274,7 +300,7 @@ __device__ __forceinline__ void issue_rows(const float* __restrict__ x,
                                            float* Xs, float* ys, int b,
                                            int g, int p0, int nrows, int S,
                                            int H, int KV, int rep, int tid) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = Tile<HD>::RS;
 #pragma unroll 4
   for (int e = tid; e < QR * HD / 4; e += kThreads) {
     const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
@@ -299,7 +325,7 @@ template <int HD, int KT>
 __device__ __forceinline__ void issue_keys(const float* __restrict__ x,
                                            float* Xs, size_t kv_base, int KV,
                                            int S, int k0, int tid) {
-  constexpr int RS = HD + 4;
+  constexpr int RS = Tile<HD>::RS;
 #pragma unroll 4
   for (int e = tid; e < KT * HD / 4; e += kThreads) {
     const int kk = e / (HD / 4), d = 4 * (e % (HD / 4));
@@ -321,7 +347,7 @@ template <int HD>
 struct DqTile {
   static constexpr int KT = HD == 64 ? 64 : 32;
   static constexpr int QR = kRows;
-  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  static constexpr int RS = Tile<HD>::RS;       // row stride of Q, dO, K, V
   static constexpr int TS = QR + 4;             // row stride of ds^T
   static constexpr int KJ = KT / 16;
   static constexpr int NCG = Tile<HD>::NCG;
@@ -464,11 +490,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int c = 0; c < CM; c += 4)
-        *reinterpret_cast<float4*>(
-            &mine[(rg * RM + i) * HD + (c / 4) * NCG * 4 + cg * 4]) =
+      for (int c = 0; c < CM; c += 4) {
+        const int col = (c / 4) * NCG * 4 + cg * 4;
+        if (Tile<HD>::pad(col)) continue;
+        *reinterpret_cast<float4*>(&mine[(rg * RM + i) * HD + col]) =
             make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2],
                         acc[i][c + 3]);
+      }
     __threadfence();
     __syncthreads();
     if (tid == 0) last_unit = atomicAdd(&tickets[tile], 1) == ns - 1;
@@ -482,7 +510,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int c = 0; c < CM; c += 4) {
-        const int off = (rg * RM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        const int col = (c / 4) * NCG * 4 + cg * 4;
+        if (Tile<HD>::pad(col)) continue;
+        const int off = (rg * RM + i) * HD + col;
         float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int p = 0; p < ns; ++p) {
           const float4 a = __ldcg(reinterpret_cast<const float4*>(
@@ -501,10 +531,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* row =
         dq + ((size_t)(b * S + q0 + r / rep) * H + g * rep + r % rep) * HD;
 #pragma unroll
-    for (int c = 0; c < CM; c += 4)
-      *reinterpret_cast<float4*>(&row[(c / 4) * NCG * 4 + cg * 4]) =
+    for (int c = 0; c < CM; c += 4) {
+      const int col = (c / 4) * NCG * 4 + cg * 4;
+      if (Tile<HD>::pad(col)) continue;
+      *reinterpret_cast<float4*>(&row[col]) =
           make_float4(acc[i][c] * scale, acc[i][c + 1] * scale,
                       acc[i][c + 2] * scale, acc[i][c + 3] * scale);
+    }
   }
 }
 
@@ -527,12 +560,12 @@ struct DkvTile {
   static constexpr int KT = HD == 256 ? 32 : 64;
   static constexpr int PF = HD == 64 ? 0 : 1;
   static constexpr int QR = kRows;
-  static constexpr int RS = HD + 4;             // row stride of Q, dO, K, V
+  static constexpr int RS = Tile<HD>::RS;       // row stride of Q, dO, K, V
   static constexpr int PS = KT + 4;             // row stride of p, ds
   static constexpr int RI = QR / 16;
   static constexpr int KJ = KT / 16;
-  static constexpr int NCG = HD / 4 < 32 ? HD / 4 : 32;
-  static constexpr int CM = HD / NCG;
+  static constexpr int NCG = Tile<HD>::NCG;
+  static constexpr int CM = Tile<HD>::CM;
   static constexpr int NRG = kThreads / NCG;
   static constexpr int KM = KT / NRG;
   static constexpr int FLOATS = 2 * KT * RS + 2 * QR * RS + 2 * QR
@@ -719,7 +752,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < KM; ++i)
 #pragma unroll
       for (int c = 0; c < CM; c += 4) {
-        const int off = (rg * KM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        const int col = (c / 4) * NCG * 4 + cg * 4;
+        if (Tile<HD>::pad(col)) continue;
+        const int off = (rg * KM + i) * HD + col;
         *reinterpret_cast<float4*>(&mine[off]) = make_float4(
             acc_k[i][c], acc_k[i][c + 1], acc_k[i][c + 2], acc_k[i][c + 3]);
         *reinterpret_cast<float4*>(&mine[KT * HD + off]) = make_float4(
@@ -738,7 +773,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < KM; ++i)
 #pragma unroll
       for (int c = 0; c < CM; c += 4) {
-        const int off = (rg * KM + i) * HD + (c / 4) * NCG * 4 + cg * 4;
+        const int col = (c / 4) * NCG * 4 + cg * 4;
+        if (Tile<HD>::pad(col)) continue;
+        const int off = (rg * KM + i) * HD + col;
         float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
         for (int p = 0; p < ns; ++p) {
           const float* src = first + (size_t)p * (2 * KT * HD);
@@ -763,6 +800,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CM; c += 4) {
       const int col = (c / 4) * NCG * 4 + cg * 4;
+      if (Tile<HD>::pad(col)) continue;
       *reinterpret_cast<float4*>(&dk[off + col]) =
           make_float4(acc_k[i][c] * scale, acc_k[i][c + 1] * scale,
                       acc_k[i][c + 2] * scale, acc_k[i][c + 3] * scale);
@@ -843,14 +881,15 @@ bool bad_shape(int B, int S, int H, int KV) {
 extern "C" {
 
 // q, do, dq [B, S, H, hd]; k, v [B, S, KV, hd]; lse, D [B, KV, H / KV, S];
-// on the device, f32, contiguous.  hd in {64, 128, 256}, 1 <= H / KV <= 64,
-// window <= 0 for none.  K8b (64 keys a tile at hd 64, 32 at hd 128 and
-// 256) splits each query tile's visible key tiles into segments of at
-// most seg tiles.  When some query tile has more than one (max_ns > 1),
-// part holds B * KV * ceil(S / positions) * max_ns * 64 * hd floats of
-// scratch and tickets B * KV * ceil(S / positions) ints (zeroed here, on
-// the stream), positions = 64 / (H / KV); else both may be null.  Returns
-// cudaGetLastError().
+// on the device, f32, contiguous.  hd in {64, 80, 120, 128, 256} (the head
+// dims of the repository's configs; any other returns
+// cudaErrorInvalidValue), 1 <= H / KV <= 64, window <= 0 for none.  K8b
+// (64 keys a tile at hd 64, 32 at hd 80 to 256) splits each query tile's
+// visible key tiles into segments of at most seg tiles.  When some query
+// tile has more than one (max_ns > 1), part holds B * KV * ceil(S /
+// positions) * max_ns * 64 * hd floats of scratch and tickets B * KV *
+// ceil(S / positions) ints (zeroed here, on the stream), positions = 64 /
+// (H / KV); else both may be null.  Returns cudaGetLastError().
 int flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                      const float* dout, const float* lse, const float* dcap,
                      float* dq, float* part, int* tickets, int B, int S,
@@ -864,6 +903,12 @@ int flash_bwd_dq_f32(const float* q, const float* k, const float* v,
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, dcap, dq, part, tickets, B, S,
                            H, KV, causal, window, scale, seg, max_ns, st);
+    case 80:
+      return launch_dq<80>(q, k, v, dout, lse, dcap, dq, part, tickets, B, S,
+                           H, KV, causal, window, scale, seg, max_ns, st);
+    case 120:
+      return launch_dq<120>(q, k, v, dout, lse, dcap, dq, part, tickets, B,
+                            S, H, KV, causal, window, scale, seg, max_ns, st);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, dcap, dq, part, tickets, B,
                             S, H, KV, causal, window, scale, seg, max_ns, st);
@@ -876,7 +921,7 @@ int flash_bwd_dq_f32(const float* q, const float* k, const float* v,
 }
 
 // The same inputs -> dk, dv [B, S, KV, hd], by K8c (64 keys a unit at hd
-// 64 and 128, 32 at hd 256).  Each key tile's visible query tiles are split
+// 64 to 128, 32 at hd 256).  Each key tile's visible query tiles are split
 // into segments of at most seg tiles.  When some key tile has more than
 // one (max_ns > 1), part holds B * KV * ceil(S / keys) * max_ns * 2 *
 // keys * hd floats of scratch and tickets B * KV * ceil(S / keys) ints
@@ -896,6 +941,14 @@ int flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
       return launch_dkv<64>(q, k, v, dout, lse, dcap, dk, dv, part, tickets,
                             B, S, H, KV, causal, window, scale, seg, max_ns,
                             st);
+    case 80:
+      return launch_dkv<80>(q, k, v, dout, lse, dcap, dk, dv, part, tickets,
+                            B, S, H, KV, causal, window, scale, seg, max_ns,
+                            st);
+    case 120:
+      return launch_dkv<120>(q, k, v, dout, lse, dcap, dk, dv, part,
+                             tickets, B, S, H, KV, causal, window, scale, seg,
+                             max_ns, st);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, dcap, dk, dv, part,
                              tickets, B, S, H, KV, causal, window, scale, seg,

@@ -25,7 +25,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn import masked_softmax_attention
 
-HEAD_DIMS = (64, 128, 256)
+# the head dims the kernel is built for: every one the repository's configs
+# use; any other is refused
+HEAD_DIMS = (64, 80, 120, 128, 256)
 MAX_GROUPS = 65535          # B * KV: the kernel's grid.y holds one group each
 MIN_SLICE_BYTES = 32 * 1024  # K + V bytes a block stages, at least
 MAX_SLICE_BYTES = 64 * 1024  # ... and at most
@@ -59,7 +61,8 @@ def decode_plan(B, L, KV, rep, hd, sm_count):
     if hd not in HEAD_DIMS or min(B, L, KV, rep, sm_count) < 1:
         raise ValueError(f"decode_plan: B={B}, L={L}, KV={KV}, rep={rep}, "
                          f"hd={hd}, sm_count={sm_count} (want positive "
-                         f"sizes and hd in {HEAD_DIMS})")
+                         f"sizes and hd in {HEAD_DIMS}, the head dims K9 "
+                         f"is built for)")
     groups = B * KV
     if groups > MAX_GROUPS:
         raise ValueError(f"decode_plan: B * KV = {groups} > {MAX_GROUPS}")
@@ -122,7 +125,7 @@ def _check_cache(name, t, dev):
 def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None):
     """Launches ``csrc/decode_attn.cu`` once: q [B,1,H,hd], caches
     [B,L,KV,hd], contiguous 16-byte aligned float32 on one CUDA device, hd
-    in {64, 128, 256}, any rep = H / KV; ``valid_len`` one int32 or int64
+    in ``HEAD_DIMS``, any rep = H / KV; ``valid_len`` one int32 or int64
     on the same device, an int, or None (= L).  ``split`` overrides the
     plan's positions per slice (tests)."""
     dev = q.device
@@ -139,7 +142,8 @@ def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None):
         raise ValueError(
             f"flash_decode_cuda: shapes q {tuple(q.shape)}, k_cache "
             f"{tuple(k_cache.shape)}, v_cache {tuple(v_cache.shape)} (want "
-            f"[B,1,KV*rep,hd], [B,L,KV,hd] with hd in {HEAD_DIMS})")
+            f"[B,1,KV*rep,hd], [B,L,KV,hd] with hd in {HEAD_DIMS}, the head "
+            f"dims K9 is built for)")
     if k_cache.numel() >= 2 ** 31:
         raise ValueError(
             f"flash_decode_cuda: {tuple(k_cache.shape)} too large")

@@ -38,15 +38,27 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)
+# the head dims the kernels are built for: every one the repository's
+# configs use (gemma3-1b 256, smollm-135m 64, stablelm-3b 80,
+# h2o-danube-3-4b 120, and 128); any other is refused
+HEAD_DIMS = (64, 80, 120, 128, 256)
 MAX_REP = 64        # query heads per KV head: the kernel's 64-row tile
 # keys a K8c work unit owns, and keys a K8b tile holds, by head dim
 # (csrc/flash_attn_bwd.cu DkvTile, DqTile); keys a K8a tile holds
 # (csrc/flash_attn.cu FwdTile)
-DKV_KEYS = {64: 64, 128: 64, 256: 32}
-DQ_KEYS = {64: 64, 128: 32, 256: 32}
-FWD_KEYS = {64: 64, 128: 32, 256: 64}
+DKV_KEYS = {64: 64, 80: 64, 120: 64, 128: 64, 256: 32}
+DQ_KEYS = {64: 64, 80: 32, 120: 32, 128: 32, 256: 32}
+FWD_KEYS = {64: 64, 80: 64, 120: 32, 128: 32, 256: 64}
+# the width the kernels' output register tiles cover in shared memory (the
+# next one whose float4 column groups divide the threads; the columns past
+# hd are never stored): csrc Tile / FwdTile's HP
+PADDED_HD = {80: 96, 120: 128}
 _SMEM_PER_SM = 232448   # bytes of shared memory an H100 SM gives its blocks
+
+
+def padded_hd(hd):
+    """The kernels' row width in shared memory for head dim ``hd``."""
+    return PADDED_HD.get(hd, hd)
 
 
 def masked_softmax_attention(q, k, v, mask):
@@ -153,7 +165,7 @@ class DkvPlan:
 def _dkv_blocks_per_sm(hd, key_tile, rows):
     """K8c blocks an SM holds: two where shared memory admits them (the
     kernel's __launch_bounds__ asks the registers for the same)."""
-    rs, ps = hd + 4, key_tile + 4
+    rs, ps = padded_hd(hd) + 4, key_tile + 4
     floats = 2 * key_tile * rs + 2 * rows * rs + 2 * rows + 2 * rows * ps
     return 2 if 2 * (4 * floats + 1024) <= _SMEM_PER_SM else 1
 
@@ -222,7 +234,7 @@ class DqPlan:
 def _dq_blocks_per_sm(hd, key_tile, rows):
     """K8b blocks an SM holds: two where shared memory admits them (the
     kernel's __launch_bounds__ asks the registers for the same)."""
-    rs = hd + 4
+    rs = padded_hd(hd) + 4
     floats = 2 * rows * rs + 2 * key_tile * rs + key_tile * (rows + 4) \
         + 2 * rows
     return 2 if 2 * (4 * floats + 1024) <= _SMEM_PER_SM else 1
@@ -270,8 +282,8 @@ class FwdPlan:
 def _fwd_blocks_per_sm(hd, key_tile, rows=64):
     """K8a blocks an SM holds: as many as shared memory admits, at most
     two (csrc/flash_attn.cu FwdTile)."""
-    floats = rows * (hd + 4) + 2 * key_tile * (hd + 4) \
-        + key_tile * (rows + 4) + rows
+    rs = padded_hd(hd) + 4
+    floats = rows * rs + 2 * key_tile * rs + key_tile * (rows + 4) + rows
     return min(2, _SMEM_PER_SM // (4 * floats + 1024))
 
 
@@ -333,8 +345,9 @@ def dq_plan(B, S, H, KV, hd, causal=True, window=None, *, n_sm=132):
 def _check(fn, window, **tensors):
     """The kernels' contract, raised as ValueError: contiguous 16-byte
     aligned float32 on one CUDA device; q (and do) [B,S,H,hd], k / v
-    [B,S,KV,hd] with hd in {64, 128, 256} and 1 <= H/KV <= 64; lse (and
-    D) [B,KV,H/KV,S].  Returns (B, S, H, KV, hd)."""
+    [B,S,KV,hd] with hd in ``HEAD_DIMS`` (64, 80, 120, 128, 256) and
+    1 <= H/KV <= 64; lse (and D) [B,KV,H/KV,S].  Returns (B, S, H, KV,
+    hd)."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors, got {q.device}")
@@ -359,7 +372,9 @@ def _check(fn, window, **tensors):
             f"{fn}: shapes " + ", ".join(f"{n} {tuple(t.shape)}"
                                          for n, t in tensors.items())
             + f" (want q [B,S,KV*rep,hd], k/v [B,S,KV,hd], lse [B,KV,rep,S] "
-            f"with hd in {HEAD_DIMS} and 1 <= rep <= {MAX_REP})")
+            f"with hd in {HEAD_DIMS} and 1 <= rep <= {MAX_REP}; hd={hd}"
+            + ("" if hd in HEAD_DIMS else ": no kernel is built for it")
+            + ")")
     if q.numel() >= 2 ** 31:
         raise ValueError(f"{fn}: {tuple(q.shape)} too large")
     if any(t.data_ptr() % 16 for t in tensors.values()):
@@ -411,7 +426,7 @@ def _launch(name, tensors, dims, causal, window, ptrs=(), plan=()):
 def flash_fwd_cuda(q, k, v, *, causal=True, window=None):
     """Launches K8a (``csrc/flash_attn.cu``): q [B,S,H,hd], k/v
     [B,S,KV,hd], contiguous 16-byte aligned float32 on one CUDA device, hd
-    in {64, 128, 256}, 1 <= H/KV <= 64 -> (o [B,S,H,hd], lse
+    in ``HEAD_DIMS``, 1 <= H/KV <= 64 -> (o [B,S,H,hd], lse
     [B,KV,H/KV,S])."""
     B, S, H, KV, hd = _check("flash_fwd_cuda", window, q=q, k=k, v=v)
     o = torch.empty_like(q)

@@ -1,8 +1,21 @@
-"""Seeded numpy inputs shared by the port's kernel tests (no JAX here:
-``test_torch_cuda.py`` runs on the GPU host, which has none)."""
+"""Seeded numpy inputs and reduced configs shared by the port's tests (no
+JAX here: ``test_torch_cuda.py`` runs on the GPU host, which has none)."""
+import dataclasses
+
 import numpy as np
 
 WIDTHS = (1.0, 2.0, 4.0, 8.0, 16.0)
+# ``ArchConfig.reduced()`` sets head_dim = d_model // n_heads = 64; these
+# configs keep the head dim the attention kernels are built for
+OWN_HEAD_DIMS = {"stablelm-3b": 80, "h2o-danube-3-4b": 120}
+
+
+def reduced(cfg, **changes):
+    """``cfg.reduced()`` (a JAX or a port config) at the config's own head
+    dim where that is not 64, with ``changes`` applied."""
+    if cfg.name in OWN_HEAD_DIMS:
+        changes.setdefault("head_dim", OWN_HEAD_DIMS[cfg.name])
+    return dataclasses.replace(cfg.reduced(), **changes)
 
 
 def rng_pair(n, m, d, seed):

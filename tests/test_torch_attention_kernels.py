@@ -47,7 +47,9 @@ def _close(got, want):
     (1, 40, 2, 2, 256, None, True),     # rep 1, hd 256, ragged S
     (1, 33, 4, 1, 256, 8, True),        # rep 4, hd 256, window, ragged S
     (1, 24, 3, 1, 64, None, False),     # rep 3, bidirectional
-])
+    (1, 50, 4, 4, 80, None, True),      # rep 1, hd 80 (stablelm-3b), ragged
+    (1, 40, 8, 2, 120, 16, True),       # rep 4, hd 120 (h2o-danube-3-4b),
+])                                      # window, ragged
 def test_flash_fwd_plain_matches_pallas(B, S, H, KV, hd, window, causal):
     q, k, v = _qkv(B, S, S, H, KV, hd, seed=S + H + hd)
     o_j, lse_j = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -66,7 +68,9 @@ def test_flash_fwd_plain_matches_pallas(B, S, H, KV, hd, window, causal):
 
 @pytest.mark.parametrize("B,L,H,KV,hd", [(2, 40, 4, 1, 64),
                                          (1, 24, 6, 2, 256),
-                                         (3, 48, 3, 3, 64)])
+                                         (3, 48, 3, 3, 64),
+                                         (2, 40, 4, 4, 80),     # rep 1
+                                         (1, 48, 8, 2, 120)])   # rep 4
 @pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
 def test_flash_decode_plain_matches_pallas(B, L, H, KV, hd, frac):
     q, k, v = _qkv(B, 1, L, H, KV, hd, seed=L + H)
@@ -98,10 +102,13 @@ def test_flash_decode_plain_rep16_matches_pallas(valid):
 
 # (B, L, KV, rep, hd): the serve shapes (gemma3-1b global and local,
 # smollm-135m, recurrentgemma-9b's rep 16), a one-position cache, a long
-# cache, many groups, and hd 128
+# cache, many groups, hd 128, and the serve shapes of stablelm-3b (hd 80)
+# and h2o-danube-3-4b (hd 120: its full ring and a cache of 1,056)
 PLAN_CASES = [(4, 1056, 1, 4, 256), (4, 512, 1, 4, 256), (4, 1056, 3, 3, 64),
               (4, 1056, 1, 16, 256), (1, 1, 1, 1, 64), (1, 131072, 8, 4, 128),
-              (512, 100, 64, 2, 64), (2, 33, 2, 5, 128)]
+              (512, 100, 64, 2, 64), (2, 33, 2, 5, 128),
+              (4, 1056, 32, 1, 80), (1, 4096, 8, 4, 120),
+              (1, 1056, 8, 4, 120)]
 
 
 @pytest.mark.parametrize("sm_count", [132, 1])
@@ -131,8 +138,11 @@ def test_decode_plan_covers_the_cache_once(B, L, KV, rep, hd, sm_count):
 
 
 def test_decode_plan_refuses_what_the_kernel_cannot_take():
+    # the kernel is built for the configs' head dims (80 and 120 since
+    # they were added: 32 KB of 640-byte K + V rows a slice); 96 is none
+    assert decode_attn.decode_plan(1, 64, 1, 1, 80, 132).split == 52
     with pytest.raises(ValueError, match="hd"):
-        decode_attn.decode_plan(1, 64, 1, 1, 80, 132)
+        decode_attn.decode_plan(1, 64, 1, 1, 96, 132)
     with pytest.raises(ValueError, match="B \\* KV"):
         decode_attn.decode_plan(65536, 64, 1, 1, 64, 132)
     with pytest.raises(ValueError, match="shared memory"):
@@ -173,7 +183,7 @@ def _split_merge(q, k, v, valid, split, chunk=None):
 @pytest.mark.parametrize("B,L,H,KV,hd,valid", [
     (2, 200, 4, 1, 256, 200), (2, 200, 4, 1, 256, 17),
     (1, 300, 16, 1, 256, 299), (2, 130, 9, 3, 64, 130),
-    (1, 64, 8, 8, 128, 1)])
+    (1, 64, 8, 8, 128, 1), (2, 200, 4, 4, 80, 150), (1, 300, 8, 2, 120, 300)])
 def test_flash_decode_split_merge_matches_pallas(B, L, H, KV, hd, valid):
     """The kernel's slices (``decode_plan`` on a small card, so a cache of
     a few hundred positions splits) merged in slice order, in one level and
@@ -308,6 +318,8 @@ FWD_CASES = [       # B, S, H, KV, hd, window, causal
     (1, 130, 8, 4, 128, 24, True),      # hd 128: 32-key tiles
     (1, 90, 2, 2, 64, None, False),     # no causal mask
     (1, 20, 64, 1, 64, None, True),     # rep 64: one position a tile
+    (1, 150, 4, 4, 80, None, True),     # hd 80: 64-key tiles, rep 1
+    (1, 110, 8, 2, 120, 24, True),      # hd 120: 32-key tiles, rep 4
 ]
 
 
@@ -327,7 +339,9 @@ def test_fwd_schedule_emulation_matches_pallas(B, S, H, KV, hd, window,
 
 @pytest.mark.parametrize("S,H,KV,hd,window", [
     (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
-    (1000, 4, 1, 256, 512), (333, 3, 3, 128, None), (37, 64, 1, 64, 5)])
+    (1000, 4, 1, 256, 512), (333, 3, 3, 128, None), (37, 64, 1, 64, 5),
+    (1024, 32, 32, 80, None), (1000, 32, 32, 80, None),
+    (4608, 32, 8, 120, 4096)])
 def test_fwd_plan_order_is_heavy_first_and_covers_the_visible_tiles(
         S, H, KV, hd, window):
     """Each query tile walks exactly the key tiles its positions see; the
@@ -355,3 +369,35 @@ def test_fwd_plan_order_is_heavy_first_and_covers_the_visible_tiles(
     by_group = [n + 1 for _ in range(B * KV) for n in reversed(plan.n_tiles)]
     assert plan.makespan <= flash_attn._slot_makespan(by_group, plan.slots)
     assert plan.makespan >= max(plan.ideal, max(costs))
+
+
+@pytest.mark.parametrize("hd,padded,fwd,dq,dkv", [
+    (64, 64, (64, 2), (64, 2), (64, 2)),
+    (80, 96, (64, 2), (32, 2), (64, 1)),
+    (120, 128, (32, 2), (32, 2), (64, 1)),
+    (128, 128, (32, 2), (32, 2), (64, 1)),
+    (256, 256, (64, 1), (32, 1), (32, 1)),
+])
+def test_tiles_at_every_head_dim_match_the_kernels(hd, padded, fwd, dq, dkv):
+    """The plans' tile tables at every head dim the kernels are built for,
+    worked out by hand from csrc's FwdTile / DqTile / DkvTile: the row
+    width in shared memory (hd 80 and 120 padded to 96 and 128, so their
+    float4 column groups divide the threads), keys a tile and blocks an
+    SM (the shared memory of Q, K, V, P or ds rows of padded + 4 floats
+    against the SM's 232,448 bytes, 1 KB a block reserved)."""
+    assert hd in flash_attn.HEAD_DIMS and hd in decode_attn.HEAD_DIMS
+    assert flash_attn.padded_hd(hd) == padded
+    assert padded % 32 == 0 and hd <= padded < hd + 32
+    assert (flash_attn.FWD_KEYS[hd],
+            flash_attn._fwd_blocks_per_sm(hd, fwd[0])) == fwd
+    assert (flash_attn.DQ_KEYS[hd],
+            flash_attn._dq_blocks_per_sm(hd, dq[0], 64)) == dq
+    assert (flash_attn.DKV_KEYS[hd],
+            flash_attn._dkv_blocks_per_sm(hd, dkv[0], 64)) == dkv
+    for plan in (flash_attn.fwd_plan(4, 1024, 32, 8, hd),
+                 flash_attn.dq_plan(4, 1024, 32, 8, hd),
+                 flash_attn.dkv_plan(4, 1024, 32, 8, hd)):
+        assert plan.key_tile == {flash_attn.FwdPlan: fwd,
+                                 flash_attn.DqPlan: dq,
+                                 flash_attn.DkvPlan: dkv}[type(plan)][0]
+    assert flash_attn.fwd_plan(4, 1024, 32, 8, hd).slots == 132 * fwd[1]

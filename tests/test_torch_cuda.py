@@ -780,6 +780,15 @@ def test_attention_wrappers_refuse_cpu_tensors():
     (2, 257, 16, 2, 128, None, True),
     (1, 200, 8, 1, 64, None, False),    # no causal mask
     (1, 96, 4, 1, 256, 40, False),      # a window, no causal mask
+    # hd 80 (stablelm-3b: 32 heads over 32) and hd 120 (h2o-danube-3-4b:
+    # 32 over 8), the chip_smoke.FLASH_CASES shapes and ragged ones
+    (4, 1024, 32, 32, 80, None, True),
+    (1, 4608, 32, 8, 120, 4096, True),
+    (4, 1000, 32, 32, 80, None, True),
+    (2, 333, 4, 4, 80, None, True),
+    (1, 301, 8, 2, 120, 100, True),
+    (1, 200, 8, 1, 80, None, False),
+    (1, 96, 4, 1, 120, 40, False),
 ])
 def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
                                         window, causal):
@@ -810,6 +819,10 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
     (1, 50, 2, 2, 256, None),           # rep 1
     (1, 9, 64, 1, 64, None),            # rep 64: one position a tile
     (4, 1024, 4, 1, 256, 512),          # gemma3 local: K8b splits its tiles
+    (2, 77, 4, 4, 80, 16),              # hd 80, rep 1, ragged, window
+    (1, 130, 8, 2, 120, None),          # hd 120, rep 4
+    (4, 1024, 32, 32, 80, None),        # stablelm-3b's layers
+    (4, 1024, 32, 8, 120, None),        # h2o-danube-3-4b's layers
 ])
 def test_flash_bwd_kernels_match_plain(cuda_device, B, S, H, KV, hd,
                                        window):
@@ -844,6 +857,10 @@ DKV_SHAPES = [                   # B, S, H, KV, hd, window, split
     (1, 520, 4, 1, 256, None, True),   # gemma3 global
     (1, 260, 8, 2, 128, 40, True),     # window ends mid-tile
     (1, 9, 64, 1, 64, None, True),     # rep 64: one position a tile
+    (2, 300, 4, 4, 80, None, True),    # hd 80, rep 1
+    (2, 300, 4, 4, 80, 30, False),     # hd 80, window: one segment each
+    (1, 520, 8, 2, 120, None, True),   # hd 120, rep 4
+    (1, 4608, 32, 8, 120, 4096, True),  # h2o-danube-3-4b, window binds
 ]
 
 
@@ -882,6 +899,9 @@ DQ_SHAPES = [                    # B, S, H, KV, hd, window, split
     (4, 1024, 4, 1, 256, None, False),  # gemma3 global: longest first
     (2, 300, 9, 3, 64, None, True),    # smollm's heads, 64-key tiles
     (2, 130, 8, 4, 128, 40, True),     # window ends mid-tile
+    (2, 300, 4, 4, 80, 30, True),      # hd 80, rep 1, window
+    (4, 1024, 32, 32, 80, None, False),  # stablelm-3b: longest first
+    (1, 1000, 8, 2, 120, None, True),  # hd 120, rep 4, ragged
 ]
 
 
@@ -944,6 +964,12 @@ def test_flash_attention_backward_on_the_card_matches_the_cpu(cuda_device):
     (2, 300, 8, 1, 128, 300),
     (4, 1056, 16, 1, 256, 1), (4, 1056, 16, 1, 256, 529),  # rep 16
     (4, 1056, 16, 1, 256, 1056),
+    # hd 80 (stablelm-3b's cache, rep 1) and hd 120 (h2o-danube-3-4b's
+    # heads, rep 4, its full ring and a cache of 1,056)
+    (4, 1056, 32, 32, 80, 1), (4, 1056, 32, 32, 80, 1025),
+    (4, 1056, 32, 32, 80, 1056), (2, 300, 8, 8, 80, 150),
+    (1, 4096, 32, 8, 120, 4096), (1, 1056, 32, 8, 120, 529),
+    (1, 1056, 32, 8, 120, 1056),
 ])
 def test_flash_decode_kernel_matches_plain(cuda_device, B, L, H, KV, hd,
                                            valid):
@@ -1008,8 +1034,9 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 120])
 def test_attention_kernels_never_take_the_plain_path_on_the_card(
-        cuda_device, monkeypatch):
+        cuda_device, monkeypatch, hd):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
@@ -1017,8 +1044,8 @@ def test_attention_kernels_never_take_the_plain_path_on_the_card(
     monkeypatch.setattr(tfa, "flash_bwd_plain", refuse)
     monkeypatch.setattr(tda, "flash_decode_plain", refuse)
     rng = np.random.default_rng(0)
-    q = _randn(rng, (1, 16, 4, 64), cuda_device).requires_grad_(True)
-    kv = _randn(rng, (1, 16, 1, 64), cuda_device).requires_grad_(True)
+    q = _randn(rng, (1, 16, 4, hd), cuda_device).requires_grad_(True)
+    kv = _randn(rng, (1, 16, 1, hd), cuda_device).requires_grad_(True)
     before = _attn_launches() + _bwd_launches()
     o = tfa.make_flash_attention(window=8)(q, kv, kv)
     torch.autograd.grad(o.sum(), (q, kv))
@@ -1049,6 +1076,13 @@ def test_attention_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shapes"):       # hd 32
         tda.flash_decode_cuda(z(1, 1, 16, 32, **kw), z(1, 8, 1, 32, **kw),
                               z(1, 8, 1, 32, **kw), valid)
+    # hd 96: a multiple of 4 no config uses, so no kernel is built for it
+    with pytest.raises(ValueError, match="no kernel is built"):
+        tfa.flash_fwd_cuda(z(1, 8, 2, 96, **kw), z(1, 8, 1, 96, **kw),
+                           z(1, 8, 1, 96, **kw))
+    with pytest.raises(ValueError, match="head dims K9 is built for"):
+        tda.flash_decode_cuda(z(1, 1, 4, 96, **kw), z(1, 8, 1, 96, **kw),
+                              z(1, 8, 1, 96, **kw), valid)
     with pytest.raises(ValueError, match="shapes"):       # H % KV
         tda.flash_decode_cuda(z(1, 1, 5, 64, **kw), z(1, 8, 2, 64, **kw),
                               z(1, 8, 2, 64, **kw), valid)

@@ -36,6 +36,8 @@ CASES = [                    # B, S, H, KV, hd, window
     (1, 50, 3, 3, 256, None),    # rep 1, hd 256
     (1, 160, 2, 2, 64, 8),       # rep 1, window, ten blocks
     (1, 160, 6, 2, 64, None),    # rep 3, ten blocks
+    (1, 33, 4, 4, 80, None),     # rep 1, hd 80 (stablelm-3b), ragged
+    (1, 50, 8, 2, 120, 8),       # rep 4, hd 120 (h2o-danube-3-4b), window
 ]
 
 
@@ -142,6 +144,8 @@ DKV_CASES = [       # B, S, H, KV, hd, window, most segments a key tile
     (1, 200, 2, 2, 64, 24, 1),       # rep 1, window: one segment each
     (1, 77, 6, 2, 128, None, 2),     # rep 3, hd 128
     (1, 20, 64, 1, 64, None, 10),    # rep 64: one position a tile
+    (1, 150, 4, 4, 80, None, 2),     # rep 1, hd 80, ragged
+    (1, 130, 8, 2, 120, 24, 3),      # rep 4, hd 120, window
 ]
 
 
@@ -177,7 +181,9 @@ def _visible_tiles(S, rep, window, plan, j):
 
 @pytest.mark.parametrize("S,H,KV,hd,window", [
     (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
-    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5)])
+    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5),
+    (1024, 32, 32, 80, None), (1024, 32, 8, 120, None),
+    (4608, 32, 8, 120, 4096)])
 def test_dkv_plan_covers_exactly_the_visible_tiles(S, H, KV, hd, window):
     """Each key tile's segments tile [t_lo, t_hi] without gap or overlap,
     that range is exactly the query tiles that see the key tile, and the
@@ -246,6 +252,8 @@ DQ_CASES = [        # B, S, H, KV, hd, window, most segments a query tile
     (1, 200, 2, 2, 64, 24, 2),       # rep 1, window ends mid-tile
     (1, 150, 6, 2, 128, None, 3),    # rep 3, hd 128: segments of 2 tiles
     (1, 20, 64, 1, 64, None, 1),     # rep 64: one position a tile
+    (1, 200, 4, 4, 80, 24, 3),       # rep 1, hd 80: 32-key tiles, window
+    (1, 100, 8, 2, 120, None, 4),    # rep 4, hd 120, ragged
 ]
 
 
@@ -278,7 +286,9 @@ def _visible_key_tiles(S, rep, window, plan, t):
 
 @pytest.mark.parametrize("S,H,KV,hd,window", [
     (1024, 4, 1, 256, None), (1024, 4, 1, 256, 512), (1024, 9, 3, 64, None),
-    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5)])
+    (1000, 8, 2, 128, None), (1000, 4, 1, 256, 512), (37, 64, 1, 64, 5),
+    (1024, 32, 32, 80, None), (1024, 32, 8, 120, None),
+    (4608, 32, 8, 120, 4096)])
 def test_dq_plan_covers_exactly_the_visible_tiles(S, H, KV, hd, window):
     """Each query tile's segments tile its key range without gap or
     overlap, that range is exactly the key tiles its positions see, and

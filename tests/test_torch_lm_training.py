@@ -2,7 +2,9 @@
 the token data (``token_stream``, ``source_partition``, the loader's token
 batches), the transformer bundle's loss and gradients, the reference
 server loop and the ``launch.train`` round, on ``smollm-135m.reduced()``
-and ``gemma3-1b.reduced()`` from the same (converted) JAX parameters.
+and ``gemma3-1b.reduced()`` from the same (converted) JAX parameters; the
+loss and gradients also on ``stablelm-3b.reduced()`` and
+``h2o-danube-3-4b.reduced()`` at their head dims, 80 and 120.
 
 The data streams are numpy on both sides and must be equal.  Tolerances:
 float32.  XLA and PyTorch sum the products in other orders (the JAX
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_inputs import reduced
 
 from repro.configs import ARCH_CONFIGS as J_ARCHS
 from repro.configs.base import FLConfig as JFL
@@ -48,11 +51,8 @@ FL_KW = dict(clients_per_round=2, local_steps=2, local_batch=2, lr=0.05,
 
 
 def _cfgs(name, impl="jnp", vocab=256):
-    jcfg = dataclasses.replace(J_ARCHS[name].reduced(), attn_impl=impl,
-                               vocab_size=vocab)
-    tcfg = dataclasses.replace(get_config(name).reduced(), attn_impl=impl,
-                               vocab_size=vocab)
-    return jcfg, tcfg
+    return (reduced(J_ARCHS[name], attn_impl=impl, vocab_size=vocab),
+            reduced(get_config(name), attn_impl=impl, vocab_size=vocab))
 
 
 def _close_trees(got, want):
@@ -120,11 +120,14 @@ def test_token_batches_match_jax():
 # the transformer bundle: loss and gradients
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("impl", ["jnp", "pallas"])
-@pytest.mark.parametrize("name", ["smollm-135m", "gemma3-1b"])
+@pytest.mark.parametrize("name,impl", [
+    (name, impl) for impl in ("jnp", "pallas")
+    for name in ("smollm-135m", "gemma3-1b")] + [
+    ("stablelm-3b", "pallas"), ("h2o-danube-3-4b", "pallas")])
 def test_lm_bundle_loss_and_grads_match_jax(name, impl):
-    """S = 96 is longer than the reduced window (64), so gemma3's local
-    layer masks by window in the forward and the backward."""
+    """S = 96 is longer than the reduced window (64), so gemma3's and
+    h2o-danube-3-4b's local layers mask by window in the forward and the
+    backward."""
     jcfg, tcfg = _cfgs(name, impl, vocab=512)
     jb, tb = j_make_bundle(jcfg), make_bundle(tcfg)
     jparams = jb.init(jax.random.PRNGKey(0))

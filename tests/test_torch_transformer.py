@@ -1,7 +1,10 @@
 """The port's transformer serving path against the JAX package's, from the
 same (converted) JAX parameters, on ``gemma3-1b.reduced()`` (a local and a
-global layer, window 64, one KV head) and ``smollm-135m.reduced()`` (two
-KV heads, SwiGLU), under both ``attn_impl`` values, on the CPU: prefill
+global layer, window 64, one KV head), ``smollm-135m.reduced()`` (two
+KV heads, SwiGLU), ``stablelm-3b.reduced()`` at head dim 80 (25% partial
+rotary, an untied head, rep 1) and ``h2o-danube-3-4b.reduced()`` at head
+dim 120 (two sliding-window layers, window 64, rep 2), under both
+``attn_impl`` values, on the CPU: prefill
 logits and caches (S = 80 > the window, so the local ring buffer rolls),
 four decode steps (logits and caches), the prefill-then-decode invariant,
 and greedy serving against a JAX greedy loop.  Also: the configs carry
@@ -20,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_inputs import reduced
 
 from repro.configs import ARCH_CONFIGS as J_ARCHS
 from repro.models import transformer as jtfm
@@ -33,7 +37,7 @@ from repro_torch.models import registry
 from repro_torch.models import transformer as tfm
 
 S, GEN, B = 80, 4, 2
-NAMES = ("gemma3-1b", "smollm-135m")
+NAMES = ("gemma3-1b", "smollm-135m", "stablelm-3b", "h2o-danube-3-4b")
 
 
 def _close(got, want):
@@ -56,8 +60,8 @@ def _trees_close(got, want):
 def model(request):
     """(port cfg, JAX cfg, port params, JAX params, prompt tokens)."""
     name, impl = request.param
-    jcfg = dataclasses.replace(J_ARCHS[name].reduced(), attn_impl=impl)
-    tcfg = dataclasses.replace(get_config(name).reduced(), attn_impl=impl)
+    jcfg = reduced(J_ARCHS[name], attn_impl=impl)
+    tcfg = reduced(get_config(name), attn_impl=impl)
     jparams = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = state_from_numpy(jax.tree.map(np.asarray, jparams))
     tokens = np.random.default_rng(1).integers(
@@ -145,7 +149,7 @@ def test_serve_main_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_port_init_params_and_cache_match_jax_structure(name):
-    tcfg, jcfg = get_config(name).reduced(), J_ARCHS[name].reduced()
+    tcfg, jcfg = reduced(get_config(name)), reduced(J_ARCHS[name])
     jp = jax.tree.map(np.asarray, jtfm.init_params(jcfg,
                                                    jax.random.PRNGKey(0)))
     tp = state_to_numpy(tfm.init_params(tcfg, torch.Generator(),
@@ -230,3 +234,25 @@ def test_flash_attention_backward_is_not_ported():
         grads.append(torch.autograd.grad(fn(*x), x, do))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_state_from_numpy_carries_an_untied_head():
+    """stablelm-3b's output head is its own leaf (not the embedding's
+    transpose): converted from the JAX tree it arrives bit for bit, apart
+    from the embedding, and the port's head_apply uses it."""
+    jcfg = reduced(J_ARCHS["stablelm-3b"])
+    tcfg = reduced(get_config("stablelm-3b"))
+    assert not tcfg.tie_embeddings
+    jparams = jax.tree.map(np.asarray,
+                           jtfm.init_params(jcfg, jax.random.PRNGKey(3)))
+    tparams = state_from_numpy(jparams)
+    assert tparams["head"]["w"].shape == (tcfg.d_model, tcfg.vocab_size)
+    assert np.array_equal(tparams["head"]["w"].numpy(), jparams["head"]["w"])
+    assert not np.array_equal(jparams["head"]["w"],
+                              jparams["embed"]["table"].T)
+    back = state_to_numpy(tparams)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(jax.tree.leaves(back), jax.tree.leaves(jparams)))
+    feats = torch.ones(1, tcfg.d_model)
+    torch.testing.assert_close(tfm.head_apply(tcfg, tparams, feats),
+                               feats @ tparams["head"]["w"])

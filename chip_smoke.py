@@ -23,7 +23,12 @@ is non-zero):
    ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
    each piece of a K4 wrapper call;
    K5 also against ``hardshrink(x, nextafter(t, 0))``, bit for bit, and
-   both timed by device microseconds a call; K6 / K7: exact, K7 in place,
+   both timed by device microseconds a call at the FC leaf and at
+   smollm-135m's token embedding (``TOPK_BIG``, past the L2), with K5's
+   schedule; K5 on NaN, +-inf, -0.0, ties and thresholds 0, < 0, +inf at
+   n on each side of its schedule's tile and wave, aligned and 4 bytes
+   off, bit for bit; the host cost of each piece of a K5 wrapper call
+   beside ``hardshrink``'s; K6 / K7: exact, K7 in place,
    the scratch-row duplicates; K8a flash attention forward (bitwise
    repeatable, with ``flash_attn.fwd_plan``'s modelled makespan) and K9
    flash-decode (one launch) at the serve shapes of gemma3-1b,
@@ -120,6 +125,8 @@ FIG4 = dict(clients_per_round=10, local_steps=4, local_batch=10, lr=0.08,
 EVAL_EXAMPLES = 2048
 TOPK_FRAC = 1 / 16          # benchmarks/fig7_compression.py
 FC_LEAF = 3136 * 512        # CNN_MNIST's largest leaf (the first FC weight)
+# smollm-135m's token embedding (49,152 x 576): K5 past the 50 MB L2
+TOPK_BIG = 49152 * 576
 # names of the kernels in src/repro_torch/csrc, as the profiler shows them
 OUR_KERNELS = ("gram_partial_kernel", "gram_finish_kernel",
                "mk_mmd2_fwd_kernel", "mk_mmd2_bwd_kernel",
@@ -463,6 +470,19 @@ def hardshrink_lambd(torch, t):
     return torch.nextafter(t, torch.zeros_like(t)).item()
 
 
+def topk_device_us(torch, kern, lib, sets, bound_ms):
+    """Device ops and microseconds a call of K5 (``kern(i)``) and of its
+    yardstick ``hardshrink`` (``lib(i)``), input set i % ``sets``, and the
+    bound's share of K5's device time."""
+    out = {}
+    for key, fn in (("", kern), ("library_", lib)):
+        ops_, us = device_per_call(torch, fn, sets=sets)
+        out[key + "device_ops_per_call"] = ops_
+        out[key + "device_us_per_call"] = us
+    out["bound_share_of_device"] = bound_ms * 1e3 / out["device_us_per_call"]
+    return out
+
+
 def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
     """Phase 3 for K3 / K4 / K5: each against its plain version on the
     card with ``torch.equal`` (the same IEEE float32 operations), at the
@@ -617,6 +637,35 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
         if not (ok and lib_equal):
             raise AssertionError(f"topk_select kernel disagrees at n={n} "
                                  f"(plain {ok}, hardshrink {lib_equal})")
+    # K5 on NaN, +-inf, -0.0, ties and t = 0, < 0, +inf, bit for bit (as
+    # int32), at n on each side of its schedule's tile and wave, 16-byte
+    # aligned and 4 bytes off (the scalar path)
+    sched = compress_pack.topk_schedule(1)
+    tile = 4 * sched["threads"] * sched["unroll"]
+    wave = tile * sched["wave"]
+    sizes = [1, tile - 1, tile + 1, wave - 4, wave + 3, 2 * wave + 1]
+    edge_ok = True
+    for n in sizes:
+        for case in ("tie", "zero", "negative", "inf"):
+            x = torch.randn(n + 1, generator=gen)
+            t = {"tie": x.abs().median(), "zero": torch.tensor(0.0),
+                 "negative": torch.tensor(-0.5),
+                 "inf": torch.tensor(math.inf)}[case]
+            special = torch.tensor([math.nan, math.inf, -math.inf, -0.0,
+                                    t.item(), -t.item(), 0.0])
+            m = min(n + 1, special.numel())
+            x[torch.randperm(n + 1, generator=gen)[:m]] = special[:m]
+            x, t = x.to(dev), t.reshape(1).to(dev)
+            for view in (x[:n], x[1:]):
+                got = compress_pack.topk_select_cuda(view, t)
+                want = compress_pack.topk_select_plain(view, t)
+                edge_ok &= torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32))
+    torch.cuda.synchronize()
+    emit("kernels", kernel="topk_select", case="edges", sizes=sizes,
+         schedule=sched, equal=edge_ok)
+    if not edge_ok:
+        raise AssertionError("topk_select kernel disagrees on the edge set")
 
     # times at the FC leaf, over 8 input sets (> 50 MB L2 together)
     n, sets = FC_LEAF, 8
@@ -662,15 +711,39 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
                               bound_by=bound_by, library_ms=library_ms)
         extra = {}
         if name == "topk_select":    # device time a call, K5 and hardshrink
-            for key, fn in (("", kern), ("library_", lib)):
-                ops_, us = device_per_call(torch, fn, sets=sets)
-                extra[key + "device_ops_per_call"] = ops_
-                extra[key + "device_us_per_call"] = us
-            extra["bound_share_of_device"] = \
-                bound_ms * 1e3 / extra["device_us_per_call"]
+            extra = topk_device_us(torch, kern, lib, sets, bound_ms)
+            extra["schedule"] = compress_pack.topk_schedule(n)
         emit("kernels", kernel=name, bits=8, n=n, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              bound_by=bound_by, **extra)
+    # K5 past the L2: smollm-135m's token embedding, 2 sets (226 MB)
+    big = [torch.randn(TOPK_BIG, generator=gen).to(dev) for _ in range(2)]
+    big_t = [x.abs().kthvalue(TOPK_BIG - TOPK_BIG // 16 + 1).values
+             .reshape(1) for x in big]
+    big_l = [hardshrink_lambd(torch, t) for t in big_t]
+
+    def big_kern(i):
+        return compress_pack.topk_select_cuda(big[i], big_t[i])
+
+    def big_lib(i):
+        return F.hardshrink(big[i], big_l[i])
+
+    got = big_kern(0)
+    equal = torch.equal(got, compress_pack.topk_select_plain(big[0],
+                                                             big_t[0]))
+    lib_equal = torch.equal(got, big_lib(0))
+    del got
+    if not (equal and lib_equal):
+        raise AssertionError(f"topk_select disagrees at n={TOPK_BIG} "
+                             f"(plain {equal}, hardshrink {lib_equal})")
+    bound_ms, bound_by = bound(*codec_work("topk_select", TOPK_BIG))
+    emit("kernels", kernel="topk_select", n=TOPK_BIG, sets=2, equal=equal,
+         hardshrink_equal=lib_equal,
+         kernel_ms=time_ms(torch, big_kern, sets=2),
+         library_ms=time_ms(torch, big_lib, sets=2), bound_ms=bound_ms,
+         bound_by=bound_by, schedule=compress_pack.topk_schedule(TOPK_BIG),
+         **topk_device_us(torch, big_kern, big_lib, 2, bound_ms))
+    del big
     # K4 as the codecs call it: one CNN_MNIST int8 message a call (8 sets,
     # > 50 MB together), against eight single-leaf wrapper calls, eight
     # ``torch.mul``s and one ``torch._foreach_mul`` over the leaves (the
@@ -760,13 +833,31 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
     return rows
 
 
-def launch_path_split(torch, compress_pack, n_calls=2_000):
-    """Host nanoseconds per call of each piece of a K4 wrapper call
-    (``time.perf_counter_ns`` around ``n_calls`` calls of the piece alone,
-    best of three): the checks, the allocation, the device and stream
-    lookup, the one-leaf table, the ctypes launch itself, the whole
-    wrapper call and ``torch.mul``.  Pieces that launch decode 1,024
-    codes, so the device keeps up with the host."""
+def host_ns(torch, pieces, n_calls=2_000):
+    """Host nanoseconds per call of each piece (``time.perf_counter_ns``
+    around ``n_calls`` calls of the piece alone, best of three)."""
+    split = {}
+    for name, piece in pieces.items():
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(n_calls):
+                piece()
+            t1 = time.perf_counter_ns()
+            torch.cuda.synchronize()
+            best = (t1 - t0) / n_calls if best is None \
+                else min(best, (t1 - t0) / n_calls)
+        split[name] = best
+    return split
+
+
+def launch_path_split(torch, compress_pack):
+    """Host nanoseconds per call of each piece of a K4 wrapper call: the
+    checks, the allocation, the device and stream lookup, the one-leaf
+    table, the ctypes launch itself, the whole wrapper call and
+    ``torch.mul``.  Pieces that launch decode 1,024 codes, so the device
+    keeps up with the host."""
     import array
     dev = torch.device("cuda", torch.cuda.current_device())
     n = 1024
@@ -778,37 +869,66 @@ def launch_path_split(torch, compress_pack, n_calls=2_000):
     stream = raw(dev.index)
     leaf = [q.data_ptr(), scale.data_ptr(), out.data_ptr(), n, 8, 1]
     table = array.array("q", leaf)
-    pieces = {
-        "checks": lambda: (
-            compress_pack._cuda_device("k", q),
-            compress_pack._check("k", "packed", q, dev, torch.int8),
-            compress_pack._check("k", "scale", scale, dev, torch.float32, 1),
-            compress_pack._unpack_n(q, 8, None)),
-        "torch.empty": lambda: torch.empty(n, device=dev,
-                                           dtype=torch.float32),
-        "current_device + raw stream": lambda: (
-            torch.cuda.current_device() == dev.index and raw(dev.index)),
-        "one-leaf table": lambda: array.array("q", leaf).buffer_info(),
-        "ctypes launch": lambda: fn(table.buffer_info()[0], 1, stream),
-        "quant_unpack_cuda (whole call)": lambda: compress_pack
-        .quant_unpack_cuda(q, scale),
-        "torch.mul (yardstick)": lambda: torch.mul(q, scale),
-    }
-    split = {}
     with torch.cuda.device(dev):
-        for name, piece in pieces.items():
-            best = None
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter_ns()
-                for _ in range(n_calls):
-                    piece()
-                t1 = time.perf_counter_ns()
-                torch.cuda.synchronize()
-                best = (t1 - t0) / n_calls if best is None \
-                    else min(best, (t1 - t0) / n_calls)
-            split[name] = best
-    return split
+        return host_ns(torch, {
+            "checks": lambda: (
+                compress_pack._cuda_device("k", q),
+                compress_pack._check("k", "packed", q, dev, torch.int8),
+                compress_pack._check("k", "scale", scale, dev, torch.float32,
+                                     1),
+                compress_pack._unpack_n(q, 8, None)),
+            "torch.empty": lambda: torch.empty(n, device=dev,
+                                               dtype=torch.float32),
+            "current_device + raw stream": lambda: (
+                torch.cuda.current_device() == dev.index and raw(dev.index)),
+            "one-leaf table": lambda: array.array("q", leaf).buffer_info(),
+            "ctypes launch": lambda: fn(table.buffer_info()[0], 1, stream),
+            "quant_unpack_cuda (whole call)": lambda: compress_pack
+            .quant_unpack_cuda(q, scale),
+            "torch.mul (yardstick)": lambda: torch.mul(q, scale),
+        })
+
+
+def topk_launch_path_split(torch, compress_pack, n=5120):
+    """Host nanoseconds per call of each piece of a K5 wrapper call on
+    CNN_MNIST's ``fc2`` leaf (5,120 elements, so the device keeps up with
+    the host): the combined test that guards the launch and the old
+    checks it replaced (``_cuda_device`` and two ``_check``s), the
+    allocation, the alignment test and the old ``_aligned``, the
+    device and stream lookup of ``build.launch``, the ctypes launch
+    itself, the whole call and ``hardshrink`` with a Python-float lambda,
+    the yardstick."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.randn(n, device=dev)
+    t = x.abs().median().reshape(1)
+    lambd = hardshrink_lambd(torch, t)
+    out = torch.empty_like(x)
+    fn = compress_pack._fn("topk_select_f32")
+    raw = torch._C._cuda_getCurrentRawStream
+    stream = raw(dev.index)
+    f32 = torch.float32
+    with torch.cuda.device(dev):
+        return host_ns(torch, {
+            "combined test": lambda: compress_pack._topk_takes(x, t),
+            "the old checks": lambda: (
+                compress_pack._cuda_device("k", x),
+                compress_pack._check("k", "x", x, dev, f32),
+                compress_pack._check("k", "thresh", t, dev, f32, 1)),
+            "torch.empty_like": lambda: torch.empty_like(x),
+            "alignment test": lambda: not (x.data_ptr()
+                                           | out.data_ptr()) & 15,
+            "the old _aligned": lambda: compress_pack._aligned(
+                (x, 16), (out, 16)),
+            "x.device + current_device + raw stream": lambda: (
+                torch.cuda.current_device() == x.device.index
+                and raw(dev.index)),
+            "ctypes launch": lambda: fn(x.data_ptr(), t.data_ptr(),
+                                        out.data_ptr(), n, 1, stream),
+            "topk_select_cuda (whole call)": lambda: compress_pack
+            .topk_select_cuda(x, t),
+            "F.hardshrink (yardstick)": lambda: F.hardshrink(x, lambd),
+        })
 
 
 def ef_work(k, n):
@@ -1828,6 +1948,8 @@ def main():
                                     mnist_sizes))
     emit("launch_path", kernel="quant_unpack", n=1024, calls=2_000,
          host_ns_per_call=launch_path_split(torch, compress_pack))
+    emit("launch_path", kernel="topk_select", n=5120, calls=2_000,
+         host_ns_per_call=topk_launch_path_split(torch, compress_pack))
     rows.update(check_ef_kernels(torch, compress_pack))
     rows.update(check_attention_kernels(torch, flash_attn, decode_attn))
     rows.update(check_flash_bwd_kernels(torch, flash_attn))

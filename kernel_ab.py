@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Times K1 (the FedMMD term), K2 (fusion conv), K8a (flash attention
-forward), K8b / K8c (the flash backward), K9 (flash-decode) and K3 (a
-quantized message's encode) of one or more source trees on one NVIDIA
-GPU, in turns, for A/B comparisons.
+forward), K8b / K8c (the flash backward), K9 (flash-decode), K3 (a
+quantized message's encode) and K5 (top-k select) of one or more source
+trees on one NVIDIA GPU, in turns, for A/B comparisons.
 
-    python3 kernel_ab.py [--root DIR ...]
+    python3 kernel_ab.py [--root DIR[:NAME=VALUE,...] ...]
                          [--only mk_mmd|fusion_conv|flash_fwd|flash_bwd|
-                                 flash_decode|quant_encode]
+                                 flash_decode|quant_encode|topk_select]
 
 Each ``--root`` is a checkout (or a ``git archive``) holding
-``src/repro_torch``; the default is this script's own. Give the trees in
+``src/repro_torch``; the default is this script's own. ``DIR:NAME=VALUE``
+times a variant of DIR: a copy of its ``src/repro_torch`` under this
+checkout's ``build/variants/`` with the one ``constexpr`` NAME of its
+``csrc/*.cu`` set to VALUE (several pairs separated by commas; for
+instance ``DIR:kTopkUnroll=4``). Give the trees in
 the order they should run (for instance parent, change, change, parent):
 the trees' kernels are built first, all at once, each into its tree's own
 ``build/``; then each tree runs in a process of its own, one after the
@@ -45,7 +49,15 @@ other, and prints one JSON line per measurement:
   offsets)`` on a CNN_MNIST-shaped delta at int8 and int4, as the
   reference loop and the engine call it, as wall ms a message over 8
   messages, device ops and device microseconds a message, and the bound
-  (x and the offsets read once, the codes and scales written once).
+  (x and the offsets read once, the codes and scales written once);
+- ``topk_select``: K5 as ``topk_select_cuda`` and its one-call yardstick
+  ``F.hardshrink(x, nextafter(t, 0))`` (bit-equal on NaN-free inputs) at
+  CNN_MNIST's FC leaf (``chip_smoke.FC_LEAF``, 8 input sets cycled) and at
+  ``chip_smoke.TOPK_BIG`` (smollm-135m's token embedding, 2 sets), each
+  as device microseconds a call under ``torch.profiler``, back-to-back
+  wall ms and the bound, with the tree's K5 schedule where it reports
+  one; and the wall ms of both at CNN_MNIST's 5,120-element ``fc2`` leaf,
+  where the host sets the time.
 
 Every result is checked against a plain version on the same inputs (the
 MMD term and its dx against autograd through the formula in float64 at
@@ -53,7 +65,8 @@ rtol 1e-5 / 1e-4, K2 within 1e-5 of the output's largest element, K8a
 within ``chip_smoke.ATTN_TOL``, K8b / K8c within ``chip_smoke.BWD_TOL``
 of each gradient's largest element, K9 within ``chip_smoke.ATTN_TOL``, the
 quantized message's codes and scales equal to the same codec's on the CPU,
-all bitwise repeatable), and a check that fails makes the run exit
+K5 equal to its plain version and to the yardstick, all bitwise
+repeatable), and a check that fails makes the run exit
 non-zero. The first line names the card and
 its power limit.
 """
@@ -62,6 +75,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -387,7 +402,92 @@ def time_quant_encode(torch, QuantCodec, make_bundle, CNN_MNIST, tag):
     return ok
 
 
-def run_one(root, only, build_only):
+def time_topk_select(torch, compress_pack, tag):
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(9)
+    ok = True
+    for n, sets in [(cs.FC_LEAF, 8), (cs.TOPK_BIG, 2)]:
+        xs = [torch.randn(n, generator=gen).cuda() for _ in range(sets)]
+        ts = [x.abs().kthvalue(n - n // 16 + 1).values.reshape(1)
+              for x in xs]
+        for x, t in zip(xs, ts):
+            x[0], x[-1] = -t[0], t[0]       # ties at t: kept
+        lambds = [cs.hardshrink_lambd(torch, t) for t in ts]
+
+        def kern(i):
+            return compress_pack.topk_select_cuda(xs[i], ts[i])
+
+        def lib(i):
+            return F.hardshrink(xs[i], lambds[i])
+
+        got, again = kern(0), kern(0)
+        equal = torch.equal(got, compress_pack.topk_select_plain(xs[0],
+                                                                 ts[0]))
+        lib_equal = torch.equal(got, lib(0))
+        repeat = torch.equal(got, again)
+        del got, again
+        ops_per_call, us = cs.device_per_call(torch, kern, sets=sets)
+        lib_ops, lib_us = cs.device_per_call(torch, lib, sets=sets)
+        bound_ms, bound_by = cs.bound(*cs.codec_work("topk_select", n))
+        line = dict(tree=tag, kernel="topk_select", n=n, sets=sets,
+                    equal=equal, hardshrink_equal=lib_equal,
+                    bitwise_repeat=repeat,
+                    device_ops_per_call=ops_per_call, device_us_per_call=us,
+                    library_device_ops_per_call=lib_ops,
+                    library_device_us_per_call=lib_us,
+                    wall_ms=cs.time_ms(torch, kern, sets=sets),
+                    library_wall_ms=cs.time_ms(torch, lib, sets=sets),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    bound_share_of_device=bound_ms * 1e3 / us)
+        if hasattr(compress_pack, "topk_schedule"):
+            line["schedule"] = compress_pack.topk_schedule(n)
+        emit(**line)
+        ok &= equal and lib_equal and repeat
+        del xs
+    n = 5120                                # CNN_MNIST's fc2 weight
+    x = torch.randn(n, generator=gen).cuda()
+    t = x.abs().kthvalue(n - n // 16 + 1).values.reshape(1)
+    lambd = cs.hardshrink_lambd(torch, t)
+    emit(tree=tag, kernel="topk_select", n=n,
+         wall_ms=cs.time_ms(torch, lambda: compress_pack.topk_select_cuda(
+             x, t), launches=200),
+         library_wall_ms=cs.time_ms(torch, lambda: F.hardshrink(x, lambd),
+                                    launches=200))
+    return ok
+
+
+def variant_tree(spec):
+    """The source tree a ``--root`` names: DIR itself, or for
+    ``DIR:NAME=VALUE,...`` a copy of DIR's ``src/repro_torch`` under this
+    checkout's ``build/variants/`` with each ``constexpr`` NAME of its
+    ``csrc/*.cu`` (defined exactly once) set to VALUE."""
+    root, _, pairs = spec.partition(":")
+    if not pairs:
+        return root
+    dest = HERE / "build" / "variants" / re.sub(r"[^\w.=-]+", "_", spec)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(Path(root) / "src" / "repro_torch",
+                    dest / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = dest / "src" / "repro_torch" / "csrc"
+    for pair in pairs.split(","):
+        name, _, value = pair.partition("=")
+        pat = re.compile(rf"(constexpr\s+[\w ]+?\b{re.escape(name)}\s*=\s*)"
+                         r"[^;]+;")
+        hits = 0
+        for f in sorted(csrc.glob("*.cu")):
+            text, k = pat.subn(lambda m: m.group(1) + value + ";",
+                               f.read_text())
+            if k:
+                f.write_text(text)
+            hits += k
+        if hits != 1:
+            sys.exit(f"kernel_ab: constexpr {name} found {hits} times "
+                     f"under {csrc}, not once")
+    return str(dest)
+
+
+def run_one(root, only, build_only, tag):
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: torch.cuda finds no CUDA device")
@@ -396,15 +496,15 @@ def run_one(root, only, build_only):
         sys.exit(f"kernel_ab: {src / 'repro_torch'} not found")
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import (build, decode_attn, flash_attn,
-                                     fusion_conv, ops)
-    tag = root
+    from repro_torch.kernels import (build, compress_pack, decode_attn,
+                                     flash_attn, fusion_conv, ops)
     if build_only:
         sources = {"mk_mmd": ("gram_sum",), "fusion_conv": ("fusion_conv",),
                    "flash_fwd": ("flash_attn",),
                    "flash_bwd": ("flash_attn", "flash_attn_bwd"),
                    "flash_decode": ("decode_attn",),
-                   "quant_encode": ("compress_pack",)}
+                   "quant_encode": ("compress_pack",),
+                   "topk_select": ("compress_pack",)}
         build.build(dict.fromkeys(s for name in only or sources
                                   for s in sources[name]))
         emit(tree=tag, ptxas={n: cs.ptxas_summary(log)
@@ -427,6 +527,8 @@ def run_one(root, only, build_only):
         from repro_torch.models import make_bundle
         ok &= time_quant_encode(torch, QuantCodec, make_bundle, CNN_MNIST,
                                 tag)
+    if not only or "topk_select" in only:
+        ok &= time_topk_select(torch, compress_pack, tag)
     if not ok:
         sys.exit(f"kernel_ab: a kernel of {tag} disagrees with its plain "
                  "version")
@@ -435,36 +537,42 @@ def run_one(root, only, build_only):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", action="append",
-                    help="a source tree to time (repeatable; default: "
-                         "this checkout)")
+                    help="a source tree to time, or DIR:NAME=VALUE,... "
+                         "for a variant of it (repeatable; default: this "
+                         "checkout)")
     ap.add_argument("--only", action="append",
                     choices=("mk_mmd", "fusion_conv", "flash_fwd",
-                             "flash_bwd", "flash_decode", "quant_encode"),
+                             "flash_bwd", "flash_decode", "quant_encode",
+                             "topk_select"),
                     help="time these kernel families only (repeatable)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--tag", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        return run_one(args.one, args.only, args.build_only)
+        return run_one(args.one, args.only, args.build_only,
+                       args.tag or args.one)
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: torch.cuda finds no CUDA device")
     print(cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
                   "--format=csv,noheader"]), flush=True)
-    roots = args.root or [str(HERE)]
+    specs = args.root or [str(HERE)]
+    trees = {spec: variant_tree(spec) for spec in dict.fromkeys(specs)}
     only = [a for name in args.only or () for a in ("--only", name)]
-    builds = {root: subprocess.Popen([sys.executable, __file__, "--one", root,
-                                      "--build-only", *only])
-              for root in dict.fromkeys(roots)}
-    failed = [root for root, proc in builds.items() if proc.wait()]
+    builds = {spec: subprocess.Popen([sys.executable, __file__, "--one",
+                                      tree, "--tag", spec, "--build-only",
+                                      *only])
+              for spec, tree in trees.items()}
+    failed = [spec for spec, proc in builds.items() if proc.wait()]
     if failed:
         sys.exit(f"kernel_ab: the build failed for {failed}")
-    for root in roots:
-        rc = subprocess.run([sys.executable, __file__, "--one", root,
-                             *only]).returncode
+    for spec in specs:
+        rc = subprocess.run([sys.executable, __file__, "--one", trees[spec],
+                             "--tag", spec, *only]).returncode
         if rc:
-            failed.append(root)
+            failed.append(spec)
     if failed:
         sys.exit(f"kernel_ab: failed on {failed}")
 

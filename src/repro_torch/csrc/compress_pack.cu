@@ -14,9 +14,10 @@
 // Replace the TPU kernels src/repro/kernels/compress_pack.py:quant_pack
 // (_quant_pack_kernel), quant_unpack (_quant_unpack_kernel) and
 // topk_select (_topk_select_kernel).  The Pallas kernels view the flat
-// tensor as [rows, 128] lanes padded to 8-row tiles; here each kernel walks
-// the flat [n] tensor with a grid-stride loop and masks the tail itself,
-// so nothing is padded or sliced around the call.
+// tensor as [rows, 128] lanes padded to 8-row tiles; here K3 and K4 walk
+// the flat [n] tensor with a grid-stride loop, K5 with one block a tile,
+// and each masks the tail itself, so nothing is padded or sliced around
+// the call.
 //
 // What bounds them on the card: one pass, no reuse, a handful of
 // operations per element.  Bytes bound all three: K3 reads x and u and
@@ -36,10 +37,28 @@
 // quant_pack_multi_kernel packs every leaf with its scale.  The second pass
 // reads x again, from L2 at a message's size (6.7 MB for CNN_MNIST).
 //
+// K5 moves 8n + 4 bytes and does three operations an element, so bytes
+// bound it: 3.83 us at CNN_MNIST's 1,605,632-element FC leaf, 67.6 us at
+// smollm-135m's 28,311,552-element token embedding.  At the leaf a call
+// is a few memory round trips plus the launch and the drain of the
+// stores, so what costs is anything that adds a round trip: a grid capped
+// below what the tensor needs (a second, ragged pass for half the
+// threads), a thread with one load in flight at a time.  So each block
+// owns one tile of kTopkThreads x kTopkUnroll float4 groups and each
+// thread issues all its loads before its first store; the grid is one
+// block a tile (784 at the leaf: one wave on 132 SMs, no second pass),
+// with no grid-stride loop at any size (past one wave the hardware
+// schedules the tiles, faster than a capped grid striding over them);
+// indices are 32-bit where they fit; the threshold is read once a thread,
+// beside the loads.  Both sizes then run at the speed of PyTorch's own
+// elementwise kernel (hardshrink), about 85% and 89% of the bound.
+//
 // Bit-exactness with the plain PyTorch version and the JAX oracle: x /
 // scale is an IEEE round-to-nearest division (__fdiv_rn, never a multiply
 // by the reciprocal), u is added after it with __fadd_rn, then floorf and
-// the clamp; each output byte is written by one thread.  Build without
+// the clamp; each output byte is written by one thread.  K5 selects, as
+// jnp.where does, and never multiplies by a 0/1 mask: NaN gives 0, -0.0
+// stays -0.0 where |x| >= t, and ties at t are kept.  Build without
 // --use_fast_math and without -prec-div=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -347,30 +366,69 @@ __global__ void quant_unpack_multi_kernel(
 
 // ---------------------------------------------------------------- K5 -----
 
+// K5's schedule, each choice timed alone (kernel_ab.py, PERF.md): threads
+// a block and float4 groups a thread, all loaded before any store.
+// Evict-first cache hints, a grid capped at one wave that strides over
+// the tiles, and the threshold loaded after the data were timed too and
+// left out: none was faster at the FC leaf, and the hints and the cap were
+// slower past the L2.
+constexpr int kTopkThreads = 256;
+constexpr int kTopkUnroll = 2;
+constexpr long long kTopkTile = (long long)kTopkThreads * kTopkUnroll;
+
 __device__ __forceinline__ float keep(float x, float t) {
   return fabsf(x) >= t ? x : 0.f;
 }
 
-__global__ void topk_select_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ thresh,
-                                   float* __restrict__ out, long long n,
-                                   int vec) {
+__device__ __forceinline__ float4 keep(float4 a, float t) {
+  return make_float4(keep(a.x, t), keep(a.y, t), keep(a.z, t), keep(a.w, t));
+}
+
+// V is float4 (16-byte aligned x and out: `groups` float4s, then `tail`
+// < 4 floats that block 0 takes) or float (any alignment, no tail); I the
+// index type (int when every index fits).  Block b owns the tile of groups
+// [b * kTopkTile, (b + 1) * kTopkTile): its thread i loads groups i,
+// i + kTopkThreads, ... (each of the kTopkUnroll loads coalesced across
+// the block), all before its first store.
+template <typename V, typename I>
+__global__ void __launch_bounds__(kTopkThreads)
+topk_select_kernel(const V* __restrict__ x, const float* __restrict__ thresh,
+                   V* __restrict__ out, I groups, int tail) {
   const float t = *thresh;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if (vec) {
-    const long long groups = n / 4;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (long long g = tid; g < groups; g += stride) {
-      const float4 a = x4[g];
-      o4[g] = make_float4(keep(a.x, t), keep(a.y, t), keep(a.z, t),
-                          keep(a.w, t));
-    }
-    done = groups * 4;
+  const I g0 = (I)blockIdx.x * (I)kTopkTile + (I)threadIdx.x;
+  V a[kTopkUnroll] = {};
+#pragma unroll
+  for (int k = 0; k < kTopkUnroll; ++k)
+    if (g0 + k * kTopkThreads < groups) a[k] = x[g0 + k * kTopkThreads];
+#pragma unroll
+  for (int k = 0; k < kTopkUnroll; ++k)
+    if (g0 + k * kTopkThreads < groups)
+      out[g0 + k * kTopkThreads] = keep(a[k], t);
+  if (blockIdx.x == 0 && (int)threadIdx.x < tail) {
+    const float* xt = reinterpret_cast<const float*>(x + groups);
+    float* ot = reinterpret_cast<float*>(out + groups);
+    ot[threadIdx.x] = keep(xt[threadIdx.x], t);
   }
-  for (long long i = done + tid; i < n; i += stride) out[i] = keep(x[i], t);
+}
+
+// one block a tile of K5's groups (n / 4 float4s when vec, else n floats)
+long long topk_blocks(long long n, int vec) {
+  const long long groups = vec ? n / 4 : n;
+  const long long b = (groups + kTopkTile - 1) / kTopkTile;
+  return b < 1 ? 1 : b;
+}
+
+template <typename I>
+void topk_launch(const float* x, const float* thresh, float* out,
+                 long long n, int vec, cudaStream_t s) {
+  const int blocks = (int)topk_blocks(n, vec);
+  if (vec)
+    topk_select_kernel<float4, I><<<blocks, kTopkThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(x), thresh,
+        reinterpret_cast<float4*>(out), (I)(n / 4), (int)(n % 4));
+  else
+    topk_select_kernel<float, I><<<blocks, kTopkThreads, 0, s>>>(
+        x, thresh, out, (I)n, 0);
 }
 
 int blocks_for(long long work) {
@@ -486,10 +544,31 @@ int quant_unpack_multi_f32(const long long* leaves, int count,
 // 16-byte aligned x and out.  Returns cudaGetLastError().
 int topk_select_f32(const float* x, const float* thresh, float* out,
                     long long n, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  topk_select_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0, s>>>(
-      x, thresh, out, n, vec);
+  if (n < 1 || n > (1LL << 38)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 32-bit indices where they fit (an index stays below n + two tiles)
+  if (n < (1LL << 31) - 2 * kTopkTile)
+    topk_launch<int>(x, thresh, out, n, vec, s);
+  else
+    topk_launch<long long>(x, thresh, out, n, vec, s);
+  return (int)cudaGetLastError();
+}
+
+// K5's schedule for n elements on the current device, as topk_select_f32
+// launches it: sched[0] threads a block, [1] groups a thread (float4s when
+// vec, else floats), [2] blocks, [3] blocks of one full wave (SMs times
+// the blocks an SM holds at once).  Returns cudaGetLastError().
+int topk_select_schedule(long long n, int vec, int* sched) {
+  if (n < 1 || n > (1LL << 38)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, topk_select_kernel<float4, int>, kTopkThreads, 0);
+  sched[0] = kTopkThreads;
+  sched[1] = kTopkUnroll;
+  sched[2] = (int)topk_blocks(n, vec);
+  sched[3] = sms * per_sm;
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@ __all__ = ["quant_pack", "quant_pack_multi", "quant_unpack",
            "topk_select_plain", "ef_gather_plain", "ef_scatter_plain",
            "quant_pack_cuda", "quant_pack_multi_cuda", "quant_unpack_cuda",
            "quant_unpack_multi_cuda", "topk_select_cuda", "ef_gather_cuda",
-           "ef_scatter_cuda"]
+           "ef_scatter_cuda", "topk_schedule"]
 
 MAX_LEAVES = 64     # leaves one K3 / K4 launch takes (the kernels' leaf table)
+_F32 = torch.float32
 
 
 def _check_bits(name, bits):
@@ -150,8 +151,10 @@ def _kernels():
     lib.quant_pack_multi_f32.argtypes = [p, i, i, p, p]
     lib.quant_unpack_multi_f32.argtypes = [p, i, p]
     lib.topk_select_f32.argtypes = [p, p, p, ll, i, p]
+    lib.topk_select_schedule.argtypes = [ll, i, p]
     for fn in (lib.quant_pack_f32, lib.quant_pack_multi_f32,
-               lib.quant_unpack_multi_f32, lib.topk_select_f32):
+               lib.quant_unpack_multi_f32, lib.topk_select_f32,
+               lib.topk_select_schedule):
         fn.restype = ctypes.c_int
     return lib
 
@@ -392,19 +395,49 @@ def _unpack_launch(dev, table):
 
 def topk_select_cuda(x, thresh):
     """Launches K5: x float32 [n] and thresh float32 [1], contiguous on one
-    CUDA device -> float32 [n]."""
+    CUDA device -> float32 [n].  One combined test guards the launch; the
+    detailed refusal is built only when it fails."""
+    if not _topk_takes(x, thresh):
+        _topk_refuse(x, thresh)
+    out = torch.empty_like(x)
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    build.launch("topk_select", _fn("topk_select_f32"), x.device, x_ptr,
+                 thresh.data_ptr(), out_ptr, x.numel(),
+                 not (x_ptr | out_ptr) & 15)
+    topk_select_cuda.launches += 1
+    return out
+
+
+def _topk_takes(x, thresh):
+    """True when K5 takes (x, thresh): a contiguous non-empty float32 [n]
+    on a CUDA device and a float32 [1] on the same one."""
+    return (x.is_cuda and x.dtype == _F32 and x.dim() == 1
+            and x.is_contiguous() and x.numel() > 0
+            and thresh.dtype == _F32 and thresh.dim() == 1
+            and thresh.numel() == 1
+            and thresh.get_device() == x.get_device())
+
+
+def _topk_refuse(x, thresh):
+    """Raises the ValueError that names what K5 does not take."""
     dev = _cuda_device("topk_select_cuda", x)
     _check("topk_select_cuda", "x", x, dev, torch.float32)
     _check("topk_select_cuda", "thresh", thresh, dev, torch.float32, 1)
-    n = x.numel()
-    if n == 0:
-        raise ValueError("topk_select_cuda: empty input")
-    out = torch.empty_like(x)
-    vec = _aligned((x, 16), (out, 16))
-    build.launch("topk_select", _fn("topk_select_f32"), dev, x.data_ptr(),
-            thresh.data_ptr(), out.data_ptr(), n, vec)
-    topk_select_cuda.launches += 1
-    return out
+    raise ValueError("topk_select_cuda: empty input")
+
+
+def topk_schedule(n, *, vec=True, device=None):
+    """K5's launch for n elements on a CUDA device, as ``topk_select_cuda``
+    makes it (16-byte aligned x and out when ``vec``): threads a block,
+    groups a thread (float4s when ``vec``, else floats), blocks, and the
+    blocks of one full wave."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    sched = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        rc = _fn("topk_select_schedule")(n, int(vec), sched)
+    if rc:
+        raise ValueError(f"topk_schedule: n={n} (CUDA error {rc})")
+    return dict(zip(("threads", "unroll", "blocks", "wave"), sched))
 
 
 topk_select_cuda.launches = 0

@@ -33,3 +33,23 @@ def fusion_inputs(shape, C, seed):
     fl = rng.standard_normal(shape + (C,)).astype(np.float32)
     w = (rng.standard_normal((2 * C, C)) / np.sqrt(2 * C)).astype(np.float32)
     return fg, fl, w
+
+
+# K5's edge cases: the threshold a tie (an entry's |x|), 0, negative, +inf
+TOPK_EDGE_T = ("tie", "zero", "negative", "inf")
+
+
+def topk_edge_case(n, case):
+    """x float32 [n] ~ N(0, 1) holding NaN, +-inf, -0.0, +0.0 and +-t (as
+    many as n allows, a different set for each case when n < 7), and the
+    threshold t of ``case`` (one of ``TOPK_EDGE_T``), as float32."""
+    rng = np.random.default_rng(7 * n + len(case))
+    x = rng.standard_normal(n).astype(np.float32)
+    t = {"tie": np.sort(np.abs(x))[-(n + 1) // 2], "zero": np.float32(0),
+         "negative": np.float32(-0.5), "inf": np.float32(np.inf)}[case]
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, t, -t, 0.0],
+                       np.float32)
+    m = min(n, special.size)
+    at = rng.choice(n, size=m, replace=False)
+    x[at] = np.roll(special, -TOPK_EDGE_T.index(case))[:m]
+    return x, np.float32(t)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_inputs import TOPK_EDGE_T, topk_edge_case
 
 from repro import compress as jcomp
 from repro.configs.base import FLConfig as JFL
@@ -27,6 +28,7 @@ from repro.core import init_global_state as j_init_global_state
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.compress_pack import quant_pack as j_quant_pack
+from repro.kernels.compress_pack import topk_select as j_topk_select
 from repro.models.registry import make_bundle as j_make_bundle
 from repro_torch import compress as tcomp
 from repro_torch.configs import FLConfig as TFL
@@ -253,6 +255,31 @@ def test_topk_select_plain_matches_pallas_and_ref(n, k):
     assert torch.equal(tref.topk_select_ref(tx, torch.tensor(t)), got)
     assert torch.equal(tcp.topk_select(tx, torch.tensor([t])), got)
     assert torch.equal(tops.topk_threshold_select(tx, float(t)), got)
+
+
+@pytest.mark.parametrize("case", TOPK_EDGE_T)
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 2049])
+def test_topk_select_plain_matches_pallas_on_edges(n, case):
+    """K5's plain version against the Pallas ``topk_select`` in interpret
+    mode and both packages' jnp / torch oracles, bit for bit (compared as
+    uint32, so -0.0 and +0.0 differ): NaN gives 0, +-inf are kept unless
+    t = +inf keeps only them, -0.0 stays -0.0 where |x| >= t, ties at t
+    are kept."""
+    x, t = topk_edge_case(n, case)
+    want = np.asarray(j_topk_select(jnp.asarray(x), t, interpret=True))
+    assert want.dtype == np.float32 and want.shape == (n,)
+    bits = want.view(np.uint32)
+    assert np.array_equal(np.asarray(jref.topk_select_ref(
+        jnp.asarray(x), t)).view(np.uint32), bits)
+    tx, tt = torch.from_numpy(x), torch.tensor([t])
+    for got in (tcp.topk_select_plain(tx, tt), tcp.topk_select(tx, tt),
+                tref.topk_select_ref(tx, torch.tensor(t))):
+        assert np.array_equal(got.numpy().view(np.uint32), bits)
+    keep = np.abs(x) >= t
+    assert not np.isnan(want).any()
+    assert np.array_equal(want[keep].view(np.uint32),
+                          x[keep].view(np.uint32))
+    assert not want[~keep].view(np.uint32).any()       # +0.0 elsewhere
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from _torch_inputs import WIDTHS, fusion_inputs, rng_pair
+from _torch_inputs import (TOPK_EDGE_T, WIDTHS, fusion_inputs,
+                           rng_pair, topk_edge_case)
 
 from repro_torch.kernels import compress_pack as tcp
 from repro_torch.kernels import decode_attn as tda
@@ -468,6 +469,58 @@ def test_topk_select_kernel_matches_plain(cuda_device, n, k):
     assert got[0] == -t[0] and got[-1] == t[0]
     assert torch.equal(tcp.topk_select_cuda(x[1:], t),
                        tcp.topk_select_plain(x[1:], t))
+
+
+# n on each side of K5's schedule boundaries, from its tile (a block's
+# threads x groups a thread x 4 elements) and one full wave of tiles
+TOPK_SIZES = {"1": lambda tile, wave: 1,
+              "tile - 1": lambda tile, wave: tile - 1,
+              "tile + 1": lambda tile, wave: tile + 1,
+              "wave - 4": lambda tile, wave: wave - 4,
+              "wave + 3": lambda tile, wave: wave + 3,
+              "wave + 4": lambda tile, wave: wave + 4,
+              "2 waves + 1": lambda tile, wave: 2 * wave + 1}
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TOPK_EDGE_T)
+@pytest.mark.parametrize("where", list(TOPK_SIZES))
+def test_topk_select_kernel_edges(cuda_device, where, case):
+    """K5 against its plain version bit for bit (as int32, so -0.0 and
+    +0.0 differ) on NaN, +-inf, -0.0, ties and t = 0, < 0, +inf, at n on
+    each side of the schedule's tile and wave, 16-byte aligned and a view
+    4 bytes off (the scalar path); one launch a call."""
+    sched = tcp.topk_schedule(1, device=cuda_device)
+    tile = sched["threads"] * sched["unroll"] * 4
+    n = TOPK_SIZES[where](tile, sched["wave"] * tile)
+    x, t = topk_edge_case(n + 1, case)
+    buf = torch.from_numpy(x).to(cuda_device)
+    t = torch.tensor([t], device=cuda_device)
+    for view in (buf[:n], buf[1:]):
+        before = tcp.topk_select_cuda.launches
+        got = tcp.topk_select_cuda(view, t)
+        torch.cuda.synchronize()
+        assert tcp.topk_select_cuda.launches == before + 1
+        assert torch.equal(_bits(got), _bits(tcp.topk_select_plain(view, t)))
+
+
+@pytest.mark.cuda
+def test_topk_schedule_is_one_block_a_tile(cuda_device):
+    """K5 launches one block a tile (threads x groups a thread float4s, or
+    floats on the scalar path) at every size; CNN_MNIST's FC leaf fits in
+    one wave."""
+    for n in (1, 5120, 3136 * 512, 49152 * 576):
+        for vec in (True, False):
+            sched = tcp.topk_schedule(n, vec=vec, device=cuda_device)
+            tile = sched["threads"] * sched["unroll"]
+            assert sched["blocks"] == max(1, -(-(n // 4 if vec else n)
+                                               // tile))
+    sched = tcp.topk_schedule(3136 * 512, device=cuda_device)
+    assert sched["blocks"] <= sched["wave"]
 
 
 @pytest.mark.cuda

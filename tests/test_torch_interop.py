@@ -106,15 +106,28 @@ def test_package_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
 
 
-def test_chip_smoke_imports_no_jax_and_no_repro():
-    path = os.path.join(os.path.dirname(SRC), "chip_smoke.py")
+def _script_imports(name):
+    """The modules a script at the root of the repository imports."""
+    path = os.path.join(os.path.dirname(SRC), name)
     names = set()
     for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    names = _script_imports("chip_smoke.py")
     assert "repro_torch.fl.server" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                        "repro")]
+
+
+def test_kernel_ab_imports_no_jax_and_no_repro():
+    names = _script_imports("kernel_ab.py")
+    assert {"chip_smoke", "repro_torch.kernels"} <= names
     assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
                                                         "repro")]
 

@@ -6,8 +6,10 @@ itself, a list or tuple position ``i`` as ``#i``), so ``state.npz``,
 ``ef.npz`` and ``meta.json`` have the JAX package's key layout.  Arrays are
 stored in the port's own layout (conv weights OIHW, EF leaves in the
 port's leaf order); :mod:`repro_torch.interop` maps parameter trees
-between the two.  ``None`` leaves (a stateless codec's EF state) are not
-written, as JAX's tree flattening drops its empty ones.
+between the two.  Every ``meta.json`` the port writes carries
+``"layout": "repro_torch"`` (:data:`PORT_LAYOUT`), which the JAX package's
+lacks.  ``None`` leaves (a stateless codec's EF state) are not written, as
+JAX's tree flattening drops its empty ones.
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["save_tree", "load_tree", "ef_disk_layout", "save_server_state",
-           "restore_server_state"]
+__all__ = ["PORT_LAYOUT", "save_tree", "load_tree", "ef_disk_layout",
+           "save_server_state", "restore_server_state"]
+
+# meta.json marker of a directory the port wrote
+PORT_LAYOUT = {"layout": "repro_torch"}
 
 # transient-OSError retry for checkpoint writes (networked or overlaid
 # filesystems throw sporadic EIO/ESTALE); a persistent failure still
@@ -110,7 +115,7 @@ def save_server_state(dirpath: str, global_state, round_idx: int,
                       extra: Dict | None = None) -> None:
     os.makedirs(dirpath, exist_ok=True)
     save_tree(os.path.join(dirpath, "state.npz"), global_state)
-    meta = {"round": round_idx, **(extra or {})}
+    meta = {"round": round_idx, **(extra or {}), **PORT_LAYOUT}
     meta_path = os.path.join(dirpath, "meta.json")
 
     def write_meta():

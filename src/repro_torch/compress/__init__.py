@@ -5,18 +5,17 @@ of ``repro/compress``).
     int8 / int4 / quant stochastic uniform quantization, per-leaf scale
                         (``quant`` reads ``FLConfig.quant_bits``)
     topk / topk_noef    top-k sparsification (+ client error feedback)
-
-The sketch codecs ``mask`` and ``lowrank`` are not ported: their receiver
-re-creates ``jax.random`` draws from a transmitted seed, which PyTorch
-cannot reproduce (ROADMAP Queue 1, slice 2).
+    mask / lowrank      seed-expanded random sketching (the port's own
+                        seeded expansion, JAX's wire format)
 """
 from repro_torch.compress.codec import Codec, IdentityCodec
 from repro_torch.compress.quant import QuantCodec
+from repro_torch.compress.sketch import SketchCodec
 from repro_torch.compress.topk import TopKCodec
 from repro_torch.configs.base import CODEC_NAMES
 
 __all__ = ["CODEC_NAMES", "Codec", "IdentityCodec", "QuantCodec",
-           "TopKCodec", "make_codec"]
+           "SketchCodec", "TopKCodec", "make_codec"]
 
 
 def make_codec(name: str, *, topk_frac: float = 0.05,
@@ -40,8 +39,8 @@ def make_codec(name: str, *, topk_frac: float = 0.05,
         return TopKCodec(topk_frac, error_feedback=True)
     if name == "topk_noef":
         return TopKCodec(topk_frac, error_feedback=False)
-    if name in ("mask", "lowrank"):
-        raise NotImplementedError(
-            f"codec {name!r} is not ported: its receiver re-creates "
-            "jax.random draws from a seed (ROADMAP Queue 1, slice 2 item 6)")
+    if name == "mask":
+        return SketchCodec(topk_frac, mode="mask")
+    if name == "lowrank":
+        return SketchCodec(topk_frac, mode="lowrank")
     raise ValueError(f"unknown codec {name!r}; choose from {CODEC_NAMES}")

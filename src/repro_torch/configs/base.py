@@ -5,10 +5,9 @@ with ``param_count`` and ``reduced()``, so any JAX architecture config is
 representable; the model code refuses the families it does not run yet.
 
 ``FLConfig`` keeps the fields the federated training path reads, with the
-same names, defaults and validation as the JAX package.  The
-participation and controller fields exist so a config that asks for them
-is representable; the port's server refuses those settings until they are
-ported.
+same names, defaults and validation as the JAX package.  The controller
+field exists so a config that asks for one is representable; the port's
+server refuses it until the controllers are ported.
 """
 from __future__ import annotations
 
@@ -31,9 +30,10 @@ CODEC_NAMES = ("identity", "quant", "int8", "int4", "topk", "topk_noef",
 PARTICIPATION_NAMES = ("full_sync", "deadline", "buffered_async")
 CONTROLLER_NAMES = ("static", "ef_ratio", "bytes_budget", "loss_trend")
 
-# Algorithm plugins registered by repro_torch.fl.api.plugins; names
-# registered at runtime are validated against the live registry lazily.
-ALGORITHM_NAMES = ("fedavg", "fedmmd", "fedfusion", "fedl2")
+# Algorithm plugins registered by repro_torch.fl.api.plugins (and the
+# contrib FedProx); names registered at runtime are validated against the
+# live registry lazily.
+ALGORITHM_NAMES = ("fedavg", "fedmmd", "fedfusion", "fedl2", "fedprox")
 
 
 @dataclass(frozen=True)
@@ -67,6 +67,7 @@ class FLConfig:
     mmd_lambda: float = 0.1           # λ for L_MMD (paper §4.2)
     mmd_widths: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0, 16.0)  # RBF widths
     l2_lambda: float = 0.01           # two-stream L2 baseline coefficient
+    prox_mu: float = 0.01             # FedProx proximal strength (contrib)
     clients_per_round: int = 16       # C·K in the paper
     local_steps: int = 2              # batches per local epoch
     local_epochs: int = 1             # passes over the round's batches (E)
@@ -82,7 +83,12 @@ class FLConfig:
     downlink_codec: str = "identity"  # server -> client broadcast codec
     topk_frac: float = 0.05           # kept fraction (topk / mask / lowrank)
     quant_bits: int = 8               # the "quant" codec's bit width
-    participation: str = "full_sync"
+    # --- participation policy (repro_torch.fl.participation) ---
+    participation: str = "full_sync"  # a PARTICIPATION_NAMES / registry name
+    over_provision: float = 1.5       # deadline: cohort C' = ceil(C * this)
+    buffer_k: int = 0                 # buffered_async: close at K-th arrival
+    # (0 -> clients_per_round // 2)
+    staleness_alpha: float = 0.5      # buffered_async: (1+s)^(-alpha) weight
     controller: str = "static"
 
     def __post_init__(self):
@@ -109,9 +115,19 @@ class FLConfig:
             raise ValueError(f"quant_bits={self.quant_bits!r} must be 4 "
                              "or 8")
         if self.participation not in PARTICIPATION_NAMES:
-            raise ValueError(
-                f"unknown participation {self.participation!r}; choose from "
-                f"{PARTICIPATION_NAMES}")
+            from repro_torch.fl.participation import registered_policies
+            if self.participation not in registered_policies():
+                raise ValueError(
+                    f"unknown participation {self.participation!r}; "
+                    f"registered: {registered_policies()}")
+        if self.over_provision < 1.0:
+            raise ValueError(f"over_provision={self.over_provision!r} must "
+                             "be >= 1.0")
+        if self.buffer_k < 0:
+            raise ValueError(f"buffer_k={self.buffer_k!r} must be >= 0")
+        if self.staleness_alpha < 0.0:
+            raise ValueError(f"staleness_alpha={self.staleness_alpha!r} "
+                             "must be >= 0.0")
         if self.controller not in CONTROLLER_NAMES:
             raise ValueError(f"unknown controller {self.controller!r}; "
                              f"choose from {CONTROLLER_NAMES}")

@@ -23,6 +23,14 @@ def mean_over_clients(values):
     return values.mean()
 
 
+def masked_loss(losses, pmask):
+    """Participation-masked mean of a per-client [C] loss (the JAX
+    package's ``masked_loss_sums`` + ``finish_masked_loss`` on one
+    device): the surviving clients' sum over their count, at least 1."""
+    m = pmask.to(losses.dtype)
+    return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
 def running_update(acc_tree, tree, weight):
     """acc += weight * tree   (client_sequential accumulation)."""
     return tree_map(lambda a, x: a + weight.to(x.dtype) * x, acc_tree, tree)

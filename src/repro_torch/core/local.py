@@ -43,8 +43,9 @@ def make_local_trainer(bundle: ModelBundle, fl: FLConfig):
     """Returns local_train(global_model, global_extra, batches, lr) ->
     (trainable, mean_loss).
 
-    ``batches``: dict whose tensors have leading dim ``fl.local_steps``
-    (one local step per slice).  ``mean_loss`` is a 0-d tensor (no host
+    ``batches``: dict whose tensors have a leading step dim, one local step
+    per slice (``fl.local_steps`` in a round; the new-client probe passes
+    an epoch's worth).  ``mean_loss`` is a 0-d tensor (no host
     sync).
     """
     algo = _algorithm(fl)
@@ -72,8 +73,9 @@ def make_local_trainer(bundle: ModelBundle, fl: FLConfig):
         trainable: Dict[str, Any] = algo.init_trainable(fl, global_model,
                                                         global_extra)
         state = opt_init(trainable)
+        n_steps = len(next(iter(batches.values())))
         steps = [{k: v[s] for k, v in batches.items()}
-                 for s in range(fl.local_steps)]
+                 for s in range(n_steps)]
         cached = [None] * len(steps)
         if cache:
             with torch.no_grad():

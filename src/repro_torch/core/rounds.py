@@ -1,6 +1,6 @@
 """One federated round (port of ``repro/core/rounds.py``: ``make_round_fn``
-and ``make_compressed_round_fn`` without sharding, telemetry,
-participation or controllers, and ``init_global_state``).
+and ``make_compressed_round_fn`` without sharding, telemetry or
+controllers, and ``init_global_state``).
 
 * ``client_parallel`` trains every client of the round from the same
   global state, stacks their trainables on a leading client axis and
@@ -11,6 +11,20 @@ participation or controllers, and ``init_global_state``).
 
 Both loop over the round's clients in Python; a batched client axis is
 later work.  ``global_state`` is ``{'model': params, **extras}``.
+
+Participation contract (``repro_torch.fl.participation``): both
+factories' round fns take two optional trailing ``[n_clients]`` float32
+inputs, ``pmask`` (0/1 contribution mask) and ``pstale`` (staleness; no
+metric reads it until telemetry is ported), the JAX package's
+``participation=True`` round.
+Masked clients are zeroed purely *by weight*: the engine multiplies the
+staged sizes by ``mask * staleness_weight * work`` on the host, so the
+normalized weighted mean excludes them with no shape change.  The round
+adds two things: (a) a masked client's EF row is carried forward
+untouched (its payload never reached the server, so its dropped mass must
+stay local), and (b) the round loss is the mask-weighted mean
+(:func:`masked_loss`).  Without them (``pmask=None``, the default) the
+round is the one without this axis, op for op.
 """
 from __future__ import annotations
 
@@ -19,13 +33,19 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import FL_MODES, FLConfig
-from repro_torch.core.aggregate import (mean_over_clients, normalize_weights,
-                                        running_update, weighted_mean,
-                                        zeros_like_tree)
+from repro_torch.core.aggregate import (masked_loss, mean_over_clients,
+                                        normalize_weights, running_update,
+                                        weighted_mean, zeros_like_tree)
 from repro_torch.core.local import _algorithm, make_local_trainer
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import ModelBundle
 from repro_torch.tree import tree_map
+
+
+def _round_loss(losses, pmask):
+    losses = torch.stack(losses)
+    return (mean_over_clients(losses) if pmask is None
+            else masked_loss(losses, pmask))
 
 
 def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
@@ -34,6 +54,9 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
 
     ``client_batches``: dict of tensors [n_clients, local_steps, B, ...] on
     the global state's device; ``n_examples``: [n_clients] (n_t weights).
+    ``pmask`` / ``pstale`` [n_clients] (module docstring): with them
+    ``n_examples`` arrives already mask- and staleness-weighted from the
+    host, and the round loss is the mask-weighted mean.
     """
     if mode not in FL_MODES:
         raise ValueError(f"unknown fl mode {mode!r}")
@@ -41,7 +64,8 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
     extra_keys = algo.extra_state
     trainer = make_local_trainer(bundle, fl)
 
-    def round_fn(global_state, client_batches, n_examples, lr):
+    def round_fn(global_state, client_batches, n_examples, lr, pmask=None,
+                 pstale=None):
         weights = normalize_weights(n_examples)
         gm = global_state["model"]
         gx = algo.extra_from_state(global_state)
@@ -76,8 +100,7 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
             new_state = {"model": acc["model"]}
             new_state.update(algo.finalize_extra_sums(
                 fl, global_state, {k: acc[k] for k in extra_keys}))
-        return new_state, {"local_loss":
-                           mean_over_clients(torch.stack(losses))}
+        return new_state, {"local_loss": _round_loss(losses, pmask)}
 
     return round_fn
 
@@ -105,6 +128,10 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
     of the round's EF rows, or None for a stateless uplink.  ``noise``:
     (downlink offsets, per-client uplink offsets), each a list of per-leaf
     tensors or None (the codec's deterministic variant).
+
+    ``pmask`` / ``pstale`` [n_clients] (after ``noise``): a masked
+    client's new EF row is its incoming row, bit for bit, and the round
+    loss is the mask-weighted mean.
     """
     if mode not in FL_MODES:
         raise ValueError(f"unknown fl mode {mode!r}")
@@ -113,7 +140,7 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
     trainer = make_local_trainer(bundle, fl)
 
     def round_fn(global_state, client_batches, n_examples, lr, ef_state,
-                 down_mirror, noise=(None, None)):
+                 down_mirror, noise=(None, None), pmask=None, pstale=None):
         down_noise, up_noise = noise
         weights = normalize_weights(n_examples)
         n_clients = weights.shape[0]
@@ -131,6 +158,11 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
             ef = None if ef_state is None else [e[c] for e in ef_state]
             payload, new_ef = uplink.encode(
                 delta, ef, None if up_noise is None else up_noise[c])
+            if pmask is not None and ef is not None:
+                # dropped / late client: its payload never uplinked, so
+                # the residual it would have cleared stays local intact
+                new_ef = [n if n is None else torch.where(pmask[c] > 0, n, o)
+                          for n, o in zip(new_ef, ef)]
             out = {"delta": uplink.decode(payload)}
             out.update({k: trainable[k] for k in extra_keys})
             return out, new_ef, loss
@@ -166,8 +198,7 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
         new_state.update(extras)
         new_ef = (None if ef_state is None else
                   [torch.stack(rows) for rows in zip(*efs)])
-        return (new_state, {"local_loss":
-                            mean_over_clients(torch.stack(losses))},
+        return (new_state, {"local_loss": _round_loss(losses, pmask)},
                 new_ef, bcast)
 
     return round_fn

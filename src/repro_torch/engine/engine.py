@@ -30,6 +30,18 @@ Python-dispatched round at a time:
   replays the chunks, so it runs before the next replay writes the state
   (the JAX engine's snapshot guards a donated buffer, which has no
   counterpart here);
+* partial participation — ``fl.participation`` names a policy of
+  ``repro_torch.fl.participation`` and ``data`` may carry a
+  :class:`repro_torch.data.federated.ChaosConfig`.  When either departs
+  from the default, the engine samples the policy's (possibly
+  over-provisioned) cohort ``c_round``, folds the host-decided mask,
+  staleness weight and work fraction into the staged example weights
+  (``sizes * mask * weight * work`` in float32, in that order), stages
+  ``pmask`` / ``pstale`` as chunk inputs (static buffers of the captured
+  graph, like the batches), carries masked clients' EF rows forward
+  untouched, and logs each round's ``sim_time`` / ``arrived`` and its
+  partial uplink (``n_up``) in the CommLog.  A ``full_sync`` run without
+  chaos takes the path without any of this: no new inputs, no new graph;
 * EF store — ``ef_store="device"`` keeps the dense ``[N, n]`` table on
   the card; ``"host"`` the cohort-paged store
   (``repro_torch.engine.efstore``: only a ``[K*C, n]`` page is on the
@@ -61,9 +73,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.io import (ef_disk_layout, load_tree,
-                                       restore_server_state,
-                                       save_server_state, save_tree)
+from repro_torch.checkpoint.convert import load_ef, restore
+from repro_torch.checkpoint.io import (ef_disk_layout, save_server_state,
+                                       save_tree)
 from repro_torch.compress import make_codec
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.rounds import init_global_state
@@ -74,6 +86,7 @@ from repro_torch.engine.metrics import MetricsPump
 from repro_torch.engine.pipeline import HostPrefetcher, StagingPool
 from repro_torch.engine.superstep import (make_compressed_superstep,
                                           make_plain_superstep)
+from repro_torch.fl.participation import make_policy
 from repro_torch.models.registry import ModelBundle
 from repro_torch.optim import exp_decay_per_round
 from repro_torch.tree import tree_leaves, tree_map
@@ -157,23 +170,23 @@ def _auto_chunk_rounds(timed: Callable[[int], float], *,
 
 def _refuse_unported(fl, *, mesh, telemetry, runlog, halt_on_nonfinite,
                      profile_dir):
-    slice4 = "ROADMAP Queue 1, slice 4"
-    if fl.participation != "full_sync":
-        raise NotImplementedError(
-            f"participation {fl.participation!r} is not ported ({slice4})")
+    item7 = "ROADMAP Queue 1 item 7, slice 4"
     if fl.controller != "static":
         raise NotImplementedError(
             f"compression controller {fl.controller!r} is not ported "
-            f"({slice4})")
-    for name, value in (("telemetry", telemetry), ("runlog", runlog),
-                        ("halt_on_nonfinite", halt_on_nonfinite),
-                        ("profile_dir", profile_dir)):
+            f"({item7}: the controllers)")
+    for name, value, what in (
+            ("telemetry", telemetry, "telemetry"),
+            ("runlog", runlog, "run logs"),
+            ("halt_on_nonfinite", halt_on_nonfinite, "halt_on_nonfinite"),
+            ("profile_dir", profile_dir, "profile_dir")):
         if value:
-            raise NotImplementedError(f"{name} is not ported ({slice4})")
+            raise NotImplementedError(
+                f"{name} is not ported ({item7}: {what})")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the sharded engine is not ported (ROADMAP Queue 1, "
-            "slice 5)")
+            "mesh: the sharded engine is not ported (ROADMAP Queue 1 "
+            "item 8, slice 5)")
 
 
 def _copy_into(dst, src):
@@ -309,6 +322,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                          verbose: bool = False,
                          checkpoint_dir: Optional[str] = None,
                          checkpoint_every: int = 10,
+                         checkpoint_from_jax: bool = False,
                          callback: Optional[Callable] = None,
                          superstep_rounds=8, prefetch: bool = True,
                          ef_store: str = "auto",
@@ -325,6 +339,10 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     ``superstep_rounds`` (rounds per chunk, or ``"auto"``), ``prefetch``
     (background staging) and ``ef_store`` (``"device"`` | ``"host"`` |
     ``"auto"``).
+    ``checkpoint_from_jax``: ``checkpoint_dir`` holds a checkpoint the JAX
+    package wrote; it is converted on resume
+    (:mod:`repro_torch.checkpoint.convert`), unless its ``meta.json``
+    carries the marker every save of the port writes.
     ``global_state`` (e.g. a converted JAX state) replaces the seeded
     initial state and is copied, never updated in place; ``noise_fn(r,
     n_clients)`` supplies the quant codecs' offsets (default
@@ -332,9 +350,11 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     metrics)`` forces one-round chunks; the state it gets is live and
     valid until it returns.
 
-    ``mesh``, ``telemetry``, ``runlog``, ``halt_on_nonfinite``,
-    ``profile_dir``, partial participation, adaptive controllers and LM
-    bundles are not ported and raise ``NotImplementedError``.
+    Partial participation and chaos follow the module docstring
+    (``stats["participation"]``, ``stats["round_cohort"]``).  ``mesh``,
+    ``telemetry``, ``runlog``, ``halt_on_nonfinite``, ``profile_dir``,
+    adaptive controllers and LM bundles are not ported and raise
+    ``NotImplementedError``.
     """
     from repro_torch.fl.comm import CommLog
     from repro_torch.fl.server import make_noise_source
@@ -353,7 +373,24 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                          "('auto', 'device', 'host')")
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    c_round = min(fl.clients_per_round, data.n_clients)
+    n_sampled = min(fl.clients_per_round, data.n_clients)
+
+    # --- participation: who lands in each round, at what weight ----------
+    # part_active=False (full_sync, no chaos) is the path without it: no
+    # extra round_chunk outputs, no pmask / pstale inputs
+    policy = make_policy(fl.participation)
+    part_active = (getattr(data, "chaos", None) is not None
+                   or policy.name != "full_sync")
+    c_round = policy.cohort_size(n_sampled, fl) if part_active else n_sampled
+    select_fn = None
+    if part_active:
+        def select_fn(draws):
+            if draws is None:     # chaos off: everyone reports at t=1.0
+                arrival = np.ones(c_round, np.float32)
+                dropped = np.zeros(c_round, bool)
+            else:
+                arrival, dropped = draws.arrival, draws.dropped
+            return policy.select(arrival, dropped, fl, n_sampled)
 
     if global_state is None:
         global_state = init_global_state(
@@ -363,15 +400,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             lambda t: torch.as_tensor(t).to(device, copy=True).contiguous(),
             global_state)
     start_round = 0
+    from_jax = False
     if checkpoint_dir and os.path.exists(
             os.path.join(checkpoint_dir, "meta.json")):
-        global_state, start_round = restore_server_state(
-            checkpoint_dir, global_state, device)
+        global_state, start_round, from_jax = restore(
+            checkpoint_dir, global_state, device,
+            from_jax=checkpoint_from_jax)
         # replay the consumed sampling stream: resumed == uninterrupted
         data.skip_round_sampling(start_round, c_round, fl.local_steps,
                                  fl.local_batch)
     lr_at = exp_decay_per_round(fl.lr, fl.lr_decay)
     comm = CommLog().bind_sizes(global_state)
+    meta_extra = {"algorithm": fl.algorithm}
 
     # --- wire codecs: EF store (dense table | cohort-paged) + mirror -----
     compressed = fl.compressed
@@ -404,9 +444,10 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         ef_like = [None if z is None else
                    torch.empty((data.n_clients,) + tuple(z.shape),
                                device="meta") for z in ef_template]
-        if resume_ef:   # ef.npz is always the compact [n_clients, ...] layout
-            ef_dense, mirror = load_tree(
-                ef_path, (ef_like, global_state["model"]), "cpu")
+        if resume_ef:   # ef.npz is the compact [n_clients, ...] layout
+            ef_dense, mirror = load_ef(ef_path, ef_like,
+                                       global_state["model"], "cpu",
+                                       jax=from_jax)
             down_mirror = tree_map(lambda t: t.to(device), mirror)
         else:
             ef_dense = None
@@ -455,8 +496,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             pool = pools[n_built[0] % len(pools)]
             n_built[0] += 1
             pool.acquire()
-        cids, batches, sizes = (src or data).round_chunk(
-            r1 - r0, c_round, fl.local_steps, fl.local_batch, pool=pool)
+        out = (src or data).round_chunk(
+            r1 - r0, c_round, fl.local_steps, fl.local_batch, pool=pool,
+            participation=select_fn)
+        cids, batches, sizes = out[:3]
+        part = out[3] if part_active else None
+        if part is not None:
+            # the participation outcome is weight-borne: dropped / late
+            # clients are zeroed (mask), staleness-discounted (weight) and
+            # truncation-scaled (work) here, on the host, in place in the
+            # staged (pinned) sizes, in the JAX package's order
+            for f in (part["mask"], part["weight"], part["work"]):
+                np.multiply(sizes, f, out=sizes)
 
         def host(name, arr):
             return pool.tensor(name) if pool is not None \
@@ -468,6 +519,15 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                   "sizes": host("sizes", sizes),
                   "lrs": torch.tensor([lr_at(r) for r in range(r0, r1)],
                                       dtype=torch.float32)}
+        if part is not None:
+            staged["part"] = (host("part/mask", part["mask"]),
+                              host("part/staleness", part["staleness"]))
+            # host-only accounting: the simulated round wall-clock and
+            # the partial uplink count ride the MetricsPump
+            staged["host"] = {
+                "metrics": {"sim_time": part["round_time"],
+                            "arrived": part["n_arrived"].astype(np.float32)},
+                "n_up": part["n_arrived"]}
         if compressed:
             staged["cids"] = host("cids", cids)
             if ef_paged:
@@ -503,17 +563,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         superstep = supersteps[n_rounds]
 
         def body(inputs):
+            part = inputs.get("part")
             if compressed:
                 ef = inputs["ef_page"] if ef_paged else ef_all
                 new_state, mstack, _, new_mirror = superstep(
                     global_state, ef, down_mirror, inputs["batches"],
                     inputs["sizes"], inputs["lrs"], inputs["cids"],
-                    inputs["noise"], *test_args)
+                    inputs["noise"], *test_args, part=part)
                 _copy_into(down_mirror, new_mirror)
             else:
                 new_state, mstack = superstep(
                     global_state, inputs["batches"], inputs["sizes"],
-                    inputs["lrs"], *test_args)
+                    inputs["lrs"], *test_args, part=part)
             _copy_into(global_state, new_state)
             return mstack
         return body
@@ -534,6 +595,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         graph or None)."""
         src = {"batches": staged["batches"], "sizes": staged["sizes"],
                "lrs": staged["lrs"]}
+        if part_active:
+            src["part"] = staged["part"]
         if compressed:
             src["cids"] = staged["cids"]
             src["noise"] = noise
@@ -670,7 +733,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                 if eval_every and not eval_in_chunk and r1 % eval_every == 0:
                     eval_metrics = eval_fn(global_state, test_batch,
                                            test_mask)
-                pump.submit(mstack, eval_metrics)
+                pump.submit(mstack, eval_metrics, host=staged.get("host"))
                 if callback is not None:      # one-round chunks
                     pump.drain()
                     metrics = {k: v for k, v in comm.history[-1].items()
@@ -678,7 +741,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                     callback(r0, global_state, metrics)
                 if checkpoint_dir and r1 % checkpoint_every == 0:
                     save_server_state(checkpoint_dir, global_state, r1,
-                                      extra={"algorithm": fl.algorithm})
+                                      extra=meta_extra)
                     if compressed:
                         save_ef()
     finally:
@@ -693,7 +756,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
 
     if checkpoint_dir:
         save_server_state(checkpoint_dir, global_state, rounds,
-                          extra={"algorithm": fl.algorithm})
+                          extra=meta_extra)
         if compressed:
             save_ef()
     stats = {
@@ -717,6 +780,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         "ef_store": ("host" if ef_paged else "device") if compressed
                     else None,
         "graphs": [graphs[k].stats() for k in sorted(graphs)],
+        "participation": policy.name if part_active else None,
+        "round_cohort": c_round,
     }
     if ef_paged:
         stats["ef_page_bytes"] = pager.page_rows_max * store.row_nbytes()

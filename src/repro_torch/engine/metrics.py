@@ -81,11 +81,16 @@ class MetricsPump:
             self.abort()
         return False
 
-    def submit(self, metrics_stack, eval_metrics=None):
+    def submit(self, metrics_stack, eval_metrics=None, host=None):
         """Queue one chunk: ``metrics_stack`` maps names to [K] tensors;
         ``eval_metrics`` (0-d tensors, or None) merge into the chunk's last
-        round (the engine cuts chunks at eval rounds).  Blocks only when
-        more than ``max_pending`` chunks are queued (``wait_s``)."""
+        round (the engine cuts chunks at eval rounds).  ``host`` (optional)
+        carries per-round values computed on the host, never on the
+        device: ``host["metrics"]`` maps names to [K] arrays merged into
+        each round, and ``host["n_up"]`` ([K] int) is each round's uplink
+        count for ``CommLog.log_round(n_up=)`` (partial participation).
+        Blocks only when more than ``max_pending`` chunks are queued
+        (``wait_s``)."""
         stack, ev_stack = _to_host(metrics_stack)
         evals, ev_eval = _to_host(eval_metrics)
 
@@ -95,7 +100,7 @@ class MetricsPump:
                     ev.synchronize()
             return ({k: v.numpy() for k, v in stack.items()},
                     None if evals is None else
-                    {k: v.numpy() for k, v in evals.items()})
+                    {k: v.numpy() for k, v in evals.items()}, host)
 
         self._pending.append(self._pool.submit(fetch))
         while len(self._pending) > self._max_pending:
@@ -123,15 +128,20 @@ class MetricsPump:
         self._pool.shutdown(wait=False, cancel_futures=True)
 
     def _log(self, fetched):
-        stack, ev = fetched
+        stack, ev, host = fetched
         n_rounds = (len(next(iter(stack.values()))) if stack
                     else (1 if ev is not None else 0))
+        host_metrics = host.get("metrics", {}) if host else {}
+        n_up = host.get("n_up") if host else None
         for k in range(n_rounds):
             metrics = {key: float(v[k]) for key, v in stack.items()}
+            metrics.update({key: float(v[k])
+                            for key, v in host_metrics.items()})
             if ev is not None and k == n_rounds - 1:
                 metrics.update({key: float(np.asarray(v))
                                 for key, v in ev.items()})
             self._comm.log_round(None, self._n_clients, metrics,
+                                 n_up=None if n_up is None else int(n_up[k]),
                                  **self._wire)
             if self._verbose:
                 print(f"round {self._comm.rounds:4d} " +

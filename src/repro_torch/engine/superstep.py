@@ -1,5 +1,5 @@
 """K-round supersteps (port of ``repro/engine/superstep.py`` for one
-device, without telemetry, participation or controllers).
+device, without telemetry or controllers).
 
 A superstep is a plain function that turns K pre-staged rounds: one
 round body (``make_round_fn`` / ``make_compressed_round_fn``) called K
@@ -17,6 +17,9 @@ CUDA graph (the counterpart of the JAX package's ``jit`` + ``lax.scan``):
   place, with no copy of the ``[N, n]`` table.  ``noise`` holds the quant
   codecs' stochastic-rounding offsets of the chunk, drawn outside (no
   random generator runs inside a captured graph);
+* with partial participation, ``part = (pmask, pstale)`` ``[K, C]``
+  carries each round's contribution mask and staleness (the round fns'
+  participation inputs); None keeps the round without them;
 * per-round metrics come back stacked ``[K]``; with ``eval_fn`` (eval
   every round) the evaluator is folded into each round.
 
@@ -40,21 +43,26 @@ def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
+def _round_part(part, r):
+    """Round ``r``'s (pmask, pstale), or () without participation."""
+    return () if part is None else (part[0][r], part[1][r])
+
+
 def make_plain_superstep(bundle, fl, mode, n_rounds, *, eval_fn=None):
     """Uncompressed K-round superstep.
 
     Returns ``superstep(global_state, batches, sizes, lrs[, test_batch,
-    test_mask]) -> (new_global_state, metrics stacked [K])``.  ``eval_fn``
-    (``repro_torch.engine.make_eval_fn``) folds per-round evaluation of
-    the post-round state into the chunk.
+    test_mask], part=None) -> (new_global_state, metrics stacked [K])``.
+    ``eval_fn`` (``repro_torch.engine.make_eval_fn``) folds per-round
+    evaluation of the post-round state into the chunk.
     """
     round_fn = make_round_fn(bundle, fl, mode)
 
-    def superstep(global_state, batches, sizes, lrs, *test):
+    def superstep(global_state, batches, sizes, lrs, *test, part=None):
         state, ms = global_state, []
         for r in range(n_rounds):
             state, m = round_fn(state, {k: v[r] for k, v in batches.items()},
-                                sizes[r], lrs[r])
+                                sizes[r], lrs[r], *_round_part(part, r))
             if eval_fn is not None:
                 m = {**m, **eval_fn(state, test[0], test[1])}
             ms.append(m)
@@ -68,8 +76,8 @@ def make_compressed_superstep(bundle, fl, mode, n_rounds, uplink, downlink,
     """Compressed (codec-routed) K-round superstep.
 
     Returns ``superstep(global_state, ef_all, mirror, batches, sizes, lrs,
-    cids, noise[, test_batch, test_mask]) -> (new_global_state, metrics
-    [K], ef_all, new_mirror)``.
+    cids, noise[, test_batch, test_mask], part=None) -> (new_global_state,
+    metrics [K], ef_all, new_mirror)``.
 
     ``ef_all``: per uplink leaf the federation's EF table ``[N, n]`` (or a
     chunk's page), updated in place; None for a stateless uplink.  ``cids
@@ -80,7 +88,7 @@ def make_compressed_superstep(bundle, fl, mode, n_rounds, uplink, downlink,
     round_fn = make_compressed_round_fn(bundle, fl, mode, uplink, downlink)
 
     def superstep(global_state, ef_all, mirror, batches, sizes, lrs, cids,
-                  noise, *test):
+                  noise, *test, part=None):
         down_noise, up_noise = noise
         n_clients = sizes.shape[1]
         state, ms = global_state, []
@@ -93,7 +101,7 @@ def make_compressed_superstep(bundle, fl, mode, n_rounds, uplink, downlink,
                 [[u[r, c] for u in up_noise] for c in range(n_clients)])
             state, m, new_ef, mirror = round_fn(
                 state, {k: v[r] for k, v in batches.items()}, sizes[r],
-                lrs[r], ef_round, mirror, noise_r)
+                lrs[r], ef_round, mirror, noise_r, *_round_part(part, r))
             if ef_all is not None:
                 for t, rows in zip(ef_all, new_ef):
                     ops.ef_scatter(t, cids[r], rows)

@@ -83,6 +83,7 @@ _REGISTRY: Dict[str, Algorithm] = {}
 
 def _ensure_builtins() -> None:
     import repro_torch.fl.api.plugins  # noqa: F401 — registers the four
+    import repro_torch.contrib.fedprox  # noqa: F401 — out-of-core FedProx
 
 
 def register_algorithm(algo: Algorithm, *, override: bool = False) -> Algorithm:

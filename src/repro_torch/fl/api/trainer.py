@@ -4,11 +4,12 @@
     trainer = FederatedTrainer(bundle, fl, data, RunOptions(...))
     trainer.fit(rounds)              # engine-backed, checkpoint-resumable
     trainer.evaluate()               # masked eval of the trained model
+    trainer.newclient_probe(client, epochs=6)   # paper Fig. 6
 
 With ``options.checkpoint.dir`` set, ``fit`` resumes from the last
 checkpoint, so an interrupted ``fit(N)`` called again finishes the same
-run.  The trainer keeps the last result for ``evaluate``.  The fig. 6
-new-client probe (``newclient_probe``) is not ported yet.
+run.  The trainer keeps the last result for ``evaluate`` and for the
+fig. 6 new-client probe (``newclient_probe``).
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ class CheckpointOptions:
 
     dir: Optional[str] = None
     every: int = 10           # rounds between saves
+    # the directory holds a JAX package checkpoint (converted on resume)
+    from_jax: bool = False
 
 
 @dataclass(frozen=True)
@@ -108,7 +111,8 @@ class FederatedTrainer:
             mode=o.mode, eval_every=o.eval.every,
             eval_examples=o.eval.examples, verbose=o.verbose,
             checkpoint_dir=o.checkpoint.dir,
-            checkpoint_every=o.checkpoint.every, callback=callback,
+            checkpoint_every=o.checkpoint.every,
+            checkpoint_from_jax=o.checkpoint.from_jax, callback=callback,
             superstep_rounds=o.engine.superstep_rounds,
             prefetch=o.engine.prefetch, ef_store=o.engine.ef_store, mesh=o.engine.mesh,
             telemetry=o.engine.telemetry, runlog=o.engine.runlog,
@@ -128,9 +132,16 @@ class FederatedTrainer:
                         max_examples if max_examples is not None
                         else self.options.eval.examples)
 
-    def newclient_probe(self, client_data, **kw):
-        """Paper Fig. 6 probe: not ported yet (ROADMAP Queue 1 item 2,
-        ``fl/newclient.py``)."""
-        raise NotImplementedError(
-            "the new-client probe is not ported yet (ROADMAP Queue 1 "
-            "item 2, fl/newclient.py)")
+    def newclient_probe(self, client_data, *, epochs: int,
+                        batch: Optional[int] = None,
+                        lr: Optional[float] = None, seed: int = 0,
+                        global_state=None):
+        """Paper Fig. 6: per-epoch local accuracy of a fresh client that
+        adapts from the (last-trained) aggregated global state, on that
+        state's device."""
+        from repro_torch.fl.newclient import newclient_convergence
+        state = global_state if global_state is not None else self.global_state
+        return newclient_convergence(
+            self.bundle, self.fl, state, client_data, epochs=epochs,
+            batch=batch if batch is not None else self.fl.local_batch,
+            lr=lr if lr is not None else self.fl.lr, seed=seed)

@@ -63,8 +63,9 @@ class CommLog:
     def log_round(self, global_state, n_clients: int, metrics: Dict, *,
                   wire_up: Optional[int] = None,
                   wire_down: Optional[int] = None,
-                  n_down: Optional[int] = None):
-        """Account one full-participation round.
+                  n_down: Optional[int] = None,
+                  n_up: Optional[int] = None):
+        """Account one round.
 
         ``wire_up`` / ``wire_down``: codec-reported bytes per client for the
         model payload (``repro_torch.compress``); None charges the raw
@@ -73,7 +74,11 @@ class CommLog:
         participants.  ``n_down``: receivers of the model broadcast
         (default ``n_clients``); a mirror-based downlink codec is a
         multicast stream every client must hear, so the server passes the
-        federation size there.
+        federation size there.  ``n_up``: uploaders this round (default
+        ``n_clients``); a partial-participation round (deadline /
+        buffered-async policies, chaos dropouts) receives uploads only from
+        the clients that arrived, while the downlink keeps charging the
+        whole cohort, which started the round.
         """
         if global_state is None:
             if self._model_b is None:
@@ -87,8 +92,8 @@ class CommLog:
         n_down = n_clients if n_down is None else n_down
         down = (n_down * (model_b if wire_down is None else wire_down)
                 + n_clients * fusion_b)
-        up = n_clients * ((model_b if wire_up is None else wire_up)
-                          + fusion_b)
+        n_up = n_clients if n_up is None else n_up
+        up = n_up * ((model_b if wire_up is None else wire_up) + fusion_b)
         self.rounds += 1
         self.bytes_down += down
         self.bytes_up += up

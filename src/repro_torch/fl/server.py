@@ -15,8 +15,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.checkpoint.io import (load_tree, restore_server_state,
-                                       save_server_state, save_tree)
+from repro_torch.checkpoint.convert import load_ef, restore
+from repro_torch.checkpoint.io import save_server_state, save_tree
 from repro_torch.compress import make_codec
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.rounds import (init_global_state,
@@ -81,6 +81,7 @@ def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
                   eval_examples: int = 2048, verbose: bool = False,
                   checkpoint_dir: Optional[str] = None,
                   checkpoint_every: int = 10,
+                  checkpoint_from_jax: bool = False,
                   callback: Optional[Callable] = None,
                   superstep_rounds=8, prefetch: bool = True,
                   ef_store: str = "auto",
@@ -101,7 +102,8 @@ def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
         mode=mode, seed=seed, verbose=verbose, device=device,
         eval=EvalOptions(every=eval_every, examples=eval_examples),
         checkpoint=CheckpointOptions(dir=checkpoint_dir,
-                                     every=checkpoint_every),
+                                     every=checkpoint_every,
+                                     from_jax=checkpoint_from_jax),
         engine=EngineOptions(superstep_rounds=superstep_rounds,
                              prefetch=prefetch, ef_store=ef_store, mesh=mesh,
                              telemetry=telemetry, runlog=runlog,
@@ -119,6 +121,7 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
                             verbose: bool = False,
                             checkpoint_dir: Optional[str] = None,
                             checkpoint_every: int = 10,
+                            checkpoint_from_jax: bool = False,
                             callback: Optional[Callable] = None,
                             global_state=None,
                             noise_fn: Optional[Callable] = None,
@@ -141,18 +144,25 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
     the state goes to ``state.npz`` + ``meta.json`` (and, compressed, the
     EF table and the mirror to ``ef.npz``); a directory that holds a
     checkpoint resumes from it, replaying the sampling stream, so the
-    resumed run equals the uninterrupted one.
+    resumed run equals the uninterrupted one.  ``checkpoint_from_jax``:
+    the directory holds a checkpoint the JAX package wrote, converted on
+    resume (:mod:`repro_torch.checkpoint.convert`).
 
-    Partial participation, adaptive controllers and the sketch codecs are
-    not ported yet and raise ``NotImplementedError``.
+    Partial participation, chaos and adaptive controllers are engine
+    features: they raise ``NotImplementedError`` here, as in the JAX
+    package.
     """
     device = resolve_device(device)
-    if fl.participation != "full_sync":
+    if getattr(data, "chaos", None) is not None \
+            or fl.participation != "full_sync":
         raise NotImplementedError(
-            "partial participation is an engine feature and is not ported")
+            "partial participation / chaos injection is an engine feature "
+            "(repro_torch.engine); the reference loop has no fault schedule "
+            "and would silently diverge from the engine's rng stream")
     if fl.controller != "static":
         raise NotImplementedError(
-            "adaptive compression controllers are not ported")
+            "adaptive compression controllers are an engine feature; the "
+            "reference loop only runs the static codec configuration")
     if global_state is None:
         global_state = init_global_state(
             bundle, fl, torch.Generator().manual_seed(seed), device)
@@ -160,10 +170,12 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
         global_state = tree_map(lambda t: torch.as_tensor(t).to(device),
                                 global_state)
     start_round = 0
+    from_jax = False
     if checkpoint_dir and os.path.exists(
             os.path.join(checkpoint_dir, "meta.json")):
-        global_state, start_round = restore_server_state(
-            checkpoint_dir, global_state, device)
+        global_state, start_round, from_jax = restore(
+            checkpoint_dir, global_state, device,
+            from_jax=checkpoint_from_jax)
         # same stream replay as the engine: resumed == uninterrupted
         data.skip_round_sampling(start_round, fl.clients_per_round,
                                  fl.local_steps, fl.local_batch)
@@ -196,8 +208,8 @@ def run_federated_reference(bundle: ModelBundle, fl: FLConfig,
             like = [None if z is None else
                     torch.empty((data.n_clients,) + tuple(z.shape),
                                 device="meta") for z in uplink.init_state()]
-            ef_disk, down_mirror = load_tree(ef_path, (like, down_mirror),
-                                             device)
+            ef_disk, down_mirror = load_ef(ef_path, like, down_mirror,
+                                           device, jax=from_jax)
             if ef_all is not None:
                 ef_all = list(ef_disk)
         if noise_fn is None:

@@ -777,6 +777,116 @@ def test_engine_auto_chunk_keeps_only_the_runs_graphs(cuda_device):
     assert eng.comm.history == ref.comm.history
 
 
+@pytest.mark.cuda
+def test_deadline_chunk_replays_with_new_masks_equal_eager(cuda_device):
+    """A ``deadline`` run with chaos (top-k uplink, dense EF): one 2-round
+    graph replayed twice, each replay with other staged masks, equals the
+    same rounds run eagerly on the card (cuDNN deterministic): the round
+    fn with each round's staged cids, weights and mask, the EF rows
+    gathered and scattered by indexing."""
+    from repro_torch.chaos import ChaosConfig
+    from repro_torch.compress import make_codec
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import init_global_state, make_compressed_round_fn
+    from repro_torch.fl.participation import make_policy
+    from repro_torch.fl.server import run_federated
+    from repro_torch.optim import exp_decay_per_round
+    bundle, data = _small_engine_setup()
+    chaos = ChaosConfig(speed_sigma=1.2, jitter=0.15, dropout=0.3, seed=17)
+
+    def chaos_data():
+        d = data()
+        return type(d)(d.clients, d.test, chaos=chaos)
+
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
+                  clients_per_round=2, local_steps=2, local_batch=4,
+                  uplink_codec="topk", topk_frac=1 / 16,
+                  participation="deadline", over_provision=1.5)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = run_federated(bundle, fl, chaos_data(), rounds=4,
+                            eval_every=0, superstep_rounds=2,
+                            ef_store="device", device=cuda_device)
+        # the same rounds, eagerly
+        src = chaos_data()
+        policy = make_policy("deadline")
+        state = init_global_state(bundle, fl,
+                                  torch.Generator().manual_seed(0),
+                                  cuda_device)
+        up, down = make_codec("topk", topk_frac=1 / 16), make_codec(
+            "identity")
+        up.bind(state["model"])
+        down.bind(state["model"])
+        round_fn = make_compressed_round_fn(bundle, fl, "client_parallel",
+                                            up, down)
+        ef = [torch.zeros((4, z.numel()), device=cuda_device)
+              for z in up.init_state()]
+        mirror = tree_map(torch.clone, state["model"])
+        lr_at = exp_decay_per_round(fl.lr, fl.lr_decay)
+        masks = []
+        for r in range(4):
+            cids, batches, sizes, part = src.round_chunk(
+                1, 3, 2, 4, participation=lambda d: policy.select(
+                    d.arrival, d.dropped, fl, 2))
+            sizes = sizes * part["mask"] * part["weight"] * part["work"]
+            rows = torch.as_tensor(cids[0], device=cuda_device).long()
+            pm = torch.from_numpy(part["mask"][0]).to(cuda_device)
+            masks.append(part["mask"][0].tolist())
+            state, _, new_ef, mirror = round_fn(
+                state, {k: torch.from_numpy(v[0]).to(cuda_device)
+                        for k, v in batches.items()},
+                torch.from_numpy(sizes[0]).to(cuda_device), lr_at(r),
+                [e[rows] for e in ef], mirror, (None, None), pm,
+                torch.from_numpy(part["staleness"][0]).to(cuda_device))
+            for e, n in zip(ef, new_ef):
+                e[rows] = n
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    graphs = eng.stats["graphs"]
+    assert len(graphs) == 1 and graphs[0]["replays"] == 2
+    assert eng.stats["round_cohort"] == 3
+    assert masks[0:2] != masks[2:4]
+    for a, b in zip(tree_leaves(eng.global_state), tree_leaves(state)):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    assert [h["arrived"] for h in eng.comm.history] == \
+        [float(sum(m)) for m in masks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mask", "lowrank"])
+def test_sketch_expansion_equal_on_card_and_cpu(cuda_device, mode):
+    """The seeded expansion is integer arithmetic: the card picks the
+    CPU's mask indices bit for bit; lowrank's G (a log and a cosine) is
+    within 1e-6, and so is a decode."""
+    from repro_torch.compress import SketchCodec
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(32, 4, 3, 3, generator=gen),
+            "m": torch.randn(300, 64, generator=gen),
+            "b": torch.randn(1000, generator=gen)}
+    cpu = SketchCodec(1 / 16, mode=mode).bind(tree)
+    card = SketchCodec(1 / 16, mode=mode).bind(
+        tree_map(lambda t: t.to(cuda_device), tree))
+    for u in torch.rand(8, generator=gen):
+        seed = (u.reshape(1) * 2.0 ** 31).to(torch.int32)
+        for i in range(3):
+            a = cpu._expand(seed, i)
+            b = card._expand(seed.to(cuda_device), i).cpu()
+            if a.dtype == torch.int64:
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+        noise = [u.reshape(1)] * 3
+        pa, _ = cpu.encode(tree, noise=noise)
+        pb, _ = card.encode(tree_map(lambda t: t.to(cuda_device), tree),
+                            noise=[t.to(cuda_device) for t in noise])
+        for x, y in zip(tree_leaves(cpu.decode(pa)),
+                        tree_leaves(card.decode(pb))):
+            torch.testing.assert_close(y.cpu(), x, rtol=1e-5,
+                                       atol=1e-5 * float(x.abs().max()))
+
+
 # --------------------------------------------------------------------------
 # K8a flash attention forward and K9 flash-decode
 # --------------------------------------------------------------------------

@@ -161,14 +161,18 @@ def test_trainer_fit_and_evaluate():
     _assert_same(res, _engine("plain"))
     ev = trainer.evaluate(max_examples=64)
     assert ev == {k: res.comm.history[-1][k] for k in ("acc", "loss")}
-    with pytest.raises(NotImplementedError, match="newclient"):
-        trainer.newclient_probe(None, epochs=1)
+    # the fig. 6 probe runs from the trained state (held to JAX's in
+    # tests/test_torch_newclient.py)
+    accs = trainer.newclient_probe(_tdata().clients[0], epochs=2, batch=8)
+    assert len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs)
 
 
 @pytest.mark.parametrize("kw,fl_kw", [
     (dict(mesh=object()), {}), (dict(telemetry=True), {}),
     (dict(runlog="run.jsonl"), {}), (dict(halt_on_nonfinite=True), {}),
-    (dict(profile_dir="prof"), {}), ({}, dict(participation="deadline")),
+    (dict(profile_dir="prof"), {}),
+    # participation runs on the engine; with telemetry it is still refused
+    (dict(telemetry=True), dict(participation="deadline")),
     ({}, dict(controller="ef_ratio")),
 ], ids=["mesh", "telemetry", "runlog", "halt", "profile", "participation",
         "controller"])
@@ -215,7 +219,8 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path, case, first,
     data = _tdata()
     run(first, 3, data)
     meta = json.load(open(tmp_path / "ckpt" / "meta.json"))
-    assert meta == {"round": 3, "algorithm": _fl(case).algorithm}
+    assert meta == {"round": 3, "algorithm": _fl(case).algorithm,
+                    "layout": "repro_torch"}
     resumed = run(second, ROUNDS, data)
     full = _reference(case, "client_parallel")
     for x, y in zip(tree_leaves(resumed.global_state),
@@ -235,9 +240,10 @@ def _npz_shapes(path):
 
 
 def test_checkpoint_layout_matches_jax(tmp_path):
-    """The port writes the JAX package's meta.json and the same .npz keys;
-    shapes agree once the conv weights' HWIO -> OIHW layout and the EF
-    leaves' order (JAX sorts a dict's keys) are mapped."""
+    """The port writes the JAX package's meta.json, plus its own layout
+    marker, and the same .npz keys; shapes agree once the conv weights'
+    HWIO -> OIHW layout and the EF leaves' order (JAX sorts a dict's
+    keys) are mapped."""
     fl_kw = {**BASE, **CASES["fusion-topk"]}
     parts, test = _parts()
     jb = j_make_bundle(dataclasses.replace(J_MNIST, **NARROW))
@@ -245,7 +251,8 @@ def test_checkpoint_layout_matches_jax(tmp_path):
           eval_examples=64, checkpoint_dir=str(tmp_path / "jax"))
     _engine("fusion-topk", rounds=2, checkpoint_dir=str(tmp_path / "port"))
     for f in ("meta.json",):
-        assert json.load(open(tmp_path / "jax" / f)) == \
+        assert {**json.load(open(tmp_path / "jax" / f)),
+                "layout": "repro_torch"} == \
             json.load(open(tmp_path / "port" / f))
 
     def port_shape(key, shape):

@@ -27,6 +27,7 @@ from repro_torch.interop import state_from_numpy, state_to_numpy
 from repro_torch.launch import serve
 from repro_torch.models import make_bundle
 from repro_torch.models import transformer as tfm
+from repro_torch.tree import tree_leaves
 
 SRC = os.path.dirname(os.path.dirname(repro_torch.__file__))
 
@@ -153,3 +154,166 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
         serve.make_prompts(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "smollm-135m"])
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch.py",
+                                  "newclient_generalization_torch.py"])
+def test_example_twins_import_no_jax_and_no_repro(name):
+    names = _script_imports(os.path.join("examples", name))
+    assert "repro_torch.models" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                        "repro")]
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch.py",
+                                  "newclient_generalization_torch.py"])
+def test_example_twins_refuse_a_silent_cpu_fallback(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    import importlib.util
+    path = os.path.join(os.path.dirname(SRC), "examples", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(1, verbose=False, n_per_class=2, n_test_per_class=1,
+                 n_clients=2, clients_per_round=2)
+
+
+# --------------------------------------------------------------------------
+# resuming the port from a checkpoint the JAX package wrote
+# --------------------------------------------------------------------------
+
+def _fusion_topk_setup():
+    import dataclasses
+
+    from repro.configs.cnn_paper import CNN_MNIST as J_MNIST
+    from repro.data.federated import FederatedDataset as JFD
+    from repro_torch.configs import CNN_MNIST
+    from test_torch_rounds import NARROW, _data
+    fl_kw = dict(algorithm="fedfusion", fusion_op="conv",
+                 clients_per_round=2, local_steps=2, local_batch=8, lr=0.05,
+                 uplink_codec="topk", topk_frac=1 / 16)
+    parts, test = _data(NARROW["input_shape"], 4, 40)
+    jb = j_make_bundle(dataclasses.replace(J_MNIST, **NARROW))
+    tb = make_bundle(dataclasses.replace(CNN_MNIST, **NARROW))
+    return (fl_kw, jb, tb, lambda: JFD(parts, test, seed=0),
+            lambda: FederatedDataset(parts, test, seed=0))
+
+
+def test_resume_from_a_jax_checkpoint_equals_jax_uninterrupted(tmp_path):
+    """JAX's ``run_federated`` (top-k uplink, FedFusion-conv) writes a
+    checkpoint at round 2; the port converts it and resumes to 4, then
+    (its own layout now, marked in meta.json) to 5.  Models, the EF table,
+    the mirror and the resumed rounds' history equal JAX's uninterrupted
+    5-round run (rtol 1e-4 / atol 1e-5, bytes exactly)."""
+    import json
+
+    from repro.fl.server import run_federated as j_run_federated
+    from repro_torch.checkpoint.convert import load_jax_ef
+    from repro_torch.fl.server import run_federated
+    fl_kw, jb, tb, jdata, tdata = _fusion_topk_setup()
+    kw = dict(seed=1, eval_examples=64, superstep_rounds=2)
+    full = j_run_federated(jb, JFL(**fl_kw), jdata(), rounds=5,
+                           checkpoint_dir=str(tmp_path / "full"),
+                           checkpoint_every=5, **kw)
+    ckpt = str(tmp_path / "ckpt")
+    j_run_federated(jb, JFL(**fl_kw), jdata(), rounds=2,
+                    checkpoint_dir=ckpt, checkpoint_every=2, **kw)
+    assert "layout" not in json.load(open(os.path.join(ckpt, "meta.json")))
+    first = run_federated(tb, FLConfig(**fl_kw), tdata(), rounds=4,
+                          checkpoint_dir=ckpt, checkpoint_every=2,
+                          checkpoint_from_jax=True, device="cpu", **kw)
+    assert json.load(open(os.path.join(ckpt, "meta.json"))) == {
+        "round": 4, "algorithm": "fedfusion", "layout": "repro_torch"}
+    second = run_federated(tb, FLConfig(**fl_kw), tdata(), rounds=5,
+                           checkpoint_dir=ckpt, checkpoint_every=2,
+                           checkpoint_from_jax=True, device="cpu", **kw)
+    resumed = first.comm.history + second.comm.history
+    assert [h["round"] for h in resumed] == [1, 2, 1]
+    for got, want in zip(resumed, full.comm.history[2:]):
+        for k in ("bytes_up", "bytes_down", "bytes_up_ideal"):
+            assert got[k] == want[k]
+        for k in ("local_loss", "loss"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-5)
+    got = state_to_numpy(second.global_state)
+    want = jax.tree.map(np.asarray, full.global_state)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    # the EF table and the mirror: JAX's final ef.npz converted against
+    # the port's own final ef.npz
+    from repro_torch.checkpoint.io import load_tree
+    model = second.global_state["model"]
+    ef_like = [torch.empty((4, t.numel()), device="meta")
+               for t in tree_leaves(model)]
+    want_ef, want_mirror = load_jax_ef(
+        str(tmp_path / "full" / "ef.npz"), ef_like, model, "cpu")
+    got_ef, got_mirror = load_tree(os.path.join(ckpt, "ef.npz"),
+                                   (ef_like, model), "cpu")
+    for g, w in zip(got_ef + tree_leaves(got_mirror),
+                    want_ef + tree_leaves(want_mirror)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    assert any(float(e.abs().max()) > 0 for e in got_ef)
+
+
+def test_a_port_checkpoint_resumes_as_the_port_s_with_the_flag(tmp_path):
+    """Every save of the port marks its directory, so a directory the port
+    wrote without ``checkpoint_from_jax`` is still read in the port's
+    layout when a later run passes the flag: the resumed run equals the
+    one resumed without it, exactly."""
+    from repro_torch.checkpoint.convert import jax_layout
+    from repro_torch.fl.server import run_federated
+    fl_kw, _, tb, _, tdata = _fusion_topk_setup()
+    kw = dict(seed=1, eval_examples=64, superstep_rounds=1, device="cpu")
+    out = {}
+    for flag in (False, True):
+        ckpt = str(tmp_path / f"ckpt{flag}")
+        run_federated(tb, FLConfig(**fl_kw), tdata(), rounds=1,
+                      checkpoint_dir=ckpt, **kw)
+        assert not jax_layout(ckpt, True)
+        out[flag] = run_federated(tb, FLConfig(**fl_kw), tdata(), rounds=2,
+                                  checkpoint_dir=ckpt,
+                                  checkpoint_from_jax=flag, **kw)
+    assert out[True].comm.history == out[False].comm.history
+    for a, b in zip(tree_leaves(out[True].global_state),
+                    tree_leaves(out[False].global_state)):
+        assert torch.equal(a, b)
+
+
+def test_jax_checkpoint_layout_needs_the_flag_and_scratch_rows_refused(
+        tmp_path):
+    """Without ``checkpoint_from_jax`` a directory is read in the port's
+    layout (the JAX one then fails on the conv weights' shape); with it
+    the reference loop resumes too; an EF table whose rows are not the
+    federation's (the sharded engine's scratch rows) is refused by
+    name."""
+    from repro.fl.server import run_federated as j_run_federated
+    from repro_torch.checkpoint.convert import jax_layout, load_jax_ef
+    from repro_torch.fl.server import run_federated
+    fl_kw, jb, tb, jdata, tdata = _fusion_topk_setup()
+    ckpt = str(tmp_path / "ckpt")
+    j_run_federated(jb, JFL(**fl_kw), jdata(), rounds=1, seed=1,
+                    eval_examples=64, checkpoint_dir=ckpt)
+    assert jax_layout(ckpt, True) and not jax_layout(ckpt, False)
+    with pytest.raises(RuntimeError):
+        run_federated(tb, FLConfig(**fl_kw), tdata(), rounds=2, seed=1,
+                      eval_examples=64, checkpoint_dir=ckpt, device="cpu")
+    # the reference loop converts it too, and marks the directory
+    import json
+    res = run_federated_reference(tb, FLConfig(**fl_kw), tdata(), rounds=2,
+                                  seed=1, eval_examples=64,
+                                  checkpoint_dir=ckpt,
+                                  checkpoint_from_jax=True, device="cpu")
+    assert res.comm.rounds == 1
+    assert all(np.isfinite(h["local_loss"]) for h in res.comm.history)
+    assert json.load(open(os.path.join(ckpt, "meta.json")))["layout"] == \
+        "repro_torch"
+    model = state_from_numpy(jax.tree.map(np.asarray, j_init_global_state(
+        jb, JFL(**fl_kw), jax.random.PRNGKey(0))))["model"]
+    like = [torch.empty((6, t.numel()), device="meta")
+            for t in tree_leaves(model)]
+    with pytest.raises(ValueError, match="scratch rows.*slice 5"):
+        load_jax_ef(os.path.join(ckpt, "ef.npz"), like, model)

@@ -117,10 +117,12 @@ def test_full_width_single_step_matches_jax(algorithm):
 
 
 @pytest.mark.parametrize("kw,opt", [
-    (dict(uplink_codec="mask"), {}),
+    # the sketch codecs are ported: cases 0 and 3 hold the reference loop's
+    # other refusals (participation, controllers are engine features)
+    (dict(participation="buffered_async"), {}),
     (dict(participation="deadline"), {}),
     (dict(controller="ef_ratio"), {}),
-    (dict(uplink_codec="lowrank"), {}),
+    (dict(controller="bytes_budget"), {}),
 ])
 def test_unported_settings_raise(kw, opt):
     tb = make_bundle(dataclasses.replace(T_MNIST, **NARROW))

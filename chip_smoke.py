@@ -17,7 +17,11 @@ is non-zero):
    K3 also over whole messages, scales included, two launches per 64
    leaves: CNN_MNIST's eight leaves, odd, unaligned and zero leaves, 70
    leaves, with offsets and without, timed per message (device ops and
-   microseconds too) against the per-leaf route; K4 also over whole
+   microseconds too) against the per-leaf route, and at the levels of the
+   int8 ladder (4, 8) the adaptive controllers use, the level an int32 the
+   kernel reads on the device: both levels against the plain version, one
+   captured encode replayed at levels 0, 1, 0, and the message timed at
+   level 0 beside the capacity encode; K4 also over whole
    messages, one launch per 64 leaves: CNN_MNIST's eight leaves at int8
    and int4, odd and unaligned leaves, 70 leaves, timed against one
    ``torch._foreach_mul`` and eight ``torch.mul`` calls; the host cost of
@@ -99,6 +103,22 @@ is non-zero):
    ``n_up`` formula and launches against their formulas (over the whole
    cohort: masked clients train, and their EF rows are written back
    unchanged);
+4e. observability and the adaptive controllers on the engine, at fig. 4's
+   setting (40 rounds in 8-round chunks): FedAvg with a top-k uplink with
+   telemetry off and on (bit-equal under cuDNN's deterministic
+   algorithms, rounds/s of both); the controllers ``ef_ratio`` and
+   ``loss_trend`` on the top-k ladder (1/64, 1/32, 1/16) and
+   ``bytes_budget`` on the int8 ladder (4, 8) at 0.75 of capacity:
+   rounds/s, the level schedule, each round's bytes against
+   ``level_bytes``, launches against their formula (K3 twice a message
+   at any level); the ``ef_ratio`` run's run log built into a report that
+   renders; a 16-round ``profile_dir=`` run whose trace holds one
+   ``superstep`` range per chunk with its ``cudaGraphLaunch``;
+   ``halt_on_nonfinite`` on a run made to diverge (NaN rows in the images
+   of the first client sampled after the first chunk): it stops at the
+   first boundary after the non-finite round with a checkpoint marked
+   halted, while the same run without the flag goes on; and the flag's
+   rounds/s on a finite run;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
@@ -122,7 +142,10 @@ is non-zero):
    of their change (the free-running 3-epoch distance printed beside
    it), the ``deadline`` engine run (2 rounds, fig. 8's chaos) within 1%,
    the ``mask`` codec's indices at CNN_MNIST's leaves equal bit for bit,
-   and ``lowrank``'s decode within 1e-5 of its scale;
+   and ``lowrank``'s decode within 1e-5 of its scale; then ``ef_ratio`` on
+   the top-k ladder and ``bytes_budget`` on the int8 ladder, 4 engine
+   rounds from one state (the int8 run's offsets drawn on the CPU and
+   handed to both), equal level schedules and losses within 1%;
 7. the kernel table, after a line naming the TPU kernels still to port
    (none).
 
@@ -136,6 +159,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -863,6 +887,98 @@ def check_codec_kernels(torch, compress_pack, QuantCodec, leaf_sizes):
                 max_abs_err=err["quant_pack"], ms=enc_ms["kernel_ms"],
                 plain_ms=enc_ms["plain_ms"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+    # K3 at a level of the int8 ladder (4, 8), the level a device int32 the
+    # kernel reads (the adaptive controllers' path): both levels of
+    # CNN_MNIST's, odd / unaligned and 70-leaf messages against the plain
+    # version in two launches per 64 leaves; one captured encode replayed
+    # at levels 0, 1, 0 (the level written into its buffer between
+    # replays); the message timed at level 0 beside the capacity encode,
+    # in turns (capacity, level, level, capacity)
+    qmax_ladder = (7.0, 127.0)
+    for case, sizes in [("cnn_mnist", list(leaf_sizes)),
+                        ("odd_unaligned", [4097, 33, 1000, 1]),
+                        ("70_leaves", [37 * i + 1 for i in range(70)])]:
+        for level in (0, 1):
+            lxs = [torch.randn(n + 1, generator=gen).to(dev)[1:]
+                  if case == "odd_unaligned" else
+                  torch.randn(n, generator=gen).to(dev) for n in sizes]
+            lus = [torch.rand(n, generator=gen).to(dev) for n in sizes]
+            lv = torch.tensor(level, dtype=torch.int32, device=dev)
+            before = compress_pack.quant_pack_cuda.launches
+            got = compress_pack.quant_pack_multi_cuda(
+                lxs, lus, level=lv, ladder_qmax=qmax_ladder)
+            launched = compress_pack.quant_pack_cuda.launches - before
+            want = compress_pack.quant_pack_multi_plain(
+                lxs, lus, level=lv, ladder_qmax=qmax_ladder)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(q, wq) and torch.equal(sc, ws)
+                        for (q, sc), (wq, ws) in zip(got, want))
+            max_code = max(q.abs().max().item() for q, _ in got)
+            ok = (equal and launched == 2 * -(-len(sizes) // 64)
+                  and (max_code <= 8 if level == 0 else True))
+            emit("kernels", kernel="quant_pack_multi", case=case, bits=8,
+                 ladder=[4, 8], level=level, leaves=len(sizes),
+                 elements=sum(sizes), launches=launched, equal=equal,
+                 max_code=max_code)
+            if not ok:
+                raise AssertionError(f"quant_pack_multi {case} level "
+                                     f"{level}: equal={equal}, {launched} "
+                                     f"launches, max code {max_code}")
+    lxs = [torch.zeros(m, device=dev) for m in leaf_sizes]
+    lus = [torch.zeros(m, device=dev) for m in leaf_sizes]
+    lv = torch.zeros((), dtype=torch.int32, device=dev)
+    compress_pack.quant_pack_multi_cuda(lxs, lus, level=lv,
+                                        ladder_qmax=qmax_ladder)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = compress_pack.quant_pack_multi_cuda(lxs, lus, level=lv,
+                                                  ladder_qmax=qmax_ladder)
+    replay_ok, replay_codes = True, []
+    for level in (0, 1, 0):
+        for x, u in zip(lxs, lus):
+            x.copy_(torch.randn(x.numel(), generator=gen))
+            u.copy_(torch.rand(u.numel(), generator=gen))
+        lv.fill_(level)
+        graph.replay()
+        want = compress_pack.quant_pack_multi_plain(lxs, lus, level=lv,
+                                                    ladder_qmax=qmax_ladder)
+        torch.cuda.synchronize()
+        replay_ok &= all(torch.equal(q, wq) and torch.equal(sc, ws)
+                         for (q, sc), (wq, ws) in zip(out, want))
+        replay_codes.append(max(q.abs().max().item() for q, _ in out))
+    del graph, out, lxs, lus
+    replay_ok &= replay_codes[0] <= 8 < replay_codes[1] \
+        and replay_codes[2] <= 8
+    lv0 = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def at_level(i):
+        return compress_pack.quant_pack_multi_cuda(
+            *enc[i], level=lv0, ladder_qmax=qmax_ladder)
+
+    def at_capacity(i):
+        return compress_pack.quant_pack_multi_cuda(*enc[i])
+
+    turns = [time_ms(torch, f, sets=sets)
+             for f in (at_capacity, at_level, at_level, at_capacity)]
+    ops_per_call, us_per_call = device_per_call(torch, at_level)
+    cap_ops, cap_us = device_per_call(torch, at_capacity)
+    work = [codec_work("quant_encode", m) for m in leaf_sizes]
+    bound_ms, bound_by = bound(sum(w[0] for w in work),
+                               sum(w[1] for w in work))
+    emit("kernels", kernel="quant_pack_multi", case="cnn_mnist_level",
+         bits=8, ladder=[4, 8], level=0, leaves=len(leaf_sizes),
+         elements=sum(leaf_sizes), replays_equal=replay_ok,
+         replay_max_codes=replay_codes,
+         level_ms=[turns[1], turns[2]], capacity_ms=[turns[0], turns[3]],
+         device_ops_per_message=ops_per_call,
+         device_us_per_message=us_per_call,
+         capacity_device_ops_per_message=cap_ops,
+         capacity_device_us_per_message=cap_us,
+         bound_ms=bound_ms, bound_by=bound_by)
+    if not replay_ok:
+        raise AssertionError(f"quant_pack_multi: a captured encode does not "
+                             f"follow its level buffer ({replay_codes})")
     # int4 pack / unpack at the same size (no one-call yardstick)
     for name, kern, plain in [
             ("quant_pack", lambda i: compress_pack.quant_pack_cuda(
@@ -2001,6 +2117,7 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map,
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda finds no CUDA device")
@@ -2014,6 +2131,7 @@ def main():
     from repro_torch.chaos import ChaosConfig
     from repro_torch.compress import QuantCodec, SketchCodec, make_codec
     from repro_torch.configs import CNN_MNIST, FLConfig, InputShape
+    from repro_torch.control import ladder_values
     from repro_torch.core import init_global_state, make_local_trainer
     from repro_torch.data import (FederatedDataset,
                                   artificial_noniid_partition, class_images,
@@ -2030,6 +2148,7 @@ def main():
     from repro_torch.launch.specs import fl_plan
     from repro_torch.models import make_bundle
     from repro_torch.models import transformer as tfm
+    from repro_torch.obs import RunLog, build_report, render
     from repro_torch.tree import tree_leaves, tree_map
 
     # 1. environment ------------------------------------------------------
@@ -2160,24 +2279,28 @@ def main():
     # same configuration (measured in the same call)
     K, rounds = ENGINE_CHUNK, ENGINE_ROUNDS
 
-    def engine_run(fl, mode, store, superstep_rounds, chaos=None):
+    def engine_run(fl, mode, store, superstep_rounds, chaos=None,
+                   data=None, n_rounds=rounds, **options):
+        """One engine run (``options``: further ``run_federated``
+        keywords), its phase line, its launches and whether its losses
+        stayed finite."""
         for counter in counters.values():
             counter.launches = 0
         torch.cuda.synchronize()
         reserved0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        res = run_federated(bundle, fl, mnist_data(
+        res = run_federated(bundle, fl, data or mnist_data(
             FederatedDataset, class_images, artificial_noniid_partition,
             chaos=chaos),
-            rounds=rounds, seed=0, mode=mode, eval_examples=EVAL_EXAMPLES,
-            superstep_rounds=superstep_rounds, ef_store=store)
+            rounds=n_rounds, seed=0, mode=mode, eval_examples=EVAL_EXAMPLES,
+            superstep_rounds=superstep_rounds, ef_store=store, **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = res.stats
         hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
                 for h in res.comm.history]
-        line = dict(rounds=rounds, superstep_rounds=st["chunk_rounds"],
-                    chunks=st["chunks"], rounds_per_s=rounds / wall,
+        line = dict(rounds=len(hist), superstep_rounds=st["chunk_rounds"],
+                    chunks=st["chunks"], rounds_per_s=len(hist) / wall,
                     steady_rounds_per_s=st["steady_rounds_per_s"],
                     steady_chunk_rounds_per_s=spread(
                         chunk_rates(st["chunk_times"])),
@@ -2529,6 +2652,222 @@ def main():
         for k in launches:
             launches[k] += got[k]
 
+    # 4e. telemetry, run logs, profiling, halt_on_nonfinite and the
+    # adaptive compression controllers on the engine, at fig. 4's setting
+    # (40 rounds in 8-round chunks) -------------------------------------
+    t_4e = time.perf_counter()
+    cudnn_exact = dict(enabled=True, deterministic=True, allow_tf32=False)
+    fl_topk = FLConfig(algorithm="fedavg", uplink_codec="topk",
+                       topk_frac=TOPK_FRAC, **FIG4)
+    topk_per_replay = {k: v * K for k, v in per_round_launches(
+        "fedavg", "topk", "identity", 1).items()}
+
+    def strip_tele(hist):
+        return [{k: v for k, v in h.items() if not k.startswith("tele/")}
+                for h in hist]
+
+    # (a) top-k 1/16 with telemetry off and on: bit-equal under cuDNN's
+    # deterministic algorithms; the taps add no kernel of ours
+    tele = {}
+    with torch.backends.cudnn.flags(**cudnn_exact):
+        for on in (False, True):
+            tele[on] = engine_run(fl_topk, "client_parallel", "device", K,
+                                  telemetry=on)
+    (off_res, off_line, off_got, off_finite), \
+        (on_res, on_line, on_got, on_finite) = tele[False], tele[True]
+    tele_keys = sorted(k for k in on_res.comm.history[-1]
+                       if k.startswith("tele/"))
+    checks = dict(
+        state=all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(off_res.global_state),
+            tree_leaves(on_res.global_state))),
+        history=strip_tele(on_res.comm.history) == off_res.comm.history,
+        taps=bool(tele_keys) and all(
+            all(math.isfinite(h[k]) for k in tele_keys)
+            for h in on_res.comm.history),
+        launches=off_got == on_got == {k: 3 * v for k, v in
+                                       topk_per_replay.items()},
+        finite=off_finite and on_finite)
+    emit("telemetry", model=CNN_MNIST.name, algorithm="fedavg",
+         uplink="topk", topk_frac=TOPK_FRAC, cudnn_deterministic=True,
+         rounds=rounds,
+         off=dict((k, off_line[k]) for k in (
+             "rounds_per_s", "steady_rounds_per_s",
+             "steady_chunk_rounds_per_s", "graphs")),
+         on=dict((k, on_line[k]) for k in (
+             "rounds_per_s", "steady_rounds_per_s",
+             "steady_chunk_rounds_per_s", "graphs")),
+         steady_ratio_on_off=on_line["steady_rounds_per_s"]
+         / off_line["steady_rounds_per_s"],
+         taps=tele_keys,
+         last_round={k: on_res.comm.history[-1][k] for k in tele_keys},
+         launches=on_got, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry: {checks}")
+
+    # (b) the controllers: ef_ratio and loss_trend on the top-k ladder
+    # (1/64, 1/32, 1/16), bytes_budget on the int8 ladder (4, 8) at a
+    # budget of 0.75 of capacity (the level then changes inside the
+    # replays); the ef_ratio run also writes a run log, read into a report
+    runlog_path = ROOT / "build" / "runlogs" / "phase4e_ef_ratio.jsonl"
+    for name, up, knobs in [("ef_ratio", "topk", {}),
+                            ("loss_trend", "topk", {}),
+                            ("bytes_budget", "int8",
+                             dict(ctrl_budget_frac=0.75))]:
+        fl = FLConfig(algorithm="fedavg", uplink_codec=up,
+                      topk_frac=TOPK_FRAC, controller=name, **knobs, **FIG4)
+        options = ({"runlog": str(runlog_path)} if name == "ef_ratio"
+                   else {})
+        res, line, got, finite = engine_run(fl, "client_parallel", "device",
+                                            K, **options)
+        ladder = ladder_values(fl)
+        level_bytes = make_codec(up, topk_frac=TOPK_FRAC).bind(
+            bundle.init(torch.Generator())).set_ladder(ladder).level_bytes()
+        hist = res.comm.history
+        levels = [h["level"] for h in hist]
+        per_replay = {k: v * K for k, v in per_round_launches(
+            "fedavg", up, "identity", 1).items()}
+        eff_key = "eff_topk_frac" if up == "topk" else "eff_quant_bits"
+        checks = dict(
+            stats=res.stats["controller"] == name
+            and res.stats["ladder"] == list(ladder),
+            launches_per_replay=res.stats["graphs"][0]["launches_per_replay"]
+            == per_replay,
+            launches=got == {k: 3 * v for k, v in per_replay.items()},
+            bytes=all(h["bytes_up"] == clients * level_bytes[h["level"]]
+                      and h["tele/effective_bytes"]
+                      == level_bytes[h["level"]]
+                      and h[eff_key] == ladder[h["level"]] for h in hist)
+            and res.comm.bytes_up == sum(clients * level_bytes[lv]
+                                         for lv in levels),
+            graphs=res.stats["graphs"][0]["replays"] == rounds // K,
+            finite=finite)
+        extra = {}
+        if up == "int8":
+            # K3 twice per message at any level
+            checks["k3_two_per_message"] = per_replay["quant_pack"] \
+                == 2 * clients * K
+        if options:
+            report = build_report(RunLog.load(str(runlog_path)),
+                                  res.comm.to_records())
+            text = render(report)
+            checks["report"] = ("round-time breakdown" in text
+                                and "compression schedule" in text
+                                and report["round_time"]["chunks"]
+                                == rounds // K)
+            extra = dict(report_round_time=report["round_time"],
+                         report_lines=len(text.splitlines()))
+        emit("controller", model=CNN_MNIST.name, algorithm="fedavg",
+             uplink=up, controller=name, **knobs, ladder=list(ladder),
+             level_bytes=list(level_bytes), levels=levels,
+             level_rounds={str(v): levels.count(v) for v in set(levels)},
+             switches_inside_chunks=sum(
+                 1 for r in range(1, len(levels))
+                 if levels[r] != levels[r - 1] and r % K),
+             cum_effective_bytes_up=res.comm.bytes_up,
+             cum_capacity_bytes_up=rounds * clients * level_bytes[-1],
+             **line, **extra, launches=got, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"controller {name}: {checks}")
+        for k in launches:
+            launches[k] += got[k]
+
+    # (c) profile_dir: a 16-round run traced whole, one "superstep" range
+    # per chunk holding that chunk's cudaGraphLaunch
+    prof_dir = ROOT / "build" / "profile_4e"
+    res, line, got, finite = engine_run(fl_topk, "client_parallel",
+                                        "device", K, n_rounds=2 * K,
+                                        profile_dir=str(prof_dir))
+    trace = json.loads(Path(res.stats["profile"]).read_text())["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in trace
+                    if e.get("name") == "superstep"
+                    and e.get("cat") == "user_annotation")
+    graph_launches = [e["ts"] for e in trace
+                      if e.get("name") == "cudaGraphLaunch"]
+    per_range = [sum(a <= t <= b for t in graph_launches)
+                 for a, b in ranges]
+    checks = dict(ranges=len(ranges) == res.stats["chunks"] == 2,
+                  graph_launches=per_range == [1, 1]
+                  and len(graph_launches) == 2,
+                  device=any(e.get("cat") == "kernel" for e in trace),
+                  finite=finite)
+    emit("profile", model=CNN_MNIST.name, algorithm="fedavg", uplink="topk",
+         rounds=2 * K, trace_events=len(trace), superstep_ranges=len(ranges),
+         graph_launches_per_range=per_range,
+         trace_bytes=Path(res.stats["profile"]).stat().st_size,
+         checks=checks)
+    Path(res.stats["profile"]).unlink()
+    if not all(checks.values()):
+        raise AssertionError(f"profile_dir: {checks}")
+
+    # (d) halt_on_nonfinite: a run made to diverge (a NaN row in every image
+    # of the first client sampled after the first chunk) stops at the first
+    # chunk boundary after its non-finite round and writes its checkpoint;
+    # the same run without the flag goes on; on a finite run, the flag's
+    # cost (a drain at every boundary)
+    halt_rounds = 3 * K
+    probe = mnist_data(FederatedDataset, class_images,
+                       artificial_noniid_partition)
+    first = {}
+    for r0 in range(0, halt_rounds, K):
+        cids = probe.round_chunk(K, clients, steps, FIG4["local_batch"])[0]
+        for r, row in enumerate(cids):
+            for c in row:
+                first.setdefault(int(c), r0 + r + 1)
+    bad_round, bad_client = min((r, c) for c, r in first.items() if r > K)
+    del probe
+
+    def poisoned():
+        d = mnist_data(FederatedDataset, class_images,
+                       artificial_noniid_partition)
+        clients_ = [dict(c) for c in d.clients]
+        x = np.array(clients_[bad_client]["x"], copy=True)
+        x[:, 0] = np.nan
+        clients_[bad_client]["x"] = x
+        return FederatedDataset(clients_, d.test, seed=0)
+
+    halt_dir = ROOT / "build" / "halt_4e"
+    shutil.rmtree(halt_dir, ignore_errors=True)   # a fresh run, no resume
+    halted, h_line, _, _ = engine_run(
+        fl_topk, "client_parallel", "device", K, data=poisoned(),
+        n_rounds=halt_rounds, halt_on_nonfinite=True,
+        checkpoint_dir=str(halt_dir), checkpoint_every=100)
+    meta = json.loads((halt_dir / "meta.json").read_text())
+    shutil.rmtree(halt_dir, ignore_errors=True)
+    free, f_line, _, _ = engine_run(fl_topk, "client_parallel", "device", K,
+                                    data=poisoned(), n_rounds=halt_rounds)
+    finite_halt, fh_line, fh_got, fh_finite = engine_run(
+        fl_topk, "client_parallel", "device", K, halt_on_nonfinite=True)
+    boundary = -(-bad_round // K) * K
+    first_bad = next(i + 1 for i, h in enumerate(free.comm.history)
+                     if not math.isfinite(h["local_loss"]))
+    checks = dict(
+        halted_at=halted.stats["halted_at"] == boundary
+        and len(halted.comm.history) == boundary,
+        first_nonfinite=first_bad == bad_round,
+        checkpoint=meta.get("halted") is True and meta["round"] == boundary,
+        free_runs_on=free.stats["halted_at"] is None
+        and len(free.comm.history) == halt_rounds,
+        finite_run=fh_finite and finite_halt.stats["halted_at"] is None
+        and fh_got == off_got)
+    emit("halt_on_nonfinite", model=CNN_MNIST.name, algorithm="fedavg",
+         uplink="topk", rounds=halt_rounds, poisoned_client=bad_client,
+         first_nonfinite_round=first_bad, halted_at=halted.stats["halted_at"],
+         checkpoint_meta=meta,
+         finite_run=dict((k, fh_line[k]) for k in (
+             "rounds_per_s", "steady_rounds_per_s",
+             "steady_chunk_rounds_per_s", "metrics_wait_s")),
+         flag_off=dict((k, off_line[k]) for k in (
+             "rounds_per_s", "steady_rounds_per_s", "metrics_wait_s")),
+         steady_ratio_flag_on_off=fh_line["steady_rounds_per_s"]
+         / off_line["steady_rounds_per_s"],
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"halt_on_nonfinite: {checks}")
+    for k in launches:
+        launches[k] += off_got[k] + on_got[k]
+    emit("phase_4e", seconds=time.perf_counter() - t_4e)
+
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
     # chunk of two engine runs ---------------------------------------------
@@ -2838,6 +3177,57 @@ def main():
         raise AssertionError(f"deadline run: card and CPU disagree "
                              f"(ratios {ratio_max}, {ratio_l2}, schedule "
                              f"{same_schedule})")
+
+    # (e) the adaptive controllers, card against CPU: ef_ratio on the top-k
+    # ladder (band (0.2, 0.5) and EMA 0.5, so that its level moves within
+    # the run) and bytes_budget on the int8 ladder (0.75 of capacity), 4
+    # engine rounds in 2-round chunks from one state, under cuDNN's
+    # deterministic algorithms; the int8 run takes offsets drawn on the
+    # CPU, the same numbers on both sides.  The level schedules must be
+    # equal and every round's loss within 1% of the CPU's (a quant code
+    # that rounds the other way on the two sides moves a weight by a whole
+    # level-0 step, so the distance grows round by round: 0.76% after 6
+    # rounds on an H100)
+    def shared_offsets(dev):
+        def noise_fn(r, n_clients):
+            gen = torch.Generator().manual_seed(4321 + r)
+            return None, [[torch.rand(m, generator=gen).to(dev)
+                           for m in mnist_sizes] for _ in range(n_clients)]
+        return noise_fn
+
+    for name, up, knobs in [("ef_ratio", "topk",
+                             dict(ctrl_band=(0.2, 0.5), ctrl_ema=0.5)),
+                            ("bytes_budget", "int8",
+                             dict(ctrl_budget_frac=0.75))]:
+        fl = FLConfig(algorithm="fedavg", uplink_codec=up,
+                      topk_frac=TOPK_FRAC, controller=name, **knobs, **FIG4)
+        s0 = init_global_state(bundle, fl, torch.Generator().manual_seed(11),
+                               device="cpu")
+        hists = {}
+        with torch.backends.cudnn.flags(**cudnn_exact):
+            for dev in ("cuda", "cpu"):
+                hists[dev] = run_federated(
+                    bundle, fl, mnist_data(FederatedDataset, class_images,
+                                           artificial_noniid_partition),
+                    rounds=4, seed=0, global_state=s0, device=dev,
+                    eval_examples=EVAL_EXAMPLES, superstep_rounds=2,
+                    noise_fn=shared_offsets(dev) if up == "int8" else None
+                ).comm.history
+        levels = {d: [h["level"] for h in hists[d]] for d in hists}
+        rel = [abs(a["local_loss"] - b["local_loss"]) / abs(b["local_loss"])
+               for a, b in zip(hists["cuda"], hists["cpu"])]
+        same = levels["cuda"] == levels["cpu"] and [
+            h["bytes_up"] for h in hists["cuda"]] == [
+            h["bytes_up"] for h in hists["cpu"]]
+        emit("card_vs_cpu", path="controller", controller=name, uplink=up,
+             **knobs, rounds=4, superstep_rounds=2, cudnn_deterministic=True,
+             levels=levels["cuda"], cpu_levels=levels["cpu"],
+             same_schedule=same, max_rel_loss_diff=max(rel), limit=0.01,
+             signals={d: [h.get("tele/ef_delta_ratio", h["local_loss"])
+                          for h in hists[d]] for d in hists})
+        if not (same and max(rel) <= 0.01):
+            raise AssertionError(f"controller {name}: card and CPU disagree "
+                                 f"(levels {levels}, losses {max(rel)})")
 
     serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map)
     train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,

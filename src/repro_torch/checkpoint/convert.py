@@ -18,6 +18,10 @@ port's marker: every save the port makes adds ``"layout": "repro_torch"``
 JAX checkpoint and saved again, is read in the port's layout.  The
 layout is never guessed from the arrays' shapes.
 
+``ctrl.npz`` (an adaptive controller's state: 0-d level, EMA, spend) has
+no layout to convert: :func:`load_ctrl` reads it the same way from either
+package's directory.
+
 Sharded JAX checkpoints keep the compact ``[N, n]`` EF layout on disk; an
 EF table with any other row count (the sharded engine's scratch rows) is
 refused: the sharded engine is ROADMAP Queue 1 item 8, slice 5.
@@ -36,8 +40,8 @@ from repro_torch.checkpoint.io import (PORT_LAYOUT, _paths, load_tree,
 from repro_torch.interop import state_from_numpy
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["PORT_LAYOUT", "jax_layout", "load_ef", "load_jax_ef",
-           "restore", "restore_jax_server_state"]
+__all__ = ["PORT_LAYOUT", "jax_layout", "load_ctrl", "load_ef",
+           "load_jax_ef", "restore", "restore_jax_server_state"]
 
 
 def jax_layout(dirpath: str, from_jax: bool) -> bool:
@@ -127,3 +131,10 @@ def load_ef(path: str, ef_like, mirror_like, device, *, jax: bool):
     if jax:
         return load_jax_ef(path, ef_like, mirror_like, device)
     return load_tree(path, (ef_like, mirror_like), device)
+
+
+def load_ctrl(path: str, like, device):
+    """A controller state (``ctrl.npz``, written by either package: 0-d
+    arrays under the state's keys) in the structure and dtypes of
+    ``like``, on ``device``."""
+    return load_tree(path, like, device)

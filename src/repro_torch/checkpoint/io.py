@@ -34,7 +34,10 @@ _SAVE_ATTEMPTS = 3
 _SAVE_BACKOFF_S = 0.05
 
 
-def _retry_save(write) -> None:
+def _retry_save(write, path: str, runlog=None) -> None:
+    """``write()`` with retries on OSError; attempts beyond the first are
+    counted on the run log (``checkpoint.save_retries``) with a
+    ``checkpoint.save_retry`` warning."""
     for attempt in range(_SAVE_ATTEMPTS):
         try:
             write()
@@ -42,6 +45,10 @@ def _retry_save(write) -> None:
         except OSError:
             if attempt == _SAVE_ATTEMPTS - 1:
                 raise
+            if runlog is not None:
+                runlog.counter("checkpoint.save_retries", 1)
+                runlog.warning("checkpoint.save_retry", path=path,
+                               attempt=attempt + 1)
             time.sleep(_SAVE_BACKOFF_S * (2 ** attempt))
 
 
@@ -63,11 +70,11 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_tree(path: str, tree) -> None:
+def save_tree(path: str, tree, runlog=None) -> None:
     """Write ``tree`` (tensors or arrays, on any device) to ``path``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat = {k: _host(v) for k, v in _paths(tree)}   # fetch once
-    _retry_save(lambda: np.savez(path, **flat))
+    _retry_save(lambda: np.savez(path, **flat), path, runlog)
 
 
 def load_tree(path: str, like, device=None):
@@ -112,9 +119,9 @@ def ef_disk_layout(ef, *, n_clients: int = None):
 
 
 def save_server_state(dirpath: str, global_state, round_idx: int,
-                      extra: Dict | None = None) -> None:
+                      extra: Dict | None = None, runlog=None) -> None:
     os.makedirs(dirpath, exist_ok=True)
-    save_tree(os.path.join(dirpath, "state.npz"), global_state)
+    save_tree(os.path.join(dirpath, "state.npz"), global_state, runlog)
     meta = {"round": round_idx, **(extra or {}), **PORT_LAYOUT}
     meta_path = os.path.join(dirpath, "meta.json")
 
@@ -122,7 +129,7 @@ def save_server_state(dirpath: str, global_state, round_idx: int,
         with open(meta_path, "w") as f:
             json.dump(meta, f)
 
-    _retry_save(write_meta)
+    _retry_save(write_meta, meta_path, runlog)
 
 
 def restore_server_state(dirpath: str, like, device=None) -> Tuple[Any, int]:

@@ -12,6 +12,14 @@ Stateful codecs (error feedback) thread a per-leaf ``state`` list through
 Stochastic codecs take their uniform offsets as ``noise``, one tensor per
 leaf: ``jax.random`` draws cannot be reproduced in PyTorch, so the caller
 owns the randomness (None selects the deterministic variant).
+
+Level ladder (adaptive compression, ``repro_torch.control``): a
+ladder-capable codec is bound once at its top (capacity) level with
+``set_ladder``; ``encode(..., level=)`` then takes a 0-d int32 tensor on
+the data's device that masks each payload down to the effective rung,
+while the payload keeps its capacity shape (so a captured graph replays at
+any level).  ``level_bytes`` reports what a real wire would carry per
+rung, for ``CommLog``'s effective-bytes accounting.
 """
 from __future__ import annotations
 
@@ -60,10 +68,18 @@ class Codec:
     def _decode_leaf(self, payload, i):
         return payload
 
-    def _encode_leaves(self, leaves, state, noise):
+    def _encode_leaf_level(self, x, state, noise, i, level):
+        raise NotImplementedError(
+            f"codec {self.name!r} does not support level-parameterized "
+            "encode (no compression ladder)")
+
+    def _encode_leaves(self, leaves, state, noise, level=None):
         payload, new_state = [], []
         for i, (x, s, u) in enumerate(zip(leaves, state, noise)):
-            p, ns = self._encode_leaf(x, s, u, i)
+            if level is None:
+                p, ns = self._encode_leaf(x, s, u, i)
+            else:
+                p, ns = self._encode_leaf_level(x, s, u, i, level)
             payload.append(p)
             new_state.append(ns)
         return payload, new_state
@@ -77,6 +93,19 @@ class Codec:
     def _leaf_wire_bytes(self, i) -> int:
         return 4 * self._n(i)     # the float32 leaf
 
+    # -- level ladder ---------------------------------------------------
+    _ladder = None            # ascending effective levels; None -> static
+
+    def set_ladder(self, values) -> "Codec":
+        raise ValueError(
+            f"codec {self.name!r} has no compression ladder; adaptive "
+            "controllers need a ladder-capable uplink codec "
+            "(topk/topk_noef/quant/int8/int4)")
+
+    def level_bytes(self) -> Tuple[int, ...]:
+        """Effective wire bytes per ladder level (bind + set_ladder first)."""
+        raise ValueError(f"codec {self.name!r} has no compression ladder")
+
     # -- public API -----------------------------------------------------
     def init_state(self, template_tree=None) -> List[Any]:
         """Fresh per-client codec state: one entry per leaf (an EF residual
@@ -86,10 +115,14 @@ class Codec:
         return [self._init_leaf_state(i) for i in range(len(self._shapes))]
 
     def encode(self, tree, state=None,
-               noise: Optional[List[torch.Tensor]] = None):
+               noise: Optional[List[torch.Tensor]] = None,
+               level: Optional[torch.Tensor] = None):
         """tree -> (payload, new_state).  ``noise``: one tensor of offsets
         in [0, 1) per leaf for stochastic codecs; None selects the
-        deterministic variant."""
+        deterministic variant.  ``level`` (a 0-d int32 tensor on the
+        data's device) selects the effective rung of a bound ladder
+        (``set_ladder``); None encodes at the static configuration, by the
+        code without the ladder."""
         leaves = tree_leaves(tree)
         if len(leaves) != len(self._shapes):
             raise ValueError(f"codec bound to a {len(self._shapes)}-leaf "
@@ -98,8 +131,10 @@ class Codec:
             state = self.init_state()
         if noise is None:
             noise = [None] * len(leaves)
-        return self._encode_leaves([x.reshape(-1).float() for x in leaves],
-                                   state, noise)
+        flat = [x.reshape(-1).float() for x in leaves]
+        if level is None:
+            return self._encode_leaves(flat, state, noise)
+        return self._encode_leaves(flat, state, noise, level=level)
 
     def decode(self, payload):
         """payload -> tree (shapes and dtypes of the bound template)."""

@@ -5,9 +5,9 @@ with ``param_count`` and ``reduced()``, so any JAX architecture config is
 representable; the model code refuses the families it does not run yet.
 
 ``FLConfig`` keeps the fields the federated training path reads, with the
-same names, defaults and validation as the JAX package.  The controller
-field exists so a config that asks for one is representable; the port's
-server refuses it until the controllers are ported.
+same names, defaults and validation as the JAX package, the adaptive
+compression controller's (``controller``, ``ladder``, ``ctrl_*``)
+included; the reference loop refuses a controller, as JAX's does.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ CODEC_NAMES = ("identity", "quant", "int8", "int4", "topk", "topk_noef",
                "mask", "lowrank")
 PARTICIPATION_NAMES = ("full_sync", "deadline", "buffered_async")
 CONTROLLER_NAMES = ("static", "ef_ratio", "bytes_budget", "loss_trend")
+_LADDER_CODECS = ("topk", "topk_noef", "quant", "int8", "int4")
 
 # Algorithm plugins registered by repro_torch.fl.api.plugins (and the
 # contrib FedProx); names registered at runtime are validated against the
@@ -89,7 +90,14 @@ class FLConfig:
     buffer_k: int = 0                 # buffered_async: close at K-th arrival
     # (0 -> clients_per_round // 2)
     staleness_alpha: float = 0.5      # buffered_async: (1+s)^(-alpha) weight
-    controller: str = "static"
+    # --- adaptive compression controller (repro_torch.control) ---
+    controller: str = "static"        # a CONTROLLER_NAMES / registry name
+    ladder: Tuple[float, ...] = ()    # ascending effective levels, top =
+    # the codec's static parameter; () -> a default 3-level topk ladder
+    # (f/4, f/2, f) or the quant ladder (4, 8)
+    ctrl_band: Tuple[float, float] = (0.5, 2.0)  # ef_ratio hold band
+    ctrl_budget_frac: float = 0.5     # bytes_budget: frac of capacity/round
+    ctrl_ema: float = 0.8             # controller signal EMA coefficient
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHM_NAMES:
@@ -129,8 +137,31 @@ class FLConfig:
             raise ValueError(f"staleness_alpha={self.staleness_alpha!r} "
                              "must be >= 0.0")
         if self.controller not in CONTROLLER_NAMES:
-            raise ValueError(f"unknown controller {self.controller!r}; "
-                             f"choose from {CONTROLLER_NAMES}")
+            from repro_torch.control import registered_controllers
+            if self.controller not in registered_controllers():
+                raise ValueError(
+                    f"unknown controller {self.controller!r}; registered: "
+                    f"{registered_controllers()}")
+        if self.ladder and (list(self.ladder) != sorted(set(self.ladder))):
+            raise ValueError(f"ladder {self.ladder!r} must be strictly "
+                             "ascending")
+        if self.controller != "static" and \
+                self.uplink_codec not in _LADDER_CODECS:
+            raise ValueError(
+                f"controller {self.controller!r} needs a ladder-capable "
+                f"uplink codec {_LADDER_CODECS}, got "
+                f"{self.uplink_codec!r}")
+        if len(self.ctrl_band) != 2 or not \
+                0.0 <= self.ctrl_band[0] < self.ctrl_band[1]:
+            raise ValueError(f"ctrl_band {self.ctrl_band!r} must be "
+                             "(lo, hi) with 0 <= lo < hi")
+        if not 0.0 < self.ctrl_budget_frac <= 1.0:
+            raise ValueError(
+                f"ctrl_budget_frac={self.ctrl_budget_frac!r} must be in "
+                "(0, 1]")
+        if not 0.0 <= self.ctrl_ema < 1.0:
+            raise ValueError(f"ctrl_ema={self.ctrl_ema!r} must be in "
+                             "[0, 1)")
 
     @property
     def compressed(self) -> bool:

@@ -1,6 +1,6 @@
 """One federated round (port of ``repro/core/rounds.py``: ``make_round_fn``
-and ``make_compressed_round_fn`` without sharding, telemetry or
-controllers, and ``init_global_state``).
+and ``make_compressed_round_fn`` without sharding, and
+``init_global_state``).
 
 * ``client_parallel`` trains every client of the round from the same
   global state, stacks their trainables on a leading client axis and
@@ -14,8 +14,8 @@ later work.  ``global_state`` is ``{'model': params, **extras}``.
 
 Participation contract (``repro_torch.fl.participation``): both
 factories' round fns take two optional trailing ``[n_clients]`` float32
-inputs, ``pmask`` (0/1 contribution mask) and ``pstale`` (staleness; no
-metric reads it until telemetry is ported), the JAX package's
+inputs, ``pmask`` (0/1 contribution mask) and ``pstale`` (staleness, read
+by the participation telemetry tap only), the JAX package's
 ``participation=True`` round.
 Masked clients are zeroed purely *by weight*: the engine multiplies the
 staged sizes by ``mask * staleness_weight * work`` on the host, so the
@@ -25,6 +25,13 @@ untouched (its payload never reached the server, so its dropped mass must
 stay local), and (b) the round loss is the mask-weighted mean
 (:func:`masked_loss`).  Without them (``pmask=None``, the default) the
 round is the one without this axis, op for op.
+
+Telemetry (``repro_torch.obs.telemetry``): with ``telemetry`` set, each
+client fills a :class:`ClientTapCtx`, the taps' sums are added over the
+clients and ``telemetry.finish`` adds the ``tele/...`` metrics.  The taps
+only read tensors the round computes anyway, so the round's state and
+``local_loss`` are bit-equal to a round without them; with
+``telemetry=None`` the round is the one without taps, op for op.
 """
 from __future__ import annotations
 
@@ -33,12 +40,14 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import FL_MODES, FLConfig
+from repro_torch.control.controller import take
 from repro_torch.core.aggregate import (masked_loss, mean_over_clients,
                                         normalize_weights, running_update,
                                         weighted_mean, zeros_like_tree)
 from repro_torch.core.local import _algorithm, make_local_trainer
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import ModelBundle
+from repro_torch.obs.telemetry import ClientTapCtx
 from repro_torch.tree import tree_map
 
 
@@ -48,7 +57,15 @@ def _round_loss(losses, pmask):
             else masked_loss(losses, pmask))
 
 
-def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
+def _part(pmask, pstale, c):
+    """Client ``c``'s (pmask, staleness) for its tap context."""
+    if pmask is None:
+        return None, None
+    return pmask[c], pstale[c]
+
+
+def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str, *,
+                  telemetry=None):
     """Returns round_fn(global_state, client_batches, n_examples, lr) ->
     (new_global_state, {"local_loss": 0-d tensor}).
 
@@ -56,7 +73,9 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
     the global state's device; ``n_examples``: [n_clients] (n_t weights).
     ``pmask`` / ``pstale`` [n_clients] (module docstring): with them
     ``n_examples`` arrives already mask- and staleness-weighted from the
-    host, and the round loss is the mask-weighted mean.
+    host, and the round loss is the mask-weighted mean.  ``telemetry`` (a
+    :class:`repro_torch.obs.telemetry.Telemetry`) adds its ``tele/...``
+    metrics.
     """
     if mode not in FL_MODES:
         raise ValueError(f"unknown fl mode {mode!r}")
@@ -71,9 +90,18 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
         gx = algo.extra_from_state(global_state)
         n_clients = weights.shape[0]
 
+        taps = []
+
         def client(c):
-            return trainer(gm, gx, {k: v[c] for k, v in
-                                    client_batches.items()}, lr)
+            trainable, loss = trainer(gm, gx, {k: v[c] for k, v in
+                                               client_batches.items()}, lr)
+            if telemetry is not None:
+                m, st = _part(pmask, pstale, c)
+                taps.append(telemetry.client_sums(ClientTapCtx(
+                    n_examples=n_examples[c], loss=loss,
+                    model=trainable["model"], global_model=gm, pmask=m,
+                    staleness=st)))
+            return trainable, loss
 
         losses = []
         if mode == "client_parallel":
@@ -100,13 +128,17 @@ def make_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str):
             new_state = {"model": acc["model"]}
             new_state.update(algo.finalize_extra_sums(
                 fl, global_state, {k: acc[k] for k in extra_keys}))
-        return new_state, {"local_loss": _round_loss(losses, pmask)}
+        metrics = {"local_loss": _round_loss(losses, pmask)}
+        if telemetry is not None:
+            metrics.update(telemetry.finish(telemetry.sum_clients(taps)))
+        return new_state, metrics
 
     return round_fn
 
 
 def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
-                             uplink, downlink):
+                             uplink, downlink, *, telemetry=None,
+                             controller=None):
     """A federated round with the wire path routed through codecs.
 
     Returns round_fn(global_state, client_batches, n_examples, lr,
@@ -132,15 +164,32 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
     ``pmask`` / ``pstale`` [n_clients] (after ``noise``): a masked
     client's new EF row is its incoming row, bit for bit, and the round
     loss is the mask-weighted mean.
+
+    ``telemetry`` adds its ``tele/...`` metrics (module docstring).
+    Controller contract (``repro_torch.control``): with ``controller`` set
+    the round fn takes a trailing ``ctrl_state`` dict of 0-d tensors and
+    returns ``controller.update(ctrl_state, metrics)`` as a fifth output.
+    The incoming ``ctrl_state["level"]`` (0-d int32) selects the ladder
+    rung every client of THIS round encodes at; nothing reads it on the
+    host.  A controller needs telemetry for its signals.
     """
     if mode not in FL_MODES:
         raise ValueError(f"unknown fl mode {mode!r}")
+    if controller is not None and telemetry is None:
+        raise ValueError("a controller needs telemetry for its decision "
+                         "signals (the engine forces the required taps on)")
     algo = _algorithm(fl)
     extra_keys = algo.extra_state
     trainer = make_local_trainer(bundle, fl)
 
     def round_fn(global_state, client_batches, n_examples, lr, ef_state,
-                 down_mirror, noise=(None, None), pmask=None, pstale=None):
+                 down_mirror, noise=(None, None), pmask=None, pstale=None,
+                 ctrl_state=None):
+        if controller is not None and ctrl_state is None:
+            raise ValueError("a controller round needs ctrl_state")
+        level = None if controller is None else ctrl_state["level"]
+        eff_bytes = (None if level is None
+                     else take(controller.bytes_table(), level))
         down_noise, up_noise = noise
         weights = normalize_weights(n_examples)
         n_clients = weights.shape[0]
@@ -150,6 +199,7 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
         bcast = tree_map(lambda w, d: w + d.to(w.dtype), down_mirror,
                          downlink.decode(down_payload))
         gx = algo.extra_from_state(global_state)
+        taps = []
 
         def client(c):
             trainable, loss = trainer(bcast, gx, {k: v[c] for k, v in
@@ -157,13 +207,21 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
             delta = tree_map(lambda a, b: a - b, trainable["model"], bcast)
             ef = None if ef_state is None else [e[c] for e in ef_state]
             payload, new_ef = uplink.encode(
-                delta, ef, None if up_noise is None else up_noise[c])
+                delta, ef, None if up_noise is None else up_noise[c],
+                level=level)
             if pmask is not None and ef is not None:
                 # dropped / late client: its payload never uplinked, so
                 # the residual it would have cleared stays local intact
                 new_ef = [n if n is None else torch.where(pmask[c] > 0, n, o)
                           for n, o in zip(new_ef, ef)]
-            out = {"delta": uplink.decode(payload)}
+            decoded = uplink.decode(payload)
+            if telemetry is not None:
+                m, st = _part(pmask, pstale, c)
+                taps.append(telemetry.client_sums(ClientTapCtx(
+                    n_examples=n_examples[c], loss=loss, global_model=bcast,
+                    delta=delta, decoded=decoded, ef=new_ef, pmask=m,
+                    staleness=st, level=level, eff_bytes=eff_bytes)))
+            out = {"delta": decoded}
             out.update({k: trainable[k] for k in extra_keys})
             return out, new_ef, loss
 
@@ -198,8 +256,13 @@ def make_compressed_round_fn(bundle: ModelBundle, fl: FLConfig, mode: str,
         new_state.update(extras)
         new_ef = (None if ef_state is None else
                   [torch.stack(rows) for rows in zip(*efs)])
-        return (new_state, {"local_loss": _round_loss(losses, pmask)},
-                new_ef, bcast)
+        metrics = {"local_loss": _round_loss(losses, pmask)}
+        if telemetry is not None:
+            metrics.update(telemetry.finish(telemetry.sum_clients(taps)))
+        if controller is None:
+            return new_state, metrics, new_ef, bcast
+        return (new_state, metrics, new_ef, bcast,
+                controller.update(ctrl_state, metrics))
 
     return round_fn
 

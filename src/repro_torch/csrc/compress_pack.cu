@@ -5,7 +5,9 @@
 //                    int4: code + 8 as a nibble, two per byte, element 2j
 //                    in the low nibble and 2j + 1 in the high one (qmax 7);
 //                    for up to 64 leaves of a message in two launches, the
-//                    scales included: scale = max(max|x|, 1e-12) / qmax
+//                    scales included: scale = max(max|x|, 1e-12) / qmax,
+//                    qmax the capacity's or, with a level ladder, the
+//                    ladder's qmax at a level the kernel reads on the device
 //   K4 quant_unpack  codes -> f32 code * scale (nibble split for int4), for
 //                    up to 64 leaves of a message in one launch (one leaf
 //                    is a message of one)
@@ -36,6 +38,18 @@
 // block of a leaf, by an integer ticket, turns it into the scale), then
 // quant_pack_multi_kernel packs every leaf with its scale.  The second pass
 // reads x again, from L2 at a message's size (6.7 MB for CNN_MNIST).
+//
+// The adaptive compression controllers (repro_torch.control) pick a level
+// of the quant ladder on the device, between replays of one captured
+// graph, so the level never reaches the host.  The JAX codec computes the
+// scale outside the Pallas kernel as max|x| / qmax_table[level]
+// (src/repro/compress/quant.py:_encode_leaf_level); here the leaf table
+// carries the ladder's qmax values and a device pointer to the level, and
+// the leaf's last block of the first launch reads the level when it writes
+// the scale, so a level costs no device op beside the two launches (a null
+// pointer keeps the capacity's qmax).  The pack kernel still clips at the
+// capacity's +-127 / +-7, as the Pallas kernel does: a code at a lower
+// level's qmax already fits.
 //
 // K5 moves 8n + 4 bytes and does three operations an element, so bytes
 // bound it: 3.83 us at CNN_MNIST's 1,605,632-element FC leaf, 67.6 us at
@@ -149,6 +163,7 @@ __global__ void quant_pack_i4_kernel(const float* __restrict__ x,
 // deterministic u = 0.5).  An odd int4 leaf's last byte packs element n as
 // x = 0 with u[n] (its offsets have n + 1 entries), so nothing is padded.
 constexpr int kMaxLeaves = 64;
+constexpr int kMaxLadder = 8;        // levels of a quant ladder
 
 struct PackLeaves {
   const float* x[kMaxLeaves];
@@ -162,6 +177,9 @@ struct PackLeaves {
   int int4;
   unsigned* amax;                    // [kMaxLeaves] bits of max|x|, zero
   int* tickets;                      // [kMaxLeaves], zero
+  const int* level;                  // device int32 ladder level, or null
+  float ladder_qmax[kMaxLadder];     // qmax at each level of the ladder
+  int n_levels;
 };
 
 // the leaf whose block range holds blk, and this thread's place in it
@@ -212,7 +230,8 @@ __global__ void quant_amax_multi_kernel(const __grid_constant__ PackLeaves t) {
   // and write the scale, max(max|x|, 1e-12) / qmax as one IEEE division
   const float a = __uint_as_float(atomicExch(&t.amax[lo], 0u));
   t.tickets[lo] = 0;
-  const float qmax = t.int4 ? 7.f : 127.f;
+  float qmax = t.int4 ? 7.f : 127.f;
+  if (t.level) qmax = t.ladder_qmax[min(max(*t.level, 0), t.n_levels - 1)];
   *t.scale[lo] = __fdiv_rn(a != a ? a : fmaxf(a, 1e-12f), qmax);
 }
 
@@ -475,12 +494,30 @@ int quant_pack_f32(const float* x, const float* u, const float* scale,
 // f32, written here), n, and vec (non-zero promises 16-byte aligned x and u
 // and 4-byte aligned codes).  slots: 2 * 64 ints on the device, zero before
 // the first call (each call leaves them zero).  leaves lies in host memory.
-// Returns cudaGetLastError().
+// level: null (the capacity's qmax) or a device int32, the level of a
+// ladder of n_levels <= 8 whose qmax values ladder_qmax (host memory, each
+// in (0, capacity]) lists; the kernel reads the level, clamped to the
+// ladder.  Returns cudaGetLastError().
 int quant_pack_multi_f32(const long long* leaves, int count, int bits,
-                         int* slots, void* stream) {
+                         int* slots, const int* level,
+                         const float* ladder_qmax, int n_levels,
+                         void* stream) {
   if (count < 1 || count > kMaxLeaves || (bits != 8 && bits != 4) || !slots)
     return (int)cudaErrorInvalidValue;
   PackLeaves t;
+  t.level = level;
+  t.n_levels = 0;
+  if (level) {
+    if (!ladder_qmax || n_levels < 1 || n_levels > kMaxLadder)
+      return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_levels; ++i) {
+      const float q = ladder_qmax[i];
+      if (!(q > 0.f && q <= (bits == 8 ? 127.f : 7.f)))
+        return (int)cudaErrorInvalidValue;
+      t.ladder_qmax[i] = q;
+    }
+    t.n_levels = n_levels;
+  }
   int blocks = 0;
   for (int l = 0; l < count; ++l) {
     const long long* e = leaves + 6 * l;

@@ -21,7 +21,9 @@ ever addresses rows through ``cids``:
   page to the host behind a CUDA event and hands the rows to a
   :class:`WritebackLane`.  Staging waits only for write-backs through
   chunk j-2, so gather, write-back and training overlap; the j-1 window
-  is closed by the patch.
+  is closed by the patch.  With a run log, each gather records an
+  ``ef.page.gather`` span (prefetch thread) and each write-back an
+  ``ef.page.writeback`` span (the lane's thread).
 
 A paged run equals the dense run bit for bit: page rows hold the dense
 rows' exact values, and virtual ids keep ids unique within a round.
@@ -36,6 +38,7 @@ import torch
 
 from repro_torch.engine.pipeline import WritebackLane
 from repro_torch.kernels import ops
+from repro_torch.obs.runlog import as_runlog
 
 __all__ = ["HostEFStore", "PagePlan", "plan_chunk_static", "EFPager"]
 
@@ -210,10 +213,11 @@ class EFPager:
     pending write-backs, so a final ``flush`` still sees a settled store.
     """
 
-    def __init__(self, store: HostEFStore, device):
+    def __init__(self, store: HostEFStore, device, *, runlog=None):
         self._store = store
         self._device = torch.device(device)
-        self._lane = WritebackLane(name="engine-ef-writeback")
+        self._rl = as_runlog(runlog)
+        self._lane = WritebackLane(name="engine-ef-writeback", runlog=runlog)
         self._prev = None          # (PagePlan, output page on the device)
         self._stage_count = 0
         self.patched_rows = 0
@@ -247,9 +251,11 @@ class EFPager:
         self._stage_count += 1
         if index >= 2 and not self._lane.wait_done(index - 1):
             raise RuntimeError(f"EF pager closed while staging chunk {index}")
-        plan = plan_chunk_static(cids, index=index)
-        bufs = self.zero_page(plan, pool=pool)
-        self._store.gather(plan.uniq, bufs, plan.rows)
+        with self._rl.span("ef.page.gather", chunk=index,
+                           rows=int(np.asarray(cids).size)):
+            plan = plan_chunk_static(cids, index=index)
+            bufs = self.zero_page(plan, pool=pool)
+            self._store.gather(plan.uniq, bufs, plan.rows)
         self.page_rows_max = max(self.page_rows_max, plan.page_rows)
         return plan, bufs
 
@@ -277,12 +283,14 @@ class EFPager:
         """Record chunk ``plan``'s output page and write its rows back."""
         self._prev = (plan, out_page)
         host, event = _host_copy(out_page)
-        store = self._store
+        store, rl = self._store, self._rl
 
         def writeback():
-            if event is not None:
-                event.synchronize()
-            store.update(plan.uniq, [h.numpy() for h in host], plan.rows)
+            with rl.span("ef.page.writeback", chunk=plan.index,
+                         rows=len(plan.uniq)):
+                if event is not None:
+                    event.synchronize()
+                store.update(plan.uniq, [h.numpy() for h in host], plan.rows)
 
         self._lane.submit(writeback)
 

@@ -51,7 +51,26 @@ Python-dispatched round at a time:
 * equivalence — the sampling stream, the learning rates, the noise and
   the per-round math are the reference loop's
   (``repro_torch.fl.server.run_federated_reference``), so the engine's
-  final model and ``CommLog`` history equal it.
+  final model and ``CommLog`` history equal it;
+* observability — ``telemetry`` adds the taps' ``tele/...`` values to
+  every round's metrics (``repro_torch.obs.telemetry``; bit-invisible to
+  the model); ``runlog`` (a path or a ``RunLog``) records the host's
+  spans, events and counters (``run.start``, ``chunk.dispatch``,
+  ``eval.dispatch``, ``checkpoint.save``, ``prefetch.stage``, the EF
+  pager's spans, ``metrics.nonfinite`` warnings, the end-of-run waits),
+  which ``repro_torch.obs.report`` folds into a report; ``profile_dir``
+  writes a ``torch.profiler`` trace of the whole run there, one
+  ``superstep`` range per chunk; ``halt_on_nonfinite`` drains the metrics
+  at every chunk boundary and stops at the first boundary after a
+  non-finite value, with a checkpoint marked ``"halted": true``;
+* adaptive compression — ``fl.controller`` other than ``"static"`` binds
+  the uplink codec's ladder at capacity, forces on the taps the
+  controller reads, and carries its state (``repro_torch.control``)
+  through every chunk: on the card its 0-d tensors are static buffers of
+  the graph, so the level changes between replays of one graph and the
+  codecs read it on the device.  Each round's ``tele/level`` sets the
+  round's effective uplink bytes and codec fields in the ``CommLog``;
+  ``ctrl.npz`` is saved beside ``ef.npz`` and restored on resume.
 
 Kernel launch counts: a kernel wrapper's ``launches`` counter ticks when
 Python calls it, i.e. during a graph's two warm-up runs and its capture,
@@ -64,6 +83,7 @@ EF pager's patch: one K6 per EF leaf per chunk after the first).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -73,11 +93,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.convert import load_ef, restore
+from repro_torch.checkpoint.convert import load_ctrl, load_ef, restore
 from repro_torch.checkpoint.io import (ef_disk_layout, save_server_state,
                                        save_tree)
 from repro_torch.compress import make_codec
 from repro_torch.configs.base import FLConfig
+from repro_torch.control import (LadderSpec, ladder_kind, ladder_values,
+                                 make_controller)
 from repro_torch.core.rounds import init_global_state
 from repro_torch.device import resolve_device
 from repro_torch.engine.efstore import EFPager, HostEFStore, plan_chunk_static
@@ -88,6 +110,8 @@ from repro_torch.engine.superstep import (make_compressed_superstep,
                                           make_plain_superstep)
 from repro_torch.fl.participation import make_policy
 from repro_torch.models.registry import ModelBundle
+from repro_torch.obs.runlog import as_runlog
+from repro_torch.obs.telemetry import Telemetry, make_telemetry
 from repro_torch.optim import exp_decay_per_round
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -168,21 +192,7 @@ def _auto_chunk_rounds(timed: Callable[[int], float], *,
     return int(np.clip(round(overhead / (per_round * target)), lo, hi))
 
 
-def _refuse_unported(fl, *, mesh, telemetry, runlog, halt_on_nonfinite,
-                     profile_dir):
-    item7 = "ROADMAP Queue 1 item 7, slice 4"
-    if fl.controller != "static":
-        raise NotImplementedError(
-            f"compression controller {fl.controller!r} is not ported "
-            f"({item7}: the controllers)")
-    for name, value, what in (
-            ("telemetry", telemetry, "telemetry"),
-            ("runlog", runlog, "run logs"),
-            ("halt_on_nonfinite", halt_on_nonfinite, "halt_on_nonfinite"),
-            ("profile_dir", profile_dir, "profile_dir")):
-        if value:
-            raise NotImplementedError(
-                f"{name} is not ported ({item7}: {what})")
+def _refuse_unported(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the sharded engine is not ported (ROADMAP Queue 1 "
@@ -350,11 +360,14 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     metrics)`` forces one-round chunks; the state it gets is live and
     valid until it returns.
 
-    Partial participation and chaos follow the module docstring
-    (``stats["participation"]``, ``stats["round_cohort"]``).  ``mesh``,
-    ``telemetry``, ``runlog``, ``halt_on_nonfinite``, ``profile_dir``,
-    adaptive controllers and LM bundles are not ported and raise
-    ``NotImplementedError``.
+    Partial participation and chaos, telemetry, run logs, profiling,
+    ``halt_on_nonfinite`` and the adaptive controllers follow the module
+    docstring (``stats["participation"]``, ``stats["round_cohort"]``,
+    ``stats["telemetry"]``, ``stats["halted_at"]``, ``stats["controller"]``,
+    ``stats["ladder"]``, ``stats["runlog"]``, ``stats["profile"]``).
+    ``telemetry``: True (every tap that fits), a list of tap names, or a
+    :class:`repro_torch.obs.Telemetry`.  ``mesh`` (the sharded engine) and
+    LM bundles are not ported and raise ``NotImplementedError``.
     """
     from repro_torch.fl.comm import CommLog
     from repro_torch.fl.server import make_noise_source
@@ -365,9 +378,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             "Queue 1, slice 6: the engine for LM bundles); train through "
             "repro_torch.fl.server.run_federated_reference or "
             "repro_torch.launch.train")
-    _refuse_unported(fl, mesh=mesh, telemetry=telemetry, runlog=runlog,
-                     halt_on_nonfinite=halt_on_nonfinite,
-                     profile_dir=profile_dir)
+    _refuse_unported(mesh)
     if ef_store not in ("auto", "device", "host"):
         raise ValueError(f"ef_store={ef_store!r} not in "
                          "('auto', 'device', 'host')")
@@ -413,8 +424,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     comm = CommLog().bind_sizes(global_state)
     meta_extra = {"algorithm": fl.algorithm}
 
+    # host span tracing opens early: the EF pager threads its spans through
+    # the same sink.  A path here means the engine owns the sink (stream +
+    # close).
+    owns_runlog = runlog is not None and not hasattr(runlog, "span")
+    rl = as_runlog(runlog)
+
     # --- wire codecs: EF store (dense table | cohort-paged) + mirror -----
     compressed = fl.compressed
+    # adaptive compression controller: "static" is the bitwise oracle (no
+    # ladder, no controller state in any chunk)
+    ctrl_active = compressed and fl.controller != "static"
+    controller = ctrl_spec = ctrl_state = None
     wire_up = wire_down = None
     uplink = downlink = None
     ef_template = ef_all = down_mirror = None
@@ -429,6 +450,17 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         uplink.bind(global_state["model"])
         downlink.bind(global_state["model"])
         wire_up, wire_down = uplink.wire_bytes(), downlink.wire_bytes()
+        if ctrl_active:
+            # the ladder binds at the codec's capacity (the configured
+            # static level, as ladder_values enforces); the device-side
+            # level masks the payload down to the effective rung
+            ladder = ladder_values(fl)
+            uplink.set_ladder(ladder)
+            ctrl_spec = LadderSpec(kind=ladder_kind(fl.uplink_codec),
+                                   values=ladder,
+                                   bytes_up=uplink.level_bytes())
+            controller = make_controller(fl.controller).setup(
+                ctrl_spec, fl, device)
         ef_template = uplink.init_state()
         store = HostEFStore(ef_template)
         if store.n_leaves == 0:
@@ -453,7 +485,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             ef_dense = None
             down_mirror = tree_map(torch.clone, global_state["model"])
         if ef_paged:
-            pager = EFPager(store, device)
+            pager = EFPager(store, device, runlog=rl)
             if ef_dense is not None:
                 store.from_dense(ef_dense)
         elif store.n_leaves:
@@ -464,6 +496,51 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             noise_fn = make_noise_source(uplink, downlink, seed, device)
     uses_noise = compressed and (uplink.uses_noise or downlink.uses_noise)
 
+    # --- telemetry taps ---------------------------------------------------
+    # tele=None keeps every round the one without taps, op for op
+    tele = None
+    if telemetry or ctrl_active:
+        if isinstance(telemetry, Telemetry):
+            tele = telemetry
+        else:
+            # a controller's decision signals are telemetry: force its
+            # taps (and the schedule-exporting "controller" tap) into the
+            # selection even when the caller left telemetry off
+            tap_names = (None if telemetry is True
+                         else tuple(telemetry) if telemetry else ())
+            if ctrl_active and tap_names is not None:
+                tap_names = tuple(dict.fromkeys(
+                    tap_names + tuple(controller.requires_taps)
+                    + ("controller",)))
+            tele = make_telemetry(
+                "compressed" if compressed else "plain",
+                n_clients=c_round,
+                available=frozenset(
+                    (("ef",) if compressed and uplink.stateful else ())
+                    + (("pmask", "staleness") if part_active else ())
+                    + (("level", "eff_bytes") if ctrl_active else ())),
+                taps=tap_names)
+        if ctrl_active:
+            have = {t.name for t in tele.taps} if tele is not None else set()
+            missing = [n for n in controller.requires_taps
+                       if n not in have]
+            if missing:
+                raise ValueError(
+                    f"controller {fl.controller!r} needs telemetry taps "
+                    f"{missing}, unavailable for uplink codec "
+                    f"{fl.uplink_codec!r} (e.g. the 'ef' tap needs a "
+                    "stateful error-feedback uplink)")
+
+    # controller state: 0-d tensors on the device, carried in place through
+    # the chunks; ctrl.npz sits next to ef.npz so a resumed run replays the
+    # schedule bit for bit
+    ctrl_path = (os.path.join(checkpoint_dir, "ctrl.npz")
+                 if checkpoint_dir else None)
+    if ctrl_active:
+        ctrl_state = controller.init_state()
+        if start_round and ctrl_path and os.path.exists(ctrl_path):
+            ctrl_state = load_ctrl(ctrl_path, ctrl_state, device)
+
     def save_ef():
         if ef_paged:
             pager.flush()
@@ -471,7 +548,15 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         else:
             ef_src = ef_all if ef_all is not None else ef_template
         save_tree(ef_path, (ef_disk_layout(ef_src, n_clients=data.n_clients),
-                            down_mirror))
+                            down_mirror), rl)
+        if ctrl_active:
+            save_tree(ctrl_path, ctrl_state, rl)
+
+    def save_checkpoint(r, **extra):
+        save_server_state(checkpoint_dir, global_state, r,
+                          extra={**meta_extra, **extra}, runlog=rl)
+        if compressed:
+            save_ef()
 
     # --- fixed-shape evaluation -----------------------------------------
     test_args = ()
@@ -556,10 +641,11 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             ev = eval_fn if eval_in_chunk else None
             if compressed:
                 supersteps[n_rounds] = make_compressed_superstep(
-                    bundle, fl, mode, n_rounds, uplink, downlink, eval_fn=ev)
+                    bundle, fl, mode, n_rounds, uplink, downlink, eval_fn=ev,
+                    telemetry=tele, controller=controller)
             else:
                 supersteps[n_rounds] = make_plain_superstep(
-                    bundle, fl, mode, n_rounds, eval_fn=ev)
+                    bundle, fl, mode, n_rounds, eval_fn=ev, telemetry=tele)
         superstep = supersteps[n_rounds]
 
         def body(inputs):
@@ -569,7 +655,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                 new_state, mstack, _, new_mirror = superstep(
                     global_state, ef, down_mirror, inputs["batches"],
                     inputs["sizes"], inputs["lrs"], inputs["cids"],
-                    inputs["noise"], *test_args, part=part)
+                    inputs["noise"], *test_args, part=part, ctrl=ctrl_state)
                 _copy_into(down_mirror, new_mirror)
             else:
                 new_state, mstack = superstep(
@@ -584,6 +670,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         if compressed:
             leaves += tree_leaves(down_mirror)
             leaves += inputs["ef_page"] if ef_paged else (ef_all or [])
+        if ctrl_active:
+            leaves += tree_leaves(ctrl_state)
         return leaves
 
     graphs: Dict[int, _GraphStep] = {}
@@ -693,12 +781,34 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         eval_every=None if eval_in_chunk else eval_every,
         ckpt_every=checkpoint_every if checkpoint_dir else None,
         per_round=callback is not None)
-    prefetcher = HostPrefetcher(build_chunk, schedule, enabled=prefetch)
+    rl.event("run.start", rounds=rounds, start_round=start_round,
+             chunk_rounds=chunk_rounds, compressed=compressed,
+             client_shards=1, telemetry=tele is not None,
+             participation=policy.name if part_active else None,
+             controller=fl.controller if ctrl_active else None,
+             ef_store=("host" if ef_paged else "device") if compressed
+                      else None)
+    prefetcher = HostPrefetcher(build_chunk, schedule, enabled=prefetch,
+                                runlog=rl)
+    ctrl_schedule = None
+    if ctrl_active:
+        # per-round CommLog accounting: the drained tele/level indexes
+        # these host tables, so each round is charged its level's bytes
+        eff_key = ("eff_topk_frac" if ctrl_spec.kind == "topk_frac"
+                   else "eff_quant_bits")
+        ctrl_schedule = {
+            "bytes": [float(b) for b in ctrl_spec.bytes_up],
+            "effective": [
+                {"level": i,
+                 eff_key: (float(v) if ctrl_spec.kind == "topk_frac"
+                           else int(v))}
+                for i, v in enumerate(ctrl_spec.values)],
+        }
     pump = MetricsPump(comm, c_round, wire_up=wire_up, wire_down=wire_down,
                        n_down=(data.n_clients
                                if compressed and fl.downlink_codec
                                != "identity" else None),
-                       verbose=verbose)
+                       verbose=verbose, runlog=rl, schedule=ctrl_schedule)
     # chunk timing: CUDA events on the dispatch stream (the card's own
     # timeline, no host sync), host clock on the CPU
     marks: List[Tuple[int, int, object, object, object]] = []
@@ -710,55 +820,95 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         ev.record()
         return ev
 
+    # profile_dir: one torch.profiler trace of the whole run (the card's
+    # kernels and graph launches too), one "superstep" range per chunk
+    profiler = profile_path = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(profile_dir, exist_ok=True)
+        profile_path = os.path.join(profile_dir, "engine_trace.json")
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else []))
+
+    def chunk_range():
+        if profiler is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("superstep")
+
+    halted_at = None
     t_run = time.perf_counter()
+    if profiler is not None:
+        profiler.start()
     try:
         with pump:
             for r0, r1, staged in prefetcher:
                 n_rounds = r1 - r0
-                m_start = mark()
-                inputs, step = load_inputs(
-                    n_rounds, staged, draw_noise(r0, r1, noise_fn))
-                if compressed and ef_paged:
-                    page = [p.to(device, non_blocking=True)
-                            for p in staged["ef_page"]]
-                    pager.patch(staged["ef_plan"], page, inputs["ef_page"])
-                release(staged)
-                step = captured(n_rounds, inputs, step)
-                m_run = mark()
-                mstack = run_chunk(n_rounds, inputs, step)
-                marks.append((r0, r1, m_start, m_run, mark()))
-                if compressed and ef_paged:
-                    pager.complete(staged["ef_plan"], inputs["ef_page"])
-                eval_metrics = None
-                if eval_every and not eval_in_chunk and r1 % eval_every == 0:
-                    eval_metrics = eval_fn(global_state, test_batch,
-                                           test_mask)
+                with chunk_range():
+                    with rl.span("chunk.dispatch", r0=r0, r1=r1,
+                                 compile=n_rounds not in (
+                                     graphs if on_card else supersteps)):
+                        m_start = mark()
+                        inputs, step = load_inputs(
+                            n_rounds, staged, draw_noise(r0, r1, noise_fn))
+                        if compressed and ef_paged:
+                            page = [p.to(device, non_blocking=True)
+                                    for p in staged["ef_page"]]
+                            pager.patch(staged["ef_plan"], page,
+                                        inputs["ef_page"])
+                        release(staged)
+                        step = captured(n_rounds, inputs, step)
+                        m_run = mark()
+                        mstack = run_chunk(n_rounds, inputs, step)
+                        marks.append((r0, r1, m_start, m_run, mark()))
+                        if compressed and ef_paged:
+                            pager.complete(staged["ef_plan"],
+                                           inputs["ef_page"])
+                    eval_metrics = None
+                    if eval_every and not eval_in_chunk \
+                            and r1 % eval_every == 0:
+                        with rl.span("eval.dispatch", round=r1,
+                                     overlap=False):
+                            eval_metrics = eval_fn(global_state, test_batch,
+                                                   test_mask)
                 pump.submit(mstack, eval_metrics, host=staged.get("host"))
                 if callback is not None:      # one-round chunks
                     pump.drain()
                     metrics = {k: v for k, v in comm.history[-1].items()
                                if k not in _NON_METRIC_KEYS}
                     callback(r0, global_state, metrics)
+                if halt_on_nonfinite:
+                    # the drain costs the metrics overlap: the price of
+                    # the option (off by default)
+                    pump.drain()
+                    if pump.nonfinite_round is not None:
+                        rl.event("run.halt", reason="metrics.nonfinite",
+                                 round=pump.nonfinite_round, boundary=r1)
+                        if checkpoint_dir:
+                            with rl.span("checkpoint.save", round=r1,
+                                         halt=True):
+                                save_checkpoint(r1, halted=True)
+                        halted_at = r1
+                        break
                 if checkpoint_dir and r1 % checkpoint_every == 0:
-                    save_server_state(checkpoint_dir, global_state, r1,
-                                      extra=meta_extra)
-                    if compressed:
-                        save_ef()
+                    with rl.span("checkpoint.save", round=r1):
+                        save_checkpoint(r1)
     finally:
         if pager is not None:
             pager.close()
         prefetcher.close()
+        if profiler is not None:
+            profiler.stop()
     m_end = mark()
     if on_card:
         torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     chunk_times = _chunk_times(marks, m_end, on_card)
+    if profiler is not None:
+        profiler.export_chrome_trace(profile_path)
 
-    if checkpoint_dir:
-        save_server_state(checkpoint_dir, global_state, rounds,
-                          extra=meta_extra)
-        if compressed:
-            save_ef()
+    if checkpoint_dir and halted_at is None:
+        with rl.span("checkpoint.save", round=rounds, final=True):
+            save_checkpoint(rounds)
     stats = {
         "device": str(device),
         "cuda_graphs": on_card,
@@ -782,10 +932,30 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         "graphs": [graphs[k].stats() for k in sorted(graphs)],
         "participation": policy.name if part_active else None,
         "round_cohort": c_round,
+        "telemetry": tele is not None,
+        "halted_at": halted_at,
+        "controller": fl.controller if ctrl_active else None,
+        "ladder": list(ctrl_spec.values) if ctrl_active else None,
+        "profile": profile_path,
     }
     if ef_paged:
         stats["ef_page_bytes"] = pager.page_rows_max * store.row_nbytes()
         stats["ef_store_rows"] = store.n_rows
         stats["ef_patched_rows"] = pager.patched_rows
         stats["ef_stall_s"] = pager.stall_s
+        rl.counter("ef.page.hits", store.hits)
+        rl.counter("ef.page.misses", store.misses)
+        rl.counter("ef.page.writeback_rows", store.writeback_rows)
+        rl.counter("ef.page.patched_rows", pager.patched_rows)
+        rl.counter("ef.page.stall_s", round(pager.stall_s, 4))
+    rl.counter("prefetch.wait_s", round(prefetcher.wait_s, 4))
+    rl.counter("metrics.wait_s", round(pump.wait_s, 4))
+    if pools:
+        rl.counter("staging.pool_hits", stats["staging_pool_hits"])
+        rl.counter("staging.pool_misses", stats["staging_pool_misses"])
+    rl.event("run.end", rounds=rounds)
+    if owns_runlog:
+        rl.close()
+    if rl.path:
+        stats["runlog"] = rl.path
     return ServerResult(global_state=global_state, comm=comm, stats=stats)

@@ -13,9 +13,17 @@ CPU the copy is synchronous and the worker only logs.
 ``MetricsPump`` is a context manager: a clean exit drains every pending
 chunk into the ``CommLog``, an exception cancels what is queued without
 blocking the raising thread.
+
+Each logged round is scanned for non-finite values: the first such round
+is kept in ``nonfinite_round`` (the engine's ``halt_on_nonfinite`` reads
+it) and every such round emits a ``metrics.nonfinite`` warning into the
+run log.  With an adaptive controller's ``schedule``, each round's drained
+``tele/level`` picks the level's effective uplink bytes and codec fields
+for ``CommLog.log_round(effective=...)``.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -23,6 +31,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.runlog import as_runlog
 
 __all__ = ["MetricsPump"]
 
@@ -54,22 +64,32 @@ class MetricsPump:
     ``comm`` must have its wire sizes bound (``comm.bind_sizes``): the
     pump logs with ``global_state=None``.  ``wire_up`` / ``wire_down`` /
     ``n_down`` are the per-run constants of ``CommLog.log_round``.
+    ``runlog`` (None | RunLog) receives non-finite metric warnings;
+    ``schedule`` (an adaptive controller's ``{"bytes": [...], "effective":
+    [...]}`` per level) turns each round's ``tele/level`` into its
+    effective uplink bytes and codec fields.
     """
 
     def __init__(self, comm, n_clients: int, *,
                  wire_up: Optional[int] = None,
                  wire_down: Optional[int] = None,
                  n_down: Optional[int] = None,
-                 verbose: bool = False, max_pending: int = 4):
+                 verbose: bool = False, max_pending: int = 4,
+                 runlog=None, schedule: Optional[dict] = None):
         self._comm = comm
         self._n_clients = n_clients
         self._wire = dict(wire_up=wire_up, wire_down=wire_down,
                           n_down=n_down)
+        self._schedule = schedule
         self._verbose = verbose
         self._max_pending = max_pending
+        self._runlog = as_runlog(runlog)
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="engine-metrics")
         self._pending: deque = deque()
         self.wait_s = 0.0    # dispatch-thread time blocked on metrics
+        # first round whose metrics held a non-finite value (1-based), or
+        # None; the engine's halt_on_nonfinite reads it
+        self.nonfinite_round: Optional[int] = None
 
     def __enter__(self) -> "MetricsPump":
         return self
@@ -140,9 +160,24 @@ class MetricsPump:
             if ev is not None and k == n_rounds - 1:
                 metrics.update({key: float(np.asarray(v))
                                 for key, v in ev.items()})
+            bad = [key for key, v in metrics.items() if not math.isfinite(v)]
+            if bad:
+                # the value still lands in the history; the event makes it
+                # findable
+                self._runlog.warning("metrics.nonfinite",
+                                     round=self._comm.rounds + 1, keys=bad)
+                if self.nonfinite_round is None:
+                    self.nonfinite_round = self._comm.rounds + 1
+            wire, effective = self._wire, None
+            if self._schedule is not None and "tele/level" in metrics:
+                lvl = int(round(metrics["tele/level"]))
+                lvl = max(0, min(lvl, len(self._schedule["bytes"]) - 1))
+                wire = dict(self._wire,
+                            wire_up=int(round(self._schedule["bytes"][lvl])))
+                effective = self._schedule["effective"][lvl]
             self._comm.log_round(None, self._n_clients, metrics,
                                  n_up=None if n_up is None else int(n_up[k]),
-                                 **self._wire)
+                                 effective=effective, **wire)
             if self._verbose:
                 print(f"round {self._comm.rounds:4d} " +
                       " ".join(f"{k2}={v2:.4f}" for k2, v2 in

@@ -22,6 +22,12 @@ draining device results into host state (the cohort-paged EF store writes
 each chunk's rows back through one, see ``repro_torch.engine.efstore``),
 with a completion counter so a producer can wait for a prefix of the
 submitted work.
+
+Both threads report to an optional run log (``repro_torch.obs.runlog``):
+the prefetcher records one ``prefetch.stage`` span per chunk on its own
+thread, and ``close()`` of either turns a thread that did not retire or an
+error nobody saw into a structured warning (``prefetch.join_timeout`` /
+``prefetch.error``, ``writeback.join_timeout`` / ``writeback.error``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from typing import Callable, Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.obs.runlog import as_runlog
 
 __all__ = ["StagingPool", "WritebackLane", "HostPrefetcher"]
 
@@ -108,7 +116,8 @@ class WritebackLane:
     queued thunks before the worker retires.
     """
 
-    def __init__(self, *, name: str = "engine-writeback"):
+    def __init__(self, *, name: str = "engine-writeback", runlog=None):
+        self._runlog = as_runlog(runlog)
         self._q: queue.Queue = queue.Queue()
         self._cv = threading.Condition()
         self._done = 0
@@ -173,7 +182,8 @@ class WritebackLane:
 
     def close(self) -> None:
         """Run the queued thunks, then retire the worker (idempotent,
-        never raises: shutdown runs from ``finally`` blocks)."""
+        never raises: shutdown runs from ``finally`` blocks; an error
+        nobody saw becomes a run-log warning)."""
         if self._closed:
             return
         self._closed = True
@@ -182,6 +192,10 @@ class WritebackLane:
             self._cv.notify_all()
         self._q.put(None)
         self._thread.join(timeout=60.0)
+        if self._thread.is_alive():
+            self._runlog.warning("writeback.join_timeout")
+        if self.error is not None:
+            self._runlog.warning("writeback.error", error=repr(self.error))
 
 
 class HostPrefetcher:
@@ -196,7 +210,8 @@ class HostPrefetcher:
 
     def __init__(self, build_chunk: Callable,
                  schedule: Iterable[Tuple[int, int]], *, depth: int = 2,
-                 enabled: bool = True):
+                 enabled: bool = True, runlog=None):
+        self._runlog = as_runlog(runlog)
         self._build = build_chunk
         self._schedule = list(schedule)
         self._enabled = enabled
@@ -225,7 +240,11 @@ class HostPrefetcher:
             for r0, r1 in self._schedule:
                 if self._stop.is_set():
                     return
-                if not self._put((r0, r1, self._build(r0, r1))):
+                # the span runs on THIS thread (the run log's nesting is
+                # per thread)
+                with self._runlog.span("prefetch.stage", r0=r0, r1=r1):
+                    staged = self._build(r0, r1)
+                if not self._put((r0, r1, staged)):
                     return
             self._put(None)
         except BaseException as e:  # surfaced at the consumer
@@ -236,7 +255,8 @@ class HostPrefetcher:
         if not self._enabled:
             for r0, r1 in self._schedule:
                 t0 = time.perf_counter()
-                staged = self._build(r0, r1)
+                with self._runlog.span("prefetch.stage", r0=r0, r1=r1):
+                    staged = self._build(r0, r1)
                 self.wait_s += time.perf_counter() - t0
                 yield r0, r1, staged
             return
@@ -261,11 +281,16 @@ class HostPrefetcher:
 
     def close(self):
         """Stop the worker and drop any staged chunks (idempotent, never
-        raises)."""
+        raises: an error of ``build_chunk`` the consumer never saw becomes
+        a run-log warning)."""
         if not self._enabled or self._closed:
             return
         self._closed = True
         self._stop.set()
         self._drain_queue()
         self._thread.join(timeout=60.0)
+        if self._thread.is_alive():
+            self._runlog.warning("prefetch.join_timeout")
         self._drain_queue()
+        if self.error is not None:
+            self._runlog.warning("prefetch.error", error=repr(self.error))

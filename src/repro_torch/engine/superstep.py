@@ -1,5 +1,5 @@
 """K-round supersteps (port of ``repro/engine/superstep.py`` for one
-device, without telemetry or controllers).
+device).
 
 A superstep is a plain function that turns K pre-staged rounds: one
 round body (``make_round_fn`` / ``make_compressed_round_fn``) called K
@@ -20,8 +20,15 @@ CUDA graph (the counterpart of the JAX package's ``jit`` + ``lax.scan``):
 * with partial participation, ``part = (pmask, pstale)`` ``[K, C]``
   carries each round's contribution mask and staleness (the round fns'
   participation inputs); None keeps the round without them;
-* per-round metrics come back stacked ``[K]``; with ``eval_fn`` (eval
-  every round) the evaluator is folded into each round.
+* per-round metrics come back stacked ``[K]`` (each round's ``tele/...``
+  telemetry values too); with ``eval_fn`` (eval every round) the
+  evaluator is folded into each round;
+* with an adaptive controller (``repro_torch.control``) the compressed
+  superstep carries ``ctrl``, a dict of 0-d tensors, through its K rounds:
+  round r encodes at the level round r - 1 chose, and the chunk's last
+  state is copied into ``ctrl`` in place at the end (on the card its
+  tensors are static buffers of the captured graph, like the mirror and
+  the EF table).
 
 The layout is agnostic of the EF backing: the cohort-paged store passes a
 ``[K*C, n]`` page and page-relative ids as ``ef_all`` and ``cids``.
@@ -48,15 +55,17 @@ def _round_part(part, r):
     return () if part is None else (part[0][r], part[1][r])
 
 
-def make_plain_superstep(bundle, fl, mode, n_rounds, *, eval_fn=None):
+def make_plain_superstep(bundle, fl, mode, n_rounds, *, eval_fn=None,
+                         telemetry=None):
     """Uncompressed K-round superstep.
 
     Returns ``superstep(global_state, batches, sizes, lrs[, test_batch,
     test_mask], part=None) -> (new_global_state, metrics stacked [K])``.
     ``eval_fn`` (``repro_torch.engine.make_eval_fn``) folds per-round
-    evaluation of the post-round state into the chunk.
+    evaluation of the post-round state into the chunk; ``telemetry`` goes
+    to the round fn.
     """
-    round_fn = make_round_fn(bundle, fl, mode)
+    round_fn = make_round_fn(bundle, fl, mode, telemetry=telemetry)
 
     def superstep(global_state, batches, sizes, lrs, *test, part=None):
         state, ms = global_state, []
@@ -72,26 +81,32 @@ def make_plain_superstep(bundle, fl, mode, n_rounds, *, eval_fn=None):
 
 
 def make_compressed_superstep(bundle, fl, mode, n_rounds, uplink, downlink,
-                              *, eval_fn=None):
+                              *, eval_fn=None, telemetry=None,
+                              controller=None):
     """Compressed (codec-routed) K-round superstep.
 
     Returns ``superstep(global_state, ef_all, mirror, batches, sizes, lrs,
-    cids, noise[, test_batch, test_mask], part=None) -> (new_global_state,
-    metrics [K], ef_all, new_mirror)``.
+    cids, noise[, test_batch, test_mask], part=None, ctrl=None) ->
+    (new_global_state, metrics [K], ef_all, new_mirror)``.
 
     ``ef_all``: per uplink leaf the federation's EF table ``[N, n]`` (or a
     chunk's page), updated in place; None for a stateless uplink.  ``cids
     [K, C]`` int32 selects each round's rows.  ``noise``: ``(down, up)``
     with ``down`` per leaf ``[K, n]`` and ``up`` per leaf ``[K, C, n]``
-    (None for a codec without noise).
+    (None for a codec without noise).  ``telemetry`` / ``controller`` go
+    to the round fn; with a controller, ``ctrl`` (its state) is required
+    and updated in place.
     """
-    round_fn = make_compressed_round_fn(bundle, fl, mode, uplink, downlink)
+    round_fn = make_compressed_round_fn(bundle, fl, mode, uplink, downlink,
+                                        telemetry=telemetry,
+                                        controller=controller)
 
     def superstep(global_state, ef_all, mirror, batches, sizes, lrs, cids,
-                  noise, *test, part=None):
+                  noise, *test, part=None, ctrl=None):
         down_noise, up_noise = noise
         n_clients = sizes.shape[1]
         state, ms = global_state, []
+        ctrl_state = ctrl
         for r in range(n_rounds):
             ef_round = (None if ef_all is None else
                         [ops.ef_gather(t, cids[r]) for t in ef_all])
@@ -99,15 +114,22 @@ def make_compressed_superstep(bundle, fl, mode, n_rounds, uplink, downlink,
                 None if down_noise is None else [d[r] for d in down_noise],
                 None if up_noise is None else
                 [[u[r, c] for u in up_noise] for c in range(n_clients)])
-            state, m, new_ef, mirror = round_fn(
+            out = round_fn(
                 state, {k: v[r] for k, v in batches.items()}, sizes[r],
-                lrs[r], ef_round, mirror, noise_r, *_round_part(part, r))
+                lrs[r], ef_round, mirror, noise_r, *_round_part(part, r),
+                ctrl_state=ctrl_state)
+            state, m, new_ef, mirror = out[:4]
+            if controller is not None:
+                ctrl_state = out[4]
             if ef_all is not None:
                 for t, rows in zip(ef_all, new_ef):
                     ops.ef_scatter(t, cids[r], rows)
             if eval_fn is not None:
                 m = {**m, **eval_fn(state, test[0], test[1])}
             ms.append(m)
+        if controller is not None:
+            for k, t in ctrl.items():
+                t.copy_(ctrl_state[k])
         return state, _stack(ms), ef_all, mirror
 
     return superstep

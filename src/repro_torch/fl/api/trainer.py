@@ -43,9 +43,14 @@ class CheckpointOptions:
 @dataclass(frozen=True)
 class EngineOptions:
     """Execution knobs of ``repro_torch.engine`` (throughput only: results
-    do not depend on them).  ``mesh``, ``telemetry``, ``runlog``,
-    ``profile_dir`` and ``halt_on_nonfinite`` are not ported yet and
-    raise ``NotImplementedError`` when set."""
+    do not depend on them).  ``telemetry`` (True, tap names, or a
+    ``repro_torch.obs.Telemetry``) adds ``tele/...`` values to the history
+    without changing the model; ``runlog`` (a path or a
+    ``repro_torch.obs.RunLog``) records the host's spans and events;
+    ``profile_dir`` writes a ``torch.profiler`` trace of the run there;
+    ``halt_on_nonfinite`` stops at the first chunk boundary after a
+    non-finite metric.  ``mesh`` (the sharded engine) is not ported and
+    raises ``NotImplementedError``."""
 
     superstep_rounds: Union[int, str] = 8   # rounds per chunk | "auto"
     prefetch: bool = True                   # background host staging

@@ -11,37 +11,16 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
+from repro_torch.obs.runlog import json_safe
 from repro_torch.tree import tree_leaves
 
 
 def tree_bytes(tree) -> int:
     return int(sum(x.numel() * x.element_size() for x in tree_leaves(tree)))
-
-
-def json_safe(v: Any) -> Any:
-    """One value -> something ``json.dump`` accepts (tensors and numpy
-    scalars become numbers or lists; anything else unknown becomes str)."""
-    if v is None or isinstance(v, (bool, int, float, str)):
-        return v
-    if isinstance(v, (np.bool_, np.integer)):
-        return int(v)
-    if isinstance(v, np.floating):
-        return float(v)
-    if isinstance(v, dict):
-        return {str(k): json_safe(x) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return [json_safe(x) for x in v]
-    if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
-    if hasattr(v, "ndim"):
-        arr = np.asarray(v)
-        return arr.item() if arr.ndim == 0 else arr.tolist()
-    return str(v)
 
 
 @dataclass
@@ -64,7 +43,8 @@ class CommLog:
                   wire_up: Optional[int] = None,
                   wire_down: Optional[int] = None,
                   n_down: Optional[int] = None,
-                  n_up: Optional[int] = None):
+                  n_up: Optional[int] = None,
+                  effective: Optional[Dict] = None):
         """Account one round.
 
         ``wire_up`` / ``wire_down``: codec-reported bytes per client for the
@@ -78,7 +58,13 @@ class CommLog:
         ``n_clients``); a partial-participation round (deadline /
         buffered-async policies, chaos dropouts) receives uploads only from
         the clients that arrived, while the downlink keeps charging the
-        whole cohort, which started the round.
+        whole cohort, which started the round.  ``effective``: an adaptive
+        controller's effective codec configuration of the round
+        (``{"level": int, "eff_topk_frac": float}`` or ``{"level": int,
+        "eff_quant_bits": int}``, ``repro_torch.control``), merged into the
+        round record so the schedule can be read back from the history;
+        ``wire_up`` is then the level's effective bytes.  None (static
+        runs) keeps the record shape unchanged.
         """
         if global_state is None:
             if self._model_b is None:
@@ -101,7 +87,8 @@ class CommLog:
                              "bytes_down": down,
                              "bytes_up_ideal": n_clients * (model_b
                                                             + fusion_b),
-                             "cum_bytes_up": self.bytes_up, **metrics})
+                             "cum_bytes_up": self.bytes_up,
+                             **(effective or {}), **metrics})
 
     def rounds_to(self, key: str, threshold: float) -> int:
         """First round where history[key] >= threshold (-1 if never)."""
@@ -113,7 +100,9 @@ class CommLog:
     def to_records(self) -> List[Dict]:
         """History as plain-JSON round records plus a final
         ``{"kind": "summary", "schema": 2}`` record with the run totals
-        (record schema v2 of the JAX package)."""
+        (record schema v2 of the JAX package: round records may carry the
+        controller's effective fields).  ``repro_torch.obs.report`` reads
+        these records beside a run log's."""
         records = [{"kind": "round",
                     **{k: json_safe(v) for k, v in h.items()}}
                    for h in self.history]

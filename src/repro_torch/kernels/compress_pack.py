@@ -5,7 +5,8 @@ K5 ``topk_select``, K6 ``ef_gather`` and K7 ``ef_scatter``).
     quant_pack    q = clip(floor(x / scale + u), +-qmax) as int8 codes, or
                   as ``code + 8`` nibbles two per uint8 (element 2i low);
                   ``quant_pack_multi`` encodes every leaf of a message,
-                  scales included, in two launches
+                  scales included, in two launches, at the capacity's qmax
+                  or at a ladder level read on the device
     quant_unpack  codes -> float32 code * scale; ``quant_unpack_multi``
                   decodes every leaf of a message in one launch
     topk_select   x where |x| >= t, else 0
@@ -39,6 +40,7 @@ __all__ = ["quant_pack", "quant_pack_multi", "quant_unpack",
            "ef_scatter_cuda", "topk_schedule"]
 
 MAX_LEAVES = 64     # leaves one K3 / K4 launch takes (the kernels' leaf table)
+MAX_LADDER = 8      # levels of a quant ladder K3 takes
 _F32 = torch.float32
 
 
@@ -77,12 +79,34 @@ def quant_pack_plain(x, scale, noise, *, bits=8):
     return u[:, 0] | (u[:, 1] << 4)
 
 
-def quant_pack_multi_plain(xs, noises, *, bits=8):
+def _check_ladder(name, bits, level, ladder_qmax, device=None):
+    """What a ladder level must be: a one-element int32 tensor (on
+    ``device`` when given) with 1..8 qmax values in (0, capacity]."""
+    if level is None:
+        return
+    cap = 127.0 if bits == 8 else 7.0
+    if ladder_qmax is None or not 1 <= len(ladder_qmax) <= MAX_LADDER \
+            or not all(0.0 < float(q) <= cap for q in ladder_qmax):
+        raise ValueError(f"{name}: a level needs 1 to {MAX_LADDER} ladder "
+                         f"qmax values in (0, {cap:g}], got {ladder_qmax!r}")
+    if level.dtype != torch.int32 or level.numel() != 1 \
+            or (device is not None and level.device != device):
+        raise ValueError(f"{name}: level must be a one-element int32 tensor"
+                         f"{'' if device is None else f' on {device}'}, got "
+                         f"{level.dtype} {tuple(level.shape)} on "
+                         f"{level.device}")
+
+
+def quant_pack_multi_plain(xs, noises, *, bits=8, level=None,
+                           ladder_qmax=None):
     """The leaves of a message -> [(codes, scale [1]), ...]: per leaf
     scale = max(max|x|, 1e-12) / qmax and :func:`quant_pack_plain`, with an
     odd int4 leaf padded by one zero and u = 0.5 where ``noises`` (a list of
-    offsets, each of the padded length, or None) gives none."""
+    offsets, each of the padded length, or None) gives none.  qmax is the
+    capacity's (127 or 7) or, with ``level`` (a one-element int32 tensor),
+    ``ladder_qmax[level]``; the codes still clip at the capacity."""
     _check_bits("quant_pack_multi", bits)
+    _check_ladder("quant_pack_multi", bits, level, ladder_qmax)
     out = []
     for i, x in enumerate(xs):
         u = None if noises is None else noises[i]
@@ -93,8 +117,14 @@ def quant_pack_multi_plain(xs, noises, *, bits=8):
         # a tensor divisor: on the card PyTorch multiplies by the
         # reciprocal of a Python-number divisor, which is not the IEEE
         # division of the CPU, of JAX and of the kernel
-        qmax = torch.full((1,), 127.0 if bits == 8 else 7.0,
-                          device=x.device)
+        if level is None:
+            qmax = torch.full((1,), 127.0 if bits == 8 else 7.0,
+                              device=x.device)
+        else:
+            qmax = torch.tensor(
+                [float(q) for q in ladder_qmax], device=x.device).index_select(
+                    0, level.reshape(1).clamp(0, len(ladder_qmax) - 1)
+                    .to(device=x.device, dtype=torch.long))
         scale = x.abs().amax().clamp_min(1e-12).reshape(1) / qmax
         if u is None:
             u = torch.full((pn,), 0.5, device=x.device)
@@ -148,7 +178,7 @@ def _kernels():
     lib = build.load("compress_pack")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.quant_pack_f32.argtypes = [p, p, p, p, ll, i, i, p]
-    lib.quant_pack_multi_f32.argtypes = [p, i, i, p, p]
+    lib.quant_pack_multi_f32.argtypes = [p, i, i, p, p, p, i, p]
     lib.quant_unpack_multi_f32.argtypes = [p, i, p]
     lib.topk_select_f32.argtypes = [p, p, p, ll, i, p]
     lib.topk_select_schedule.argtypes = [ll, i, p]
@@ -251,16 +281,26 @@ def _pack_slots(dev):
     return t
 
 
-def quant_pack_multi_cuda(xs, noises, *, bits=8):
+@functools.cache
+def _ladder_array(ladder_qmax):
+    """The ladder's qmax values as a host float array for the C side."""
+    return (ctypes.c_float * len(ladder_qmax))(*ladder_qmax)
+
+
+def quant_pack_multi_cuda(xs, noises, *, bits=8, level=None,
+                          ladder_qmax=None):
     """K3 over the leaves of a message: xs float32 [n] leaves, noises their
     offsets (float32, of length n, or n + 1 for an odd int4 leaf) or None
     (u = 0.5), contiguous on one CUDA device.  Each leaf's scale is
-    max(max|x|, 1e-12) / qmax, computed on the device.  Two launches per 64
-    leaves (max|x| and the scales, then the codes), each counted on
-    ``quant_pack_cuda``; no other device op.  Returns [(codes, scale), ...]:
-    the codes (int8 [n], or uint8 [ceil(n / 2)]) as views of one buffer,
-    each leaf starting 16-byte aligned, and the scales as [1] views of one
-    float32 buffer."""
+    max(max|x|, 1e-12) / qmax, computed on the device, with qmax the
+    capacity's or, with ``level`` (a one-element int32 tensor on the same
+    device), ``ladder_qmax[level]``: the kernel reads the level on the
+    device, so a captured graph replays at whatever level the buffer holds.
+    Two launches per 64 leaves (max|x| and the scales, then the codes),
+    each counted on ``quant_pack_cuda``; no other device op.  Returns
+    [(codes, scale), ...]: the codes (int8 [n], or uint8 [ceil(n / 2)]) as
+    views of one buffer, each leaf starting 16-byte aligned, and the scales
+    as [1] views of one float32 buffer."""
     _check_bits("quant_pack_multi_cuda", bits)
     n_leaves = len(xs)
     if not n_leaves or (noises is not None and len(noises) != n_leaves):
@@ -302,11 +342,17 @@ def quant_pack_multi_cuda(xs, noises, *, bits=8):
         table[j] += base
         table[j + 1] = s_base + 4 * table[j + 1]
         table[j + 3] = table[j + 3] and base % 4 == 0
+    level_ptr, ladder, n_levels = 0, None, 0
+    if level is not None:
+        _check_ladder("quant_pack_multi_cuda", bits, level, ladder_qmax, dev)
+        ladder = _ladder_array(tuple(float(q) for q in ladder_qmax))
+        level_ptr, n_levels = level.data_ptr(), len(ladder_qmax)
     fn, slots = _fn("quant_pack_multi_f32"), _pack_slots(dev).data_ptr()
     for lo in range(0, len(table), 6 * MAX_LEAVES):
         chunk = array.array("q", table[lo:lo + 6 * MAX_LEAVES])
         build.launch("quant_pack_multi", fn, dev, chunk.buffer_info()[0],
-                     len(chunk) // 6, bits, slots)
+                     len(chunk) // 6, bits, slots, level_ptr, ladder,
+                     n_levels)
         quant_pack_cuda.launches += 2
     views = [v for v, leaf in zip(codes.split_with_sizes(split), keep)
              if leaf]
@@ -544,13 +590,16 @@ def quant_pack(x, scale, noise, *, bits=8):
     return quant_pack_cuda(x, scale, noise, bits=bits)
 
 
-def quant_pack_multi(xs, noises, *, bits=8):
+def quant_pack_multi(xs, noises, *, bits=8, level=None, ladder_qmax=None):
     """K3 over a message's leaves, scales included, in two launches (per 64
     leaves) on the card; the plain version leaf by leaf for tensors on the
-    CPU."""
+    CPU.  ``level`` / ``ladder_qmax``: a ladder level (see
+    :func:`quant_pack_multi_cuda`)."""
     if xs[0].device.type == "cpu":
-        return quant_pack_multi_plain(xs, noises, bits=bits)
-    return quant_pack_multi_cuda(xs, noises, bits=bits)
+        return quant_pack_multi_plain(xs, noises, bits=bits, level=level,
+                                      ladder_qmax=ladder_qmax)
+    return quant_pack_multi_cuda(xs, noises, bits=bits, level=level,
+                                 ladder_qmax=ladder_qmax)
 
 
 def quant_unpack(packed, scale, *, bits=8, n=None):

@@ -453,6 +453,77 @@ def test_quant_pack_multi_replays_in_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1])
+def test_quant_pack_multi_reads_the_ladder_level(cuda_device, level):
+    """K3 at a level of the int8 ladder (4, 8), the level a device int32:
+    qmax 7 at level 0, 127 at level 1.  Codes and scales equal the plain
+    version's on the card and on the CPU, in two launches; level 1 is the
+    capacity encode; a level on another device or a qmax past the capacity
+    is refused."""
+    rng = np.random.default_rng(7 + level)
+    xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+          .to(cuda_device) for n in MNIST_LEAVES]
+    us = [torch.from_numpy(rng.random(n, dtype=np.float32)).to(cuda_device)
+          for n in MNIST_LEAVES]
+    lv = torch.tensor(level, dtype=torch.int32, device=cuda_device)
+    qmax = (7.0, 127.0)
+    before = tcp.quant_pack_cuda.launches
+    got = tcp.quant_pack_multi_cuda(xs, us, level=lv, ladder_qmax=qmax)
+    assert tcp.quant_pack_cuda.launches - before == 2
+    want = tcp.quant_pack_multi_plain(xs, us, level=lv, ladder_qmax=qmax)
+    cpu = tcp.quant_pack_multi_plain([x.cpu() for x in xs],
+                                     [u.cpu() for u in us], level=lv.cpu(),
+                                     ladder_qmax=qmax)
+    cap = tcp.quant_pack_multi_cuda(xs, us)
+    for (q, sc), (wq, ws), (cq, cs), (kq, ks) in zip(got, want, cpu, cap):
+        assert torch.equal(q, wq) and torch.equal(sc, ws)
+        assert torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), cs)
+        if level == 1:
+            assert torch.equal(q, kq) and torch.equal(sc, ks)
+        else:
+            assert int(q.abs().max()) <= 8
+    with pytest.raises(ValueError, match="int32 tensor on"):
+        tcp.quant_pack_multi_cuda(xs, us, level=lv.cpu(), ladder_qmax=qmax)
+    with pytest.raises(ValueError, match="ladder qmax"):
+        tcp.quant_pack_multi_cuda(xs, us, level=lv, ladder_qmax=(200.0,))
+
+
+@pytest.mark.cuda
+def test_quant_pack_multi_level_follows_the_buffer_across_replays(
+        cuda_device):
+    """One captured message encode replayed at level 0, 1, then 0 again,
+    the level written into its buffer between replays: the codes and
+    scales follow the level (a graph that baked the level in would give
+    level 0's codes three times)."""
+    rng = np.random.default_rng(5)
+    xs = [torch.zeros(n, device=cuda_device) for n in MNIST_LEAVES]
+    us = [torch.zeros(n, device=cuda_device) for n in MNIST_LEAVES]
+    lv = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    qmax = (7.0, 127.0)
+    tcp.quant_pack_multi_cuda(xs, us, level=lv, ladder_qmax=qmax)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tcp.quant_pack_multi_cuda(xs, us, level=lv, ladder_qmax=qmax)
+    seen = []
+    for level in (0, 1, 0):
+        for x, u in zip(xs, us):
+            x.copy_(torch.from_numpy(rng.standard_normal(
+                x.numel()).astype(np.float32)))
+            u.copy_(torch.from_numpy(rng.random(u.numel(),
+                                                dtype=np.float32)))
+        lv.fill_(level)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tcp.quant_pack_multi_plain(xs, us, level=lv,
+                                          ladder_qmax=qmax)
+        for (q, sc), (wq, ws) in zip(out, want):
+            assert torch.equal(q, wq) and torch.equal(sc, ws)
+        seen.append(int(out[4][0].abs().max()))
+    assert seen[0] <= 8 < seen[1] and seen[2] <= 8
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(1_605_632, 100_352), (10, 3), (1001, 40),
                                  (4097, 1)])
 def test_topk_select_kernel_matches_plain(cuda_device, n, k):
@@ -852,6 +923,60 @@ def test_deadline_chunk_replays_with_new_masks_equal_eager(cuda_device):
         assert torch.equal(a, b), (a - b).abs().max().item()
     assert [h["arrived"] for h in eng.comm.history] == \
         [float(sum(m)) for m in masks]
+
+
+def _cpu_offsets(sizes, device):
+    """``noise_fn`` with offsets drawn on the CPU (a seeded CPU generator a
+    round) and moved to ``device``: the same numbers on the card and the
+    CPU."""
+    def noise_fn(r, n_clients):
+        gen = torch.Generator().manual_seed(1000 + r)
+        return None, [[torch.rand(n, generator=gen).to(device)
+                       for n in sizes] for _ in range(n_clients)]
+    return noise_fn
+
+
+@pytest.mark.cuda
+def test_controller_level_changes_within_a_captured_chunk(cuda_device):
+    """``bytes_budget`` on the int8 ladder at a budget that alternates the
+    level every round: one 4-round graph replayed twice changes level
+    inside each replay (the codecs read it on the device).  K3 launches
+    twice per message; the schedule, bytes and effective fields equal the
+    CPU's run from the same state and offsets, the losses within rtol
+    1e-3 (cuDNN deterministic)."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import init_global_state
+    from repro_torch.fl.server import run_federated
+    bundle, data = _small_engine_setup()
+    fl = FLConfig(algorithm="fedavg", clients_per_round=2, local_steps=2,
+                  local_batch=4, uplink_codec="int8",
+                  controller="bytes_budget", ctrl_budget_frac=0.75)
+    s0 = init_global_state(bundle, fl, torch.Generator().manual_seed(0),
+                           "cpu")
+    sizes = [t.numel() for t in tree_leaves(s0["model"])]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in ("cuda", "cpu"):
+            runs[dev] = run_federated(
+                bundle, fl, data(), rounds=8, eval_every=0,
+                superstep_rounds=4, device=dev, global_state=s0,
+                noise_fn=_cpu_offsets(sizes, dev), telemetry=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card, cpu = runs["cuda"], runs["cpu"]
+    levels = [h["level"] for h in card.comm.history]
+    assert levels == [0, 1, 0, 1, 0, 1, 0, 1]
+    graphs = card.stats["graphs"]
+    assert len(graphs) == 1 and graphs[0]["replays"] == 2
+    assert graphs[0]["launches_per_replay"]["quant_pack"] == 2 * 2 * 4
+    exact = ("bytes_up", "bytes_down", "level", "eff_quant_bits",
+             "tele/level", "tele/effective_bytes")
+    for hc, hp in zip(card.comm.history, cpu.comm.history):
+        assert {k: hc[k] for k in exact} == {k: hp[k] for k in exact}
+        np.testing.assert_allclose(hc["local_loss"], hp["local_loss"],
+                                   rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ the same superstep is replayed from a captured CUDA graph
 import dataclasses
 import functools
 import json
+import os
 
 import jax
 import numpy as np
@@ -38,6 +39,7 @@ from repro_torch.fl.server import (make_noise_source, run_federated,
                                    run_federated_reference)
 from repro_torch.interop import state_from_numpy
 from repro_torch.models import make_bundle
+from repro_torch.obs import RunLog
 from repro_torch.tree import tree_leaves
 
 N_CLIENTS, N_TEST, ROUNDS, SEED = 4, 40, 5, 1
@@ -176,9 +178,41 @@ def test_trainer_fit_and_evaluate():
     ({}, dict(controller="ef_ratio")),
 ], ids=["mesh", "telemetry", "runlog", "halt", "profile", "participation",
         "controller"])
-def test_unported_engine_options_raise(kw, fl_kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        _engine("topk", rounds=1, fl_kw=fl_kw, **kw)
+def test_unported_engine_options_raise(kw, fl_kw, tmp_path):
+    """Only ``mesh`` (the sharded engine, ROADMAP slice 5) is still refused.
+    The other cases were refusals until ROADMAP Queue 1 item 7 was ported;
+    each now runs and shows what it turns on (tests/test_torch_obs.py and
+    tests/test_torch_control.py hold them to the JAX package)."""
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            _engine("topk", rounds=1, fl_kw=fl_kw, **kw)
+        return
+    kw = {k: str(tmp_path / v) if k in ("runlog", "profile_dir") else v
+          for k, v in kw.items()}
+    res = _engine("topk", rounds=2, fl_kw=fl_kw, **kw)
+    hist = res.comm.history
+    assert len(hist) == 2 and res.stats["halted_at"] is None
+    if kw.get("telemetry"):
+        assert res.stats["telemetry"]
+        assert all("tele/ef_delta_ratio" in h for h in hist)
+    if "runlog" in kw:
+        names = [r["name"] for r in RunLog.load(kw["runlog"])]
+        assert names[0] == "run.start" and names[-1] == "run.end"
+        assert "chunk.dispatch" in names
+    if "profile_dir" in kw:
+        assert os.path.exists(res.stats["profile"])
+    if fl_kw.get("participation"):
+        assert res.stats["participation"] == "deadline"
+        assert all("tele/effective_cohort" in h for h in hist)
+    if fl_kw.get("controller"):
+        assert res.stats["controller"] == "ef_ratio"
+        assert all(h["level"] in (0, 1, 2) for h in hist)
+    if not fl_kw:
+        # run-time options read the run; they do not change it
+        base = _engine("topk", rounds=2)
+        for a, b in zip(tree_leaves(base.global_state),
+                        tree_leaves(res.global_state)):
+            assert torch.equal(a, b)
 
 
 def test_engine_refuses_unknown_store_and_a_silent_cpu_fallback():

@@ -118,11 +118,13 @@ def test_full_width_single_step_matches_jax(algorithm):
 
 @pytest.mark.parametrize("kw,opt", [
     # the sketch codecs are ported: cases 0 and 3 hold the reference loop's
-    # other refusals (participation, controllers are engine features)
+    # other refusals (participation, controllers are engine features); a
+    # controller needs a ladder-capable uplink (FLConfig checks it, as
+    # JAX's does), so the controller cases name one
     (dict(participation="buffered_async"), {}),
     (dict(participation="deadline"), {}),
-    (dict(controller="ef_ratio"), {}),
-    (dict(controller="bytes_budget"), {}),
+    (dict(controller="ef_ratio", uplink_codec="topk"), {}),
+    (dict(controller="bytes_budget", uplink_codec="int8"), {}),
 ])
 def test_unported_settings_raise(kw, opt):
     tb = make_bundle(dataclasses.replace(T_MNIST, **NARROW))

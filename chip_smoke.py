@@ -119,6 +119,22 @@ is non-zero):
    first boundary after the non-finite round with a checkpoint marked
    halted, while the same run without the flag goes on; and the flag's
    rounds/s on a finite run;
+4f. the client-sharded engine on one rank of an NCCL group (the one-card
+   host shows only S = 1; S > 1 is held on the CPU over gloo,
+   ``tests/test_torch_sharded.py``), at fig. 4's setting (40 rounds in
+   8-round chunks, cuDNN deterministic): a 1 x 1 ``make_engine_mesh()``
+   run equal bit for bit to the ``mesh=None`` run (FedFusion-conv top-k);
+   the shard-aware supersteps over a one-rank ``ClientSharding``, each
+   chunk captured by the engine as one CUDA graph with the NCCL
+   all-reduces inside (fused FedAvg with the sharded evaluator, fused
+   FedFusion-conv top-k on the dense and the host EF store, unfused
+   FedFusion-conv top-k, fused FedMMD client-sequential int8), each within
+   rtol 2e-5 / atol 1e-6 of the single-device run (whether bitwise is
+   printed), bytes equal, all-reduces a replay (K + 1 fused, plus K with
+   the sharded evaluator; the unfused count) and K1 / K2 / K3 / K4 / K6 /
+   K7 launches equal to their formulas, steady rounds/s beside the
+   single-device run's; the sharded evaluator's metrics equal to the
+   replicated one's; the NCCL kernels of one traced replay;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
@@ -1898,8 +1914,184 @@ def trace_engine(torch, run_federated, bundle, fl, data, rounds, store):
                top=[{"name": n, "count": c, "ms": ms} for n, (c, ms) in top],
                ours=[{"name": n, "count": c, "ms": ms}
                      for n, (c, ms) in sorted(kernels.items())
-                     if any(k in n for k in OUR_KERNELS)])
+                     if any(k in n for k in OUR_KERNELS)],
+               nccl=[{"name": n, "count": c, "ms": ms}
+                     for n, (c, ms) in sorted(kernels.items())
+                     if "nccl" in n.lower()])
     return out
+
+
+def sharded_engine_phase(torch, engine_run, per_round_launches,
+                         trace_engine_fn, *, bundle, FLConfig, data,
+                         n_leaves, cudnn_exact, tree_leaves):
+    """Phase 4f: the client-sharded engine on one rank of an NCCL group.
+
+    (1) ``run_federated(mesh=make_engine_mesh())`` with a 1 x 1 mesh runs
+    the single-device program: FedFusion-conv top-k equal, bit for bit, to
+    the ``mesh=None`` run.  (2) The shard-aware supersteps over a
+    one-rank :class:`ClientSharding`, each chunk captured by the engine as
+    one CUDA graph with the NCCL all-reduces inside: fused plain (FedAvg,
+    with the sharded evaluator), fused compressed (FedFusion-conv top-k,
+    dense and paged EF), unfused compressed, FedMMD client-sequential
+    int8; each within rtol 2e-5 / atol 1e-6 of the single-device run
+    (printed: whether bitwise), bytes equal, all-reduces and launches a
+    replay equal to their formulas, steady rounds/s beside the
+    single-device run's.  (3) The sharded evaluator at one rank against
+    the replicated one: equal.  Then one traced fused FedAvg chunk: the
+    NCCL kernels a replay launched (at one rank NCCL may launch none).
+    Returns the kernel launches of the measured runs."""
+    import torch.distributed as dist
+    from repro_torch.core.aggregate import ClientSharding
+    from repro_torch.engine import run_federated_engine
+    from repro_torch.launch.mesh import make_engine_mesh
+    K, rounds = ENGINE_CHUNK, ENGINE_ROUNDS
+    cp, seq = "client_parallel", "client_sequential"
+    fls = {"fedavg": (FLConfig(algorithm="fedavg", **FIG4), cp),
+           "fusion-topk": (FLConfig(algorithm="fedfusion", fusion_op="conv",
+                                    uplink_codec="topk",
+                                    topk_frac=TOPK_FRAC, **FIG4), cp),
+           "fedmmd-int8": (FLConfig(algorithm="fedmmd", uplink_codec="int8",
+                                    **FIG4), seq)}
+    rdzv = ROOT / "build" / "nccl_rdzv"
+    rdzv.parent.mkdir(parents=True, exist_ok=True)
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    total = None
+    try:
+        mesh = make_engine_mesh()
+        shard = ClientSharding(("data",), (1,), group=mesh.get_group("data"),
+                               position=0)
+
+        def sharded_runner(*args, **kw):
+            return run_federated_engine(*args, shard=shard, **kw)
+
+        with torch.backends.cudnn.flags(**cudnn_exact):
+            single = {name: engine_run(fl, mode, "device", K)
+                      for name, (fl, mode) in fls.items()}
+            # (1) a 1 x 1 mesh: the single-device program
+            fl, mode = fls["fusion-topk"]
+            m_res, m_line, m_got, m_finite = engine_run(fl, mode, "device",
+                                                        K, mesh=mesh)
+            s_res, _, s_got, _ = single["fusion-topk"]
+            checks = dict(
+                state=all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(m_res.global_state),
+                    tree_leaves(s_res.global_state))),
+                history=m_res.comm.history == s_res.comm.history,
+                client_shards=m_res.stats["client_shards"] == 1
+                and not m_res.stats["fused_collective"],
+                launches=m_got == s_got, finite=m_finite)
+            emit("sharded_mesh", model=bundle.name, algorithm="fedfusion",
+                 uplink="topk", mesh=str(mesh), rounds=rounds,
+                 steady_rounds_per_s=m_line["steady_rounds_per_s"],
+                 single_steady_rounds_per_s=single["fusion-topk"][1][
+                     "steady_rounds_per_s"], checks=checks)
+            if not all(checks.values()):
+                raise AssertionError(f"sharded mesh 1 x 1: {checks}")
+            total = {k: m_got[k] + sum(r[2][k] for r in single.values())
+                     for k in m_got}
+            # (2) the shard-aware supersteps over one NCCL rank
+            for name, base, store, opts in [
+                    ("fedavg/fused", "fedavg", "device",
+                     dict(sharded_eval=True)),
+                    ("fusion-topk/fused", "fusion-topk", "device", {}),
+                    ("fusion-topk/fused-paged", "fusion-topk", "host", {}),
+                    ("fusion-topk/unfused", "fusion-topk", "device",
+                     dict(fused_collective=False)),
+                    ("fedmmd-int8/fused", "fedmmd-int8", "device", {})]:
+                fl, mode = fls[base]
+                fused = opts.get("fused_collective", True)
+                res, line, got, finite = engine_run(
+                    fl, mode, store, K, runner=sharded_runner,
+                    **{"sharded_eval": False, **opts})
+                ref_res, ref_line = single[base][:2]
+                st = res.stats
+                up = fl.uplink_codec
+                per_replay = {k: v * K for k, v in per_round_launches(
+                    fl.algorithm, up, "identity", 1).items()}
+                n_ef = n_leaves * (up == "topk")
+                if fused:           # the prologue's gather
+                    per_replay["ef_gather"] += n_ef
+                patch = n_ef * (st["chunks"] - 1) * (store == "host")
+                want = {k: 3 * v + (patch if k == "ef_gather" else 0)
+                        for k, v in per_replay.items()}
+                extras = 1 if fl.algorithm == "fedfusion" else 0
+                evals = K * opts.get("sharded_eval", False)
+                coll = (K + 1 + evals if fused else
+                        K * (1 + n_leaves + extras + 1 + 2 * n_ef) + evals)
+                graphs = st["graphs"]
+                diffs = [((a - b).abs() / (1e-6 + 2e-5 * b.abs())).max()
+                         .item() for a, b in zip(
+                             tree_leaves(res.global_state),
+                             tree_leaves(ref_res.global_state))]
+                bitwise = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(res.global_state),
+                    tree_leaves(ref_res.global_state)))
+                byte_keys = ("bytes_up", "bytes_down", "bytes_up_ideal")
+                checks = dict(
+                    state=max(diffs) <= 1.0,
+                    bytes=(res.comm.bytes_up, res.comm.bytes_down)
+                    == (ref_res.comm.bytes_up, ref_res.comm.bytes_down)
+                    and [{k: h[k] for k in byte_keys}
+                         for h in res.comm.history]
+                    == [{k: h[k] for k in byte_keys}
+                        for h in ref_res.comm.history],
+                    graphs=st["cuda_graphs"] and len(graphs) == 1
+                    and graphs[0]["rounds"] == K
+                    and graphs[0]["replays"] == rounds // K,
+                    collectives_per_replay=graphs[0]["collectives_per_replay"]
+                    == coll,
+                    launches_per_replay=graphs[0]["launches_per_replay"]
+                    == per_replay,
+                    launches=got == want,
+                    stats=st["client_shards"] == 1
+                    and st["fused_collective"] == fused
+                    and st["sharded_eval"] == opts.get("sharded_eval", False),
+                    finite=finite)
+                if opts.get("sharded_eval"):
+                    # (3) the sharded evaluator at one rank: the replicated
+                    # evaluator's metrics
+                    checks["sharded_eval_equal"] = [
+                        (h["acc"], h["loss"]) for h in res.comm.history] == [
+                        (h["acc"], h["loss"]) for h in ref_res.comm.history]
+                emit("sharded_engine", model=bundle.name, run=name,
+                     algorithm=fl.algorithm, mode=mode, uplink=up,
+                     ef_store=st["ef_store"], client_shards=1,
+                     fused_collective=fused,
+                     sharded_eval=st["sharded_eval"], bitwise=bitwise,
+                     max_err_over_tol=max(diffs),
+                     collectives_per_replay=graphs[0][
+                         "collectives_per_replay"],
+                     expected_collectives_per_replay=coll,
+                     steady_rounds_per_s=line["steady_rounds_per_s"],
+                     single_device_steady_rounds_per_s=ref_line[
+                         "steady_rounds_per_s"],
+                     steady_ratio=line["steady_rounds_per_s"]
+                     / ref_line["steady_rounds_per_s"],
+                     rounds_per_s=line["rounds_per_s"],
+                     capture_s=graphs[0]["capture_s"],
+                     warmup_s=graphs[0]["warmup_s"],
+                     pool_bytes=graphs[0]["pool_bytes"],
+                     launches=got, expected=want, checks=checks)
+                if not all(checks.values()):
+                    raise AssertionError(f"sharded engine {name}: {checks}")
+                for k in total:
+                    total[k] += got[k]
+            # one traced fused FedAvg chunk: the replay's NCCL kernels
+            fl, mode = fls["fedavg"]
+            traced = trace_engine_fn(
+                lambda *a, **kw: run_federated_engine(
+                    *a, shard=shard, sharded_eval=False, **kw),
+                bundle, fl, data(), K, "device")
+            emit("sharded_trace", model=bundle.name,
+                 algorithm="fedavg", uplink="identity", client_shards=1,
+                 nccl_kernels_per_replay=traced.get("nccl"),
+                 **{k: v for k, v in traced.items() if k != "nccl"})
+    finally:
+        dist.destroy_process_group()
+        rdzv.unlink(missing_ok=True)
+    return total
 
 
 def mnist_data(FederatedDataset, class_images, partition, seed=0,
@@ -2280,16 +2472,16 @@ def main():
     K, rounds = ENGINE_CHUNK, ENGINE_ROUNDS
 
     def engine_run(fl, mode, store, superstep_rounds, chaos=None,
-                   data=None, n_rounds=rounds, **options):
-        """One engine run (``options``: further ``run_federated``
-        keywords), its phase line, its launches and whether its losses
-        stayed finite."""
+                   data=None, n_rounds=rounds, runner=None, **options):
+        """One engine run (``options``: further keywords of ``runner``,
+        ``run_federated`` by default), its phase line, its launches and
+        whether its losses stayed finite."""
         for counter in counters.values():
             counter.launches = 0
         torch.cuda.synchronize()
         reserved0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        res = run_federated(bundle, fl, data or mnist_data(
+        res = (runner or run_federated)(bundle, fl, data or mnist_data(
             FederatedDataset, class_images, artificial_noniid_partition,
             chaos=chaos),
             rounds=n_rounds, seed=0, mode=mode, eval_examples=EVAL_EXAMPLES,
@@ -2867,6 +3059,19 @@ def main():
     for k in launches:
         launches[k] += off_got[k] + on_got[k]
     emit("phase_4e", seconds=time.perf_counter() - t_4e)
+
+    # 4f. the client-sharded engine on one rank (NCCL), at fig. 4's setting
+    # (40 rounds in 8-round chunks, cuDNN deterministic) ----------------
+    t_4f = time.perf_counter()
+    launches_4f = sharded_engine_phase(
+        torch, engine_run, per_round_launches, trace_engine_fn=lambda *a:
+        trace_engine(torch, *a), bundle=bundle, FLConfig=FLConfig,
+        data=lambda: mnist_data(FederatedDataset, class_images,
+                                artificial_noniid_partition),
+        n_leaves=n_leaves, cudnn_exact=cudnn_exact, tree_leaves=tree_leaves)
+    for k in launches:
+        launches[k] += launches_4f[k]
+    emit("phase_4f", seconds=time.perf_counter() - t_4f)
 
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady

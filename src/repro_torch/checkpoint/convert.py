@@ -22,9 +22,11 @@ layout is never guessed from the arrays' shapes.
 no layout to convert: :func:`load_ctrl` reads it the same way from either
 package's directory.
 
-Sharded JAX checkpoints keep the compact ``[N, n]`` EF layout on disk; an
-EF table with any other row count (the sharded engine's scratch rows) is
-refused: the sharded engine is ROADMAP Queue 1 item 8, slice 5.
+Both packages write ``ef.npz`` in the compact ``[N, n]`` layout, sharded
+or not (the sharded engines drop their scratch rows at save and put them
+back on resume, ``repro_torch.checkpoint.io.insert_scratch_rows``), so a
+JAX checkpoint resumes onto a sharded run as onto one device.  An EF
+table whose row count is not the federation's is refused.
 """
 from __future__ import annotations
 
@@ -102,10 +104,9 @@ def load_jax_ef(path: str, ef_like, mirror_like, device=None):
             n_rows = like.shape[0]
             if rows.shape[0] != n_rows:
                 raise ValueError(
-                    f"{path}: EF table {p!r} has {rows.shape[0]} rows for "
-                    f"{n_rows} clients; a sharded JAX checkpoint with scratch "
-                    "rows is not read by the port (ROADMAP Queue 1 item 8, "
-                    "slice 5: the sharded engine)")
+                    f"{path}: EF table {p!r} has {rows.shape[0]} rows, not "
+                    f"the federation's {n_rows}: the checkpoint belongs to "
+                    "another federation")
             if "convs" in p.split("/") and p.endswith("/w"):
                 o, i, h, w = leaf.shape            # JAX rows are HWIO
                 rows = rows.reshape(n_rows, h, w, i, o).transpose(

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["PORT_LAYOUT", "save_tree", "load_tree", "ef_disk_layout",
-           "save_server_state", "restore_server_state"]
+           "strip_scratch_rows", "insert_scratch_rows", "save_server_state",
+           "restore_server_state"]
 
 # meta.json marker of a directory the port wrote
 PORT_LAYOUT = {"layout": "repro_torch"}
@@ -104,17 +105,60 @@ def load_tree(path: str, like, device=None):
     return walk(like)
 
 
-def ef_disk_layout(ef, *, n_clients: int = None):
+def strip_scratch_rows(tree, n_shards: int):
+    """The sharded engine's resident EF layout -> the compact on-disk one.
+
+    Each rank's block of the sharded table carries one scratch row
+    (``[(N_loc + 1) * S, ...]`` over the ranks, the write sink of the
+    in-place scatter, see ``repro_torch.engine.superstep``).  Checkpoints
+    keep the single-device ``[N, ...]`` layout: this drops row ``N_loc``
+    of every block.  Takes tensors or arrays (None leaves pass), returns
+    numpy."""
+    def one(x):
+        if x is None:
+            return None
+        x = _host(x)
+        blocks = x.reshape((n_shards, -1) + x.shape[1:])
+        return blocks[:, :-1].reshape((-1,) + x.shape[1:])
+
+    return [one(x) for x in tree]
+
+
+def insert_scratch_rows(tree, n_shards: int):
+    """Compact ``[N, ...]`` EF layout -> resident ``[(N/S + 1) * S, ...]``:
+    a zero scratch row after every rank's block (dead state, written
+    before any read, so zeros give what a run never checkpointed would
+    hold).  ``N`` must divide over ``n_shards``."""
+    def one(x):
+        if x is None:
+            return None
+        x = _host(x)
+        n = x.shape[0]
+        if n % n_shards:
+            raise ValueError(f"EF table rows {n} do not divide over "
+                             f"{n_shards} shards")
+        blocks = x.reshape((n_shards, n // n_shards) + x.shape[1:])
+        pad = np.zeros((n_shards, 1) + x.shape[1:], x.dtype)
+        return np.concatenate([blocks, pad], axis=1).reshape(
+            (-1,) + x.shape[1:])
+
+    return [one(x) for x in tree]
+
+
+def ef_disk_layout(ef, *, n_shards: int = 1, n_clients: int = None):
     """Any engine EF backing as the compact on-disk ``[N, ...]`` layout:
-    the dense table (as numpy) or a cohort-paged store (anything with
+    the dense table (as numpy), the sharded resident table (``n_shards >
+    1``: scratch rows dropped) or a cohort-paged store (anything with
     ``to_dense(n_clients)``, i.e.
-    :class:`repro_torch.engine.efstore.HostEFStore`), so a dense run's
-    checkpoint resumes under a paged one and the other way round."""
+    :class:`repro_torch.engine.efstore.HostEFStore`), so a checkpoint
+    resumes under any store and any number of ranks."""
     if hasattr(ef, "to_dense"):
         if n_clients is None:
             raise ValueError("paged EF store needs n_clients to rebuild "
                              "the dense disk layout")
         return ef.to_dense(n_clients)
+    if n_shards > 1:
+        return strip_scratch_rows(ef, n_shards)
     return [None if x is None else _host(x) for x in ef]
 
 

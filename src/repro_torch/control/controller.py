@@ -27,6 +27,9 @@ Contracts:
   exact pre-controller code path (no ladder, no controller state).
 * Controller state checkpoints to ``ctrl.npz`` next to ``ef.npz``;
   interrupt + resume is bit-equal to an uninterrupted run.
+* On a mesh the update reads only the round's all-reduced metrics and
+  runs on every rank: it adds no collective, and the state stays the
+  same on every rank (replicated, like the global model).
 
 Registered like every other plugin axis: ``register_controller`` /
 ``make_controller`` / ``registered_controllers``.

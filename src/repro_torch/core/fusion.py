@@ -46,15 +46,23 @@ def fusion_apply(op: str, params, f_g, f_l):
     return lam * f_g + (1.0 - lam) * f_l
 
 
-def fusion_aggregate(op: str, old_global, client_fusions, weights, ema_beta):
+def fusion_aggregate(op: str, old_global, client_fusions, weights, ema_beta,
+                     shard=None):
     """Aggregate per-client fusion params returned after local training.
 
     ``client_fusions``: tree with a leading client axis; ``weights``
-    [n_clients] sum to 1.  conv -> weighted average; multi/single -> EMA
-    between the old global gate and the weighted client average.
+    [n_clients] sum to 1 over the round.  conv -> weighted average;
+    multi/single -> EMA between the old global gate and the weighted
+    client average.  ``shard``
+    (:class:`repro_torch.core.aggregate.ClientSharding`): the client axis
+    holds this rank's clients only; the weighted average is reduced here
+    and completed with an all-reduce BEFORE the EMA, which must see the
+    round's average once.
     """
-    avg = tree_map(lambda x: torch.tensordot(weights.to(x.dtype), x, dims=1),
-                   client_fusions)
+    from repro_torch.core.aggregate import psum_tree
+    avg = psum_tree(tree_map(
+        lambda x: torch.tensordot(weights.to(x.dtype), x, dims=1),
+        client_fusions), shard)
     if op == "conv":
         return avg
     return tree_map(lambda old, new: ema_beta * old + (1.0 - ema_beta) * new,

@@ -1,5 +1,5 @@
-"""Cohort-paged error-feedback store (port of ``repro/engine/efstore.py``
-for one device): O(C·n) device memory at any federation size N.
+"""Cohort-paged error-feedback store (port of ``repro/engine/efstore.py``):
+O(C·n) device memory at any federation size N.
 
 The compressed engine keeps one EF residual row per client.  The dense
 backing is a ``[N, n]`` table per leaf on the card; this module replaces
@@ -27,6 +27,15 @@ ever addresses rows through ``cids``:
 
 A paged run equals the dense run bit for bit: page rows hold the dense
 rows' exact values, and virtual ids keep ids unique within a round.
+
+On a mesh (``EFPager(mesh=...)``, S client ranks) a client's slot lives on
+its owner rank, ``cid % S``, stable across chunks, so the device patch
+never crosses ranks.  The page keeps the resident scratch-row layout
+(``[(P_loc+1)*S, n]`` over the ranks, ``P_loc = K*C``): each rank stages,
+patches and writes back only its own ``[P_loc+1, n]`` block, and its host
+store holds only the rows it owns.  The engine assembles the whole
+``[N, n]`` on rank 0 for a checkpoint (:meth:`HostEFStore.export_rows` /
+:meth:`HostEFStore.merge_rows`).
 """
 from __future__ import annotations
 
@@ -105,17 +114,29 @@ class HostEFStore:
                 arr[cid] = leaf
         return leaves
 
-    def from_dense(self, dense) -> None:
+    def from_dense(self, dense, *, n_shards: int = 1,
+                   position: int = 0) -> None:
         """Load from compact ``[N, ...]`` leaves (arrays or tensors),
-        keeping only the non-zero rows."""
+        keeping only the non-zero rows; on a mesh only those rank
+        ``position`` of ``n_shards`` owns (``cid % n_shards``)."""
         leaves = [x.cpu().numpy() if isinstance(x, torch.Tensor)
                   else np.asarray(x) for x in dense if x is not None]
-        nonzero = np.zeros(leaves[0].shape[0], bool)
+        keep = np.zeros(leaves[0].shape[0], bool)
         for arr in leaves:
-            nonzero |= arr.reshape(arr.shape[0], -1).any(axis=1)
+            keep |= arr.reshape(arr.shape[0], -1).any(axis=1)
+        keep &= np.arange(len(keep)) % n_shards == position
         self._rows.clear()
-        for cid in np.nonzero(nonzero)[0].tolist():
+        for cid in np.nonzero(keep)[0].tolist():
             self._rows[cid] = [np.array(arr[cid]) for arr in leaves]
+
+    def export_rows(self) -> Dict[int, List[np.ndarray]]:
+        """The stored rows, by client id (what one rank sends for a
+        checkpoint)."""
+        return dict(self._rows)
+
+    def merge_rows(self, rows: Dict[int, List[np.ndarray]]) -> None:
+        """Take another rank's :meth:`export_rows` (owners are disjoint)."""
+        self._rows.update(rows)
 
 
 @dataclass(frozen=True)
@@ -123,15 +144,17 @@ class PagePlan:
     """One chunk's client -> page-slot assignment (host-side).
 
     ``vcids [K, C]`` replace the real ids as the superstep's ``cids``;
-    ``uniq`` / ``slots`` / ``rows`` give each distinct client its slot and
-    its row in the staged page.  ``page_rows = p_loc = K*C`` (one device).
+    ``uniq`` / ``slots`` / ``rows`` give each distinct client its slot in
+    its owner's block and its row in the whole staged page.  ``page_rows``
+    is ``p_loc = K*C`` on one device, ``(p_loc + 1) * n_shards`` on a
+    mesh.
     """
 
     index: int            # chunk sequence number (-1: calibration)
     cids: np.ndarray      # [K, C] real client ids
     vcids: np.ndarray     # [K, C] int32 virtual (page-relative) ids
     uniq: np.ndarray      # distinct real ids (sorted)
-    slots: np.ndarray     # slot of each uniq entry
+    slots: np.ndarray     # block-local slot of each uniq entry
     rows: np.ndarray      # page row of each uniq entry
     p_loc: int
     n_shards: int
@@ -142,32 +165,44 @@ def plan_chunk_static(cids, n_shards: int = 1, *, index: int = -1
                       ) -> PagePlan:
     """Give every distinct client of ``cids [K, C]`` a page slot.
 
-    A pure function of ``cids`` (chunk-size calibration builds throwaway
-    plans through it).  A client sampled in several rounds of the chunk
-    keeps one slot; distinct clients get distinct slots.  Only the
-    single-device layout is ported (``n_shards == 1``; the sharded page
-    with its scratch rows comes with the multi-GPU slice).
+    A pure function of ``(cids, n_shards)`` (chunk-size calibration builds
+    throwaway plans through it).  A client sampled in several rounds of
+    the chunk keeps one slot; distinct clients get distinct slots.  With
+    ``n_shards > 1`` a client's slot lives in its owner's block (rank
+    ``cid % n_shards``), each block followed by its scratch row.
     """
-    if n_shards != 1:
-        raise NotImplementedError(
-            "the sharded EF page comes with the multi-GPU slice "
-            "(ROADMAP Queue 1, slice 5)")
     cids = np.asarray(cids)
     k, c = cids.shape
     p_loc = k * c
     flat = cids.reshape(-1)
     uniq = np.unique(flat)
-    slots = np.arange(len(uniq), dtype=np.int64)
-    vcids = slots[np.searchsorted(uniq, flat)].reshape(k, c).astype(np.int32)
+    if n_shards == 1:
+        slots = np.arange(len(uniq), dtype=np.int64)
+        v = rows = slots
+        page_rows = p_loc
+    else:
+        owner = uniq % n_shards
+        slots = np.empty(len(uniq), np.int64)
+        v = np.empty(len(uniq), np.int64)
+        rows = np.empty(len(uniq), np.int64)
+        for s in range(n_shards):
+            idx = np.nonzero(owner == s)[0]
+            slots[idx] = np.arange(len(idx))
+            v[idx] = s * p_loc + slots[idx]
+            rows[idx] = s * (p_loc + 1) + slots[idx]
+        page_rows = (p_loc + 1) * n_shards
+    # uniq is sorted: searchsorted maps every sampled id to its entry
+    vcids = v[np.searchsorted(uniq, flat)].reshape(k, c).astype(np.int32)
     return PagePlan(index=index, cids=cids, vcids=vcids, uniq=uniq,
-                    slots=slots, rows=slots, p_loc=p_loc, n_shards=1,
-                    page_rows=p_loc)
+                    slots=slots, rows=rows, p_loc=p_loc, n_shards=n_shards,
+                    page_rows=page_rows)
 
 
 def _patch_map(prev: PagePlan, cur: PagePlan):
     """``use [page_rows]`` marks rows of ``cur``'s page whose client the
-    previous chunk updated; ``src`` holds that client's slot in the
-    previous page."""
+    previous chunk updated; ``src`` holds that client's block-local slot
+    in the previous page (owners are stable, so source and destination
+    lie in the same rank's block)."""
     use = np.zeros(cur.page_rows, bool)
     src = np.zeros(cur.page_rows, np.int32)
     prev_slot = dict(zip(prev.uniq.tolist(), prev.slots.tolist()))
@@ -211,12 +246,23 @@ class EFPager:
 
     ``close()`` wakes a waiting ``stage`` (which raises) and runs the
     pending write-backs, so a final ``flush`` still sees a settled store.
+    ``mesh`` (or the engine's ``shard``): this rank's block only (module
+    docstring).
     """
 
-    def __init__(self, store: HostEFStore, device, *, runlog=None):
+    def __init__(self, store: HostEFStore, device, *, mesh=None,
+                 shard=None, runlog=None):
         self._store = store
         self._device = torch.device(device)
         self._rl = as_runlog(runlog)
+        self.n_shards, self.position = 1, 0
+        if shard is not None:        # a ClientSharding (the engine's)
+            self.n_shards, self.position = shard.n_shards, shard.position
+        elif mesh is not None:
+            from repro_torch.launch.mesh import client_position
+            _, sizes, position = client_position(mesh)
+            self.n_shards = int(np.prod(sizes, dtype=np.int64))
+            self.position = position if self.n_shards > 1 else 0
         self._lane = WritebackLane(name="engine-ef-writeback", runlog=runlog)
         self._prev = None          # (PagePlan, output page on the device)
         self._stage_count = 0
@@ -231,13 +277,30 @@ class EFPager:
     def stall_s(self) -> float:
         return self._lane.stall_s
 
+    def _block_rows(self, plan: PagePlan) -> int:
+        """Rows of this rank's block of ``plan``'s page."""
+        return plan.page_rows // self.n_shards
+
+    def _mine(self, plan: PagePlan):
+        """(ids, block-local slots) of the clients this rank owns."""
+        if self.n_shards == 1:
+            return plan.uniq, plan.slots
+        mine = plan.uniq % self.n_shards == self.position
+        return plan.uniq[mine], plan.slots[mine]
+
+    def _block(self, x, plan: PagePlan):
+        """This rank's block of a per-page-row array."""
+        n = self._block_rows(plan)
+        return x[self.position * n:(self.position + 1) * n]
+
     # -- staging (prefetch thread) -------------------------------------
     def zero_page(self, plan: PagePlan, *, pool=None) -> List[np.ndarray]:
-        """Zeroed host page leaf buffers for ``plan`` (pool-reusable)."""
+        """Zeroed host leaf buffers of this rank's block of ``plan``'s page
+        (pool-reusable)."""
         bufs = []
         for li, (s, d) in enumerate(zip(self._store._shapes,
                                         self._store._dtypes)):
-            shape = (plan.page_rows,) + s
+            shape = (self._block_rows(plan),) + s
             buf = (pool.take(f"ef_page/{li}", shape, d) if pool is not None
                    else np.empty(shape, d))
             buf[...] = 0
@@ -253,9 +316,10 @@ class EFPager:
             raise RuntimeError(f"EF pager closed while staging chunk {index}")
         with self._rl.span("ef.page.gather", chunk=index,
                            rows=int(np.asarray(cids).size)):
-            plan = plan_chunk_static(cids, index=index)
+            plan = plan_chunk_static(cids, self.n_shards, index=index)
             bufs = self.zero_page(plan, pool=pool)
-            self._store.gather(plan.uniq, bufs, plan.rows)
+            ids, slots = self._mine(plan)
+            self._store.gather(ids, bufs, slots)
         self.page_rows_max = max(self.page_rows_max, plan.page_rows)
         return plan, bufs
 
@@ -270,7 +334,7 @@ class EFPager:
                 o.copy_(s)
             return
         prev_plan, prev_page = self._prev
-        use, src = _patch_map(prev_plan, plan)
+        use, src = (self._block(x, plan) for x in _patch_map(prev_plan, plan))
         self.patched_rows += int(use.sum())
         use = torch.from_numpy(use).to(self._device)
         src = torch.from_numpy(src).to(self._device)
@@ -290,7 +354,8 @@ class EFPager:
                          rows=len(plan.uniq)):
                 if event is not None:
                     event.synchronize()
-                store.update(plan.uniq, [h.numpy() for h in host], plan.rows)
+                ids, slots = self._mine(plan)
+                store.update(ids, [h.numpy() for h in host], slots)
 
         self._lane.submit(writeback)
 

@@ -1,5 +1,5 @@
 """Device-resident federated training engine (port of
-``repro/engine/engine.py`` for one device).
+``repro/engine/engine.py``).
 
 ``run_federated_engine`` trains in K-round chunks instead of one
 Python-dispatched round at a time:
@@ -70,7 +70,29 @@ Python-dispatched round at a time:
   the graph, so the level changes between replays of one graph and the
   codecs read it on the device.  Each round's ``tele/level`` sets the
   round's effective uplink bytes and codec fields in the ``CommLog``;
-  ``ctrl.npz`` is saved beside ``ef.npz`` and restored on resume.
+  ``ctrl.npz`` is saved beside ``ef.npz`` and restored on resume;
+* mesh — with ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` from
+  ``repro_torch.launch.mesh``) whose client axes (``pod`` / ``data``)
+  multiply to S > 1, every rank of the mesh runs this same loop in its own
+  process (``repro_torch.engine.sharded``): every rank samples the whole
+  chunk from the same seeded stream and stages only its positional block
+  of clients (batches, sizes, participation, uplink offsets), the EF
+  table is row-sharded by client id with one scratch row a rank
+  (``[N/S + 1, n]``; the paged store splits its page the same way), the
+  round's traffic is ONE all-reduce with ``fused_collective=True`` (the
+  default; ``False`` keeps the unfused oracle), and evaluation splits the
+  padded test batch over the ranks with a masked-sum all-reduce
+  (``sharded_eval=True``; ``False`` evaluates the whole batch on every
+  rank).  Rank 0's ``superstep_rounds="auto"`` choice is broadcast;
+  checkpoints gather the EF rows to rank 0, which writes every file
+  (``ef.npz`` stays the compact ``[N, n]`` layout) while the others wait
+  at a barrier; run logs and ``profile_dir`` traces are rank 0's.  The
+  results are allclose to the single-device engine (the all-reduce
+  changes the summation order), with the same ``CommLog`` bytes.  On the
+  card each chunk length's shard-aware superstep is captured as one CUDA
+  graph with the NCCL all-reduces inside (the two eager warm-up runs
+  create the communicator first).  A mesh whose client axes multiply to
+  1 runs the single-device program.
 
 Kernel launch counts: a kernel wrapper's ``launches`` counter ticks when
 Python calls it, i.e. during a graph's two warm-up runs and its capture,
@@ -94,8 +116,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.convert import load_ctrl, load_ef, restore
-from repro_torch.checkpoint.io import (ef_disk_layout, save_server_state,
-                                       save_tree)
+from repro_torch.checkpoint.io import (ef_disk_layout, insert_scratch_rows,
+                                       save_server_state, save_tree)
 from repro_torch.compress import make_codec
 from repro_torch.configs.base import FLConfig
 from repro_torch.control import (LadderSpec, ladder_kind, ladder_values,
@@ -104,11 +126,14 @@ from repro_torch.core.rounds import init_global_state
 from repro_torch.device import resolve_device
 from repro_torch.engine.efstore import EFPager, HostEFStore, plan_chunk_static
 from repro_torch.engine.evaljit import make_eval_fn, pad_eval_batch
+from repro_torch.engine.sharded import client_sharding
 from repro_torch.engine.metrics import MetricsPump
 from repro_torch.engine.pipeline import HostPrefetcher, StagingPool
 from repro_torch.engine.superstep import (make_compressed_superstep,
                                           make_plain_superstep)
 from repro_torch.fl.participation import make_policy
+from repro_torch.launch.sharding import (client_block, ef_table_block,
+                                         eval_block)
 from repro_torch.models.registry import ModelBundle
 from repro_torch.obs.runlog import as_runlog
 from repro_torch.obs.telemetry import Telemetry, make_telemetry
@@ -192,11 +217,49 @@ def _auto_chunk_rounds(timed: Callable[[int], float], *,
     return int(np.clip(round(overhead / (per_round * target)), lo, hi))
 
 
-def _refuse_unported(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded engine is not ported (ROADMAP Queue 1 "
-            "item 8, slice 5)")
+def _mesh_setup(mesh, device, shard=None):
+    """``(shard, device, writer)`` of a run on ``mesh``: this rank's
+    :class:`ClientSharding` (None off a mesh or on a one-shard mesh, unless
+    one is given), the device (the mesh's unless another is named) and
+    whether this rank writes files (rank 0)."""
+    if shard is not None:
+        if mesh is not None:
+            raise ValueError("pass mesh or shard, not both")
+        return shard, resolve_device(device), shard.position == 0
+    if mesh is None:
+        return None, resolve_device(device), True
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_device
+    mesh_dev = mesh_device(mesh)
+    device = mesh_dev if device is None else resolve_device(device)
+    if device.type != mesh_dev.type:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"({mesh.device_type})")
+    return client_sharding(mesh), device, dist.get_rank() == 0
+
+
+def _group_leader(shard) -> int:
+    import torch.distributed as dist
+    return dist.get_global_rank(shard.group, 0)
+
+
+def _gather_to_leader(obj, shard):
+    """Every rank's ``(position, obj)`` on the client group's first rank,
+    sorted by position (None on the other ranks)."""
+    import torch.distributed as dist
+    leader = _group_leader(shard)
+    out = ([None] * shard.n_shards if dist.get_rank() == leader else None)
+    dist.gather_object((shard.position, obj), out, dst=leader,
+                       group=shard.group)
+    return None if out is None else [o for _, o in sorted(out)]
+
+
+def _broadcast_int(value: int, shard, device) -> int:
+    """The client group's first rank's ``value`` on every rank."""
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.broadcast(t, src=_group_leader(shard), group=shard.group)
+    return int(t.item())
 
 
 def _copy_into(dst, src):
@@ -232,7 +295,7 @@ class _GraphStep:
     """
 
     def __init__(self, n_rounds: int, inputs: Dict, body: Callable,
-                 carried: List[torch.Tensor]):
+                 carried: List[torch.Tensor], shard=None):
         self.n_rounds = n_rounds
         self.inputs = inputs
         self.replays = 0
@@ -254,6 +317,7 @@ class _GraphStep:
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         mid = _launches()
+        coll0 = shard.collectives if shard is not None else 0
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
@@ -262,6 +326,9 @@ class _GraphStep:
         after = _launches()
         self.pool_bytes = torch.cuda.memory_reserved() - reserved0
         self.launches_per_replay = {k: after[k] - mid[k] for k in after}
+        # all-reduces captured in the graph (replayed with it)
+        self.collectives_per_replay = (shard.collectives - coll0
+                                       if shard is not None else 0)
         self._ptrs = [t.data_ptr() for t in carried + self._input_leaves()]
         self._carried = carried
 
@@ -281,7 +348,8 @@ class _GraphStep:
         return {"rounds": self.n_rounds, "replays": self.replays,
                 "warmup_s": self.warmup_s, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes,
-                "launches_per_replay": self.launches_per_replay}
+                "launches_per_replay": self.launches_per_replay,
+                "collectives_per_replay": self.collectives_per_replay}
 
 
 def _stack_noise(noise_fn, r0: int, r1: int, n_clients: int):
@@ -336,7 +404,9 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                          callback: Optional[Callable] = None,
                          superstep_rounds=8, prefetch: bool = True,
                          ef_store: str = "auto",
-                         mesh=None, telemetry=False, runlog=None,
+                         mesh=None, fused_collective: bool = True,
+                         sharded_eval: bool = True, shard=None,
+                         telemetry=False, runlog=None,
                          halt_on_nonfinite: bool = False,
                          profile_dir: Optional[str] = None,
                          global_state=None,
@@ -366,8 +436,17 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     ``stats["telemetry"]``, ``stats["halted_at"]``, ``stats["controller"]``,
     ``stats["ladder"]``, ``stats["runlog"]``, ``stats["profile"]``).
     ``telemetry``: True (every tap that fits), a list of tap names, or a
-    :class:`repro_torch.obs.Telemetry`.  ``mesh`` (the sharded engine) and
-    LM bundles are not ported and raise ``NotImplementedError``.
+    :class:`repro_torch.obs.Telemetry`.  ``mesh`` (a ``DeviceMesh``;
+    ``TypeError`` for anything else), ``fused_collective`` and
+    ``sharded_eval``: the module docstring's mesh entry
+    (``stats["client_shards"]``, ``stats["fused_collective"]``,
+    ``stats["sharded_eval"]``, ``stats["collectives"]``: the all-reduces
+    this rank issued in Python).  ``shard``: a
+    :class:`repro_torch.core.aggregate.ClientSharding` to run the
+    shard-aware supersteps over in place of the one ``mesh`` gives; unlike
+    a mesh it takes that path at one shard too (how a one-card host runs
+    the sharded supersteps, NCCL all-reduces and all).  LM bundles are not
+    ported and raise ``NotImplementedError``.
     """
     from repro_torch.fl.comm import CommLog
     from repro_torch.fl.server import make_noise_source
@@ -378,11 +457,12 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             "Queue 1, slice 6: the engine for LM bundles); train through "
             "repro_torch.fl.server.run_federated_reference or "
             "repro_torch.launch.train")
-    _refuse_unported(mesh)
     if ef_store not in ("auto", "device", "host"):
         raise ValueError(f"ef_store={ef_store!r} not in "
                          "('auto', 'device', 'host')")
-    device = resolve_device(device)
+    shard, device, writer = _mesh_setup(mesh, device, shard)
+    n_shards = shard.n_shards if shard is not None else 1
+    collectives0 = shard.collectives if shard is not None else 0
     on_card = device.type == "cuda"
     n_sampled = min(fl.clients_per_round, data.n_clients)
 
@@ -402,6 +482,12 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             else:
                 arrival, dropped = draws.arrival, draws.dropped
             return policy.select(arrival, dropped, fl, n_sampled)
+
+    if shard is not None and c_round % n_shards:
+        raise ValueError(
+            f"round cohort {c_round} (clients_per_round={n_sampled}, "
+            f"policy {policy.name!r}) must divide over the mesh's "
+            f"{n_shards} client shards {shard.axes}")
 
     if global_state is None:
         global_state = init_global_state(
@@ -427,6 +513,9 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     # host span tracing opens early: the EF pager threads its spans through
     # the same sink.  A path here means the engine owns the sink (stream +
     # close).
+    # on a mesh, rank 0 alone records
+    if not writer:
+        runlog = None
     owns_runlog = runlog is not None and not hasattr(runlog, "span")
     rl = as_runlog(runlog)
 
@@ -470,6 +559,12 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                         > _EF_STORE_AUTO_BYTES)
         else:
             ef_paged = ef_store == "host"
+        if shard is not None and not ef_paged \
+                and data.n_clients % n_shards:
+            raise ValueError(
+                f"n_clients={data.n_clients} must divide over the mesh's "
+                f"{n_shards} client shards (row-sharded EF table); "
+                "ef_store='host' lifts the constraint")
         ef_path = (os.path.join(checkpoint_dir, "ef.npz")
                    if checkpoint_dir else None)
         resume_ef = bool(start_round and ef_path and os.path.exists(ef_path))
@@ -485,9 +580,17 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             ef_dense = None
             down_mirror = tree_map(torch.clone, global_state["model"])
         if ef_paged:
-            pager = EFPager(store, device, runlog=rl)
+            pager = EFPager(store, device, shard=shard, runlog=rl)
             if ef_dense is not None:
-                store.from_dense(ef_dense)
+                store.from_dense(ef_dense, n_shards=n_shards,
+                                 position=shard.position if shard else 0)
+        elif store.n_leaves and shard is not None:
+            # resident scratch-row layout: this rank's [N/S + 1, n] block
+            if ef_dense is None:
+                ef_dense = [torch.zeros(z.shape) for z in ef_like]
+            ef_all = [torch.from_numpy(np.ascontiguousarray(
+                ef_table_block(t, shard))).to(device)
+                for t in insert_scratch_rows(ef_dense, n_shards)]
         elif store.n_leaves:
             ef_all = ([t.to(device) for t in ef_dense] if ef_dense
                       is not None else
@@ -514,7 +617,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                     + ("controller",)))
             tele = make_telemetry(
                 "compressed" if compressed else "plain",
-                n_clients=c_round,
+                n_clients=c_round, n_shards=n_shards,
                 available=frozenset(
                     (("ef",) if compressed and uplink.stateful else ())
                     + (("pmask", "staleness") if part_active else ())
@@ -541,31 +644,58 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         if start_round and ctrl_path and os.path.exists(ctrl_path):
             ctrl_state = load_ctrl(ctrl_path, ctrl_state, device)
 
-    def save_ef():
+    def ef_source():
+        """The EF backing ``ef_disk_layout`` reads; on a mesh the ranks'
+        rows gathered on the group's first rank (None on the others)."""
         if ef_paged:
             pager.flush()
-            ef_src = store
-        else:
-            ef_src = ef_all if ef_all is not None else ef_template
-        save_tree(ef_path, (ef_disk_layout(ef_src, n_clients=data.n_clients),
-                            down_mirror), rl)
-        if ctrl_active:
-            save_tree(ctrl_path, ctrl_state, rl)
+            if shard is None:
+                return store
+            rows = _gather_to_leader(store.export_rows(), shard)
+            if rows is None:
+                return None
+            merged = HostEFStore(ef_template)
+            for r in rows:
+                merged.merge_rows(r)
+            return merged
+        if ef_all is None:
+            return ef_template
+        if shard is None:
+            return ef_all
+        blocks = _gather_to_leader([t.cpu().numpy() for t in ef_all], shard)
+        if blocks is None:
+            return None
+        return [np.concatenate(leaf) for leaf in zip(*blocks)]
 
     def save_checkpoint(r, **extra):
-        save_server_state(checkpoint_dir, global_state, r,
-                          extra={**meta_extra, **extra}, runlog=rl)
-        if compressed:
-            save_ef()
+        ef_src = ef_source() if compressed else None
+        if writer:
+            save_server_state(checkpoint_dir, global_state, r,
+                              extra={**meta_extra, **extra}, runlog=rl)
+            if compressed:
+                n_res = n_shards if ef_all is not None else 1
+                save_tree(ef_path, (ef_disk_layout(
+                    ef_src, n_shards=n_res, n_clients=data.n_clients),
+                    down_mirror), rl)
+                if ctrl_active:
+                    save_tree(ctrl_path, ctrl_state, rl)
+        if shard is not None:
+            import torch.distributed as dist
+            dist.barrier(group=shard.group)
 
     # --- fixed-shape evaluation -----------------------------------------
+    # on a mesh the eval batch splits positionally over the ranks and the
+    # masked metric sums cross one all-reduce; sharded_eval=False
+    # evaluates the whole batch on every rank
     test_args = ()
     eval_fn = None
     eval_in_chunk = False
+    eval_shard = shard if sharded_eval else None
     if eval_every:
-        test_batch, test_mask = pad_eval_batch(data.test_batch(),
-                                               eval_examples, device)
-        eval_fn = make_eval_fn(bundle, fl)
+        test_batch, test_mask = eval_block(*pad_eval_batch(
+            data.test_batch(), eval_examples, device, shard=eval_shard),
+            eval_shard)
+        eval_fn = make_eval_fn(bundle, fl, shard=eval_shard)
         eval_in_chunk = eval_every == 1 and callback is None
         if eval_in_chunk:
             test_args = (test_batch, test_mask)
@@ -598,15 +728,19 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             return pool.tensor(name) if pool is not None \
                 else torch.from_numpy(arr)
 
+        def mine(name, arr):
+            """This rank's positional block of a [K, C, ...] array."""
+            return client_block(host(name, arr), shard)
+
         staged = {"pool": pool,
-                  "batches": {k: host(f"batch/{k}", v)
+                  "batches": {k: mine(f"batch/{k}", v)
                               for k, v in batches.items()},
-                  "sizes": host("sizes", sizes),
+                  "sizes": mine("sizes", sizes),
                   "lrs": torch.tensor([lr_at(r) for r in range(r0, r1)],
                                       dtype=torch.float32)}
         if part is not None:
-            staged["part"] = (host("part/mask", part["mask"]),
-                              host("part/staleness", part["staleness"]))
+            staged["part"] = (mine("part/mask", part["mask"]),
+                              mine("part/staleness", part["staleness"]))
             # host-only accounting: the simulated round wall-clock and
             # the partial uplink count ride the MetricsPump
             staged["host"] = {
@@ -621,7 +755,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                     page = [host(f"ef_page/{i}", p)
                             for i, p in enumerate(page)]
                 else:   # calibration: a throwaway zero page
-                    plan = plan_chunk_static(cids)
+                    plan = plan_chunk_static(cids, n_shards)
                     page = [torch.from_numpy(p)
                             for p in pager.zero_page(plan)]
                 staged["cids"] = torch.from_numpy(plan.vcids)
@@ -630,8 +764,14 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         return staged
 
     def draw_noise(r0, r1, fn):
-        return _stack_noise(fn, r0, r1, c_round) if uses_noise \
-            else (None, None)
+        """The chunk's offsets: drawn for the whole cohort on every rank,
+        the uplink's cut to this rank's clients."""
+        if not uses_noise:
+            return None, None
+        down, up = _stack_noise(fn, r0, r1, c_round)
+        if up is not None and shard is not None:
+            up = [client_block(u, shard) for u in up]
+        return down, up
 
     # --- the chunk body: superstep on the carried state, in place --------
     supersteps: Dict[int, Callable] = {}
@@ -639,13 +779,18 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     def body_for(n_rounds):
         if n_rounds not in supersteps:
             ev = eval_fn if eval_in_chunk else None
+            # on a mesh: the shard-aware superstep (what
+            # make_sharded_superstep builds, at any shard count)
+            sharded = dict(shard=shard, fused=fused_collective) \
+                if shard is not None else {}
             if compressed:
                 supersteps[n_rounds] = make_compressed_superstep(
                     bundle, fl, mode, n_rounds, uplink, downlink, eval_fn=ev,
-                    telemetry=tele, controller=controller)
+                    telemetry=tele, controller=controller, **sharded)
             else:
                 supersteps[n_rounds] = make_plain_superstep(
-                    bundle, fl, mode, n_rounds, eval_fn=ev, telemetry=tele)
+                    bundle, fl, mode, n_rounds, eval_fn=ev, telemetry=tele,
+                    **sharded)
         superstep = supersteps[n_rounds]
 
         def body(inputs):
@@ -715,7 +860,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         around the loaded inputs, kept in ``cache``); None on the CPU."""
         if on_card and step is None:
             step = cache[n_rounds] = _GraphStep(
-                n_rounds, inputs, body_for(n_rounds), carried(inputs))
+                n_rounds, inputs, body_for(n_rounds), carried(inputs), shard)
         return step
 
     def run_chunk(n_rounds, inputs, step):
@@ -761,6 +906,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             return elapsed
 
         chunk_rounds = _auto_chunk_rounds(timed)
+        if shard is not None:   # the ranks' timings differ: rank 0 decides
+            chunk_rounds = _broadcast_int(chunk_rounds, shard, device)
         # the chosen length's graph serves the run (its calibration replay
         # is not one of the run's); the other graphs and their private
         # pools are freed
@@ -772,7 +919,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         if on_card:
             torch.cuda.empty_cache()
         calibration_s = time.perf_counter() - t_calib
-        if verbose:
+        if verbose and writer:
             print(f"engine: auto chunk size -> {chunk_rounds} rounds")
 
     # --- schedule, prefetch pipeline, metrics -----------------------------
@@ -783,7 +930,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         per_round=callback is not None)
     rl.event("run.start", rounds=rounds, start_round=start_round,
              chunk_rounds=chunk_rounds, compressed=compressed,
-             client_shards=1, telemetry=tele is not None,
+             client_shards=n_shards, telemetry=tele is not None,
              participation=policy.name if part_active else None,
              controller=fl.controller if ctrl_active else None,
              ef_store=("host" if ef_paged else "device") if compressed
@@ -808,7 +955,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                        n_down=(data.n_clients
                                if compressed and fl.downlink_codec
                                != "identity" else None),
-                       verbose=verbose, runlog=rl, schedule=ctrl_schedule)
+                       verbose=verbose and writer, runlog=rl,
+                       schedule=ctrl_schedule)
     # chunk timing: CUDA events on the dispatch stream (the card's own
     # timeline, no host sync), host clock on the CPU
     marks: List[Tuple[int, int, object, object, object]] = []
@@ -823,7 +971,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     # profile_dir: one torch.profiler trace of the whole run (the card's
     # kernels and graph launches too), one "superstep" range per chunk
     profiler = profile_path = None
-    if profile_dir:
+    if profile_dir and writer:
         from torch.profiler import ProfilerActivity, profile
         os.makedirs(profile_dir, exist_ok=True)
         profile_path = os.path.join(profile_dir, "engine_trace.json")
@@ -911,6 +1059,11 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             save_checkpoint(rounds)
     stats = {
         "device": str(device),
+        "client_shards": n_shards,
+        "fused_collective": bool(shard is not None and fused_collective),
+        "sharded_eval": eval_fn is not None and eval_shard is not None,
+        "collectives": (shard.collectives - collectives0
+                        if shard is not None else 0),
         "cuda_graphs": on_card,
         "chunk_rounds": chunk_rounds,
         "calibration_s": calibration_s,

@@ -61,15 +61,30 @@ class Algorithm:
         features when the trainer cached them (else None)."""
         raise NotImplementedError(self.name)
 
-    def aggregate_extras(self, fl, global_state, stacked, weights
-                         ) -> Dict[str, Any]:
+    def aggregate_extras(self, fl, global_state, stacked, weights,
+                         shard=None) -> Dict[str, Any]:
         """Aggregate the clients' extra state (client_parallel path):
-        ``stacked`` holds each extra with a leading client axis."""
+        ``stacked`` holds each extra with a leading client axis and
+        ``weights`` are normalized over the whole round.  Under ``shard``
+        (:class:`repro_torch.core.aggregate.ClientSharding`) the client
+        axis holds only this rank's clients: complete any cross-client
+        statistic with the ``repro_torch.core.aggregate`` all-reduce
+        helpers.
+
+        The engine's fused-collective path (the sharded default) does not
+        call this hook: it packs the weighted sums of the stacked extras
+        into the round's single all-reduce and closes them with
+        :meth:`finalize_extra_sums`, so the two must agree:
+        ``aggregate_extras(stacked, w) ==
+        finalize_extra_sums(psum(tensordot(w, stacked)))`` (true of every
+        in-tree plugin; one needing another cross-client statistic runs
+        with ``fused_collective=False``)."""
         return {}
 
     def finalize_extra_sums(self, fl, global_state, sums) -> Dict[str, Any]:
-        """Close the client_sequential running-sum path: ``sums`` holds
-        the weighted sums of the clients' extra state."""
+        """Close the client_sequential running-sum path (and the fused
+        collective's): ``sums`` holds the weighted sums of the clients'
+        extra state, completed over the round."""
         return {}
 
     def deploy_logits(self, bundle, fl, global_state, out):

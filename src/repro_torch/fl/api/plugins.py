@@ -100,10 +100,11 @@ class FedFusion(Algorithm):
         loss = cross_entropy(logits, labels) + AUX_WEIGHT * aux
         return loss, {"cls": loss}
 
-    def aggregate_extras(self, fl, global_state, stacked, weights):
+    def aggregate_extras(self, fl, global_state, stacked, weights,
+                         shard=None):
         return {"fusion": fusion_aggregate(
             fl.fusion_op, global_state["fusion"], stacked["fusion"],
-            weights, fl.ema_beta)}
+            weights, fl.ema_beta, shard=shard)}
 
     def finalize_extra_sums(self, fl, global_state, sums):
         # the running sums already carry the n_t weighting; conv weights

@@ -49,8 +49,13 @@ class EngineOptions:
     ``repro_torch.obs.RunLog``) records the host's spans and events;
     ``profile_dir`` writes a ``torch.profiler`` trace of the run there;
     ``halt_on_nonfinite`` stops at the first chunk boundary after a
-    non-finite metric.  ``mesh`` (the sharded engine) is not ported and
-    raises ``NotImplementedError``."""
+    non-finite metric.  ``mesh`` (a ``torch.distributed`` ``DeviceMesh``,
+    ``repro_torch.launch.mesh.make_engine_mesh``) runs the client-sharded
+    engine, one process a rank; a mesh whose client axes multiply to 1
+    runs the single-device program.  ``fused_collective`` (mesh only): one
+    all-reduce a round, False the unfused oracle; ``sharded_eval`` (mesh
+    only): split the eval batch over the ranks, False evaluates it whole
+    on every rank."""
 
     superstep_rounds: Union[int, str] = 8   # rounds per chunk | "auto"
     prefetch: bool = True                   # background host staging
@@ -59,6 +64,8 @@ class EngineOptions:
     # "auto" pages once the dense table would pass 1 GiB
     ef_store: str = "auto"
     mesh: Any = None
+    fused_collective: bool = True
+    sharded_eval: bool = True
     telemetry: Any = False
     runlog: Any = None
     profile_dir: Optional[str] = None
@@ -119,7 +126,9 @@ class FederatedTrainer:
             checkpoint_every=o.checkpoint.every,
             checkpoint_from_jax=o.checkpoint.from_jax, callback=callback,
             superstep_rounds=o.engine.superstep_rounds,
-            prefetch=o.engine.prefetch, ef_store=o.engine.ef_store, mesh=o.engine.mesh,
+            prefetch=o.engine.prefetch, ef_store=o.engine.ef_store,
+            mesh=o.engine.mesh, fused_collective=o.engine.fused_collective,
+            sharded_eval=o.engine.sharded_eval,
             telemetry=o.engine.telemetry, runlog=o.engine.runlog,
             halt_on_nonfinite=o.engine.halt_on_nonfinite,
             profile_dir=o.engine.profile_dir, global_state=global_state,

@@ -85,7 +85,8 @@ def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
                   callback: Optional[Callable] = None,
                   superstep_rounds=8, prefetch: bool = True,
                   ef_store: str = "auto",
-                  mesh=None, telemetry=False, runlog=None,
+                  mesh=None, fused_collective: bool = True,
+                  sharded_eval: bool = True, telemetry=False, runlog=None,
                   halt_on_nonfinite: bool = False,
                   profile_dir: Optional[str] = None, global_state=None,
                   noise_fn: Optional[Callable] = None,
@@ -94,7 +95,9 @@ def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
     (the engine): the keywords map onto ``RunOptions``; ``global_state``
     and ``noise_fn`` go to ``fit``.  On the card every chunk runs as a
     CUDA graph replay; results equal :func:`run_federated_reference` on
-    the same seed and configuration."""
+    the same seed and configuration.  ``mesh`` (with ``fused_collective``
+    and ``sharded_eval``) runs the client-sharded engine on every rank of
+    the mesh (``repro_torch.launch.mesh.make_engine_mesh``)."""
     from repro_torch.fl.api import (CheckpointOptions, EngineOptions,
                                     EvalOptions, FederatedTrainer,
                                     RunOptions)
@@ -106,6 +109,8 @@ def run_federated(bundle: ModelBundle, fl: FLConfig, data: FederatedDataset,
                                      from_jax=checkpoint_from_jax),
         engine=EngineOptions(superstep_rounds=superstep_rounds,
                              prefetch=prefetch, ef_store=ef_store, mesh=mesh,
+                             fused_collective=fused_collective,
+                             sharded_eval=sharded_eval,
                              telemetry=telemetry, runlog=runlog,
                              halt_on_nonfinite=halt_on_nonfinite,
                              profile_dir=profile_dir))

@@ -16,6 +16,9 @@ Tap protocol (registered like algorithm and codec plugins):
 * ``client_sums(ctx)`` runs once per client and returns a flat ``{key:
   0-d float32 tensor}`` dict of sums that are added over the round's
   clients before finalization.  Keys are namespaced ``"{tap.name}.{key}"``.
+  On a mesh each rank adds its own clients' sums and they ride the
+  round's all-reduce (the fused round's one buffer, or the unfused
+  round's per-leaf all-reduces): taps add no collective of their own.
 * ``finish(summed, ctx)`` maps the summed values to the emitted metrics
   (prefix ``tele/``): ratios and normalizations belong here, never in
   ``client_sums`` (a quotient does not sum).

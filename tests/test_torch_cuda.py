@@ -1486,3 +1486,110 @@ def test_serve_runs_on_the_card(cuda_device, arch, capsys):
     cpu, card = got["cpu"], got[str(cuda_device)]
     assert torch.equal(cpu[0], card[0])
     torch.testing.assert_close(card[1], cpu[1], atol=1e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# the client-sharded engine on one rank: NCCL all-reduces inside a captured
+# graph (a one-card host shows only the one-rank case; S > 1 is held on
+# the CPU over gloo, tests/test_torch_sharded.py)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A one-rank NCCL group (over a default group made on an in-process
+    store when the process has none, destroyed afterwards)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import torch.distributed as dist
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    yield dist.new_group(ranks=[0], backend="nccl")
+    if made:
+        dist.destroy_process_group()
+
+
+def _nccl_shard(group):
+    from repro_torch.core.aggregate import ClientSharding
+    return ClientSharding(("data",), (1,), group=group, position=0)
+
+
+@pytest.mark.cuda
+def test_fused_psum_replays_in_a_cuda_graph_over_nccl(cuda_device,
+                                                       nccl_group):
+    from repro_torch.core.aggregate import fused_psum
+    shard = _nccl_shard(nccl_group)
+    tree = {"a": torch.randn(5, 3, device=cuda_device),
+            "b": [torch.randn(7, device=cuda_device),
+                  torch.randn((), device=cuda_device)]}
+    want = tree_map(torch.clone, tree)
+    # eager first: creates the communicator outside the capture
+    eager = fused_psum(tree, shard)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_psum(tree, shard)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = shard.collectives
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fused_psum(tree, shard)
+    assert shard.collectives == before + 1
+    for step in range(2):
+        for t in tree_leaves(tree):
+            t.mul_(2.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(tree_leaves(out), tree_leaves(want)):
+            assert torch.equal(o, w * 2.0 ** (step + 1))
+    assert shard.collectives == before + 1       # replays issue nothing
+    for o, w in zip(tree_leaves(eager), tree_leaves(want)):
+        assert torch.equal(o, w)
+
+
+@pytest.mark.cuda
+def test_one_rank_fused_compressed_superstep_replays_in_a_graph(cuda_device,
+                                                                nccl_group):
+    """The shard-aware fused compressed superstep over one NCCL rank,
+    captured by the engine and replayed, within 2e-5 of the single-device
+    superstep; K + 1 all-reduces a replay, K6 K + 1 times and K7 K times
+    an EF leaf."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.engine import run_federated_engine
+    bundle, data = _small_engine_setup()
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
+                  clients_per_round=3, local_steps=2, local_batch=4,
+                  uplink_codec="topk", topk_frac=1 / 16)
+    shard = _nccl_shard(nccl_group)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kw = dict(rounds=4, eval_examples=32, superstep_rounds=2,
+                  device=cuda_device)
+        single = run_federated_engine(bundle, fl, data(), **kw)
+        sharded = run_federated_engine(bundle, fl, data(), shard=shard,
+                                       sharded_eval=False, **kw)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    graphs = sharded.stats["graphs"]
+    assert len(graphs) == 1 and graphs[0]["replays"] == 2
+    assert graphs[0]["collectives_per_replay"] == 2 + 1
+    per = graphs[0]["launches_per_replay"]
+    assert (per["ef_gather"], per["ef_scatter"]) == (8 * 3, 8 * 2)
+    for a, b in zip(tree_leaves(sharded.global_state),
+                    tree_leaves(single.global_state)):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    assert (sharded.comm.bytes_up, sharded.comm.bytes_down) == \
+        (single.comm.bytes_up, single.comm.bytes_down)
+
+
+def test_make_engine_mesh_needs_a_card_or_the_cpu():
+    """Without a card and without ``device="cpu"`` the mesh is refused,
+    as the entry points refuse a silent CPU fall-back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default mesh exists")
+    from repro_torch.launch.mesh import make_engine_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine_mesh()

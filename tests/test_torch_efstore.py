@@ -32,21 +32,20 @@ def _cids(seed, k, c, n=50):
     return np.stack([rng.choice(n, c, replace=False) for _ in range(k)])
 
 
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
 @pytest.mark.parametrize("seed,k,c", [(0, 1, 2), (1, 4, 3), (2, 8, 10),
                                       (3, 6, 5)])
-def test_plan_matches_jax(seed, k, c):
+def test_plan_matches_jax(seed, k, c, n_shards):
+    """On one device and on a mesh (a client's slot on rank cid % S, each
+    rank's block followed by its scratch row)."""
     cids = _cids(seed, k, c, n=12)          # small federation: repeats
-    got, want = plan_chunk_static(cids, index=seed), j_plan(cids, index=seed)
+    got = plan_chunk_static(cids, n_shards, index=seed)
+    want = j_plan(cids, n_shards, index=seed)
     for f in PLAN_FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
         assert getattr(got, f).dtype == getattr(want, f).dtype
     assert (got.p_loc, got.page_rows, got.n_shards, got.index) == \
         (want.p_loc, want.page_rows, want.n_shards, want.index)
-
-
-def test_plan_refuses_shards():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        plan_chunk_static(_cids(0, 2, 2), 2)
 
 
 @pytest.mark.parametrize("seeds,k", [((0, 1), 4), ((2, 3), 2), ((4, 4), 3),

@@ -179,13 +179,21 @@ def test_trainer_fit_and_evaluate():
 ], ids=["mesh", "telemetry", "runlog", "halt", "profile", "participation",
         "controller"])
 def test_unported_engine_options_raise(kw, fl_kw, tmp_path):
-    """Only ``mesh`` (the sharded engine, ROADMAP slice 5) is still refused.
-    The other cases were refusals until ROADMAP Queue 1 item 7 was ported;
-    each now runs and shows what it turns on (tests/test_torch_obs.py and
-    tests/test_torch_control.py hold them to the JAX package)."""
+    """Every case was a refusal once; each now runs and shows what it
+    turns on (tests/test_torch_obs.py, tests/test_torch_control.py and
+    tests/test_torch_sharded.py hold them to the JAX package).  ``mesh``
+    takes a ``DeviceMesh`` only: anything else raises, and a 1 x 1 CPU
+    mesh runs the single-device program (``client_shards == 1``)."""
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        from repro_torch.launch.mesh import make_engine_mesh
+        with pytest.raises((TypeError, ValueError), match="DeviceMesh"):
             _engine("topk", rounds=1, fl_kw=fl_kw, **kw)
+        res = _engine("topk", rounds=2, fl_kw=fl_kw,
+                      mesh=make_engine_mesh(device="cpu"))
+        assert res.stats["client_shards"] == 1
+        assert not res.stats["fused_collective"]
+        assert not res.stats["sharded_eval"]
+        _assert_same(res, _engine("topk", rounds=2, fl_kw=fl_kw))
         return
     kw = {k: str(tmp_path / v) if k in ("runlog", "profile_dir") else v
           for k, v in kw.items()}

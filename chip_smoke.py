@@ -135,12 +135,32 @@ is non-zero):
    K7 launches equal to their formulas, steady rounds/s beside the
    single-device run's; the sharded evaluator's metrics equal to the
    replicated one's; the NCCL kernels of one traced replay;
+4g. the engine over LM bundles at full width (CUDA-graph supersteps over
+   the transformer, K8a-K8c inside the graphs, ``attn_impl="pallas"``,
+   random weights from seed 0, lr 0.02): smollm-135m at full width and
+   depth at phase 4c's reference setting (8 clients by source, 4 a round,
+   2 local steps of 4 x 512, eval on 8 test sequences every round, folded
+   into the chunk), 8 rounds in 2-round chunks, for FedAvg,
+   FedFusion-conv, FedMMD, FedFusion-conv with a top-k 1/16 uplink on the
+   host EF store and FedAvg with an int8 uplink, each beside 2 reference
+   rounds from the same state: steady rounds/s, ms per local step and
+   tokens/s against the reference's, each graph's warm-up, capture and
+   instantiation seconds and pool bytes, peak memory, finite losses,
+   bytes equal to the reference's, and K1-K4, K6, K7, K8a-K8c launches
+   equal to their formulas; the one-rank shard-aware fused FedAvg
+   superstep over NCCL, bit-equal to the FedAvg run with K + 1
+   all-reduces a replay; gemma3-1b at full width and depth, FedAvg, 2 of 4
+   clients a round at 2 x 1,024 (its 512-token local window binds), 4
+   rounds in 2-round chunks; ``launch.train --engine --scale full`` on
+   smollm-135m (4 rounds at 512, batch 2, ``superstep_rounds="auto"``);
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
    device time; then the last (steady) chunk of two engine runs; and one
    gemma3-1b prefill and one decode step (taken during phase 4b); and one
-   smollm-135m FedFusion-conv local step (after phase 4c);
+   smollm-135m FedFusion-conv local step (after phase 4c); and one steady
+   1-round LM engine chunk (smollm-135m FedFusion-conv, phase 4g's
+   setting): device ops a replay, busy share, the top kernels;
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
@@ -161,7 +181,11 @@ is non-zero):
    and ``lowrank``'s decode within 1e-5 of its scale; then ``ef_ratio`` on
    the top-k ladder and ``bytes_budget`` on the int8 ladder, 4 engine
    rounds from one state (the int8 run's offsets drawn on the CPU and
-   handed to both), equal level schedules and losses within 1%;
+   handed to both), equal level schedules and losses within 1%; then the
+   LM engine, smollm-135m at full width cut to 2 layers: FedFusion-conv,
+   2 rounds in one graph replay against the CPU within 1%, and with a
+   top-k uplink on the host EF store, 4 rounds of graph replays against
+   the reference loop's eager rounds on the card, equal;
 7. the kernel table, after a line naming the TPU kernels still to port
    (none).
 
@@ -173,6 +197,7 @@ for matmuls and for cuDNN convolutions.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -1560,19 +1585,27 @@ TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3, None),
 TRAIN_LR = 0.05             # launch.train's default
 
 
-def lm_launches(cfg, algorithm, steps, evals=0):
+def lm_launches(cfg, algorithm, steps, evals=0, *, messages=0, n_leaves=0,
+                ef_rounds=0):
     """Kernel launches of ``steps`` local steps and ``evals`` evaluations of
     an LM bundle: K8a once per attention layer per forward (the local
     stream, the frozen global stream of FedMMD and FedFusion, each eval),
     K8b and K8c once per attention layer per backward, the fused MK-MMD
     term once forward and once backward a FedMMD step (8 pooled rows a
     side: no Gram-sum launch), K2 once a FedFusion-conv step and eval (its
-    backward is plain products)."""
+    backward is plain products); with codecs, K3 twice and K4 once per
+    quantized message of up to 64 leaves (``messages``), K6 and K7 once
+    per EF leaf (``n_leaves``) per top-k round (``ef_rounds``)."""
     L = sum(k.startswith("attn") for k in cfg.block_pattern)
     two_stream = algorithm in ("fedmmd", "fedfusion")
     mmd = steps * (algorithm == "fedmmd")
+    groups = -(-n_leaves // 64)
     return {"gram_sum": 0, "mk_mmd2": mmd, "mk_mmd2_grad": mmd,
             "fusion_conv": (steps + evals) * (algorithm == "fedfusion"),
+            "quant_pack": 2 * groups * messages,
+            "quant_unpack": groups * messages, "topk_select": 0,
+            "ef_gather": n_leaves * ef_rounds,
+            "ef_scatter": n_leaves * ef_rounds,
             "flash_fwd": L * (steps * (1 + two_stream) + evals),
             "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
 
@@ -1606,7 +1639,9 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
         peak = torch.cuda.max_memory_allocated()
         got = {k: c.launches for k, c in counters.items()}
         steps_per_round = plan.n_clients * plan.local_steps
-        want = lm_launches(cfg, algorithm, rounds * steps_per_round)
+        want = {k: v for k, v in lm_launches(
+            cfg, algorithm, rounds * steps_per_round).items()
+            if k in counters}
         steady = [r["ms"] for r in records[1:]]
         step_ms = [ms / steps_per_round for ms in steady]
         tokens = steps_per_round * plan.client_batch * S
@@ -1670,7 +1705,9 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
     peak = torch.cuda.max_memory_allocated()
     got = {k: c.launches for k, c in counters.items()}
     steps = rounds * fl.clients_per_round * fl.local_steps
-    want = lm_launches(cfg, "fedfusion", steps, evals=rounds)
+    want = {k: v for k, v in lm_launches(cfg, "fedfusion", steps,
+                                         evals=rounds).items()
+            if k in counters}
     hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
             for h in res.comm.history]
     checks = dict(launches=got == want, finite=all(
@@ -1692,6 +1729,410 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
     if not all(checks.values()):
         raise AssertionError(f"train reference: {checks}")
     return got
+
+
+# phase 4g: the LM engine at full width.  smollm-135m at phase 4c's
+# train_reference setting (8 clients by source, 4 a round, 2 local steps of
+# 4 x 512, eval on 8 test sequences, here every round, folded into the
+# chunk), 8 rounds in 2-round chunks, each run beside 2 reference rounds;
+# gemma3-1b with 2 of 4 clients a round at 2 x 1,024 (its 512-token local
+# window binds; the batch fits beside the stacked client models)
+LM_ENGINE = dict(clients=8, clients_per_round=4, local_steps=2,
+                 local_batch=4, seq_len=512, eval_sequences=8, rounds=8,
+                 chunk=2, ref_rounds=2)
+LM_ENGINE_RUNS = [("fedavg", "identity", "device"),
+                  ("fedfusion", "identity", "device"),
+                  ("fedmmd", "identity", "device"),
+                  ("fedfusion", "topk", "host"),
+                  ("fedavg", "int8", "device")]
+LM_GEMMA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=2,
+                seq_len=1024, eval_sequences=4, rounds=4, chunk=2)
+# the LM engine runs' lr: from the random init (a loss near 100) FedFusion-
+# conv at launch.train's 0.05 diverges within 8 rounds (to NaN at round 8
+# on an H100); at 0.02 every algorithm trains
+LM_ENGINE_LR = 0.02
+LM_TRAIN_ARGS = ["--engine", "--scale", "full", "--arch", "smollm-135m",
+                 "--seq-len", "512", "--global-batch", "2", "--rounds", "4"]
+
+
+def lm_token_data(FederatedDataset, token_stream, source_partition, cfg,
+                  n_clients, S, n_test):
+    """A token federation of ``n_clients`` sources (16 sequences each, at
+    least 128 in all) and ``n_test`` test sequences of seed 1."""
+    toks, src = token_stream(max(128, 16 * n_clients), S,
+                             vocab=cfg.vocab_size, n_sources=n_clients)
+    test, _ = token_stream(n_test, S, vocab=cfg.vocab_size,
+                           n_sources=n_clients, seed=1)
+    return FederatedDataset(source_partition(toks, src, n_clients),
+                            {"tokens": test}, seed=0)
+
+
+def lm_engine_run(torch, runner, counters, bundle, fl, data, **kw):
+    """One LM engine run on the card: (result, wall s, peak bytes above
+    the start, launches)."""
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = runner(bundle, fl, data, seed=0, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    return res, wall, peak, {k: c.launches for k, c in counters.items()}
+
+
+def graph_lines(graphs):
+    """The per-graph figures a phase line prints."""
+    return [{k: g[k] for k in ("rounds", "replays", "warmup_s", "capture_s",
+                               "instantiate_s", "pool_bytes",
+                               "collectives_per_replay")} for g in graphs]
+
+
+def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
+                    init_global_state, run_federated,
+                    run_federated_reference, FederatedDataset, token_stream,
+                    source_partition, tree_leaves, train):
+    """Phase 4g: the engine over LM bundles at full width (CUDA-graph
+    supersteps over the transformer, K8a-K8c inside the graphs).
+
+    smollm-135m (30 layers) for FedAvg, FedFusion-conv, FedMMD,
+    FedFusion-conv with a top-k 1/16 uplink on the host EF store and
+    FedAvg with an int8 uplink, each against 2 reference rounds of the same
+    configuration and state; gemma3-1b (26 layers, hd 256, windowed local
+    layers) FedAvg; ``launch.train --engine`` at full scale; the one-rank
+    shard-aware fused FedAvg superstep over NCCL, against the FedAvg run.
+    Each run: steady rounds/s, ms per local step and tokens/s (beside the
+    reference loop's), the graphs' warm-up, capture and instantiation
+    seconds and pool bytes, peak memory, finite losses, bytes equal to the
+    reference's, and every kernel's launches equal to the formula (the
+    counters tick in each graph's two warm-ups and its capture).  Returns
+    the launches of the measured runs."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.core.aggregate import ClientSharding
+    from repro_torch.engine import run_federated_engine
+    from repro_torch.launch.mesh import make_engine_mesh
+    total = dict.fromkeys(counters, 0)
+    byte_keys = ("bytes_up", "bytes_down", "bytes_up_ideal")
+
+    def finite(hist):
+        return all(math.isfinite(h[k]) for h in hist
+                   for k in ("local_loss", "loss") if k in h)
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    # smollm-135m: five configurations
+    E = LM_ENGINE
+    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    C, ls, B, S = (E["clients_per_round"], E["local_steps"],
+                   E["local_batch"], E["seq_len"])
+    K, rounds = E["chunk"], E["rounds"]
+    steps = C * ls                           # local steps a round
+
+    def data():
+        return lm_token_data(FederatedDataset, token_stream,
+                             source_partition, cfg, E["clients"], S,
+                             E["eval_sequences"])
+
+    fedavg = None
+    for algorithm, up, store in LM_ENGINE_RUNS:
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv",
+                      clients_per_round=C, local_steps=ls, local_batch=B,
+                      lr=LM_ENGINE_LR, uplink_codec=up, topk_frac=TOPK_FRAC)
+        state = init_global_state(bundle, fl, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        n_leaves = len(tree_leaves(state["model"]))
+        res, wall, peak, got = lm_engine_run(
+            torch, run_federated, counters, bundle, fl, data(),
+            rounds=rounds, eval_every=1, eval_examples=E["eval_sequences"],
+            superstep_rounds=K, ef_store=store, global_state=state)
+        st = res.stats
+        graphs = st["graphs"]
+        per_replay = lm_launches(
+            cfg, algorithm, steps * K, evals=K,
+            messages=C * K * (up == "int8"), n_leaves=n_leaves,
+            ef_rounds=K * (up == "topk"))
+        patch = n_leaves * (st["chunks"] - 1) * (store == "host"
+                                                 and up == "topk")
+        want = {k: 3 * v + (patch if k == "ef_gather" else 0)
+                for k, v in per_replay.items()}
+        # the same configuration through the reference loop, same state
+        stamps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = run_federated_reference(
+            bundle, fl, data(), rounds=E["ref_rounds"], eval_every=1,
+            eval_examples=E["eval_sequences"], global_state=state,
+            device="cuda",
+            callback=lambda r, s_, m: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        ref_round_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+        for counter in counters.values():
+            counter.launches = 0
+        steady = st["steady_rounds_per_s"]
+        hist = [{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
+                for h in res.comm.history]
+        checks = dict(
+            graphs=st["cuda_graphs"] and len(graphs) == 1
+            and graphs[0]["rounds"] == K
+            and graphs[0]["replays"] == rounds // K,
+            launches_per_replay=graphs[0]["launches_per_replay"] == {
+                k: per_replay[k] for k in graphs[0]["launches_per_replay"]},
+            launches=got == want,
+            bytes=[{k: h[k] for k in byte_keys} for h in
+                   res.comm.history[:E["ref_rounds"]]]
+            == [{k: h[k] for k in byte_keys} for h in ref.comm.history],
+            finite=finite(res.comm.history) and finite(ref.comm.history))
+        emit("lm_engine", model=cfg.name, params=sum(
+                 t.numel() for t in tree_leaves(state["model"])),
+             layers=cfg.n_layers, algorithm=algorithm, fusion_op="conv",
+             uplink=up, ef_store=st["ef_store"], clients=E["clients"],
+             clients_per_round=C, local_steps=ls, local_batch=B, seq_len=S,
+             eval_sequences=E["eval_sequences"], rounds=rounds,
+             superstep_rounds=K, wall_s=wall,
+             steady_rounds_per_s=steady,
+             steady_chunk_rounds_per_s=spread(chunk_rates(
+                 st["chunk_times"])),
+             ms_per_local_step=1e3 / steady / steps,
+             tokens_per_s=steady * steps * B * S,
+             reference_round_s=ref_round_s,
+             reference_ms_per_local_step=1e3 * ref_round_s[-1] / steps,
+             reference_tokens_per_s=steps * B * S / ref_round_s[-1],
+             speedup_per_local_step=ref_round_s[-1] * steady,
+             graphs=graph_lines(graphs), peak_above_start_bytes=peak,
+             ef_page_bytes=st.get("ef_page_bytes"),
+             host_wait_s=st["host_wait_s"], history=hist,
+             bytes_up=res.comm.bytes_up, launches=got, expected=want,
+             checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"lm engine {algorithm}/{up}/{store}: "
+                                 f"{checks}")
+        add(got)
+        if algorithm == "fedavg" and up == "identity":
+            fedavg = (fl, state, res, graphs[0]["launches_per_replay"])
+        del ref
+        if fedavg is None or res is not fedavg[2]:
+            del res, state
+        torch.cuda.empty_cache()
+
+    # the one-rank shard-aware fused FedAvg superstep over NCCL, against
+    # the FedAvg run above: bit for bit, K + 1 all-reduces a replay
+    fl, state, single, single_per = fedavg
+    rdzv = ROOT / "build" / "nccl_rdzv_lm"
+    rdzv.parent.mkdir(parents=True, exist_ok=True)
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_engine_mesh()
+        shard = ClientSharding(("data",), (1,), group=mesh.get_group("data"),
+                               position=0)
+        res, wall, peak, got = lm_engine_run(
+            torch, run_federated_engine, counters, bundle, fl, data(),
+            rounds=rounds, eval_every=1, eval_examples=E["eval_sequences"],
+            superstep_rounds=K, global_state=state, shard=shard,
+            sharded_eval=False)
+    finally:
+        dist.destroy_process_group()
+        rdzv.unlink(missing_ok=True)
+    st = res.stats
+    graphs = st["graphs"]
+    want = {k: 3 * v for k, v in lm_launches(cfg, "fedavg", steps * K,
+                                             evals=K).items()}
+    checks = dict(
+        state=all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(res.global_state), tree_leaves(single.global_state))),
+        history=res.comm.history == single.comm.history,
+        graphs=len(graphs) == 1 and graphs[0]["replays"] == rounds // K,
+        collectives_per_replay=graphs[0]["collectives_per_replay"] == K + 1,
+        launches_per_replay=graphs[0]["launches_per_replay"] == single_per,
+        launches=got == want, stats=st["client_shards"] == 1
+        and st["fused_collective"])
+    emit("lm_sharded_engine", model=cfg.name, algorithm="fedavg",
+         client_shards=1, fused_collective=True, rounds=rounds,
+         superstep_rounds=K, steady_rounds_per_s=st["steady_rounds_per_s"],
+         single_device_steady_rounds_per_s=single.stats[
+             "steady_rounds_per_s"],
+         graphs=graph_lines(graphs), peak_above_start_bytes=peak,
+         launches=got, expected=want, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"lm sharded engine: {checks}")
+    add(got)
+    del res, single, state, fedavg
+    torch.cuda.empty_cache()
+
+    # gemma3-1b, FedAvg: K8a-K8c at hd 256 with the windowed local layers
+    # in the graphs
+    G = LM_GEMMA
+    cfg = dataclasses.replace(get_config("gemma3-1b"), attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    C, ls, B, S = (G["clients_per_round"], G["local_steps"],
+                   G["local_batch"], G["seq_len"])
+    K, rounds, steps = G["chunk"], G["rounds"], C * G["local_steps"]
+    fl = FLConfig(algorithm="fedavg", clients_per_round=C, local_steps=ls,
+                  local_batch=B, lr=LM_ENGINE_LR)
+    state = init_global_state(bundle, fl, torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    res, wall, peak, got = lm_engine_run(
+        torch, run_federated, counters, bundle, fl,
+        lm_token_data(FederatedDataset, token_stream, source_partition, cfg,
+                      G["clients"], S, G["eval_sequences"]),
+        rounds=rounds, eval_every=1, eval_examples=G["eval_sequences"],
+        superstep_rounds=K, global_state=state)
+    st = res.stats
+    graphs = st["graphs"]
+    want = {k: 3 * v for k, v in lm_launches(cfg, "fedavg", steps * K,
+                                             evals=K).items()}
+    steady = st["steady_rounds_per_s"]
+    checks = dict(graphs=st["cuda_graphs"] and len(graphs) == 1
+                  and graphs[0]["replays"] == rounds // K,
+                  launches=got == want, finite=finite(res.comm.history))
+    emit("lm_engine", model=cfg.name, params=sum(
+             t.numel() for t in tree_leaves(state["model"])),
+         layers=cfg.n_layers, head_dim=cfg.head_dim,
+         window=cfg.sliding_window, algorithm="fedavg", uplink="identity",
+         clients=G["clients"], clients_per_round=C, local_steps=ls,
+         local_batch=B, seq_len=S, eval_sequences=G["eval_sequences"],
+         rounds=rounds, superstep_rounds=K, wall_s=wall,
+         steady_rounds_per_s=steady, ms_per_local_step=1e3 / steady / steps,
+         tokens_per_s=steady * steps * B * S, graphs=graph_lines(graphs),
+         peak_above_start_bytes=peak,
+         history=[{k: h[k] for k in ("round", "local_loss", "acc", "loss")}
+                  for h in res.comm.history],
+         launches=got, expected=want, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"lm engine gemma3-1b: {checks}")
+    add(got)
+    del res, state
+    torch.cuda.empty_cache()
+
+    # launch.train --engine at full scale (superstep_rounds="auto": a 1-
+    # and an 8-round calibration graph, then the run's 2-round chunks,
+    # each boundary evaluating 64 sequences eagerly)
+    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = train.main(LM_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    got = {k: c.launches for k, c in counters.items()}
+    st = res.stats
+    graphs = st["graphs"]
+    n_rounds = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--rounds") + 1])
+    captured = 1 + 8 + sum(g["rounds"] for g in graphs
+                           if g["rounds"] not in (1, 8))
+    # 4 clients a round x 2 local steps, in each graph's two warm-ups and
+    # capture; the boundary evals (every n_rounds // 2 rounds) eagerly
+    want = lm_launches(cfg, "fedavg", 3 * captured * 4 * 2,
+                       evals=n_rounds // max(n_rounds // 2, 1))
+    checks = dict(graphs=st["cuda_graphs"] and all(
+                      g["replays"] >= 1 for g in graphs),
+                  launches=got == want, finite=finite(res.comm.history),
+                  rounds=len(res.comm.history) == n_rounds)
+    emit("lm_launch_train", argv=LM_TRAIN_ARGS, wall_s=wall,
+         chunk_rounds=st["chunk_rounds"],
+         calibration_s=st["calibration_s"],
+         steady_rounds_per_s=st["steady_rounds_per_s"],
+         graphs=graph_lines(graphs), peak_above_start_bytes=peak,
+         history=[{k: h[k] for k in ("round", "local_loss", "acc", "loss")
+                   if k in h} for h in res.comm.history],
+         launches=got, expected=want, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"lm launch.train --engine: {checks}")
+    add(got)
+    del res
+    torch.cuda.empty_cache()
+    return total
+
+
+def lm_engine_card_checks(torch, run_federated, run_federated_reference,
+                          get_config, FLConfig, make_bundle,
+                          init_global_state, FederatedDataset, token_stream,
+                          source_partition, tree_leaves):
+    """Phase 6 for the LM engine, smollm-135m at full width cut to 2
+    layers, 2 of 4 clients a round, 2 local steps of 2 x 256, eval on 4
+    sequences every round.  (a) FedFusion-conv, 2 rounds in one chunk from
+    one state, on the card (a graph replay, the kernels) and on the CPU
+    (eager, their plain versions): within 1% of the change training made,
+    largest element and L2, as the other card-vs-CPU checks.  (b)
+    FedFusion-conv with a top-k 1/16 uplink on the host EF store, 4 rounds
+    in 2-round chunks on the card: the engine's replays against the
+    reference loop's eager rounds, final model and history equal."""
+    import dataclasses
+    base = get_config("smollm-135m")
+    cfg = dataclasses.replace(base, n_layers=2,
+                              block_pattern=base.block_pattern[:2],
+                              attn_impl="pallas")
+    bundle = make_bundle(cfg)
+    fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
+                  clients_per_round=2, local_steps=2, local_batch=2,
+                  lr=TRAIN_LR)
+    s0 = init_global_state(bundle, fl, torch.Generator(
+        device="cuda").manual_seed(7), device="cpu")
+    kw = dict(seed=0, eval_every=1, eval_examples=4, global_state=s0)
+
+    def data():
+        return lm_token_data(FederatedDataset, token_stream,
+                             source_partition, cfg, 4, 256, 4)
+
+    def flat(state):
+        return torch.cat([t.cpu().flatten() for t in tree_leaves(state)])
+
+    finals = {}
+    for dev in ("cuda", "cpu"):
+        res = run_federated(bundle, fl, data(), rounds=2, superstep_rounds=2,
+                            device=dev, **kw)
+        finals[dev] = (flat(res.global_state), res.comm.history,
+                       res.stats["graphs"])
+    start = flat(s0)
+    diff = finals["cuda"][0] - finals["cpu"][0]
+    change = finals["cpu"][0] - start
+    ratio_max = diff.abs().max().item() / change.abs().max().item()
+    ratio_l2 = (diff.norm() / change.norm()).item()
+    replayed = [g["replays"] for g in finals["cuda"][2]] == [1]
+    ok = ratio_max <= 0.01 and ratio_l2 <= 0.01 and replayed
+    emit("card_vs_cpu", path="lm_engine", model=cfg.name, layers=2,
+         algorithm="fedfusion", fusion_op="conv", rounds=2, batch=2,
+         seq_len=256, max_abs_diff=diff.abs().max().item(),
+         max_change=change.abs().max().item(), ratio_max=ratio_max,
+         ratio_l2=ratio_l2, limit=0.01, graph_replays=replayed,
+         losses={d: [h["local_loss"] for h in finals[d][1]]
+                 for d in finals}, ok=ok)
+    if not ok:
+        raise AssertionError(f"LM engine: card and CPU disagree (ratios "
+                             f"{ratio_max}, {ratio_l2}, replayed "
+                             f"{replayed})")
+    fl = dataclasses.replace(fl, uplink_codec="topk", topk_frac=TOPK_FRAC)
+    ref = run_federated_reference(bundle, fl, data(), rounds=4,
+                                  device="cuda", **kw)
+    eng = run_federated(bundle, fl, data(), rounds=4, superstep_rounds=2,
+                        ef_store="host", device="cuda", **kw)
+    got, want = flat(eng.global_state), flat(ref.global_state)
+    diff, change = got - want, want - start
+    exact = torch.equal(got, want)
+    hist_equal = eng.comm.history == ref.comm.history
+    replays = sum(g["replays"] for g in eng.stats["graphs"])
+    emit("engine_vs_reference", path="lm_engine", model=cfg.name, layers=2,
+         algorithm="fedfusion", uplink="topk", ef_store="host", rounds=4,
+         replays=replays, exact=exact, history_equal=hist_equal,
+         max_abs_diff=diff.abs().max().item(),
+         max_change=change.abs().max().item(),
+         ratio_max=diff.abs().max().item() / change.abs().max().item(),
+         ratio_l2=(diff.norm() / change.norm()).item())
+    if not (exact and hist_equal and replays == 2):
+        raise AssertionError("the LM engine's replays differ from the "
+                             "reference loop on the card")
 
 
 def trace_local_step(torch, get_config, FLConfig, make_bundle,
@@ -1864,11 +2305,7 @@ def union_us(spans):
 
 def trace_engine(torch, run_federated, bundle, fl, data, rounds, store):
     """A whole engine run under ``torch.profiler``, read over its last
-    (steady) chunk: the device activities that carry the correlation id
-    of the host's last ``cudaGraphLaunch`` (the kernels of that replay),
-    from the exported trace.  Their union is the replay's busy time; the
-    chunk's period (the engine's own CUDA events, from its start to the
-    end of the run) is the time it had."""
+    (steady) chunk by :func:`replay_summary`."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1881,12 +2318,21 @@ def trace_engine(torch, run_federated, bundle, fl, data, rounds, store):
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())["traceEvents"]
     path.unlink()
+    return replay_summary(trace, res.stats["chunk_times"][-1])
+
+
+def replay_summary(trace, last):
+    """A traced engine run read over its last chunk (``last``, the
+    engine's ``chunk_times`` entry): the device activities that carry the
+    correlation id of the host's last ``cudaGraphLaunch`` (the kernels of
+    that replay).  Their union is the replay's busy time; the chunk's
+    period (the engine's own CUDA events, from its start to the end of the
+    run) is the time it had."""
     launches = sorted((e["ts"], e["args"]["correlation"]) for e in trace
                       if e.get("name") == "cudaGraphLaunch"
                       and "correlation" in e.get("args", {}))
     device = [e for e in trace if e.get("cat") in ("kernel", "gpu_memcpy",
                                                    "gpu_memset")]
-    last = res.stats["chunk_times"][-1]
     period = last["end_ms"] - last["start_ms"]
     out = dict(graph_launches=len(launches), device_ops_whole_run=len(device),
                event_replay_ms=last["run_ms"], event_chunk_ms=period,
@@ -1919,6 +2365,33 @@ def trace_engine(torch, run_federated, bundle, fl, data, rounds, store):
                      for n, (c, ms) in sorted(kernels.items())
                      if "nccl" in n.lower()])
     return out
+
+
+def trace_lm_chunk(torch, run_federated, bundle, fl, data, state, n_eval):
+    """Phase 5 for the LM engine: a 2-round run in 1-round chunks (a
+    callback forces them) whose callback after the first chunk starts
+    ``torch.profiler``, so the trace holds the steady second chunk's graph
+    replay (the warm-ups and capture came before), read by
+    :func:`replay_summary`."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def start(r, state_, metrics):
+        if r == 0:
+            torch.cuda.synchronize()
+            prof.start()
+
+    res = run_federated(bundle, fl, data, rounds=2, seed=0, eval_every=1,
+                        eval_examples=n_eval, global_state=state,
+                        device="cuda", callback=start)
+    torch.cuda.synchronize()
+    prof.stop()
+    path = ROOT / "build" / "traces" / "lm_engine.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return replay_summary(trace, res.stats["chunk_times"][-1])
 
 
 def sharded_engine_phase(torch, engine_run, per_round_launches,
@@ -3073,6 +3546,23 @@ def main():
         launches[k] += launches_4f[k]
     emit("phase_4f", seconds=time.perf_counter() - t_4f)
 
+    # 4g. the engine over LM bundles at full width: CUDA-graph supersteps
+    # over the transformer --------------------------------------------------
+    t_4g = time.perf_counter()
+    launches_4g = lm_engine_phase(
+        torch, {**counters, "flash_fwd": flash_attn.flash_fwd_cuda,
+                "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": flash_attn.flash_bwd_dkv_cuda},
+        get_config=get_config, FLConfig=FLConfig, make_bundle=make_bundle,
+        init_global_state=init_global_state, run_federated=run_federated,
+        run_federated_reference=run_federated_reference,
+        FederatedDataset=FederatedDataset, token_stream=token_stream,
+        source_partition=source_partition, tree_leaves=tree_leaves,
+        train=train)
+    for k, n in launches_4g.items():
+        train_launches[k] = train_launches.get(k, 0) + n
+    emit("phase_4g", seconds=time.perf_counter() - t_4g)
+
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
     # chunk of two engine runs ---------------------------------------------
@@ -3104,6 +3594,28 @@ def main():
     trace_local_step(torch, get_config, FLConfig, make_bundle,
                      init_global_state, make_local_trainer, make_algorithm,
                      token_stream)
+    torch.cuda.empty_cache()
+    # one steady LM engine chunk (smollm-135m FedFusion-conv, phase 4g's
+    # setting, 1-round chunks)
+    lm_cfg = dataclasses.replace(get_config("smollm-135m"),
+                                 attn_impl="pallas")
+    lm_bundle = make_bundle(lm_cfg)
+    lm_fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
+                     clients_per_round=LM_ENGINE["clients_per_round"],
+                     local_steps=LM_ENGINE["local_steps"],
+                     local_batch=LM_ENGINE["local_batch"], lr=LM_ENGINE_LR)
+    emit("trace_lm_engine", model=lm_cfg.name, algorithm="fedfusion",
+         fusion_op="conv", clients_per_round=lm_fl.clients_per_round,
+         local_steps=lm_fl.local_steps, local_batch=lm_fl.local_batch,
+         seq_len=LM_ENGINE["seq_len"], **trace_lm_chunk(
+             torch, run_federated, lm_bundle, lm_fl,
+             lm_token_data(FederatedDataset, token_stream, source_partition,
+                           lm_cfg, LM_ENGINE["clients"], LM_ENGINE["seq_len"],
+                           LM_ENGINE["eval_sequences"]),
+             init_global_state(lm_bundle, lm_fl, torch.Generator(
+                 device="cuda").manual_seed(0), device="cuda"),
+             LM_ENGINE["eval_sequences"]))
+    del lm_bundle
     torch.cuda.empty_cache()
 
     # 6. card vs CPU ------------------------------------------------------
@@ -3444,6 +3956,12 @@ def main():
         train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
                           make_bundle, init_global_state, tree_leaves, name,
                           algorithm="fedavg")
+
+    # the LM engine: card vs CPU, and its replays against the reference loop
+    lm_engine_card_checks(torch, run_federated, run_federated_reference,
+                          get_config, FLConfig, make_bundle,
+                          init_global_state, FederatedDataset, token_stream,
+                          source_partition, tree_leaves)
 
     # 7. kernel table: launches summed over the main paths' measured runs
     # (the CNN FL runs of phase 4, serving, LM training) --------------------

@@ -20,7 +20,12 @@ Python-dispatched round at a time:
   copies its staged arrays into the static inputs with
   ``copy_(..., non_blocking=True)`` and replays.  A failed capture raises;
   the engine never runs a chunk eagerly on the card.  On the CPU the same
-  superstep runs eagerly;
+  superstep runs eagerly.  The same holds for an LM bundle, whose chunks
+  run the transformer's local steps (flash attention K8a forward, K8b /
+  K8c backward) inside the graph.  The run's graphs share one memory pool
+  (one local step's activations, not one set per chunk length), and the
+  warm-up runs restore the carried state from a host snapshot, so neither
+  adds a copy of the model to the card's peak;
 * host pipeline — a prefetch thread samples the next chunk's clients and
   batches into pinned staging buffers (``HostPrefetcher``,
   ``StagingPool``) while the current chunk trains, and metrics return
@@ -285,44 +290,66 @@ def _launches():
     return {k: fn.launches for k, fn in _kernel_counters().items()}
 
 
+def _host_snapshot(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of ``tensors`` (what a throwaway run restores): at LM
+    size the carried state, mirror and EF page are gigabytes, and a clone
+    on the card would add them to the run's peak."""
+    return [t.to("cpu", copy=True) for t in tensors]
+
+
+def _restore(tensors: List[torch.Tensor], snapshot: List[torch.Tensor]):
+    for t, s in zip(tensors, snapshot):
+        t.copy_(s)
+
+
 class _GraphStep:
     """One chunk length on the card: its static inputs and its graph.
 
     ``body(inputs)`` runs the superstep on the carried state (in place)
     and returns the stacked metrics.  ``carried`` lists every tensor the
-    body writes in place; the two warm-up runs restore it afterwards, so
-    capturing never changes the run's state.
+    body writes in place; the two warm-up runs restore it afterwards from
+    a host snapshot, so capturing never changes the run's state.  ``pool``
+    (a ``torch.cuda.graph_pool_handle()``) is the memory pool the run's
+    graphs share: they replay one at a time on one stream and keep their
+    outputs alive, so a later capture may reuse what an earlier one freed,
+    and every chunk length does not hold a local step's activations of its
+    own.
     """
 
     def __init__(self, n_rounds: int, inputs: Dict, body: Callable,
-                 carried: List[torch.Tensor], shard=None):
+                 carried: List[torch.Tensor], shard=None, pool=None):
         self.n_rounds = n_rounds
         self.inputs = inputs
         self.replays = 0
-        snapshot = [t.clone() for t in carried]
+        snapshot = _host_snapshot(carried)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         t0 = time.perf_counter()
         with torch.cuda.stream(side):
             for _ in range(2):
                 body(inputs)
-                for t, s in zip(carried, snapshot):
-                    t.copy_(s)
+                _restore(carried, snapshot)
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         self.warmup_s = time.perf_counter() - t0
         del snapshot
-        # the graph's private memory pool: what capture reserves beyond
-        # the emptied cache (torch.cuda.graph empties it on entry, too)
+        # the graph's memory: what capture reserves beyond the emptied
+        # cache (torch.cuda.graph empties it on entry, too); a capture
+        # into a shared pool reserves only what the pool lacked
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         mid = _launches()
         coll0 = shard.collectives if shard is not None else 0
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
             self.outputs = body(inputs)
-        self.capture_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+        # capture_s: the body's ops recorded; instantiate_s: the end of
+        # the capture (cudaStreamEndCapture + cudaGraphInstantiate)
+        self.capture_s = t1 - t0
+        self.instantiate_s = time.perf_counter() - t1
         after = _launches()
         self.pool_bytes = torch.cuda.memory_reserved() - reserved0
         self.launches_per_replay = {k: after[k] - mid[k] for k in after}
@@ -347,6 +374,7 @@ class _GraphStep:
     def stats(self) -> Dict:
         return {"rounds": self.n_rounds, "replays": self.replays,
                 "warmup_s": self.warmup_s, "capture_s": self.capture_s,
+                "instantiate_s": self.instantiate_s,
                 "pool_bytes": self.pool_bytes,
                 "launches_per_replay": self.launches_per_replay,
                 "collectives_per_replay": self.collectives_per_replay}
@@ -445,18 +473,16 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
     :class:`repro_torch.core.aggregate.ClientSharding` to run the
     shard-aware supersteps over in place of the one ``mesh`` gives; unlike
     a mesh it takes that path at one shard too (how a one-card host runs
-    the sharded supersteps, NCCL all-reduces and all).  LM bundles are not
-    ported and raise ``NotImplementedError``.
+    the sharded supersteps, NCCL all-reduces and all).  ``bundle`` may be
+    an image classifier or an LM (``loss_kind == "lm"``): token chunks
+    stage ``tokens`` / ``labels`` ``[K, C, steps, B, S]`` in the token
+    stream's integer dtype, and eval
+    is next-token accuracy and cross-entropy over every position of the
+    valid test sequences.
     """
     from repro_torch.fl.comm import CommLog
     from repro_torch.fl.server import make_noise_source
 
-    if bundle.loss_kind == "lm":
-        raise NotImplementedError(
-            f"{bundle.name}: the engine does not run LM bundles yet (ROADMAP "
-            "Queue 1, slice 6: the engine for LM bundles); train through "
-            "repro_torch.fl.server.run_federated_reference or "
-            "repro_torch.launch.train")
     if ef_store not in ("auto", "device", "host"):
         raise ValueError(f"ef_store={ef_store!r} not in "
                          "('auto', 'device', 'host')")
@@ -820,6 +846,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         return leaves
 
     graphs: Dict[int, _GraphStep] = {}
+    graph_pool = torch.cuda.graph_pool_handle() if on_card else None
 
     def load_inputs(n_rounds, staged, noise, cache=graphs):
         """The chunk's inputs on the device: on the card copied into the
@@ -860,7 +887,8 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         around the loaded inputs, kept in ``cache``); None on the CPU."""
         if on_card and step is None:
             step = cache[n_rounds] = _GraphStep(
-                n_rounds, inputs, body_for(n_rounds), carried(inputs), shard)
+                n_rounds, inputs, body_for(n_rounds), carried(inputs), shard,
+                graph_pool)
         return step
 
     def run_chunk(n_rounds, inputs, step):
@@ -872,6 +900,13 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             ev = torch.cuda.Event()
             ev.record()
             staged["pool"].release(ev)
+
+    def schedule_for(chunk):
+        return chunk_schedule(
+            start_round, rounds, chunk,
+            eval_every=None if eval_in_chunk else eval_every,
+            ckpt_every=checkpoint_every if checkpoint_dir else None,
+            per_round=callback is not None)
 
     # --- chunk size: fixed or calibrated ----------------------------------
     chunk_rounds = superstep_rounds
@@ -891,7 +926,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             if compressed and ef_paged:
                 for d, s in zip(inputs["ef_page"], staged["ef_page"]):
                     d.copy_(s)
-            state0 = [t.clone() for t in carried(inputs)]
+            state0 = _host_snapshot(carried(inputs))
             step = captured(n_rounds, inputs, step,    # outside the timing
                             calib_graphs)
             if on_card:
@@ -901,18 +936,19 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             if on_card:
                 torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
-            for t, s in zip(carried(inputs), state0):
-                t.copy_(s)
+            _restore(carried(inputs), state0)
             return elapsed
 
         chunk_rounds = _auto_chunk_rounds(timed)
         if shard is not None:   # the ranks' timings differ: rank 0 decides
             chunk_rounds = _broadcast_int(chunk_rounds, shard, device)
         # the chosen length's graph serves the run (its calibration replay
-        # is not one of the run's); the other graphs and their private
-        # pools are freed
+        # is not one of the run's) if the run has chunks of that length
+        # (eval and checkpoint boundaries may cut every chunk shorter); the
+        # other graphs and their memory are freed
         kept = calib_graphs.pop(chunk_rounds, None)
-        if kept is not None:
+        if kept is not None and chunk_rounds in {
+                r1 - r0 for r0, r1 in schedule_for(chunk_rounds)}:
             kept.replays = 0
             graphs[chunk_rounds] = kept
         calib_graphs.clear()
@@ -923,11 +959,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             print(f"engine: auto chunk size -> {chunk_rounds} rounds")
 
     # --- schedule, prefetch pipeline, metrics -----------------------------
-    schedule = chunk_schedule(
-        start_round, rounds, chunk_rounds,
-        eval_every=None if eval_in_chunk else eval_every,
-        ckpt_every=checkpoint_every if checkpoint_dir else None,
-        per_round=callback is not None)
+    schedule = schedule_for(chunk_rounds)
     rl.event("run.start", rounds=rounds, start_round=start_round,
              chunk_rounds=chunk_rounds, compressed=compressed,
              client_shards=n_shards, telemetry=tele is not None,

@@ -1,26 +1,33 @@
-"""Federated LM training launcher on one device (port of
-``repro/launch/train.py``'s round loop, without its mesh).
+"""Federated LM training launcher (port of ``repro/launch/train.py``).
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --algorithm fedfusion --rounds 10 --scale tiny
+    PYTHONPATH=src python -m repro_torch.launch.train --engine \\
+        --uplink-codec topk --controller ef_ratio --telemetry
 
-Each round is one ``launch.steps.build_train_step`` round on batches
-drawn, as the JAX loop draws them, with ``np.random.default_rng(0)`` from
-a ``source_partition`` of ``token_stream``, at ``exp_decay_per_round(lr,
-0.995)``.  The flags are the JAX launcher's; two differ:
-``--device`` (default: the card) and ``--attn-impl`` (default ``pallas``,
-so that attention runs K8a forward and K8b / K8c backward; the JAX
-launcher trains with the config's ``jnp`` attention).  The engine does
-not run LM bundles yet: ``--engine`` raises ``NotImplementedError``, and
-the flags that only the engine reads (``--uplink-codec``,
-``--participation``, ``--chaos``, ...) are not accepted.  Weights are
-random, drawn on the device from seed 0.
+Without ``--engine`` each round is one ``launch.steps.build_train_step``
+round on batches drawn, as the JAX loop draws them, with
+``np.random.default_rng(0)`` from a ``source_partition`` of
+``token_stream``, at ``exp_decay_per_round(lr, 0.995)``.  With
+``--engine`` (:func:`run_engine`) the same model trains through
+:class:`repro_torch.fl.api.FederatedTrainer` on a federated token dataset
+(each chunk a CUDA graph replay on the card), with the engine-only flags
+(``--ef-store``, ``--telemetry``, ``--runlog``, ``--profile``,
+``--participation`` and its knobs, ``--chaos*``,
+``--halt-on-nonfinite``, ``--uplink-codec``, ``--topk-frac``,
+``--controller``, ``--ladder``), which the round loop ignores, as the JAX
+launcher's does.  The flags are the JAX launcher's, with its names,
+defaults and rules; two differ: ``--device`` (default: the card) and
+``--attn-impl`` (default ``pallas``, so that attention runs K8a forward
+and K8b / K8c backward; the JAX launcher trains with the config's
+``jnp`` attention).  Weights are random, drawn on the device from seed 0.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -31,6 +38,7 @@ from repro_torch.configs import ARCH_CONFIGS
 from repro_torch.configs.base import (ALGORITHM_NAMES, ArchConfig, FLConfig,
                                       InputShape)
 from repro_torch.core.rounds import init_global_state
+from repro_torch.data.federated import ChaosConfig, FederatedDataset
 from repro_torch.data.partition import source_partition
 from repro_torch.data.synth import token_stream
 from repro_torch.device import resolve_device
@@ -98,7 +106,123 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
     return state, records
 
 
-def main(argv=None) -> None:
+def _engine_mesh(device):
+    """``(mesh, client shards)``: ``make_engine_mesh()`` when this process
+    is one rank of several (an initialised process group, or ``torchrun``'s
+    ``WORLD_SIZE``), else ``(None, 1)``: a lone process is one shard, and
+    needs no process group."""
+    import torch.distributed as dist
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world <= 1:
+        return None, 1
+    from repro_torch.launch.mesh import client_position, make_engine_mesh
+    mesh = make_engine_mesh(device=device)
+    return mesh, int(np.prod(client_position(mesh)[1]))
+
+
+def engine_setup(args, cfg: ArchConfig, fl: FLConfig) -> Dict:
+    """The engine run ``--engine`` makes: ``{"bundle", "fl", "data",
+    "options", "mesh", "shards", "n_clients"}``, the JAX launcher's
+    federation (``run_engine`` there).  The cohort is rounded down to a
+    multiple of the client shards (the over-provisioned one up), the
+    federation holds ``2 * max(clients_per_round, cohort)`` clients, each
+    a source of ``token_stream``, the test set is 64 sequences of seed 1,
+    eval runs every ``max(rounds // 2, 1)`` rounds on 64 examples, and
+    the chunk size is calibrated (``superstep_rounds="auto"``).  A
+    controller other than ``static`` makes ``topk`` the default uplink."""
+    from repro_torch.fl.api import EngineOptions, EvalOptions, RunOptions
+    from repro_torch.fl.participation import make_policy
+    mesh, shards = _engine_mesh(args.device)
+    ladder = (tuple(float(v) for v in args.ladder.split(","))
+              if args.ladder else ())
+    if args.controller != "static" and args.uplink_codec == "identity":
+        # adaptive compression needs something to adapt: the top-k +
+        # error-feedback codec at the paper's keep fraction
+        args.uplink_codec = "topk"
+    fl = dataclasses.replace(
+        fl, clients_per_round=max(fl.clients_per_round, shards)
+        // shards * shards,
+        participation=args.participation,
+        over_provision=args.over_provision,
+        buffer_k=args.buffer_k,
+        staleness_alpha=args.staleness_alpha,
+        uplink_codec=args.uplink_codec,
+        topk_frac=args.topk_frac,
+        controller=args.controller,
+        ladder=ladder)
+    c_round = make_policy(fl.participation).cohort_size(
+        fl.clients_per_round, fl)
+    c_round = -(-c_round // shards) * shards
+    n_clients = 2 * max(fl.clients_per_round, c_round)
+    chaos = None
+    if args.chaos:
+        chaos = ChaosConfig(speed_sigma=args.chaos_speed_sigma,
+                            jitter=args.chaos_jitter,
+                            dropout=args.chaos_dropout,
+                            truncation=args.chaos_truncation)
+    toks, src = token_stream(
+        max(n_clients * fl.local_batch * 8, 128), args.seq_len,
+        vocab=cfg.vocab_size, n_sources=n_clients)
+    test_toks, _ = token_stream(64, args.seq_len, vocab=cfg.vocab_size,
+                                n_sources=n_clients, seed=1)
+    data = FederatedDataset(source_partition(toks, src, n_clients),
+                            {"tokens": test_toks}, seed=0, chaos=chaos)
+    options = RunOptions(
+        seed=0, verbose=True, device=args.device,
+        eval=EvalOptions(every=max(args.rounds // 2, 1), examples=64),
+        engine=EngineOptions(superstep_rounds="auto", mesh=mesh,
+                             ef_store=args.ef_store,
+                             telemetry=args.telemetry, runlog=args.runlog,
+                             halt_on_nonfinite=args.halt_on_nonfinite,
+                             profile_dir=args.profile))
+    return {"bundle": make_bundle(cfg), "fl": fl, "data": data,
+            "options": options, "mesh": mesh, "shards": shards,
+            "n_clients": n_clients}
+
+
+def run_engine(args, cfg: ArchConfig, fl: FLConfig):
+    """Drive the launcher's workload through the engine
+    (:func:`engine_setup`'s run of
+    :class:`repro_torch.fl.api.FederatedTrainer`): on one device the
+    single-device engine, under ``torchrun`` the client-sharded one.
+    Returns the ``ServerResult``."""
+    from repro_torch.fl.api import FederatedTrainer
+    run = engine_setup(args, cfg, fl)
+    fl, data, chaos = run["fl"], run["data"], run["data"].chaos
+    mesh = run["mesh"]
+    print(f"engine mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {}} "
+          f"clients/round={fl.clients_per_round} "
+          f"federation={run['n_clients']}"
+          + (f" participation={fl.participation}"
+             if fl.participation != "full_sync" else "")
+          + (" chaos=on" if chaos is not None else "")
+          + (f" controller={fl.controller} uplink={fl.uplink_codec}"
+             if fl.controller != "static" else ""))
+    trainer = FederatedTrainer(run["bundle"], fl, data, run["options"])
+    t0 = time.perf_counter()
+    res = trainer.fit(args.rounds)
+    dt = time.perf_counter() - t0
+    st = res.stats
+    print(f"done: {args.rounds} rounds in {dt:.1f}s "
+          f"({args.rounds / dt:.2f} r/s)  device={st['device']} "
+          f"chunk_rounds={st['chunk_rounds']} chunks={st['chunks']} "
+          f"graphs={[g['rounds'] for g in st['graphs']]} "
+          f"ef_store={st['ef_store']} "
+          f"steady_rounds_per_s={st['steady_rounds_per_s']}")
+    if args.telemetry and res.comm.history:
+        last = res.comm.history[-1]
+        tele = {k: v for k, v in last.items() if k.startswith("tele/")}
+        if tele:
+            print("telemetry (last round): " +
+                  " ".join(f"{k}={v:.4g}" for k, v in sorted(tele.items())))
+    return res
+
+
+def main(argv=None):
+    """Parse ``argv`` (None: the command line) and train; with
+    ``--engine`` returns the engine's ``ServerResult``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     choices=sorted(ARCH_CONFIGS))
@@ -115,15 +239,68 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--engine", action="store_true",
-                    help="the client-parallel engine: not ported for LM "
-                         "bundles yet (raises)")
+                    help="run via the client-parallel engine "
+                         "(repro_torch.engine: CUDA-graph supersteps on "
+                         "the card) instead of the round loop")
+    ap.add_argument("--ef-store", default="auto",
+                    choices=("auto", "device", "host"),
+                    help="engine only: EF residual backing — dense device "
+                         "table, cohort-paged host store, or size-based "
+                         "auto (paged runs are bitwise-equal)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="engine only: enable repro_torch.obs on-device "
+                         "telemetry taps (tele/... metrics; "
+                         "bitwise-invisible)")
+    ap.add_argument("--runlog", default=None, metavar="PATH",
+                    help="engine only: stream host span traces / events to "
+                         "this JSONL file (repro_torch.obs.RunLog)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="engine only: write a torch.profiler trace for "
+                         "the whole run into DIR")
+    ap.add_argument("--participation", default="full_sync",
+                    help="engine only: round participation policy "
+                         "(full_sync | deadline | buffered_async | any "
+                         "registered name)")
+    ap.add_argument("--over-provision", type=float, default=1.5,
+                    help="deadline policy: cohort over-sampling factor")
+    ap.add_argument("--buffer-k", type=int, default=0,
+                    help="buffered_async policy: close the round at the "
+                         "K-th arrival (0 -> clients_per_round // 2)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="buffered_async policy: staleness discount "
+                         "exponent (1+s)^-alpha")
+    ap.add_argument("--chaos", action="store_true",
+                    help="engine only: inject deterministic client faults "
+                         "(speed skew, dropouts, truncated local work)")
+    ap.add_argument("--chaos-speed-sigma", type=float, default=1.0,
+                    help="lognormal sigma of static per-client speeds")
+    ap.add_argument("--chaos-jitter", type=float, default=0.1,
+                    help="lognormal sigma of per-round completion jitter")
+    ap.add_argument("--chaos-dropout", type=float, default=0.05,
+                    help="per-round client dropout probability")
+    ap.add_argument("--chaos-truncation", type=float, default=0.0,
+                    help="probability a client truncates its local work")
+    ap.add_argument("--halt-on-nonfinite", action="store_true",
+                    help="engine only: checkpoint and stop cleanly at the "
+                         "first chunk boundary after a non-finite metric")
+    ap.add_argument("--uplink-codec", default="identity",
+                    help="engine only: client->server delta codec "
+                         "(identity | topk | topk_noef | quant | int8 | "
+                         "int4 | mask | lowrank)")
+    ap.add_argument("--topk-frac", type=float, default=0.05,
+                    help="top-k family codecs: kept coordinate fraction "
+                         "(also the adaptive ladder's capacity level)")
+    ap.add_argument("--controller", default="static",
+                    help="engine only: in-superstep adaptive compression "
+                         "controller (static | ef_ratio | bytes_budget | "
+                         "loss_trend | any registered name); non-static "
+                         "defaults --uplink-codec to topk")
+    ap.add_argument("--ladder", default="", metavar="V0,V1,...",
+                    help="controller ladder: ascending effective levels "
+                         "(topk fracs or quant bits) topping out at the "
+                         "static codec parameter; empty -> default ladder")
     args = ap.parse_args(argv)
 
-    if args.engine:
-        raise NotImplementedError(
-            "--engine: the engine (CUDA-graph supersteps) does not run LM "
-            "bundles yet (ROADMAP Queue 1, slice 6: the engine for LM "
-            "bundles); drop --engine to train through the round loop")
     device = resolve_device(args.device)
     cfg = ARCH_CONFIGS[args.arch]
     if args.scale == "tiny":
@@ -131,6 +308,12 @@ def main(argv=None) -> None:
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     fl = FLConfig(algorithm=args.algorithm, fusion_op=args.fusion_op,
                   local_steps=2, lr=args.lr)
+    if args.engine:
+        print(f"device {device} arch={cfg.name} "
+              f"({cfg.param_count() / 1e6:.1f}M params) "
+              f"attn_impl={cfg.attn_impl} algorithm={fl.algorithm}")
+        return run_engine(args, cfg, dataclasses.replace(
+            fl, clients_per_round=4, local_batch=args.global_batch))
     shape = InputShape("custom_train", args.seq_len, args.global_batch,
                        "train")
     print(f"device {device} arch={cfg.name} ({cfg.param_count() / 1e6:.1f}M "

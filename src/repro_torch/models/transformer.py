@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
 from repro_torch.device import resolve_device
@@ -232,7 +233,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(cfg, params, batch):
-    return params["embed"]["table"][batch["tokens"]]
+    # F.embedding, not ``table[tokens]``: the indexing backward on the CPU
+    # (index_put_ with accumulate) adds the rows of repeated tokens in a
+    # thread-dependent order, so two equal calls could differ by an ulp;
+    # embedding's backward (index_add_) adds them in index order
+    return F.embedding(batch["tokens"], params["embed"]["table"])
 
 
 def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,

@@ -23,10 +23,10 @@ import torch.distributed as dist
 
 from repro_torch.chaos import ChaosConfig
 from repro_torch.checkpoint.io import load_tree
-from repro_torch.configs import CNN_MNIST, FLConfig
+from repro_torch.configs import CNN_MNIST, FLConfig, get_config
 from repro_torch.core.rounds import init_global_state
 from repro_torch.data import (FederatedDataset, artificial_noniid_partition,
-                              class_images)
+                              class_images, source_partition, token_stream)
 from repro_torch.fl.server import run_federated
 from repro_torch.launch.mesh import make_engine_mesh, make_mesh
 from repro_torch.models import make_bundle
@@ -46,22 +46,41 @@ CASES = {
                          uplink_codec="topk", topk_frac=0.1)),
     "topk-seq": ("client_sequential",
                  dict(uplink_codec="topk", topk_frac=0.1)),
+    # an LM bundle (smollm-135m reduced, vocab 64, the plain K8a-K8c); its
+    # random init starts at a loss near 100, and at lr 0.05 the rounds
+    # amplify the all-reduce's summation order past the tolerance (19 of
+    # 1.2 M entries by up to 2.8e-6 after 4 rounds); at 0.02 it trains
+    "lm": ("client_parallel", dict(lr=0.02)),
 }
+LM_CASES = ("lm",)
+LM_VOCAB, LM_SEQ = 64, 16
 CHAOS_KW = dict(speed_sigma=1.0, jitter=0.2, dropout=0.3, truncation=0.3,
                 seed=7)
 # the cases each world size runs against the single-device engine
 SHARDED = {2: ("plain", "topk", "topk-seq", "quant+downtopk",
-               "fusion-topk"),
+               "fusion-topk", "lm"),
            4: ("topk", "fusion-topk")}
 # the cases whose fused run is held to the unfused one
 UNFUSED = {2: ("plain", "topk", "topk-seq", "quant+downtopk",
-               "fusion-topk"),
+               "fusion-topk", "lm"),
            4: ("topk",)}
 JAX_CASES = ("fusion-topk", "topk-seq")   # S = 2, against JAX's loop
 
 
-def bundle():
+def bundle(case=None):
+    if case in LM_CASES:
+        return make_bundle(dataclasses.replace(
+            get_config("smollm-135m").reduced(), attn_impl="pallas",
+            vocab_size=LM_VOCAB))
     return make_bundle(dataclasses.replace(CNN_MNIST, **NARROW))
+
+
+def lm_parts():
+    toks, src = token_stream(64, LM_SEQ, vocab=LM_VOCAB,
+                             n_sources=N_CLIENTS, seed=0)
+    test, _ = token_stream(8, LM_SEQ, vocab=LM_VOCAB, n_sources=N_CLIENTS,
+                           seed=1)
+    return source_partition(toks, src, N_CLIENTS), {"tokens": test}
 
 
 def parts():
@@ -73,8 +92,8 @@ def parts():
             {"x": xt[:N_TEST], "y": yt[:N_TEST]})
 
 
-def data(chaos=False):
-    p, test = parts()
+def data(chaos=False, case=None):
+    p, test = lm_parts() if case in LM_CASES else parts()
     return FederatedDataset(p, test, seed=0,
                             chaos=ChaosConfig(**CHAOS_KW) if chaos else None)
 
@@ -89,8 +108,8 @@ def run(case, *, mesh=None, chaos=False, fl_kw=None, **kw):
     opts = dict(rounds=ROUNDS, seed=SEED, mode=mode, eval_every=2,
                 eval_examples=64, superstep_rounds=2)
     opts.update(kw)
-    return run_federated(bundle(), fl, data(chaos), mesh=mesh, device="cpu",
-                         **opts)
+    return run_federated(bundle(case), fl, data(chaos, case), mesh=mesh,
+                         device="cpu", **opts)
 
 
 def jax_state(case, out):

@@ -1322,6 +1322,97 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_layer_replays_in_a_cuda_graph(cuda_device, hd):
+    """One windowed attention layer, forward (K8a) and backward (K8b +
+    K8c through the autograd Function), captured once as a CUDA graph (the
+    LM engine's local steps run it so) and replayed on two inputs copied
+    into its static buffers: every output equals an eager call on the same
+    inputs bit for bit, and the kernels' counters tick at capture only."""
+    B, S, H, KV, window = 2, 320, 4, 2, 96
+    flash = tfa.make_flash_attention(causal=True, window=window)
+    rng = np.random.default_rng(hd)
+    static = [_randn(rng, shape, cuda_device) for shape in
+              ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+
+    def layer(q, k, v, do):
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash(q, k, v)
+        return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            layer(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = layer(*static)
+    for seed in (1, 2):
+        rng = np.random.default_rng(100 * hd + seed)
+        fresh = [_randn(rng, tuple(t.shape), cuda_device) for t in static]
+        for t, f in zip(static, fresh):
+            t.copy_(f)
+        before = _attn_launches() + _bwd_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _attn_launches() + _bwd_launches() == before
+        for got, want in zip(outs, layer(*fresh)):
+            assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,up,store", [
+    ("fedavg", "identity", "device"), ("fedfusion", "topk", "host")])
+def test_lm_engine_graph_replay_matches_reference(cuda_device, algorithm,
+                                                  up, store):
+    """A reduced LM (smollm-135m, 2 layers, vocab 256, K8a-K8c) through
+    the engine, each 2-round chunk a graph replay, against the reference
+    loop's eager rounds on the card: every leaf and the history equal."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.data import (FederatedDataset, source_partition,
+                                  token_stream)
+    from repro_torch.fl.server import run_federated, run_federated_reference
+    from repro_torch.models import make_bundle
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              attn_impl="pallas", vocab_size=256)
+    bundle = make_bundle(cfg)
+    toks, src = token_stream(96, 64, vocab=256, n_sources=4, seed=0)
+    test, _ = token_stream(8, 64, vocab=256, n_sources=4, seed=1)
+
+    def data():
+        return FederatedDataset(source_partition(toks, src, 4),
+                                {"tokens": test}, seed=0)
+
+    fl = FLConfig(algorithm=algorithm, fusion_op="conv", clients_per_round=2,
+                  local_steps=2, local_batch=4, lr=0.02, uplink_codec=up,
+                  topk_frac=1 / 16)
+    kw = dict(rounds=4, eval_every=2, eval_examples=8, device=cuda_device)
+    ref = run_federated_reference(bundle, fl, data(), **kw)
+    before = _attn_launches() + _bwd_launches()
+    eng = run_federated(bundle, fl, data(), superstep_rounds=2,
+                        ef_store=store, **kw)
+    torch.cuda.synchronize()
+    graphs = eng.stats["graphs"]
+    assert eng.stats["cuda_graphs"] and len(graphs) == 1
+    assert graphs[0]["rounds"] == 2 and graphs[0]["replays"] == 2
+    # K8a a layer a forward (twice for FedFusion's two streams), K8b and
+    # K8c a layer a backward: 2 rounds x 2 clients x 2 steps a replay,
+    # counted in the two warm-up runs and the capture; the two boundary
+    # evals run K8a eagerly, once a layer
+    layers, steps = 2, 2 * 2 * 2
+    fwd = layers * steps * (2 if algorithm == "fedfusion" else 1)
+    d = [g - b for g, b in zip(_attn_launches() + _bwd_launches(), before)]
+    assert (d[0], d[2], d[3]) == (3 * fwd + 2 * layers,
+                                  3 * layers * steps, 3 * layers * steps)
+    for a, b in zip(tree_leaves(eng.global_state),
+                    tree_leaves(ref.global_state)):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    assert eng.comm.history == ref.comm.history
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 80, 120])
 def test_attention_kernels_never_take_the_plain_path_on_the_card(
         cuda_device, monkeypatch, hd):

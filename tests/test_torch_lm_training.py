@@ -38,8 +38,7 @@ from repro.optim import exp_decay_per_round as j_decay
 from repro_torch.configs import FLConfig, InputShape, get_config
 from repro_torch.core.losses import cross_entropy
 from repro_torch.data import FederatedDataset, source_partition, token_stream
-from repro_torch.fl.api import FederatedTrainer, RunOptions
-from repro_torch.fl.server import run_federated, run_federated_reference
+from repro_torch.fl.server import run_federated_reference
 from repro_torch.interop import state_from_numpy, state_to_numpy
 from repro_torch.launch import specs, steps, train
 from repro_torch.models import make_bundle
@@ -245,22 +244,8 @@ def test_launch_train_rounds_match_jax_round_fn(name, algorithm):
 
 
 # --------------------------------------------------------------------------
-# what the LM path refuses, and where it runs
+# where the LM path runs
 # --------------------------------------------------------------------------
-
-def test_engine_refuses_lm_bundles():
-    _, tcfg = _cfgs("smollm-135m")
-    bundle = make_bundle(tcfg)
-    parts, test = _token_fed(tcfg.vocab_size)
-    data = FederatedDataset(parts, test)
-    fl = FLConfig(**FL_KW)
-    with pytest.raises(NotImplementedError, match="LM bundles"):
-        run_federated(bundle, fl, data, rounds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="LM bundles"):
-        FederatedTrainer(bundle, fl, data, RunOptions(device="cpu")).fit(1)
-    with pytest.raises(NotImplementedError, match="engine"):
-        train.main(["--engine", "--device", "cpu"])
-
 
 def test_train_cli_runs_on_the_cpu_and_needs_a_card_by_default(capsys):
     train.main(["--device", "cpu", "--rounds", "2", "--seq-len", "16",

@@ -214,7 +214,8 @@ def test_fused_collective_matches_unfused(groups, world, case):
 
 def _n_leaves(case):
     """(model leaves, extra-state leaves, EF leaves) of a case."""
-    model = len(tree_leaves(W.bundle().init(torch.Generator().manual_seed(0))))
+    model = len(tree_leaves(W.bundle(case).init(
+        torch.Generator().manual_seed(0))))
     _, fl = W.fl_of(case)
     extras = 1 if fl.algorithm == "fedfusion" else 0      # fusion {"w"}
     ef = model if fl.uplink_codec == "topk" else 0

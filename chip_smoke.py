@@ -45,7 +45,11 @@ is non-zero):
    function's backward, and bitwise repeatable, with K8b's and K8c's
    segment plans and device microseconds; K2 at the CNN's shapes and
    smollm-135m's LM fusion (8,192 x 576), against
-   ``torch.mm(torch.cat(...))``, with its tiling);
+   ``torch.mm(torch.cat(...))``, with its tiling; then the tensor-parallel
+   slice's kernels: K9's ``lse`` at a rank's half of gemma3-1b's and
+   stablelm-3b's caches, valid length 0 included, timed with and without
+   it by wall and device microseconds, slices merged against one call,
+   and K2 on column blocks W [2C, C/2]);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -137,8 +141,9 @@ is non-zero):
    replicated one's; the NCCL kernels of one traced replay;
 4g. the engine over LM bundles at full width (CUDA-graph supersteps over
    the transformer, K8a-K8c inside the graphs, ``attn_impl="pallas"``,
-   random weights from seed 0, lr 0.02): smollm-135m at full width and
-   depth at phase 4c's reference setting (8 clients by source, 4 a round,
+   random weights from seed 0, lr 0.02): smollm-135m at full width cut to
+   10 of its 30 layers (to keep the script within its time limit) at
+   phase 4c's reference setting (8 clients by source, 4 a round,
    2 local steps of 4 x 512, eval on 8 test sequences every round, folded
    into the chunk), 8 rounds in 2-round chunks, for FedAvg,
    FedFusion-conv, FedMMD, FedFusion-conv with a top-k 1/16 uplink on the
@@ -152,7 +157,17 @@ is non-zero):
    all-reduces a replay; gemma3-1b at full width and depth, FedAvg, 2 of 4
    clients a round at 2 x 1,024 (its 512-token local window binds), 4
    rounds in 2-round chunks; ``launch.train --engine --scale full`` on
-   smollm-135m (4 rounds at 512, batch 2, ``superstep_rounds="auto"``);
+   smollm-135m (4 rounds at 128, batch 2, ``superstep_rounds="auto"``);
+4h. tensor parallelism on the one card: (b) a one-rank NCCL (1, 1) mesh
+   through ``launch.steps``' builders, a smollm-135m launcher round and a
+   serving run bit-equal to ``mesh=None``; (a) two worker processes
+   (``chip_smoke.py --tp-worker``) on a (1, 2) mesh over gloo: stablelm-3b
+   at full width cut to 4 layers (head-parallel) trains FedFusion-conv
+   and FedAvg (2 rounds of 2 local steps of 4 x 512) and serves, gemma3-1b
+   at full width and depth (gathered, its caches halved on L) serves, 4 x
+   1,024 then 32 steps teacher-forced on the one-device run's tokens;
+   states and logits against one device, launches on each rank against
+   their formulas, ms beside one device's, labelled "gloo over one card";
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
@@ -1431,6 +1446,143 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
     return rows
 
 
+# K9 with each row's log-sum-exp, at a tensor-parallel rank's slice of the
+# cache (phase 4h's (1, 2) mesh halves L): gemma3-1b's global cache (1,056)
+# and ring (512), stablelm-3b's cache (1,056, hd 80); valid lengths on each
+# side of the slice, the whole slice, and 0 (a rank whose slice holds no
+# valid position yet: o = 0 and lse = -1e30, so its merge weight is 0)
+LSE_CASES = [("gemma3-1b global, half", 4, 528, 4, 1, 256, (0, 1, 300, 528)),
+             ("gemma3-1b ring, half", 4, 256, 4, 1, 256, (0, 256)),
+             ("stablelm-3b, half", 4, 528, 32, 32, 80, (0, 1, 528))]
+# K2 on a rank's column block: smollm-135m's LM fusion (8,192 x 576) at
+# m = 2 (N = 288) and stablelm-3b's (4 x 1,024 tokens, C = 2,560) at m = 2
+FUSION_BLOCK_CASES = [("smollm-135m, m = 2", 8192, 576, 288),
+                      ("stablelm-3b, m = 2", 4096, 2560, 1280)]
+
+
+def check_tp_kernels(torch, decode_attn, fusion_conv):
+    """Phase 3 for the tensor-parallel slice: K9's ``lse`` output against
+    the plain version's at a rank's cache slices (valid length 0 too), o
+    bit-equal to the call without ``lse``, and the two timed in turns
+    (with, without, without, with), by wall and by device microseconds; the slices of gemma3-1b's global
+    cache merged (``merge_partials``) against one K9 call over the whole;
+    K2 on a column block W [2C, N] against the plain version, with its
+    time, the plain version's and ``torch.mm(torch.cat(...))``'s."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for case, B, L, H, KV, hd, valids in LSE_CASES:
+        sets = 8
+        qs = [randn(B, 1, H, hd) for _ in range(sets)]
+        ks = [randn(B, L, KV, hd) for _ in range(sets)]
+        vs = [randn(B, L, KV, hd) for _ in range(sets)]
+        for valid in valids:
+            vl = torch.tensor(valid, device=dev)
+            o, lse = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl,
+                                                   want_lse=True)
+            bare = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
+            po, plse = decode_attn.flash_decode_plain(qs[0], ks[0], vs[0],
+                                                      vl, want_lse=True)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(o).all() and torch.isfinite(lse)
+                          .all())
+            if valid == 0:
+                o_err = lse_err = 0.0
+                ok = bool((lse == -1e30).all() and (o == 0).all()
+                          and (plse < -1e29).all())
+            else:
+                o_err = (o - po).abs().max().item()
+                lse_err = (lse - plse).abs().max().item()
+                ok = o_err <= ATTN_TOL and lse_err <= ATTN_TOL
+            line = dict(kernel="flash_decode", variant="lse", case=case,
+                        shape=[B, L, H, KV, hd], valid_len=valid,
+                        o_abs_err=o_err, lse_abs_err=lse_err, tol=ATTN_TOL,
+                        finite=finite, o_equal_without_lse=torch.equal(
+                            o, bare), empty_slice_weight_zero=(
+                            bool((lse == -1e30).all()) if valid == 0
+                            else None))
+            if valid == L:
+                t = {}
+                for which in ("lse", "bare", "bare", "lse"):
+                    t.setdefault(which, []).append(time_ms(
+                        torch, lambda i, w=which: decode_attn
+                        .flash_decode_cuda(qs[i], ks[i], vs[i], vl,
+                                           want_lse=w == "lse"), sets=sets))
+                # the walls of these small calls are the host's (the lse
+                # call allocates one more tensor): device time settles it
+                us = {w: device_per_call(torch, lambda i, w=w: decode_attn
+                                         .flash_decode_cuda(
+                                             qs[i], ks[i], vs[i], vl,
+                                             want_lse=w == "lse"),
+                                         sets=sets)[1]
+                      for w in ("lse", "bare")}
+                line.update(ms_with_lse=t["lse"], ms_without_lse=t["bare"],
+                            ratio=statistics.median(t["lse"])
+                            / statistics.median(t["bare"]),
+                            device_us_with_lse=us["lse"],
+                            device_us_without_lse=us["bare"],
+                            device_ratio=us["lse"] / us["bare"])
+                line["bound_ms"], line["bound_by"] = bound(
+                    *flash_decode_work(B, valid, H, KV, hd))
+            emit("kernels", **line)
+            if not (ok and finite and line["o_equal_without_lse"]):
+                raise AssertionError(f"flash_decode lse disagrees: {case}, "
+                                     f"valid_len {valid}")
+    # gemma3-1b's global cache in 2 and 4 slices, merged
+    B, L, H, KV, hd = 4, 1056, 4, 1, 256
+    q, k, v = randn(B, 1, H, hd), randn(B, L, KV, hd), randn(B, L, KV, hd)
+    for valid in (1, 300, 1056):
+        whole = decode_attn.flash_decode_cuda(q, k, v, valid)
+        errs = {}
+        for n in (2, 4):
+            Ll = L // n
+            parts = [decode_attn.flash_decode_cuda(
+                q, k[:, r * Ll:(r + 1) * Ll].contiguous(),
+                v[:, r * Ll:(r + 1) * Ll].contiguous(),
+                torch.tensor(max(0, min(valid - r * Ll, Ll)), device=dev),
+                want_lse=True) for r in range(n)]
+            got = decode_attn.merge_partials(
+                torch.stack([a for a, _ in parts]),
+                torch.stack([b for _, b in parts]))
+            errs[n] = (got - whole).abs().max().item()
+        emit("kernels", kernel="flash_decode", variant="merged slices",
+             shape=[B, L, H, KV, hd], valid_len=valid, abs_err=errs,
+             tol=ATTN_TOL)
+        if max(errs.values()) > ATTN_TOL:
+            raise AssertionError(f"merged K9 slices disagree at {valid}")
+    for case, T, C, N in FUSION_BLOCK_CASES:
+        sets = 4
+        fgs = [randn(T, C) for _ in range(sets)]
+        fls = [randn(T, C) for _ in range(sets)]
+        ws = [randn(2 * C, N) / math.sqrt(2 * C) for _ in range(sets)]
+        got = fusion_conv.fusion_conv_cuda(fgs[0], fls[0], ws[0])
+        want = fusion_conv.fusion_conv_plain(fgs[0], fls[0], ws[0])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        line = dict(kernel="fusion_conv", variant="column block", case=case,
+                    T=T, C=C, N=N, abs_err=err, tol=1e-5 * scale,
+                    plan=fusion_conv.conv_plan(
+                        T, N, torch.cuda.get_device_properties(0)
+                        .multi_processor_count).plan,
+                    ms=time_ms(torch, lambda i: fusion_conv.fusion_conv_cuda(
+                        fgs[i], fls[i], ws[i]), sets=sets),
+                    plain_ms=time_ms(torch, lambda i: fusion_conv
+                                     .fusion_conv_plain(fgs[i], fls[i],
+                                                        ws[i]), sets=sets),
+                    library_ms=time_ms(torch, lambda i: torch.mm(
+                        torch.cat((fgs[i], fls[i]), 1), ws[i]), sets=sets))
+        line["bound_ms"], line["bound_by"] = bound(
+            4 * (2 * T * C + 2 * C * N + T * N), 4 * T * C * N)
+        emit("kernels", **line)
+        if err > 1e-5 * scale:
+            raise AssertionError(f"fusion_conv column block disagrees: "
+                                 f"{case}")
+
+
 def flash_bwd_work(B, S, H, KV, hd, window):
     """Bytes and float32 operations of one K8b call (q, do, k, v, lse, D
     in; dq out; three products of hd per visible pair and query head: s,
@@ -1731,7 +1883,8 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
     return got
 
 
-# phase 4g: the LM engine at full width.  smollm-135m at phase 4c's
+# phase 4g: the LM engine at full width.  smollm-135m, cut to 10 of its 30
+# layers to keep the script within its time limit, at phase 4c's
 # train_reference setting (8 clients by source, 4 a round, 2 local steps of
 # 4 x 512, eval on 8 test sequences, here every round, folded into the
 # chunk), 8 rounds in 2-round chunks, each run beside 2 reference rounds;
@@ -1739,7 +1892,7 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
 # window binds; the batch fits beside the stacked client models)
 LM_ENGINE = dict(clients=8, clients_per_round=4, local_steps=2,
                  local_batch=4, seq_len=512, eval_sequences=8, rounds=8,
-                 chunk=2, ref_rounds=2)
+                 chunk=2, ref_rounds=2, layers=10)
 LM_ENGINE_RUNS = [("fedavg", "identity", "device"),
                   ("fedfusion", "identity", "device"),
                   ("fedmmd", "identity", "device"),
@@ -1752,7 +1905,17 @@ LM_GEMMA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=2,
 # on an H100); at 0.02 every algorithm trains
 LM_ENGINE_LR = 0.02
 LM_TRAIN_ARGS = ["--engine", "--scale", "full", "--arch", "smollm-135m",
-                 "--seq-len", "512", "--global-batch", "2", "--rounds", "4"]
+                 "--seq-len", "128", "--global-batch", "2", "--rounds", "4"]
+
+
+def lm_engine_cfg(get_config):
+    """Phase 4g's smollm-135m: full width, ``LM_ENGINE["layers"]`` deep."""
+    import dataclasses
+    base = get_config("smollm-135m")
+    n = LM_ENGINE["layers"]
+    return dataclasses.replace(base, n_layers=n,
+                               block_pattern=base.block_pattern[:n],
+                               attn_impl="pallas")
 
 
 def lm_token_data(FederatedDataset, token_stream, source_partition, cfg,
@@ -1798,7 +1961,8 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
     """Phase 4g: the engine over LM bundles at full width (CUDA-graph
     supersteps over the transformer, K8a-K8c inside the graphs).
 
-    smollm-135m (30 layers) for FedAvg, FedFusion-conv, FedMMD,
+    smollm-135m (cut to ``LM_ENGINE["layers"]`` of its 30 layers) for
+    FedAvg, FedFusion-conv, FedMMD,
     FedFusion-conv with a top-k 1/16 uplink on the host EF store and
     FedAvg with an int8 uplink, each against 2 reference rounds of the same
     configuration and state; gemma3-1b (26 layers, hd 256, windowed local
@@ -1828,7 +1992,7 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
 
     # smollm-135m: five configurations
     E = LM_ENGINE
-    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    cfg = lm_engine_cfg(get_config)
     bundle = make_bundle(cfg)
     C, ls, B, S = (E["clients_per_round"], E["local_steps"],
                    E["local_batch"], E["seq_len"])
@@ -2567,6 +2731,305 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
     return total
 
 
+# phase 4h: tensor parallelism on the one card.  (a) two worker processes,
+# a (1, 2) mesh over a gloo group (NCCL refuses two ranks on one device):
+# stablelm-3b at full width cut to 4 layers (32 / 32 heads of 80: head-
+# parallel) trains one FedFusion-conv and one FedAvg launcher round after
+# a warm-up round (2 local steps of 4 x 512) and serves; gemma3-1b at full
+# width and depth (its one KV head is split mid-head: gathered; its global
+# cache of 1,056 and its 512 rings halved over model) serves.  Serving:
+# prompts of 1,024 at batch 4, 32 decode steps teacher-forced on the
+# one-device run's greedy tokens.  (b) a (1, 1) NCCL mesh through
+# build_train_step / build_serve_step, bit-equal to mesh=None.
+TP_TRAIN = ("stablelm-3b", 4, 512, 4)      # model, layers, seq_len, batch
+TP_SERVE = (("stablelm-3b", 4), ("gemma3-1b", None))
+TP_PROMPT, TP_GEN, TP_BATCH = 1024, 32, 4
+# the mesh's runs against one device: the all-reduces sum in another order
+# (and cuBLAS at K halved): states within rtol 1e-4 / atol 1e-5; logits
+# divided by the one-device run's largest |logit| (O(100) at the random
+# init) within the same
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
+TP_WORKER_TIMEOUT_S = 600
+
+
+def _tp_cfg(get_config, name, layers):
+    import dataclasses
+    cfg = dataclasses.replace(get_config(name), attn_impl="pallas")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers,
+                                  block_pattern=cfg.block_pattern[:layers])
+    return cfg
+
+
+def _close_err(got, want, rtol, atol):
+    """The largest excess of |got - want| over atol + rtol |want| (<= 0:
+    within), and the largest |got - want|."""
+    d = (got.double() - want.double()).abs()
+    return ((d - atol - rtol * want.double().abs()).max().item(),
+            d.max().item())
+
+
+def tp_worker(argv):
+    """One rank of phase 4h (a): ``chip_smoke.py --tp-worker RANK WORLD
+    INIT OUT``.  Rank 0 also runs each case on one device first (rank 1
+    waits), hands its greedy tokens over, and compares; each rank writes
+    its launches and times to ``OUT/rank<r>.json``."""
+    import datetime
+    rank, world, init, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import FLConfig, InputShape, get_config
+    from repro_torch.kernels import decode_attn, flash_attn, fusion_conv
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh((1, world), ("data", "model"), device="cuda")
+    counters = {"fusion_conv": fusion_conv.fusion_conv_cuda,
+                "flash_fwd": flash_attn.flash_fwd_cuda,
+                "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": flash_attn.flash_bwd_dkv_cuda,
+                "flash_decode": decode_attn.flash_decode_cuda}
+    result = {"rank": rank, "train": [], "serve": []}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def count():
+        return {k: c.launches for k, c in counters.items()}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    name, layers, S, B = TP_TRAIN
+    cfg = _tp_cfg(get_config, name, layers)
+    shape = InputShape("custom_train", S, B, "train")
+    for algorithm in ("fedfusion", "fedavg"):
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
+                      lr=TRAIN_LR)
+        line = dict(model=name, layers=layers, algorithm=algorithm,
+                    seq_len=S, batch=B, local_steps=2, rounds=2)
+        if rank == 0:
+            one, rec = train.train_rounds(cfg, fl, shape, rounds=2,
+                                          device=dev, log=None)
+            line["one_device_ms_per_local_step"] = rec[-1]["ms"] / 2
+            line["one_device_losses"] = [r["loss"] for r in rec]
+        dist.barrier()
+        reset()
+        got, rec = train.train_rounds(cfg, fl, shape, rounds=2, device=dev,
+                                      log=None, mesh=mesh)
+        sync()
+        line.update(gloo_ms_per_local_step=rec[-1]["ms"] / 2,
+                    losses=[r["loss"] for r in rec], launches=count(),
+                    expected={k: v for k, v in lm_launches(
+                        cfg, algorithm, 2 * 2).items() if k in counters})
+        line["expected"]["flash_decode"] = 0
+        if rank == 0:
+            errs = [_close_err(a, b, TP_RTOL, TP_ATOL) for a, b in
+                    zip(tree_leaves(got), tree_leaves(one))]
+            line.update(state_excess=max(e[0] for e in errs),
+                        state_max_abs_err=max(e[1] for e in errs),
+                        state_within=max(e[0] for e in errs) <= 0,
+                        losses_within=all(
+                            abs(a - b) <= TP_ATOL + TP_RTOL * abs(b)
+                            for a, b in zip(line["losses"],
+                                            line["one_device_losses"])))
+            del one
+        del got
+        torch.cuda.empty_cache()
+        result["train"].append(line)
+
+    for name, layers in TP_SERVE:
+        cfg = _tp_cfg(get_config, name, layers)
+        P, G, Bs = TP_PROMPT, TP_GEN, TP_BATCH
+        prompts = serve.make_prompts(cfg, Bs, P, 0, dev)
+        line = dict(model=name, layers=cfg.n_layers, batch=Bs, prompt=P,
+                    steps=G)
+        toks = torch.zeros((Bs, G), dtype=torch.int64, device=dev)
+        if rank == 0:
+            with torch.no_grad():
+                params = serve.tfm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+                pre, step, _, _ = serve.serve_steps(cfg, Bs, P, G)
+                sync()
+                t0 = time.perf_counter()
+                last, cache = pre(params, {"tokens": prompts})
+                sync()
+                line["one_device_prefill_ms"] = 1e3 * (time.perf_counter()
+                                                       - t0)
+                toks, logits, step_ms = serve.greedy_decode(
+                    cfg, params, cache, last, P, G, step)
+                one_logits = torch.cat([last[:, None], logits], 1)
+                line["one_device_median_step_ms"] = statistics.median(
+                    step_ms[1:])
+                del params, cache, logits
+                torch.cuda.empty_cache()
+        dist.broadcast(toks, 0)
+        with torch.no_grad():
+            pre, step, p_layout, t_layout = serve.serve_steps(cfg, Bs, P, G,
+                                                              mesh)
+            params = serve.sharded_params(cfg, mesh, p_layout, dev)
+            local = sh.local_block(prompts, t_layout, mesh).contiguous()
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            last, cache = pre(params, {"tokens": local})
+            sync()
+            line["gloo_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            rows, step_ms = [last], []
+            pos = torch.tensor(P, device=dev)
+            for i in range(G):
+                t0 = time.perf_counter()
+                logits, cache = step(params, toks[:, i:i + 1], cache, pos)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                rows.append(logits[:, 0])
+                pos += 1
+            n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+            line.update(gloo_median_step_ms=statistics.median(step_ms[1:]),
+                        launches=count(),
+                        expected=dict(fusion_conv=0, flash_fwd=n_attn,
+                                      flash_bwd_dq=0, flash_bwd_dkv=0,
+                                      flash_decode=n_attn * G))
+            if rank == 0:
+                got = torch.stack(rows, 1)
+                scale = one_logits.abs().max()
+                excess, err = _close_err(got / scale, one_logits / scale,
+                                         TP_RTOL, TP_ATOL)
+                line.update(logits_scale=scale.item(), logits_excess=excess,
+                            logits_max_rel_err=err,
+                            logits_within=excess <= 0,
+                            finite=bool(torch.isfinite(got).all()))
+                del one_logits, got
+            del params, cache, rows
+            torch.cuda.empty_cache()
+        result["serve"].append(line)
+    dist.barrier()
+    dist.destroy_process_group()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
+             tree_leaves, card):
+    """Phase 4h.  (b) first: a one-rank NCCL group, a (1, 1) mesh; one
+    smollm-135m FedFusion-conv launcher round and a serving run (batch 4,
+    a 256-token prompt, 8 greedy steps) through the mesh's steps, each
+    bit-equal to ``mesh=None``.  Then (a): two ``--tp-worker`` processes
+    over gloo on this card (see ``tp_worker``); their launches against the
+    formulas (K2 once a FedFusion local step, K8a / K8b / K8c as phase
+    4c's, K8a once a layer in prefill and K9 once a layer a decode step,
+    on each rank), their states and logits against one device.  The times
+    are "gloo over one card": two processes sharing the card, every
+    collective through the host, nothing about NVLink."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    # (b) ------------------------------------------------------------------
+    rdzv = ROOT / "build" / "tp_rdzv"
+    rdzv.parent.mkdir(parents=True, exist_ok=True)
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = _tp_cfg(get_config, "smollm-135m", None)
+        fl = FLConfig(algorithm="fedfusion", fusion_op="conv", local_steps=2,
+                      lr=TRAIN_LR)
+        shape = InputShape("custom_train", 512, 4, "train")
+        runs = {}
+        for key, m in (("none", None), ("mesh", mesh)):
+            runs[key] = train.train_rounds(cfg, fl, shape, rounds=1,
+                                           device="cuda", log=None, mesh=m)
+        train_equal = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(runs["none"][0]), tree_leaves(runs["mesh"][0]))) \
+            and runs["none"][1][0]["loss"] == runs["mesh"][1][0]["loss"]
+        del runs
+        outs = {}
+        with torch.no_grad():
+            params = serve.tfm.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            prompts = serve.make_prompts(cfg, 4, 256, 0, "cuda")
+            for key, m in (("none", None), ("mesh", mesh)):
+                pre, step, _, _ = serve.serve_steps(cfg, 4, 256, 8, m)
+                last, cache = pre(params, {"tokens": prompts})
+                outs[key] = serve.greedy_decode(cfg, params, cache, last,
+                                                256, 8, step)[:2]
+        serve_equal = torch.equal(outs["none"][0], outs["mesh"][0]) and \
+            torch.equal(outs["none"][1], outs["mesh"][1])
+        del params, outs
+        emit("tp_one_rank", card=card, backend="nccl", mesh=[1, 1],
+             model=cfg.name, train_bitwise_equal=train_equal,
+             serve_bitwise_equal=serve_equal)
+        if not (train_equal and serve_equal):
+            raise AssertionError("phase 4h (b): the (1, 1) mesh's steps "
+                                 "differ from mesh=None")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # (a) ------------------------------------------------------------------
+    work = ROOT / "build" / "tp_workers"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+    init = work / "rdzv"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+         str(r), "2", str(init), str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=TP_WORKER_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        for r, log in enumerate(logs):
+            print(f"--- phase 4h worker {r} ---\n{log[-6000:]}", flush=True)
+        raise AssertionError(f"phase 4h (a): worker exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    ok = True
+    launches = {}
+    for kind in ("train", "serve"):
+        for i, line in enumerate(ranks[0][kind]):
+            other = ranks[1][kind][i]
+            both = [line["launches"], other["launches"]]
+            good = all(b == line["expected"] for b in both)
+            if kind == "train":
+                good = good and line["state_within"] and \
+                    line["losses_within"]
+            else:
+                good = good and line["logits_within"] and line["finite"]
+            ok = ok and good
+            for k, n in line["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            emit(f"tp_{kind}", card=card, timing="gloo over one card",
+                 backend="gloo", mesh=[1, 2],
+                 **{k: v for k, v in line.items() if k != "launches"},
+                 launches_rank0=line["launches"],
+                 launches_rank1=other["launches"], checks=good)
+    emit("tp_workers", wall_s=wall)
+    if not ok:
+        raise AssertionError("phase 4h (a): a tensor-parallel run disagrees "
+                             "with one device or with its launch formula")
+    return launches
+
+
 def mnist_data(FederatedDataset, class_images, partition, seed=0,
                chaos=None):
     x, y = class_images(600, shape=(28, 28, 1), seed=0, noise=0.2,
@@ -2838,6 +3301,7 @@ def main():
          libraries={n: str(p.relative_to(ROOT)) for n, p in libs.items()},
          ptxas=ptxas)
 
+    t_phase = time.perf_counter()
     # 3. kernels vs plain on the card ------------------------------------
     rows = check_kernels(torch, mk_mmd, fusion_conv)
     mnist_sizes = [t.numel() for t in tree_leaves(
@@ -2851,7 +3315,10 @@ def main():
     rows.update(check_ef_kernels(torch, compress_pack))
     rows.update(check_attention_kernels(torch, flash_attn, decode_attn))
     rows.update(check_flash_bwd_kernels(torch, flash_attn))
+    check_tp_kernels(torch, decode_attn, fusion_conv)
+    emit("phase_3", seconds=time.perf_counter() - t_phase)
 
+    t_phase = time.perf_counter()
     # 4. main path --------------------------------------------------------
     bundle = make_bundle(CNN_MNIST)
     n_params = sum(t.numel() for t in tree_leaves(
@@ -3076,7 +3543,9 @@ def main():
          launches=got, expected=want, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"engine auto: {checks}")
+    emit("phase_4", seconds=time.perf_counter() - t_phase)
 
+    t_phase = time.perf_counter()
     # 4b. serve: the four dense LMs at full width and depth ---------------
     # (K8a and K9 counted over each measured run; phase 5's serving trace
     # is taken while gemma3-1b's weights are on the card)
@@ -3102,7 +3571,9 @@ def main():
             del last, cache
         del params
         torch.cuda.empty_cache()
+    emit("phase_4b", seconds=time.perf_counter() - t_phase)
 
+    t_phase = time.perf_counter()
     # 4c. train: the LM training path at full width ---------------------
     lm_counters = {"gram_sum": mk_mmd.gram_sum_cuda,
                    "mk_mmd2": mk_mmd.mk_mmd2_cuda,
@@ -3120,7 +3591,9 @@ def main():
     for k, n in ref_launches.items():
         train_launches[k] += n
     torch.cuda.empty_cache()
+    emit("phase_4c", seconds=time.perf_counter() - t_phase)
 
+    t_phase = time.perf_counter()
     # 4d. the rest of the main path: fig. 6's new-client probe, the cost
     # of a local step per algorithm, the sketch codecs, participation with
     # chaos on the engine -------------------------------------------------
@@ -3316,6 +3789,7 @@ def main():
                                  f"{checks}")
         for k in launches:
             launches[k] += got[k]
+    emit("phase_4d", seconds=time.perf_counter() - t_phase)
 
     # 4e. telemetry, run logs, profiling, halt_on_nonfinite and the
     # adaptive compression controllers on the engine, at fig. 4's setting
@@ -3563,6 +4037,17 @@ def main():
         train_launches[k] = train_launches.get(k, 0) + n
     emit("phase_4g", seconds=time.perf_counter() - t_4g)
 
+    # 4h. tensor parallelism on the one card: (b) a (1, 1) NCCL mesh, then
+    # (a) two ranks over gloo -------------------------------------------
+    t_4h = time.perf_counter()
+    launches_4h = tp_phase(torch, get_config=get_config, FLConfig=FLConfig,
+                           InputShape=InputShape, train=train, serve=serve,
+                           tree_leaves=tree_leaves, card=card)
+    for k, n in launches_4h.items():
+        train_launches[k] = train_launches.get(k, 0) + n
+    emit("phase_4h", seconds=time.perf_counter() - t_4h)
+
+    t_phase = time.perf_counter()
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
     # chunk of two engine runs ---------------------------------------------
@@ -3597,8 +4082,7 @@ def main():
     torch.cuda.empty_cache()
     # one steady LM engine chunk (smollm-135m FedFusion-conv, phase 4g's
     # setting, 1-round chunks)
-    lm_cfg = dataclasses.replace(get_config("smollm-135m"),
-                                 attn_impl="pallas")
+    lm_cfg = lm_engine_cfg(get_config)
     lm_bundle = make_bundle(lm_cfg)
     lm_fl = FLConfig(algorithm="fedfusion", fusion_op="conv",
                      clients_per_round=LM_ENGINE["clients_per_round"],
@@ -3617,7 +4101,9 @@ def main():
              LM_ENGINE["eval_sequences"]))
     del lm_bundle
     torch.cuda.empty_cache()
+    emit("phase_5", seconds=time.perf_counter() - t_phase)
 
+    t_phase = time.perf_counter()
     # 6. card vs CPU ------------------------------------------------------
     # Same initial state and data; 2 rounds x 10 clients x 4 SGD steps.
     # float32 results differ by summation order (cuDNN vs oneDNN convs,
@@ -3962,6 +4448,7 @@ def main():
                           get_config, FLConfig, make_bundle,
                           init_global_state, FederatedDataset, token_stream,
                           source_partition, tree_leaves)
+    emit("phase_6", seconds=time.perf_counter() - t_phase)
 
     # 7. kernel table: launches summed over the main paths' measured runs
     # (the CNN FL runs of phase 4, serving, LM training) --------------------
@@ -3984,4 +4471,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2:])
+    else:
+        main()

@@ -288,6 +288,12 @@ class ArchConfig:
         if self.lru_width == 0:
             object.__setattr__(self, "lru_width", self.d_model)
 
+    @property
+    def has_subquadratic_decode(self) -> bool:
+        """True if the decode-time cache is sub-linear in context length for
+        most layers (SSM state, RG-LRU state or sliding-window caches)."""
+        return any(b in (SSD, RGLRU, ATTN_LOCAL) for b in self.block_pattern)
+
     def param_count(self) -> int:
         """Approximate parameter count (the JAX package's formula)."""
         d, h, kv, hd = (self.d_model, self.n_heads, self.n_kv_heads,

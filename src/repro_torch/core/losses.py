@@ -14,8 +14,44 @@ def _gold_and_logz(logits, labels):
     return logz, gold
 
 
-def cross_entropy(logits, labels):
-    """logits [..., V]; labels [...] int -> scalar mean CE."""
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token CE of logits split on V over ``model``: the max, the sum
+    of exponentials and the target logit are all-reduced; the gradient of
+    this rank's block is its softmax less the one-hot of the targets it
+    owns, so the backward makes no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mp):
+        import torch.distributed as dist
+        x = logits.float()
+        V_loc = x.shape[-1]
+        top = mp.all_reduce(x.max(dim=-1).values, op=dist.ReduceOp.MAX)
+        e = torch.exp(x - top.unsqueeze(-1))
+        total = mp.all_reduce(e.sum(dim=-1))
+        local = labels.long() - mp.rank * V_loc
+        own = (local >= 0) & (local < V_loc)
+        idx = local.clamp(0, V_loc - 1).unsqueeze(-1)
+        gold = mp.all_reduce(torch.where(
+            own, x.gather(-1, idx).squeeze(-1), torch.zeros_like(top)))
+        ctx.save_for_backward(e, total, idx, own)
+        ctx.dtype = logits.dtype
+        return torch.log(total) + top - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, own = ctx.saved_tensors
+        grad = e / total.unsqueeze(-1)
+        grad.scatter_add_(-1, idx, -own.to(grad.dtype).unsqueeze(-1))
+        return (grad * g.unsqueeze(-1)).to(ctx.dtype), None, None
+
+
+def cross_entropy(logits, labels, mp=None):
+    """logits [..., V]; labels [...] int -> scalar mean CE.  With ``mp``
+    (a :class:`repro_torch.launch.tp.ModelParallel` of more than one
+    rank) the logits are this rank's block of V, as a head split on V
+    gives them."""
+    if mp is not None and mp.active:
+        return _VocabParallelCE.apply(logits, labels, mp).mean()
     logz, gold = _gold_and_logz(logits, labels)
     return (logz - gold).mean()
 

@@ -5,7 +5,12 @@
 //
 // q [B, 1, H, hd], k / v caches [B, L, KV, hd], o like q, H = KV * rep (any
 // rep), all contiguous and 16-byte aligned; valid_len is one int32 or int64
-// on the device (one for the batch), or a value from the host.
+// on the device (one for the batch), or a value from the host.  Optionally
+// each row's log-sum-exp, lse [B, H] = m + log l over the valid positions
+// (the Pallas kernel's m_ref / l_ref), one store a row: a caller that cut
+// the cache into slices over ranks merges their (o, lse) pairs.  With
+// valid_len = 0 (a rank whose slice holds no valid position yet) o is 0
+// and lse the finite -1e30, so the slice's merge weight e^(lse - max) is 0.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attn.py:flash_decode
 // (_decode_kernel).  The Pallas grid (B, KV, cache blocks) carries the
@@ -169,15 +174,23 @@ __device__ __forceinline__ int chunk_len(int n) {
   return max(kMinChunk, r);
 }
 
+// A row's log-sum-exp from its max and sum: finite -1e30 for a row with no
+// valid position (sum 0), as the plain version's masked scores give.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : kNegInf;
+}
+
 // Merges `count` consecutive partials (m [rep], l [rep], acc [rep][HD] each)
-// in order.  final: out = acc / max(l, 1e-30); otherwise the merged acc goes
-// to out and (M, L) to (dm, dl).  red: 2 * rep floats of shared memory; w:
+// in order.  final: out = acc / max(l, 1e-30) and, where lse is not null,
+// lse[j] = M + log L; otherwise the merged acc goes to out and (M, L) to
+// (dm, dl).  red: 2 * rep floats of shared memory; w:
 // wcap floats of shared memory for a window of weights e^(m - M).
 template <int HD>
 __device__ void merge_partials(const float* pm, const float* pl,
                                const float* pa, int count, int rep,
                                float* red, float* w, int wcap, bool final,
-                               float* out, float* dm, float* dl) {
+                               float* out, float* dm, float* dl,
+                               float* lse) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = warp; j < rep; j += kWarps) {
     float mx = kNegInf;
@@ -195,6 +208,8 @@ __device__ void merge_partials(const float* pm, const float* pl,
       if (!final) {
         dm[j] = mx;
         dl[j] = sum;
+      } else if (lse != nullptr) {
+        lse[j] = row_lse(mx, sum);
       }
     }
   }
@@ -252,8 +267,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                     const float* __restrict__ vc, const void* valid_ptr,
                     int valid_kind, int valid_host, float* __restrict__ o,
-                    float* __restrict__ scratch, int* __restrict__ tickets,
-                    int L, int KV, int rep, int split, float scale) {
+                    float* __restrict__ lse, float* __restrict__ scratch,
+                    int* __restrict__ tickets, int L, int KV, int rep,
+                    int split, float scale) {
   extern __shared__ __align__(16) float smem[];
   using R = Row<HD>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -359,7 +375,12 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
     else
       pacc[p] = acc;
   }
-  if (alone) return;
+  if (alone) {
+    if (lse != nullptr)
+      for (int j = tid; j < rep; j += kThreads)
+        lse[(size_t)bg * rep + j] = row_lse(red[j], red[rep + j]);
+    return;
+  }
 
   // 4. the slice's (m, l); then the two-level merge
   float* pm = scratch + slices * rep * HD;            // [bg][s][rep]
@@ -382,10 +403,11 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const int wcap = 2 * split * HD;
   const size_t first_slice = (size_t)bg * n_split + c0;
   float* og = o + (size_t)bg * rep * HD;
+  float* lg = lse == nullptr ? nullptr : lse + (size_t)bg * rep;
   if (n_chunks == 1) {
     merge_partials<HD>(pm + first_slice * rep, pl + first_slice * rep,
                        scratch + first_slice * rep * HD, cn, rep, red, w,
-                       wcap, true, og, nullptr, nullptr);
+                       wcap, true, og, nullptr, nullptr, lg);
     return;
   }
   const size_t chunks = (size_t)groups * max_chunks;
@@ -396,19 +418,19 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   merge_partials<HD>(pm + first_slice * rep, pl + first_slice * rep,
                      scratch + first_slice * rep * HD, cn, rep, red, w, wcap,
                      false, ca + mine * rep * HD, cm + mine * rep,
-                     cl + mine * rep);
+                     cl + mine * rep, nullptr);
   if (!last_to_arrive(&tk[max_chunks], n_chunks)) return;
   const size_t first_chunk = (size_t)bg * max_chunks;
   merge_partials<HD>(cm + first_chunk * rep, cl + first_chunk * rep,
                      ca + first_chunk * rep * HD, n_chunks, rep, red, w,
-                     wcap, true, og, nullptr, nullptr);
+                     wcap, true, og, nullptr, nullptr, lg);
 }
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const void* valid,
-           int valid_kind, int valid_host, float* o, float* scratch,
-           int* tickets, int B, int L, int H, int KV, int split,
-           cudaStream_t stream) {
+           int valid_kind, int valid_host, float* o, float* lse,
+           float* scratch, int* tickets, int B, int L, int H, int KV,
+           int split, cudaStream_t stream) {
   const int rep = H / KV;
   const int n_split = (L + split - 1) / split;
   const size_t smem =
@@ -430,8 +452,8 @@ int launch(const float* q, const float* k, const float* v, const void* valid,
   }
   const float scale = (float)(1.0 / std::sqrt((double)HD));
   flash_decode_kernel<HD><<<dim3(n_split, B * KV), kThreads, smem, stream>>>(
-      q, k, v, valid, valid_kind, valid_host, o, scratch, tickets, L, KV, rep,
-      split, scale);
+      q, k, v, valid, valid_kind, valid_host, o, lse, scratch, tickets, L, KV,
+      rep, split, scale);
   return (int)cudaGetLastError();
 }
 
@@ -441,7 +463,8 @@ extern "C" {
 
 // q [B, 1, H, hd], k / v [B, L, KV, hd] and o [B, 1, H, hd] on the device,
 // f32, contiguous, 16-byte aligned.  valid_len: valid_kind 0 takes
-// valid_host, 1 an int32 and 2 an int64 at valid (on the device).  With
+// valid_host, 1 an int32 and 2 an int64 at valid (on the device).  lse:
+// null, or [B, H] f32 on the device for each row's log-sum-exp.  With
 // n_split = ceil(L / split) and X = ceil(n_split / 8): scratch holds
 // B * KV * (n_split + X) * rep * (hd + 2) floats (unused, and may be null,
 // when n_split is 1); tickets B * KV * (X + 1) ints, zero before the first
@@ -451,8 +474,9 @@ extern "C" {
 // B * KV <= 65535.  Returns cudaGetLastError().
 int flash_decode_f32(const float* q, const float* k, const float* v,
                      const void* valid, int valid_kind, int valid_host,
-                     float* o, float* scratch, int* tickets, int B, int L,
-                     int H, int KV, int hd, int split, void* stream) {
+                     float* o, float* lse, float* scratch, int* tickets,
+                     int B, int L, int H, int KV, int hd, int split,
+                     void* stream) {
   if (B < 1 || L < 1 || KV < 1 || H % KV != 0 || split < 1 ||
       (long long)B * KV > 65535 || valid_kind < 0 || valid_kind > 2 ||
       (valid_kind != 0 && valid == nullptr) ||
@@ -461,20 +485,20 @@ int flash_decode_f32(const float* q, const float* k, const float* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, valid, valid_kind, valid_host, o, scratch,
-                        tickets, B, L, H, KV, split, st);
+      return launch<64>(q, k, v, valid, valid_kind, valid_host, o, lse,
+                        scratch, tickets, B, L, H, KV, split, st);
     case 80:
-      return launch<80>(q, k, v, valid, valid_kind, valid_host, o, scratch,
-                        tickets, B, L, H, KV, split, st);
+      return launch<80>(q, k, v, valid, valid_kind, valid_host, o, lse,
+                        scratch, tickets, B, L, H, KV, split, st);
     case 120:
-      return launch<120>(q, k, v, valid, valid_kind, valid_host, o, scratch,
-                         tickets, B, L, H, KV, split, st);
+      return launch<120>(q, k, v, valid, valid_kind, valid_host, o, lse,
+                         scratch, tickets, B, L, H, KV, split, st);
     case 128:
-      return launch<128>(q, k, v, valid, valid_kind, valid_host, o, scratch,
-                         tickets, B, L, H, KV, split, st);
+      return launch<128>(q, k, v, valid, valid_kind, valid_host, o, lse,
+                         scratch, tickets, B, L, H, KV, split, st);
     case 256:
-      return launch<256>(q, k, v, valid, valid_kind, valid_host, o, scratch,
-                         tickets, B, L, H, KV, split, st);
+      return launch<256>(q, k, v, valid, valid_kind, valid_host, o, lse,
+                         scratch, tickets, B, L, H, KV, split, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

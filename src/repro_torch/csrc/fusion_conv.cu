@@ -2,8 +2,9 @@
 //
 //   out[t, c] = sum_k f_g[t, k] W[k, c] + sum_k f_l[t, k] W[C + k, c]
 //
-// with f_g, f_l [T, C] and W [2C, C] row-major.  The concatenation
-// [f_g, f_l] is never built: the contraction walks K = 2C and takes its
+// with f_g, f_l [T, C] and W [2C, N] row-major: N = C, or N = C / m for
+// the column block a tensor-parallel rank holds, which writes out [T, N].
+// The concatenation [f_g, f_l] is never built: the contraction walks K = 2C and takes its
 // A operand from f_g for k < C and from f_l for k >= C.
 //
 // Replaces the TPU kernel src/repro/kernels/fusion_conv.py:fusion_conv
@@ -26,7 +27,7 @@
 // channels as float4s (2 + 2 in the large tiling: 16 FFMAs per 128-bit
 // load; a quarter warp shares its A address and reads 8 neighbouring W
 // float4s, so no bank conflicts), the next depth's while this one's FFMAs
-// run.  Where C % 4 != 0 or a pointer is not 16-byte aligned the same
+// run.  Where C % 4 != 0 (or N % 4 != 0) or a pointer is not 16-byte aligned the same
 // kernel loads and stores single floats.  Products are FFMA in f32 (no
 // TF32), every sum is taken in a fixed order, so the result is bitwise
 // repeatable and follows the f32 reference up to summation order.
@@ -110,7 +111,7 @@ template <typename P>
 __global__ void __launch_bounds__(P::THREADS, 1)
 fusion_conv_kernel(const float* __restrict__ fg, const float* __restrict__ fl,
                    const float* __restrict__ w, float* __restrict__ out,
-                   int T, int C, int vec) {
+                   int T, int C, int N, int vec) {
   constexpr int BM = P::BM, BN = P::BN, BK = P::BK, AS = P::AS;
   constexpr int TM = P::TM, TN = P::TN, NTM = P::NTM, NTN = P::NTN;
   constexpr int KQ = P::KQ;
@@ -172,13 +173,13 @@ fusion_conv_kernel(const float* __restrict__ fg, const float* __restrict__ fl,
       const int k = s * BK + kr;
       float* dst = &Bs[kr * BN + n - n0];
       if (vec) {
-        const bool ok = k < K && n < C;
-        cp_async16(dst, ok ? w + (size_t)k * C + n : w, ok);
+        const bool ok = k < K && n < N;
+        cp_async16(dst, ok ? w + (size_t)k * N + n : w, ok);
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const bool ok = k < K && n + i < C;
-          cp_async4(dst + i, ok ? w + (size_t)k * C + n + i : w, ok);
+          const bool ok = k < K && n + i < N;
+          cp_async4(dst + i, ok ? w + (size_t)k * N + n + i : w, ok);
         }
       }
     }
@@ -259,19 +260,19 @@ fusion_conv_kernel(const float* __restrict__ fg, const float* __restrict__ fl,
   for (int i = 0; i < TM; ++i) {
     const int t = t0 + (i / 4) * NTM * 4 + tm * 4 + i % 4;
     if (t >= T) continue;
-    float* row = out + (size_t)t * C;
+    float* row = out + (size_t)t * N;
 #pragma unroll
     for (int j = 0; j < TN; j += 4) {
       const int n = n0 + (j / 4) * NTN * 4 + tn * 4;
       if (vec) {
-        if (n < C)
+        if (n < N)
           *reinterpret_cast<float4*>(&row[n]) =
               make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
                           acc[i][j + 3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (n + e < C) row[n + e] = acc[i][j + e];
+          if (n + e < N) row[n + e] = acc[i][j + e];
       }
     }
   }
@@ -279,7 +280,7 @@ fusion_conv_kernel(const float* __restrict__ fg, const float* __restrict__ fl,
 
 template <typename P>
 int launch(const float* fg, const float* fl, const float* w, float* out,
-           int T, int C, int vec, cudaStream_t stream) {
+           int T, int C, int N, int vec, cudaStream_t stream) {
   constexpr size_t smem = P::FLOATS * sizeof(float);
   if constexpr (smem > 48 * 1024) {
     static bool attr_set = false;
@@ -291,9 +292,9 @@ int launch(const float* fg, const float* fl, const float* w, float* out,
       attr_set = true;
     }
   }
-  dim3 grid((T + P::BM - 1) / P::BM, (C + P::BN - 1) / P::BN);
+  dim3 grid((T + P::BM - 1) / P::BM, (N + P::BN - 1) / P::BN);
   fusion_conv_kernel<P><<<grid, P::THREADS, smem, stream>>>(fg, fl, w, out, T,
-                                                           C, vec);
+                                                           C, N, vec);
   return (int)cudaGetLastError();
 }
 
@@ -301,19 +302,20 @@ int launch(const float* fg, const float* fl, const float* w, float* out,
 
 extern "C" {
 
-// f_g, f_l [T, C], w [2C, C] and out [T, C] on the device, f32, row-major
-// and contiguous; plan 0 takes the small tiling, 1 the large one.  Returns
-// cudaGetLastError().
+// f_g, f_l [T, C], w [2C, N] and out [T, N] on the device, f32, row-major
+// and contiguous (N = C for the whole operator; N < C for a column block of
+// w, as a tensor-parallel rank holds); plan 0 takes the small tiling, 1 the
+// large one.  Returns cudaGetLastError().
 int fusion_conv_f32(const float* fg, const float* fl, const float* w,
-                    float* out, int T, int C, int plan, void* stream) {
-  if (T < 1 || C < 1 || (plan != 0 && plan != 1))
+                    float* out, int T, int C, int N, int plan, void* stream) {
+  if (T < 1 || C < 1 || N < 1 || (plan != 0 && plan != 1))
     return (int)cudaErrorInvalidValue;
   const uintptr_t addr = (uintptr_t)fg | (uintptr_t)fl | (uintptr_t)w |
                          (uintptr_t)out;
-  const int vec = C % 4 == 0 && addr % 16 == 0;
+  const int vec = C % 4 == 0 && N % 4 == 0 && addr % 16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return plan == 1 ? launch<Large>(fg, fl, w, out, T, C, vec, st)
-                   : launch<Small>(fg, fl, w, out, T, C, vec, st);
+  return plan == 1 ? launch<Large>(fg, fl, w, out, T, C, N, vec, st)
+                   : launch<Small>(fg, fl, w, out, T, C, N, vec, st);
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@ from repro_torch.core.fusion import fusion_aggregate, fusion_apply, fusion_init
 from repro_torch.core.losses import cross_entropy, l2_tree_distance
 from repro_torch.core.mmd import mmd_loss
 from repro_torch.fl.api.algorithm import Algorithm, register_algorithm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 aux for the CNNs)
 
@@ -25,11 +25,18 @@ __all__ = ["AUX_WEIGHT", "classify_loss", "FedAvg", "FedMMD", "FedL2",
            "FedFusion"]
 
 
+def _mp(bundle):
+    """The bundle's ``model``-axis context (a tensor-parallel LM), or
+    None."""
+    return getattr(bundle, "mp", None)
+
+
 def classify_loss(bundle, local, batch):
     """Plain single-stream forward: (cls_loss, labels, out)."""
     labels = bundle.labels(batch)
     out = bundle.apply(local, batch)
-    cls = cross_entropy(out["logits"], labels) + AUX_WEIGHT * out["aux"]
+    cls = cross_entropy(out["logits"], labels, _mp(bundle)) \
+        + AUX_WEIGHT * out["aux"]
     return cls, labels, out
 
 
@@ -65,14 +72,31 @@ class FedMMD(Algorithm):
         return cls + reg, {"cls": cls, "mmd": reg}
 
 
+def _l2_distance(bundle, local, global_model):
+    """``l2_tree_distance``; on a tensor-parallel bundle the split leaves'
+    part is summed over ``model`` (each rank holds its blocks)."""
+    mp = _mp(bundle)
+    if mp is None:
+        return l2_tree_distance(local, global_model)
+    from repro_torch.launch.tp import model_dim, reduce_from_model
+    split = tree_leaves(tree_map(lambda x, s: model_dim(s) is not None,
+                                 local, bundle.tp.specs))
+    pairs = list(zip(tree_leaves(local), tree_leaves(global_model), split))
+    whole = l2_tree_distance([a for a, _, s in pairs if not s],
+                             [b for _, b, s in pairs if not s])
+    part = l2_tree_distance([a for a, _, s in pairs if s],
+                            [b for _, b, s in pairs if s])
+    return whole + reduce_from_model(torch.as_tensor(part), mp)
+
+
 class FedL2(Algorithm):
     name = "fedl2"
 
     def local_loss(self, bundle, fl, trainable, global_model, batch,
                    cached_feats_g=None):
         cls, _, _ = classify_loss(bundle, trainable["model"], batch)
-        reg = fl.l2_lambda * l2_tree_distance(trainable["model"],
-                                              global_model)
+        reg = fl.l2_lambda * _l2_distance(bundle, trainable["model"],
+                                          global_model)
         return cls + reg, {"cls": cls, "l2": reg}
 
 
@@ -95,9 +119,9 @@ class FedFusion(Algorithm):
         feats_g = _frozen_features(bundle, global_model, batch,
                                    cached_feats_g)
         fused = fusion_apply(fl.fusion_op, trainable["fusion"],
-                             feats_g, feats_l)
+                             feats_g, feats_l, _mp(bundle))
         logits = bundle.head(trainable["model"], fused)
-        loss = cross_entropy(logits, labels) + AUX_WEIGHT * aux
+        loss = cross_entropy(logits, labels, _mp(bundle)) + AUX_WEIGHT * aux
         return loss, {"cls": loss}
 
     def aggregate_extras(self, fl, global_state, stacked, weights,
@@ -120,7 +144,7 @@ class FedFusion(Algorithm):
         # the deployed global model fuses its own features with itself
         # through the aggregated fusion module (E_g = E_l = global)
         fused = fusion_apply(fl.fusion_op, global_state["fusion"],
-                             out["features"], out["features"])
+                             out["features"], out["features"], _mp(bundle))
         return bundle.head(global_state["model"], fused)
 
 

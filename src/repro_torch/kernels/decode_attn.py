@@ -12,7 +12,15 @@ float32.
 On the card ``valid_len`` is best an int32 or int64 tensor on the device:
 the kernel reads it there, so the wrapper neither casts it nor
 synchronises with the host.  A Python int travels as a kernel argument.
-``valid_len`` must be at least 1.
+
+``want_lse=True`` also returns each row's log-sum-exp, lse [B, H] float32
+(one store a row in the kernel): a cache cut into slices over ranks
+(``repro_torch.models.transformer``'s sequence-sharded decode) gives one
+``(o, lse)`` pair a slice, and :func:`merge_partials` combines them into
+the whole call's output.  ``valid_len`` may be 0 (a slice with no valid
+position yet): the kernel then returns o = 0 and lse = -1e30, the plain
+version the mean of v and lse = -1e30 + log L; either way the slice's
+merge weight ``exp(lse - max)`` is 0, and nothing is NaN.
 """
 from __future__ import annotations
 
@@ -43,12 +51,29 @@ class DecodePlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory a block takes
 
 
-def flash_decode_plain(q, k_cache, v_cache, valid_len=None):
-    """[B,1,H,hd] in plain PyTorch: the masked full softmax in float32."""
+def flash_decode_plain(q, k_cache, v_cache, valid_len=None, *,
+                       want_lse=False):
+    """[B,1,H,hd] in plain PyTorch: the masked full softmax in float32
+    (and, with ``want_lse``, each row's log-sum-exp [B, H])."""
     L = k_cache.shape[1]
     mask = torch.arange(L, device=q.device) < (L if valid_len is None
                                                 else valid_len)
-    return masked_softmax_attention(q, k_cache, v_cache, mask[None, :])[0]
+    o, lse = masked_softmax_attention(q, k_cache, v_cache, mask[None, :])
+    if not want_lse:
+        return o
+    return o, lse.reshape(q.shape[0], q.shape[2])
+
+
+def merge_partials(o_parts, lse_parts):
+    """The decode attention of a whole cache from its slices' partials:
+    o_parts [n, B, 1, H, hd] and lse_parts [n, B, H] (one pair a slice, in
+    any order) -> o [B, 1, H, hd], each slice weighted by ``exp(lse -
+    max)`` over the slices.  A slice with no valid position (lse near
+    -1e30) weighs 0."""
+    top = lse_parts.max(dim=0, keepdim=True).values
+    w = torch.exp(lse_parts - top)                        # [n, B, H]
+    num = (w[:, :, None, :, None] * o_parts.float()).sum(0)
+    return (num / w.sum(0)[:, None, :, None]).to(o_parts.dtype)
 
 
 @functools.lru_cache(maxsize=256)
@@ -84,7 +109,7 @@ def _kernel():
     lib = build.load("decode_attn")
     fn = lib.flash_decode_f32
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,12 +147,14 @@ def _check_cache(name, t, dev):
             f"{t.is_contiguous()})")
 
 
-def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None):
+def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None,
+                      want_lse=False):
     """Launches ``csrc/decode_attn.cu`` once: q [B,1,H,hd], caches
     [B,L,KV,hd], contiguous 16-byte aligned float32 on one CUDA device, hd
     in ``HEAD_DIMS``, any rep = H / KV; ``valid_len`` one int32 or int64
-    on the same device, an int, or None (= L).  ``split`` overrides the
-    plan's positions per slice (tests)."""
+    on the same device, an int, or None (= L); 0 is allowed.  ``split``
+    overrides the plan's positions per slice (tests).  Returns o, or
+    ``(o, lse [B, H])`` with ``want_lse``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_decode_cuda needs CUDA tensors, got {dev}")
@@ -165,6 +192,8 @@ def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None):
         split = decode_plan(B, L, KV, rep, hd, build.sm_count(dev.index)).split
     n_split = -(-L // split)
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if want_lse else None)
     scratch, tickets = None, None
     if n_split > 1:
         chunks = -(-n_split // MIN_CHUNK)
@@ -174,19 +203,23 @@ def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None):
     build.launch("flash_decode", _kernel(), dev, q.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), ptr,
                  kind, host, o.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), tickets,
                  B, L, H, KV, hd, split)
     flash_decode_cuda.launches += 1
-    return o
+    return (o, lse) if want_lse else o
 
 
 flash_decode_cuda.launches = 0
 
 
-def flash_decode(q, k_cache, v_cache, valid_len=None):
-    """q [B,1,H,hd]; caches [B,L,KV,hd] -> [B,1,H,hd]: the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU.
-    ``valid_len``: an int, an int tensor or None (= L)."""
+def flash_decode(q, k_cache, v_cache, valid_len=None, *, want_lse=False):
+    """q [B,1,H,hd]; caches [B,L,KV,hd] -> [B,1,H,hd] (and lse [B, H] with
+    ``want_lse``): the CUDA kernel for tensors on the card, the plain
+    version for tensors on the CPU.  ``valid_len``: an int, an int tensor
+    or None (= L)."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, valid_len)
-    return flash_decode_cuda(q, k_cache, v_cache, valid_len)
+        return flash_decode_plain(q, k_cache, v_cache, valid_len,
+                                  want_lse=want_lse)
+    return flash_decode_cuda(q, k_cache, v_cache, valid_len,
+                             want_lse=want_lse)

@@ -67,8 +67,10 @@ def ef_scatter(table, idx, rows):
     return compress_pack.ef_scatter(table, idx, rows)
 
 
-def gqa_flash_decode(q, k_cache, v_cache, valid_len=None):
+def gqa_flash_decode(q, k_cache, v_cache, valid_len=None, *,
+                     want_lse=False):
     """One-token GQA decode attention against a KV cache (K9): q
-    [B,1,H,hd], caches [B,L,KV,hd], positions >= ``valid_len`` masked."""
+    [B,1,H,hd], caches [B,L,KV,hd], positions >= ``valid_len`` masked; with
+    ``want_lse`` also each row's log-sum-exp [B, H]."""
     return flash_decode(q.contiguous(), k_cache.contiguous(),
-                        v_cache.contiguous(), valid_len)
+                        v_cache.contiguous(), valid_len, want_lse=want_lse)

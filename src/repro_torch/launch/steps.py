@@ -1,20 +1,239 @@
-"""The training step of the LM launcher (port of ``repro/launch/steps.py``:
-``build_train_step`` on one device, without shardings)."""
+"""Step builders of the LM launchers (port of ``repro/launch/steps.py``):
+one FL round, prefill and one decode step, on a mesh or on one device.
+
+Each builder returns ``(fn, arg shapes, in layouts, out layouts)``, as the
+JAX builders return ``(fn, arg structs, in shardings, out shardings)``.
+The shapes are the WHOLE arguments' (``torch.Size`` leaves, or ``(shape,
+dtype)`` for batches); a layout is a tree of specs
+(``repro_torch.launch.sharding``).  ``fn`` runs on THIS rank's blocks of
+its arguments (:func:`repro_torch.launch.sharding.shard_tree`) and returns
+this rank's blocks of its outputs: there is no ``jax.jit`` placing the
+pieces.  With ``mesh=None`` the layouts are None and ``fn`` is the
+one-device step, op for op what it was before meshes.
+
+On a mesh the transformer is split over ``model``
+(:class:`repro_torch.launch.tp.TensorParallel`) and a round's clients
+over ``pod`` / ``data`` (:class:`repro_torch.core.aggregate.
+ClientSharding`: each data group trains its clients and the weighted
+average is all-reduced over the ranks that hold the same blocks).  The
+FSDP layout (``client_sequential``, leaves split over ``data`` of size >
+1) is computed, but its step raises ``NotImplementedError``: running it
+waits for the configs that use it (ROADMAP item 13).
+"""
 from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, FLConfig, InputShape
 from repro_torch.core.rounds import make_round_fn
-from repro_torch.launch.specs import input_specs
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.specs import fl_plan, input_specs
+from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import make_bundle
+
+__all__ = ["param_struct", "state_struct", "build_train_step",
+           "build_prefill_step", "build_serve_step", "build_step",
+           "tensor_parallel"]
+
+# the algorithms whose losses a tensor-parallel bundle computes
+TP_ALGORITHMS = ("fedavg", "fedmmd", "fedfusion", "fedl2")
+
+
+def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
+    """The transformer's parameter tree with ``torch.Size`` leaves, as
+    ``tfm.init_params`` draws it (nothing is allocated)."""
+    from repro_torch.models.transformer import cycle_split
+    d, hd = cfg.d_model, cfg.head_dim
+    c, n_full, rem = cycle_split(cfg.block_pattern)
+
+    def layer(lead):
+        S = lambda *s: torch.Size(lead + s)
+        ffn = {"w1": S(d, cfg.d_ff), "w2": S(cfg.d_ff, d)}
+        if cfg.act == "silu":
+            ffn["w3"] = S(d, cfg.d_ff)
+        return {"ln1": {"scale": S(d)},
+                "attn": {"wq": S(d, cfg.n_heads * hd),
+                         "wk": S(d, cfg.n_kv_heads * hd),
+                         "wv": S(d, cfg.n_kv_heads * hd),
+                         "wo": S(cfg.n_heads * hd, d)},
+                "ln2": {"scale": S(d)}, "ffn": ffn}
+
+    params = {"embed": {"table": torch.Size((cfg.vocab_size, d))},
+              "final_norm": {"scale": torch.Size((d,))},
+              "cycles": tuple(layer((n_full,)) for _ in range(c)),
+              "tail": tuple(layer(()) for _ in range(rem))}
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": torch.Size((d, cfg.vocab_size))}
+    return params
+
+
+@functools.lru_cache(maxsize=64)
+def _extra_shapes(cfg: ArchConfig, fl: FLConfig):
+    from repro_torch.core.local import _algorithm
+    from repro_torch.tree import tree_map
+    extra = _algorithm(fl).init_extra_state(make_bundle(cfg), fl,
+                                            torch.Generator())
+    return tree_map(lambda t: t.shape, extra)
+
+
+def state_struct(cfg: ArchConfig, fl: FLConfig) -> Dict[str, Any]:
+    """``{"model": param_struct, **extras}``: the global state's shapes
+    (the algorithm's extra state is drawn once on the CPU for its shapes,
+    and the shapes kept)."""
+    return {"model": param_struct(cfg), **_extra_shapes(cfg, fl)}
+
+
+def tensor_parallel(mesh, specs, cache_specs=None):
+    """The :class:`repro_torch.launch.tp.TensorParallel` of this rank on
+    ``mesh`` for a model with parameter specs ``specs``."""
+    from repro_torch.launch.tp import ModelParallel, TensorParallel
+    return TensorParallel(ModelParallel(mesh), specs, cache_specs)
+
+
+def _fsdp_split(mesh, shapes, specs) -> bool:
+    """Whether some leaf of ``shapes`` is split over a ``data`` axis of
+    more than one rank under ``specs``."""
+    from repro_torch.launch.mesh import axis_size
+    if axis_size(mesh, "data") <= 1:
+        return False
+    found = []
+    sh.tree_with_path(lambda path, _: found.append(any(
+        "data" in sh.spec_axes(e) for e in sh.spec_at(specs, path))), shapes)
+    return any(found)
 
 
 def build_train_step(cfg: ArchConfig, fl: FLConfig, shape: InputShape,
-                     dtype=torch.float32):
+                     mesh=None, dtype=torch.float32):
     """One FL round (paper Alg. 1/2) of ``cfg``'s bundle in its
-    ``fl_mode``.  Returns (round_fn, batch specs): ``round_fn(state,
-    batch, n_examples, lr) -> (state, {"local_loss"})`` runs on the
-    state's device; the specs are :func:`launch.specs.input_specs`."""
-    round_fn = make_round_fn(make_bundle(cfg, dtype), fl, cfg.fl_mode)
-    return round_fn, input_specs(cfg, shape)
+    ``fl_mode``.  Returns ``(round_fn, (state, batch, n_examples, lr)
+    shapes, in layouts, out layouts)``: ``round_fn(state, batch,
+    n_examples, lr) -> (state, {"local_loss"})`` on this rank's blocks
+    (the state's, its clients' batch [C_loc, steps, B, S] and n_examples
+    [C_loc]), on the state's device."""
+    mode = cfg.fl_mode
+    state_shapes = state_struct(cfg, fl)
+    batch_shapes = input_specs(cfg, shape, mesh)
+    plan = fl_plan(cfg, shape, mesh)
+    args = (state_shapes, batch_shapes,
+            (torch.Size((plan.n_clients,)), torch.float32),
+            (torch.Size(()), torch.float32))
+    if mesh is None:
+        round_fn = make_round_fn(make_bundle(cfg, dtype), fl, mode)
+        return round_fn, args, None, None
+    if fl.algorithm not in TP_ALGORITHMS:
+        raise NotImplementedError(
+            f"{fl.algorithm}: a tensor-parallel round runs "
+            f"{TP_ALGORITHMS} only")
+    fsdp = mode == "client_sequential"
+    state_specs = sh.param_shardings(mesh, state_shapes, fsdp=fsdp)
+    if fsdp and _fsdp_split(mesh, state_shapes, state_specs):
+        raise NotImplementedError(
+            f"{cfg.name}: the FSDP layout (client_sequential, leaves split "
+            f"over data) runs with the configs that use it (ROADMAP item "
+            f"13: qwen2-vl-7b, recurrentgemma-9b, arctic-480b); its specs "
+            f"are launch.sharding.param_shardings(..., fsdp=True)")
+    batch_specs = sh.train_batch_shardings(
+        mesh, {k: torch.Size(v[0]) for k, v in batch_shapes.items()})
+    nex_spec = sh.train_batch_shardings(mesh, args[2][0])
+    from repro_torch.engine.sharded import client_sharding
+    tp = tensor_parallel(mesh, state_specs["model"])
+    round_fn = make_round_fn(make_bundle(cfg, dtype, tp), fl, mode,
+                             shard=client_sharding(mesh))
+    in_layouts = (state_specs, batch_specs, nex_spec, ())
+    out_layouts = (state_specs, {"local_loss": ()})
+    return round_fn, args, in_layouts, out_layouts
+
+
+def _gather_v(cfg, logits, tp):
+    """Logits whole on V (serving's layout): the head's V blocks gathered
+    over ``model`` where the head is split."""
+    if not tfm.head_split(cfg, tp):
+        return logits
+    return tp.mp.all_gather(logits, -1)
+
+
+def build_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None,
+                       dtype=torch.float32, *, max_len: Optional[int] = None,
+                       last_only: bool = False):
+    """Prefill: the prompt's forward, producing logits and the KV cache
+    (of ``max_len`` positions, default the prompt's).  Returns
+    ``(prefill, (params, batch) shapes, in layouts, (logits, cache)
+    layouts)``; ``prefill(params, batch) -> (logits [B_loc, S, V],
+    cache)`` on this rank's blocks, the logits whole on V (``last_only``:
+    the last position's only, [B_loc, V], as the serving loop reads)."""
+    B, S = shape.global_batch, shape.seq_len
+    max_len = max_len or S
+    params_shapes = param_struct(cfg)
+    batch_shapes = input_specs(cfg, shape, mesh, dtype)
+    cache_shapes = tfm.cache_struct(cfg, B, max_len)
+    logits_shape = torch.Size((B, cfg.vocab_size) if last_only
+                              else (B, S, cfg.vocab_size))
+    tp = None
+    layouts_in = layouts_out = None
+    if mesh is not None:
+        params_specs = sh.param_shardings(mesh, params_shapes, fsdp=False,
+                                          ep=cfg.serve_expert_parallel)
+        cache_specs = sh.cache_shardings(mesh, cache_shapes)
+        tp = tensor_parallel(mesh, params_specs, cache_specs)
+        layouts_in = (params_specs, sh.serve_batch_shardings(
+            mesh, {k: torch.Size(v[0]) for k, v in batch_shapes.items()}))
+        layouts_out = (sh.serve_batch_shardings(mesh, logits_shape),
+                       cache_specs)
+
+    def prefill(params, batch):
+        out = tfm.forward_seq(cfg, params, batch, want_cache=True,
+                              want_logits=False, max_cache_len=max_len,
+                              tp=tp)
+        feats = out["features"][:, -1] if last_only else out["features"]
+        logits = tfm.head_apply(cfg, params,
+                                tfm.head_input(cfg, feats, tp), tp)
+        return _gather_v(cfg, logits, tp), out["cache"]
+
+    return (prefill, (params_shapes, batch_shapes), layouts_in, layouts_out)
+
+
+def build_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None,
+                     dtype=torch.float32):
+    """Decode: ONE new token against a cache of ``shape.seq_len``.
+    Returns ``(serve, (params, tokens, cache, pos) shapes, in layouts,
+    (logits, cache) layouts)``; ``serve(params, tokens [B_loc, 1], cache,
+    pos) -> (logits [B_loc, 1, V], cache)`` on this rank's blocks, the
+    logits whole on V and the cache updated in place.  ``pos`` is best a
+    0-d int64 on the device: the step then never waits for the host."""
+    B, S = shape.global_batch, shape.seq_len
+    params_shapes = param_struct(cfg)
+    cache_shapes = tfm.cache_struct(cfg, B, S)
+    tok_shape = torch.Size((B, 1))
+    args = (params_shapes, (tok_shape, torch.int64), cache_shapes,
+            (torch.Size(()), torch.int64))
+    tp = None
+    layouts_in = layouts_out = None
+    if mesh is not None:
+        params_specs = sh.param_shardings(mesh, params_shapes, fsdp=False,
+                                          ep=cfg.serve_expert_parallel)
+        cache_specs = sh.cache_shardings(mesh, cache_shapes)
+        tp = tensor_parallel(mesh, params_specs, cache_specs)
+        tok_specs = sh.serve_batch_shardings(mesh, tok_shape)
+        layouts_in = (params_specs, tok_specs, cache_specs, ())
+        layouts_out = (sh.serve_batch_shardings(
+            mesh, torch.Size((B, 1, cfg.vocab_size))), cache_specs)
+
+    def serve(params, tokens, cache, pos):
+        logits, cache = tfm.decode_step(cfg, params, tokens, cache, pos,
+                                        tp=tp)
+        return _gather_v(cfg, logits, tp), cache
+
+    serve.tp = tp
+    return serve, args, layouts_in, layouts_out
+
+
+def build_step(cfg: ArchConfig, fl: FLConfig, shape: InputShape, mesh=None,
+               dtype=torch.float32):
+    if shape.kind == "train":
+        return build_train_step(cfg, fl, shape, mesh, dtype)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, dtype)
+    return build_serve_step(cfg, shape, mesh, dtype)

@@ -9,7 +9,13 @@ Usage (on the card; ``--device cpu`` runs the plain versions):
 Without ``--engine`` each round is one ``launch.steps.build_train_step``
 round on batches drawn, as the JAX loop draws them, with
 ``np.random.default_rng(0)`` from a ``source_partition`` of
-``token_stream``, at ``exp_decay_per_round(lr, 0.995)``.  With
+``token_stream``, at ``exp_decay_per_round(lr, 0.995)``.  A process that is
+one rank of several (``torchrun --nproc-per-node=N``) runs the round on
+:func:`mesh_from_devices`'s mesh, the JAX launcher's rule: the model
+split over ``model``, the round's clients over ``data``; each rank draws
+the whole round's batch and state from the same seeds and cuts its block
+(``launch.sharding.shard_tree``), and only rank 0 prints.  A lone process
+keeps the one-device round.  With
 ``--engine`` (:func:`run_engine`) the same model trains through
 :class:`repro_torch.fl.api.FederatedTrainer` on a federated token dataset
 (each chunk a CUDA graph replay on the card), with the engine-only flags
@@ -42,6 +48,7 @@ from repro_torch.data.federated import ChaosConfig, FederatedDataset
 from repro_torch.data.partition import source_partition
 from repro_torch.data.synth import token_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.launch.specs import fl_plan
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.registry import make_bundle
@@ -54,24 +61,62 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def mesh_shape_for(n: int) -> Tuple[Tuple[int, int], Tuple[str, str]]:
+    """The JAX launcher's mesh for ``n`` devices: ``model`` the largest of
+    16, 8, 4, 2, 1 that divides ``n``, the rest ``data``."""
+    model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0 and m <= n)
+    return (n // model, model), ("data", "model")
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    return (dist.get_world_size() if dist.is_initialized()
+            else int(os.environ.get("WORLD_SIZE", "1")))
+
+
+def mesh_from_devices(device=None):
+    """:func:`mesh_shape_for` over every rank of the process group (made
+    from ``torchrun``'s environment if there is none yet), on ``device``'s
+    backend (NCCL on the card, gloo for ``"cpu"``)."""
+    from repro_torch.launch.mesh import _ensure_process_group, make_mesh
+    _ensure_process_group(resolve_device(device).type)
+    shape, axes = mesh_shape_for(_world_size())
+    return make_mesh(shape, axes, device=device)
+
+
 def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
                  rounds: int, device=None, global_state=None,
-                 log: Optional[Callable[[str], None]] = print
-                 ) -> Tuple[Dict, List[Dict]]:
+                 log: Optional[Callable[[str], None]] = print, mesh=None,
+                 plan=None) -> Tuple[Dict, List[Dict]]:
     """The launcher's round loop on ``device`` (None: the card).
 
     ``global_state``: the initial state (e.g. converted from the JAX
-    package); None draws one from seed 0 on the device.  Each round is
-    timed on the host clock between device synchronisations.  Returns
-    (final state, one ``{"round", "loss", "ms"}`` record per round)."""
+    package); None draws one from seed 0 on the device.  ``mesh``: run
+    each round on this rank's blocks (``build_train_step(..., mesh)``);
+    every rank passes the same whole ``global_state`` (or none).  ``plan``
+    overrides ``fl_plan(cfg, shape, mesh)`` (to run a mesh's round on one
+    device).  Each round is timed on the host clock between device
+    synchronisations.  Returns (final state, whole on every rank; one
+    ``{"round", "loss", "ms"}`` record per round)."""
     device = resolve_device(device)
-    round_fn, _ = build_train_step(cfg, fl, shape)
-    plan = fl_plan(cfg, shape)
+    round_fn, _, layouts, _ = build_train_step(cfg, fl, shape, mesh)
+    plan = plan or fl_plan(cfg, shape, mesh)
     if global_state is None:
         global_state = init_global_state(
             make_bundle(cfg), fl,
             torch.Generator(device=device).manual_seed(0), device)
-    state = tree_map(lambda t: t.to(device), global_state)
+
+    def cut(tree, specs):
+        """Copies of this rank's blocks of ``tree`` (one device: all), so
+        the whole can be freed."""
+        if mesh is None:
+            return tree
+        return tree_map(lambda t: t.clone(memory_format=torch
+                                          .contiguous_format),
+                        sh.shard_tree(tree, specs, mesh))
+
+    state = cut(tree_map(lambda t: t.to(device), global_state),
+                layouts and layouts[0])
 
     toks, src = token_stream(
         max(plan.n_clients * plan.client_batch * 4, 64), shape.seq_len,
@@ -79,7 +124,8 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
     parts = source_partition(toks, src, plan.n_clients)
     rng = np.random.default_rng(0)
     lr_at = exp_decay_per_round(fl.lr, 0.995)
-    nex = torch.ones((plan.n_clients,), dtype=torch.float32, device=device)
+    nex = cut(torch.ones((plan.n_clients,), dtype=torch.float32,
+                         device=device), layouts and layouts[2])
 
     def make_batch():
         per = []
@@ -88,8 +134,9 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
             idx = rng.choice(len(pool), (plan.local_steps, plan.client_batch))
             per.append(pool[idx])
         arr = torch.from_numpy(np.stack(per)).long()   # [C, steps, B, S+1]
-        return {"tokens": arr[..., :-1].to(device),
-                "labels": arr[..., 1:].to(device)}
+        batch = cut({"tokens": arr[..., :-1], "labels": arr[..., 1:]},
+                    layouts and layouts[1])
+        return {k: v.to(device) for k, v in batch.items()}
 
     records = []
     for r in range(rounds):
@@ -103,6 +150,8 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
         records.append({"round": r + 1, "loss": loss, "ms": ms})
         if log is not None:
             log(f"round {r + 1:3d}  loss={loss:.4f}  {ms:.0f} ms")
+    if mesh is not None:
+        state = sh.gather_tree(state, layouts[0], mesh)
     return state, records
 
 
@@ -111,10 +160,7 @@ def _engine_mesh(device):
     is one rank of several (an initialised process group, or ``torchrun``'s
     ``WORLD_SIZE``), else ``(None, 1)``: a lone process is one shard, and
     needs no process group."""
-    import torch.distributed as dist
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
-    if world <= 1:
+    if _world_size() <= 1:
         return None, 1
     from repro_torch.launch.mesh import client_position, make_engine_mesh
     mesh = make_engine_mesh(device=device)
@@ -316,10 +362,21 @@ def main(argv=None):
             fl, clients_per_round=4, local_batch=args.global_batch))
     shape = InputShape("custom_train", args.seq_len, args.global_batch,
                        "train")
-    print(f"device {device} arch={cfg.name} ({cfg.param_count() / 1e6:.1f}M "
-          f"params) attn_impl={cfg.attn_impl} algorithm={fl.algorithm}")
-    train_rounds(cfg, fl, shape, rounds=args.rounds, device=device)
-    print("done")
+    mesh = mesh_from_devices(device) if _world_size() > 1 else None
+    lead = mesh is None or mesh.get_rank() == 0
+    say = print if lead else None
+    if lead:
+        print(f"device {device} arch={cfg.name} "
+              f"({cfg.param_count() / 1e6:.1f}M params) "
+              f"attn_impl={cfg.attn_impl} algorithm={fl.algorithm}"
+              + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                 if mesh is not None else ""))
+    if mesh is not None and mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    train_rounds(cfg, fl, shape, rounds=args.rounds, device=device,
+                 mesh=mesh, log=say)
+    if lead:
+        print("done")
 
 
 if __name__ == "__main__":

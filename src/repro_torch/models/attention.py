@@ -28,17 +28,72 @@ def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim,
     }
 
 
-def project_qkv(params, x, n_heads, n_kv_heads, head_dim):
+def head_parallel(n_heads, n_kv_heads, mp) -> bool:
+    """Whether a layer split over ``model`` runs its heads in parallel:
+    each rank's column block of ``wq`` / ``wk`` / ``wv`` (and row block of
+    ``wo``) is whole heads.  Otherwise the JAX layouts may cut inside a
+    head (smollm-135m's ``wk`` [576, 192] at m = 16 gives 12 columns a
+    rank; gemma3-1b's one KV head is cut at m = 2), where GSPMD reshards:
+    the port gathers the projection's blocks instead (:func:`project_qkv`)."""
+    m = 1 if mp is None else mp.size
+    return m > 1 and n_heads % m == 0 and n_kv_heads % m == 0
+
+
+def _split(spec, mp):
+    from repro_torch.launch.tp import model_dim
+    return (mp is not None and mp.active and spec is not None
+            and model_dim(spec) is not None)
+
+
+def project_qkv(params, x, n_heads, n_kv_heads, head_dim, *, mp=None,
+                specs=None, gather=False):
+    """q [B,S,H,hd], k / v [B,S,KV,hd] from x [B,S,d].
+
+    Tensor-parallel (``mp`` of more than one rank, ``specs`` the leaves'
+    specs): head-parallel layers (:func:`head_parallel`) return this
+    rank's heads, H / m and KV / m of them, unless ``gather``; other
+    layers, and ``gather=True``, return all heads on every rank, each
+    split projection's column blocks joined by
+    ``tp.gather_from_model``.  A projection whose leaf is replicated runs
+    whole; its output is copied to ``model`` (its gradient then arrives in
+    rank-dependent parts, from this rank's block of the heads, and is
+    summed there)."""
+    from repro_torch.launch.tp import copy_to_model, gather_from_model
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, n_kv_heads, head_dim)
-    return q, k, v
+    if mp is None or not mp.active or specs is None:
+        q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+        k = (x @ params["wk"]).reshape(B, S, n_kv_heads, head_dim)
+        v = (x @ params["wv"]).reshape(B, S, n_kv_heads, head_dim)
+        return q, k, v
+    xin = copy_to_model(x, mp)
+    local = head_parallel(n_heads, n_kv_heads, mp) and not gather
+    out = []
+    for name, heads in (("wq", n_heads), ("wk", n_kv_heads),
+                        ("wv", n_kv_heads)):
+        if _split(specs[name], mp):
+            y = xin @ params[name]
+            if not local:
+                y = gather_from_model(y, -1, mp)
+        else:
+            y = copy_to_model(x @ params[name], mp)
+        out.append(y.reshape(B, S, -1, head_dim))
+    return tuple(out)
 
 
-def project_out(params, o):
+def project_out(params, o, *, mp=None, specs=None):
+    """o [B,S,H',hd] @ wo.  Tensor-parallel with ``wo`` split on its rows:
+    o holds this rank's heads (H' = H / m, head-parallel) or all heads, of
+    which this rank feeds its block of columns to its rows; the products
+    are reduced over ``model``."""
+    from repro_torch.launch.tp import reduce_from_model
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ params["wo"]
+    o = o.reshape(B, S, -1)
+    if not _split(specs["wo"] if specs is not None else None, mp):
+        return o @ params["wo"]
+    rows = params["wo"].shape[0]
+    if o.shape[-1] != rows:
+        o = o[..., mp.rank * rows:(mp.rank + 1) * rows]
+    return reduce_from_model(o @ params["wo"], mp)
 
 
 def flash_attention(q, k, v, *, window=None, q_offset=0, causal=True):

@@ -70,14 +70,31 @@ def mlp_init(generator, d_model, d_ff, act, dtype=torch.float32):
     return p
 
 
-def mlp_apply(params, x, act):
-    h = x @ params["w1"]
+def mlp_apply(params, x, act, *, mp=None, specs=None):
+    """The MLP on ``x``.  Tensor-parallel (``mp`` a
+    :class:`repro_torch.launch.tp.ModelParallel` of more than one rank,
+    ``specs`` the leaves' specs): each leaf's spec says its rule.  ``w1`` /
+    ``w3`` split on their output dim are column-parallel (their input
+    copied to ``model``), ``w2`` split on its input dim row-parallel (its
+    output reduced); a replicated leaf makes no collective.  The JAX
+    layouts split the three together or none of them."""
+    from repro_torch.launch.tp import (copy_to_model, model_dim,
+                                       reduce_from_model)
+    split = (mp is not None and mp.active and specs is not None
+             and model_dim(specs["w1"]) == len(specs["w1"]) - 1)
+    if split != (mp is not None and mp.active and specs is not None
+                 and model_dim(specs["w2"]) == len(specs["w2"]) - 2):
+        raise ValueError(f"mlp_apply: w1 {specs['w1']} and w2 "
+                         f"{specs['w2']} must split d_ff together")
+    xin = copy_to_model(x, mp) if split else x
+    h = xin @ params["w1"]
     if act == "silu":
-        h = F.silu(h) * (x @ params["w3"])
+        h = F.silu(h) * (xin @ params["w3"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    return h @ params["w2"]
+    out = h @ params["w2"]
+    return reduce_from_model(out, mp) if split else out
 
 
 def embed_init(generator, vocab, d_model, dtype=torch.float32):

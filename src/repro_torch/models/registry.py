@@ -10,11 +10,14 @@ The FL core is written against this protocol:
     bundle.labels(batch)             -> targets for the loss
     bundle.loss_kind                 -> 'lm' | 'classify'
     bundle.feature_channels          -> fusion channel width C
+    bundle.tp                        -> None, or the LM's
+                                        launch.tp.TensorParallel: params
+                                        are then this rank's blocks
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -35,14 +38,27 @@ class ModelBundle:
     labels: Callable[[Dict[str, Any]], Any]
     loss_kind: str
     feature_channels: int
+    tp: Optional[Any] = None
+
+    @property
+    def mp(self):
+        """The ``model``-axis context when the bundle is split, else None."""
+        return self.tp.mp if self.tp is not None and self.tp.active \
+            else None
 
 
-def make_bundle(cfg: Union[ArchConfig, CNNConfig], dtype=torch.float32
-                ) -> ModelBundle:
+def make_bundle(cfg: Union[ArchConfig, CNNConfig], dtype=torch.float32,
+                tp=None) -> ModelBundle:
+    """The bundle of ``cfg``.  ``tp`` (a
+    :class:`repro_torch.launch.tp.TensorParallel`, LMs only): the bundle
+    runs on this rank's parameter blocks, its logits split on V where the
+    head is; ``init`` still draws the whole model (the caller cuts it)."""
     if isinstance(cfg, CNNConfig):
+        if tp is not None:
+            raise NotImplementedError("the CNNs are not tensor-parallel")
         return _cnn_bundle(cfg, dtype)
     if isinstance(cfg, ArchConfig):
-        return _transformer_bundle(cfg, dtype)
+        return _transformer_bundle(cfg, dtype, tp)
     raise NotImplementedError(f"{type(cfg).__name__}: make_bundle builds "
                               "the CNNs (CNNConfig) and the transformer LMs "
                               "(ArchConfig) only")
@@ -70,19 +86,22 @@ def _cnn_bundle(cfg: CNNConfig, dtype) -> ModelBundle:
         loss_kind="classify", feature_channels=cfg.conv_channels[-1])
 
 
-def _transformer_bundle(cfg: ArchConfig, dtype) -> ModelBundle:
+def _transformer_bundle(cfg: ArchConfig, dtype, tp=None) -> ModelBundle:
     def init(generator):
         return tfm.init_params(cfg, generator, dtype, generator.device)
 
     def extract(params, batch):
-        out = tfm.forward_seq(cfg, params, batch, want_logits=False)
+        out = tfm.forward_seq(cfg, params, batch, want_logits=False, tp=tp)
         return out["features"], out["aux"]
 
     def head(params, feats):
-        return tfm.head_apply(cfg, params, feats)
+        # under tp, ``feats`` must be ready for a head split on V (their
+        # gradient summed over ``model`` where they were made):
+        # ``tfm.head_input``'s, or FedFusion's ``fusion_apply``'s
+        return tfm.head_apply(cfg, params, feats, tp)
 
     def apply(params, batch):
-        return tfm.forward_seq(cfg, params, batch)
+        return tfm.forward_seq(cfg, params, batch, tp=tp)
 
     def pool(feats):           # [B,S,d] -> [B,d]
         return feats.mean(dim=1)
@@ -97,7 +116,7 @@ def _transformer_bundle(cfg: ArchConfig, dtype) -> ModelBundle:
     return ModelBundle(
         name=cfg.name, config=cfg, init=init, extract=extract, head=head,
         apply=apply, pool=pool, labels=labels, loss_kind="lm",
-        feature_channels=cfg.d_model)
+        feature_channels=cfg.d_model, tp=tp)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos):

@@ -28,6 +28,25 @@ JAX package returns a new cache from ``dynamic_update_slice``.
 through the per-cycle indexing, and under ``attn_impl == "pallas"`` the
 attention backward is K8b / K8c (``kernels/flash_attn.py``).
 
+Tensor parallelism (``tp=``, a :class:`repro_torch.launch.tp.TensorParallel`
+whose ``model`` axis has more than one rank): the parameters are this
+rank's blocks under ``launch.sharding.param_shardings`` and every layer
+follows its leaves' specs (``models.layers.mlp_apply``,
+``models.attention.project_qkv`` / ``project_out``).  The token table
+[V, d] is split on V: the lookup shifts the ids into the rank's range,
+zeroes the rows it does not own and sums over ``model``; the head's
+logits come out split on V (``core.losses.cross_entropy`` takes them so;
+serving gathers them).  The cache is the rank's block under
+``launch.sharding.cache_shardings``: its length L split over ``model``
+(and over the batch axes at batch 1).  A decode step gathers q, k and v
+to all heads, writes the new k and v into the slice that owns the slot
+without a branch (every rank runs the same ops, and the one that does
+not own the slot writes back what it holds), runs K9 on its slice up to
+``clamp(valid - offset, 0, L_loc)`` with each row's log-sum-exp, and
+merges the slices' ``(o, lse)`` pairs (``kernels.decode_attn.
+merge_partials``) after one all-gather.  Nothing in a step syncs with the
+host or branches on the device's ``pos``, so a step can be captured.
+
 Not ported yet, and refused with ``NotImplementedError``: MoE FFNs, SSD and
 RG-LRU blocks, the encoder and cross-attention, VLM and audio inputs
 (M-RoPE, stub embeddings), and ``remat`` (ROADMAP Queue 1, slice 6).
@@ -42,7 +61,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attn import flash_decode_plain, merge_partials
 from repro_torch.kernels.flash_attn import make_flash_attention
+from repro_torch.launch.sharding import spec_axes
+from repro_torch.launch.tp import copy_to_model, model_dim, reduce_from_model
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init)
@@ -113,14 +135,6 @@ def _layer_init(generator, cfg: ArchConfig, dtype):
     }
 
 
-def _layer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                      dtype, device):
-    L = max_len if kind == ATTN_GLOBAL else min(cfg.sliding_window, max_len)
-    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 def _apply_rope_any(cfg: ArchConfig, q, k, positions):
     if cfg.rope_theta <= 0:
         return q, k
@@ -129,24 +143,53 @@ def _apply_rope_any(cfg: ArchConfig, q, k, positions):
                       partial_pct=cfg.partial_rotary_pct)
 
 
+def _mp(tp):
+    """The model-axis context of ``tp`` when it splits anything, else None."""
+    return tp.mp if tp is not None and tp.active else None
+
+
 def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
-               max_len):
-    """Sequence-mode attention layer. Returns (h, cache_or_None)."""
+               max_len, tp=None, ps=None, cache_spec=None):
+    """Sequence-mode attention layer. Returns (h, cache_or_None).  ``ps``:
+    the layer's parameter specs, ``cache_spec`` its cache's k spec (under
+    ``tp``)."""
     nk = _norm_kind(cfg)
+    mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
     q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim)
+                               cfg.head_dim, mp=mp,
+                               specs=None if ps is None else ps["attn"])
     q, k = _apply_rope_any(cfg, q, k, positions)
     window = cfg.sliding_window if kind == ATTN_LOCAL else None
     if cfg.attn_impl == "pallas":
         o = make_flash_attention(causal=True, window=window)(q, k, v)
     else:
         o = attn.flash_attention(q, k, v, window=window)
-    h = h + attn.project_out(p["attn"], o)
-    cache = _seq_kv_to_cache(cfg, kind, k, v, max_len) if want_cache \
-        else None
+    h = h + attn.project_out(p["attn"], o, mp=mp,
+                             specs=None if ps is None else ps["attn"])
+    cache = None
+    if want_cache:
+        if mp is not None and k.shape[2] != cfg.n_kv_heads:
+            with torch.no_grad():     # head-parallel: the cache holds all
+                k = mp.all_gather(k, 2)
+                v = mp.all_gather(v, 2)
+        cache = _seq_kv_to_cache(cfg, kind, k, v, max_len)
+        if tp is not None and cache_spec is not None:
+            cache = {n: _l_block(t, cache_spec, tp) for n, t in cache.items()}
     hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
-    return h + mlp_apply(p["ffn"], hn2, cfg.act), cache
+    return h + mlp_apply(p["ffn"], hn2, cfg.act, mp=mp,
+                         specs=None if ps is None else ps["ffn"]), cache
+
+
+def _l_block(t, spec, tp):
+    """This rank's slice of a [B, L, KV, hd] cache tensor along L under
+    the k spec ``spec`` (the batch arrives already split)."""
+    _, n, position = tp.mp.place(spec_axes(spec[1]))
+    if n == 1:
+        return t
+    L_loc = t.shape[1] // n
+    return t[:, position * L_loc:(position + 1) * L_loc].clone(
+        memory_format=torch.contiguous_format)
 
 
 def _pad_seq(x, L):
@@ -172,10 +215,14 @@ def _seq_kv_to_cache(cfg, kind, k, v, max_len):
 
 
 def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
-                  positions):
+                  positions, tp=None, ps=None, cache_spec=None):
     """Decode-mode attention layer: h [B,1,d], pos a 0-d int64 tensor on
     h's device.  Writes the new K/V into ``cache`` in place; returns
     (h, cache)."""
+    if tp is not None:
+        return _layer_decode_tp(cfg, kind, p, h, cache, pos=pos,
+                                positions=positions, tp=tp, ps=ps,
+                                cache_spec=cache_spec)
     nk = _norm_kind(cfg)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
     q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
@@ -192,6 +239,48 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
     h = h + attn.project_out(p["attn"], o)
     hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
     return h + mlp_apply(p["ffn"], hn2, cfg.act), cache
+
+
+def _layer_decode_tp(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
+                     positions, tp, ps, cache_spec):
+    """:func:`_layer_decode` on this rank's blocks and cache slice (module
+    docstring): no host sync, no branch on ``pos``."""
+    nk = _norm_kind(cfg)
+    mp = _mp(tp)
+    hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
+    q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, mp=mp, specs=ps["attn"],
+                               gather=True)
+    q, k = _apply_rope_any(cfg, q, k, positions)
+    group, n, position = tp.mp.place(spec_axes(cache_spec[1]))
+    L_loc = cache["k"].shape[1]
+    L = L_loc * n
+    offset = position * L_loc
+    slot = pos % L if kind == ATTN_LOCAL else pos
+    local = slot - offset
+    own = (local >= 0) & (local < L_loc)
+    idx = local.clamp(0, L_loc - 1).reshape(1)
+    for name, new in (("k", k), ("v", v)):
+        old = cache[name].index_select(1, idx)
+        cache[name].index_copy_(1, idx, torch.where(own, new, old))
+    valid = (torch.clamp(pos + 1, max=L) - offset).clamp(0, L_loc)
+    if cfg.attn_impl == "pallas":
+        o, lse = ops.gqa_flash_decode(q, cache["k"], cache["v"], valid,
+                                      want_lse=True)
+    else:
+        o, lse = flash_decode_plain(q, cache["k"], cache["v"], valid,
+                                    want_lse=True)
+    if n > 1:
+        B, _, H, hd = o.shape
+        both = tp.mp.all_gather(
+            torch.cat([o.reshape(B, H * hd), lse], dim=1)[None], 0,
+            group=group, size=n)
+        o = merge_partials(both[:, :, :H * hd].reshape(n, B, 1, H, hd),
+                           both[:, :, H * hd:])
+    h = h + attn.project_out(p["attn"], o, mp=mp, specs=ps["attn"])
+    hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
+    return h + mlp_apply(p["ffn"], hn2, cfg.act, mp=mp,
+                         specs=ps["ffn"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -232,20 +321,58 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # Forward: sequence mode (prefill)
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(cfg, params, batch):
+def _embed_tokens(params, tokens, tp):
+    """The token lookup; vocab-parallel when ``tp`` splits the table on V:
+    each rank looks up the ids in its range, zeroes the others' rows and
+    the sum over ``model`` completes every row."""
     # F.embedding, not ``table[tokens]``: the indexing backward on the CPU
     # (index_put_ with accumulate) adds the rows of repeated tokens in a
     # thread-dependent order, so two equal calls could differ by an ulp;
     # embedding's backward (index_add_) adds them in index order
-    return F.embedding(batch["tokens"], params["embed"]["table"])
+    table = params["embed"]["table"]
+    mp = _mp(tp)
+    if mp is None or model_dim(tp.specs["embed"]["table"]) != 0:
+        return F.embedding(tokens, table)
+    V_loc = table.shape[0]
+    local = tokens - mp.rank * V_loc
+    own = (local >= 0) & (local < V_loc)
+    rows = F.embedding(local.clamp(0, V_loc - 1), table)
+    return reduce_from_model(rows * own.unsqueeze(-1).to(rows.dtype), mp)
+
+
+def _embed_inputs(cfg, params, batch, tp=None):
+    return _embed_tokens(params, batch["tokens"], tp)
+
+
+def _layer_parts(tp, cycle, j):
+    """The parameter and cache specs of a layer of cycle kind ``j``
+    (``cycle``), or of tail layer ``j``: (None, None) without ``tp``."""
+    if tp is None:
+        return None, None
+    group = "cycles" if cycle else "tail"
+    ps = tp.specs[group][j]
+    cs = None if tp.cache_specs is None else tp.cache_specs[group][j]["k"]
+    if cycle:     # drop the stacked (cycle) dim
+        ps = _drop_lead(ps)
+        cs = None if cs is None else cs[1:]
+    return ps, cs
+
+
+def _drop_lead(specs):
+    if isinstance(specs, dict):
+        return {k: _drop_lead(v) for k, v in specs.items()}
+    return specs[1:]
 
 
 def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
-                want_logits=True, max_cache_len: Optional[int] = None):
+                want_logits=True, max_cache_len: Optional[int] = None,
+                tp=None):
     """batch: {'tokens': [B,S] int} -> {'logits'?, 'features', 'aux',
-    'cache'?}; runs on the parameters' device."""
+    'cache'?}; runs on the parameters' device.  Under ``tp`` the logits
+    are this rank's V block and the cache its block under
+    ``tp.cache_specs`` (module docstring)."""
     _check_supported(cfg)
-    h = _embed_inputs(cfg, params, batch)
+    h = _embed_inputs(cfg, params, batch, tp)
     S = h.shape[1]
     max_len = max_cache_len or S
     positions = torch.arange(S, device=h.device)
@@ -254,29 +381,52 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
     for i in range(n_full):
         for j, kind in enumerate(cfg.block_pattern[:c]):
             p = tree_map(lambda x: x[i], params["cycles"][j])
+            ps, cs = _layer_parts(tp, True, j)
             h, cache = _layer_seq(cfg, kind, p, h, positions=positions,
-                                  want_cache=want_cache, max_len=max_len)
+                                  want_cache=want_cache, max_len=max_len,
+                                  tp=tp, ps=ps, cache_spec=cs)
             caches[j].append(cache)
     tail_caches = []
     for j in range(rem):
         kind = cfg.block_pattern[n_full * c + j]
+        ps, cs = _layer_parts(tp, False, j)
         h, cache = _layer_seq(cfg, kind, params["tail"][j], h,
                               positions=positions, want_cache=want_cache,
-                              max_len=max_len)
+                              max_len=max_len, tp=tp, ps=ps, cache_spec=cs)
         tail_caches.append(cache)
 
     feats = norm_apply(_norm_kind(cfg), params["final_norm"], h, cfg.norm_eps)
     out = {"features": feats,
            "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
     if want_logits:
-        out["logits"] = head_apply(cfg, params, feats)
+        out["logits"] = head_apply(cfg, params, head_input(cfg, feats, tp),
+                                   tp)
     if want_cache:
         out["cache"] = {"cycles": tuple(_stack(cs) for cs in caches),
                         "tail": tuple(tail_caches)}
     return out
 
 
-def head_apply(cfg: ArchConfig, params, feats):
+def head_split(cfg, tp) -> bool:
+    if _mp(tp) is None:
+        return False
+    if cfg.tie_embeddings:
+        return model_dim(tp.specs["embed"]["table"]) == 0
+    return model_dim(tp.specs["head"]["w"]) == 1
+
+
+def head_input(cfg: ArchConfig, feats, tp=None):
+    """``feats`` as the head's input: copied to ``model`` where the head is
+    split on V (its gradient then sums the ranks' parts).  Features that
+    come out of ``tp.gather_from_model`` (FedFusion's fused features) go to
+    :func:`head_apply` as they are: the gather's backward sums them."""
+    return copy_to_model(feats, tp.mp) if head_split(cfg, tp) else feats
+
+
+def head_apply(cfg: ArchConfig, params, feats, tp=None):
+    """Logits of ``feats``; under ``tp`` with the head split on V, this
+    rank's block of them (``feats`` must come through :func:`head_input`
+    or a ``gather_from_model``)."""
     if cfg.tie_embeddings:
         return feats @ params["embed"]["table"].T
     return feats @ params["head"]["w"]
@@ -286,33 +436,61 @@ def head_apply(cfg: ArchConfig, params, feats):
 # Decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.float32, device=None):
-    """Zero caches on ``device`` (None: the card).  Each stacked cycle
-    leaf is its own zeroed tensor, never a broadcast view: ``decode_step``
-    writes into it in place."""
-    _check_supported(cfg)
-    device = resolve_device(device)
+def cache_struct(cfg: ArchConfig, batch: int, max_len: int):
+    """The cache tree's leaf shapes (``torch.Size``), as ``init_cache``
+    makes them on one device: what ``launch.sharding.cache_shardings``
+    reads."""
     c, n_full, rem = cycle_split(cfg.block_pattern)
-    cycles = tuple(
-        _stack([_layer_cache_init(cfg, cfg.block_pattern[j], batch, max_len,
-                                  dtype, device) for _ in range(n_full)])
-        for j in range(c))
-    tail = tuple(_layer_cache_init(cfg, cfg.block_pattern[n_full * c + j],
-                                   batch, max_len, dtype, device)
-                 for j in range(rem))
+
+    def layer(kind):
+        L = max_len if kind == ATTN_GLOBAL else min(cfg.sliding_window,
+                                                    max_len)
+        shape = torch.Size((batch, L, cfg.n_kv_heads, cfg.head_dim))
+        return {"k": shape, "v": shape}
+
+    cycles = tuple({n: torch.Size((n_full,) + tuple(t)) for n, t in
+                    layer(cfg.block_pattern[j]).items()} for j in range(c))
+    tail = tuple(layer(cfg.block_pattern[n_full * c + j]) for j in range(rem))
     return {"cycles": cycles, "tail": tail}
 
 
-def decode_step(cfg: ArchConfig, params, tokens, cache, pos):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None, tp=None):
+    """Zero caches on ``device`` (None: the card), shaped as
+    :func:`cache_struct`.  Each leaf is its own zeroed tensor, never a
+    broadcast view: ``decode_step`` writes into it in place.  Under ``tp``
+    (with ``cache_specs`` for this ``batch`` and ``max_len``) each leaf is
+    this rank's block: its share of the batch and of the cache length."""
+    from repro_torch.launch.sharding import tree_with_path
+    _check_supported(cfg)
+    device = resolve_device(device)
+
+    def zeros(path, shape):
+        if tp is not None:
+            spec = tp.cache_specs
+            for p in path:
+                spec = spec[p]
+            shape = [d // tp.mp.place(spec_axes(e))[1]
+                     for d, e in zip(shape, spec)]
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return tree_with_path(zeros, cache_struct(cfg, batch, max_len))
+
+
+def decode_step(cfg: ArchConfig, params, tokens, cache, pos, tp=None):
     """tokens [B,1] int; pos the position of this token (an int or a 0-d
     int tensor; best on the device, so a step needs no host copy), below
     the cache length.
 
-    Returns (logits [B,1,V], cache), the cache updated in place.
+    Returns (logits [B,1,V], cache), the cache updated in place.  Under
+    ``tp`` (with ``cache_specs``) the logits are this rank's V block and
+    the cache its block (module docstring).
     """
     _check_supported(cfg)
-    h = params["embed"]["table"][tokens]
+    if tp is not None and tp.cache_specs is None:
+        raise ValueError("decode_step under tp needs the cache's specs "
+                         "(tp.cache_specs: launch.steps.build_serve_step)")
+    h = _embed_tokens(params, tokens, tp)
     pos = torch.as_tensor(pos, device=h.device).long().reshape(())
     positions = pos.expand(h.shape[0], 1)
     c, n_full, rem = cycle_split(cfg.block_pattern)
@@ -320,11 +498,15 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos):
         for j, kind in enumerate(cfg.block_pattern[:c]):
             p = tree_map(lambda x: x[i], params["cycles"][j])
             layer_cache = tree_map(lambda x: x[i], cache["cycles"][j])
+            ps, cs = _layer_parts(tp, True, j)
             h, _ = _layer_decode(cfg, kind, p, h, layer_cache, pos=pos,
-                                 positions=positions)
+                                 positions=positions, tp=tp, ps=ps,
+                                 cache_spec=cs)
     for j in range(rem):
         kind = cfg.block_pattern[n_full * c + j]
+        ps, cs = _layer_parts(tp, False, j)
         h, _ = _layer_decode(cfg, kind, params["tail"][j], h,
-                             cache["tail"][j], pos=pos, positions=positions)
+                             cache["tail"][j], pos=pos, positions=positions,
+                             tp=tp, ps=ps, cache_spec=cs)
     feats = norm_apply(_norm_kind(cfg), params["final_norm"], h, cfg.norm_eps)
-    return head_apply(cfg, params, feats), cache
+    return head_apply(cfg, params, head_input(cfg, feats, tp), tp), cache

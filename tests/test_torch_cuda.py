@@ -20,7 +20,8 @@ gradient is a difference of two sums that cancel in part, held to rtol
 float32 operations as their plain versions and are held with
 ``torch.equal``.  K8a and K9 sum each softmax row in another order than
 the plain versions' full softmax (tiles with online rescaling, cache
-slices merged in a second pass): atol 1e-5 / rtol 1e-4.  K8b and K8c sum
+slices merged in a second pass): atol 1e-5 / rtol 1e-4; K9's
+log-sum-exp atol 1e-5 / rtol 1e-5 (|lse| < 15).  K8b and K8c sum
 dq over up to S keys and dk / dv over up to S * rep rows in another order
 than the plain version's full products: rtol 1e-4 with an atol of 1e-5 of
 each gradient's largest element.
@@ -1294,6 +1295,91 @@ def test_flash_decode_kernel_merges_many_slices(cuda_device, split, valid):
         torch.testing.assert_close(
             tda.flash_decode_cuda(q, k, v, None, split=split), want,
             atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,hd", [(4, 528, 4, 1, 256),
+                                         (4, 256, 4, 1, 256),
+                                         (4, 528, 32, 32, 80),
+                                         (2, 300, 16, 1, 64)])
+@pytest.mark.parametrize("valid", [0, 1, 199, "all"])
+def test_flash_decode_lse_matches_plain(cuda_device, B, L, H, KV, hd,
+                                        valid):
+    """K9's log-sum-exp at a rank's slice of gemma3-1b's global cache
+    (1,056 in two) and ring (512 in two), stablelm-3b's, and a slice
+    merged over several windows: o and lse against the plain version, o
+    bit-equal to the call without lse.  An empty slice (valid 0) gives a
+    finite o and lse = -1e30, whose merge weight is 0."""
+    valid = L if valid == "all" else valid
+    rng = np.random.default_rng(L + valid + hd)
+    q = _randn(rng, (B, 1, H, hd), cuda_device)
+    k = _randn(rng, (B, L, KV, hd), cuda_device)
+    v = _randn(rng, (B, L, KV, hd), cuda_device)
+    vl = torch.tensor(valid, device=cuda_device)
+    split = 7 if L == 300 else None
+    before = tda.flash_decode_cuda.launches
+    o, lse = tda.flash_decode_cuda(q, k, v, vl, want_lse=True, split=split)
+    torch.cuda.synchronize()
+    assert tda.flash_decode_cuda.launches == before + 1
+    assert lse.shape == (B, H) and lse.dtype == torch.float32
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, tda.flash_decode_cuda(q, k, v, vl, split=split))
+    want_o, want_lse = tda.flash_decode_plain(q, k, v, valid, want_lse=True)
+    if valid == 0:
+        assert (lse == -1e30).all() and (o == 0).all()
+        assert (want_lse < -1e29).all()
+        return
+    torch.testing.assert_close(o, want_o, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("valid", [1, 300, 1056])
+def test_flash_decode_slices_merge_to_the_whole(cuda_device, n, valid):
+    """gemma3-1b's global cache cut into ``n`` slices, each attended by K9
+    up to ``clamp(valid - offset, 0, L_loc)`` with its lse, merged: equal
+    to one K9 call over the whole cache (empty slices included)."""
+    B, L, H, KV, hd = 4, 1056, 4, 1, 256
+    rng = np.random.default_rng(valid + n)
+    q = _randn(rng, (B, 1, H, hd), cuda_device)
+    k = _randn(rng, (B, L, KV, hd), cuda_device)
+    v = _randn(rng, (B, L, KV, hd), cuda_device)
+    whole = tda.flash_decode_cuda(q, k, v, valid)
+    L_loc = L // n
+    parts = [tda.flash_decode_cuda(
+        q, k[:, r * L_loc:(r + 1) * L_loc].contiguous(),
+        v[:, r * L_loc:(r + 1) * L_loc].contiguous(),
+        torch.tensor(max(0, min(valid - r * L_loc, L_loc)),
+                     device=cuda_device), want_lse=True) for r in range(n)]
+    got = tda.merge_partials(torch.stack([o for o, _ in parts]),
+                             torch.stack([x for _, x in parts]))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, whole, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C,m", [(8192, 576, 2), (490, 64, 2),
+                                   (4096, 2560, 2), (33, 30, 2),
+                                   (8192, 576, 16)])
+def test_fusion_conv_kernel_takes_a_column_block(cuda_device, T, C, m):
+    """K2 on a tensor-parallel rank's column block of W [2C, C/m]
+    (smollm-135m's fusion at m = 2: N = 288; stablelm-3b's; N % 4 != 0 on
+    the scalar path), against the plain version and the whole operator's
+    columns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fg, fl, w = (torch.from_numpy(a).to(cuda_device)
+                 for a in fusion_inputs((T,), C, T + C + m))
+    N = C // m
+    block = w[:, N:2 * N].contiguous()
+    got = tfc.fusion_conv_cuda(fg, fl, block)
+    assert got.shape == (T, N)
+    want = tfc.fusion_conv_plain(fg, fl, block)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    full = tfc.fusion_conv_cuda(fg, fl, w)
+    torch.testing.assert_close(got, full[:, N:2 * N], rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
 
 
 @pytest.mark.cuda

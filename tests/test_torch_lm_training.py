@@ -219,7 +219,7 @@ def test_launch_train_rounds_match_jax_round_fn(name, algorithm):
     plan = specs.fl_plan(tcfg, shape)
     assert (plan.n_clients, plan.local_steps, plan.client_batch) == (1, 2, 4)
     want_spec = ((1, 2, 4, 16), torch.int64)
-    assert steps.build_train_step(tcfg, FLConfig(**fl_kw), shape)[1] == {
+    assert steps.build_train_step(tcfg, FLConfig(**fl_kw), shape)[1][1] == {
         "tokens": want_spec, "labels": want_spec}
     # the launcher's data draws, on the JAX side
     toks, src = j_token_stream(64, 16, vocab=jcfg.vocab_size, n_sources=1)

@@ -157,7 +157,7 @@ is non-zero):
    all-reduces a replay; gemma3-1b at full width and depth, FedAvg, 2 of 4
    clients a round at 2 x 1,024 (its 512-token local window binds), 4
    rounds in 2-round chunks; ``launch.train --engine --scale full`` on
-   smollm-135m (4 rounds at 128, batch 2, ``superstep_rounds="auto"``);
+   smollm-135m (4 rounds at 512, batch 2, ``superstep_rounds="auto"``);
 4h. tensor parallelism on the one card: (b) a one-rank NCCL (1, 1) mesh
    through ``launch.steps``' builders, a smollm-135m launcher round and a
    serving run bit-equal to ``mesh=None``; (a) two worker processes
@@ -1905,7 +1905,7 @@ LM_GEMMA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=2,
 # on an H100); at 0.02 every algorithm trains
 LM_ENGINE_LR = 0.02
 LM_TRAIN_ARGS = ["--engine", "--scale", "full", "--arch", "smollm-135m",
-                 "--seq-len", "128", "--global-batch", "2", "--rounds", "4"]
+                 "--seq-len", "512", "--global-batch", "2", "--rounds", "4"]
 
 
 def lm_engine_cfg(get_config):

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import copy_to_model, gather_from_model, model_dim
 from repro_torch.tree import tree_map
 
 FUSION_OPS = ("conv", "multi", "single")
@@ -39,27 +40,24 @@ def fusion_init(op: str, channels: int, generator: torch.Generator,
     raise ValueError(op)
 
 
-def fusion_apply(op: str, params, f_g, f_l, mp=None):
-    """The fused features.  Tensor-parallel (``mp`` of more than one rank,
-    the streams replicated): ``conv``'s W [2C, C] is split on its columns
-    by the JAX layouts' generic ``w`` rule where m divides C, so K2 runs on
-    this rank's block [2C, C/m] and the blocks are gathered over
-    ``model``; a W left whole, and the gates, run whole on every rank.
-    Either way the result feeds a head split on V as it is (its gradient,
-    which arrives in rank-dependent parts, is summed here)."""
-    from repro_torch.launch.tp import (copy_to_model, gather_from_model,
-                                       model_dim)
-    if mp is None or not mp.active:
+def fusion_apply(op: str, params, f_g, f_l, tp=None):
+    """The fused features.  Tensor-parallel (``tp`` a
+    :class:`repro_torch.parallel.TensorParallel` of more than one rank, the
+    streams replicated): ``conv``'s W [2C, C] split on its columns (its
+    spec ``tp.specs["fusion"]["w"]``; the JAX layouts' generic ``w`` rule
+    splits it where m divides C) runs K2 on this rank's block [2C, C/m],
+    and the blocks are gathered over ``model``; a W left whole, and the
+    gates, run whole on every rank.  Either way the result feeds a head
+    split on V as it is (its gradient, which arrives in rank-dependent
+    parts, is summed here)."""
+    if tp is None or not tp.active:
         if op == "conv":
             return ops.fused_fusion_conv(f_g, f_l, params["w"])
         lam = params["lam"]
         return lam * f_g + (1.0 - lam) * f_l
+    mp = tp.mp
     if op == "conv":
-        from repro_torch.launch.sharding import param_pspec
-        C = f_g.shape[-1]
-        spec = param_pspec(("fusion", "w"), torch.Size((2 * C, C)),
-                           mp.mesh, fsdp=False)
-        if model_dim(spec) == 1:
+        if model_dim(tp.specs["fusion"]["w"]) == 1:
             block = ops.fused_fusion_conv(copy_to_model(f_g, mp),
                                           copy_to_model(f_l, mp),
                                           params["w"])

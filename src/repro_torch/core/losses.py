@@ -47,7 +47,7 @@ class _VocabParallelCE(torch.autograd.Function):
 
 def cross_entropy(logits, labels, mp=None):
     """logits [..., V]; labels [...] int -> scalar mean CE.  With ``mp``
-    (a :class:`repro_torch.launch.tp.ModelParallel` of more than one
+    (a :class:`repro_torch.parallel.ModelParallel` of more than one
     rank) the logits are this rank's block of V, as a head split on V
     gives them."""
     if mp is not None and mp.active:

@@ -17,12 +17,19 @@ from repro_torch.core.fusion import fusion_aggregate, fusion_apply, fusion_init
 from repro_torch.core.losses import cross_entropy, l2_tree_distance
 from repro_torch.core.mmd import mmd_loss
 from repro_torch.fl.api.algorithm import Algorithm, register_algorithm
+from repro_torch.parallel import model_dim, reduce_from_model
 from repro_torch.tree import tree_leaves, tree_map
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 aux for the CNNs)
 
 __all__ = ["AUX_WEIGHT", "classify_loss", "FedAvg", "FedMMD", "FedL2",
            "FedFusion"]
+
+
+def _tp(bundle):
+    """The bundle's tensor-parallel context (an LM split over ``model``),
+    or None."""
+    return getattr(bundle, "tp", None)
 
 
 def _mp(bundle):
@@ -78,9 +85,8 @@ def _l2_distance(bundle, local, global_model):
     mp = _mp(bundle)
     if mp is None:
         return l2_tree_distance(local, global_model)
-    from repro_torch.launch.tp import model_dim, reduce_from_model
     split = tree_leaves(tree_map(lambda x, s: model_dim(s) is not None,
-                                 local, bundle.tp.specs))
+                                 local, bundle.tp.model_specs))
     pairs = list(zip(tree_leaves(local), tree_leaves(global_model), split))
     whole = l2_tree_distance([a for a, _, s in pairs if not s],
                              [b for _, b, s in pairs if not s])
@@ -119,7 +125,7 @@ class FedFusion(Algorithm):
         feats_g = _frozen_features(bundle, global_model, batch,
                                    cached_feats_g)
         fused = fusion_apply(fl.fusion_op, trainable["fusion"],
-                             feats_g, feats_l, _mp(bundle))
+                             feats_g, feats_l, _tp(bundle))
         logits = bundle.head(trainable["model"], fused)
         loss = cross_entropy(logits, labels, _mp(bundle)) + AUX_WEIGHT * aux
         return loss, {"cls": loss}
@@ -144,7 +150,7 @@ class FedFusion(Algorithm):
         # the deployed global model fuses its own features with itself
         # through the aggregated fusion module (E_g = E_l = global)
         fused = fusion_apply(fl.fusion_op, global_state["fusion"],
-                             out["features"], out["features"], _mp(bundle))
+                             out["features"], out["features"], _tp(bundle))
         return bundle.head(global_state["model"], fused)
 
 

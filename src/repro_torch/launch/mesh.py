@@ -4,7 +4,7 @@ A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 ranks of the default process group, one process a rank.  The engine
 shards the round's client axis over the mesh's ``pod`` and ``data`` axes
 and treats ``model`` as replicated; the tensor-parallel LM layouts
-(``repro_torch.launch.sharding``, ``repro_torch.launch.tp``) also split
+(``repro_torch.launch.sharding``, ``repro_torch.parallel``) also split
 the transformer over ``model``.  On the card the backend is NCCL; a
 mesh asked for on the CPU (``device="cpu"``) uses gloo.  A process that
 initialised its own default group (gloo, say, for two ranks on one card,
@@ -35,7 +35,8 @@ from repro_torch.device import resolve_device
 __all__ = ["MeshSpec", "make_mesh", "make_host_mesh", "make_engine_mesh",
            "make_production_mesh", "production_shape", "batch_axes",
            "client_axes", "axis_size", "axis_sizes", "client_position",
-           "client_group", "axes_group", "axes_position", "mesh_device"]
+           "client_group", "axes_group", "axes_position", "axes_place",
+           "mesh_device"]
 
 _CLIENT_AXES = ("pod", "data")
 
@@ -241,6 +242,21 @@ def axes_position(mesh, axes):
     for a, s in zip(axes, sizes):
         position = position * s + coord[names.index(a)]
     return sizes, position
+
+
+def axes_place(mesh, axes):
+    """``(group, size, position)`` over those of ``axes`` the mesh has:
+    :func:`axes_group` (None where they hold one rank), the product of
+    their sizes and :func:`axes_position`'s index, what
+    ``repro_torch.parallel.ModelParallel`` asks of a mesh."""
+    axes = tuple(a for a in axes if a in axis_names(mesh))
+    if not axes:
+        return None, 1, 0
+    sizes, position = axes_position(mesh, axes)
+    n = 1
+    for s in sizes:
+        n *= s
+    return (axes_group(mesh, axes) if n > 1 else None), n, position
 
 
 def client_group(mesh):

@@ -46,13 +46,15 @@ def make_prompts(cfg, batch, prompt_len, seed=0, device=None):
 
 
 def prefill(cfg, params, tokens, max_len):
-    """Runs the prompt through the model, filling the KV cache.  Returns
-    (the last position's logits [B, V], the cache).  Only the last row
-    goes through the head (the serving loop reads nothing else)."""
-    out = tfm.forward_seq(cfg, params, {"tokens": tokens}, want_cache=True,
-                          want_logits=False, max_cache_len=max_len)
-    last = tfm.head_apply(cfg, params, out["features"][:, -1])
-    return last, out["cache"]
+    """Runs the prompt through the model on one device, filling a KV cache
+    of ``max_len`` positions: ``build_prefill_step(..., last_only=True)``.
+    Returns (the last position's logits [B, V], the cache).  Only the last
+    row goes through the head (the serving loop reads nothing else)."""
+    B, S = tokens.shape
+    pre = build_prefill_step(cfg, InputShape("serve_prefill", S, B,
+                                             "prefill"),
+                             max_len=max_len, last_only=True)[0]
+    return pre(params, {"tokens": tokens})
 
 
 def serve_steps(cfg, batch, prompt_len, gen_len, mesh=None):

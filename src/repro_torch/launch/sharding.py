@@ -34,6 +34,8 @@ from __future__ import annotations
 from typing import Any, Optional
 
 from repro_torch.launch.mesh import axis_names, axis_sizes
+from repro_torch.parallel import spec_axes
+from repro_torch.tree import tree_with_path
 
 __all__ = ["shard_if", "param_pspec", "param_shardings",
            "train_batch_shardings", "serve_batch_shardings",
@@ -57,18 +59,6 @@ def shard_if(dim: int, mesh, name) -> Optional[str]:
 
 def _names_of(path) -> list:
     return [f"#{p}" if isinstance(p, int) else str(p) for p in path]
-
-
-def tree_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict / list / tuple tree, the port's
-    ``jax.tree_util.tree_map_with_path``.  Only plain lists and tuples are
-    nodes: a ``torch.Size`` (a shape standing for a leaf) is a leaf."""
-    if isinstance(tree, dict):
-        return {k: tree_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if type(tree) in (list, tuple):
-        return type(tree)(tree_with_path(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 # matrices whose FIRST dim is the contraction (d_model-like) axis and whose
@@ -236,13 +226,6 @@ def replicated(mesh, struct):
 # ---------------------------------------------------------------------------
 # Blocks: this rank's piece of the whole, and the whole back
 # ---------------------------------------------------------------------------
-
-def spec_axes(entry) -> tuple:
-    """The mesh axes one spec entry splits its dim over, major to minor."""
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, tuple) else (entry,)
-
 
 def _block_index(entry, mesh):
     """(number of blocks, this rank's block) of a dim split by ``entry``."""

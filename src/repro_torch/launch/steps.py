@@ -12,7 +12,7 @@ pieces.  With ``mesh=None`` the layouts are None and ``fn`` is the
 one-device step, op for op what it was before meshes.
 
 On a mesh the transformer is split over ``model``
-(:class:`repro_torch.launch.tp.TensorParallel`) and a round's clients
+(:class:`repro_torch.parallel.TensorParallel`) and a round's clients
 over ``pod`` / ``data`` (:class:`repro_torch.core.aggregate.
 ClientSharding`: each data group trains its clients and the weighted
 average is all-reduced over the ranks that hold the same blocks).  The
@@ -87,10 +87,13 @@ def state_struct(cfg: ArchConfig, fl: FLConfig) -> Dict[str, Any]:
 
 
 def tensor_parallel(mesh, specs, cache_specs=None):
-    """The :class:`repro_torch.launch.tp.TensorParallel` of this rank on
-    ``mesh`` for a model with parameter specs ``specs``."""
-    from repro_torch.launch.tp import ModelParallel, TensorParallel
-    return TensorParallel(ModelParallel(mesh), specs, cache_specs)
+    """The :class:`repro_torch.parallel.TensorParallel` of this rank on
+    ``mesh`` for a state with specs ``specs`` (``{"model": ..., **the
+    algorithm's extra state}``)."""
+    from repro_torch.launch.mesh import axes_place
+    from repro_torch.parallel import ModelParallel, TensorParallel
+    return TensorParallel(ModelParallel(functools.partial(axes_place, mesh)),
+                          specs, cache_specs)
 
 
 def _fsdp_split(mesh, shapes, specs) -> bool:
@@ -139,7 +142,7 @@ def build_train_step(cfg: ArchConfig, fl: FLConfig, shape: InputShape,
         mesh, {k: torch.Size(v[0]) for k, v in batch_shapes.items()})
     nex_spec = sh.train_batch_shardings(mesh, args[2][0])
     from repro_torch.engine.sharded import client_sharding
-    tp = tensor_parallel(mesh, state_specs["model"])
+    tp = tensor_parallel(mesh, state_specs)
     round_fn = make_round_fn(make_bundle(cfg, dtype, tp), fl, mode,
                              shard=client_sharding(mesh))
     in_layouts = (state_specs, batch_specs, nex_spec, ())
@@ -177,7 +180,7 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None,
         params_specs = sh.param_shardings(mesh, params_shapes, fsdp=False,
                                           ep=cfg.serve_expert_parallel)
         cache_specs = sh.cache_shardings(mesh, cache_shapes)
-        tp = tensor_parallel(mesh, params_specs, cache_specs)
+        tp = tensor_parallel(mesh, {"model": params_specs}, cache_specs)
         layouts_in = (params_specs, sh.serve_batch_shardings(
             mesh, {k: torch.Size(v[0]) for k, v in batch_shapes.items()}))
         layouts_out = (sh.serve_batch_shardings(mesh, logits_shape),
@@ -215,7 +218,7 @@ def build_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None,
         params_specs = sh.param_shardings(mesh, params_shapes, fsdp=False,
                                           ep=cfg.serve_expert_parallel)
         cache_specs = sh.cache_shardings(mesh, cache_shapes)
-        tp = tensor_parallel(mesh, params_specs, cache_specs)
+        tp = tensor_parallel(mesh, {"model": params_specs}, cache_specs)
         tok_specs = sh.serve_batch_shardings(mesh, tok_shape)
         layouts_in = (params_specs, tok_specs, cache_specs, ())
         layouts_out = (sh.serve_batch_shardings(
@@ -226,7 +229,6 @@ def build_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None,
                                         tp=tp)
         return _gather_v(cfg, logits, tp), cache
 
-    serve.tp = tp
     return serve, args, layouts_in, layouts_out
 
 

@@ -84,23 +84,50 @@ def mesh_from_devices(device=None):
     return make_mesh(shape, axes, device=device)
 
 
+def round_batches(cfg: ArchConfig, shape: InputShape, plan):
+    """The launcher's data: a function that draws one round's whole batch,
+    ``{"tokens", "labels"}`` int64 [n_clients, local_steps, client_batch,
+    seq_len] on the CPU, from the seeded token stream split over
+    ``plan.n_clients`` sources (the same draws on every rank)."""
+    toks, src = token_stream(
+        max(plan.n_clients * plan.client_batch * 4, 64), shape.seq_len,
+        vocab=cfg.vocab_size, n_sources=plan.n_clients)
+    parts = source_partition(toks, src, plan.n_clients)
+    rng = np.random.default_rng(0)
+
+    def draw():
+        per = []
+        for c in range(plan.n_clients):
+            pool = parts[c]["tokens"]
+            idx = rng.choice(len(pool), (plan.local_steps, plan.client_batch))
+            per.append(pool[idx])
+        arr = torch.from_numpy(np.stack(per)).long()   # [C, steps, B, S+1]
+        return {"tokens": arr[..., :-1], "labels": arr[..., 1:]}
+
+    return draw
+
+
+def round_lr(fl: FLConfig):
+    """The launcher's learning rate of round r (from 0)."""
+    return exp_decay_per_round(fl.lr, 0.995)
+
+
 def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
                  rounds: int, device=None, global_state=None,
-                 log: Optional[Callable[[str], None]] = print, mesh=None,
-                 plan=None) -> Tuple[Dict, List[Dict]]:
+                 log: Optional[Callable[[str], None]] = print,
+                 mesh=None) -> Tuple[Dict, List[Dict]]:
     """The launcher's round loop on ``device`` (None: the card).
 
     ``global_state``: the initial state (e.g. converted from the JAX
     package); None draws one from seed 0 on the device.  ``mesh``: run
     each round on this rank's blocks (``build_train_step(..., mesh)``);
-    every rank passes the same whole ``global_state`` (or none).  ``plan``
-    overrides ``fl_plan(cfg, shape, mesh)`` (to run a mesh's round on one
-    device).  Each round is timed on the host clock between device
-    synchronisations.  Returns (final state, whole on every rank; one
-    ``{"round", "loss", "ms"}`` record per round)."""
+    every rank passes the same whole ``global_state`` (or none).  Each
+    round is timed on the host clock between device synchronisations.
+    Returns (final state, whole on every rank; one ``{"round", "loss",
+    "ms"}`` record per round)."""
     device = resolve_device(device)
     round_fn, _, layouts, _ = build_train_step(cfg, fl, shape, mesh)
-    plan = plan or fl_plan(cfg, shape, mesh)
+    plan = fl_plan(cfg, shape, mesh)
     if global_state is None:
         global_state = init_global_state(
             make_bundle(cfg), fl,
@@ -118,24 +145,13 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
     state = cut(tree_map(lambda t: t.to(device), global_state),
                 layouts and layouts[0])
 
-    toks, src = token_stream(
-        max(plan.n_clients * plan.client_batch * 4, 64), shape.seq_len,
-        vocab=cfg.vocab_size, n_sources=plan.n_clients)
-    parts = source_partition(toks, src, plan.n_clients)
-    rng = np.random.default_rng(0)
-    lr_at = exp_decay_per_round(fl.lr, 0.995)
+    draw = round_batches(cfg, shape, plan)
+    lr_at = round_lr(fl)
     nex = cut(torch.ones((plan.n_clients,), dtype=torch.float32,
                          device=device), layouts and layouts[2])
 
     def make_batch():
-        per = []
-        for c in range(plan.n_clients):
-            pool = parts[c]["tokens"]
-            idx = rng.choice(len(pool), (plan.local_steps, plan.client_batch))
-            per.append(pool[idx])
-        arr = torch.from_numpy(np.stack(per)).long()   # [C, steps, B, S+1]
-        batch = cut({"tokens": arr[..., :-1], "labels": arr[..., 1:]},
-                    layouts and layouts[1])
+        batch = cut(draw(), layouts and layouts[1])
         return {k: v.to(device) for k, v in batch.items()}
 
     records = []

@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.kernels.flash_attn import masked_softmax_attention
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import (copy_to_model, gather_from_model,
+                                  model_dim, reduce_from_model)
 
 
 def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim,
@@ -40,7 +42,6 @@ def head_parallel(n_heads, n_kv_heads, mp) -> bool:
 
 
 def _split(spec, mp):
-    from repro_torch.launch.tp import model_dim
     return (mp is not None and mp.active and spec is not None
             and model_dim(spec) is not None)
 
@@ -54,11 +55,10 @@ def project_qkv(params, x, n_heads, n_kv_heads, head_dim, *, mp=None,
     rank's heads, H / m and KV / m of them, unless ``gather``; other
     layers, and ``gather=True``, return all heads on every rank, each
     split projection's column blocks joined by
-    ``tp.gather_from_model``.  A projection whose leaf is replicated runs
+    ``parallel.gather_from_model``.  A projection whose leaf is replicated runs
     whole; its output is copied to ``model`` (its gradient then arrives in
     rank-dependent parts, from this rank's block of the heads, and is
     summed there)."""
-    from repro_torch.launch.tp import copy_to_model, gather_from_model
     B, S, _ = x.shape
     if mp is None or not mp.active or specs is None:
         q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
@@ -85,7 +85,6 @@ def project_out(params, o, *, mp=None, specs=None):
     o holds this rank's heads (H' = H / m, head-parallel) or all heads, of
     which this rank feeds its block of columns to its rows; the products
     are reduced over ``model``."""
-    from repro_torch.launch.tp import reduce_from_model
     B, S = o.shape[:2]
     o = o.reshape(B, S, -1)
     if not _split(specs["wo"] if specs is not None else None, mp):

@@ -9,6 +9,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import copy_to_model, model_dim, reduce_from_model
+
 
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale=None):
@@ -72,14 +74,12 @@ def mlp_init(generator, d_model, d_ff, act, dtype=torch.float32):
 
 def mlp_apply(params, x, act, *, mp=None, specs=None):
     """The MLP on ``x``.  Tensor-parallel (``mp`` a
-    :class:`repro_torch.launch.tp.ModelParallel` of more than one rank,
+    :class:`repro_torch.parallel.ModelParallel` of more than one rank,
     ``specs`` the leaves' specs): each leaf's spec says its rule.  ``w1`` /
     ``w3`` split on their output dim are column-parallel (their input
     copied to ``model``), ``w2`` split on its input dim row-parallel (its
     output reduced); a replicated leaf makes no collective.  The JAX
     layouts split the three together or none of them."""
-    from repro_torch.launch.tp import (copy_to_model, model_dim,
-                                       reduce_from_model)
     split = (mp is not None and mp.active and specs is not None
              and model_dim(specs["w1"]) == len(specs["w1"]) - 1)
     if split != (mp is not None and mp.active and specs is not None

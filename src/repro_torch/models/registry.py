@@ -11,7 +11,7 @@ The FL core is written against this protocol:
     bundle.loss_kind                 -> 'lm' | 'classify'
     bundle.feature_channels          -> fusion channel width C
     bundle.tp                        -> None, or the LM's
-                                        launch.tp.TensorParallel: params
+                                        parallel.TensorParallel: params
                                         are then this rank's blocks
 """
 from __future__ import annotations
@@ -50,7 +50,7 @@ class ModelBundle:
 def make_bundle(cfg: Union[ArchConfig, CNNConfig], dtype=torch.float32,
                 tp=None) -> ModelBundle:
     """The bundle of ``cfg``.  ``tp`` (a
-    :class:`repro_torch.launch.tp.TensorParallel`, LMs only): the bundle
+    :class:`repro_torch.parallel.TensorParallel`, LMs only): the bundle
     runs on this rank's parameter blocks, its logits split on V where the
     head is; ``init`` still draws the whole model (the caller cuts it)."""
     if isinstance(cfg, CNNConfig):

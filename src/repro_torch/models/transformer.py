@@ -15,10 +15,10 @@ loop indexes them.
 (``kernels/flash_attn.py``) for the sequence path and K9
 (``ops.gqa_flash_decode``) for decode attention.  The JAX package passes
 no kernel to ``decode_attention`` and so runs its flash-decode kernel on
-no path; the port hands it K9 through the ``kernel=`` hook made for it.
-That is the one deliberate difference: the same function, decode attention
-over the cache up to its valid length.  ``attn_impl == "jnp"`` runs plain
-attention in torch ops.
+no path; the port runs K9 there.  That is the one deliberate difference:
+the same function, decode attention over the cache up to its valid
+length.  ``attn_impl == "jnp"`` runs plain attention in torch ops (K9's
+plain version, the masked softmax ``decode_attention`` computes).
 
 ``decode_step`` updates the cache **in place** (the new key and value are
 written into their slot; the returned cache is the same tensors), where the
@@ -28,7 +28,7 @@ JAX package returns a new cache from ``dynamic_update_slice``.
 through the per-cycle indexing, and under ``attn_impl == "pallas"`` the
 attention backward is K8b / K8c (``kernels/flash_attn.py``).
 
-Tensor parallelism (``tp=``, a :class:`repro_torch.launch.tp.TensorParallel`
+Tensor parallelism (``tp=``, a :class:`repro_torch.parallel.TensorParallel`
 whose ``model`` axis has more than one rank): the parameters are this
 rank's blocks under ``launch.sharding.param_shardings`` and every layer
 follows its leaves' specs (``models.layers.mlp_apply``,
@@ -63,13 +63,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attn import flash_decode_plain, merge_partials
 from repro_torch.kernels.flash_attn import make_flash_attention
-from repro_torch.launch.sharding import spec_axes
-from repro_torch.launch.tp import copy_to_model, model_dim, reduce_from_model
+from repro_torch.parallel import (copy_to_model, model_dim,
+                                  reduce_from_model, spec_axes)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init)
 from repro_torch.models.rope import apply_rope
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_with_path
 
 _LATER = "(ROADMAP Queue 1, slice 6: the other model families)"
 
@@ -218,69 +218,52 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                   positions, tp=None, ps=None, cache_spec=None):
     """Decode-mode attention layer: h [B,1,d], pos a 0-d int64 tensor on
     h's device.  Writes the new K/V into ``cache`` in place; returns
-    (h, cache)."""
-    if tp is not None:
-        return _layer_decode_tp(cfg, kind, p, h, cache, pos=pos,
-                                positions=positions, tp=tp, ps=ps,
-                                cache_spec=cache_spec)
-    nk = _norm_kind(cfg)
-    hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
-    q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim)
-    q, k = _apply_rope_any(cfg, q, k, positions)
-    L = cache["k"].shape[1]
-    slot = (pos % L if kind == ATTN_LOCAL else pos).reshape(1)
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
-    valid = torch.clamp(pos + 1, max=L)
-    kernel = ops.gqa_flash_decode if cfg.attn_impl == "pallas" else None
-    o = attn.decode_attention(q, cache["k"], cache["v"], cache_len=valid,
-                              kernel=kernel)
-    h = h + attn.project_out(p["attn"], o)
-    hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
-    return h + mlp_apply(p["ffn"], hn2, cfg.act), cache
-
-
-def _layer_decode_tp(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
-                     positions, tp, ps, cache_spec):
-    """:func:`_layer_decode` on this rank's blocks and cache slice (module
-    docstring): no host sync, no branch on ``pos``."""
+    (h, cache).  Under ``tp`` the layer runs on this rank's blocks and its
+    slice of the cache (module docstring): no host sync, no branch on
+    ``pos``; only whether the cache is split (a Python fact) picks the
+    sliced write and the merge."""
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
     q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim, mp=mp, specs=ps["attn"],
+                               cfg.head_dim, mp=mp,
+                               specs=None if ps is None else ps["attn"],
                                gather=True)
     q, k = _apply_rope_any(cfg, q, k, positions)
-    group, n, position = tp.mp.place(spec_axes(cache_spec[1]))
+    group, n, position = (None, 1, 0) if tp is None else \
+        tp.mp.place(spec_axes(cache_spec[1]))
     L_loc = cache["k"].shape[1]
     L = L_loc * n
-    offset = position * L_loc
     slot = pos % L if kind == ATTN_LOCAL else pos
-    local = slot - offset
-    own = (local >= 0) & (local < L_loc)
-    idx = local.clamp(0, L_loc - 1).reshape(1)
-    for name, new in (("k", k), ("v", v)):
-        old = cache[name].index_select(1, idx)
-        cache[name].index_copy_(1, idx, torch.where(own, new, old))
-    valid = (torch.clamp(pos + 1, max=L) - offset).clamp(0, L_loc)
-    if cfg.attn_impl == "pallas":
-        o, lse = ops.gqa_flash_decode(q, cache["k"], cache["v"], valid,
-                                      want_lse=True)
-    else:
-        o, lse = flash_decode_plain(q, cache["k"], cache["v"], valid,
-                                    want_lse=True)
+    valid = torch.clamp(pos + 1, max=L)
+    if n == 1:
+        cache["k"].index_copy_(1, slot.reshape(1), k)
+        cache["v"].index_copy_(1, slot.reshape(1), v)
+    else:     # every rank writes; one that does not own the slot rewrites
+        offset = position * L_loc
+        local = slot - offset
+        own = (local >= 0) & (local < L_loc)
+        idx = local.clamp(0, L_loc - 1).reshape(1)
+        for name, new in (("k", k), ("v", v)):
+            old = cache[name].index_select(1, idx)
+            cache[name].index_copy_(1, idx, torch.where(own, new, old))
+        valid = (valid - offset).clamp(0, L_loc)
+    decode = (ops.gqa_flash_decode if cfg.attn_impl == "pallas"
+              else flash_decode_plain)
+    o = decode(q, cache["k"], cache["v"], valid, want_lse=n > 1)
     if n > 1:
+        o, lse = o
         B, _, H, hd = o.shape
         both = tp.mp.all_gather(
             torch.cat([o.reshape(B, H * hd), lse], dim=1)[None], 0,
             group=group, size=n)
         o = merge_partials(both[:, :, :H * hd].reshape(n, B, 1, H, hd),
                            both[:, :, H * hd:])
-    h = h + attn.project_out(p["attn"], o, mp=mp, specs=ps["attn"])
+    h = h + attn.project_out(p["attn"], o, mp=mp,
+                             specs=None if ps is None else ps["attn"])
     hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
     return h + mlp_apply(p["ffn"], hn2, cfg.act, mp=mp,
-                         specs=ps["ffn"]), cache
+                         specs=None if ps is None else ps["ffn"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +314,7 @@ def _embed_tokens(params, tokens, tp):
     # embedding's backward (index_add_) adds them in index order
     table = params["embed"]["table"]
     mp = _mp(tp)
-    if mp is None or model_dim(tp.specs["embed"]["table"]) != 0:
+    if mp is None or model_dim(tp.model_specs["embed"]["table"]) != 0:
         return F.embedding(tokens, table)
     V_loc = table.shape[0]
     local = tokens - mp.rank * V_loc
@@ -350,7 +333,7 @@ def _layer_parts(tp, cycle, j):
     if tp is None:
         return None, None
     group = "cycles" if cycle else "tail"
-    ps = tp.specs[group][j]
+    ps = tp.model_specs[group][j]
     cs = None if tp.cache_specs is None else tp.cache_specs[group][j]["k"]
     if cycle:     # drop the stacked (cycle) dim
         ps = _drop_lead(ps)
@@ -411,14 +394,14 @@ def head_split(cfg, tp) -> bool:
     if _mp(tp) is None:
         return False
     if cfg.tie_embeddings:
-        return model_dim(tp.specs["embed"]["table"]) == 0
-    return model_dim(tp.specs["head"]["w"]) == 1
+        return model_dim(tp.model_specs["embed"]["table"]) == 0
+    return model_dim(tp.model_specs["head"]["w"]) == 1
 
 
 def head_input(cfg: ArchConfig, feats, tp=None):
     """``feats`` as the head's input: copied to ``model`` where the head is
     split on V (its gradient then sums the ranks' parts).  Features that
-    come out of ``tp.gather_from_model`` (FedFusion's fused features) go to
+    come out of ``parallel.gather_from_model`` (FedFusion's fused features) go to
     :func:`head_apply` as they are: the gather's backward sums them."""
     return copy_to_model(feats, tp.mp) if head_split(cfg, tp) else feats
 
@@ -461,7 +444,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     broadcast view: ``decode_step`` writes into it in place.  Under ``tp``
     (with ``cache_specs`` for this ``batch`` and ``max_len``) each leaf is
     this rank's block: its share of the batch and of the cache length."""
-    from repro_torch.launch.sharding import tree_with_path
     _check_supported(cfg)
     device = resolve_device(device)
 

@@ -1,6 +1,7 @@
 """Tensor parallelism over the mesh's ``model`` axis: the autograd-aware
 collectives a transformer split over ``model`` runs, and the context that
-carries a rank's place and its layouts into the model.
+carries a rank's place and its layouts into the model.  The models and
+the round code import this module; it imports nothing of the launchers.
 
 The JAX package states its LM layouts as ``PartitionSpec``s
 (``repro_torch.launch.sharding`` ports them) and lets GSPMD insert the
@@ -25,48 +26,42 @@ makes no collective.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["ModelParallel", "TensorParallel", "copy_to_model",
-           "reduce_from_model", "gather_from_model", "model_dim"]
+           "reduce_from_model", "gather_from_model", "model_dim",
+           "spec_axes"]
+
+Place = Tuple[Any, int, int]
 
 
 class ModelParallel:
     """This rank's position and size on the mesh's ``model`` axis, its
     process group there, and groups over other sets of the mesh's axes
-    (the ranks a sequence-sharded cache is split over).  ``collectives``
-    counts the collectives issued through it."""
+    (the ranks a sequence-sharded cache is split over).  ``place_fn(axes)
+    -> (group, size, position)`` answers for the mesh
+    (``repro_torch.launch.mesh.axes_place``); None is one rank.
+    ``collectives`` counts the collectives issued through it."""
 
-    def __init__(self, mesh=None):
-        from repro_torch.launch.mesh import axis_sizes
-        self.mesh = mesh
-        self.size = 1 if mesh is None else axis_sizes(mesh).get("model", 1)
-        self.rank = 0
-        self.group = None
-        self._places: Dict[Tuple[str, ...], Tuple[Any, int, int]] = {}
-        if self.size > 1:
-            self.group, self.size, self.rank = self.place(("model",))
+    def __init__(self, place_fn: Optional[Callable[[tuple], Place]] = None):
+        self._place_fn = place_fn
+        self._places: Dict[Tuple[str, ...], Place] = {}
+        self.group, self.size, self.rank = self.place(("model",))
         self.collectives = 0
 
-    def place(self, axes) -> Tuple[Any, int, int]:
+    def place(self, axes) -> Place:
         """``(group, size, position)`` over the mesh ``axes`` (major to
         minor): the group of the ranks that differ from this one only
-        there, their count, and this rank's row-major index among them.
-        Groups are made on first use: every rank asks for the same axes
-        in the same order."""
+        there (None for one rank), their count, and this rank's row-major
+        index among them.  Groups are made on first use: every rank asks
+        for the same axes in the same order."""
         axes = tuple(axes)
-        if not axes or self.mesh is None:
+        if not axes or self._place_fn is None:
             return None, 1, 0
         if axes not in self._places:
-            from repro_torch.launch.mesh import axes_group, axes_position
-            sizes, position = axes_position(self.mesh, axes)
-            n = 1
-            for s in sizes:
-                n *= s
-            group = axes_group(self.mesh, axes) if n > 1 else None
-            self._places[axes] = (group, n, position)
+            self._places[axes] = self._place_fn(axes)
         return self._places[axes]
 
     @property
@@ -153,9 +148,15 @@ def gather_from_model(x, dim, mp: Optional[ModelParallel]):
     return _Gather.apply(x, dim % x.dim(), mp)
 
 
+def spec_axes(entry) -> tuple:
+    """The mesh axes one spec entry splits its dim over, major to minor."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
 def model_dim(spec) -> Optional[int]:
     """The dim a spec splits over ``model``, or None."""
-    from repro_torch.launch.sharding import spec_axes
     for d, entry in enumerate(spec):
         if "model" in spec_axes(entry):
             return d
@@ -164,9 +165,10 @@ def model_dim(spec) -> Optional[int]:
 
 @dataclass
 class TensorParallel:
-    """What a transformer split over ``model`` needs besides its blocks:
-    the rank's :class:`ModelParallel` and the spec trees of the model's
-    parameters (``sharding.param_shardings``) and, for decode, of its
+    """What a model split over ``model`` needs besides its blocks: the
+    rank's :class:`ModelParallel`, the spec tree of the state the blocks
+    were cut from (``launch.sharding.param_shardings`` of ``{"model":
+    params, **the algorithm's extra state}``) and, for decode, of the
     cache (``sharding.cache_shardings``).  The model functions take one as
     ``tp=``; None (or ``model`` of size 1) runs the one-device code."""
     mp: ModelParallel
@@ -176,3 +178,8 @@ class TensorParallel:
     @property
     def active(self) -> bool:
         return self.mp.active
+
+    @property
+    def model_specs(self):
+        """The specs of the model's parameters."""
+        return self.specs["model"]

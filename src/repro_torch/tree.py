@@ -16,6 +16,19 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict / list / tuple tree, the port's
+    ``jax.tree_util.tree_map_with_path``; a path is a tuple of dict keys and
+    tuple positions.  Only plain lists and tuples are nodes: a
+    ``torch.Size`` (a shape standing for a leaf) is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(tree_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

@@ -10,7 +10,9 @@ one rank (they are spread over the ranks).  Each rank writes each result
 it computed to ``OUT_DIR/<job>.r<rank>.npz``.
 
 Jobs: the launcher's round loop (``launch.train.train_rounds``) on the
-mesh and on one device with the mesh's plan; prefill and teacher-forced
+mesh, and its one-device counterpart at the mesh's plan
+(``launch.steps.build_train_step`` without a mesh, fed
+``launch.train.round_batches``); prefill and teacher-forced
 decode steps (``launch.steps.build_prefill_step`` / ``build_serve_step``)
 on the mesh and on one device; at two ranks, ``launch.train.main(
 ["--engine", ...])`` through its multi-rank engine mesh.
@@ -33,7 +35,8 @@ from repro_torch.launch import train
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import sharded_params
 from repro_torch.launch.specs import fl_plan
-from repro_torch.launch.steps import build_prefill_step, build_serve_step
+from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                      build_train_step)
 from repro_torch.models import make_bundle
 from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves
@@ -80,13 +83,32 @@ def s0(case, out):
     return load_tree(os.path.join(out, "s0_jax.npz"), like)
 
 
-def train_job(case, out, mesh, plan):
+def train_job(case, out, mesh):
     name, algorithm = TRAIN[case]
     state, records = train.train_rounds(
         cfg_of(name), fl_of(algorithm), SHAPE, rounds=ROUNDS, device="cpu",
-        global_state=s0(case, out), log=None, mesh=mesh, plan=plan)
+        global_state=s0(case, out), log=None, mesh=mesh)
     return {"leaves": tree_leaves(state),
             "losses": [r["loss"] for r in records]}
+
+
+def train_single(case, out, plan):
+    """:func:`train_job`'s rounds on one device with the mesh's ``plan``:
+    the same clients and draws, every client on this rank."""
+    name, algorithm = TRAIN[case]
+    cfg, fl = cfg_of(name), fl_of(algorithm)
+    round_fn = build_train_step(cfg, fl, SHAPE)[0]
+    state = s0(case, out)
+    if state is None:
+        state = init_global_state(make_bundle(cfg), fl,
+                                  torch.Generator().manual_seed(0), "cpu")
+    draw, lr_at = train.round_batches(cfg, SHAPE, plan), train.round_lr(fl)
+    nex = torch.ones((plan.n_clients,), dtype=torch.float32)
+    losses = []
+    for r in range(ROUNDS):
+        state, metrics = round_fn(state, draw(), nex, lr_at(r))
+        losses.append(float(metrics["local_loss"]))
+    return {"leaves": tree_leaves(state), "losses": losses}
 
 
 def serve_tokens(cfg, B):
@@ -151,9 +173,9 @@ def jobs(rank, world, out, mesh):
     js, single = [], []
     for case in TRAIN:
         js.append((f"train/{case}", "all",
-                   lambda c=case: train_job(c, out, mesh, None)))
+                   lambda c=case: train_job(c, out, mesh)))
         single.append((f"train/{case}/single",
-                       lambda c=case: train_job(c, out, None, plan)))
+                       lambda c=case: train_single(c, out, plan)))
     for case, (name, B) in SERVE[world].items():
         js.append((f"serve/{case}", "all",
                    lambda n=name, b=B: serve_job(n, b, mesh)))

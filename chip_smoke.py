@@ -69,19 +69,29 @@ is non-zero):
    ``repro_torch.launch.serve`` (``attn_impl="pallas"``): gemma3-1b,
    smollm-135m and stablelm-3b at batch 4 with 1,024-token prompts, then
    h2o-danube-3-4b at batch 1 with a 4,608-token prompt (its 4,096 window
-   binds in prefill and the ring caches roll while decoding), random
-   weights from seed 0, 32 greedy tokens, after one warm-up run: prefill
-   ms, decode ms per step, tokens/s, peak memory; K8a must launch once per
+   binds in prefill and the ring caches roll while decoding), then
+   granite-moe-1b (32 experts, top 8) at batch 4 x 1,024, random weights
+   from seed 0, 32 greedy tokens, after one warm-up run: prefill ms,
+   decode ms per step, tokens/s, peak memory; K8a must launch once per
    attention layer per prefill and K9 once per attention layer per decode
    step; the last decode step's logits must match ``forward_seq`` over the
-   same tokens;
+   same tokens (at full expert capacity for MoE, as decode runs); then a
+   second request (prompts from seed 1), and both requests through one
+   ``launch.serve.DecodeGraph`` (the decode step captured once as a CUDA
+   graph, replayed once a token): tokens equal and logits bit-equal to
+   the eager runs', median ms a step both ways, warm-up, capture and
+   instantiation seconds, graph pool bytes, and K9 once a layer at the
+   warm-up and the capture, once a layer a replay (uncounted by the
+   wrappers, added to the table);
 4c. train: federated LM training at full width (and full depth, unless
    cut) through ``repro_torch.launch.train`` (``attn_impl="pallas"``,
    random weights from seed 0): smollm-135m at sequence length 1,024,
    global batch 8, 3 rounds each of FedAvg, FedMMD and FedFusion-conv;
    gemma3-1b at 1,024 and batch 4, 2 rounds of FedAvg; stablelm-3b and
-   h2o-danube-3-4b at full width with the depth cut to 4 layers, 1,024 and
-   batch 4, 2 rounds of FedAvg; then ``run_federated_reference`` with the
+   h2o-danube-3-4b and granite-moe-1b at full width with the depth cut to
+   4 layers, 1,024 and batch 4, 2 rounds of FedAvg (granite's trained
+   Switch aux on 4 x 1,024, finite); then ``run_federated_reference`` with
+   the
    smollm-135m bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
    local steps of 4 sequences of 512, eval on 8 test sequences): ms per
    local step, tokens/s, peak memory, each round's loss, and K1 / K2 / K8a /
@@ -142,7 +152,7 @@ is non-zero):
 4g. the engine over LM bundles at full width (CUDA-graph supersteps over
    the transformer, K8a-K8c inside the graphs, ``attn_impl="pallas"``,
    random weights from seed 0, lr 0.02): smollm-135m at full width cut to
-   10 of its 30 layers (to keep the script within its time limit) at
+   6 of its 30 layers (to keep the script within its time limit) at
    phase 4c's reference setting (8 clients by source, 4 a round,
    2 local steps of 4 x 512, eval on 8 test sequences every round, folded
    into the chunk), 8 rounds in 2-round chunks, for FedAvg,
@@ -159,20 +169,24 @@ is non-zero):
    rounds in 2-round chunks; ``launch.train --engine --scale full`` on
    smollm-135m (4 rounds at 512, batch 2, ``superstep_rounds="auto"``);
 4h. tensor parallelism on the one card: (b) a one-rank NCCL (1, 1) mesh
-   through ``launch.steps``' builders, a smollm-135m launcher round and a
-   serving run bit-equal to ``mesh=None``; (a) two worker processes
+   through ``launch.steps``' builders, a smollm-135m launcher round and
+   two serving requests, eager and through one captured decode step,
+   bit-equal to ``mesh=None``; (a) two worker processes
    (``chip_smoke.py --tp-worker``) on a (1, 2) mesh over gloo: stablelm-3b
    at full width cut to 4 layers (head-parallel) trains FedFusion-conv
    and FedAvg (2 rounds of 2 local steps of 4 x 512) and serves, gemma3-1b
    at full width and depth (gathered, its caches halved on L) serves, 4 x
-   1,024 then 32 steps teacher-forced on the one-device run's tokens;
+   1,024 then eager steps (gloo cannot be captured) teacher-forced on the
+   one-device run's tokens, 32 for stablelm-3b and 8 for gemma3-1b;
    states and logits against one device, launches on each rank against
    their formulas, ms beside one device's, labelled "gloo over one card";
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
    device time; then the last (steady) chunk of two engine runs; and one
-   gemma3-1b prefill and one decode step (taken during phase 4b); and one
+   gemma3-1b prefill, one eager decode step and one request's 32 graph
+   replays, which must show 32 ``cudaGraphLaunch`` calls (taken during
+   phase 4b); and one
    smollm-135m FedFusion-conv local step (after phase 4c); and one steady
    1-round LM engine chunk (smollm-135m FedFusion-conv, phase 4g's
    setting): device ops a replay, busy share, the top kernels;
@@ -183,10 +197,18 @@ is non-zero):
    then serving: gemma3-1b at full width cut to 6 layers, a 576-token
    prompt and 4 greedy steps, the same weights on the card and the CPU;
    then LM training: smollm-135m at full width cut to 2 layers,
-   FedFusion-conv through the ``launch.train`` loop, 2 rounds, batch 2,
-   sequence length 256, from the same state on the card and the CPU; then
-   both serving and FedAvg training for stablelm-3b and h2o-danube-3-4b at
-   full width cut to 2 layers (hd 80 and 120);
+   FedFusion-conv through the ``launch.train`` loop, one round (two until
+   the decode-graph and MoE runs were added), batch 2, sequence length
+   256, from the same state on the card and the CPU; then both serving
+   and one FedAvg round
+   for stablelm-3b and h2o-danube-3-4b at full width cut to 2 layers (hd
+   80 and 120), and for granite-moe-1b at full width cut to 2 layers,
+   each check with its seconds, with the share of tokens whose
+   top-k expert sets agree between card and CPU and the smallest gate
+   margin among those that do not; the card's serving steps are a
+   captured ``DecodeGraph``; then ``examples/serve_decode_torch.py``'s
+   loop at temperature 0.7 with the same Gumbel noise on the card and the
+   CPU (ids equal);
    then the paths of phase 4d, with cuDNN's deterministic algorithms:
    the new-client probe (FedFusion-conv) from phase 4d's trained state,
    4 steps from the CPU probe's state at each of 3 epoch starts within 1%
@@ -212,6 +234,7 @@ for matmuls and for cuDNN convolutions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1726,14 +1749,16 @@ def check_flash_bwd_kernels(torch, flash_attn):
 
 
 # phase 4c: model, algorithm, sequence length, global batch, rounds, and
-# the depth it is cut to (None: full depth).  stablelm-3b (hd 80) and
-# h2o-danube-3-4b (hd 120) train at full width cut to 4 layers
+# the depth it is cut to (None: full depth).  stablelm-3b (hd 80),
+# h2o-danube-3-4b (hd 120) and granite-moe-1b (32 experts, top 8) train at
+# full width cut to 4 layers
 TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3, None),
               ("smollm-135m", "fedmmd", 1024, 8, 3, None),
               ("smollm-135m", "fedfusion", 1024, 8, 3, None),
               ("gemma3-1b", "fedavg", 1024, 4, 2, None),
               ("stablelm-3b", "fedavg", 1024, 4, 2, 4),
-              ("h2o-danube-3-4b", "fedavg", 1024, 4, 2, 4)]
+              ("h2o-danube-3-4b", "fedavg", 1024, 4, 2, 4),
+              ("granite-moe-1b-a400m", "fedavg", 1024, 4, 2, 4)]
 TRAIN_LR = 0.05             # launch.train's default
 
 
@@ -1800,6 +1825,15 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
         losses = [r["loss"] for r in records]
         checks = dict(launches=got == want,
                       finite=all(math.isfinite(x) for x in losses))
+        aux = None
+        if cfg.n_experts:    # the trained model's Switch aux on 4 x S
+            from repro_torch.launch.serve import make_prompts
+            from repro_torch.models import transformer as tfm
+            with torch.no_grad():
+                aux = tfm.forward_seq(cfg, state["model"], {
+                    "tokens": make_prompts(cfg, 4, S, device="cuda")},
+                    want_logits=False)["aux"].item()
+            checks["aux_finite"] = math.isfinite(aux)
         emit("train", model=name, algorithm=algorithm, fusion_op="conv",
              attn_impl=cfg.attn_impl,
              params=sum(t.numel() for t in tree_leaves(state["model"])),
@@ -1813,7 +1847,7 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
                                     rounds=f"2-{rounds}"),
              tokens_per_s=tokens / statistics.median(steady) * 1e3,
              allocated_at_start_bytes=start, peak_memory_bytes=peak,
-             peak_above_start_bytes=peak - start, losses=losses,
+             peak_above_start_bytes=peak - start, losses=losses, aux=aux,
              launches=got, expected=want, checks=checks)
         del state
         if not all(checks.values()):
@@ -1883,8 +1917,9 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
     return got
 
 
-# phase 4g: the LM engine at full width.  smollm-135m, cut to 10 of its 30
-# layers to keep the script within its time limit, at phase 4c's
+# phase 4g: the LM engine at full width.  smollm-135m, cut to 6 of its 30
+# layers to keep the script within its time limit (10 until the decode
+# graph and the MoE runs were added to phases 4b, 4c and 6), at phase 4c's
 # train_reference setting (8 clients by source, 4 a round, 2 local steps of
 # 4 x 512, eval on 8 test sequences, here every round, folded into the
 # chunk), 8 rounds in 2-round chunks, each run beside 2 reference rounds;
@@ -1892,7 +1927,7 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
 # window binds; the batch fits beside the stacked client models)
 LM_ENGINE = dict(clients=8, clients_per_round=4, local_steps=2,
                  local_batch=4, seq_len=512, eval_sequences=8, rounds=8,
-                 chunk=2, ref_rounds=2, layers=10)
+                 chunk=2, ref_rounds=2, layers=6)
 LM_ENGINE_RUNS = [("fedavg", "identity", "device"),
                   ("fedfusion", "identity", "device"),
                   ("fedmmd", "identity", "device"),
@@ -2324,15 +2359,17 @@ def trace_local_step(torch, get_config, FLConfig, make_bundle,
 
 
 def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
-                      make_bundle, init_global_state, tree_leaves,
+                      make_bundle, init_global_state, tree_leaves, moe,
                       name="smollm-135m", algorithm="fedfusion"):
     """Phase 6 for LM training: ``name`` at full width cut to 2 layers,
     ``algorithm`` (FedFusion-conv or FedAvg) through ``launch.train``'s
-    loop, 2 rounds of 2 local steps at batch 2 and S = 256, from the same
-    state on the card (K8a, K8b, K8c, and K2 for FedFusion) and on the CPU
-    (plain versions).  The final parameters must agree within 1% of the
-    change training made (largest element and L2 norm), as the FL runs
-    above."""
+    loop, one round of 2 local steps at batch 2 and S = 256 (2 rounds until
+    the decode graph and the MoE runs were added: the script's time
+    limit), from the same state on the card (K8a, K8b, K8c, and K2 for
+    FedFusion) and on the CPU (plain versions).  The final parameters must agree within 1%
+    of the change training made (largest element and L2 norm), as the FL
+    runs above.  For MoE the routing agreement of every router call is
+    printed."""
     import dataclasses
     base = get_config(name)
     cfg = dataclasses.replace(base, n_layers=2,
@@ -2344,11 +2381,14 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     s0 = init_global_state(make_bundle(cfg), fl,
                            torch.Generator(device="cuda").manual_seed(7),
                            device="cpu")
-    finals, losses = {}, {}
+    t0 = time.perf_counter()
+    rounds = 1
+    finals, losses, routes = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        state, records = train.train_rounds(cfg, fl, shape, rounds=2,
-                                            device=dev, global_state=s0,
-                                            log=None)
+        with recorded_routes(torch, moe) as routes[dev]:
+            state, records = train.train_rounds(cfg, fl, shape,
+                                                rounds=rounds, device=dev,
+                                                global_state=s0, log=None)
         finals[dev] = torch.cat([t.cpu().flatten()
                                  for t in tree_leaves(state)])
         losses[dev] = [r["loss"] for r in records]
@@ -2358,9 +2398,11 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     ratio_max = diff.abs().max().item() / change.abs().max().item()
     ratio_l2 = (diff.norm() / change.norm()).item()
     ok = ratio_max <= 0.01 and ratio_l2 <= 0.01
+    routing = (routing_agreement(torch, routes["cuda"], routes["cpu"],
+                                 cfg.top_k) if cfg.n_experts else None)
     emit("card_vs_cpu_train", model=cfg.name, layers=2, head_dim=cfg.head_dim,
-         algorithm=algorithm, fusion_op="conv", rounds=2, batch=2,
-         seq_len=256,
+         algorithm=algorithm, fusion_op="conv", rounds=rounds, batch=2,
+         seq_len=256, routing=routing, seconds=time.perf_counter() - t0,
          max_abs_diff=diff.abs().max().item(),
          max_change=change.abs().max().item(), ratio_max=ratio_max,
          ratio_l2=ratio_l2, limit=0.01, losses=losses, ok=ok)
@@ -2400,8 +2442,10 @@ def profile_summary(torch, prof, wall):
     taking the most device time, and the device time of the repository's
     own kernels (``csrc/``)."""
     spans, by_name = [], {}
+    graph_launches = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            graph_launches += e.name == "cudaGraphLaunch"
             continue
         spans.append((e.time_range.start, e.time_range.end))
         count_us = by_name.setdefault(e.name, [0, 0.0])
@@ -2418,6 +2462,7 @@ def profile_summary(torch, prof, wall):
         kind = kernel_kind(n)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     return dict(wall_ms=1e3 * wall, device_ops=len(spans),
+                cuda_graph_launches=graph_launches,
                 device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / 1e6 / wall,
                 top=[{"name": n[:80], "count": c, "ms": us / 1e3}
@@ -2738,12 +2783,15 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
 # a warm-up round (2 local steps of 4 x 512) and serves; gemma3-1b at full
 # width and depth (its one KV head is split mid-head: gathered; its global
 # cache of 1,056 and its 512 rings halved over model) serves.  Serving:
-# prompts of 1,024 at batch 4, 32 decode steps teacher-forced on the
-# one-device run's greedy tokens.  (b) a (1, 1) NCCL mesh through
-# build_train_step / build_serve_step, bit-equal to mesh=None.
+# prompts of 1,024 at batch 4, decode steps teacher-forced on the
+# one-device run's greedy tokens, eagerly (gloo's collectives wait on the
+# host: no capture): 32 for stablelm-3b, 8 for gemma3-1b (its gloo steps
+# take 350-470 ms each).  (b) a (1, 1) NCCL mesh through build_train_step
+# / build_serve_step, bit-equal to mesh=None, decoding eagerly and through
+# a captured decode step.
 TP_TRAIN = ("stablelm-3b", 4, 512, 4)      # model, layers, seq_len, batch
-TP_SERVE = (("stablelm-3b", 4), ("gemma3-1b", None))
-TP_PROMPT, TP_GEN, TP_BATCH = 1024, 32, 4
+TP_SERVE = (("stablelm-3b", 4, 32), ("gemma3-1b", None, 8))  # + steps
+TP_PROMPT, TP_BATCH = 1024, 4
 # the mesh's runs against one device: the all-reduces sum in another order
 # (and cuBLAS at K halved): states within rtol 1e-4 / atol 1e-5; logits
 # divided by the one-device run's largest |logit| (O(100) at the random
@@ -2848,12 +2896,12 @@ def tp_worker(argv):
         torch.cuda.empty_cache()
         result["train"].append(line)
 
-    for name, layers in TP_SERVE:
+    for name, layers, G in TP_SERVE:
         cfg = _tp_cfg(get_config, name, layers)
-        P, G, Bs = TP_PROMPT, TP_GEN, TP_BATCH
+        P, Bs = TP_PROMPT, TP_BATCH
         prompts = serve.make_prompts(cfg, Bs, P, 0, dev)
         line = dict(model=name, layers=cfg.n_layers, batch=Bs, prompt=P,
-                    steps=G)
+                    steps=G, decode="eager (gloo)")
         toks = torch.zeros((Bs, G), dtype=torch.int64, device=dev)
         if rank == 0:
             with torch.no_grad():
@@ -2922,9 +2970,10 @@ def tp_worker(argv):
 def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
              tree_leaves, card):
     """Phase 4h.  (b) first: a one-rank NCCL group, a (1, 1) mesh; one
-    smollm-135m FedFusion-conv launcher round and a serving run (batch 4,
-    a 256-token prompt, 8 greedy steps) through the mesh's steps, each
-    bit-equal to ``mesh=None``.  Then (a): two ``--tp-worker`` processes
+    smollm-135m FedFusion-conv launcher round and two serving requests
+    (batch 4, 256-token prompts, 8 greedy steps) through the mesh's steps,
+    eagerly and through one captured ``DecodeGraph``, each bit-equal to
+    ``mesh=None``.  Then (a): two ``--tp-worker`` processes
     over gloo on this card (see ``tp_worker``); their launches against the
     formulas (K2 once a FedFusion local step, K8a / K8b / K8c as phase
     4c's, K8a once a layer in prefill and K9 once a layer a decode step,
@@ -2958,19 +3007,33 @@ def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
             params = serve.tfm.init_params(
                 cfg, torch.Generator(device="cuda").manual_seed(0),
                 device="cuda")
-            prompts = serve.make_prompts(cfg, 4, 256, 0, "cuda")
+            requests = [serve.make_prompts(cfg, 4, 256, seed, "cuda")
+                        for seed in (0, 1)]
             for key, m in (("none", None), ("mesh", mesh)):
                 pre, step, _, _ = serve.serve_steps(cfg, 4, 256, 8, m)
+                outs[key] = []
+                for prompts in requests:
+                    last, cache = pre(params, {"tokens": prompts})
+                    outs[key].append(serve.greedy_decode(
+                        cfg, params, cache, last, 256, 8, step)[:2])
+            # both requests through one captured step on the NCCL mesh
+            pre, step, _, _ = serve.serve_steps(cfg, 4, 256, 8, mesh)
+            loop = serve.DecodeGraph(step, params, 8, mesh=mesh)
+            outs["graph"] = []
+            for prompts in requests:
                 last, cache = pre(params, {"tokens": prompts})
-                outs[key] = serve.greedy_decode(cfg, params, cache, last,
-                                                256, 8, step)[:2]
-        serve_equal = torch.equal(outs["none"][0], outs["mesh"][0]) and \
-            torch.equal(outs["none"][1], outs["mesh"][1])
-        del params, outs
+                outs["graph"].append(loop.run(last, cache, 256)[:2])
+
+        def equal(key):
+            return all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(outs["none"], outs[key]))
+        serve_equal, graph_equal = equal("mesh"), equal("graph")
+        del params, outs, loop
         emit("tp_one_rank", card=card, backend="nccl", mesh=[1, 1],
              model=cfg.name, train_bitwise_equal=train_equal,
-             serve_bitwise_equal=serve_equal)
-        if not (train_equal and serve_equal):
+             serve_bitwise_equal=serve_equal,
+             graph_decode_bitwise_equal=graph_equal, requests=2)
+        if not (train_equal and serve_equal and graph_equal):
             raise AssertionError("phase 4h (b): the (1, 1) mesh's steps "
                                  "differ from mesh=None")
     finally:
@@ -3106,10 +3169,12 @@ def local_step_costs(torch, bundle, fls, make_local_trainer,
 # Prompts of 1,024 tokens at batch 4 (longer than gemma3-1b's 512 window,
 # so its local caches roll); h2o-danube-3-4b at batch 1 with a prompt of
 # 4,608, past its 4,096 window, so the window binds in prefill and the
-# ring caches roll during decode
+# ring caches roll during decode; granite-moe-1b (32 experts, top 8) at
+# batch 4 x 1,024
 SERVE_GEN = 32
 SERVE_RUNS = [("gemma3-1b", 4, 1024), ("smollm-135m", 4, 1024),
-              ("stablelm-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4608)]
+              ("stablelm-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4608),
+              ("granite-moe-1b-a400m", 4, 1024)]
 # decode logits vs a forward over the same tokens, and card vs CPU: the
 # two sides sum in other orders (cuBLAS at M = 4 and M = 4,096, the kernels
 # and the plain versions, oneDNN on the CPU), ~1e-6 of the logits' scale a
@@ -3129,19 +3194,52 @@ def serve_params(torch, tfm, get_config, name, **replace):
     return cfg, params
 
 
+def full_capacity(cfg):
+    """``cfg`` with an expert capacity that drops no token (MoE decode runs
+    every expert at full capacity; a forward over the same tokens must too
+    to be compared with it); ``cfg`` itself for a dense model."""
+    import dataclasses
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, moe_capacity=cfg.n_experts / cfg.top_k)
+
+
+def decode_loop(serve, tfm, cfg, params, G, step=None, **kw):
+    """A ``DecodeGraph`` of ``G`` steps over ``tfm.decode_step`` (or
+    ``step``): captured on the first run."""
+    if step is None:
+        def step(p, t, c, pos):
+            return tfm.decode_step(cfg, p, t, c, pos)
+    return serve.DecodeGraph(step, params, G, **kw)
+
+
 def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
               P):
     """The serve phase for one model at batch ``B`` and prompts of ``P``
-    tokens: prefill and greedy decode once to
-    warm up, then once measured with the kernel counts set to 0 just
-    before (prefill ms on the host clock, each decode step's period on CUDA
-    events, peak memory), then the full-depth check: the last decode
-    step's logits against ``forward_seq`` over the same tokens.  Returns
-    the phase line and the measured run's launches."""
+    tokens (seed 0), then a second request (prompts from seed 1).  Eager:
+    prefill and greedy decode once to warm up, then once measured with the
+    kernel counts set to 0 just before (prefill ms on the host clock, each
+    decode step's period on CUDA events, peak memory), the full-depth check
+    (the last decode step's logits against ``forward_seq`` over the same
+    tokens, at full expert capacity for MoE) and the second request.
+    Graphed: both requests through one ``DecodeGraph`` (captured on the
+    first), whose tokens and logits must equal the eager runs' bit for
+    bit; its step periods, warm-up, capture and instantiation seconds and
+    graph pool bytes.  Launches: K8a once a layer a prefill or forward, K9
+    once a layer an eager step and, in the graph, once a layer at the
+    warm-up and at the capture (the counters count Python calls), each
+    replay launching K9 once a layer uncounted.  Returns the phase line,
+    the launches (replays' K9 counted) and the loop."""
     from repro_torch.tree import tree_leaves
     G = SERVE_GEN
     tokens = serve.make_prompts(cfg, B, P, seed=0, device="cuda")
+    tokens2 = serve.make_prompts(cfg, B, P, seed=1, device="cuda")
     n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+
+    def counts():
+        return {"flash_fwd": flash_attn.flash_fwd_cuda.launches,
+                "flash_decode": decode_attn.flash_decode_cuda.launches}
+
     with torch.no_grad():
         last, cache = serve.prefill(cfg, params, tokens, P + G)
         serve.greedy_decode(cfg, params, cache, last, P, G)
@@ -3159,69 +3257,157 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
         toks, step_logits, step_ms = serve.greedy_decode(cfg, params, cache,
                                                          last, P, G)
         last_logits = step_logits[:, -1]
-        launches = {"flash_fwd": flash_attn.flash_fwd_cuda.launches,
-                    "flash_decode": decode_attn.flash_decode_cuda.launches}
+        launches = counts()
         peak = torch.cuda.max_memory_allocated()
         del cache
-        out = tfm.forward_seq(cfg, params,
+        full = full_capacity(cfg)
+        out = tfm.forward_seq(full, params,
                               {"tokens": torch.cat([tokens, toks], 1)},
                               want_logits=False)
-        want = tfm.head_apply(cfg, params, out["features"][:, -1])
+        want = tfm.head_apply(full, params, out["features"][:, -1])
         rel = ((last_logits - want).abs().max() / want.abs().max()).item()
+        del out, want
+        last2, cache2 = serve.prefill(cfg, params, tokens2, P + G)
+        eager2 = serve.greedy_decode(cfg, params, cache2, last2, P, G)
+        del cache2
+        eager_counts = counts()
+        # graphed: both requests through one captured step
+        loop = decode_loop(serve, tfm, cfg, params, G)
+        graphed = []
+        for prompts in (tokens, tokens2):
+            last_g, cache_g = serve.prefill(cfg, params, prompts, P + G)
+            graphed.append(loop.run(last_g, cache_g, P))
+            del last_g, cache_g
+        graph_counts = counts()
+    graph_ticks = {k: graph_counts[k] - eager_counts[k] for k in launches}
+    eager = [(toks, step_logits), eager2[:2]]
     steady = step_ms[1:]
     med = statistics.median(steady)
+    g_steady = graphed[0][2][1:] + graphed[1][2][1:]
+    g_med = statistics.median(g_steady)
+    per_replay = loop.stats["launches_per_replay"]["flash_decode"]
     checks = dict(
         k8a_per_prefill=k8_prefill == n_attn,
         k8a_in_decode=launches["flash_fwd"] == k8_prefill,
         k9_per_step=launches["flash_decode"] == n_attn * G,
+        k8a_total=graph_counts["flash_fwd"] == 5 * n_attn,
+        k9_eager_total=eager_counts["flash_decode"] == 2 * n_attn * G,
+        k9_graph_ticks=graph_ticks["flash_decode"] == 2 * n_attn,
+        k9_per_replay=per_replay == n_attn,
+        replays=loop.replays == 2 * G,
+        graph_tokens_equal=all(torch.equal(g[0], e[0]) for g, e in zip(
+            graphed, eager)),
+        graph_logits_bit_equal=all(torch.equal(g[1], e[1]) for g, e in zip(
+            graphed, eager)),
         consistency=rel <= SERVE_TOL,
         finite=bool(torch.isfinite(last_logits).all()),
         tokens_in_vocab=bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
     line = dict(
         model=cfg.name, attn_impl=cfg.attn_impl,
         params=sum(t.numel() for t in tree_leaves(params)),
-        layers=cfg.n_layers, attention_layers=n_attn, batch=B,
+        layers=cfg.n_layers, attention_layers=n_attn,
+        experts=cfg.n_experts or None, batch=B,
         prompt_len=P, gen_len=G, max_len=P + G, prefill_ms=prefill_ms,
         prefill_tokens_per_s=B * P / prefill_ms * 1e3,
         decode_ms_per_step=dict(median=med, min=min(steady),
                                 max=max(steady), steps="2-32"),
         first_step_ms=step_ms[0], decode_ms_total=sum(step_ms),
         decode_tokens_per_s=B / med * 1e3,
-        params_bytes=4 * sum(t.numel() for t in tree_leaves(params)),
+        graph_ms_per_step=dict(median=g_med, min=min(g_steady),
+                               max=max(g_steady),
+                               steps="2-32 of both requests"),
+        graph_tokens_per_s=B / g_med * 1e3, eager_over_graph=med / g_med,
+        graph=loop.stats, params_bytes=4 * sum(
+            t.numel() for t in tree_leaves(params)),
         allocated_at_start_bytes=start_bytes, peak_memory_bytes=peak,
         peak_above_start_bytes=peak - start_bytes,
         k8a_launches_per_prefill=k8_prefill,
         k9_launches_per_step=launches["flash_decode"] / G,
         consistency_rel_err=rel, consistency_limit=SERVE_TOL,
+        consistency_forward="full expert capacity" if cfg.n_experts
+        else "as served",
         ids0=toks[0].tolist(), checks=checks)
-    return line, launches
+    total = {"flash_fwd": graph_counts["flash_fwd"],
+             "flash_decode": graph_counts["flash_decode"]
+             + loop.replays * per_replay}
+    return line, total, loop
 
 
-def serve_greedy_logits(torch, serve, cfg, params, tokens, steps):
-    """``serve.prefill`` then ``serve.greedy_decode`` for ``steps`` steps:
-    the last logits of the prefill and of each step, on the CPU."""
+def serve_greedy_logits(torch, serve, tfm, cfg, params, tokens, steps):
+    """``serve.prefill`` then ``steps`` greedy steps, through a captured
+    ``DecodeGraph`` on the card and eagerly on the CPU: the last logits of
+    the prefill and of each step, on the CPU."""
     P = tokens.shape[1]
     with torch.no_grad():
         last, cache = serve.prefill(cfg, params, tokens, P + steps)
-        _, logits, _ = serve.greedy_decode(cfg, params, cache, last, P, steps)
+        loop = decode_loop(serve, tfm, cfg, params, steps,
+                           graph=tokens.is_cuda)
+        _, logits, _ = loop.run(last, cache, P)
     return [last.cpu()] + list(logits.cpu().unbind(1))
 
 
-def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map,
+@contextlib.contextmanager
+def recorded_routes(torch, moe):
+    """Records each call of ``moe.route`` (the MoE router: gates [T, E] and
+    each token's top-k experts), on the CPU, while the block runs; not
+    while a CUDA graph is being captured (a captured decode step's router
+    runs at the eager warm-up step, which is recorded)."""
+    calls, route = [], moe.route
+
+    def record(xt, router, top_k):
+        out = route(xt, router, top_k)
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((out[0].detach().cpu(), out[1].detach().cpu()))
+        return out
+
+    moe.route = record
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def routing_agreement(torch, card, cpu, top_k):
+    """Over the router calls of two runs (card and CPU, in order): the
+    tokens whose top-k expert sets agree, their share, and among the others
+    the smallest gap on the CPU between the k-th and the next gate (a tie
+    within rounding flips an expert)."""
+    same = total = 0
+    margins = []
+    for (g_card, i_card), (g_cpu, i_cpu) in zip(card, cpu):
+        agree = (i_card.sort(-1).values == i_cpu.sort(-1).values).all(-1)
+        same += int(agree.sum())
+        total += agree.numel()
+        if not agree.all():
+            top = g_cpu[~agree].topk(top_k + 1, -1).values
+            margins.append((top[:, top_k - 1] - top[:, top_k]).min().item())
+    return dict(router_calls=len(cpu), tokens=total, agree=same,
+                agree_share=same / max(total, 1),
+                min_gate_margin_disagreeing=min(margins) if margins else None)
+
+
+def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
                       name="gemma3-1b", layers=6):
     """Phase 6 for serving: ``name`` at full width cut to ``layers`` layers
     (gemma3-1b: one cycle of 6, 5 local and 1 global), batch 1, a 576-token
     prompt (longer than gemma3-1b's window) and 4 greedy steps, the same
-    weights on the card (kernels) and on the CPU (plain versions).  Step 0
-    is the prefill's last row.  The logits must agree within SERVE_TOL of
-    their scale, and the tokens unless the top-2 margin is below it."""
+    weights on the card (kernels, the steps a captured ``DecodeGraph``) and
+    on the CPU (plain versions, eager steps).  Step 0 is the prefill's last
+    row.  The logits must agree within SERVE_TOL of their scale, and the
+    tokens unless the top-2 margin is below it.  For MoE the routing
+    agreement of every router call is printed."""
+    t0 = time.perf_counter()
     pattern = get_config(name).block_pattern[:layers]
     cfg, params = serve_params(torch, tfm, get_config, name,
                                n_layers=layers, block_pattern=pattern)
     tokens = serve.make_prompts(cfg, 1, 576, seed=0, device="cpu")
-    card = serve_greedy_logits(torch, serve, cfg, params, tokens.cuda(), 4)
-    cpu = serve_greedy_logits(torch, serve, cfg,
-                              tree_map(lambda t: t.cpu(), params), tokens, 4)
+    with recorded_routes(torch, moe) as card_routes:
+        card = serve_greedy_logits(torch, serve, tfm, cfg, params,
+                                   tokens.cuda(), 4)
+    with recorded_routes(torch, moe) as cpu_routes:
+        cpu = serve_greedy_logits(torch, serve, tfm, cfg,
+                                  tree_map(lambda t: t.cpu(), params),
+                                  tokens, 4)
     del params
     steps = []
     for i, (a, b) in enumerate(zip(card, cpu)):
@@ -3236,12 +3422,67 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map,
     ok = all(st["rel_err"] <= SERVE_TOL
              and (st["same_token"] or st["top2_margin"] < SERVE_TOL)
              for st in steps)
+    routing = (routing_agreement(torch, card_routes, cpu_routes, cfg.top_k)
+               if cfg.n_experts else None)
     emit("card_vs_cpu_serve", model=cfg.name, layers=cfg.n_layers,
          head_dim=cfg.head_dim, pattern=list(pattern), batch=1,
-         prompt_len=576, decode_steps=4, steps=steps, limit=SERVE_TOL, ok=ok)
+         prompt_len=576, decode_steps=4, card_decode="graph", steps=steps,
+         routing=routing, limit=SERVE_TOL, ok=ok,
+         seconds=time.perf_counter() - t0)
     if not ok:
         raise AssertionError(f"serving {cfg.name}: card and CPU disagree: "
-                             f"{steps}")
+                             f"{steps} (routing {routing})")
+
+
+def twin_card_vs_cpu(torch, tfm, get_config, tree_map, temperature=0.7,
+                     arch="gemma3-1b", batch=4, prompt_len=32, gen_len=16):
+    """Phase 6 for ``examples/serve_decode_torch.py``: its loop at its
+    default size (``arch`` reduced, as the JAX example runs it) at
+    ``temperature`` with the same Gumbel noise and the same weights on the
+    card (a captured ``DecodeGraph``) and on the CPU (eager steps): the ids
+    must be equal, unless the two sides part at a token whose noisy top-2
+    margin on the CPU is below SERVE_TOL of the noisy scores' scale."""
+    import importlib.util
+    from repro_torch.launch import serve
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    prompts = serve.make_prompts(cfg, batch, prompt_len, seed=1,
+                                 device="cpu")
+    noise = serve.gumbel_noise(gen_len, batch, cfg.vocab_size, seed=7,
+                               device="cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        ids, _, decode_ms, loop = twin.generate(
+            cfg, tree_map(lambda t, d=dev: t.to(d), params), prompts.to(dev),
+            gen_len, temperature=temperature, noise=noise.to(dev))
+        got[dev] = (ids.cpu(), loop.logits.cpu(), loop.graph_mode,
+                    decode_ms)
+    same = torch.equal(got["cuda"][0], got["cpu"][0])
+    margin = None
+    if not same:
+        # the first step where a row parts, and the CPU's noisy margin there
+        differ = (got["cuda"][0] != got["cpu"][0]).any(0).nonzero()[0, 0]
+        i = int(differ)
+        scores = (got["cpu"][1][:, i - 1] / temperature + noise[i]
+                  if i > 0 else None)
+        if scores is not None:
+            top2 = scores.topk(2, -1).values
+            margin = ((top2[:, 0] - top2[:, 1]).min()
+                      / scores.abs().max()).item()
+    ok = same or (margin is not None and margin < SERVE_TOL)
+    emit("card_vs_cpu_twin", script="examples/serve_decode_torch.py",
+         model=cfg.name, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+         temperature=temperature, noise="gumbel, torch.Generator seed 7",
+         card_graph=got["cuda"][2], cpu_graph=got["cpu"][2],
+         card_decode_ms=got["cuda"][3], ids_equal=same,
+         parting_margin=margin, ok=ok)
+    if not ok:
+        raise AssertionError("serve_decode_torch: card and CPU ids differ")
 
 
 def main():
@@ -3274,7 +3515,7 @@ def main():
                                      flash_attn, fusion_conv, mk_mmd)
     from repro_torch.launch import serve, train
     from repro_torch.launch.specs import fl_plan
-    from repro_torch.models import make_bundle
+    from repro_torch.models import make_bundle, moe
     from repro_torch.models import transformer as tfm
     from repro_torch.obs import RunLog, build_report, render
     from repro_torch.tree import tree_leaves, tree_map
@@ -3546,14 +3787,15 @@ def main():
     emit("phase_4", seconds=time.perf_counter() - t_phase)
 
     t_phase = time.perf_counter()
-    # 4b. serve: the four dense LMs at full width and depth ---------------
-    # (K8a and K9 counted over each measured run; phase 5's serving trace
-    # is taken while gemma3-1b's weights are on the card)
+    # 4b. serve: the four dense LMs and granite-moe-1b at full width and
+    # depth, eagerly and through a captured decode step (K8a and K9 counted
+    # over each run, replays included; phase 5's serving trace is taken
+    # while gemma3-1b's weights and decode graph are on the card)
     serve_launches = {"flash_fwd": 0, "flash_decode": 0}
     for name, B, P in SERVE_RUNS:
         cfg, params = serve_params(torch, tfm, get_config, name)
-        line, got = serve_run(torch, serve, tfm, flash_attn, decode_attn,
-                              cfg, params, B, P)
+        line, got, loop = serve_run(torch, serve, tfm, flash_attn,
+                                    decode_attn, cfg, params, B, P)
         emit("serve", **line)
         if not all(line["checks"].values()):
             raise AssertionError(f"serve {name}: {line['checks']}")
@@ -3566,10 +3808,27 @@ def main():
                     cfg, params, tokens, P + SERVE_GEN))
                 _, step = trace_call(torch, lambda: tfm.decode_step(
                     cfg, params, last.argmax(-1)[:, None], cache, P))
+                last, cache = serve.prefill(cfg, params, tokens,
+                                            P + SERVE_GEN)
+                k9 = decode_attn.flash_decode_cuda.launches
+                _, replays = trace_call(torch, lambda: loop.run(last, cache,
+                                                                P))
+                serve_launches["flash_decode"] += (
+                    decode_attn.flash_decode_cuda.launches - k9
+                    + SERVE_GEN * loop.stats["launches_per_replay"][
+                        "flash_decode"])
+            per = {k: replays[k] / SERVE_GEN for k in
+                   ("wall_ms", "device_ops", "device_busy_ms")}
             emit("trace_serve", model=cfg.name, batch=B,
-                 prompt_len=P, prefill=pre, decode_step=step)
+                 prompt_len=P, prefill=pre, decode_step=step,
+                 graph_replays=dict(replays, replays=SERVE_GEN,
+                                    per_replay=per))
+            if replays["cuda_graph_launches"] != SERVE_GEN:
+                raise AssertionError("the traced decode run shows "
+                                     f"{replays['cuda_graph_launches']} "
+                                     "cudaGraphLaunch calls")
             del last, cache
-        del params
+        del params, loop
         torch.cuda.empty_cache()
     emit("phase_4b", seconds=time.perf_counter() - t_phase)
 
@@ -4432,16 +4691,19 @@ def main():
             raise AssertionError(f"controller {name}: card and CPU disagree "
                                  f"(levels {levels}, losses {max(rel)})")
 
-    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map)
+    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe)
     train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
-                      make_bundle, init_global_state, tree_leaves)
-    # the head dims 80 and 120 at 2 layers, full width
-    for name in ("stablelm-3b", "h2o-danube-3-4b"):
-        serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, name,
-                          layers=2)
+                      make_bundle, init_global_state, tree_leaves, moe)
+    # the head dims 80 and 120 at 2 layers, full width; granite-moe-1b
+    # (32 experts, top 8) at 2 layers, full width, one FedAvg round
+    for name in ("stablelm-3b", "h2o-danube-3-4b", "granite-moe-1b-a400m"):
+        serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
+                          name, layers=2)
         train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
-                          make_bundle, init_global_state, tree_leaves, name,
-                          algorithm="fedavg")
+                          make_bundle, init_global_state, tree_leaves, moe,
+                          name, algorithm="fedavg")
+    # examples/serve_decode_torch.py at temperature 0.7
+    twin_card_vs_cpu(torch, tfm, get_config, tree_map)
 
     # the LM engine: card vs CPU, and its replays against the reference loop
     lm_engine_card_checks(torch, run_federated, run_federated_reference,

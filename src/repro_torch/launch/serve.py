@@ -13,6 +13,13 @@ blocks (the model split over ``model``, the batch over ``data`` where it
 divides, the KV cache's length over ``model``); ids are gathered and only
 rank 0 prints.  A lone process serves on one device.
 
+The decode loop is a :class:`DecodeGraph`, the counterpart of the JAX
+launcher's ``jax.jit(decode_step)``: on the card one step is captured once
+as a CUDA graph and replayed once a token (``decode: graph``).  A gloo
+mesh decodes eagerly (``decode: eager (gloo)``): every gloo collective
+waits on the host, so its steps cannot be captured; so does the CPU
+(``decode: eager (cpu)``).  The first line printed says which.
+
 ``--attn-impl`` defaults to ``pallas``: prefill attention runs K8a and
 decode attention K9 (the JAX launcher has no flag for it and serves with
 the config's ``jnp`` attention).  Weights are random, drawn from a seeded
@@ -30,10 +37,11 @@ import torch
 
 from repro_torch.configs import ARCH_CONFIGS, InputShape, get_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_attn
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models import transformer as tfm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def make_prompts(cfg, batch, prompt_len, seed=0, device=None):
@@ -85,6 +93,229 @@ def sharded_params(cfg, mesh, layout, device=None, seed=0):
                     sh.shard_tree(whole, layout, mesh))
 
 
+def next_token(logits, temperature=0.0, noise=None):
+    """The next token [B] (int64) of ``logits`` [B, V]: the argmax, or with
+    ``temperature > 0`` the Gumbel-max sample ``argmax(logits / T +
+    noise)`` (``noise`` [B, V] standard Gumbel), which is what
+    ``jax.random.categorical(key, logits / T)`` computes with its own
+    draws."""
+    if temperature > 0:
+        return (logits / temperature + noise).argmax(-1)
+    return logits.argmax(-1)
+
+
+def gumbel_noise(gen_len, batch, vocab, seed, device=None):
+    """[gen_len, batch, vocab] standard Gumbel noise, ``-log(-log u)`` of
+    uniforms drawn on the CPU from a ``torch.Generator`` seeded with
+    ``seed``, then moved to ``device`` (None: the card): the same numbers
+    on every device."""
+    device = resolve_device(device)
+    u = torch.rand((gen_len, batch, vocab),
+                   generator=torch.Generator().manual_seed(seed))
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def _gloo_mesh(mesh) -> bool:
+    import torch.distributed as dist
+    return mesh is not None and dist.get_backend() == "gloo"
+
+
+def decode_mode(device, mesh=None) -> str:
+    """How a serving run on ``device`` (and ``mesh``) decodes: ``graph``
+    (the card), ``eager (gloo)`` or ``eager (cpu)``."""
+    if _gloo_mesh(mesh):
+        return "eager (gloo)"
+    return "eager (cpu)" if torch.device(device).type == "cpu" else "graph"
+
+
+class _StepClock:
+    """Stamps between decode steps: CUDA events recorded on the card (the
+    loop never waits for the device), the host clock elsewhere."""
+
+    def __init__(self, device):
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.stamps = []
+
+    def stamp(self):
+        if self.on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.stamps.append(ev)
+        else:
+            self.stamps.append(time.perf_counter())
+
+    def step_ms(self):
+        """Each step's ms, between consecutive stamps."""
+        pairs = list(zip(self.stamps, self.stamps[1:]))
+        if self.on_card:
+            torch.cuda.synchronize(self.device)
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [1e3 * (b - a) for a, b in pairs]
+
+
+class DecodeGraph:
+    """A serving run's decode loop as one step captured once and replayed
+    once a token: the port's counterpart of the JAX launchers'
+    ``jax.jit(lambda p, t, c, pos: decode_step(...))``, which compiles the
+    step once per shape and calls it once per token.
+
+    ``step(params, tokens [B, 1], cache, pos) -> (logits [B, 1, V],
+    cache)`` updates the cache in place (``tfm.decode_step`` on one
+    device, or ``serve_steps``' step on this rank's blocks).  One step
+    of the loop, on the device only: read the static ``tokens`` and the
+    0-d ``pos``; run ``step``; write its logits into row ``pos - start`` of
+    a static [B, gen_len, V] output and the token it decoded into the same
+    column of a [B, gen_len] one (device indices, no host value); write the
+    next token into ``tokens`` (the argmax, or with ``temperature > 0``
+    the argmax of ``logits / T + noise[i + 1]``, ``noise`` a static
+    [gen_len, B, V] buffer of Gumbel noise); add one to ``pos``.
+
+    ``graph=True`` (the card) captures that step as a CUDA graph on the
+    first :meth:`run`, after one eager warm-up step on a side stream
+    (it builds K9's ticket buffer, cuBLAS's workspaces and any kernel
+    built on first use; it writes the K/V of the request's first token
+    into its own slot, which the first replay rewrites with the same
+    values).  Later requests share the graph: :meth:`run` copies their
+    caches into the captured cache tensors (the first request's, adopted),
+    so ``prefill`` keeps its own allocation and the graph is never
+    re-captured.  A capture that fails raises; nothing falls back to eager
+    steps.  ``graph=False`` runs the same step eagerly (the CPU, a gloo
+    mesh).  Capture is refused on the CPU and on a gloo mesh (``mesh``):
+    gloo's collectives wait on the host.
+
+    The kernels' ``launches`` counters count Python calls: the warm-up and
+    the capture tick them once each, the replays never;
+    ``launches_per_replay`` holds the capture's count of K9 launches."""
+
+    def __init__(self, step, params, gen_len, *, temperature=0.0,
+                 graph=True, mesh=None):
+        if graph and _gloo_mesh(mesh):
+            raise ValueError("DecodeGraph: a CUDA graph cannot capture a "
+                             "gloo mesh's decode step (every gloo "
+                             "collective waits on the host); pass "
+                             "graph=False to decode eagerly")
+        self.step, self.params, self.gen_len = step, params, gen_len
+        self.temperature, self.graph_mode = temperature, graph
+        self.cache = self.graph = None
+        self.replays = 0
+        self.stats = {}
+
+    def _static(self, last, cache):
+        """Adopts the first request's cache and allocates the loop's
+        static buffers."""
+        B, V = last.shape
+        dev = self.device = last.device
+        if self.graph_mode and dev.type != "cuda":
+            raise ValueError(f"DecodeGraph: capture needs a CUDA device, "
+                             f"not {dev}; pass graph=False")
+        G = self.gen_len
+        self.cache = cache
+        self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.start = torch.zeros((), dtype=torch.int64, device=dev)
+        self.logits = torch.zeros((B, G, V), dtype=last.dtype, device=dev)
+        self.ids = torch.zeros((B, G), dtype=torch.int64, device=dev)
+        self.noise = (torch.zeros((G, B, V), dtype=torch.float32,
+                                  device=dev)
+                      if self.temperature > 0 else None)
+
+    def _sample(self, logits, i):
+        noise = None if self.noise is None else \
+            self.noise.index_select(0, i).reshape(logits.shape)
+        return next_token(logits, self.temperature, noise)
+
+    def _body(self):
+        logits, _ = self.step(self.params, self.tokens, self.cache,
+                              self.pos)
+        last = logits[:, 0]
+        i = (self.pos - self.start).reshape(1)
+        self.logits.index_copy_(1, i, last[:, None])
+        self.ids.index_copy_(1, i, self.tokens)
+        self.tokens.copy_(self._sample(
+            last, (i + 1).clamp(max=self.gen_len - 1))[:, None])
+        self.pos += 1
+
+    def _begin(self, last, start_pos, noise):
+        self.start.fill_(start_pos)
+        self.pos.fill_(start_pos)
+        if noise is not None:
+            self.noise.copy_(noise)
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.tokens.copy_(self._sample(last, zero)[:, None])
+
+    def _capture(self, last, start_pos, noise):
+        self._begin(last, start_pos, noise)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        self._begin(last, start_pos, noise)   # undo the warm-up's step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        k9 = decode_attn.flash_decode_cuda.launches
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self._body()
+            t1 = time.perf_counter()
+        self.stats = dict(
+            warmup_s=warmup_s, capture_s=t1 - t0,
+            instantiate_s=time.perf_counter() - t1,
+            pool_bytes=torch.cuda.memory_reserved() - reserved0,
+            launches_per_replay={
+                "flash_decode": decode_attn.flash_decode_cuda.launches - k9})
+        self._ptrs = [t.data_ptr() for t in tree_leaves(
+            (self.params, self.cache))]
+
+    def run(self, last_logits, cache, start_pos, noise=None):
+        """Decodes ``gen_len`` tokens after a prefill: ``last_logits`` [B,
+        V] its last row, ``cache`` its cache (of the first request's
+        shapes), ``start_pos`` the first decoded position, ``noise``
+        [gen_len, B, V] with ``temperature > 0``.  Returns (tokens [B,
+        gen_len], each step's logits [B, gen_len, V], each step's ms), as
+        :func:`greedy_decode` does; on the card the step times come from
+        CUDA events between the replays."""
+        if (noise is None) != (self.temperature <= 0):
+            raise ValueError("DecodeGraph.run: noise goes with "
+                             "temperature > 0, and only with it")
+        first = self.cache is None
+        if first:
+            self._static(last_logits, cache)
+        else:
+            if last_logits.shape != self.logits[:, 0].shape or [
+                    t.shape for t in tree_leaves(cache)] != [
+                    t.shape for t in tree_leaves(self.cache)]:
+                raise ValueError("DecodeGraph.run: a request must have the "
+                                 "first one's batch, vocabulary and cache "
+                                 "shapes")
+            if cache is not self.cache:
+                tree_map(lambda d, s: d.copy_(s), self.cache, cache)
+        if self.graph_mode and first:
+            self._capture(last_logits, start_pos, noise)
+        else:
+            self._begin(last_logits, start_pos, noise)
+        if self.graph_mode and [t.data_ptr() for t in tree_leaves(
+                (self.params, self.cache))] != self._ptrs:
+            raise RuntimeError("DecodeGraph: a captured buffer moved")
+        clock = _StepClock(self.device)
+        clock.stamp()
+        for _ in range(self.gen_len):
+            if self.graph_mode:
+                self.graph.replay()
+                self.replays += 1
+            else:
+                self._body()
+            clock.stamp()
+        return self.ids.clone(), self.logits.clone(), clock.step_ms()
+
+
 def greedy_decode(cfg, params, cache, last_logits, start_pos, gen_len,
                   step=None):
     """``gen_len`` greedy steps from the prefill's last logits: token i is
@@ -98,20 +329,10 @@ def greedy_decode(cfg, params, cache, last_logits, start_pos, gen_len,
         def step(p, t, c, pos):
             return tfm.decode_step(cfg, p, t, c, pos)
     dev = last_logits.device
-    on_card = dev.type == "cuda"
     pos = torch.tensor(start_pos, dtype=torch.int64, device=dev)
-    stamps = []
-
-    def stamp():
-        if on_card:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            stamps.append(ev)
-        else:
-            stamps.append(time.perf_counter())
-
+    clock = _StepClock(dev)
     toks, step_logits = [], []
-    stamp()
+    clock.stamp()
     for _ in range(gen_len):
         nxt = last_logits.argmax(-1)
         toks.append(nxt)
@@ -119,13 +340,9 @@ def greedy_decode(cfg, params, cache, last_logits, start_pos, gen_len,
         last_logits = logits[:, 0]
         step_logits.append(last_logits)
         pos += 1
-        stamp()
-    if on_card:
-        torch.cuda.synchronize(dev)
-        step_ms = [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
-    else:
-        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
-    return torch.stack(toks, 1), torch.stack(step_logits, 1), step_ms
+        clock.stamp()
+    return (torch.stack(toks, 1), torch.stack(step_logits, 1),
+            clock.step_ms())
 
 
 def _sync(device):
@@ -151,12 +368,13 @@ def main(argv=None) -> None:
     if args.scale == "tiny":
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    max_len = args.prompt_len + args.gen_len
     mesh = mesh_from_devices(device) if _world_size() > 1 else None
     if mesh is not None and mesh.device_type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     lead = mesh is None or mesh.get_rank() == 0
+    mode = decode_mode(device, mesh)
     if lead:
+        print(f"decode: {mode}")
         print(f"device {device} arch={cfg.name} attn_impl={cfg.attn_impl}"
               + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
                  if mesh is not None else ""))
@@ -177,8 +395,9 @@ def main(argv=None) -> None:
         last, cache = pre(params, {"tokens": tokens})
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        out, _, step_ms = greedy_decode(cfg, params, cache, last,
-                                        args.prompt_len, args.gen_len, step)
+        decode = DecodeGraph(step, params, args.gen_len,
+                             graph=mode == "graph", mesh=mesh)
+        out, _, step_ms = decode.run(last, cache, args.prompt_len)
         if mesh is not None:       # every rank's batch block, in order
             out = sh.gather_tree({"ids": out}, {"ids": t_layout}, mesh)["ids"]
     steady = step_ms[1:] or step_ms

@@ -51,15 +51,27 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
 
     def layer(lead):
         S = lambda *s: torch.Size(lead + s)
-        ffn = {"w1": S(d, cfg.d_ff), "w2": S(cfg.d_ff, d)}
-        if cfg.act == "silu":
-            ffn["w3"] = S(d, cfg.d_ff)
-        return {"ln1": {"scale": S(d)},
-                "attn": {"wq": S(d, cfg.n_heads * hd),
-                         "wk": S(d, cfg.n_kv_heads * hd),
-                         "wv": S(d, cfg.n_kv_heads * hd),
-                         "wo": S(cfg.n_heads * hd, d)},
-                "ln2": {"scale": S(d)}, "ffn": ffn}
+
+        def mlp(*io):           # w1 / w3 [*io], w2 its transpose
+            p = {"w1": S(*io), "w2": S(*io[:-2], io[-1], io[-2])}
+            if cfg.act == "silu":
+                p["w3"] = S(*io)
+            return p
+
+        out = {"ln1": {"scale": S(d)},
+               "attn": {"wq": S(d, cfg.n_heads * hd),
+                        "wk": S(d, cfg.n_kv_heads * hd),
+                        "wv": S(d, cfg.n_kv_heads * hd),
+                        "wo": S(cfg.n_heads * hd, d)},
+               "ln2": {"scale": S(d)}}
+        if cfg.n_experts:
+            out["moe"] = {"router": S(d, cfg.n_experts),
+                          **mlp(cfg.n_experts, d, cfg.moe_d_ff)}
+            if cfg.dense_residual:
+                out["moe"]["dense"] = mlp(d, cfg.d_ff)
+        else:
+            out["ffn"] = mlp(d, cfg.d_ff)
+        return out
 
     params = {"embed": {"table": torch.Size((cfg.vocab_size, d))},
               "final_norm": {"scale": torch.Size((d,))},

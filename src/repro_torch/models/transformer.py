@@ -47,9 +47,20 @@ merges the slices' ``(o, lse)`` pairs (``kernels.decode_attn.
 merge_partials``) after one all-gather.  Nothing in a step syncs with the
 host or branches on the device's ``pos``, so a step can be captured.
 
-Not ported yet, and refused with ``NotImplementedError``: MoE FFNs, SSD and
-RG-LRU blocks, the encoder and cross-attention, VLM and audio inputs
-(M-RoPE, stub embeddings), and ``remat`` (ROADMAP Queue 1, slice 6).
+MoE FFNs (``cfg.n_experts``: ``models/moe.py``) take the place of an
+attention layer's MLP, as in the JAX package: ``forward_seq`` returns the
+sum of the layers' Switch aux losses under ``"aux"``, prefill and training
+drop tokens past an expert's capacity (``cfg.moe_capacity``), and decode
+runs every expert at full capacity.  ``cfg.moe_dispatch == "a2a"`` sends
+the tokens to experts split over ``data`` with an all-to-all
+(``models/moe_dispatch.py``) through ``tp``'s parallel context, which it
+needs.  Under ``tp`` the experts follow their specs: f split over
+``model`` (``w1`` / ``w3`` column-parallel, ``w2`` row-parallel), the
+router replicated.
+
+Not ported yet, and refused with ``NotImplementedError``: SSD and RG-LRU
+blocks, the encoder and cross-attention, VLM and audio inputs (M-RoPE,
+stub embeddings), and ``remat`` (ROADMAP Queue 1, slice 6).
 """
 from __future__ import annotations
 
@@ -68,16 +79,17 @@ from repro_torch.parallel import (copy_to_model, model_dim,
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init)
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe_dispatch import moe_apply_a2a
 from repro_torch.models.rope import apply_rope
 from repro_torch.tree import tree_map, tree_with_path
 
-_LATER = "(ROADMAP Queue 1, slice 6: the other model families)"
+_LATER = ("(ROADMAP Queue 1, slice 6: the other model families; the "
+          "dense and MoE attention stacks are ported, SSD, RG-LRU, VLM and "
+          "audio are left)")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported "
-                                  f"yet {_LATER}")
     bad = sorted(set(cfg.block_pattern) - {ATTN_GLOBAL, ATTN_LOCAL})
     if bad:
         raise NotImplementedError(f"{cfg.name}: blocks {bad} (SSD / RG-LRU) "
@@ -126,13 +138,17 @@ def _norm_kind(cfg: ArchConfig) -> str:
 def _layer_init(generator, cfg: ArchConfig, dtype):
     nk = _norm_kind(cfg)
     dev = generator.device
-    return {
-        "ln1": norm_init(nk, cfg.d_model, dtype, dev),
-        "attn": attn.attn_init(generator, cfg.d_model, cfg.n_heads,
-                               cfg.n_kv_heads, cfg.head_dim, dtype),
-        "ln2": norm_init(nk, cfg.d_model, dtype, dev),
-        "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype),
-    }
+    p = {"ln1": norm_init(nk, cfg.d_model, dtype, dev),
+         "attn": attn.attn_init(generator, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim, dtype),
+         "ln2": norm_init(nk, cfg.d_model, dtype, dev)}
+    if cfg.n_experts:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.n_experts,
+                            cfg.moe_d_ff, cfg.act, dtype,
+                            dense_residual=cfg.dense_residual, d_ff=cfg.d_ff)
+    else:
+        p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    return p
 
 
 def _apply_rope_any(cfg: ArchConfig, q, k, positions):
@@ -148,11 +164,35 @@ def _mp(tp):
     return tp.mp if tp is not None and tp.active else None
 
 
+def _ffn(cfg: ArchConfig, p, hn, *, tp, ps, decode=False):
+    """The layer's FFN on ``hn``: (out, aux), aux None for a dense MLP.
+    MoE decode runs every expert at full capacity (T = B tokens, none
+    dropped), as the JAX package does."""
+    if not cfg.n_experts:
+        return mlp_apply(p["ffn"], hn, cfg.act, mp=_mp(tp),
+                         specs=None if ps is None else ps["ffn"]), None
+    mp = None if tp is None else tp.mp
+    kw = dict(top_k=cfg.top_k, act=cfg.act,
+              dense_residual=cfg.dense_residual,
+              specs=None if ps is None else ps["moe"])
+    if decode:
+        return moe_apply(p["moe"], hn, full_capacity=True, mp=mp, **kw)
+    if cfg.moe_dispatch == "a2a":
+        if tp is None:
+            raise ValueError(f"{cfg.name}: moe_dispatch='a2a' needs the "
+                             "rank's parallel context (tp=, from "
+                             "launch.steps on a mesh)")
+        return moe_apply_a2a(p["moe"], hn, tp.mp,
+                             capacity_factor=cfg.moe_capacity, **kw)
+    return moe_apply(p["moe"], hn, capacity_factor=cfg.moe_capacity,
+                     shard_capacity=cfg.moe_shard_capacity, mp=mp, **kw)
+
+
 def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
                max_len, tp=None, ps=None, cache_spec=None):
-    """Sequence-mode attention layer. Returns (h, cache_or_None).  ``ps``:
-    the layer's parameter specs, ``cache_spec`` its cache's k spec (under
-    ``tp``)."""
+    """Sequence-mode attention layer. Returns (h, aux or None,
+    cache_or_None).  ``ps``: the layer's parameter specs, ``cache_spec``
+    its cache's k spec (under ``tp``)."""
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
@@ -176,9 +216,9 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
         cache = _seq_kv_to_cache(cfg, kind, k, v, max_len)
         if tp is not None and cache_spec is not None:
             cache = {n: _l_block(t, cache_spec, tp) for n, t in cache.items()}
-    hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
-    return h + mlp_apply(p["ffn"], hn2, cfg.act, mp=mp,
-                         specs=None if ps is None else ps["ffn"]), cache
+    ff, aux = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps),
+                   tp=tp, ps=ps)
+    return h + ff, aux, cache
 
 
 def _l_block(t, spec, tp):
@@ -261,9 +301,9 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                            both[:, :, H * hd:])
     h = h + attn.project_out(p["attn"], o, mp=mp,
                              specs=None if ps is None else ps["attn"])
-    hn2 = norm_apply(nk, p["ln2"], h, cfg.norm_eps)
-    return h + mlp_apply(p["ffn"], hn2, cfg.act, mp=mp,
-                         specs=None if ps is None else ps["ffn"]), cache
+    ff, _ = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps), tp=tp,
+                 ps=ps, decode=True)
+    return h + ff, cache
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +390,9 @@ def _drop_lead(specs):
 def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
                 want_logits=True, max_cache_len: Optional[int] = None,
                 tp=None):
-    """batch: {'tokens': [B,S] int} -> {'logits'?, 'features', 'aux',
-    'cache'?}; runs on the parameters' device.  Under ``tp`` the logits
+    """batch: {'tokens': [B,S] int} -> {'logits'?, 'features', 'aux' (the
+    layers' MoE aux losses summed; 0 for a dense stack), 'cache'?}; runs on
+    the parameters' device.  Under ``tp`` the logits
     are this rank's V block and the cache its block under
     ``tp.cache_specs`` (module docstring)."""
     _check_supported(cfg)
@@ -359,28 +400,31 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
     S = h.shape[1]
     max_len = max_cache_len or S
     positions = torch.arange(S, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     c, n_full, rem = cycle_split(cfg.block_pattern)
     caches = [[] for _ in range(c)]
     for i in range(n_full):
         for j, kind in enumerate(cfg.block_pattern[:c]):
             p = tree_map(lambda x: x[i], params["cycles"][j])
             ps, cs = _layer_parts(tp, True, j)
-            h, cache = _layer_seq(cfg, kind, p, h, positions=positions,
-                                  want_cache=want_cache, max_len=max_len,
-                                  tp=tp, ps=ps, cache_spec=cs)
+            h, a, cache = _layer_seq(cfg, kind, p, h, positions=positions,
+                                     want_cache=want_cache, max_len=max_len,
+                                     tp=tp, ps=ps, cache_spec=cs)
+            aux = aux if a is None else aux + a
             caches[j].append(cache)
     tail_caches = []
     for j in range(rem):
         kind = cfg.block_pattern[n_full * c + j]
         ps, cs = _layer_parts(tp, False, j)
-        h, cache = _layer_seq(cfg, kind, params["tail"][j], h,
-                              positions=positions, want_cache=want_cache,
-                              max_len=max_len, tp=tp, ps=ps, cache_spec=cs)
+        h, a, cache = _layer_seq(cfg, kind, params["tail"][j], h,
+                                 positions=positions, want_cache=want_cache,
+                                 max_len=max_len, tp=tp, ps=ps,
+                                 cache_spec=cs)
+        aux = aux if a is None else aux + a
         tail_caches.append(cache)
 
     feats = norm_apply(_norm_kind(cfg), params["final_norm"], h, cfg.norm_eps)
-    out = {"features": feats,
-           "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+    out = {"features": feats, "aux": aux}
     if want_logits:
         out["logits"] = head_apply(cfg, params, head_input(cfg, feats, tp),
                                    tp)

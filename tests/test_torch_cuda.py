@@ -1666,6 +1666,64 @@ def test_serve_runs_on_the_card(cuda_device, arch, capsys):
 
 
 # --------------------------------------------------------------------------
+# the decode step captured once as a CUDA graph (launch.serve.DecodeGraph)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-1b-a400m"])
+def test_decode_graph_equals_eager_decode_bit_for_bit(cuda_device, name):
+    """Two requests through one captured decode step (the second's cache
+    copied into the captured tensors) against ``greedy_decode``'s eager
+    steps: the same tokens and the same logits, bit for bit; K9 once a
+    layer a replay, counted at the capture only."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(name).reduced(), attn_impl="pallas")
+    params = tfm.init_params(cfg, torch.Generator(device=cuda_device)
+                             .manual_seed(0), device=cuda_device)
+    P, G = 80, 6
+    loop = serve.DecodeGraph(
+        lambda p, t, c, pos: tfm.decode_step(cfg, p, t, c, pos), params, G)
+    with torch.no_grad():
+        for seed in (0, 1):
+            tokens = serve.make_prompts(cfg, 2, P, seed=seed,
+                                        device=cuda_device)
+            last, cache = serve.prefill(cfg, params, tokens, P + G)
+            want = serve.greedy_decode(cfg, params,
+                                       tree_map(torch.clone, cache), last,
+                                       P, G)
+            k9 = tda.flash_decode_cuda.launches
+            got = loop.run(last, cache, P)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            assert tda.flash_decode_cuda.launches - k9 == (
+                2 * cfg.n_layers if seed == 0 else 0)
+    assert loop.replays == 2 * G
+    assert loop.stats["launches_per_replay"] == {
+        "flash_decode": cfg.n_layers}
+
+
+@pytest.mark.cuda
+def test_decode_graph_capture_on_a_gloo_mesh_raises(cuda_device):
+    """A gloo mesh's collectives wait on the host: the capture is refused
+    before anything runs (a one-rank gloo group made for the test)."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    assert not dist.is_initialized(), "a process group is already set up"
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        with pytest.raises(ValueError, match="gloo"):
+            serve.DecodeGraph(None, {}, 4, graph=True, mesh=mesh)
+        assert serve.decode_mode(cuda_device, mesh) == "eager (gloo)"
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
 # the client-sharded engine on one rank: NCCL all-reduces inside a captured
 # graph (a one-card host shows only the one-rank case; S > 1 is held on
 # the CPU over gloo, tests/test_torch_sharded.py)

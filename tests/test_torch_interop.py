@@ -158,7 +158,8 @@ def test_entry_points_refuse_a_silent_cpu_fallback():
 
 @pytest.mark.parametrize("name", ["quickstart_torch.py",
                                   "newclient_generalization_torch.py",
-                                  "train_lm_federated_torch.py"])
+                                  "train_lm_federated_torch.py",
+                                  "serve_decode_torch.py"])
 def test_example_twins_import_no_jax_and_no_repro(name):
     names = _script_imports(os.path.join("examples", name))
     assert "repro_torch.models" in names

@@ -191,9 +191,8 @@ def test_every_jax_arch_config_is_representable(jname):
             get_config(jname)
 
 
-@pytest.mark.parametrize("jname", ["granite-moe-1b-a400m", "mamba2-130m",
-                                   "recurrentgemma-9b", "whisper-large-v3",
-                                   "qwen2-vl-7b"])
+@pytest.mark.parametrize("jname", ["mamba2-130m", "recurrentgemma-9b",
+                                   "whisper-large-v3", "qwen2-vl-7b"])
 def test_unported_families_raise(jname):
     cfg = ArchConfig(**dataclasses.asdict(J_ARCHS[jname])).reduced()
     with pytest.raises(NotImplementedError, match="slice"):

@@ -49,7 +49,10 @@ is non-zero):
    slice's kernels: K9's ``lse`` at a rank's half of gemma3-1b's and
    stablelm-3b's caches, valid length 0 included, timed with and without
    it by wall and device microseconds, slices merged against one call,
-   and K2 on column blocks W [2C, C/2]);
+   and K2 on column blocks W [2C, C/2]); K8a, K8b / K8c and K9 at
+   recurrentgemma-9b's local layers (16 query heads over one KV head of
+   256, window 2,048: its 2,560-token serve prompt, its training batch of
+   2 x 1,024, its full 2,048 ring);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -59,7 +62,8 @@ is non-zero):
    8-round chunks, each a CUDA graph replay, eval folded into the chunk)
    for FedAvg, FedFusion-conv with a top-k uplink on the dense and on the
    host EF store, and FedMMD client-sequential with an int8 uplink, beside
-   the same configuration's reference rounds/s over 12 rounds; each run's
+   the same configuration's reference rounds/s over 8 rounds (12 until
+   PR 28); each run's
    kernel launch counts must equal the path's formula (K3 twice per
    quantized message, K4 once per message) and its bytes the
    reference's (FedMMD: the fused term once forward and once backward per
@@ -70,7 +74,10 @@ is non-zero):
    smollm-135m and stablelm-3b at batch 4 with 1,024-token prompts, then
    h2o-danube-3-4b at batch 1 with a 4,608-token prompt (its 4,096 window
    binds in prefill and the ring caches roll while decoding), then
-   granite-moe-1b (32 experts, top 8) at batch 4 x 1,024, random weights
+   granite-moe-1b (32 experts, top 8) at batch 4 x 1,024, mamba2-130m
+   (24 SSD layers: its cache the states and conv windows) at 4 x 1,024
+   and recurrentgemma-9b (38 layers, 12 local-attention layers among
+   RG-LRU ones) at 1 x 2,560 (its 2,048 window binds), random weights
    from seed 0, 32 greedy tokens, after one warm-up run: prefill ms,
    decode ms per step, tokens/s, peak memory; K8a must launch once per
    attention layer per prefill and K9 once per attention layer per decode
@@ -90,12 +97,20 @@ is non-zero):
    gemma3-1b at 1,024 and batch 4, 2 rounds of FedAvg; stablelm-3b and
    h2o-danube-3-4b and granite-moe-1b at full width with the depth cut to
    4 layers, 1,024 and batch 4, 2 rounds of FedAvg (granite's trained
-   Switch aux on 4 x 1,024, finite); then ``run_federated_reference`` with
+   Switch aux on 4 x 1,024, finite); recurrentgemma-9b at full width cut
+   to one cycle (RG-LRU, RG-LRU, local attention) in its client_sequential
+   mode, 1,024 and batch 8; then ``run_federated_reference`` with
    the
    smollm-135m bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
    local steps of 4 sequences of 512, eval on 8 test sequences): ms per
    local step, tokens/s, peak memory, each round's loss, and K1 / K2 / K8a /
-   K8b / K8c launches, which must equal the path's formula;
+   K8b / K8c launches, which must equal the path's formula; then
+   stablelm-3b (32 layers) and h2o-danube-3-4b (24) at full depth, one
+   FedAvg round of 2 clients x 2 local steps (``remat_runs``): the memory
+   split (weights, the round's client state, the forward's activations),
+   ``remat="none"`` and ``"layer"`` at the largest batch of 1,024 that
+   ``"none"`` holds, and ``"layer"`` at twice it, peak memory and ms a
+   local step each, K8a once more a layer a step under ``"layer"``;
 4d. the rest of the main path, CNN_MNIST at its published width: fig. 6
    (``benchmarks/fig6_newclient.py``'s settings: 8 permuted clients, 4 a
    round, 4 local steps of 32, lr 0.06, decay 0.99; 15 engine rounds in
@@ -107,7 +122,7 @@ is non-zero):
    single) at the fig. 4 setting, wall ms (the objectives in turns) and
    device ops and µs under ``torch.profiler``, each against FedAvg's; the
    sketch codecs ``mask`` and ``lowrank`` at fig. 7's fraction, at half
-   fig. 4's lr, on the reference loop (12 rounds) and the engine (40
+   fig. 4's lr, on the reference loop (8 rounds) and the engine (40
    rounds in 8-round chunks): rounds/s, finite losses, and bytes up equal
    to the codec's formula on both; participation with fig. 8's
    chaos on the engine (40 rounds in 8-round chunks): FedFusion-conv with
@@ -155,7 +170,7 @@ is non-zero):
    6 of its 30 layers (to keep the script within its time limit) at
    phase 4c's reference setting (8 clients by source, 4 a round,
    2 local steps of 4 x 512, eval on 8 test sequences every round, folded
-   into the chunk), 8 rounds in 2-round chunks, for FedAvg,
+   into the chunk), 4 rounds in 2-round chunks, for FedAvg,
    FedFusion-conv, FedMMD, FedFusion-conv with a top-k 1/16 uplink on the
    host EF store and FedAvg with an int8 uplink, each beside 2 reference
    rounds from the same state: steady rounds/s, ms per local step and
@@ -166,8 +181,14 @@ is non-zero):
    superstep over NCCL, bit-equal to the FedAvg run with K + 1
    all-reduces a replay; gemma3-1b at full width and depth, FedAvg, 2 of 4
    clients a round at 2 x 1,024 (its 512-token local window binds), 4
-   rounds in 2-round chunks; ``launch.train --engine --scale full`` on
-   smollm-135m (4 rounds at 512, batch 2, ``superstep_rounds="auto"``);
+   rounds in 2-round chunks; ``launch.train --engine`` on smollm-135m at
+   its reduced scale (4 rounds at 512, batch 2,
+   ``superstep_rounds="auto"``); mamba2-130m at full width and depth,
+   FedAvg and FedFusion-conv (K2 in the graphs), 2 of 4 clients at 4 x
+   256, 4 rounds in 2-round chunks, equal bit for bit to the reference
+   loop over the same rounds; smollm-135m (6 layers) FedAvg with
+   ``remat="none"`` and ``"layer"`` through the engine, each equal to its
+   reference loop, the graph pools' bytes side by side;
 4h. tensor parallelism on the one card: (b) a one-rank NCCL (1, 1) mesh
    through ``launch.steps``' builders, a smollm-135m launcher round and
    two serving requests, eager and through one captured decode step,
@@ -193,16 +214,20 @@ is non-zero):
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
-   loop on the card (cuDNN deterministic, 40 rounds), which must be equal;
+   loop on the card (cuDNN deterministic, 16 rounds; 40 until PR 28),
+   which must be equal;
    then serving: gemma3-1b at full width cut to 6 layers, a 576-token
    prompt and 4 greedy steps, the same weights on the card and the CPU;
    then LM training: smollm-135m at full width cut to 2 layers,
    FedFusion-conv through the ``launch.train`` loop, one round (two until
    the decode-graph and MoE runs were added), batch 2, sequence length
-   256, from the same state on the card and the CPU; then both serving
-   and one FedAvg round
-   for stablelm-3b and h2o-danube-3-4b at full width cut to 2 layers (hd
-   80 and 120), and for granite-moe-1b at full width cut to 2 layers,
+   128 (256 until the recurrent families were added), from the same
+   state on the card and the CPU; then serving (2 layers) and one FedAvg
+   round (1 layer; 2 until then)
+   for stablelm-3b and h2o-danube-3-4b at full width (hd
+   80 and 120), and for granite-moe-1b at full width; mamba2-130m at 2
+   SSD layers (both); recurrentgemma-9b at one cycle, its vocabulary cut
+   to 16,384 (serving a 256-token prompt, training one sequence of 16),
    each check with its seconds, with the share of tokens whose
    top-k expert sets agree between card and CPU and the smallest gate
    margin among those that do not; the card's serving steps are a
@@ -292,7 +317,9 @@ ENGINE_CHUNK = 8            # superstep_rounds of the engine runs
 # rate spans four replays and the fifth chunk refills the first of the
 # engine's four pinned staging pools
 ENGINE_ROUNDS = 5 * ENGINE_CHUNK
-REF_ROUNDS = 12             # the reference run beside each engine run
+# the reference run beside each engine run (12 until the recurrent families
+# and the remat runs were added: the script's time limit)
+REF_ROUNDS = 8
 # the engine runs of phases 4 and 6: algorithm, mode, uplink, EF store
 ENGINE_RUNS = [("fedavg", "client_parallel", "identity", "device"),
                ("fedfusion", "client_parallel", "topk", "device"),
@@ -1304,19 +1331,26 @@ def flash_decode_work(B, valid, H, KV, hd):
 # K8a cases of phase 3: gemma3-1b's global and local layers, smollm-135m's
 # layers, a ragged length; B = 4 and S = 1,024 as the serve phase prefills;
 # stablelm-3b's layers (hd 80), h2o-danube-3-4b's (hd 120) at its serve
-# prompt of 4,608 (the 4,096 window binds) and a ragged hd 80
+# prompt of 4,608 (the 4,096 window binds) and a ragged hd 80;
+# recurrentgemma-9b's local layers (16 query heads over one KV head of 256,
+# window 2,048) at its serve prompt of 2,560 (the window binds) and at
+# phase 4c's training shape
 FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
                ("smollm-135m", 4, 1024, 9, 3, 64, None),
                ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512),
                ("stablelm-3b", 4, 1024, 32, 32, 80, None),
                ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 4096),
-               ("stablelm-3b, ragged", 4, 1000, 32, 32, 80, None)]
+               ("stablelm-3b, ragged", 4, 1000, 32, 32, 80, None),
+               ("recurrentgemma-9b local", 1, 2560, 16, 1, 256, 2048),
+               ("recurrentgemma-9b local, train", 2, 1024, 16, 1, 256,
+                2048)]
 # K9 cases: gemma3-1b's global cache (max_len 1,056) at several lengths,
 # its full local ring, smollm-135m's cache, and recurrentgemma-9b's heads
 # (16 query heads over one KV head of 256) on a cache of the same length;
 # stablelm-3b's cache (hd 80), h2o-danube-3-4b's full ring (hd 120) and
-# its heads on a cache of 1,056
+# its heads on a cache of 1,056; recurrentgemma-9b's full ring of 2,048
+# (phase 4b's prompt of 2,560 fills it)
 DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                                                           1056)),
                 ("gemma3-1b local", 4, 512, 4, 1, 256, (512,)),
@@ -1325,7 +1359,8 @@ DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                  (17, 1056)),
                 ("stablelm-3b", 4, 1056, 32, 32, 80, (1, 1025, 1056)),
                 ("h2o-danube-3-4b ring", 1, 4096, 32, 8, 120, (4096,)),
-                ("h2o-danube-3-4b heads", 1, 1056, 32, 8, 120, (529, 1056))]
+                ("h2o-danube-3-4b heads", 1, 1056, 32, 8, 120, (529, 1056)),
+                ("recurrentgemma-9b ring", 1, 2048, 16, 1, 256, (2048,))]
 # float32 reorderings over at most 4,096 keys put the kernels' outputs a
 # few 1e-7 from the plain versions' (|o| < 4, |lse| < 15): 1e-4 bounds
 # them with room; a wrong mask, tile or missing column moves them by O(0.1)
@@ -1622,8 +1657,10 @@ def flash_bwd_work(B, S, H, KV, hd, window):
 # K8b / K8c cases of phase 3: phase 4c's training shapes (smollm-135m at
 # batch 8, gemma3-1b's global and local layers, stablelm-3b's (hd 80) and
 # h2o-danube-3-4b's (hd 120) layers at batch 4, S = 1,024), a ragged
-# length at hd 128, gemma3-1b's local layer at a ragged length, and
-# h2o-danube-3-4b at 4,608 positions, where its 4,096 window binds
+# length at hd 128, gemma3-1b's local layer at a ragged length,
+# h2o-danube-3-4b at 4,608 positions, where its 4,096 window binds, and
+# recurrentgemma-9b's local layer (rep 16, hd 256, window 2,048) at phase
+# 4c's training shape (a client's batch of 2 x 1,024)
 FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
                    ("gemma3-1b global", 4, 1024, 4, 1, 256, None),
                    ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
@@ -1631,7 +1668,8 @@ FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
                    ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512),
                    ("stablelm-3b", 4, 1024, 32, 32, 80, None),
                    ("h2o-danube-3-4b", 4, 1024, 32, 8, 120, None),
-                   ("h2o-danube-3-4b window", 1, 4608, 32, 8, 120, 4096)]
+                   ("h2o-danube-3-4b window", 1, 4608, 32, 8, 120, 4096),
+                   ("recurrentgemma-9b local", 2, 1024, 16, 1, 256, 2048)]
 # dq sums over up to S keys and dk / dv over up to S * rep rows, in another
 # order than the plain version's full products: a few 1e-7 of each
 # gradient's largest element.  1e-4 of it bounds that with room (target
@@ -1751,14 +1789,18 @@ def check_flash_bwd_kernels(torch, flash_attn):
 # phase 4c: model, algorithm, sequence length, global batch, rounds, and
 # the depth it is cut to (None: full depth).  stablelm-3b (hd 80),
 # h2o-danube-3-4b (hd 120) and granite-moe-1b (32 experts, top 8) train at
-# full width cut to 4 layers
+# full width cut to 4 layers; recurrentgemma-9b at full width cut to 3
+# layers (one cycle: RG-LRU, RG-LRU, local attention at hd 256, rep 16,
+# window 2,048) in its own client_sequential mode (4 clients visited in
+# turn, 2 sequences each)
 TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3, None),
               ("smollm-135m", "fedmmd", 1024, 8, 3, None),
               ("smollm-135m", "fedfusion", 1024, 8, 3, None),
               ("gemma3-1b", "fedavg", 1024, 4, 2, None),
               ("stablelm-3b", "fedavg", 1024, 4, 2, 4),
               ("h2o-danube-3-4b", "fedavg", 1024, 4, 2, 4),
-              ("granite-moe-1b-a400m", "fedavg", 1024, 4, 2, 4)]
+              ("granite-moe-1b-a400m", "fedavg", 1024, 4, 2, 4),
+              ("recurrentgemma-9b", "fedavg", 1024, 8, 2, 3)]
 TRAIN_LR = 0.05             # launch.train's default
 
 
@@ -1766,14 +1808,20 @@ def lm_launches(cfg, algorithm, steps, evals=0, *, messages=0, n_leaves=0,
                 ef_rounds=0):
     """Kernel launches of ``steps`` local steps and ``evals`` evaluations of
     an LM bundle: K8a once per attention layer per forward (the local
-    stream, the frozen global stream of FedMMD and FedFusion, each eval),
+    stream, the frozen global stream of FedMMD and FedFusion, each eval)
+    and, under ``cfg.remat == "layer"``, once more per attention layer of
+    the checkpointed cycles (not the tail) per backward,
     K8b and K8c once per attention layer per backward, the fused MK-MMD
     term once forward and once backward a FedMMD step (8 pooled rows a
     side: no Gram-sum launch), K2 once a FedFusion-conv step and eval (its
     backward is plain products); with codecs, K3 twice and K4 once per
     quantized message of up to 64 leaves (``messages``), K6 and K7 once
     per EF leaf (``n_leaves``) per top-k round (``ef_rounds``)."""
+    from repro_torch.models.transformer import cycle_split
     L = sum(k.startswith("attn") for k in cfg.block_pattern)
+    c, n_full, _ = cycle_split(cfg.block_pattern)
+    recomputed = (cfg.remat == "layer") * sum(
+        k.startswith("attn") for k in cfg.block_pattern[:c * n_full])
     two_stream = algorithm in ("fedmmd", "fedfusion")
     mmd = steps * (algorithm == "fedmmd")
     groups = -(-n_leaves // 64)
@@ -1783,7 +1831,8 @@ def lm_launches(cfg, algorithm, steps, evals=0, *, messages=0, n_leaves=0,
             "quant_unpack": groups * messages, "topk_select": 0,
             "ef_gather": n_leaves * ef_rounds,
             "ef_scatter": n_leaves * ef_rounds,
-            "flash_fwd": L * (steps * (1 + two_stream) + evals),
+            "flash_fwd": L * (steps * (1 + two_stream) + evals)
+            + recomputed * steps,
             "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
 
 
@@ -1857,6 +1906,164 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
     return total
 
 
+# phase 4c: full-depth training with activation checkpointing.  FedAvg,
+# one round of 2 clients x 2 local steps (a client's batch of B sequences)
+# in client_sequential mode (the round holds the running sum, not a stack
+# of client models), at stablelm-3b's 32 layers and h2o-danube-3-4b's 24.
+# The memory split: the weights (the global model, resident); the round's
+# client state, the peak above them of a round on 16 tokens (the running
+# sum, the client's model, its gradient); the activations, what a forward
+# over the batch keeps for the backward (logits included), measured apart
+# before each round.  remat="none" at the first of REMAT_NONE's (B, S)
+# that fits (an attempt of that search that runs out of memory is
+# recorded as such; any other run that does fails the phase), "layer" at
+# the same, with the same loss (JAX's rtol 1e-6) at a lower peak, then
+# "layer" at twice that many tokens (S = 1,024), which "none" cannot hold:
+# its measured activations per token put the round past the card (the
+# line prints the count)
+REMAT_MODELS = ("stablelm-3b", "h2o-danube-3-4b")
+REMAT_NONE = ((4, 1024), (2, 1024), (1, 1024), (1, 512), (1, 256))
+
+
+def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
+               init_global_state, make_round_fn, token_stream, tree_leaves):
+    """Phase 4c's full-depth ``remat`` runs; returns their launches (a
+    round of the search that ran out of memory launched kernels that are
+    not counted)."""
+    import dataclasses
+    import gc
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    total = dict.fromkeys(counters, 0)
+    cap = torch.cuda.get_device_properties(0).total_memory
+    C, ls, S = 2, 2, 1024
+    for name in REMAT_MODELS:
+        base = dataclasses.replace(get_config(name), attn_impl="pallas")
+        fl = FLConfig(algorithm="fedavg", clients_per_round=C,
+                      local_steps=ls, lr=TRAIN_LR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_global_state(make_bundle(base), fl, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state["model"]))
+        toks = torch.from_numpy(token_stream(C * ls * 32, S,
+                                             vocab=base.vocab_size,
+                                             n_sources=1)[0]).long().cuda()
+        nex = torch.ones((C,), device="cuda")
+
+        def settle():
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+
+        def kept(cfg, tokens):
+            """Bytes a forward keeps for its backward, logits included."""
+            p = tree_map(lambda t: t.detach().requires_grad_(True),
+                          state["model"])
+            start = settle()
+            out = tfm.forward_seq(cfg, p, {"tokens": tokens})
+            n = torch.cuda.memory_allocated() - start
+            del out, p
+            return n
+
+        def run(remat, B, T, search=False):
+            cfg = dataclasses.replace(base, remat=remat)
+            round_fn = make_round_fn(make_bundle(cfg), fl,
+                                     "client_sequential")
+            arr = toks[:C * ls * B, :T + 1].reshape(C, ls, B, T + 1)
+            batch = {"tokens": arr[..., :-1], "labels": arr[..., 1:]}
+            line = dict(remat=remat, client_batch=B, seq_len=T,
+                        tokens_per_step=B * T)
+            try:
+                line["activation_bytes"] = kept(cfg, batch["tokens"][0, 0])
+                for counter in counters.values():
+                    counter.launches = 0
+                start = line["resident_bytes"] = settle()
+                t0 = time.perf_counter()
+                new, metrics = round_fn(state, batch, nex, TRAIN_LR)
+                loss = float(metrics["local_loss"])
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                del new, metrics
+            except torch.OutOfMemoryError:
+                ms = None
+            if ms is None:       # out of the handler: its frames are freed
+                line.update(out_of_memory=True,
+                            peak_bytes=torch.cuda.max_memory_allocated(),
+                            ok=search)
+                settle()
+                emit("train_remat_run", model=name, **line)
+                if not search:
+                    raise AssertionError(f"train remat {name}: {remat} at "
+                                         f"{B} x {T} ran out of memory")
+                return line
+            peak = torch.cuda.max_memory_allocated()
+            got = {k: c.launches for k, c in counters.items()}
+            want = {k: v for k, v in lm_launches(cfg, "fedavg",
+                                                 C * ls).items()
+                    if k in counters}
+            for k in total:
+                total[k] += got[k]
+            line.update(out_of_memory=False, round_ms=ms,
+                        ms_per_local_step=ms / (C * ls),
+                        tokens_per_s=C * ls * B * T / ms * 1e3,
+                        peak_above_resident_bytes=peak - start,
+                        peak_bytes=peak, loss=loss, launches=got,
+                        expected=want,
+                        ok=got == want and math.isfinite(loss))
+            emit("train_remat_run", model=name, **line)
+            return line
+
+        runs = [run("none", 1, 16)]
+        client_state = runs[0]["peak_above_resident_bytes"]
+        for B, T in REMAT_NONE:
+            runs.append(run("none", B, T, search=True))
+            if not runs[-1]["out_of_memory"]:
+                break
+        fit = runs[-1]
+        if fit["out_of_memory"]:
+            raise AssertionError(f"{name}: remat='none' runs out of memory "
+                                 f"at every size of {REMAT_NONE}")
+        runs.append(run("layer", fit["client_batch"], fit["seq_len"]))
+        lay = runs[-1]
+        big = 2 * fit["tokens_per_step"] // S
+        none_per_token = fit["activation_bytes"] / fit["tokens_per_step"]
+        none_big = (lay["resident_bytes"] + client_state
+                    + none_per_token * big * S)
+        runs.append(run("layer", big, S))
+        split = dict(
+            weights_bytes=weights, client_state_bytes=client_state,
+            activation_bytes={f"{r['remat']}@{r['client_batch']}x"
+                              f"{r['seq_len']}": r.get("activation_bytes")
+                              for r in runs[1:]},
+            activation_bytes_per_token={
+                "none": none_per_token,
+                "layer": lay["activation_bytes"] / lay["tokens_per_step"]},
+            none_activations_at_layer_big=none_per_token * big * S)
+        same_loss = abs(lay["loss"] - fit["loss"]) <= 1e-6 * abs(fit["loss"])
+        lower_peak = lay["peak_bytes"] < fit["peak_bytes"]
+        ok = (all(r["ok"] for r in runs) and same_loss and lower_peak
+              and none_big > cap)
+        emit("train_remat", model=name, layers=base.n_layers,
+             params=sum(t.numel() for t in tree_leaves(state["model"])),
+             algorithm="fedavg", mode="client_sequential", clients=C,
+             local_steps=ls, card_bytes=cap, memory_split=split,
+             none_fits=[fit["client_batch"], fit["seq_len"]],
+             layer_big=[big, S], none_peak_counted_at_layer_big=none_big,
+             layer_vs_none_loss=[lay["loss"], fit["loss"]],
+             checks=dict(runs=all(r["ok"] for r in runs),
+                         same_loss=same_loss, lower_peak=lower_peak,
+                         none_cannot_hold_big=none_big > cap))
+        if not ok:
+            raise AssertionError(f"train remat {name}: {runs}")
+        del state, toks
+        settle()
+    return total
+
+
 def train_reference(torch, counters, get_config, FLConfig, make_bundle,
                     init_global_state, run_federated_reference,
                     FederatedDataset, token_stream, source_partition):
@@ -1922,11 +2129,12 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
 # graph and the MoE runs were added to phases 4b, 4c and 6), at phase 4c's
 # train_reference setting (8 clients by source, 4 a round, 2 local steps of
 # 4 x 512, eval on 8 test sequences, here every round, folded into the
-# chunk), 8 rounds in 2-round chunks, each run beside 2 reference rounds;
+# chunk), 4 rounds in 2-round chunks (8 until the recurrent families and
+# the remat runs were added), each run beside 2 reference rounds;
 # gemma3-1b with 2 of 4 clients a round at 2 x 1,024 (its 512-token local
 # window binds; the batch fits beside the stacked client models)
 LM_ENGINE = dict(clients=8, clients_per_round=4, local_steps=2,
-                 local_batch=4, seq_len=512, eval_sequences=8, rounds=8,
+                 local_batch=4, seq_len=512, eval_sequences=8, rounds=4,
                  chunk=2, ref_rounds=2, layers=6)
 LM_ENGINE_RUNS = [("fedavg", "identity", "device"),
                   ("fedfusion", "identity", "device"),
@@ -1939,6 +2147,10 @@ LM_GEMMA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=2,
 # conv at launch.train's 0.05 diverges within 8 rounds (to NaN at round 8
 # on an H100); at 0.02 every algorithm trains
 LM_ENGINE_LR = 0.02
+# launch.train --engine at full scale (smollm-135m's width and vocab),
+# with the registry's entry cut for the call to phase 4g's depth
+# (LM_ENGINE["layers"]): at all 30 layers its calibration graphs took
+# 53-86 s of phase 4g and the script's time limit
 LM_TRAIN_ARGS = ["--engine", "--scale", "full", "--arch", "smollm-135m",
                  "--seq-len", "512", "--global-batch", "2", "--rounds", "4"]
 
@@ -2211,17 +2423,24 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
     del res, state
     torch.cuda.empty_cache()
 
-    # launch.train --engine at full scale (superstep_rounds="auto": a 1-
-    # and an 8-round calibration graph, then the run's 2-round chunks,
-    # each boundary evaluating 64 sequences eagerly)
-    cfg = dataclasses.replace(get_config("smollm-135m"), attn_impl="pallas")
+    # launch.train --engine at full scale, LM_ENGINE["layers"] deep
+    # (superstep_rounds="auto": a 1- and an 8-round calibration graph, then
+    # the run's 2-round chunks, each boundary evaluating 64 sequences
+    # eagerly)
+    from repro_torch.configs import ARCH_CONFIGS
+    cfg = lm_engine_cfg(get_config)
     for counter in counters.values():
         counter.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    res = train.main(LM_TRAIN_ARGS)
+    full = ARCH_CONFIGS[cfg.name]
+    ARCH_CONFIGS[cfg.name] = cfg
+    try:
+        res = train.main(LM_TRAIN_ARGS)
+    finally:
+        ARCH_CONFIGS[cfg.name] = full
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - start
@@ -2239,7 +2458,8 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
                       g["replays"] >= 1 for g in graphs),
                   launches=got == want, finite=finite(res.comm.history),
                   rounds=len(res.comm.history) == n_rounds)
-    emit("lm_launch_train", argv=LM_TRAIN_ARGS, wall_s=wall,
+    emit("lm_launch_train", argv=LM_TRAIN_ARGS, layers=cfg.n_layers,
+         vocab=cfg.vocab_size, d_model=cfg.d_model, wall_s=wall,
          chunk_rounds=st["chunk_rounds"],
          calibration_s=st["calibration_s"],
          steady_rounds_per_s=st["steady_rounds_per_s"],
@@ -2251,6 +2471,136 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
         raise AssertionError(f"lm launch.train --engine: {checks}")
     add(got)
     del res
+    torch.cuda.empty_cache()
+    return total
+
+
+# phase 4g: mamba2-130m at full width and depth (24 SSD layers) through
+# the LM engine, FedAvg and FedFusion-conv (K2 in the graphs), each held
+# exactly to the reference loop over the same rounds from the same state;
+# and smollm-135m (phase 4g's 6 layers) FedAvg with remat="none" and
+# "layer" through the engine (the cycles' recomputation captured in the
+# graph), the "layer" run held exactly to its reference loop
+LM_MAMBA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=4,
+                seq_len=256, eval_sequences=4, rounds=4, chunk=2)
+LM_REMAT = dict(rounds=4, chunk=2)
+
+
+def recurrent_engine_phase(torch, counters, *, get_config, FLConfig,
+                           make_bundle, init_global_state, run_federated,
+                           run_federated_reference, FederatedDataset,
+                           token_stream, source_partition, tree_leaves):
+    """Phase 4g's ``LM_MAMBA`` and ``LM_REMAT`` runs; returns their
+    launches (the engine's; the reference loop's are not counted)."""
+    import dataclasses
+    total = dict.fromkeys(counters, 0)
+
+    def engine_and_reference(cfg, algorithm, R, name_extra):
+        M = dict(LM_MAMBA, **R)
+        C, ls, B, S = (M["clients_per_round"], M["local_steps"],
+                       M["local_batch"], M["seq_len"])
+        K, rounds, steps = M["chunk"], M["rounds"], C * M["local_steps"]
+        bundle = make_bundle(cfg)
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv",
+                      clients_per_round=C, local_steps=ls, local_batch=B,
+                      lr=LM_ENGINE_LR)
+
+        def data():
+            return lm_token_data(FederatedDataset, token_stream,
+                                 source_partition, cfg, M["clients"], S,
+                                 M["eval_sequences"])
+
+        state = init_global_state(bundle, fl, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        kw = dict(rounds=rounds, eval_every=1,
+                  eval_examples=M["eval_sequences"], global_state=state)
+        res, wall, peak, got = lm_engine_run(
+            torch, run_federated, counters, bundle, fl, data(),
+            superstep_rounds=K, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = run_federated_reference(bundle, fl, data(), seed=0,
+                                      device="cuda", **kw)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        for counter in counters.values():
+            counter.launches = 0
+        st = res.stats
+        graphs = st["graphs"]
+        want = {k: 3 * v for k, v in lm_launches(cfg, algorithm, steps * K,
+                                                 evals=K).items()
+                if k in counters}
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(res.global_state), tree_leaves(ref.global_state)))
+        checks = dict(
+            graphs=st["cuda_graphs"] and len(graphs) == 1
+            and graphs[0]["replays"] == rounds // K,
+            launches=got == want, exact=exact,
+            history=res.comm.history == ref.comm.history,
+            finite=all(math.isfinite(h["local_loss"])
+                       for h in res.comm.history))
+        steady = st["steady_rounds_per_s"]
+        line = dict(
+            model=cfg.name, params=sum(
+                t.numel() for t in tree_leaves(state["model"])),
+            layers=cfg.n_layers, remat=cfg.remat, algorithm=algorithm,
+            fusion_op="conv", clients=M["clients"], clients_per_round=C,
+            local_steps=ls, local_batch=B, seq_len=S,
+            eval_sequences=M["eval_sequences"], rounds=rounds,
+            superstep_rounds=K, wall_s=wall, steady_rounds_per_s=steady,
+            ms_per_local_step=None if steady is None
+            else 1e3 / steady / steps,
+            reference_s=ref_s,
+            reference_ms_per_local_step=1e3 * ref_s / (rounds * steps),
+            graphs=graph_lines(graphs), peak_above_start_bytes=peak,
+            history=[{k: h[k] for k in ("round", "local_loss", "acc",
+                                        "loss")}
+                     for h in res.comm.history],
+            launches=got, expected=want, checks=checks, **name_extra)
+        emit("lm_engine", **line)
+        if not all(checks.values()):
+            raise AssertionError(f"lm engine {cfg.name}/{algorithm}/"
+                                 f"{cfg.remat}: {checks}")
+        for k in total:
+            total[k] += got[k]
+        out = (line, res.global_state)
+        del res, ref, state
+        torch.cuda.empty_cache()
+        return out
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), attn_impl="pallas")
+    for algorithm in ("fedavg", "fedfusion"):
+        engine_and_reference(cfg, algorithm, {}, {})
+    # remat: smollm-135m at phase 4g's depth, LM_ENGINE's clients and batch
+    E = LM_ENGINE
+    R = dict(LM_REMAT, clients=E["clients"],
+             clients_per_round=E["clients_per_round"],
+             local_steps=E["local_steps"], local_batch=E["local_batch"],
+             seq_len=E["seq_len"], eval_sequences=E["eval_sequences"])
+    runs = {remat: engine_and_reference(
+        dataclasses.replace(lm_engine_cfg(get_config), remat=remat),
+        "fedavg", R, {"compare": "remat"}) for remat in ("none", "layer")}
+    pools = {r: sum(g["pool_bytes"] for g in line["graphs"])
+             for r, (line, _) in runs.items()}
+    # the two runs' final models: equal, or at most within JAX's bound on
+    # remat's gradients (tests/test_perf_knobs.py: atol 1e-5, rtol 1e-4)
+    pairs = list(zip(tree_leaves(runs["none"][1]),
+                     tree_leaves(runs["layer"][1])))
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    exact = all(torch.equal(a, b) for a, b in pairs)
+    close = all(torch.allclose(b, a, rtol=1e-4, atol=1e-5) for a, b in pairs)
+    emit("lm_engine_remat", model=runs["layer"][0]["model"],
+         layers=runs["layer"][0]["layers"], graph_pool_bytes=pools,
+         peak_above_start_bytes={r: line["peak_above_start_bytes"]
+                                 for r, (line, _) in runs.items()},
+         ms_per_local_step={r: line["ms_per_local_step"]
+                            for r, (line, _) in runs.items()},
+         layer_vs_none_max_abs_diff=diff, exact=exact,
+         checks=dict(within_bound=close))
+    if not close:
+        raise AssertionError(f"lm engine remat='layer' differs from 'none' "
+                             f"by {diff}")
+    del runs
     torch.cuda.empty_cache()
     return total
 
@@ -2360,10 +2710,13 @@ def trace_local_step(torch, get_config, FLConfig, make_bundle,
 
 def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
                       make_bundle, init_global_state, tree_leaves, moe,
-                      name="smollm-135m", algorithm="fedfusion"):
-    """Phase 6 for LM training: ``name`` at full width cut to 2 layers,
-    ``algorithm`` (FedFusion-conv or FedAvg) through ``launch.train``'s
-    loop, one round of 2 local steps at batch 2 and S = 256 (2 rounds until
+                      name="smollm-135m", algorithm="fedfusion", layers=2,
+                      seq_len=128, batch=2, **replace):
+    """Phase 6 for LM training: ``name`` at full width cut to ``layers``
+    layers (``replace``: other cuts), ``algorithm`` (FedFusion-conv or
+    FedAvg) through ``launch.train``'s loop in the config's ``fl_mode``,
+    one round of 2 local steps a client at global batch ``batch`` and S =
+    ``seq_len`` (256 until the recurrent families were added, 2 rounds until
     the decode graph and the MoE runs were added: the script's time
     limit), from the same state on the card (K8a, K8b, K8c, and K2 for
     FedFusion) and on the CPU (plain versions).  The final parameters must agree within 1%
@@ -2372,12 +2725,12 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     printed."""
     import dataclasses
     base = get_config(name)
-    cfg = dataclasses.replace(base, n_layers=2,
-                              block_pattern=base.block_pattern[:2],
-                              attn_impl="pallas")
+    cfg = dataclasses.replace(base, n_layers=layers,
+                              block_pattern=base.block_pattern[:layers],
+                              attn_impl="pallas", **replace)
     fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
                   lr=TRAIN_LR)
-    shape = InputShape("custom_train", 256, 2, "train")
+    shape = InputShape("custom_train", seq_len, batch, "train")
     s0 = init_global_state(make_bundle(cfg), fl,
                            torch.Generator(device="cuda").manual_seed(7),
                            device="cpu")
@@ -2400,9 +2753,11 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     ok = ratio_max <= 0.01 and ratio_l2 <= 0.01
     routing = (routing_agreement(torch, routes["cuda"], routes["cpu"],
                                  cfg.top_k) if cfg.n_experts else None)
-    emit("card_vs_cpu_train", model=cfg.name, layers=2, head_dim=cfg.head_dim,
-         algorithm=algorithm, fusion_op="conv", rounds=rounds, batch=2,
-         seq_len=256, routing=routing, seconds=time.perf_counter() - t0,
+    emit("card_vs_cpu_train", model=cfg.name, layers=layers,
+         head_dim=cfg.head_dim, vocab=cfg.vocab_size, fl_mode=cfg.fl_mode,
+         algorithm=algorithm, fusion_op="conv", rounds=rounds, batch=batch,
+         seq_len=seq_len, routing=routing,
+         seconds=time.perf_counter() - t0,
          max_abs_diff=diff.abs().max().item(),
          max_change=change.abs().max().item(), ratio_max=ratio_max,
          ratio_l2=ratio_l2, limit=0.01, losses=losses, ok=ok)
@@ -3170,17 +3525,23 @@ def local_step_costs(torch, bundle, fls, make_local_trainer,
 # so its local caches roll); h2o-danube-3-4b at batch 1 with a prompt of
 # 4,608, past its 4,096 window, so the window binds in prefill and the
 # ring caches roll during decode; granite-moe-1b (32 experts, top 8) at
-# batch 4 x 1,024
+# batch 4 x 1,024; mamba2-130m (24 SSD layers: no attention, its cache the
+# states and conv windows) at 4 x 1,024; recurrentgemma-9b (38 layers: 12
+# cycles of RG-LRU, RG-LRU, local attention and two RG-LRU in the tail) at
+# batch 1 with a prompt of 2,560, past its 2,048 window
 SERVE_GEN = 32
 SERVE_RUNS = [("gemma3-1b", 4, 1024), ("smollm-135m", 4, 1024),
               ("stablelm-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4608),
-              ("granite-moe-1b-a400m", 4, 1024)]
+              ("granite-moe-1b-a400m", 4, 1024), ("mamba2-130m", 4, 1024),
+              ("recurrentgemma-9b", 1, 2560)]
 # decode logits vs a forward over the same tokens, and card vs CPU: the
 # two sides sum in other orders (cuBLAS at M = 4 and M = 4,096, the kernels
 # and the plain versions, oneDNN on the CPU), ~1e-6 of the logits' scale a
 # layer; 1e-3 of max |logit| bounds that over 26 layers with room, and a
 # wrong mask, cache slot or ring roll moves logits by O(1)
 SERVE_TOL = 1e-3
+# phase 6's recurrentgemma-9b vocabulary (its own: 256,000)
+RG_CPU_VOCAB = 16_384
 
 
 def serve_params(torch, tfm, get_config, name, **replace):
@@ -3387,10 +3748,11 @@ def routing_agreement(torch, card, cpu, top_k):
 
 
 def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
-                      name="gemma3-1b", layers=6):
+                      name="gemma3-1b", layers=6, prompt_len=576, **replace):
     """Phase 6 for serving: ``name`` at full width cut to ``layers`` layers
-    (gemma3-1b: one cycle of 6, 5 local and 1 global), batch 1, a 576-token
-    prompt (longer than gemma3-1b's window) and 4 greedy steps, the same
+    (gemma3-1b: one cycle of 6, 5 local and 1 global; ``replace``: other
+    cuts), batch 1, a ``prompt_len``-token prompt (576: longer than
+    gemma3-1b's window) and 4 greedy steps, the same
     weights on the card (kernels, the steps a captured ``DecodeGraph``) and
     on the CPU (plain versions, eager steps).  Step 0 is the prefill's last
     row.  The logits must agree within SERVE_TOL of their scale, and the
@@ -3399,8 +3761,9 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
     t0 = time.perf_counter()
     pattern = get_config(name).block_pattern[:layers]
     cfg, params = serve_params(torch, tfm, get_config, name,
-                               n_layers=layers, block_pattern=pattern)
-    tokens = serve.make_prompts(cfg, 1, 576, seed=0, device="cpu")
+                               n_layers=layers, block_pattern=pattern,
+                               **replace)
+    tokens = serve.make_prompts(cfg, 1, prompt_len, seed=0, device="cpu")
     with recorded_routes(torch, moe) as card_routes:
         card = serve_greedy_logits(torch, serve, tfm, cfg, params,
                                    tokens.cuda(), 4)
@@ -3426,7 +3789,8 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
                if cfg.n_experts else None)
     emit("card_vs_cpu_serve", model=cfg.name, layers=cfg.n_layers,
          head_dim=cfg.head_dim, pattern=list(pattern), batch=1,
-         prompt_len=576, decode_steps=4, card_decode="graph", steps=steps,
+         vocab=cfg.vocab_size, prompt_len=prompt_len, decode_steps=4,
+         card_decode="graph", steps=steps,
          routing=routing, limit=SERVE_TOL, ok=ok,
          seconds=time.perf_counter() - t0)
     if not ok:
@@ -3501,7 +3865,8 @@ def main():
     from repro_torch.compress import QuantCodec, SketchCodec, make_codec
     from repro_torch.configs import CNN_MNIST, FLConfig, InputShape
     from repro_torch.control import ladder_values
-    from repro_torch.core import init_global_state, make_local_trainer
+    from repro_torch.core import (init_global_state, make_local_trainer,
+                                  make_round_fn)
     from repro_torch.data import (FederatedDataset,
                                   artificial_noniid_partition, class_images,
                                   permuted_partition, source_partition,
@@ -3850,6 +4215,10 @@ def main():
     for k, n in ref_launches.items():
         train_launches[k] += n
     torch.cuda.empty_cache()
+    for k, n in remat_runs(torch, lm_counters, get_config, FLConfig,
+                           make_bundle, init_global_state, make_round_fn,
+                           token_stream, tree_leaves).items():
+        train_launches[k] += n
     emit("phase_4c", seconds=time.perf_counter() - t_phase)
 
     t_phase = time.perf_counter()
@@ -3947,8 +4316,8 @@ def main():
                                                           "device_ops")}
                           for k, v in costs.items()})
 
-    # the sketch codecs at fig. 7's fraction: the reference loop (12
-    # rounds) and the engine (40 in 8-round chunks); bytes up a round are
+    # the sketch codecs at fig. 7's fraction: the reference loop
+    # (REF_ROUNDS) and the engine (40 in 8-round chunks); bytes up a round are
     # the codec's wire bytes times the cohort, on both loops.  ``lowrank``
     # sends each matrix update with ~4x its own norm of noise at 1/16
     # (Var X_hat_ij = |X_i|^2 / r, r = cols / 16): at fig. 4's lr of 0.08
@@ -4292,8 +4661,18 @@ def main():
         FederatedDataset=FederatedDataset, token_stream=token_stream,
         source_partition=source_partition, tree_leaves=tree_leaves,
         train=train)
-    for k, n in launches_4g.items():
-        train_launches[k] = train_launches.get(k, 0) + n
+    launches_4g_rec = recurrent_engine_phase(
+        torch, {**counters, "flash_fwd": flash_attn.flash_fwd_cuda,
+                "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": flash_attn.flash_bwd_dkv_cuda},
+        get_config=get_config, FLConfig=FLConfig, make_bundle=make_bundle,
+        init_global_state=init_global_state, run_federated=run_federated,
+        run_federated_reference=run_federated_reference,
+        FederatedDataset=FederatedDataset, token_stream=token_stream,
+        source_partition=source_partition, tree_leaves=tree_leaves)
+    for got in (launches_4g, launches_4g_rec):
+        for k, n in got.items():
+            train_launches[k] = train_launches.get(k, 0) + n
     emit("phase_4g", seconds=time.perf_counter() - t_4g)
 
     # 4h. tensor parallelism on the one card: (b) a (1, 1) NCCL mesh, then
@@ -4482,7 +4861,8 @@ def main():
             ratio_max = diff.abs().max().item() / change.abs().max().item()
             ratio_l2 = (diff.norm() / change.norm()).item()
             finals[(algorithm, up, store)] = eng
-            ok = hist_equal and replays == ENGINE_ROUNDS // ENGINE_CHUNK \
+            ok = hist_equal and \
+                replays == ENGINE_ROUNDS // ENGINE_CHUNK \
                 and (exact or (ratio_max <= 0.01 and ratio_l2 <= 0.01))
             emit("engine_vs_reference", algorithm=algorithm, mode=mode,
                  uplink=up, ef_store=store, rounds=ENGINE_ROUNDS,
@@ -4695,13 +5075,29 @@ def main():
     train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
                       make_bundle, init_global_state, tree_leaves, moe)
     # the head dims 80 and 120 at 2 layers, full width; granite-moe-1b
-    # (32 experts, top 8) at 2 layers, full width, one FedAvg round
-    for name in ("stablelm-3b", "h2o-danube-3-4b", "granite-moe-1b-a400m"):
+    # (32 experts, top 8) at 2 layers, full width, one FedAvg round;
+    # (their rounds at 1 layer since the recurrent families were added:
+    # the script's time limit); mamba2-130m at 2 SSD layers, full width;
+    # recurrentgemma-9b at full width cut to one cycle (RG-LRU, RG-LRU,
+    # local attention) and its 256,000-token vocabulary to RG_CPU_VOCAB
+    # (the CPU's head over the whole vocabulary would take most of this
+    # phase), a 256-token prompt, S = 16 and one sequence (one client of
+    # its client_sequential mode)
+    for name in ("stablelm-3b", "h2o-danube-3-4b", "granite-moe-1b-a400m",
+                 "mamba2-130m"):
         serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
                           name, layers=2)
         train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
                           make_bundle, init_global_state, tree_leaves, moe,
-                          name, algorithm="fedavg")
+                          name, algorithm="fedavg",
+                          layers=2 if name == "mamba2-130m" else 1)
+    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
+                      "recurrentgemma-9b", layers=3, prompt_len=256,
+                      vocab_size=RG_CPU_VOCAB)
+    train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                      make_bundle, init_global_state, tree_leaves, moe,
+                      "recurrentgemma-9b", algorithm="fedavg", layers=3,
+                      seq_len=16, batch=1, vocab_size=RG_CPU_VOCAB)
     # examples/serve_decode_torch.py at temperature 0.7
     twin_card_vs_cpu(torch, tfm, get_config, tree_map)
 

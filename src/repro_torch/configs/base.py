@@ -382,3 +382,13 @@ def local_global_pattern(n_layers: int, local: int, global_: int,
     while len(pat) < n_layers:
         pat.extend(cycle)
     return tuple(pat[:n_layers])
+
+
+def hybrid_pattern(n_layers: int, recurrent: int = 2,
+                   attn: int = 1) -> Tuple[str, ...]:
+    """RecurrentGemma's (RG-LRU, RG-LRU, local-attn) repeating pattern."""
+    pat = []
+    cycle = [RGLRU] * recurrent + [ATTN_LOCAL] * attn
+    while len(pat) < n_layers:
+        pat.extend(cycle)
+    return tuple(pat[:n_layers])

@@ -164,8 +164,11 @@ def finish_masked_loss(summed):
 
 
 def running_update(acc_tree, tree, weight):
-    """acc += weight * tree   (client_sequential accumulation)."""
-    return tree_map(lambda a, x: a + weight.to(x.dtype) * x, acc_tree, tree)
+    """acc += weight * tree   (client_sequential accumulation), in place
+    on ``acc_tree``'s leaves (the round's own sums; the same roundings as
+    ``acc + weight * tree``), which it returns."""
+    return tree_map(lambda a, x: a.add_(weight.to(x.dtype) * x), acc_tree,
+                    tree)
 
 
 def zeros_like_tree(tree):

@@ -3,8 +3,10 @@
 A client receives the global model, builds its *trainable* state (local
 model copy + the algorithm plugin's extra state), and runs
 ``fl.local_epochs x fl.local_steps`` optimizer steps on the plugin's
-objective.  Gradients come from ``torch.autograd.grad``; the functional
-optimizer update runs under ``torch.no_grad()``.  Optimizer state starts
+objective.  Gradients come from ``torch.autograd.grad``; the optimizer
+update runs under ``torch.no_grad()``, in place on the client's own copy
+of its trainable state (made once, before its first step), so a client
+holds one copy of its model beside its gradient.  Optimizer state starts
 fresh for every client every round, as in the JAX package.
 
 The frozen global stream is never updated during local training.  With
@@ -70,8 +72,9 @@ def make_local_trainer(bundle: ModelBundle, fl: FLConfig):
         return trainable, state, loss.detach()
 
     def local_train(global_model, global_extra, batches, lr):
-        trainable: Dict[str, Any] = algo.init_trainable(fl, global_model,
-                                                        global_extra)
+        trainable: Dict[str, Any] = tree_map(
+            lambda t: t.detach().clone(),
+            algo.init_trainable(fl, global_model, global_extra))
         state = opt_init(trainable)
         n_steps = len(next(iter(batches.values())))
         steps = [{k: v[s] for k, v in batches.items()}

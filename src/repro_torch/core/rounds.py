@@ -192,6 +192,7 @@ def _make_plain_clients(bundle: ModelBundle, fl: FLConfig, mode: str, *,
                 out = {k: running_update(out[k], trainable[k], weights[c])
                        for k in out}
                 losses.append(loss)
+                del trainable     # before the next client trains
         tele = ({} if telemetry is None
                 else telemetry.sum_clients(taps))
         return out, torch.stack(losses), tele
@@ -364,6 +365,7 @@ def _make_compressed_clients(bundle: ModelBundle, fl: FLConfig, mode: str,
                        for k in out}
                 efs.append(new_ef)
                 losses.append(loss)
+                del o             # before the next client trains
         new_ef = (None if ef_state is None else
                   [torch.stack(rows) for rows in zip(*efs)])
         tele = ({} if telemetry is None

@@ -175,9 +175,10 @@ class DecodeGraph:
     ``graph=True`` (the card) captures that step as a CUDA graph on the
     first :meth:`run`, after one eager warm-up step on a side stream
     (it builds K9's ticket buffer, cuBLAS's workspaces and any kernel
-    built on first use; it writes the K/V of the request's first token
-    into its own slot, which the first replay rewrites with the same
-    values).  Later requests share the graph: :meth:`run` copies their
+    built on first use).  The warm-up advances the cache like any step
+    (the first token's K/V in its slot; an SSD or RG-LRU layer's state
+    and conv window one token on), so the cache is copied before it and
+    restored after it.  Later requests share the graph: :meth:`run` copies their
     caches into the captured cache tensors (the first request's, adopted),
     so ``prefill`` keeps its own allocation and the graph is never
     re-captured.  A capture that fails raises; nothing falls back to eager
@@ -247,6 +248,7 @@ class DecodeGraph:
 
     def _capture(self, last, start_pos, noise):
         self._begin(last, start_pos, noise)
+        before = tree_map(torch.clone, self.cache)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         t0 = time.perf_counter()
@@ -255,7 +257,10 @@ class DecodeGraph:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
-        self._begin(last, start_pos, noise)   # undo the warm-up's step
+        # undo the warm-up's step: the cache, the position and the token
+        tree_map(lambda d, s: d.copy_(s), self.cache, before)
+        del before
+        self._begin(last, start_pos, noise)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()

@@ -45,11 +45,12 @@ TP_ALGORITHMS = ("fedavg", "fedmmd", "fedfusion", "fedl2")
 def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
     """The transformer's parameter tree with ``torch.Size`` leaves, as
     ``tfm.init_params`` draws it (nothing is allocated)."""
+    from repro_torch.configs.base import RGLRU, SSD
     from repro_torch.models.transformer import cycle_split
     d, hd = cfg.d_model, cfg.head_dim
     c, n_full, rem = cycle_split(cfg.block_pattern)
 
-    def layer(lead):
+    def layer(lead, kind):
         S = lambda *s: torch.Size(lead + s)
 
         def mlp(*io):           # w1 / w3 [*io], w2 its transpose
@@ -58,13 +59,30 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
                 p["w3"] = S(*io)
             return p
 
-        out = {"ln1": {"scale": S(d)},
-               "attn": {"wq": S(d, cfg.n_heads * hd),
-                        "wk": S(d, cfg.n_kv_heads * hd),
-                        "wv": S(d, cfg.n_kv_heads * hd),
-                        "wo": S(cfg.n_heads * hd, d)},
-               "ln2": {"scale": S(d)}}
-        if cfg.n_experts:
+        out = {"ln1": {"scale": S(d)}}
+        if kind == SSD:
+            d_inner = cfg.ssm_expand * d
+            H = d_inner // cfg.ssm_head_dim
+            conv_ch = d_inner + 2 * cfg.ssm_state
+            out["ssd"] = {"w_in": S(d, d_inner + conv_ch + H),
+                          "conv_w": S(cfg.ssm_conv_width, conv_ch),
+                          "conv_b": S(conv_ch), "A_log": S(H),
+                          "dt_bias": S(H), "D": S(H),
+                          "w_out": S(d_inner, d)}
+            return out
+        if kind == RGLRU:       # the JAX block's conv width, 4
+            W = cfg.lru_width
+            out["rglru"] = {"w_x": S(d, W), "w_gate": S(d, W),
+                            "conv_w": S(4, W), "conv_b": S(W), "lam": S(W),
+                            "w_a": S(W, W), "b_a": S(W), "w_i": S(W, W),
+                            "b_i": S(W), "w_out": S(W, d)}
+        else:
+            out["attn"] = {"wq": S(d, cfg.n_heads * hd),
+                           "wk": S(d, cfg.n_kv_heads * hd),
+                           "wv": S(d, cfg.n_kv_heads * hd),
+                           "wo": S(cfg.n_heads * hd, d)}
+        out["ln2"] = {"scale": S(d)}
+        if cfg.n_experts and kind not in (SSD, RGLRU):
             out["moe"] = {"router": S(d, cfg.n_experts),
                           **mlp(cfg.n_experts, d, cfg.moe_d_ff)}
             if cfg.dense_residual:
@@ -75,8 +93,10 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
 
     params = {"embed": {"table": torch.Size((cfg.vocab_size, d))},
               "final_norm": {"scale": torch.Size((d,))},
-              "cycles": tuple(layer((n_full,)) for _ in range(c)),
-              "tail": tuple(layer(()) for _ in range(rem))}
+              "cycles": tuple(layer((n_full,), cfg.block_pattern[j])
+                              for j in range(c)),
+              "tail": tuple(layer((), cfg.block_pattern[n_full * c + j])
+                            for j in range(rem))}
     if not cfg.tie_embeddings:
         params["head"] = {"w": torch.Size((d, cfg.vocab_size))}
     return params

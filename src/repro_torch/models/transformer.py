@@ -58,18 +58,52 @@ needs.  Under ``tp`` the experts follow their specs: f split over
 ``model`` (``w1`` / ``w3`` column-parallel, ``w2`` row-parallel), the
 router replicated.
 
-Not ported yet, and refused with ``NotImplementedError``: SSD and RG-LRU
-blocks, the encoder and cross-attention, VLM and audio inputs (M-RoPE,
-stub embeddings), and ``remat`` (ROADMAP Queue 1, slice 6).
+The recurrent block kinds (the JAX package's): Mamba-2 SSD layers
+(``models/ssd.py``: the SSD mixer, no norm after it, no FFN) and RG-LRU
+layers (``models/rglru.py``: the recurrent mixer, then the MLP), alone
+(mamba2-130m) or in a pattern with local attention (recurrentgemma-9b).
+Their caches are ``{"h", "conv"}``: the recurrent state (float32) and the
+last ``conv_width - 1`` conv inputs.  Prefill computes them from the
+sequence (SSD's state in the JAX package's closed form); ``decode_step``
+computes the new state and the shifted window into fresh tensors and
+copies them into the cache leaves, so the step stays in place as for the
+K/V caches.  A prompt shorter than ``conv_width - 1`` raises
+``ValueError`` (the JAX package would make a short conv cache that its own
+decode then fails on).  Under ``tp`` with a ``model`` axis of more than
+one rank they raise ``NotImplementedError``: their column / row split
+comes with the FSDP step (ROADMAP Queue 1 item 13); clients over
+``data`` run as for the dense stack.
+
+``cfg.remat`` (activation checkpointing) follows the JAX package:
+``"layer"`` wraps each full cycle of ``forward_seq`` (every layer of one
+cycle; not the tail, not with ``want_cache``) in
+``torch.utils.checkpoint.checkpoint``, so the backward recomputes the
+cycle from its input instead of keeping its activations (under
+``attn_impl="pallas"`` K8a then runs twice a cycle's attention layer in a
+step, and under ``tp`` the cycle's forward collectives run again in the
+backward); ``"attn"`` checkpoints the plain attention only
+(``attn_impl="jnp"``; K8a's autograd function already keeps only q, k, v,
+o and lse, and the JAX package's branch order ignores ``remat`` there).
+Both use ``use_reentrant=False`` and ``preserve_rng_state=False``: the
+forward draws no random numbers, and saving the CUDA generator's state
+would read it inside the LM engine's CUDA-graph capture.  Nothing is
+checkpointed where autograd is off (eval, serving).
+
+Not ported yet, and refused with ``NotImplementedError``: the encoder and
+cross-attention, VLM and audio inputs (stub embeddings) and M-RoPE
+(ROADMAP Queue 1, slice 6).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD,
+                                      ArchConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attn import flash_decode_plain, merge_partials
@@ -77,6 +111,8 @@ from repro_torch.kernels.flash_attn import make_flash_attention
 from repro_torch.parallel import (copy_to_model, model_dim,
                                   reduce_from_model, spec_axes)
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init)
 from repro_torch.models.moe import moe_apply, moe_init
@@ -85,26 +121,29 @@ from repro_torch.models.rope import apply_rope
 from repro_torch.tree import tree_map, tree_with_path
 
 _LATER = ("(ROADMAP Queue 1, slice 6: the other model families; the "
-          "dense and MoE attention stacks are ported, SSD, RG-LRU, VLM and "
-          "audio are left)")
+          "dense, MoE, SSD and RG-LRU stacks are ported, the encoder, VLM "
+          "and audio inputs and M-RoPE are left)")
+_ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+_RECURRENT = (SSD, RGLRU)
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    bad = sorted(set(cfg.block_pattern) - {ATTN_GLOBAL, ATTN_LOCAL})
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: blocks {bad} (SSD / RG-LRU) "
-                                  f"are not ported yet {_LATER}")
+def _check_supported(cfg: ArchConfig, tp=None) -> None:
     if cfg.n_enc_layers:
         raise NotImplementedError(f"{cfg.name}: the encoder and "
                                   f"cross-attention are not ported yet "
                                   f"{_LATER}")
     if cfg.family in ("vlm", "audio") or cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} inputs are not "
-                                  f"ported yet {_LATER}")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r} is not "
-                                  "ported yet (ROADMAP Queue 1, slice 6: "
-                                  "activation checkpointing)")
+        raise NotImplementedError(f"{cfg.name}: {cfg.family} inputs and "
+                                  f"M-RoPE are not ported yet {_LATER}")
+    bad = sorted(set(cfg.block_pattern) - set(_ATTN) - set(_RECURRENT))
+    if bad:
+        raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
+    if _mp(tp) is not None and set(cfg.block_pattern) & set(_RECURRENT):
+        raise NotImplementedError(
+            f"{cfg.name}: SSD / RG-LRU layers split over a model axis of "
+            "more than one rank are not ported yet (ROADMAP Queue 1 item "
+            "13: their column / row split comes with the FSDP step); "
+            "clients over data run")
 
 
 # ---------------------------------------------------------------------------
@@ -135,20 +174,37 @@ def _norm_kind(cfg: ArchConfig) -> str:
     return "layernorm" if cfg.family == "audio" else "rmsnorm"
 
 
-def _layer_init(generator, cfg: ArchConfig, dtype):
+def _layer_init(generator, cfg: ArchConfig, kind: str, dtype):
     nk = _norm_kind(cfg)
     dev = generator.device
-    p = {"ln1": norm_init(nk, cfg.d_model, dtype, dev),
-         "attn": attn.attn_init(generator, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.head_dim, dtype),
-         "ln2": norm_init(nk, cfg.d_model, dtype, dev)}
-    if cfg.n_experts:
+    p = {"ln1": norm_init(nk, cfg.d_model, dtype, dev)}
+    if kind == SSD:
+        p["ssd"] = ssd_mod.ssd_init(generator, cfg.d_model,
+                                    expand=cfg.ssm_expand,
+                                    d_state=cfg.ssm_state,
+                                    head_dim=cfg.ssm_head_dim,
+                                    conv_width=cfg.ssm_conv_width,
+                                    dtype=dtype)
+        return p
+    if kind == RGLRU:
+        p["rglru"] = rglru_mod.rglru_init(generator, cfg.d_model,
+                                          cfg.lru_width, dtype=dtype)
+    else:
+        p["attn"] = attn.attn_init(generator, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim, dtype)
+    p["ln2"] = norm_init(nk, cfg.d_model, dtype, dev)
+    if cfg.n_experts and kind in _ATTN:
         p["moe"] = moe_init(generator, cfg.d_model, cfg.n_experts,
                             cfg.moe_d_ff, cfg.act, dtype,
                             dense_residual=cfg.dense_residual, d_ff=cfg.d_ff)
     else:
         p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype)
     return p
+
+
+def _ssd_kw(cfg: ArchConfig):
+    return dict(expand=cfg.ssm_expand, d_state=cfg.ssm_state,
+                head_dim=cfg.ssm_head_dim, conv_width=cfg.ssm_conv_width)
 
 
 def _apply_rope_any(cfg: ArchConfig, q, k, positions):
@@ -190,9 +246,11 @@ def _ffn(cfg: ArchConfig, p, hn, *, tp, ps, decode=False):
 
 def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
                max_len, tp=None, ps=None, cache_spec=None):
-    """Sequence-mode attention layer. Returns (h, aux or None,
-    cache_or_None).  ``ps``: the layer's parameter specs, ``cache_spec``
-    its cache's k spec (under ``tp``)."""
+    """Sequence-mode layer. Returns (h, aux or None, cache_or_None).
+    ``ps``: the layer's parameter specs, ``cache_spec`` its cache's k spec
+    (under ``tp``)."""
+    if kind in _RECURRENT:
+        return _recurrent_seq(cfg, kind, p, h, want_cache)
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
@@ -203,6 +261,10 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
     window = cfg.sliding_window if kind == ATTN_LOCAL else None
     if cfg.attn_impl == "pallas":
         o = make_flash_attention(causal=True, window=window)(q, k, v)
+    elif cfg.remat == "attn" and torch.is_grad_enabled():
+        # keep only (q, k, v); the backward recomputes the softmax
+        o = _checkpoint(functools.partial(attn.flash_attention,
+                                          window=window), q, k, v)
     else:
         o = attn.flash_attention(q, k, v, window=window)
     h = h + attn.project_out(p["attn"], o, mp=mp,
@@ -219,6 +281,49 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
     ff, aux = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps),
                    tp=tp, ps=ps)
     return h + ff, aux, cache
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` under activation checkpointing (module docstring: no
+    RNG state is kept, the forward draws none)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _recurrent_seq(cfg: ArchConfig, kind: str, p, h, want_cache):
+    """Sequence-mode SSD or RG-LRU layer: (h, None, cache_or_None)."""
+    nk = _norm_kind(cfg)
+    hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
+    if kind == SSD:
+        out = ssd_mod.ssd_apply(p["ssd"], hn, chunk=cfg.ssm_chunk,
+                                want_cache=want_cache, **_ssd_kw(cfg))
+    else:
+        out = rglru_mod.rglru_apply(p["rglru"], hn, want_cache=want_cache)
+    y, cache = out if want_cache else (out, None)
+    h = h + y
+    if kind == RGLRU:
+        h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
+                                               cfg.norm_eps), cfg.act)
+    return h, None, cache
+
+
+def _recurrent_decode(cfg: ArchConfig, kind: str, p, h, cache):
+    """Decode-mode SSD or RG-LRU layer: h [B,1,d].  The new state and the
+    shifted conv window are fresh tensors, copied into ``cache`` (its
+    leaves keep their storage: a captured step reads and writes them)."""
+    nk = _norm_kind(cfg)
+    hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
+    if kind == SSD:
+        y, new = ssd_mod.ssd_decode(p["ssd"], hn, cache, **_ssd_kw(cfg))
+    else:
+        y, new = rglru_mod.rglru_decode(p["rglru"], hn, cache)
+    cache["h"].copy_(new["h"])
+    cache["conv"].copy_(new["conv"])
+    h = h + y
+    if kind == RGLRU:
+        h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
+                                               cfg.norm_eps), cfg.act)
+    return h, cache
 
 
 def _l_block(t, spec, tp):
@@ -256,12 +361,15 @@ def _seq_kv_to_cache(cfg, kind, k, v, max_len):
 
 def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                   positions, tp=None, ps=None, cache_spec=None):
-    """Decode-mode attention layer: h [B,1,d], pos a 0-d int64 tensor on
+    """Decode-mode layer: h [B,1,d], pos a 0-d int64 tensor on
     h's device.  Writes the new K/V into ``cache`` in place; returns
     (h, cache).  Under ``tp`` the layer runs on this rank's blocks and its
     slice of the cache (module docstring): no host sync, no branch on
     ``pos``; only whether the cache is split (a Python fact) picks the
-    sliced write and the merge."""
+    sliced write and the merge.  An SSD or RG-LRU layer updates its state
+    and conv window in place (:func:`_recurrent_decode`)."""
+    if kind in _RECURRENT:
+        return _recurrent_decode(cfg, kind, p, h, cache)
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
@@ -323,9 +431,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     c, n_full, rem = cycle_split(cfg.block_pattern)
     cycles = []
     for j in range(c):
-        cycles.append(_stack([_layer_init(generator, cfg, dtype)
+        cycles.append(_stack([_layer_init(generator, cfg,
+                                          cfg.block_pattern[j], dtype)
                               for _ in range(n_full)]))
-    tail = tuple(_layer_init(generator, cfg, dtype) for _ in range(rem))
+    tail = tuple(_layer_init(generator, cfg,
+                             cfg.block_pattern[n_full * c + j], dtype)
+                 for j in range(rem))
     params: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": norm_init(_norm_kind(cfg), cfg.d_model, dtype,
@@ -395,7 +506,7 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
     the parameters' device.  Under ``tp`` the logits
     are this rank's V block and the cache its block under
     ``tp.cache_specs`` (module docstring)."""
-    _check_supported(cfg)
+    _check_supported(cfg, tp)
     h = _embed_inputs(cfg, params, batch, tp)
     S = h.shape[1]
     max_len = max_cache_len or S
@@ -403,7 +514,10 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     c, n_full, rem = cycle_split(cfg.block_pattern)
     caches = [[] for _ in range(c)]
-    for i in range(n_full):
+
+    def cycle(i, h, aux):
+        """Cycle ``i``'s layers: (h, aux, one cache per layer)."""
+        cycle_caches = []
         for j, kind in enumerate(cfg.block_pattern[:c]):
             p = tree_map(lambda x: x[i], params["cycles"][j])
             ps, cs = _layer_parts(tp, True, j)
@@ -411,6 +525,20 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
                                      want_cache=want_cache, max_len=max_len,
                                      tp=tp, ps=ps, cache_spec=cs)
             aux = aux if a is None else aux + a
+            cycle_caches.append(cache)
+        return h, aux, cycle_caches
+
+    remat = (cfg.remat == "layer" and not want_cache
+             and torch.is_grad_enabled())
+    for i in range(n_full):
+        if remat:
+            # the backward recomputes the cycle from (h, aux) instead of
+            # keeping its activations (JAX: jax.checkpoint(cycle_body))
+            h, aux = _checkpoint(lambda h_, a_, i=i: cycle(i, h_, a_)[:2],
+                                 h, aux)
+            continue
+        h, aux, cycle_caches = cycle(i, h, aux)
+        for j, cache in enumerate(cycle_caches):
             caches[j].append(cache)
     tail_caches = []
     for j in range(rem):
@@ -470,6 +598,15 @@ def cache_struct(cfg: ArchConfig, batch: int, max_len: int):
     c, n_full, rem = cycle_split(cfg.block_pattern)
 
     def layer(kind):
+        if kind == SSD:
+            d_inner = cfg.ssm_expand * cfg.d_model
+            return {"h": torch.Size((batch, d_inner // cfg.ssm_head_dim,
+                                     cfg.ssm_head_dim, cfg.ssm_state)),
+                    "conv": torch.Size((batch, cfg.ssm_conv_width - 1,
+                                        d_inner + 2 * cfg.ssm_state))}
+        if kind == RGLRU:     # the JAX block's conv width, 4
+            return {"h": torch.Size((batch, cfg.lru_width)),
+                    "conv": torch.Size((batch, 3, cfg.lru_width))}
         L = max_len if kind == ATTN_GLOBAL else min(cfg.sliding_window,
                                                     max_len)
         shape = torch.Size((batch, L, cfg.n_kv_heads, cfg.head_dim))
@@ -487,8 +624,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     :func:`cache_struct`.  Each leaf is its own zeroed tensor, never a
     broadcast view: ``decode_step`` writes into it in place.  Under ``tp``
     (with ``cache_specs`` for this ``batch`` and ``max_len``) each leaf is
-    this rank's block: its share of the batch and of the cache length."""
-    _check_supported(cfg)
+    this rank's block: its share of the batch and of the cache length.
+    The recurrent states ``h`` are float32 whatever ``dtype``, as in the
+    JAX package."""
+    _check_supported(cfg, tp)
     device = resolve_device(device)
 
     def zeros(path, shape):
@@ -498,7 +637,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                 spec = spec[p]
             shape = [d // tp.mp.place(spec_axes(e))[1]
                      for d, e in zip(shape, spec)]
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, device=device, dtype=torch.float32
+                           if path[-1] == "h" else dtype)
 
     return tree_with_path(zeros, cache_struct(cfg, batch, max_len))
 
@@ -512,7 +652,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, tp=None):
     ``tp`` (with ``cache_specs``) the logits are this rank's V block and
     the cache its block (module docstring).
     """
-    _check_supported(cfg)
+    _check_supported(cfg, tp)
     if tp is not None and tp.cache_specs is None:
         raise ValueError("decode_step under tp needs the cache's specs "
                          "(tp.cache_specs: launch.steps.build_serve_step)")

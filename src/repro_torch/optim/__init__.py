@@ -1,4 +1,5 @@
-"""Functional optimizers and learning-rate schedules."""
+"""Optimizers (in-place updates of a tree the caller owns) and learning-rate
+schedules."""
 from repro_torch.optim.optimizers import (adam_init, adam_update,
                                           make_optimizer, sgd_init,
                                           sgd_update)

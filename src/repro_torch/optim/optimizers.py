@@ -1,12 +1,16 @@
-"""Functional optimizers on parameter trees (port of
-``repro/optim/optimizers.py``): SGD (+momentum, ``mu = m·mu + g``) and
-Adam with bias correction.  Updates return new tensors; callers run them
-under ``torch.no_grad()``."""
+"""Optimizers on parameter trees (port of ``repro/optim/optimizers.py``):
+SGD (+momentum, ``mu = m·mu + g``) and Adam with bias correction.  An
+update writes the parameters and the optimizer state in place, leaf by
+leaf, with the same roundings as JAX's functional update, and returns
+them; the caller owns the parameter leaves it passes (not the global
+model's) and runs the update under ``torch.no_grad()``.  Updating in
+place keeps one copy of the model instead of two while the next is
+built."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def sgd_init(params, momentum=0.0):
@@ -17,11 +21,13 @@ def sgd_init(params, momentum=0.0):
 
 def sgd_update(params, grads, state, *, lr, momentum=0.0):
     if momentum == 0.0:
-        new = tree_map(lambda p, g: p - lr * g, params, grads)
-        return new, {"t": state["t"] + 1}
-    mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
-    new = tree_map(lambda p, m: p - lr * m, params, mu)
-    return new, {"t": state["t"] + 1, "mu": mu}
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            p.sub_(lr * g)
+        return params, {"t": state["t"] + 1}
+    for p, m, g in zip(tree_leaves(params), tree_leaves(state["mu"]),
+                       tree_leaves(grads)):
+        p.sub_(lr * m.mul_(momentum).add_(g))
+    return params, {"t": state["t"] + 1, "mu": state["mu"]}
 
 
 def adam_init(params):
@@ -32,14 +38,14 @@ def adam_init(params):
 
 def adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999, eps=1e-8):
     t = state["t"] + 1
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
     c1 = 1.0 - b1 ** t
     c2 = 1.0 - b2 ** t
-    new = tree_map(
-        lambda p, m_, v_: p - lr * (m_ / c1) / ((v_ / c2).sqrt() + eps),
-        params, m, v)
-    return new, {"t": t, "m": m, "v": v}
+    for p, m, v, g in zip(tree_leaves(params), tree_leaves(state["m"]),
+                          tree_leaves(state["v"]), tree_leaves(grads)):
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        p.sub_(lr * (m / c1) / ((v / c2).sqrt() + eps))
+    return params, {"t": t, "m": state["m"], "v": state["v"]}
 
 
 def make_optimizer(kind: str, momentum: float = 0.0):

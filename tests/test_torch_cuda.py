@@ -1828,3 +1828,178 @@ def test_make_engine_mesh_needs_a_card_or_the_cpu():
     from repro_torch.launch.mesh import make_engine_mesh
     with pytest.raises(RuntimeError, match="CUDA"):
         make_engine_mesh()
+
+
+# --------------------------------------------------------------------------
+# the recurrent families (SSD, RG-LRU) and remat on the card
+# --------------------------------------------------------------------------
+
+RECURRENT = ["mamba2-130m", "recurrentgemma-9b"]
+
+
+def _recurrent_cfg(name, **changes):
+    """The reduced config, K8a-K8c / K9 on; recurrentgemma-9b at five
+    layers (a cycle of RG-LRU, RG-LRU, local attention and a tail of two
+    RG-LRU) with a window of 16."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import hybrid_pattern
+    if name == "recurrentgemma-9b":
+        changes = dict(dict(n_layers=5, block_pattern=hybrid_pattern(5),
+                            sliding_window=16), **changes)
+    return dataclasses.replace(get_config(name).reduced(),
+                               attn_impl="pallas", **changes)
+
+
+def _close_to_scale(got, want, rtol=1e-4, scale=1e-4):
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=scale * max(want.abs().max().item(),
+                                                1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_families_on_the_card_match_the_cpu(cuda_device, name):
+    """The same weights and tokens on the card and the CPU: the logits of
+    24 positions (past recurrentgemma's window of 16) and the gradients of
+    sum(logits * g), then a prefill and 4 decode steps (the states, conv
+    windows and K/V rings after them): rtol 1e-4 with an atol of 1e-4 of
+    each tensor's scale."""
+    from repro_torch.models import transformer as tfm
+    cfg = _recurrent_cfg(name)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 28)))
+    g = torch.from_numpy(rng.standard_normal(
+        (2, 24, cfg.vocab_size)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t, dev=dev: t.detach().to(dev).requires_grad_(True),
+                     params)
+        lg = tfm.forward_seq(cfg, p, {"tokens": tokens[:, :24].to(dev)})[
+            "logits"]
+        (lg * g.to(dev)).sum().backward()
+        with torch.no_grad():
+            pre = tfm.forward_seq(cfg, p, {"tokens": tokens[:, :24].to(dev)},
+                                  want_cache=True, max_cache_len=28)
+            cache, steps = pre["cache"], []
+            for i in range(4):
+                step, cache = tfm.decode_step(
+                    cfg, p, tokens[:, 24 + i:25 + i].to(dev), cache, 24 + i)
+                steps.append(step.cpu())
+        out[str(dev)] = ([lg.detach().cpu()]
+                         + [t.grad.cpu() for t in tree_leaves(p)] + steps
+                         + [t.cpu() for t in tree_leaves(cache)])
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        _close_to_scale(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RECURRENT)
+def test_decode_graph_equals_eager_decode_for_recurrent_caches(cuda_device,
+                                                               name):
+    """Two requests through one captured decode step against
+    ``greedy_decode``'s eager steps, bit for bit: the second request's SSD
+    / RG-LRU states and conv windows are copied into the captured cache
+    tensors with its K/V ring; K9 once an attention layer a replay."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    cfg = _recurrent_cfg(name)
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    params = tfm.init_params(cfg, torch.Generator(device=cuda_device)
+                             .manual_seed(0), device=cuda_device)
+    P, G = 40, 6
+    loop = serve.DecodeGraph(
+        lambda p, t, c, pos: tfm.decode_step(cfg, p, t, c, pos), params, G)
+    with torch.no_grad():
+        for seed in (0, 1):
+            tokens = serve.make_prompts(cfg, 2, P, seed=seed,
+                                        device=cuda_device)
+            last, cache = serve.prefill(cfg, params, tokens, P + G)
+            want = serve.greedy_decode(cfg, params,
+                                       tree_map(torch.clone, cache), last,
+                                       P, G)
+            got = loop.run(last, cache, P)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    assert loop.replays == 2 * G
+    assert loop.stats["launches_per_replay"] == {"flash_decode": n_attn}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "recurrentgemma-9b"])
+def test_remat_layer_replays_in_a_cuda_graph(cuda_device, name):
+    """``remat="layer"`` through the LM engine (each 2-round chunk a
+    graph replay, the cycles' recomputation captured) against the
+    reference loop's eager rounds with it: every leaf and the history
+    equal; K8a once more per checkpointed attention layer a step."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.data import (FederatedDataset, source_partition,
+                                  token_stream)
+    from repro_torch.fl.server import run_federated, run_federated_reference
+    from repro_torch.models import make_bundle
+    from repro_torch.configs import get_config
+    cfg = (_recurrent_cfg(name, vocab_size=256, remat="layer")
+           if name in RECURRENT else dataclasses.replace(
+               get_config(name).reduced(), attn_impl="pallas",
+               vocab_size=256, remat="layer"))
+    bundle = make_bundle(cfg)
+    toks, src = token_stream(96, 32, vocab=256, n_sources=4, seed=0)
+    test, _ = token_stream(8, 32, vocab=256, n_sources=4, seed=1)
+
+    def data():
+        return FederatedDataset(source_partition(toks, src, 4),
+                                {"tokens": test}, seed=0)
+
+    fl = FLConfig(algorithm="fedavg", clients_per_round=2, local_steps=2,
+                  local_batch=4, lr=0.02)
+    kw = dict(rounds=4, eval_every=4, eval_examples=8, device=cuda_device)
+    ref = run_federated_reference(bundle, fl, data(), **kw)
+    before = _attn_launches()[0]
+    eng = run_federated(bundle, fl, data(), superstep_rounds=2, **kw)
+    torch.cuda.synchronize()
+    graphs = eng.stats["graphs"]
+    assert eng.stats["cuda_graphs"] and graphs[0]["replays"] == 2
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    in_cycles = sum(k.startswith("attn") for k in cfg.block_pattern[:3]) \
+        if name in RECURRENT else n_attn
+    # 2 rounds x 2 clients x 2 steps a replay, in two warm-ups and the
+    # capture: K8a per attention layer and once more per checkpointed
+    # one; the final eval eagerly
+    assert _attn_launches()[0] - before == \
+        3 * 8 * (n_attn + in_cycles) + n_attn
+    for a, b in zip(tree_leaves(eng.global_state),
+                    tree_leaves(ref.global_state)):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    assert eng.comm.history == ref.comm.history
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_recurrentgemma_local_shapes(cuda_device):
+    """recurrentgemma-9b's local layers (16 query heads over one KV head
+    of 256, window 2,048): K8a at a prompt of 2,560 (the window binds),
+    K8b / K8c at a client's training batch (2 x 1,024), K9 on the full
+    2,048 ring, each against its plain version."""
+    rng = np.random.default_rng(6)
+    q, k, v = (_randn(rng, (1, 2560, h, 256), cuda_device)
+               for h in (16, 1, 1))
+    o, lse = tfa.flash_fwd_cuda(q, k, v, window=2048)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, window=2048)
+    torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-4)
+    x = [_randn(rng, (2, 1024, h, 256), cuda_device) for h in (16, 1, 1)]
+    do = _randn(rng, (2, 1024, 16, 256), cuda_device)
+    grads = []
+    for fn in (tfa.make_flash_attention(window=2048),
+               lambda *a: tfa.flash_fwd_plain(*a, window=2048)[0]):
+        xs = [t.clone().requires_grad_(True) for t in x]
+        grads.append(torch.autograd.grad(fn(*xs), xs, do))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item())
+    qd = _randn(rng, (1, 1, 16, 256), cuda_device)
+    kc, vc = (_randn(rng, (1, 2048, 1, 256), cuda_device) for _ in "kv")
+    valid = torch.tensor(2048, device=cuda_device)
+    torch.testing.assert_close(
+        tda.flash_decode_cuda(qd, kc, vc, valid),
+        tda.flash_decode_plain(qd, kc, vc, valid), atol=1e-5, rtol=1e-4)

@@ -52,7 +52,12 @@ is non-zero):
    and K2 on column blocks W [2C, C/2]); K8a, K8b / K8c and K9 at
    recurrentgemma-9b's local layers (16 query heads over one KV head of
    256, window 2,048: its 2,560-token serve prompt, its training batch of
-   2 x 1,024, its full 2,048 ring);
+   2 x 1,024, its full 2,048 ring); K8a, K8b / K8c without the causal
+   mask at whisper-large-v3's encoder (4 x 1,500 frames, 20 heads of 64)
+   and with it at its decoder's training batch (4 x 448), K8a / K8b / K8c
+   and K9 at qwen2-vl-7b's heads (28 over 4 KV heads of 128), K9 over
+   whisper's 1,500-frame cross cache (no valid length), and K2 at their
+   FedFusion-conv steps (1,792 x 1,280 and 2,048 x 3,584);
 4. main path: federated training of the paper's CNN_MNIST at full width
    (fig. 4 settings: 100 non-IID clients, 10 per round, 4 local steps of
    10 examples, eval on 2048 test examples every round) through
@@ -77,7 +82,10 @@ is non-zero):
    granite-moe-1b (32 experts, top 8) at batch 4 x 1,024, mamba2-130m
    (24 SSD layers: its cache the states and conv windows) at 4 x 1,024
    and recurrentgemma-9b (38 layers, 12 local-attention layers among
-   RG-LRU ones) at 1 x 2,560 (its 2,048 window binds), random weights
+   RG-LRU ones) at 1 x 2,560 (its 2,048 window binds), whisper-large-v3
+   (32 + 32 layers) at 4 x (1,500 stub frames + a 64-token prompt) and
+   qwen2-vl-7b at 4 x 1,024 (the first 256 positions stub patch
+   embeddings, three M-RoPE streams), random weights
    from seed 0, 32 greedy tokens, after one warm-up run: prefill ms,
    decode ms per step, tokens/s, peak memory; K8a must launch once per
    attention layer per prefill and K9 once per attention layer per decode
@@ -93,15 +101,16 @@ is non-zero):
 4c. train: federated LM training at full width (and full depth, unless
    cut) through ``repro_torch.launch.train`` (``attn_impl="pallas"``,
    random weights from seed 0): smollm-135m at sequence length 1,024,
-   global batch 8, 3 rounds each of FedAvg, FedMMD and FedFusion-conv;
+   global batch 8, 2 rounds each of FedAvg, FedMMD and FedFusion-conv;
    gemma3-1b at 1,024 and batch 4, 2 rounds of FedAvg; stablelm-3b and
    h2o-danube-3-4b and granite-moe-1b at full width with the depth cut to
    4 layers, 1,024 and batch 4, 2 rounds of FedAvg (granite's trained
    Switch aux on 4 x 1,024, finite); recurrentgemma-9b at full width cut
    to one cycle (RG-LRU, RG-LRU, local attention) in its client_sequential
-   mode, 1,024 and batch 8; then ``run_federated_reference`` with
-   the
-   smollm-135m bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
+   mode, 1,024 and batch 8; qwen2-vl-7b FedFusion-conv at full width cut
+   to 4 of its 28 layers, client_sequential, 1,024 and batch 8 (stub patch
+   embeddings); then ``run_federated_reference`` with the smollm-135m
+   bundle (FedFusion-conv, 8 clients by source, 4 a round, 2
    local steps of 4 sequences of 512, eval on 8 test sequences): ms per
    local step, tokens/s, peak memory, each round's loss, and K1 / K2 / K8a /
    K8b / K8c launches, which must equal the path's formula; then
@@ -110,7 +119,12 @@ is non-zero):
    split (weights, the round's client state, the forward's activations),
    ``remat="none"`` and ``"layer"`` at the largest batch of 1,024 that
    ``"none"`` holds, and ``"layer"`` at twice it, peak memory and ms a
-   local step each, K8a once more a layer a step under ``"layer"``;
+   local step each, K8a once more a layer a step under ``"layer"``; then
+   whisper-large-v3 at full depth in its client_parallel mode
+   (``encdec_train_runs``): one FedAvg and one FedFusion-conv round of 2
+   clients x 2 local steps of 4 x 448 tokens beside 1,500 stub frames,
+   the memory split, the first round's ms a local step, launches against
+   their formula;
 4d. the rest of the main path, CNN_MNIST at its published width: fig. 6
    (``benchmarks/fig6_newclient.py``'s settings: 8 permuted clients, 4 a
    round, 4 local steps of 32, lr 0.06, decay 0.99; 15 engine rounds in
@@ -183,8 +197,8 @@ is non-zero):
    clients a round at 2 x 1,024 (its 512-token local window binds), 4
    rounds in 2-round chunks; ``launch.train --engine`` on smollm-135m at
    its reduced scale (4 rounds at 512, batch 2,
-   ``superstep_rounds="auto"``); mamba2-130m at full width and depth,
-   FedAvg and FedFusion-conv (K2 in the graphs), 2 of 4 clients at 4 x
+   ``superstep_rounds="auto"``); mamba2-130m at full width, 12 of its 24
+   layers, FedAvg and FedFusion-conv (K2 in the graphs), 2 of 4 clients at 4 x
    256, 4 rounds in 2-round chunks, equal bit for bit to the reference
    loop over the same rounds; smollm-135m (6 layers) FedAvg with
    ``remat="none"`` and ``"layer"`` through the engine, each equal to its
@@ -227,8 +241,12 @@ is non-zero):
    for stablelm-3b and h2o-danube-3-4b at full width (hd
    80 and 120), and for granite-moe-1b at full width; mamba2-130m at 2
    SSD layers (both); recurrentgemma-9b at one cycle, its vocabulary cut
-   to 16,384 (serving a 256-token prompt, training one sequence of 16),
-   each check with its seconds, with the share of tokens whose
+   to 16,384 (serving a 256-token prompt, training one sequence of 16);
+   whisper-large-v3 at 2 + 2 layers over its 1,500 frames (serving a
+   64-token prompt; training at 1 + 1 layers, one sequence of 16) and
+   qwen2-vl-7b at 2 layers, its vocabulary cut likewise (serving 300
+   positions, 256 of them patch embeddings; training at 1 layer, one
+   sequence of 32 with 16 patch embeddings), each check with its seconds, with the share of tokens whose
    top-k expert sets agree between card and CPU and the smallest gate
    margin among those that do not; the card's serving steps are a
    captured ``DecodeGraph``; then ``examples/serve_decode_torch.py``'s
@@ -585,10 +603,15 @@ def check_kernels(torch, mk_mmd, fusion_conv):
 
     # -- K2: fusion conv --------------------------------------------------
     # the CNN's training and eval shapes, smollm-135m's LM fusion, ragged
-    # ones, and C % 4 != 0 (the kernel's scalar path)
+    # ones, C % 4 != 0 (the kernel's scalar path), and phase 4c's
+    # FedFusion-conv steps of whisper-large-v3 (a client's ENCDEC_BATCH x
+    # 448 tokens at 1,280) and qwen2-vl-7b (2 x 1,024 at 3,584)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    t_enc = ENCDEC_BATCH * ENCDEC_SEQ
+    timed = ((490, 64), (100352, 64), (8192, 576), (t_enc, 1280),
+             (2048, 3584))
     for T, C in [(490, 64), (100352, 64), (8192, 576), (1001, 64), (77, 40),
-                 (33, 30)]:
+                 (33, 30), (t_enc, 1280), (2048, 3584)]:
         fg, fl = randn(T, C), randn(T, C)
         w = randn(2 * C, C, scale=1.0 / math.sqrt(2 * C))
         got = fusion_conv.fusion_conv_cuda(fg, fl, w)
@@ -604,7 +627,7 @@ def check_kernels(torch, mk_mmd, fusion_conv):
                     plan=dict(tokens=plan.tokens, channels=plan.channels,
                               k_split=plan.k_split,
                               blocks=plan.blocks(T, C)))
-        if (T, C) in ((490, 64), (100352, 64), (8192, 576)):
+        if (T, C) in timed:
             lib = lambda: torch.mm(torch.cat((fg, fl), -1), w)  # noqa: E731
             line.update(
                 kernel_ms=time_ms(torch, lambda: fusion_conv.fusion_conv_cuda(
@@ -1306,19 +1329,21 @@ def check_ef_kernels(torch, compress_pack):
     return rows
 
 
-def visible_pairs(S, window):
-    """(query, key) pairs a causal attention over S positions computes,
-    with a sliding window or without."""
+def visible_pairs(S, window, causal=True):
+    """(query, key) pairs an attention over S positions computes: causal
+    with a sliding window or without, or bidirectional (all S * S)."""
+    if not causal:
+        return S * S
     if window is None:
         return S * (S + 1) // 2
     return sum(min(p + 1, window) for p in range(S))
 
 
-def flash_fwd_work(B, S, H, KV, hd, window):
+def flash_fwd_work(B, S, H, KV, hd, window, causal=True):
     """Bytes (q, k, v in; o, lse out) and float32 operations (two products
     of hd per visible pair and head: q.k and p.v) of one K8a call."""
     n_bytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B * H * S)
-    return n_bytes, 4 * B * H * hd * visible_pairs(S, window)
+    return n_bytes, 4 * B * H * hd * visible_pairs(S, window, causal)
 
 
 def flash_decode_work(B, valid, H, KV, hd):
@@ -1328,29 +1353,39 @@ def flash_decode_work(B, valid, H, KV, hd):
     return n_bytes, 4 * B * H * hd * valid
 
 
-# K8a cases of phase 3: gemma3-1b's global and local layers, smollm-135m's
-# layers, a ragged length; B = 4 and S = 1,024 as the serve phase prefills;
-# stablelm-3b's layers (hd 80), h2o-danube-3-4b's (hd 120) at its serve
-# prompt of 4,608 (the 4,096 window binds) and a ragged hd 80;
-# recurrentgemma-9b's local layers (16 query heads over one KV head of 256,
-# window 2,048) at its serve prompt of 2,560 (the window binds) and at
-# phase 4c's training shape
-FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None),
-               ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
-               ("smollm-135m", 4, 1024, 9, 3, 64, None),
-               ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512),
-               ("stablelm-3b", 4, 1024, 32, 32, 80, None),
-               ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 4096),
-               ("stablelm-3b, ragged", 4, 1000, 32, 32, 80, None),
-               ("recurrentgemma-9b local", 1, 2560, 16, 1, 256, 2048),
+# K8a cases of phase 3 (the last field: the causal mask): gemma3-1b's
+# global and local layers, smollm-135m's layers, a ragged length; B = 4 and
+# S = 1,024 as the serve phase prefills; stablelm-3b's layers (hd 80),
+# h2o-danube-3-4b's (hd 120) at its serve prompt of 4,608 (the 4,096 window
+# binds) and a ragged hd 80; recurrentgemma-9b's local layers (16 query
+# heads over one KV head of 256, window 2,048) at its serve prompt of 2,560
+# (the window binds) and at phase 4c's training shape; whisper-large-v3's
+# encoder (no causal mask, 1,500 frames = 23 x 64 + 28) and qwen2-vl-7b's
+# prefill (28 query heads over 4 KV heads of 128), and whisper-large-v3's
+# decoder at phase 4c's training shape (a client's ENCDEC_BATCH x 448)
+FLASH_CASES = [("gemma3-1b global", 4, 1024, 4, 1, 256, None, True),
+               ("gemma3-1b local", 4, 1024, 4, 1, 256, 512, True),
+               ("smollm-135m", 4, 1024, 9, 3, 64, None, True),
+               ("gemma3-1b local, ragged", 4, 1000, 4, 1, 256, 512, True),
+               ("stablelm-3b", 4, 1024, 32, 32, 80, None, True),
+               ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 4096, True),
+               ("stablelm-3b, ragged", 4, 1000, 32, 32, 80, None, True),
+               ("recurrentgemma-9b local", 1, 2560, 16, 1, 256, 2048, True),
                ("recurrentgemma-9b local, train", 2, 1024, 16, 1, 256,
-                2048)]
+                2048, True),
+               ("whisper-large-v3 encoder", 4, 1500, 20, 20, 64, None,
+                False),
+               ("qwen2-vl-7b", 4, 1024, 28, 4, 128, None, True),
+               ("whisper-large-v3 decoder, train", 4, 448, 20, 20, 64, None,
+                True)]
 # K9 cases: gemma3-1b's global cache (max_len 1,056) at several lengths,
 # its full local ring, smollm-135m's cache, and recurrentgemma-9b's heads
 # (16 query heads over one KV head of 256) on a cache of the same length;
 # stablelm-3b's cache (hd 80), h2o-danube-3-4b's full ring (hd 120) and
 # its heads on a cache of 1,056; recurrentgemma-9b's full ring of 2,048
-# (phase 4b's prompt of 2,560 fills it)
+# (phase 4b's prompt of 2,560 fills it); whisper-large-v3's cross cache of
+# 1,500 frames with no valid length (None: every position) and
+# qwen2-vl-7b's self cache (28 query heads over 4 KV heads of 128)
 DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                                                           1056)),
                 ("gemma3-1b local", 4, 512, 4, 1, 256, (512,)),
@@ -1360,7 +1395,9 @@ DECODE_CASES = [("gemma3-1b global", 4, 1056, 4, 1, 256, (1, 529, 1025,
                 ("stablelm-3b", 4, 1056, 32, 32, 80, (1, 1025, 1056)),
                 ("h2o-danube-3-4b ring", 1, 4096, 32, 8, 120, (4096,)),
                 ("h2o-danube-3-4b heads", 1, 1056, 32, 8, 120, (529, 1056)),
-                ("recurrentgemma-9b ring", 1, 2048, 16, 1, 256, (2048,))]
+                ("recurrentgemma-9b ring", 1, 2048, 16, 1, 256, (2048,)),
+                ("whisper-large-v3 cross", 4, 1500, 20, 20, 64, (None,)),
+                ("qwen2-vl-7b", 4, 1056, 28, 4, 128, (1025, 1056))]
 # float32 reorderings over at most 4,096 keys put the kernels' outputs a
 # few 1e-7 from the plain versions' (|o| < 4, |lse| < 15): 1e-4 bounds
 # them with room; a wrong mask, tile or missing column moves them by O(0.1)
@@ -1385,22 +1422,24 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                 & ((pos[:, None] - pos[None, :]) < window))
 
     rows, err = {}, {"flash_fwd": 0.0, "flash_decode": 0.0}
-    for case, B, S, H, KV, hd, window in FLASH_CASES:
+    for case, B, S, H, KV, hd, window, causal in FLASH_CASES:
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
-        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
-        o2, lse2 = flash_attn.flash_fwd_cuda(q, k, v, window=window)
-        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
+        kw = dict(window=window, causal=causal)
+        o, lse = flash_attn.flash_fwd_cuda(q, k, v, **kw)
+        o2, lse2 = flash_attn.flash_fwd_cuda(q, k, v, **kw)
+        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         o_err = (o - o_p).abs().max().item()
         lse_err = (lse - lse_p).abs().max().item()
         repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
         del o2, lse2
         err["flash_fwd"] = max(err["flash_fwd"], o_err, lse_err)
-        plan = flash_attn.fwd_plan(B, S, H, KV, hd, True, window,
+        plan = flash_attn.fwd_plan(B, S, H, KV, hd, causal, window,
                                    n_sm=torch.cuda.get_device_properties(
                                        0).multi_processor_count)
         line = dict(kernel="flash_fwd", case=case, shape=[B, S, H, KV, hd],
-                    window=window, o_abs_err=o_err, lse_abs_err=lse_err,
+                    window=window, causal=causal, o_abs_err=o_err,
+                    lse_abs_err=lse_err,
                     tol=ATTN_TOL, bitwise_repeat=repeat,
                     plan=dict(key_tile=plan.key_tile, slots=plan.slots,
                               makespan=plan.makespan, ideal=plan.ideal))
@@ -1408,21 +1447,21 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
         mask = None if window is None else sdpa_mask(S, window)
 
         def call(i=0):
-            return flash_attn.flash_fwd_cuda(q, k, v, window=window)
+            return flash_attn.flash_fwd_cuda(q, k, v, **kw)
         line["device_ops_per_call"], line["device_us_per_call"] = \
             device_per_call(torch, call, calls=10, sets=1)
         line.update(
             kernel_ms=time_ms(torch, call, launches=10, repeats=9),
             plain_ms=time_ms(torch, lambda: flash_attn.flash_fwd_plain(
-                q, k, v, window=window), launches=3, repeats=5),
+                q, k, v, **kw), launches=3, repeats=5),
             library_ms=time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True), launches=10, repeats=9))
-        line["bound_ms"], line["bound_by"] = bound(
-            *flash_fwd_work(B, S, H, KV, hd, window))
-        line["gflop_per_s"] = flash_fwd_work(
-            B, S, H, KV, hd, window)[1] / line["kernel_ms"] / 1e6
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True),
+                launches=10, repeats=9))
+        work = flash_fwd_work(B, S, H, KV, hd, window, causal)
+        line["bound_ms"], line["bound_by"] = bound(*work)
+        line["gflop_per_s"] = work[1] / line["kernel_ms"] / 1e6
         line["bound_share_of_device"] = \
             line["bound_ms"] * 1e3 / line["device_us_per_call"]
         if case == "gemma3-1b global":
@@ -1444,13 +1483,16 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
         ks = [randn(B, L, KV, hd) for _ in range(sets)]
         vs = [randn(B, L, KV, hd) for _ in range(sets)]
         for valid in valids:
-            vl = torch.tensor([valid], dtype=torch.int32, device=dev)
+            # None: every position (a cross cache), no valid length passed
+            vl = None if valid is None else torch.tensor(
+                [valid], dtype=torch.int32, device=dev)
             got = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
             want = decode_attn.flash_decode_plain(qs[0], ks[0], vs[0], vl)
             again = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
             # the valid length as decode_step holds it: int64, 0-d
             as64 = decode_attn.flash_decode_cuda(
-                qs[0], ks[0], vs[0], torch.tensor(valid, device=dev))
+                qs[0], ks[0], vs[0],
+                None if valid is None else torch.tensor(valid, device=dev))
             torch.cuda.synchronize()
             e = (got - want).abs().max().item()
             err["flash_decode"] = max(err["flash_decode"], e)
@@ -1458,8 +1500,9 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
             line = dict(kernel="flash_decode", case=case,
                         shape=[B, L, H, KV, hd], valid_len=valid,
                         abs_err=e, tol=ATTN_TOL, bitwise_repeat=repeat)
-            if valid == L:
-                mask = (torch.arange(L, device=dev) < vl)[None, None, None]
+            if valid in (L, None):
+                mask = None if vl is None else (
+                    torch.arange(L, device=dev) < vl)[None, None, None]
                 qt = [t.transpose(1, 2).contiguous() for t in qs]
                 kt = [t.transpose(1, 2).contiguous() for t in ks]
                 vt = [t.transpose(1, 2).contiguous() for t in vs]
@@ -1477,9 +1520,9 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
                             qt[i], kt[i], vt[i], attn_mask=mask,
                             enable_gqa=True), sets=sets))
                 line["bound_ms"], line["bound_by"] = bound(
-                    *flash_decode_work(B, valid, H, KV, hd))
+                    *flash_decode_work(B, L, H, KV, hd))
                 line["gbytes_per_s"] = flash_decode_work(
-                    B, valid, H, KV, hd)[0] / line["kernel_ms"] / 1e6
+                    B, L, H, KV, hd)[0] / line["kernel_ms"] / 1e6
                 line["device_ops_per_call"], line["device_us_per_call"] = \
                     device_per_call(torch, lambda i: decode_attn
                                     .flash_decode_cuda(qs[i], ks[i], vs[i],
@@ -1641,12 +1684,12 @@ def check_tp_kernels(torch, decode_attn, fusion_conv):
                                  f"{case}")
 
 
-def flash_bwd_work(B, S, H, KV, hd, window):
+def flash_bwd_work(B, S, H, KV, hd, window, causal=True):
     """Bytes and float32 operations of one K8b call (q, do, k, v, lse, D
     in; dq out; three products of hd per visible pair and query head: s,
     dp and dq) and of one K8c call (the same inputs; dk, dv out; four
     products: s, dp, dv and dk), by kernel name."""
-    pairs = B * H * visible_pairs(S, window)
+    pairs = B * H * visible_pairs(S, window, causal)
     q_el, kv_el, row_el = B * S * H * hd, B * S * KV * hd, B * H * S
     return {"flash_bwd_dq": (4 * (3 * q_el + 2 * kv_el + 2 * row_el),
                              6 * hd * pairs),
@@ -1660,16 +1703,28 @@ def flash_bwd_work(B, S, H, KV, hd, window):
 # length at hd 128, gemma3-1b's local layer at a ragged length,
 # h2o-danube-3-4b at 4,608 positions, where its 4,096 window binds, and
 # recurrentgemma-9b's local layer (rep 16, hd 256, window 2,048) at phase
-# 4c's training shape (a client's batch of 2 x 1,024)
-FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None),
-                   ("gemma3-1b global", 4, 1024, 4, 1, 256, None),
-                   ("gemma3-1b local", 4, 1024, 4, 1, 256, 512),
-                   ("ragged", 4, 1000, 8, 2, 128, None),
-                   ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512),
-                   ("stablelm-3b", 4, 1024, 32, 32, 80, None),
-                   ("h2o-danube-3-4b", 4, 1024, 32, 8, 120, None),
-                   ("h2o-danube-3-4b window", 1, 4608, 32, 8, 120, 4096),
-                   ("recurrentgemma-9b local", 2, 1024, 16, 1, 256, 2048)]
+# 4c's training shape (a client's batch of 2 x 1,024); whisper-large-v3's
+# encoder without the causal mask (B 4, 1,500 frames) and its causal
+# decoder at phase 4c's client batch of 4 x 448, and qwen2-vl-7b's layers
+# (rep 7, hd 128) at phase 4c's client batch of 2 x 1,024 (the last
+# field: the causal mask)
+FLASH_BWD_CASES = [("smollm-135m", 8, 1024, 9, 3, 64, None, True),
+                   ("gemma3-1b global", 4, 1024, 4, 1, 256, None, True),
+                   ("gemma3-1b local", 4, 1024, 4, 1, 256, 512, True),
+                   ("ragged", 4, 1000, 8, 2, 128, None, True),
+                   ("gemma3-1b local ragged", 4, 1000, 4, 1, 256, 512,
+                    True),
+                   ("stablelm-3b", 4, 1024, 32, 32, 80, None, True),
+                   ("h2o-danube-3-4b", 4, 1024, 32, 8, 120, None, True),
+                   ("h2o-danube-3-4b window", 1, 4608, 32, 8, 120, 4096,
+                    True),
+                   ("recurrentgemma-9b local", 2, 1024, 16, 1, 256, 2048,
+                    True),
+                   ("whisper-large-v3 encoder", 4, 1500, 20, 20, 64, None,
+                    False),
+                   ("whisper-large-v3 decoder", 4, 448, 20, 20, 64, None,
+                    True),
+                   ("qwen2-vl-7b", 2, 1024, 28, 4, 128, None, True)]
 # dq sums over up to S keys and dk / dv over up to S * rep rows, in another
 # order than the plain version's full products: a few 1e-7 of each
 # gradient's largest element.  1e-4 of it bounds that with room (target
@@ -1693,12 +1748,12 @@ def check_flash_bwd_kernels(torch, flash_attn):
 
     names = ("flash_bwd_dq", "flash_bwd_dkv")
     rows, err = {}, dict.fromkeys(names, 0.0)
-    for case, B, S, H, KV, hd, window in FLASH_BWD_CASES:
+    for case, B, S, H, KV, hd, window, causal in FLASH_BWD_CASES:
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
         do = randn(B, S, H, hd)
-        o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+        kw = dict(window=window, causal=causal)
+        o, lse = flash_attn.flash_fwd_cuda(q, k, v, **kw)
         dcap = flash_attn.flash_dcap(do, o, KV)
-        kw = dict(window=window)
 
         def dq_call():
             return flash_attn.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw)
@@ -1721,10 +1776,12 @@ def check_flash_bwd_kernels(torch, flash_attn):
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], rel[0])
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], rel[1], rel[2])
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        plan = flash_attn.dkv_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
-        qplan = flash_attn.dq_plan(B, S, H, KV, hd, True, window, n_sm=n_sm)
+        plan = flash_attn.dkv_plan(B, S, H, KV, hd, causal, window,
+                                   n_sm=n_sm)
+        qplan = flash_attn.dq_plan(B, S, H, KV, hd, causal, window,
+                                   n_sm=n_sm)
         line = dict(kernel="flash_bwd_dq+flash_bwd_dkv", case=case,
-                    shape=[B, S, H, KV, hd], window=window,
+                    shape=[B, S, H, KV, hd], window=window, causal=causal,
                     dq_plan=dict(key_tile=qplan.key_tile, rows=qplan.rows,
                                  seg=qplan.seg, max_segments=qplan.max_ns,
                                  units=qplan.units(B, KV)),
@@ -1740,7 +1797,7 @@ def check_flash_bwd_kernels(torch, flash_attn):
                     tol=BWD_TOL, bitwise_repeat=repeat, finite=finite)
         del got, again, want
         if "ragged" not in case:
-            work = flash_bwd_work(B, S, H, KV, hd, window)
+            work = flash_bwd_work(B, S, H, KV, hd, window, causal)
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))
             dot = do.transpose(1, 2).contiguous()
@@ -1750,8 +1807,8 @@ def check_flash_bwd_kernels(torch, flash_attn):
                 mask = ((pos[None, :] <= pos[:, None])
                         & ((pos[:, None] - pos[None, :]) < window))
             out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
             timing = dict(
                 plain_ms=time_ms(torch, plain_call, launches=3, repeats=5),
                 library_ms=time_ms(torch, lambda: torch.autograd.grad(
@@ -1792,15 +1849,22 @@ def check_flash_bwd_kernels(torch, flash_attn):
 # full width cut to 4 layers; recurrentgemma-9b at full width cut to 3
 # layers (one cycle: RG-LRU, RG-LRU, local attention at hd 256, rep 16,
 # window 2,048) in its own client_sequential mode (4 clients visited in
-# turn, 2 sequences each)
-TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 3, None),
-              ("smollm-135m", "fedmmd", 1024, 8, 3, None),
-              ("smollm-135m", "fedfusion", 1024, 8, 3, None),
+# turn, 2 sequences each); smollm-135m 2 rounds (3 until the VLM and
+# encoder-decoder runs were added: the script's time limit); qwen2-vl-7b
+# FedFusion-conv at full width cut to
+# 4 of its 28 layers (a full-depth client-sequential round holds ~3.3x its
+# 30.5 GB of weights: past the card until the FSDP step), 4 clients in
+# turn, 2 sequences each of 1,024 positions, the first 256 stub patch
+# embeddings (``launch.train``'s draws)
+TRAIN_RUNS = [("smollm-135m", "fedavg", 1024, 8, 2, None),
+              ("smollm-135m", "fedmmd", 1024, 8, 2, None),
+              ("smollm-135m", "fedfusion", 1024, 8, 2, None),
               ("gemma3-1b", "fedavg", 1024, 4, 2, None),
               ("stablelm-3b", "fedavg", 1024, 4, 2, 4),
               ("h2o-danube-3-4b", "fedavg", 1024, 4, 2, 4),
               ("granite-moe-1b-a400m", "fedavg", 1024, 4, 2, 4),
-              ("recurrentgemma-9b", "fedavg", 1024, 8, 2, 3)]
+              ("recurrentgemma-9b", "fedavg", 1024, 8, 2, 3),
+              ("qwen2-vl-7b", "fedfusion", 1024, 8, 2, 4)]
 TRAIN_LR = 0.05             # launch.train's default
 
 
@@ -1818,7 +1882,10 @@ def lm_launches(cfg, algorithm, steps, evals=0, *, messages=0, n_leaves=0,
     quantized message of up to 64 leaves (``messages``), K6 and K7 once
     per EF leaf (``n_leaves``) per top-k round (``ef_rounds``)."""
     from repro_torch.models.transformer import cycle_split
-    L = sum(k.startswith("attn") for k in cfg.block_pattern)
+    # the encoder's layers run K8a / K8b / K8c too (without the causal
+    # mask), never checkpointed
+    L = sum(k.startswith("attn") for k in cfg.block_pattern) \
+        + cfg.n_enc_layers
     c, n_full, _ = cycle_split(cfg.block_pattern)
     recomputed = (cfg.remat == "layer") * sum(
         k.startswith("attn") for k in cfg.block_pattern[:c * n_full])
@@ -1884,7 +1951,8 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
                     want_logits=False)["aux"].item()
             checks["aux_finite"] = math.isfinite(aux)
         emit("train", model=name, algorithm=algorithm, fusion_op="conv",
-             attn_impl=cfg.attn_impl,
+             attn_impl=cfg.attn_impl, stub_inputs=cfg.family in (
+                 "vlm", "audio"),
              params=sum(t.numel() for t in tree_leaves(state["model"])),
              layers=cfg.n_layers, cuts=cuts, head_dim=cfg.head_dim,
              seq_len=S, global_batch=B, clients=plan.n_clients,
@@ -1904,6 +1972,30 @@ def train_runs(torch, train, counters, get_config, FLConfig, InputShape,
         for k in total:
             total[k] += got[k]
     return total
+
+
+def settle(torch):
+    """Frees what can be freed on the card and resets its peak; returns
+    the bytes still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def kept_bytes(torch, cfg, params, batch):
+    """Bytes a forward of ``cfg`` over ``batch`` keeps for its backward,
+    logits included."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    start = settle(torch)
+    out = tfm.forward_seq(cfg, p, batch)
+    n = torch.cuda.memory_allocated() - start
+    del out, p
+    return n
 
 
 # phase 4c: full-depth training with activation checkpointing.  FedAvg,
@@ -1931,9 +2023,6 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
     round of the search that ran out of memory launched kernels that are
     not counted)."""
     import dataclasses
-    import gc
-    from repro_torch.models import transformer as tfm
-    from repro_torch.tree import tree_map
     total = dict.fromkeys(counters, 0)
     cap = torch.cuda.get_device_properties(0).total_memory
     C, ls, S = 2, 2, 1024
@@ -1941,8 +2030,7 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
         base = dataclasses.replace(get_config(name), attn_impl="pallas")
         fl = FLConfig(algorithm="fedavg", clients_per_round=C,
                       local_steps=ls, lr=TRAIN_LR)
-        gc.collect()
-        torch.cuda.empty_cache()
+        settle(torch)
         state = init_global_state(make_bundle(base), fl, torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
         weights = sum(t.numel() * t.element_size()
@@ -1951,23 +2039,6 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
                                              vocab=base.vocab_size,
                                              n_sources=1)[0]).long().cuda()
         nex = torch.ones((C,), device="cuda")
-
-        def settle():
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            return torch.cuda.memory_allocated()
-
-        def kept(cfg, tokens):
-            """Bytes a forward keeps for its backward, logits included."""
-            p = tree_map(lambda t: t.detach().requires_grad_(True),
-                          state["model"])
-            start = settle()
-            out = tfm.forward_seq(cfg, p, {"tokens": tokens})
-            n = torch.cuda.memory_allocated() - start
-            del out, p
-            return n
 
         def run(remat, B, T, search=False):
             cfg = dataclasses.replace(base, remat=remat)
@@ -1978,10 +2049,12 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
             line = dict(remat=remat, client_batch=B, seq_len=T,
                         tokens_per_step=B * T)
             try:
-                line["activation_bytes"] = kept(cfg, batch["tokens"][0, 0])
+                line["activation_bytes"] = kept_bytes(
+                    torch, cfg, state["model"],
+                    {"tokens": batch["tokens"][0, 0]})
                 for counter in counters.values():
                     counter.launches = 0
-                start = line["resident_bytes"] = settle()
+                start = line["resident_bytes"] = settle(torch)
                 t0 = time.perf_counter()
                 new, metrics = round_fn(state, batch, nex, TRAIN_LR)
                 loss = float(metrics["local_loss"])
@@ -1994,7 +2067,7 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
                 line.update(out_of_memory=True,
                             peak_bytes=torch.cuda.max_memory_allocated(),
                             ok=search)
-                settle()
+                settle(torch)
                 emit("train_remat_run", model=name, **line)
                 if not search:
                     raise AssertionError(f"train remat {name}: {remat} at "
@@ -2060,7 +2133,94 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
         if not ok:
             raise AssertionError(f"train remat {name}: {runs}")
         del state, toks
-        settle()
+        settle(torch)
+    return total
+
+
+# phase 4c: whisper-large-v3 at full depth (32 decoder and 32 encoder
+# layers) in its client_parallel mode: FedAvg, then FedFusion-conv, one
+# round of 2 clients x 2 local steps of ENCDEC_BATCH sequences of
+# ENCDEC_SEQ tokens (Whisper's text context) beside 1,500 stub frames each
+# (at twice the batch the activations alone, ~9.3 GB an example, pass the
+# card).  Its times are the round's first call of ``round_fn`` (the
+# kernels are built in phase 3), not a steady round.  The memory split
+# (FedAvg): the weights; the activations a local step keeps for its
+# backward (a forward over one step's batch, measured apart); the client
+# state, the round's peak above the weights less those activations (the
+# clients' models stacked, a gradient, the average)
+ENCDEC_SEQ = 448
+ENCDEC_BATCH = 4
+
+
+def encdec_train_runs(torch, counters, get_config, FLConfig, make_bundle,
+                      init_global_state, make_round_fn, token_stream,
+                      tree_leaves):
+    """Phase 4c's whisper-large-v3 runs; returns their launches."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              attn_impl="pallas")
+    total = dict.fromkeys(counters, 0)
+    C, ls, B, S = 2, 2, ENCDEC_BATCH, ENCDEC_SEQ
+    toks = torch.from_numpy(token_stream(C * ls * B, S, vocab=cfg.vocab_size,
+                                         n_sources=1)[0]).long().cuda()
+    toks = toks.reshape(C, ls, B, S + 1)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "audio_frames": torch.randn(
+                 (C, ls, B, cfg.n_audio_frames, cfg.d_model), device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(1))}
+    nex = torch.ones((C,), device="cuda")
+    for algorithm in ("fedavg", "fedfusion"):
+        fl = FLConfig(algorithm=algorithm, fusion_op="conv",
+                      clients_per_round=C, local_steps=ls, lr=TRAIN_LR)
+        settle(torch)
+        bundle = make_bundle(cfg)
+        state = init_global_state(bundle, fl, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state["model"]))
+        acts = (kept_bytes(torch, cfg, state["model"],
+                           {k: v[0, 0] for k, v in batch.items()})
+                if algorithm == "fedavg" else None)
+        round_fn = make_round_fn(bundle, fl, cfg.fl_mode)
+        for counter in counters.values():
+            counter.launches = 0
+        resident = settle(torch)
+        t0 = time.perf_counter()
+        new, metrics = round_fn(state, batch, nex, TRAIN_LR)
+        loss = float(metrics["local_loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del new, metrics
+        got = {k: c.launches for k, c in counters.items()}
+        want = {k: v for k, v in lm_launches(cfg, algorithm, C * ls).items()
+                if k in counters}
+        for k in total:
+            total[k] += got[k]
+        split = None if acts is None else dict(
+            weights_bytes=weights, activation_bytes=acts,
+            activation_bytes_per_example=acts / B,
+            client_state_bytes=peak - resident - acts)
+        checks = dict(launches=got == want, finite=math.isfinite(loss))
+        emit("train_encdec", model=cfg.name, algorithm=algorithm,
+             fusion_op="conv", mode=cfg.fl_mode, layers=cfg.n_layers,
+             encoder_layers=cfg.n_enc_layers,
+             params=sum(t.numel() for t in tree_leaves(state["model"])),
+             clients=C, local_steps=ls, client_batch=B, seq_len=S,
+             audio_frames=cfg.n_audio_frames, rounds=1,
+             timed_round="first", round_ms=ms,
+             ms_per_local_step=ms / (C * ls),
+             tokens_per_s=C * ls * B * S / ms * 1e3,
+             card_bytes=torch.cuda.get_device_properties(0).total_memory,
+             peak_bytes=peak, peak_above_resident_bytes=peak - resident,
+             memory_split=split, loss=loss, launches=got, expected=want,
+             checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"train whisper-large-v3 {algorithm}: "
+                                 f"{checks}")
+        del state, round_fn
+    del toks, batch
+    settle(torch)
     return total
 
 
@@ -2475,8 +2635,10 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
     return total
 
 
-# phase 4g: mamba2-130m at full width and depth (24 SSD layers) through
-# the LM engine, FedAvg and FedFusion-conv (K2 in the graphs), each held
+# phase 4g: mamba2-130m at full width cut to MAMBA_ENGINE_LAYERS of its 24
+# SSD layers (all 24 until the VLM and encoder-decoder runs were added:
+# the script's time limit; phase 4b serves all 24) through the LM engine,
+# FedAvg and FedFusion-conv (K2 in the graphs), each held
 # exactly to the reference loop over the same rounds from the same state;
 # and smollm-135m (phase 4g's 6 layers) FedAvg with remat="none" and
 # "layer" through the engine (the cycles' recomputation captured in the
@@ -2484,6 +2646,7 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
 LM_MAMBA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=4,
                 seq_len=256, eval_sequences=4, rounds=4, chunk=2)
 LM_REMAT = dict(rounds=4, chunk=2)
+MAMBA_ENGINE_LAYERS = 12
 
 
 def recurrent_engine_phase(torch, counters, *, get_config, FLConfig,
@@ -2568,7 +2731,10 @@ def recurrent_engine_phase(torch, counters, *, get_config, FLConfig,
         torch.cuda.empty_cache()
         return out
 
-    cfg = dataclasses.replace(get_config("mamba2-130m"), attn_impl="pallas")
+    base = get_config("mamba2-130m")
+    cfg = dataclasses.replace(
+        base, attn_impl="pallas", n_layers=MAMBA_ENGINE_LAYERS,
+        block_pattern=base.block_pattern[:MAMBA_ENGINE_LAYERS])
     for algorithm in ("fedavg", "fedfusion"):
         engine_and_reference(cfg, algorithm, {}, {})
     # remat: smollm-135m at phase 4g's depth, LM_ENGINE's clients and batch
@@ -2754,7 +2920,8 @@ def train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
     routing = (routing_agreement(torch, routes["cuda"], routes["cpu"],
                                  cfg.top_k) if cfg.n_experts else None)
     emit("card_vs_cpu_train", model=cfg.name, layers=layers,
-         head_dim=cfg.head_dim, vocab=cfg.vocab_size, fl_mode=cfg.fl_mode,
+         encoder_layers=cfg.n_enc_layers or None, head_dim=cfg.head_dim,
+         vocab=cfg.vocab_size, fl_mode=cfg.fl_mode,
          algorithm=algorithm, fusion_op="conv", rounds=rounds, batch=batch,
          seq_len=seq_len, routing=routing,
          seconds=time.perf_counter() - t0,
@@ -3530,10 +3697,14 @@ def local_step_costs(torch, bundle, fls, make_local_trainer,
 # cycles of RG-LRU, RG-LRU, local attention and two RG-LRU in the tail) at
 # batch 1 with a prompt of 2,560, past its 2,048 window
 SERVE_GEN = 32
+# whisper-large-v3: 64 prompt tokens beside 1,500 stub frames (prompt and
+# generated tokens within its 448-token text context); qwen2-vl-7b: 1,024
+# positions, the first 256 stub patch embeddings
 SERVE_RUNS = [("gemma3-1b", 4, 1024), ("smollm-135m", 4, 1024),
               ("stablelm-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4608),
               ("granite-moe-1b-a400m", 4, 1024), ("mamba2-130m", 4, 1024),
-              ("recurrentgemma-9b", 1, 2560)]
+              ("recurrentgemma-9b", 1, 2560), ("whisper-large-v3", 4, 64),
+              ("qwen2-vl-7b", 4, 1024)]
 # decode logits vs a forward over the same tokens, and card vs CPU: the
 # two sides sum in other orders (cuBLAS at M = 4 and M = 4,096, the kernels
 # and the plain versions, oneDNN on the CPU), ~1e-6 of the logits' scale a
@@ -3577,7 +3748,9 @@ def decode_loop(serve, tfm, cfg, params, G, step=None, **kw):
 def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
               P):
     """The serve phase for one model at batch ``B`` and prompts of ``P``
-    tokens (seed 0), then a second request (prompts from seed 1).  Eager:
+    tokens (seed 0), then a second request (prompts from seed 1; each with
+    its stub patch or frame embeddings from ``serve.make_inputs`` at the
+    same seed).  Eager:
     prefill and greedy decode once to warm up, then once measured with the
     kernel counts set to 0 just before (prefill ms on the host clock, each
     decode step's period on CUDA events, peak memory), the full-depth check
@@ -3586,23 +3759,28 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
     Graphed: both requests through one ``DecodeGraph`` (captured on the
     first), whose tokens and logits must equal the eager runs' bit for
     bit; its step periods, warm-up, capture and instantiation seconds and
-    graph pool bytes.  Launches: K8a once a layer a prefill or forward, K9
-    once a layer an eager step and, in the graph, once a layer at the
-    warm-up and at the capture (the counters count Python calls), each
-    replay launching K9 once a layer uncounted.  Returns the phase line,
-    the launches (replays' K9 counted) and the loop."""
+    graph pool bytes.  Launches: K8a once an attention layer (the
+    encoder's included) a prefill or forward, K9 once a self and a cross
+    attention an eager step and, in the graph, once each at the warm-up
+    and at the capture (the counters count Python calls), each replay
+    launching them uncounted.  Returns the phase line, the launches
+    (replays' K9 counted) and the loop."""
     from repro_torch.tree import tree_leaves
     G = SERVE_GEN
     tokens = serve.make_prompts(cfg, B, P, seed=0, device="cuda")
     tokens2 = serve.make_prompts(cfg, B, P, seed=1, device="cuda")
+    inputs = serve.make_inputs(cfg, B, seed=0, device="cuda")
+    inputs2 = serve.make_inputs(cfg, B, seed=1, device="cuda")
     n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    k8_forward = n_attn + cfg.n_enc_layers
+    k9_step = n_attn * (2 if cfg.n_enc_layers else 1)
 
     def counts():
         return {"flash_fwd": flash_attn.flash_fwd_cuda.launches,
                 "flash_decode": decode_attn.flash_decode_cuda.launches}
 
     with torch.no_grad():
-        last, cache = serve.prefill(cfg, params, tokens, P + G)
+        last, cache = serve.prefill(cfg, params, tokens, P + G, inputs)
         serve.greedy_decode(cfg, params, cache, last, P, G)
         del last, cache
         torch.cuda.synchronize()
@@ -3611,7 +3789,7 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
         flash_attn.flash_fwd_cuda.launches = 0
         decode_attn.flash_decode_cuda.launches = 0
         t0 = time.perf_counter()
-        last, cache = serve.prefill(cfg, params, tokens, P + G)
+        last, cache = serve.prefill(cfg, params, tokens, P + G, inputs)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         k8_prefill = flash_attn.flash_fwd_cuda.launches
@@ -3623,20 +3801,21 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
         del cache
         full = full_capacity(cfg)
         out = tfm.forward_seq(full, params,
-                              {"tokens": torch.cat([tokens, toks], 1)},
-                              want_logits=False)
+                              {"tokens": torch.cat([tokens, toks], 1),
+                               **inputs}, want_logits=False)
         want = tfm.head_apply(full, params, out["features"][:, -1])
         rel = ((last_logits - want).abs().max() / want.abs().max()).item()
         del out, want
-        last2, cache2 = serve.prefill(cfg, params, tokens2, P + G)
+        last2, cache2 = serve.prefill(cfg, params, tokens2, P + G, inputs2)
         eager2 = serve.greedy_decode(cfg, params, cache2, last2, P, G)
         del cache2
         eager_counts = counts()
         # graphed: both requests through one captured step
         loop = decode_loop(serve, tfm, cfg, params, G)
         graphed = []
-        for prompts in (tokens, tokens2):
-            last_g, cache_g = serve.prefill(cfg, params, prompts, P + G)
+        for prompts, stub in ((tokens, inputs), (tokens2, inputs2)):
+            last_g, cache_g = serve.prefill(cfg, params, prompts, P + G,
+                                            stub)
             graphed.append(loop.run(last_g, cache_g, P))
             del last_g, cache_g
         graph_counts = counts()
@@ -3648,13 +3827,13 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
     g_med = statistics.median(g_steady)
     per_replay = loop.stats["launches_per_replay"]["flash_decode"]
     checks = dict(
-        k8a_per_prefill=k8_prefill == n_attn,
+        k8a_per_prefill=k8_prefill == k8_forward,
         k8a_in_decode=launches["flash_fwd"] == k8_prefill,
-        k9_per_step=launches["flash_decode"] == n_attn * G,
-        k8a_total=graph_counts["flash_fwd"] == 5 * n_attn,
-        k9_eager_total=eager_counts["flash_decode"] == 2 * n_attn * G,
-        k9_graph_ticks=graph_ticks["flash_decode"] == 2 * n_attn,
-        k9_per_replay=per_replay == n_attn,
+        k9_per_step=launches["flash_decode"] == k9_step * G,
+        k8a_total=graph_counts["flash_fwd"] == 5 * k8_forward,
+        k9_eager_total=eager_counts["flash_decode"] == 2 * k9_step * G,
+        k9_graph_ticks=graph_ticks["flash_decode"] == 2 * k9_step,
+        k9_per_replay=per_replay == k9_step,
         replays=loop.replays == 2 * G,
         graph_tokens_equal=all(torch.equal(g[0], e[0]) for g, e in zip(
             graphed, eager)),
@@ -3667,6 +3846,9 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
         model=cfg.name, attn_impl=cfg.attn_impl,
         params=sum(t.numel() for t in tree_leaves(params)),
         layers=cfg.n_layers, attention_layers=n_attn,
+        encoder_layers=cfg.n_enc_layers or None,
+        stub_inputs={k: list(v.shape) for k, v in inputs.items()},
+        cache_bytes=4 * sum(t.numel() for t in tree_leaves(loop.cache)),
         experts=cfg.n_experts or None, batch=B,
         prompt_len=P, gen_len=G, max_len=P + G, prefill_ms=prefill_ms,
         prefill_tokens_per_s=B * P / prefill_ms * 1e3,
@@ -3694,13 +3876,15 @@ def serve_run(torch, serve, tfm, flash_attn, decode_attn, cfg, params, B,
     return line, total, loop
 
 
-def serve_greedy_logits(torch, serve, tfm, cfg, params, tokens, steps):
-    """``serve.prefill`` then ``steps`` greedy steps, through a captured
-    ``DecodeGraph`` on the card and eagerly on the CPU: the last logits of
-    the prefill and of each step, on the CPU."""
+def serve_greedy_logits(torch, serve, tfm, cfg, params, tokens, steps,
+                        inputs=None):
+    """``serve.prefill`` (with ``inputs``, the stub embeddings) then
+    ``steps`` greedy steps, through a captured ``DecodeGraph`` on the card
+    and eagerly on the CPU: the last logits of the prefill and of each
+    step, on the CPU."""
     P = tokens.shape[1]
     with torch.no_grad():
-        last, cache = serve.prefill(cfg, params, tokens, P + steps)
+        last, cache = serve.prefill(cfg, params, tokens, P + steps, inputs)
         loop = decode_loop(serve, tfm, cfg, params, steps,
                            graph=tokens.is_cuda)
         _, logits, _ = loop.run(last, cache, P)
@@ -3764,13 +3948,15 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
                                n_layers=layers, block_pattern=pattern,
                                **replace)
     tokens = serve.make_prompts(cfg, 1, prompt_len, seed=0, device="cpu")
+    inputs = serve.make_inputs(cfg, 1, seed=0, device="cpu")
     with recorded_routes(torch, moe) as card_routes:
         card = serve_greedy_logits(torch, serve, tfm, cfg, params,
-                                   tokens.cuda(), 4)
+                                   tokens.cuda(), 4, tree_map(
+                                       lambda t: t.cuda(), inputs))
     with recorded_routes(torch, moe) as cpu_routes:
         cpu = serve_greedy_logits(torch, serve, tfm, cfg,
                                   tree_map(lambda t: t.cpu(), params),
-                                  tokens, 4)
+                                  tokens, 4, inputs)
     del params
     steps = []
     for i, (a, b) in enumerate(zip(card, cpu)):
@@ -3788,6 +3974,8 @@ def serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
     routing = (routing_agreement(torch, card_routes, cpu_routes, cfg.top_k)
                if cfg.n_experts else None)
     emit("card_vs_cpu_serve", model=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.n_enc_layers or None,
+         stub_inputs={k: list(v.shape) for k, v in inputs.items()},
          head_dim=cfg.head_dim, pattern=list(pattern), batch=1,
          vocab=cfg.vocab_size, prompt_len=prompt_len, decode_steps=4,
          card_decode="graph", steps=steps,
@@ -4152,8 +4340,9 @@ def main():
     emit("phase_4", seconds=time.perf_counter() - t_phase)
 
     t_phase = time.perf_counter()
-    # 4b. serve: the four dense LMs and granite-moe-1b at full width and
-    # depth, eagerly and through a captured decode step (K8a and K9 counted
+    # 4b. serve: the dense LMs, granite-moe-1b, the recurrent families,
+    # whisper-large-v3 and qwen2-vl-7b at full width and depth, eagerly
+    # and through a captured decode step (K8a and K9 counted
     # over each run, replays included; phase 5's serving trace is taken
     # while gemma3-1b's weights and decode graph are on the card)
     serve_launches = {"flash_fwd": 0, "flash_decode": 0}
@@ -4218,6 +4407,11 @@ def main():
     for k, n in remat_runs(torch, lm_counters, get_config, FLConfig,
                            make_bundle, init_global_state, make_round_fn,
                            token_stream, tree_leaves).items():
+        train_launches[k] += n
+    for k, n in encdec_train_runs(torch, lm_counters, get_config, FLConfig,
+                                  make_bundle, init_global_state,
+                                  make_round_fn, token_stream,
+                                  tree_leaves).items():
         train_launches[k] += n
     emit("phase_4c", seconds=time.perf_counter() - t_phase)
 
@@ -5098,6 +5292,27 @@ def main():
                       make_bundle, init_global_state, tree_leaves, moe,
                       "recurrentgemma-9b", algorithm="fedavg", layers=3,
                       seq_len=16, batch=1, vocab_size=RG_CPU_VOCAB)
+    # whisper-large-v3 at full width cut to 2 decoder and 2 encoder layers
+    # over its 1,500 frames, a 64-token prompt, and its FedAvg round at 1 +
+    # 1 layers, S = 16; qwen2-vl-7b at 2 layers, full width, its
+    # vocabulary cut to RG_CPU_VOCAB, a 300-position prompt (256 patch
+    # embeddings), and its FedAvg round at 1 layer, S = 32 with 16 patch
+    # embeddings (the CPU's round at 256 would take most of this phase)
+    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
+                      "whisper-large-v3", layers=2, prompt_len=64,
+                      n_enc_layers=2)
+    train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                      make_bundle, init_global_state, tree_leaves, moe,
+                      "whisper-large-v3", algorithm="fedavg", layers=1,
+                      seq_len=16, batch=1, n_enc_layers=1)
+    serve_card_vs_cpu(torch, serve, tfm, get_config, tree_map, moe,
+                      "qwen2-vl-7b", layers=2, prompt_len=300,
+                      vocab_size=RG_CPU_VOCAB)
+    train_card_vs_cpu(torch, train, get_config, FLConfig, InputShape,
+                      make_bundle, init_global_state, tree_leaves, moe,
+                      "qwen2-vl-7b", algorithm="fedavg", layers=1,
+                      seq_len=32, batch=1, vocab_size=RG_CPU_VOCAB,
+                      n_vision_tokens=16)
     # examples/serve_decode_torch.py at temperature 0.7
     twin_card_vs_cpu(torch, tfm, get_config, tree_map)
 

@@ -10,7 +10,9 @@ CUDA graph and replayed once a token, on the CPU it runs eagerly.
 ``--temperature > 0`` samples ``categorical(logits / T)`` as Gumbel-max,
 with the noise drawn before the loop from a seeded ``torch.Generator``.
 The flags are the JAX example's, plus ``--device``.  The VLM and audio
-architectures wait for their slice (``get_config`` refuses them).
+architectures get their stub inputs as in the JAX example (standard
+normal patch or frame embeddings, here drawn from a seeded
+``torch.Generator`` on the device: ``launch.serve.make_inputs``).
 
 Run:  PYTHONPATH=src python examples/serve_decode_torch.py --arch gemma3-1b \\
           --prompt-len 32 --gen-len 16 --batch 4
@@ -27,9 +29,12 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 
 
-def generate(cfg, params, prompts, gen_len, *, temperature=0.0, noise=None):
-    """Prefill ``prompts`` [B, P] and decode ``gen_len`` tokens through one
-    ``DecodeGraph``, captured on the card and run eagerly on the CPU.
+def generate(cfg, params, prompts, gen_len, *, temperature=0.0, noise=None,
+             inputs=None):
+    """Prefill ``prompts`` [B, P] (with ``inputs``, the VLM's or the
+    encoder-decoder's stub embeddings) and decode ``gen_len`` tokens
+    through one ``DecodeGraph``, captured on the card and run eagerly on
+    the CPU.
     ``noise`` [gen_len, B, V] (Gumbel) goes with ``temperature > 0``: token
     i is ``argmax(logits / T + noise[i])``.  Returns (ids [B, gen_len],
     prefill ms, decode ms, the loop)."""
@@ -37,7 +42,8 @@ def generate(cfg, params, prompts, gen_len, *, temperature=0.0, noise=None):
     dev = prompts.device
     with torch.no_grad():
         t0 = time.perf_counter()
-        last, cache = serve.prefill(cfg, params, prompts, P + gen_len)
+        last, cache = serve.prefill(cfg, params, prompts, P + gen_len,
+                                    inputs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         prefill_ms = 1e3 * (time.perf_counter() - t0)
@@ -70,12 +76,13 @@ def main(argv=None):
                              .manual_seed(0), device=device)
     prompts = serve.make_prompts(cfg, args.batch, args.prompt_len, seed=1,
                                  device=device)
+    inputs = serve.make_inputs(cfg, args.batch, seed=2, device=device)
     noise = (serve.gumbel_noise(args.gen_len, args.batch, cfg.vocab_size,
                                 seed=7, device=device)
              if args.temperature > 0 else None)
     ids, prefill_ms, decode_ms, loop = generate(
         cfg, params, prompts, args.gen_len, temperature=args.temperature,
-        noise=noise)
+        noise=noise, inputs=inputs)
     print(f"prefill[{args.batch}x{args.prompt_len}]: {prefill_ms:.0f} ms "
           f"(incl. first-call kernel builds)")
     print(f"decode {args.gen_len} steps: {decode_ms:.0f} ms "

@@ -213,13 +213,14 @@ def time_flash_fwd(torch, flash_attn, tag):
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(3)
     ok = True
-    for case, B, S, H, KV, hd, window in cs.FLASH_CASES:
+    for case, B, S, H, KV, hd, window, causal in cs.FLASH_CASES:
         def randn(*shape):
             return torch.randn(*shape, generator=gen).cuda()
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        kw = dict(window=window, causal=causal)
 
         def call():
-            return flash_attn.flash_fwd_cuda(q, k, v, window=window)
+            return flash_attn.flash_fwd_cuda(q, k, v, **kw)
 
         try:
             (o, lse), (o2, lse2) = call(), call()
@@ -227,21 +228,22 @@ def time_flash_fwd(torch, flash_attn, tag):
             emit(tree=tag, kernel="flash_fwd", case=case,
                  shape=[B, S, H, KV, hd], refused=str(err)[:160])
             continue
-        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, window=window)
+        o_p, lse_p = flash_attn.flash_fwd_plain(q, k, v, **kw)
         err = max((o - o_p).abs().max().item(),
                   (lse - lse_p).abs().max().item())
         repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
         del o, lse, o2, lse2, o_p, lse_p
         bound_ms, bound_by = cs.bound(*cs.flash_fwd_work(B, S, H, KV, hd,
-                                                        window))
+                                                        window, causal))
         line = dict(tree=tag, kernel="flash_fwd", case=case,
-                    shape=[B, S, H, KV, hd], window=window, abs_err=err,
+                    shape=[B, S, H, KV, hd], window=window, causal=causal,
+                    abs_err=err,
                     tol=cs.ATTN_TOL, bitwise_repeat=repeat,
                     kernel_ms=cs.time_ms(torch, call, launches=10, repeats=9),
                     device_us=device_us(torch, call, "flash_fwd", 20),
                     bound_ms=bound_ms, bound_by=bound_by)
         if hasattr(flash_attn, "fwd_plan"):
-            plan = flash_attn.fwd_plan(B, S, H, KV, hd, True, window)
+            plan = flash_attn.fwd_plan(B, S, H, KV, hd, causal, window)
             line["plan"] = dict(makespan=plan.makespan, ideal=plan.ideal)
         if S == 1024:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -252,8 +254,9 @@ def time_flash_fwd(torch, flash_attn, tag):
                         & ((pos[:, None] - pos[None, :]) < window))
             line["library_ms"] = cs.time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True), launches=10, repeats=9)
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True),
+                launches=10, repeats=9)
             del qt, kt, vt
         emit(**line)
         ok &= err <= cs.ATTN_TOL and repeat
@@ -264,19 +267,19 @@ def time_flash_bwd(torch, flash_attn, tag):
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(4)
     ok = True
-    for case, B, S, H, KV, hd, window in cs.FLASH_BWD_CASES:
+    for case, B, S, H, KV, hd, window, causal in cs.FLASH_BWD_CASES:
         def randn(*shape):
             return torch.randn(*shape, generator=gen).cuda()
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
         do = randn(B, S, H, hd)
+        kw = dict(window=window, causal=causal)
         try:
-            o, lse = flash_attn.flash_fwd_cuda(q, k, v, window=window)
+            o, lse = flash_attn.flash_fwd_cuda(q, k, v, **kw)
         except ValueError as err:
             emit(tree=tag, kernel="flash_bwd", case=case,
                  shape=[B, S, H, KV, hd], refused=str(err)[:160])
             continue
         dcap = flash_attn.flash_dcap(do, o, KV)
-        kw = dict(window=window)
 
         def dq_call():
             return flash_attn.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw)
@@ -292,10 +295,10 @@ def time_flash_bwd(torch, flash_attn, tag):
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         del got, again, want
         line = dict(tree=tag, kernel="flash_bwd", case=case,
-                    shape=[B, S, H, KV, hd], window=window,
+                    shape=[B, S, H, KV, hd], window=window, causal=causal,
                     rel_err=dict(zip(("dq", "dk", "dv"), rel)),
                     bitwise_repeat=repeat)
-        work = cs.flash_bwd_work(B, S, H, KV, hd, window)
+        work = cs.flash_bwd_work(B, S, H, KV, hd, window, causal)
         for name, call in (("flash_bwd_dq", dq_call),
                            ("flash_bwd_dkv", dkv_call)):
             line[name] = dict(zip(("bound_ms", "bound_by"),
@@ -313,8 +316,8 @@ def time_flash_bwd(torch, flash_attn, tag):
                 mask = ((pos[None, :] <= pos[:, None])
                         & ((pos[:, None] - pos[None, :]) < window))
             out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
             line["library_ms"] = cs.time_ms(
                 torch, lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True),

@@ -3,8 +3,10 @@
 The trees have the same keys on both sides: the federated state
 (``{"model": {"convs": [{"w", "b"}...], "fcs": [...], "head": {...}},
 "fusion": {...}}``) and the transformers' parameter and KV-cache trees
-(``{"embed", "final_norm", "cycles": (...), "tail": (...)}``, tuples kept
-as tuples).  The only layout difference is the CNNs' conv weights: the JAX
+(``{"embed", "final_norm", "cycles": (...), "tail": (...)}``, with
+``"head"``, the VLM's ``"vis_proj"`` and the encoder-decoder's ``"enc"``
+(its ``"layers"`` stacked on a leading axis) where the model has them;
+tuples kept as tuples).  The only layout difference is the CNNs' conv weights: the JAX
 package stores them HWIO, the port OIHW; every other leaf carries across
 unchanged.  Pull a JAX tree to numpy first
 (``jax.tree.map(np.asarray, tree)``); this module imports numpy and torch

@@ -24,6 +24,12 @@ waits on the host, so its steps cannot be captured; so does the CPU
 decode attention K9 (the JAX launcher has no flag for it and serves with
 the config's ``jnp`` attention).  Weights are random, drawn from a seeded
 generator on the device; prompts are drawn with numpy.  Both use seed 0.
+The VLM's and the encoder-decoder's stub inputs (qwen2-vl-7b's patch
+embeddings, whisper-large-v3's frame embeddings) are standard normal,
+drawn on the device from a ``torch.Generator`` seeded with the prompts'
+seed (:func:`make_inputs`), as the JAX launcher draws them with
+``jax.random.normal``; the decode graph reads the cross cache prefill
+wrote and copies it with the rest of a request's cache.
 """
 from __future__ import annotations
 
@@ -53,16 +59,34 @@ def make_prompts(cfg, batch, prompt_len, seed=0, device=None):
     return torch.from_numpy(ids).to(device)
 
 
-def prefill(cfg, params, tokens, max_len):
-    """Runs the prompt through the model on one device, filling a KV cache
-    of ``max_len`` positions: ``build_prefill_step(..., last_only=True)``.
+def make_inputs(cfg, batch, seed=0, device=None):
+    """The stub inputs of a request of ``batch`` prompts beside its tokens:
+    ``{"vision_embeds": [batch, n_vision_tokens, d]}`` (VLM),
+    ``{"audio_frames": [batch, n_audio_frames, d]}`` (audio), or ``{}``;
+    standard normal, drawn on ``device`` (None: the card) from a
+    ``torch.Generator`` there seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = {}
+    if cfg.family == "vlm":
+        shapes["vision_embeds"] = (batch, cfg.n_vision_tokens, cfg.d_model)
+    if cfg.family == "audio":
+        shapes["audio_frames"] = (batch, cfg.n_audio_frames, cfg.d_model)
+    return {k: torch.randn(v, generator=gen, device=device)
+            for k, v in shapes.items()}
+
+
+def prefill(cfg, params, tokens, max_len, inputs=None):
+    """Runs the prompt (and ``inputs``, :func:`make_inputs`' stub
+    embeddings) through the model on one device, filling a KV cache of
+    ``max_len`` positions: ``build_prefill_step(..., last_only=True)``.
     Returns (the last position's logits [B, V], the cache).  Only the last
     row goes through the head (the serving loop reads nothing else)."""
     B, S = tokens.shape
     pre = build_prefill_step(cfg, InputShape("serve_prefill", S, B,
                                              "prefill"),
                              max_len=max_len, last_only=True)[0]
-    return pre(params, {"tokens": tokens})
+    return pre(params, {"tokens": tokens, **(inputs or {})})
 
 
 def serve_steps(cfg, batch, prompt_len, gen_len, mesh=None):
@@ -163,7 +187,9 @@ class DecodeGraph:
 
     ``step(params, tokens [B, 1], cache, pos) -> (logits [B, 1, V],
     cache)`` updates the cache in place (``tfm.decode_step`` on one
-    device, or ``serve_steps``' step on this rank's blocks).  One step
+    device, or ``serve_steps``' step on this rank's blocks; an
+    encoder-decoder's cache also holds the cross keys and values, which a
+    step reads only, copied and restored with the rest).  One step
     of the loop, on the device only: read the static ``tokens`` and the
     0-d ``pos``; run ``step``; write its logits into row ``pos - start`` of
     a static [B, gen_len, V] output and the token it decoded into the same
@@ -388,6 +414,7 @@ def main(argv=None) -> None:
         pre, step, p_layout, t_layout = serve_steps(
             cfg, args.batch, args.prompt_len, args.gen_len, mesh)
         tokens = make_prompts(cfg, args.batch, args.prompt_len, 0, device)
+        inputs = make_inputs(cfg, args.batch, 0, device)
         if mesh is None:
             params = tfm.init_params(
                 cfg, torch.Generator(device=device).manual_seed(0),
@@ -395,9 +422,11 @@ def main(argv=None) -> None:
         else:
             params = sharded_params(cfg, mesh, p_layout, device)
             tokens = sh.local_block(tokens, t_layout, mesh).contiguous()
+            inputs = {k: sh.local_block(v, t_layout[:1], mesh).contiguous()
+                      for k, v in inputs.items()}
         _sync(device)
         t0 = time.perf_counter()
-        last, cache = pre(params, {"tokens": tokens})
+        last, cache = pre(params, {"tokens": tokens, **inputs})
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         decode = DecodeGraph(step, params, args.gen_len,

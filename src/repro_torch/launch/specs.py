@@ -47,8 +47,7 @@ def input_specs(cfg: ArchConfig, shape: InputShape, mesh=None,
     labels [n_clients, local_steps, client_batch, seq_len]; prefill:
     tokens [B, S]; decode: one new token [B, 1] (the cache is built by
     ``launch.steps``).  VLM and audio inputs add their stub embeddings
-    (those families are not ported yet: the shapes are given all the
-    same)."""
+    (``vision_embeds`` / ``audio_frames``)."""
     S = shape.seq_len
     if shape.kind == "train":
         plan = fl_plan(cfg, shape, mesh)

@@ -44,11 +44,25 @@ TP_ALGORITHMS = ("fedavg", "fedmmd", "fedfusion", "fedl2")
 
 def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
     """The transformer's parameter tree with ``torch.Size`` leaves, as
-    ``tfm.init_params`` draws it (nothing is allocated)."""
+    ``tfm.init_params`` draws it (nothing is allocated): the encoder
+    (``enc``), the decoder layers' cross-attention (``lnx`` / ``xattn``)
+    and layer-norm biases of the audio family, and the VLM's
+    ``vis_proj``, included."""
     from repro_torch.configs.base import RGLRU, SSD
     from repro_torch.models.transformer import cycle_split
     d, hd = cfg.d_model, cfg.head_dim
     c, n_full, rem = cycle_split(cfg.block_pattern)
+    cross = cfg.n_enc_layers > 0
+
+    def norm(*lead):            # layer norm (audio) has a bias
+        n = {"scale": torch.Size(lead + (d,))}
+        if cfg.family == "audio":
+            n["bias"] = n["scale"]
+        return n
+
+    def attn(S):
+        return {"wq": S(d, cfg.n_heads * hd), "wk": S(d, cfg.n_kv_heads * hd),
+                "wv": S(d, cfg.n_kv_heads * hd), "wo": S(cfg.n_heads * hd, d)}
 
     def layer(lead, kind):
         S = lambda *s: torch.Size(lead + s)
@@ -59,7 +73,7 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
                 p["w3"] = S(*io)
             return p
 
-        out = {"ln1": {"scale": S(d)}}
+        out = {"ln1": norm(*lead)}
         if kind == SSD:
             d_inner = cfg.ssm_expand * d
             H = d_inner // cfg.ssm_head_dim
@@ -77,11 +91,10 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
                             "w_a": S(W, W), "b_a": S(W), "w_i": S(W, W),
                             "b_i": S(W), "w_out": S(W, d)}
         else:
-            out["attn"] = {"wq": S(d, cfg.n_heads * hd),
-                           "wk": S(d, cfg.n_kv_heads * hd),
-                           "wv": S(d, cfg.n_kv_heads * hd),
-                           "wo": S(cfg.n_heads * hd, d)}
-        out["ln2"] = {"scale": S(d)}
+            out["attn"] = attn(S)
+            if cross and kind != "enc":
+                out["lnx"], out["xattn"] = norm(*lead), attn(S)
+        out["ln2"] = norm(*lead)
         if cfg.n_experts and kind not in (SSD, RGLRU):
             out["moe"] = {"router": S(d, cfg.n_experts),
                           **mlp(cfg.n_experts, d, cfg.moe_d_ff)}
@@ -92,13 +105,18 @@ def param_struct(cfg: ArchConfig) -> Dict[str, Any]:
         return out
 
     params = {"embed": {"table": torch.Size((cfg.vocab_size, d))},
-              "final_norm": {"scale": torch.Size((d,))},
+              "final_norm": norm(),
               "cycles": tuple(layer((n_full,), cfg.block_pattern[j])
                               for j in range(c)),
               "tail": tuple(layer((), cfg.block_pattern[n_full * c + j])
                             for j in range(rem))}
     if not cfg.tie_embeddings:
         params["head"] = {"w": torch.Size((d, cfg.vocab_size))}
+    if cfg.family == "vlm":
+        params["vis_proj"] = {"w": torch.Size((d, d))}
+    if cross:
+        params["enc"] = {"layers": layer((cfg.n_enc_layers,), "enc"),
+                         "norm": norm(), "in_proj": {"w": torch.Size((d, d))}}
     return params
 
 

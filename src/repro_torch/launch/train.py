@@ -88,12 +88,24 @@ def round_batches(cfg: ArchConfig, shape: InputShape, plan):
     """The launcher's data: a function that draws one round's whole batch,
     ``{"tokens", "labels"}`` int64 [n_clients, local_steps, client_batch,
     seq_len] on the CPU, from the seeded token stream split over
-    ``plan.n_clients`` sources (the same draws on every rank)."""
+    ``plan.n_clients`` sources (the same draws on every rank).  The VLM
+    and the encoder-decoder add their stub inputs (``vision_embeds`` /
+    ``audio_frames`` [n_clients, local_steps, client_batch, n, d_model]
+    float32, standard normal from a numpy generator of their own, seed 1:
+    the token draws stay those of every other family).  The JAX launcher
+    draws tokens only, so its round fails on these two families."""
     toks, src = token_stream(
         max(plan.n_clients * plan.client_batch * 4, 64), shape.seq_len,
         vocab=cfg.vocab_size, n_sources=plan.n_clients)
     parts = source_partition(toks, src, plan.n_clients)
     rng = np.random.default_rng(0)
+    stub_rng = np.random.default_rng(1)
+    lead = (plan.n_clients, plan.local_steps, plan.client_batch)
+    stubs = {}
+    if cfg.family == "vlm":
+        stubs["vision_embeds"] = cfg.n_vision_tokens
+    if cfg.family == "audio":
+        stubs["audio_frames"] = cfg.n_audio_frames
 
     def draw():
         per = []
@@ -102,7 +114,11 @@ def round_batches(cfg: ArchConfig, shape: InputShape, plan):
             idx = rng.choice(len(pool), (plan.local_steps, plan.client_batch))
             per.append(pool[idx])
         arr = torch.from_numpy(np.stack(per)).long()   # [C, steps, B, S+1]
-        return {"tokens": arr[..., :-1], "labels": arr[..., 1:]}
+        batch = {"tokens": arr[..., :-1], "labels": arr[..., 1:]}
+        for name, n in stubs.items():
+            batch[name] = torch.from_numpy(stub_rng.standard_normal(
+                lead + (n, cfg.d_model)).astype(np.float32))
+        return batch
 
     return draw
 

@@ -1,11 +1,13 @@
 """Layer primitives of the port (port of ``repro/models/layers.py``):
-the fan-in init, RMS / layer norms, the MLP (SwiGLU or plain GELU) and
-the embedding table.  Weights are ``[in, out]`` and applied as ``x @ w``,
-as in the JAX package."""
+the fan-in init, RMS / layer norms, the MLP (SwiGLU or plain GELU), the
+embedding table and Whisper's sinusoidal positions.  Weights are ``[in,
+out]`` and applied as ``x @ w``, as in the JAX package."""
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -100,3 +102,35 @@ def mlp_apply(params, x, act, *, mp=None, specs=None):
 def embed_init(generator, vocab, d_model, dtype=torch.float32):
     return {"table": dense_init(generator, (vocab, d_model), dtype,
                                 scale=1.0)}
+
+
+def sinusoidal_positions(n_pos, dim, dtype=torch.float32, device=None):
+    """Whisper-style sinusoidal absolute position embeddings [n_pos, dim]:
+    computed in float64 with numpy, then cast (the JAX package's table).
+    The table is built once per (n_pos, dim, dtype, device) and kept, as
+    JAX folds it into a constant: later forwards do no host work and no
+    host-to-device copy.  Callers must not write into it."""
+    return _sinusoidal_table(n_pos, dim, dtype, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_table(n_pos, dim, dtype, device):
+    inv = np.exp(-np.log(10_000.0) * np.arange(dim // 2)
+                 / max(dim // 2 - 1, 1))
+    pos = np.arange(n_pos)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=-1)
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
+
+
+def sinusoidal_position_at(pos, dim, dtype=torch.float32):
+    """The embedding [dim] of one position ``pos``, a 0-d int tensor, in
+    float32 on ``pos``'s device (no host sync: a captured decode step reads
+    ``pos`` there).  The JAX package's decode formula; at large positions
+    it differs from :func:`sinusoidal_positions`' float64 table by more
+    than an ulp, as in JAX."""
+    half = dim // 2
+    inv = torch.exp(-math.log(10_000.0)
+                    * torch.arange(half, dtype=torch.float32,
+                                   device=pos.device) / max(half - 1, 1))
+    ang = pos.float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(dtype)

@@ -91,6 +91,8 @@ def _transformer_bundle(cfg: ArchConfig, dtype, tp=None) -> ModelBundle:
         return tfm.init_params(cfg, generator, dtype, generator.device)
 
     def extract(params, batch):
+        # the batch may carry the VLM's / encoder-decoder's stub inputs
+        # beside tokens and labels; the features are the decoder's [B,S,d]
         out = tfm.forward_seq(cfg, params, batch, want_logits=False, tp=tp)
         return out["features"], out["aux"]
 

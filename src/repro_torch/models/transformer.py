@@ -1,8 +1,9 @@
-"""The transformer family's dense attention stack (port of
-``repro/models/transformer.py``): global and sliding-window GQA layers in
-any local:global pattern, RoPE, RMS norm, SwiGLU or GELU MLPs, tied or
-separate heads, prefill (``forward_seq(..., want_cache=True)``) and KV-cache
-decode (``decode_step``).
+"""The transformer family (port of ``repro/models/transformer.py``):
+global and sliding-window GQA layers in any local:global pattern, RoPE and
+Qwen2-VL's M-RoPE, RMS or layer norm, SwiGLU or GELU MLPs, tied or separate
+heads, MoE FFNs, SSD and RG-LRU layers, the Whisper encoder with the
+decoder's cross-attention, prefill (``forward_seq(..., want_cache=True)``)
+and KV-cache decode (``decode_step``).
 
 The parameter and cache trees are the JAX package's, leaf for leaf:
 ``{"embed", "final_norm", "cycles", "tail"}``, where ``cycles`` is a tuple
@@ -15,10 +16,16 @@ loop indexes them.
 (``kernels/flash_attn.py``) for the sequence path and K9
 (``ops.gqa_flash_decode``) for decode attention.  The JAX package passes
 no kernel to ``decode_attention`` and so runs its flash-decode kernel on
-no path; the port runs K9 there.  That is the one deliberate difference:
+no path; the port runs K9 there.  That is a deliberate difference:
 the same function, decode attention over the cache up to its valid
 length.  ``attn_impl == "jnp"`` runs plain attention in torch ops (K9's
-plain version, the masked softmax ``decode_attention`` computes).
+plain version, the masked softmax ``decode_attention`` computes).  The
+second deliberate difference is the Whisper encoder's bidirectional
+self-attention: under ``"pallas"`` the JAX package runs its blocked jnp
+softmax there (``attn.flash_attention(..., causal=False)``), the port the
+same function with K8a's own ``causal=False`` mode (and K8b / K8c in the
+backward) through ``make_flash_attention(causal=False)``, the mode the
+Pallas kernel has and no JAX path calls.
 
 ``decode_step`` updates the cache **in place** (the new key and value are
 written into their slot; the returned cache is the same tensors), where the
@@ -89,9 +96,34 @@ forward draws no random numbers, and saving the CUDA generator's state
 would read it inside the LM engine's CUDA-graph capture.  Nothing is
 checkpointed where autograd is off (eval, serving).
 
-Not ported yet, and refused with ``NotImplementedError``: the encoder and
-cross-attention, VLM and audio inputs (stub embeddings) and M-RoPE
-(ROADMAP Queue 1, slice 6).
+The encoder-decoder (whisper-large-v3, ``cfg.n_enc_layers``): the batch
+carries stub frame embeddings ``audio_frames`` [B, F, d]; the encoder
+(``params["enc"]``: ``in_proj``, sinusoidal positions, ``n_enc_layers``
+bidirectional layers stacked on a leading axis, a final layer norm) runs
+once a forward, and every decoder layer adds cross-attention (``lnx``,
+``xattn``) after its self-attention.  Sequence mode computes it with the
+plain masked softmax on both devices, q [B,S,H,hd] against the encoder's
+k / v [B,F,KV,hd], as the JAX package does outside any Pallas kernel (its
+``flash_fwd`` is self-attention only, S == Sk); ``remat="layer"``
+checkpoints the decoder's cycles, never the encoder, which the JAX package
+scans without ``jax.checkpoint``.  The cache of a decoder layer adds the
+cross keys and values ``xk`` / ``xv`` [B,F,KV,hd], written by prefill and
+read, never written, by ``decode_step`` (K9 under ``"pallas"`` with no
+valid length: all F frames).  Audio layers use layer norm with bias and
+the GELU MLP, and the tokens sinusoidal absolute positions (the decode
+step's from ``layers.sinusoidal_position_at`` on the device's ``pos``).
+
+The VLM (qwen2-vl-7b, ``cfg.family == "vlm"``): the batch may carry stub
+patch embeddings ``vision_embeds`` [B, n_vision_tokens, d], projected by
+``params["vis_proj"]`` and put in place of the first ``n_vision_tokens``
+token embeddings (a shorter prompt raises ``ValueError``), and M-RoPE
+positions ``mrope_positions`` [3, B, S] (temporal, height, width); without
+them every stream is the token's position, as at decode.
+
+Under ``tp`` with a ``model`` axis of more than one rank the two families
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 13: their encoder,
+cross-attention and vision leaves split over ``model`` come with the mesh
+slice); clients over ``data`` run, as for the dense stack.
 """
 from __future__ import annotations
 
@@ -114,27 +146,21 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init)
+                                       mlp_init, norm_apply, norm_init,
+                                       sinusoidal_position_at,
+                                       sinusoidal_positions)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.moe_dispatch import moe_apply_a2a
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 from repro_torch.tree import tree_map, tree_with_path
 
-_LATER = ("(ROADMAP Queue 1, slice 6: the other model families; the "
-          "dense, MoE, SSD and RG-LRU stacks are ported, the encoder, VLM "
-          "and audio inputs and M-RoPE are left)")
 _ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 _RECURRENT = (SSD, RGLRU)
+_MESH_SLICE = ("ROADMAP Queue 1 item 13: the mesh slice, with the FSDP "
+               "step; clients over data run")
 
 
 def _check_supported(cfg: ArchConfig, tp=None) -> None:
-    if cfg.n_enc_layers:
-        raise NotImplementedError(f"{cfg.name}: the encoder and "
-                                  f"cross-attention are not ported yet "
-                                  f"{_LATER}")
-    if cfg.family in ("vlm", "audio") or cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} inputs and "
-                                  f"M-RoPE are not ported yet {_LATER}")
     bad = sorted(set(cfg.block_pattern) - set(_ATTN) - set(_RECURRENT))
     if bad:
         raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
@@ -144,6 +170,11 @@ def _check_supported(cfg: ArchConfig, tp=None) -> None:
             "more than one rank are not ported yet (ROADMAP Queue 1 item "
             "13: their column / row split comes with the FSDP step); "
             "clients over data run")
+    if _mp(tp) is not None and (cfg.n_enc_layers or cfg.mrope
+                                or cfg.family in ("vlm", "audio")):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family split over a model axis "
+            f"of more than one rank is not ported yet ({_MESH_SLICE})")
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +205,9 @@ def _norm_kind(cfg: ArchConfig) -> str:
     return "layernorm" if cfg.family == "audio" else "rmsnorm"
 
 
-def _layer_init(generator, cfg: ArchConfig, kind: str, dtype):
+def _layer_init(generator, cfg: ArchConfig, kind: str, dtype, cross=False):
+    """One layer's parameters; ``kind`` a block kind or ``"enc"`` (an
+    encoder layer); ``cross`` adds a decoder layer's cross-attention."""
     nk = _norm_kind(cfg)
     dev = generator.device
     p = {"ln1": norm_init(nk, cfg.d_model, dtype, dev)}
@@ -192,6 +225,10 @@ def _layer_init(generator, cfg: ArchConfig, kind: str, dtype):
     else:
         p["attn"] = attn.attn_init(generator, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim, dtype)
+        if cross:
+            p["lnx"] = norm_init(nk, cfg.d_model, dtype, dev)
+            p["xattn"] = attn.attn_init(generator, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim, dtype)
     p["ln2"] = norm_init(nk, cfg.d_model, dtype, dev)
     if cfg.n_experts and kind in _ATTN:
         p["moe"] = moe_init(generator, cfg.d_model, cfg.n_experts,
@@ -207,9 +244,13 @@ def _ssd_kw(cfg: ArchConfig):
                 head_dim=cfg.ssm_head_dim, conv_width=cfg.ssm_conv_width)
 
 
-def _apply_rope_any(cfg: ArchConfig, q, k, positions):
-    if cfg.rope_theta <= 0:
-        return q, k
+def _apply_rope_any(cfg: ArchConfig, q, k, positions, mrope_pos=None):
+    if cfg.family == "audio" or cfg.rope_theta <= 0:
+        return q, k     # whisper uses absolute sinusoidal positions
+    if cfg.mrope and mrope_pos is not None:
+        return apply_mrope(q, k, mrope_pos, theta=cfg.rope_theta,
+                           head_dim=cfg.head_dim,
+                           sections=cfg.mrope_sections)
     return apply_rope(q, k, positions, theta=cfg.rope_theta,
                       head_dim=cfg.head_dim,
                       partial_pct=cfg.partial_rotary_pct)
@@ -244,11 +285,45 @@ def _ffn(cfg: ArchConfig, p, hn, *, tp, ps, decode=False):
                      shard_capacity=cfg.moe_shard_capacity, mp=mp, **kw)
 
 
+def _cache_split(tp, cache_spec) -> int:
+    """Over how many ranks a layer's cache length is split (1 without
+    ``tp``)."""
+    if tp is None or cache_spec is None:
+        return 1
+    return tp.mp.place(spec_axes(cache_spec[1]))[1]
+
+
+def _refuse_split_cross(cfg, p, n):
+    if "xattn" in p and n > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a cross-attention cache split over {n} ranks is "
+            f"not ported yet ({_MESH_SLICE})")
+
+
+def _cross_attention(cfg: ArchConfig, p, h, enc_out):
+    """The decoder layer's cross-attention branch in sequence mode:
+    (residual to add, its k, v [B,F,KV,hd]).  Bidirectional q [B,S,H,hd]
+    against the encoder's F frames, the plain masked softmax on every
+    device (the JAX package's jnp ``flash_attention(..., causal=False)``;
+    the queries' k / v projections it also computes are unused)."""
+    hx = norm_apply(_norm_kind(cfg), p["lnx"], h, cfg.norm_eps)
+    B, S, _ = hx.shape
+    F_ = enc_out.shape[1]
+    px = p["xattn"]
+    q = (hx @ px["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (enc_out @ px["wk"]).reshape(B, F_, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ px["wv"]).reshape(B, F_, cfg.n_kv_heads, cfg.head_dim)
+    o = attn.flash_attention(q, k, v, causal=False)
+    return attn.project_out(px, o), k, v
+
+
 def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
-               max_len, tp=None, ps=None, cache_spec=None):
+               max_len, tp=None, ps=None, cache_spec=None, mrope_pos=None,
+               enc_out=None):
     """Sequence-mode layer. Returns (h, aux or None, cache_or_None).
     ``ps``: the layer's parameter specs, ``cache_spec`` its cache's k spec
-    (under ``tp``)."""
+    (under ``tp``); ``mrope_pos`` [3,B,S] M-RoPE positions; ``enc_out``
+    the encoder's output [B,F,d] (a decoder layer with cross-attention)."""
     if kind in _RECURRENT:
         return _recurrent_seq(cfg, kind, p, h, want_cache)
     nk = _norm_kind(cfg)
@@ -257,7 +332,7 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
     q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, mp=mp,
                                specs=None if ps is None else ps["attn"])
-    q, k = _apply_rope_any(cfg, q, k, positions)
+    q, k = _apply_rope_any(cfg, q, k, positions, mrope_pos)
     window = cfg.sliding_window if kind == ATTN_LOCAL else None
     if cfg.attn_impl == "pallas":
         o = make_flash_attention(causal=True, window=window)(q, k, v)
@@ -278,6 +353,13 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
         cache = _seq_kv_to_cache(cfg, kind, k, v, max_len)
         if tp is not None and cache_spec is not None:
             cache = {n: _l_block(t, cache_spec, tp) for n, t in cache.items()}
+    if "xattn" in p:
+        if want_cache:
+            _refuse_split_cross(cfg, p, _cache_split(tp, cache_spec))
+        out, xk, xv = _cross_attention(cfg, p, h, enc_out)
+        h = h + out
+        if want_cache:
+            cache["xk"], cache["xv"] = xk, xv
     ff, aux = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps),
                    tp=tp, ps=ps)
     return h + ff, aux, cache
@@ -360,14 +442,18 @@ def _seq_kv_to_cache(cfg, kind, k, v, max_len):
 
 
 def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
-                  positions, tp=None, ps=None, cache_spec=None):
+                  positions, tp=None, ps=None, cache_spec=None,
+                  mrope_pos=None):
     """Decode-mode layer: h [B,1,d], pos a 0-d int64 tensor on
     h's device.  Writes the new K/V into ``cache`` in place; returns
     (h, cache).  Under ``tp`` the layer runs on this rank's blocks and its
     slice of the cache (module docstring): no host sync, no branch on
     ``pos``; only whether the cache is split (a Python fact) picks the
     sliced write and the merge.  An SSD or RG-LRU layer updates its state
-    and conv window in place (:func:`_recurrent_decode`)."""
+    and conv window in place (:func:`_recurrent_decode`).  A decoder layer
+    with cross-attention then attends over its whole cross cache ``xk`` /
+    ``xv`` (K9 under ``"pallas"``, no valid length), which it never
+    writes."""
     if kind in _RECURRENT:
         return _recurrent_decode(cfg, kind, p, h, cache)
     nk = _norm_kind(cfg)
@@ -377,9 +463,10 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                                cfg.head_dim, mp=mp,
                                specs=None if ps is None else ps["attn"],
                                gather=True)
-    q, k = _apply_rope_any(cfg, q, k, positions)
+    q, k = _apply_rope_any(cfg, q, k, positions, mrope_pos)
     group, n, position = (None, 1, 0) if tp is None else \
         tp.mp.place(spec_axes(cache_spec[1]))
+    _refuse_split_cross(cfg, p, n)
     L_loc = cache["k"].shape[1]
     L = L_loc * n
     slot = pos % L if kind == ATTN_LOCAL else pos
@@ -409,6 +496,12 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                            both[:, :, H * hd:])
     h = h + attn.project_out(p["attn"], o, mp=mp,
                              specs=None if ps is None else ps["attn"])
+    if "xattn" in p:
+        hx = norm_apply(nk, p["lnx"], h, cfg.norm_eps)
+        qx = (hx @ p["xattn"]["wq"]).reshape(h.shape[0], 1, cfg.n_heads,
+                                             cfg.head_dim)
+        h = h + attn.project_out(p["xattn"],
+                                 decode(qx, cache["xk"], cache["xv"]))
     ff, _ = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps), tp=tp,
                  ps=ps, decode=True)
     return h + ff, cache
@@ -429,13 +522,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     _check_supported(cfg)
     device = resolve_device(device)
     c, n_full, rem = cycle_split(cfg.block_pattern)
+    cross = cfg.n_enc_layers > 0
     cycles = []
     for j in range(c):
         cycles.append(_stack([_layer_init(generator, cfg,
-                                          cfg.block_pattern[j], dtype)
+                                          cfg.block_pattern[j], dtype, cross)
                               for _ in range(n_full)]))
     tail = tuple(_layer_init(generator, cfg,
-                             cfg.block_pattern[n_full * c + j], dtype)
+                             cfg.block_pattern[n_full * c + j], dtype, cross)
                  for j in range(rem))
     params: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),
@@ -448,6 +542,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["head"] = {"w": dense_init(generator,
                                           (cfg.d_model, cfg.vocab_size),
                                           dtype)}
+    if cfg.family == "vlm":
+        params["vis_proj"] = {"w": dense_init(generator,
+                                              (cfg.d_model, cfg.d_model),
+                                              dtype)}
+    if cfg.n_enc_layers:
+        params["enc"] = {
+            "layers": _stack([_layer_init(generator, cfg, "enc", dtype)
+                              for _ in range(cfg.n_enc_layers)]),
+            "norm": norm_init(_norm_kind(cfg), cfg.d_model, dtype,
+                              generator.device),
+            "in_proj": {"w": dense_init(generator,
+                                        (cfg.d_model, cfg.d_model), dtype)},
+        }
     return tree_map(lambda t: t.to(device), params)
 
 
@@ -475,7 +582,47 @@ def _embed_tokens(params, tokens, tp):
 
 
 def _embed_inputs(cfg, params, batch, tp=None):
-    return _embed_tokens(params, batch["tokens"], tp)
+    """The token embeddings, the projected vision embeddings in place of
+    the first ``n_vision_tokens`` (VLM), plus sinusoidal positions
+    (audio)."""
+    h = _embed_tokens(params, batch["tokens"], tp)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"] @ params["vis_proj"]["w"]
+        nv = ve.shape[1]
+        if h.shape[1] < nv:
+            # the JAX concat would return nv positions, not S
+            raise ValueError(f"{cfg.name}: a prompt of {h.shape[1]} tokens "
+                             f"is shorter than its {nv} vision tokens")
+        h = torch.cat([ve.to(h.dtype), h[:, nv:]], dim=1)
+    if cfg.family == "audio":
+        h = h + sinusoidal_positions(h.shape[1], cfg.d_model, h.dtype,
+                                     h.device)[None]
+    return h
+
+
+def _run_encoder(cfg: ArchConfig, params, frames):
+    """The Whisper encoder over stub frame embeddings [B,F,d]: bidirectional
+    self-attention (K8a / K8b / K8c with ``causal=False`` under
+    ``"pallas"``, the plain masked softmax otherwise) and the GELU MLP per
+    layer, then the final layer norm."""
+    nk = _norm_kind(cfg)
+    enc = params["enc"]
+    h = frames @ enc["in_proj"]["w"]
+    h = h + sinusoidal_positions(frames.shape[1], cfg.d_model, h.dtype,
+                                 h.device)[None]
+    for i in range(cfg.n_enc_layers):
+        p = tree_map(lambda x: x[i], enc["layers"])
+        hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
+        q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim)
+        if cfg.attn_impl == "pallas":
+            o = make_flash_attention(causal=False)(q, k, v)
+        else:
+            o = attn.flash_attention(q, k, v, causal=False)
+        h = h + attn.project_out(p["attn"], o)
+        h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
+                                               cfg.norm_eps), cfg.act)
+    return norm_apply(nk, enc["norm"], h, cfg.norm_eps)
 
 
 def _layer_parts(tp, cycle, j):
@@ -501,16 +648,26 @@ def _drop_lead(specs):
 def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
                 want_logits=True, max_cache_len: Optional[int] = None,
                 tp=None):
-    """batch: {'tokens': [B,S] int} -> {'logits'?, 'features', 'aux' (the
-    layers' MoE aux losses summed; 0 for a dense stack), 'cache'?}; runs on
-    the parameters' device.  Under ``tp`` the logits
-    are this rank's V block and the cache its block under
+    """batch: {'tokens': [B,S] int, 'vision_embeds'? [B,nv,d],
+    'audio_frames'? [B,F,d], 'mrope_positions'? [3,B,S]} -> {'logits'?,
+    'features', 'aux' (the layers' MoE aux losses summed; 0 for a dense
+    stack), 'cache'?}; runs on the parameters' device.  Under ``tp`` the
+    logits are this rank's V block and the cache its block under
     ``tp.cache_specs`` (module docstring)."""
     _check_supported(cfg, tp)
     h = _embed_inputs(cfg, params, batch, tp)
-    S = h.shape[1]
+    B, S = h.shape[:2]
     max_len = max_cache_len or S
     positions = torch.arange(S, device=h.device)
+    mrope_pos = batch.get("mrope_positions")
+    if cfg.mrope and mrope_pos is None:
+        mrope_pos = positions.expand(3, B, S)
+    enc_out = None
+    if cfg.n_enc_layers:
+        if "audio_frames" not in batch:
+            raise ValueError(f"{cfg.name}: the batch needs 'audio_frames' "
+                             "[B, F, d_model], the encoder's input")
+        enc_out = _run_encoder(cfg, params, batch["audio_frames"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     c, n_full, rem = cycle_split(cfg.block_pattern)
     caches = [[] for _ in range(c)]
@@ -523,7 +680,8 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
             ps, cs = _layer_parts(tp, True, j)
             h, a, cache = _layer_seq(cfg, kind, p, h, positions=positions,
                                      want_cache=want_cache, max_len=max_len,
-                                     tp=tp, ps=ps, cache_spec=cs)
+                                     tp=tp, ps=ps, cache_spec=cs,
+                                     mrope_pos=mrope_pos, enc_out=enc_out)
             aux = aux if a is None else aux + a
             cycle_caches.append(cache)
         return h, aux, cycle_caches
@@ -547,7 +705,8 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
         h, a, cache = _layer_seq(cfg, kind, params["tail"][j], h,
                                  positions=positions, want_cache=want_cache,
                                  max_len=max_len, tp=tp, ps=ps,
-                                 cache_spec=cs)
+                                 cache_spec=cs, mrope_pos=mrope_pos,
+                                 enc_out=enc_out)
         aux = aux if a is None else aux + a
         tail_caches.append(cache)
 
@@ -610,7 +769,11 @@ def cache_struct(cfg: ArchConfig, batch: int, max_len: int):
         L = max_len if kind == ATTN_GLOBAL else min(cfg.sliding_window,
                                                     max_len)
         shape = torch.Size((batch, L, cfg.n_kv_heads, cfg.head_dim))
-        return {"k": shape, "v": shape}
+        out = {"k": shape, "v": shape}
+        if cfg.n_enc_layers:        # the cross cache: every audio frame
+            out["xk"] = out["xv"] = torch.Size(
+                (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.head_dim))
+        return out
 
     cycles = tuple({n: torch.Size((n_full,) + tuple(t)) for n, t in
                     layer(cfg.block_pattern[j]).items()} for j in range(c))
@@ -658,7 +821,10 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, tp=None):
                          "(tp.cache_specs: launch.steps.build_serve_step)")
     h = _embed_tokens(params, tokens, tp)
     pos = torch.as_tensor(pos, device=h.device).long().reshape(())
+    if cfg.family == "audio":
+        h = h + sinusoidal_position_at(pos, cfg.d_model, h.dtype)
     positions = pos.expand(h.shape[0], 1)
+    mrope_pos = positions.expand(3, -1, -1) if cfg.mrope else None
     c, n_full, rem = cycle_split(cfg.block_pattern)
     for i in range(n_full):
         for j, kind in enumerate(cfg.block_pattern[:c]):
@@ -667,12 +833,13 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, tp=None):
             ps, cs = _layer_parts(tp, True, j)
             h, _ = _layer_decode(cfg, kind, p, h, layer_cache, pos=pos,
                                  positions=positions, tp=tp, ps=ps,
-                                 cache_spec=cs)
+                                 cache_spec=cs, mrope_pos=mrope_pos)
     for j in range(rem):
         kind = cfg.block_pattern[n_full * c + j]
         ps, cs = _layer_parts(tp, False, j)
         h, _ = _layer_decode(cfg, kind, params["tail"][j], h,
                              cache["tail"][j], pos=pos, positions=positions,
-                             tp=tp, ps=ps, cache_spec=cs)
+                             tp=tp, ps=ps, cache_spec=cs,
+                             mrope_pos=mrope_pos)
     feats = norm_apply(_norm_kind(cfg), params["final_norm"], h, cfg.norm_eps)
     return head_apply(cfg, params, head_input(cfg, feats, tp), tp), cache

@@ -2003,3 +2003,177 @@ def test_attention_kernels_at_recurrentgemma_local_shapes(cuda_device):
     torch.testing.assert_close(
         tda.flash_decode_cuda(qd, kc, vc, valid),
         tda.flash_decode_plain(qd, kc, vc, valid), atol=1e-5, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder (whisper-large-v3) and VLM (qwen2-vl-7b) families
+# --------------------------------------------------------------------------
+
+MULTIMODAL = ["whisper-large-v3", "qwen2-vl-7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (2, 100, 4, 4, 64, False),          # ragged, rep 1, no causal mask
+    (1, 1500, 20, 20, 64, False),       # whisper's encoder: 23 x 64 + 28
+    (2, 100, 28, 4, 128, False),        # qwen2-vl's heads: rep 7, hd 128
+    (2, 100, 28, 4, 128, True),
+])
+def test_flash_kernels_at_the_new_modes_match_plain(cuda_device, B, S, H,
+                                                    KV, hd, causal):
+    """K8a, K8b and K8c with and without the causal mask at the slice's
+    shapes against their plain versions, each launched once, and bitwise
+    equal when run again."""
+    rng = np.random.default_rng(S + H + hd + causal)
+    q = _randn(rng, (B, S, H, hd), cuda_device)
+    k = _randn(rng, (B, S, KV, hd), cuda_device)
+    v = _randn(rng, (B, S, KV, hd), cuda_device)
+    do = _randn(rng, (B, S, H, hd), cuda_device)
+    kw = dict(causal=causal)
+    before = _attn_launches()[0], _bwd_launches()
+    o, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-4)
+    want = tfa.flash_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+    dcap = tfa.flash_dcap(do, o, KV)
+    dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw)
+    dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw)
+    torch.cuda.synchronize()
+    assert (_attn_launches()[0], _bwd_launches()) == (
+        before[0] + 1, (before[1][0] + 1, before[1][1] + 1))
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item())
+    again = (tfa.flash_fwd_cuda(q, k, v, **kw),
+             tfa.flash_bwd_dq_cuda(q, k, v, do, lse, dcap, **kw),
+             tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, **kw))
+    assert torch.equal(again[0][0], o) and torch.equal(again[0][1], lse)
+    assert torch.equal(again[1], dq)
+    assert torch.equal(again[2][0], dk) and torch.equal(again[2][1], dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,hd,valid", [
+    (4, 1500, 20, 20, 64, None),        # whisper's cross cache, all valid
+    (2, 1500, 4, 4, 64, None),
+    (4, 1056, 28, 4, 128, 1025),        # qwen2-vl's self cache, rep 7
+    (4, 1056, 28, 4, 128, None),
+])
+def test_flash_decode_over_a_whole_cache_matches_plain(cuda_device, B, L, H,
+                                                       KV, hd, valid):
+    """K9 with no valid length (every position, the cross cache) and at
+    qwen2-vl-7b's heads, against the plain version."""
+    rng = np.random.default_rng(L + H)
+    q = _randn(rng, (B, 1, H, hd), cuda_device)
+    k = _randn(rng, (B, L, KV, hd), cuda_device)
+    v = _randn(rng, (B, L, KV, hd), cuda_device)
+    vl = None if valid is None else torch.tensor(valid, device=cuda_device)
+    before = tda.flash_decode_cuda.launches
+    got = tda.flash_decode_cuda(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert tda.flash_decode_cuda.launches == before + 1
+    torch.testing.assert_close(got, tda.flash_decode_plain(q, k, v, vl),
+                               atol=1e-5, rtol=1e-4)
+    assert torch.equal(got, tda.flash_decode_cuda(q, k, v, vl))
+
+
+def _multimodal_inputs(cfg, B, S, rng):
+    """Tokens [B, S] and the family's stub inputs (qwen2-vl: three distinct
+    M-RoPE streams), seeded numpy, on the CPU."""
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (B, S)))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+        batch["mrope_positions"] = torch.from_numpy(
+            rng.integers(0, 2 * S, (3, B, S)))
+    else:
+        batch["audio_frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MULTIMODAL)
+def test_multimodal_families_on_the_card_match_the_cpu(cuda_device, name):
+    """Reduced whisper-large-v3 and qwen2-vl-7b, the same weights and
+    inputs on the card (K8a-K8c, the encoder's without the causal mask;
+    K9 over the self and cross caches) and the CPU: the logits and the
+    gradients of sum(logits * g), then a prefill and 4 decode steps and
+    the cache after them, rtol 1e-4 with an atol of 1e-4 of each tensor's
+    scale; K8a once a decoder and encoder layer a forward, K9 once a self
+    and cross attention a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(name).reduced(), attn_impl="pallas")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(5)
+    batch = _multimodal_inputs(cfg, 2, 28, rng)
+    g = torch.from_numpy(rng.standard_normal(
+        (2, 28, cfg.vocab_size)).astype(np.float32))
+    stub = {k: v for k, v in batch.items() if k != "mrope_positions"}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t, dev=dev: t.detach().to(dev).requires_grad_(True),
+                     params)
+        on = {k: v.to(dev) for k, v in batch.items()}
+        before = _attn_launches()
+        lg = tfm.forward_seq(cfg, p, on)["logits"]
+        (lg * g.to(dev)).sum().backward()
+        with torch.no_grad():
+            pre = tfm.forward_seq(cfg, p, dict(
+                {k: v.to(dev) for k, v in stub.items()},
+                tokens=on["tokens"][:, :24]), want_cache=True,
+                max_cache_len=28)
+            cache, steps = pre["cache"], []
+            for i in range(4):
+                step, cache = tfm.decode_step(
+                    cfg, p, on["tokens"][:, 24 + i:25 + i], cache, 24 + i)
+                steps.append(step.cpu())
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            n = cfg.n_layers + cfg.n_enc_layers
+            assert _attn_launches() == (
+                before[0] + 2 * n,
+                before[1] + 4 * cfg.n_layers * (1 + bool(cfg.n_enc_layers)))
+        out[str(dev)] = ([lg.detach().cpu()]
+                         + [t.grad.cpu() for t in tree_leaves(p)] + steps
+                         + [t.cpu() for t in tree_leaves(cache)])
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        _close_to_scale(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MULTIMODAL)
+def test_decode_graph_equals_eager_decode_with_cross_and_vision_inputs(
+        cuda_device, name):
+    """Two requests (their own prompts and stub inputs) through one
+    captured decode step against ``greedy_decode``'s eager steps, bit for
+    bit: whisper's cross cache is copied into the captured tensors with
+    its self cache; K9 once a self and cross attention a replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(name).reduced(), attn_impl="pallas")
+    params = tfm.init_params(cfg, torch.Generator(device=cuda_device)
+                             .manual_seed(0), device=cuda_device)
+    P, G = 40, 6
+    loop = serve.DecodeGraph(
+        lambda p, t, c, pos: tfm.decode_step(cfg, p, t, c, pos), params, G)
+    with torch.no_grad():
+        for seed in (0, 1):
+            tokens = serve.make_prompts(cfg, 2, P, seed=seed,
+                                        device=cuda_device)
+            inputs = serve.make_inputs(cfg, 2, seed=seed, device=cuda_device)
+            last, cache = serve.prefill(cfg, params, tokens, P + G, inputs)
+            want = serve.greedy_decode(cfg, params,
+                                       tree_map(torch.clone, cache), last,
+                                       P, G)
+            got = loop.run(last, cache, P)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    assert loop.replays == 2 * G
+    assert loop.stats["launches_per_replay"] == {
+        "flash_decode": cfg.n_layers * (1 + bool(cfg.n_enc_layers))}

@@ -17,6 +17,7 @@ logits (|logits| up to ~20) agree to ~1e-5 of their scale: held at rtol
 1e-4 with an atol of 1e-4 of each output's scale; caches likewise.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -183,21 +184,27 @@ def test_every_jax_arch_config_is_representable(jname):
     assert tcfg.param_count() == jcfg.param_count()
     assert dataclasses.asdict(tcfg.reduced()) == \
         dataclasses.asdict(jcfg.reduced())
-    if jname in ARCH_CONFIGS:
-        assert dataclasses.asdict(ARCH_CONFIGS[jname]) == \
-            dataclasses.asdict(jcfg)
-    else:
-        with pytest.raises(KeyError, match="slice"):
-            get_config(jname)
+    assert jname in ARCH_CONFIGS
+    assert dataclasses.asdict(ARCH_CONFIGS[jname]) == \
+        dataclasses.asdict(jcfg)
+    assert get_config(jname) is ARCH_CONFIGS[jname]
 
 
 @pytest.mark.parametrize("jname", ["whisper-large-v3", "qwen2-vl-7b"])
 def test_unported_families_raise(jname):
+    """The two families run on one device now; what stays unported is
+    their split over a ``model`` axis of more than one rank (the mesh
+    slice), refused naming ROADMAP item 13: a stand-in parallel context,
+    nothing is split.  Their clients over ``data`` run."""
     cfg = ArchConfig(**dataclasses.asdict(J_ARCHS[jname])).reduced()
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfm.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfm.init_cache(cfg, 1, 8, device="cpu")
+    params = tfm.init_params(cfg, torch.Generator(), device="cpu")
+    assert set(tfm.init_cache(cfg, 1, 8, device="cpu")) == {"cycles", "tail"}
+    tp = types.SimpleNamespace(active=True, mp=types.SimpleNamespace())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tfm.forward_seq(cfg, params, {"tokens": torch.zeros(
+            (1, 8), dtype=torch.long)}, tp=tp)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tfm.init_cache(cfg, 1, 8, device="cpu", tp=tp)
 
 
 def test_remat_and_the_transformer_bundle_raise():

@@ -115,7 +115,9 @@ is non-zero):
    local step, tokens/s, peak memory, each round's loss, and K1 / K2 / K8a /
    K8b / K8c launches, which must equal the path's formula; then
    stablelm-3b (32 layers) and h2o-danube-3-4b (24) at full depth, one
-   FedAvg round of 2 clients x 2 local steps (``remat_runs``): the memory
+   FedAvg round of 1 client x 2 local steps (2 clients until the mesh
+   families were added: the script's time limit) (``remat_runs``): the
+   memory
    split (weights, the round's client state, the forward's activations),
    ``remat="none"`` and ``"layer"`` at the largest batch of 1,024 that
    ``"none"`` holds, and ``"layer"`` at twice it, peak memory and ms a
@@ -208,13 +210,30 @@ is non-zero):
    two serving requests, eager and through one captured decode step,
    bit-equal to ``mesh=None``; (a) two worker processes
    (``chip_smoke.py --tp-worker``) on a (1, 2) mesh over gloo: stablelm-3b
-   at full width cut to 4 layers (head-parallel) trains FedFusion-conv
+   at full width cut to 2 layers (head-parallel) trains FedFusion-conv
    and FedAvg (2 rounds of 2 local steps of 4 x 512) and serves, gemma3-1b
-   at full width and depth (gathered, its caches halved on L) serves, 4 x
-   1,024 then eager steps (gloo cannot be captured) teacher-forced on the
-   one-device run's tokens, 32 for stablelm-3b and 8 for gemma3-1b;
+   at full width cut to 13 layers (gathered, its caches halved on L)
+   serves, 4 x 1,024 then 8 eager steps each (gloo cannot be captured)
+   teacher-forced on the one-device run's tokens;
    states and logits against one device, launches on each rank against
    their formulas, ms beside one device's, labelled "gloo over one card";
+4i. the mesh families on the one card: two worker processes
+   (``chip_smoke.py --mesh-worker``) over gloo.  On a (1, 2) mesh, the
+   model split: mamba2-130m at full width and depth (each rank the P
+   slice of every SSD head) at 2 x 512, recurrentgemma-9b at full width
+   cut to one cycle (W blocks of the RG-LRU layers) at 2 x 512,
+   whisper-large-v3 at full width cut to 2 encoder and 2 decoder layers
+   (its 1,500-frame cross cache split 750 + 750: K9 on each slice with
+   no valid length and lse, merged) at 2 x 64, qwen2-vl-7b at full width
+   cut to 1 layer (256 stub patch embeddings) at 2 x 512: prefill and 8
+   eager decode steps teacher-forced on the one-device run's greedy
+   tokens, logits against one device, launches on each rank against
+   their formulas.  On a (2, 1) mesh, FSDP: one qwen2-vl-7b FedMMD round
+   at full width cut to 1 layer (4 clients in turn x 2 local steps of 2
+   x 512, each data rank one row of each client; K1, K8a-K8c at hd 128)
+   from the seeded state, the gathered state and the loss against the
+   same round on one device: ms a local step, the bytes through gloo a
+   step, each rank's persistent and peak bytes beside one device's;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
@@ -228,8 +247,9 @@ is non-zero):
 6. card vs CPU: the same initial state and data trained 2 rounds on the
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
-   loop on the card (cuDNN deterministic, 16 rounds; 40 until PR 28),
-   which must be equal;
+   loop on the card (cuDNN deterministic; FedFusion-conv top-k on the
+   dense and the host EF store 40 rounds, FedAvg and FedMMD 16, 40 until
+   the mesh families were added), which must be equal;
    then serving: gemma3-1b at full width cut to 6 layers, a 576-token
    prompt and 4 greedy steps, the same weights on the card and the CPU;
    then LM training: smollm-135m at full width cut to 2 layers,
@@ -353,8 +373,15 @@ def ptxas_summary(log):
             or "Compiling entry function" in ln]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started, so the
+    gaps between lines show where a phase spends its time."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _T0, 2)}),
+          flush=True)
 
 
 def run(cmd):
@@ -1551,10 +1578,14 @@ def check_attention_kernels(torch, flash_attn, decode_attn):
 # cache (phase 4h's (1, 2) mesh halves L): gemma3-1b's global cache (1,056)
 # and ring (512), stablelm-3b's cache (1,056, hd 80); valid lengths on each
 # side of the slice, the whole slice, and 0 (a rank whose slice holds no
-# valid position yet: o = 0 and lse = -1e30, so its merge weight is 0)
+# valid position yet: o = 0 and lse = -1e30, so its merge weight is 0);
+# and whisper-large-v3's cross cache as phase 4i's (1, 2) mesh splits it
+# (1,500 frames as 750 + 750), with no valid length (None: every frame)
 LSE_CASES = [("gemma3-1b global, half", 4, 528, 4, 1, 256, (0, 1, 300, 528)),
              ("gemma3-1b ring, half", 4, 256, 4, 1, 256, (0, 256)),
-             ("stablelm-3b, half", 4, 528, 32, 32, 80, (0, 1, 528))]
+             ("stablelm-3b, half", 4, 528, 32, 32, 80, (0, 1, 528)),
+             ("whisper-large-v3 cross cache, half", 4, 750, 20, 20, 64,
+              (None,))]
 # K2 on a rank's column block: smollm-135m's LM fusion (8,192 x 576) at
 # m = 2 (N = 288) and stablelm-3b's (4 x 1,024 tokens, C = 2,560) at m = 2
 FUSION_BLOCK_CASES = [("smollm-135m, m = 2", 8192, 576, 288),
@@ -1581,7 +1612,7 @@ def check_tp_kernels(torch, decode_attn, fusion_conv):
         ks = [randn(B, L, KV, hd) for _ in range(sets)]
         vs = [randn(B, L, KV, hd) for _ in range(sets)]
         for valid in valids:
-            vl = torch.tensor(valid, device=dev)
+            vl = None if valid is None else torch.tensor(valid, device=dev)
             o, lse = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl,
                                                    want_lse=True)
             bare = decode_attn.flash_decode_cuda(qs[0], ks[0], vs[0], vl)
@@ -1605,7 +1636,7 @@ def check_tp_kernels(torch, decode_attn, fusion_conv):
                             o, bare), empty_slice_weight_zero=(
                             bool((lse == -1e30).all()) if valid == 0
                             else None))
-            if valid == L:
+            if valid in (L, None):
                 t = {}
                 for which in ("lse", "bare", "bare", "lse"):
                     t.setdefault(which, []).append(time_ms(
@@ -1627,7 +1658,7 @@ def check_tp_kernels(torch, decode_attn, fusion_conv):
                             device_us_without_lse=us["bare"],
                             device_ratio=us["lse"] / us["bare"])
                 line["bound_ms"], line["bound_by"] = bound(
-                    *flash_decode_work(B, valid, H, KV, hd))
+                    *flash_decode_work(B, L, H, KV, hd))
             emit("kernels", **line)
             if not (ok and finite and line["o_equal_without_lse"]):
                 raise AssertionError(f"flash_decode lse disagrees: {case}, "
@@ -1999,7 +2030,8 @@ def kept_bytes(torch, cfg, params, batch):
 
 
 # phase 4c: full-depth training with activation checkpointing.  FedAvg,
-# one round of 2 clients x 2 local steps (a client's batch of B sequences)
+# one round of 1 client x 2 local steps (2 clients until the mesh
+# families were added; a client's batch of B sequences)
 # in client_sequential mode (the round holds the running sum, not a stack
 # of client models), at stablelm-3b's 32 layers and h2o-danube-3-4b's 24.
 # The memory split: the weights (the global model, resident); the round's
@@ -2025,7 +2057,7 @@ def remat_runs(torch, counters, get_config, FLConfig, make_bundle,
     import dataclasses
     total = dict.fromkeys(counters, 0)
     cap = torch.cuda.get_device_properties(0).total_memory
-    C, ls, S = 2, 2, 1024
+    C, ls, S = 1, 2, 1024
     for name in REMAT_MODELS:
         base = dataclasses.replace(get_config(name), attn_impl="pallas")
         fl = FLConfig(algorithm="fedavg", clients_per_round=C,
@@ -3300,19 +3332,21 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
 
 # phase 4h: tensor parallelism on the one card.  (a) two worker processes,
 # a (1, 2) mesh over a gloo group (NCCL refuses two ranks on one device):
-# stablelm-3b at full width cut to 4 layers (32 / 32 heads of 80: head-
-# parallel) trains one FedFusion-conv and one FedAvg launcher round after
-# a warm-up round (2 local steps of 4 x 512) and serves; gemma3-1b at full
-# width and depth (its one KV head is split mid-head: gathered; its global
-# cache of 1,056 and its 512 rings halved over model) serves.  Serving:
-# prompts of 1,024 at batch 4, decode steps teacher-forced on the
-# one-device run's greedy tokens, eagerly (gloo's collectives wait on the
-# host: no capture): 32 for stablelm-3b, 8 for gemma3-1b (its gloo steps
-# take 350-470 ms each).  (b) a (1, 1) NCCL mesh through build_train_step
-# / build_serve_step, bit-equal to mesh=None, decoding eagerly and through
-# a captured decode step.
-TP_TRAIN = ("stablelm-3b", 4, 512, 4)      # model, layers, seq_len, batch
-TP_SERVE = (("stablelm-3b", 4, 32), ("gemma3-1b", None, 8))  # + steps
+# stablelm-3b at full width cut to 2 layers (32 / 32 heads of 80: head-
+# parallel; 4 until the mesh families were added: the script's time
+# limit) trains one FedFusion-conv and one FedAvg launcher round after a
+# warm-up round (2 local steps of 4 x 512) and serves; gemma3-1b at full
+# width cut to 13 of its 26 layers (two 5:1 cycles and a local layer; its
+# one KV head is split mid-head: gathered; its global cache of 1,056 and
+# its 512 rings halved over model) serves.  Serving: prompts of 1,024 at
+# batch 4, decode steps teacher-forced on the one-device run's greedy
+# tokens, eagerly (gloo's collectives wait on the host: no capture): 8
+# for each (32 for stablelm-3b until then; gemma3-1b's gloo steps took
+# 350-470 ms each at full depth).  (b) a (1, 1) NCCL mesh through
+# build_train_step / build_serve_step, bit-equal to mesh=None, decoding
+# eagerly and through a captured decode step.
+TP_TRAIN = ("stablelm-3b", 2, 512, 4)      # model, layers, seq_len, batch
+TP_SERVE = (("stablelm-3b", 2, 8), ("gemma3-1b", 13, 8))  # + steps
 TP_PROMPT, TP_BATCH = 1024, 4
 # the mesh's runs against one device: the all-reduces sum in another order
 # (and cuBLAS at K halved): states within rtol 1e-4 / atol 1e-5; logits
@@ -3612,6 +3646,334 @@ def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
     if not ok:
         raise AssertionError("phase 4h (a): a tensor-parallel run disagrees "
                              "with one device or with its launch formula")
+    return launches
+
+
+# phase 4i: the mesh families on the one card, two worker processes over
+# gloo (NCCL refuses two ranks on one device), as phase 4h (a).  (1, 2)
+# mesh, the model split: each model serves a prompt and MESH_STEPS eager
+# decode steps teacher-forced on the one-device run's greedy tokens
+# (rank 0 runs it first): mamba2-130m at full width and depth (24 SSD
+# layers: each rank the P slice of every head), recurrentgemma-9b at full
+# width cut to one cycle (RG-LRU, RG-LRU, local attention: W split, the
+# conv output gathered before the gates), whisper-large-v3 at full width
+# cut to 2 encoder and 2 decoder layers (its 1,500-frame cross cache split
+# 750 + 750: K9 on each slice with lse, merged), qwen2-vl-7b at full width
+# cut to 1 layer with its 256 stub patch embeddings.  (2, 1) mesh, FSDP:
+# one qwen2-vl-7b FedMMD round (1 layer, 4 clients in turn x 2 local steps
+# of 2 x MESH_FSDP_SEQ, each data rank one row of each client) from the
+# same seeded state as the one-device round on rank 0: ms a local step,
+# the bytes through gloo a step (the collectives' payloads), each rank's
+# persistent and peak bytes beside one device's
+MESH_SERVE = (("mamba2-130m", None, 0, 2, 512),      # model, layers,
+              ("recurrentgemma-9b", 3, 0, 2, 512),   # encoder layers,
+              ("whisper-large-v3", 2, 2, 2, 64),     # batch, prompt
+              ("qwen2-vl-7b", 1, 0, 2, 512))
+MESH_STEPS = 8
+MESH_FSDP = ("qwen2-vl-7b", 1, "fedmmd")
+MESH_FSDP_SEQ, MESH_FSDP_BATCH = 512, 8
+MESH_WORKER_TIMEOUT_S = 600
+
+
+def _mesh_cfg(get_config, name, layers, enc_layers):
+    import dataclasses
+    cfg = _tp_cfg(get_config, name, layers)
+    if enc_layers:
+        cfg = dataclasses.replace(cfg, n_enc_layers=enc_layers)
+    return cfg
+
+
+class _GlooBytes:
+    """Counts the payload bytes of the process's ``all_reduce``,
+    ``all_gather`` and ``all_to_all_single`` calls (the tensors handed
+    over, one rank's view: an all-gather's whole output, an all-to-all's
+    input)."""
+
+    def __init__(self, dist):
+        self.bytes = 0
+        calls = (dist.all_reduce, dist.all_gather, dist.all_to_all_single)
+
+        def size(t):
+            return t.numel() * t.element_size()
+
+        def all_reduce(t, *a, **kw):
+            self.bytes += size(t)
+            return calls[0](t, *a, **kw)
+
+        def all_gather(parts, t, *a, **kw):
+            self.bytes += sum(size(p) for p in parts)
+            return calls[1](parts, t, *a, **kw)
+
+        def all_to_all_single(out, t, *a, **kw):
+            self.bytes += size(t)
+            return calls[2](out, t, *a, **kw)
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        dist.all_to_all_single = all_to_all_single
+
+
+def mesh_worker(argv):
+    """One rank of phase 4i: ``chip_smoke.py --mesh-worker RANK WORLD INIT
+    OUT``.  Rank 0 also runs each case on one device first (rank 1
+    waits) and compares; each rank writes its launches, times and bytes
+    to ``OUT/rank<r>.json``."""
+    import datetime
+    rank, world, init, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import FLConfig, InputShape, get_config
+    from repro_torch.core.rounds import init_global_state
+    from repro_torch.kernels import decode_attn, flash_attn, mk_mmd
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import make_bundle
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    gloo = _GlooBytes(dist)
+    meshes = {s: make_mesh(s, ("data", "model"), device="cuda")
+              for s in ((1, world), (world, 1))}
+    counters = {"mk_mmd2": mk_mmd.mk_mmd2_cuda,
+                "mk_mmd2_grad": mk_mmd.mk_mmd2_grad_cuda,
+                "flash_fwd": flash_attn.flash_fwd_cuda,
+                "flash_bwd_dq": flash_attn.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": flash_attn.flash_bwd_dkv_cuda,
+                "flash_decode": decode_attn.flash_decode_cuda}
+    result = {"rank": rank, "serve": [], "fsdp": []}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def count():
+        return {k: c.launches for k, c in counters.items()}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def free():
+        sync()
+        torch.cuda.empty_cache()
+
+    mesh = meshes[(1, world)]
+    for name, layers, enc, Bs, P in MESH_SERVE:
+        cfg = _mesh_cfg(get_config, name, layers, enc)
+        G = MESH_STEPS
+        prompts = serve.make_prompts(cfg, Bs, P, 0, dev)
+        inputs = serve.make_inputs(cfg, Bs, 0, dev)
+        line = dict(model=name, layers=cfg.n_layers,
+                    enc_layers=cfg.n_enc_layers, batch=Bs, prompt=P,
+                    steps=G, decode="eager (gloo)", mesh=[1, world])
+        toks = torch.zeros((Bs, G), dtype=torch.int64, device=dev)
+        if rank == 0:
+            with torch.no_grad():
+                params = serve.tfm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+                pre, step, _, _ = serve.serve_steps(cfg, Bs, P, G)
+                last, cache = pre(params, {"tokens": prompts, **inputs})
+                toks, logits, step_ms = serve.greedy_decode(
+                    cfg, params, cache, last, P, G, step)
+                one_logits = torch.cat([last[:, None], logits], 1)
+                line["one_device_median_step_ms"] = statistics.median(
+                    step_ms[1:])
+                del params, cache, logits
+            free()
+        dist.broadcast(toks, 0)
+        with torch.no_grad():
+            pre, step, p_layout, t_layout = serve.serve_steps(cfg, Bs, P, G,
+                                                              mesh)
+            params = serve.sharded_params(cfg, mesh, p_layout, dev)
+            local = {"tokens": sh.local_block(prompts, t_layout, mesh),
+                     **{k: sh.local_block(v, t_layout[:1], mesh)
+                        for k, v in inputs.items()}}
+            reset()
+            gloo.bytes = 0
+            sync()
+            t0 = time.perf_counter()
+            last, cache = pre(params, local)
+            sync()
+            line["gloo_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            line["cache_leaf_shapes"] = sorted({str(list(t.shape)) for t in
+                                                tree_leaves(cache)})
+            rows, step_ms = [last], []
+            pos = torch.tensor(P, device=dev)
+            for i in range(G):
+                t0 = time.perf_counter()
+                logits, cache = step(params, toks[:, i:i + 1], cache, pos)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                rows.append(logits[:, 0])
+                pos += 1
+            n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+            line.update(gloo_median_step_ms=statistics.median(step_ms[1:]),
+                        gloo_bytes=gloo.bytes, launches=count(),
+                        expected=dict(
+                            mk_mmd2=0, mk_mmd2_grad=0,
+                            flash_fwd=n_attn + cfg.n_enc_layers,
+                            flash_bwd_dq=0, flash_bwd_dkv=0,
+                            flash_decode=(n_attn + n_attn * bool(enc)) * G))
+            if rank == 0:
+                got = torch.stack(rows, 1)
+                scale = one_logits.abs().max()
+                excess, err = _close_err(got / scale, one_logits / scale,
+                                         TP_RTOL, TP_ATOL)
+                line.update(logits_scale=scale.item(), logits_excess=excess,
+                            logits_max_rel_err=err,
+                            logits_within=excess <= 0,
+                            finite=bool(torch.isfinite(got).all()))
+                del one_logits, got
+            del params, cache, rows
+        free()
+        result["serve"].append(line)
+
+    # FSDP: the client-sequential round over data ----------------------------
+    mesh = meshes[(world, 1)]
+    name, layers, algorithm = MESH_FSDP
+    cfg = _tp_cfg(get_config, name, layers)
+    fl = FLConfig(algorithm=algorithm, fusion_op="conv", local_steps=2,
+                  lr=TRAIN_LR)
+    shape = InputShape("custom_train", MESH_FSDP_SEQ, MESH_FSDP_BATCH,
+                       "train")
+    steps = None
+    line = dict(model=name, layers=layers, algorithm=algorithm,
+                seq_len=MESH_FSDP_SEQ, batch=MESH_FSDP_BATCH,
+                mesh=[world, 1], timing="gloo over one card")
+
+    def one_round(m):
+        """One launcher round (its draws, its learning rate) on ``m`` (None:
+        one device): (state, loss, ms, persistent bytes, peak bytes), the
+        state whole."""
+        nonlocal steps
+        round_fn, _, layouts, _ = build_train_step(cfg, fl, shape, m)
+        plan = train.fl_plan(cfg, shape, m)
+        steps = plan.n_clients * plan.local_steps
+        whole = init_global_state(
+            make_bundle(cfg), fl, torch.Generator(device=dev).manual_seed(0),
+            dev)
+        batch = train.round_batches(cfg, shape, plan)()
+        nex = torch.ones((plan.n_clients,), device=dev)
+        if m is not None:
+            whole = tree_map(lambda t: t.clone(memory_format=torch
+                                               .contiguous_format),
+                             sh.shard_tree(whole, layouts[0], m))
+            batch = sh.shard_tree(batch, layouts[1], m)
+            nex = sh.local_block(nex, layouts[2], m).contiguous()
+        batch = {k: v.contiguous().to(dev) for k, v in batch.items()}
+        state = whole
+        del whole
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        persistent = torch.cuda.memory_allocated(dev)
+        gloo.bytes = 0
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = round_fn(state, batch, nex, train.round_lr(fl)(0))
+        loss = float(metrics["local_loss"])
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if m is not None:
+            state = sh.gather_tree(state, layouts[0], m)
+        return state, loss, ms, persistent, peak
+
+    if rank == 0:
+        one, loss, ms, persistent, peak = one_round(None)
+        line.update(one_device_loss=loss, one_device_ms_per_local_step=(
+            ms / steps), one_device_persistent_bytes=persistent,
+            one_device_peak_bytes=peak)
+        one = [t.cpu() for t in tree_leaves(one)]
+        free()
+    dist.barrier()
+    got, loss, ms, persistent, peak = one_round(mesh)
+    line.update(loss=loss, gloo_ms_per_local_step=ms / steps,
+                gloo_bytes_per_local_step=gloo.bytes / steps,
+                persistent_bytes=persistent, peak_bytes=peak,
+                launches=count(), local_steps=steps,
+                expected={k: v for k, v in lm_launches(
+                    cfg, algorithm, steps).items() if k in counters})
+    line["expected"]["flash_decode"] = 0
+    if rank == 0:
+        errs = [_close_err(a.to(dev), b.to(dev), TP_RTOL, TP_ATOL)
+                for a, b in zip(tree_leaves(got), one)]
+        line.update(state_excess=max(e[0] for e in errs),
+                    state_max_abs_err=max(e[1] for e in errs),
+                    state_within=max(e[0] for e in errs) <= 0,
+                    loss_within=abs(loss - line["one_device_loss"])
+                    <= TP_ATOL + TP_RTOL * abs(line["one_device_loss"]))
+    result["fsdp"].append(line)
+    del got
+    free()
+    dist.barrier()
+    dist.destroy_process_group()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def mesh_phase(card):
+    """Phase 4i: two ``--mesh-worker`` processes over gloo on this card
+    (see ``mesh_worker``); their launches against the formulas (K8a once
+    a self-attention and encoder layer in prefill, K9 once a
+    self-attention and cross-attention layer a decode step; phase 4c's for
+    the FedMMD round), logits and the gathered state against one device.
+    Returns rank 0's launches."""
+    work = ROOT / "build" / "mesh_workers"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+    init = work / "rdzv"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), "2", str(init), str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        for r, log in enumerate(logs):
+            print(f"--- phase 4i worker {r} ---\n{log[-6000:]}", flush=True)
+        raise AssertionError(f"phase 4i: worker exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    ok = True
+    launches = {}
+    for kind in ("serve", "fsdp"):
+        for i, line in enumerate(ranks[0][kind]):
+            other = ranks[1][kind][i]
+            both = [line["launches"], other["launches"]]
+            good = all(b == line["expected"] for b in both)
+            if kind == "fsdp":
+                good = good and line["state_within"] and line["loss_within"]
+                line["rank1_persistent_bytes"] = other["persistent_bytes"]
+                line["rank1_peak_bytes"] = other["peak_bytes"]
+            else:
+                good = good and line["logits_within"] and line["finite"]
+            ok = ok and good
+            for k, n in line["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            emit(f"mesh_{kind}", card=card, backend="gloo",
+                 **{k: v for k, v in line.items() if k != "launches"},
+                 launches_rank0=line["launches"],
+                 launches_rank1=other["launches"], checks=good)
+    emit("mesh_workers", wall_s=wall)
+    if not ok:
+        raise AssertionError("phase 4i: a mesh run disagrees with one device "
+                             "or with its launch formula")
     return launches
 
 
@@ -4879,6 +5241,13 @@ def main():
         train_launches[k] = train_launches.get(k, 0) + n
     emit("phase_4h", seconds=time.perf_counter() - t_4h)
 
+    # 4i. the mesh families on the one card: two ranks over gloo, (1, 2)
+    # serving and a (2, 1) FSDP round ----------------------------------------
+    t_4i = time.perf_counter()
+    for k, n in mesh_phase(card).items():
+        train_launches[k] = train_launches.get(k, 0) + n
+    emit("phase_4i", seconds=time.perf_counter() - t_4i)
+
     t_phase = time.perf_counter()
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
@@ -5013,10 +5382,12 @@ def main():
                                  f"disagree (ratios {ratio_max}, "
                                  f"{ratio_l2})")
 
-    # the engine against the reference loop on the card, 40 rounds (five
-    # 8-round chunks: four replays with refilled static inputs, the host
-    # store's patch and write-back between chunks, the first pinned
-    # staging pool reused) from the same seed.  cuDNN's default
+    # the engine against the reference loop on the card from the same
+    # seed: the FedFusion-conv top-k runs 40 rounds (five 8-round chunks:
+    # four replays with refilled static inputs, the host store's patch and
+    # write-back between chunks, the first pinned staging pool reused),
+    # FedAvg and FedMMD 16 (two chunks: one replay refilled; 40 until the
+    # mesh families were added: the script's time limit).  cuDNN's default
     # weight-gradient algorithms differ run to run, so both run with its
     # deterministic algorithms; then the graph replays compute what the
     # eager loop computes.  The CommLog history must be equal, and the
@@ -5030,6 +5401,8 @@ def main():
         for algorithm, mode, up, store in ENGINE_RUNS:
             fl = FLConfig(algorithm=algorithm, fusion_op="conv",
                           uplink_codec=up, topk_frac=TOPK_FRAC, **FIG4)
+            R = ENGINE_ROUNDS if algorithm == "fedfusion" \
+                else 2 * ENGINE_CHUNK
             out = {}
             for name, fn, kw in [
                     ("reference", run_federated_reference, {}),
@@ -5037,7 +5410,7 @@ def main():
                      dict(superstep_rounds=ENGINE_CHUNK, ef_store=store))]:
                 out[name] = fn(bundle, fl, mnist_data(
                     FederatedDataset, class_images,
-                    artificial_noniid_partition), rounds=ENGINE_ROUNDS,
+                    artificial_noniid_partition), rounds=R,
                     seed=0, mode=mode, eval_examples=EVAL_EXAMPLES, **kw)
             replays = sum(g["replays"] for g in
                           out["engine"].stats["graphs"])
@@ -5055,11 +5428,10 @@ def main():
             ratio_max = diff.abs().max().item() / change.abs().max().item()
             ratio_l2 = (diff.norm() / change.norm()).item()
             finals[(algorithm, up, store)] = eng
-            ok = hist_equal and \
-                replays == ENGINE_ROUNDS // ENGINE_CHUNK \
+            ok = hist_equal and replays == R // ENGINE_CHUNK \
                 and (exact or (ratio_max <= 0.01 and ratio_l2 <= 0.01))
             emit("engine_vs_reference", algorithm=algorithm, mode=mode,
-                 uplink=up, ef_store=store, rounds=ENGINE_ROUNDS,
+                 uplink=up, ef_store=store, rounds=R,
                  replays=replays,
                  cudnn_deterministic=True, exact=exact,
                  history_equal=hist_equal,
@@ -5346,5 +5718,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
     else:
         main()

@@ -5,8 +5,9 @@
 35L d_model=7168 56H (GQA kv=8) d_ff=4864 vocab=32000, MoE 128e top-2.
 Dense-MoE hybrid: a dense FFN residual runs in parallel with the MoE FFN.
 Too large for per-client replicas -> client_sequential FL mode with
-FSDP+expert-parallel sharding (its step on a mesh with ``data`` > 1
-raises until the FSDP step is ported: ROADMAP Queue 1, item 13).
+FSDP+expert-parallel sharding (on a mesh with ``data`` > 1 its round is
+``launch.steps``' FSDP round: the experts split over ``data`` are
+gathered where a layer uses them).
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -13,6 +13,16 @@ The frozen global stream is never updated during local training.  With
 ``local_epochs > 1`` two-stream algorithms use the paper-§3.3 cache: the
 global stream's features for the round's batches are computed once and
 reused across epochs.
+
+FSDP (an LM bundle whose ``tp.fsdp`` splits leaves over ``data``,
+``repro_torch.parallel``): the trainable state is this rank's blocks, the
+plugin's loss is this rank's estimate of the client's loss (its rows'
+mean, the whole batch's MMD and MoE aux terms), and the client's loss is
+their mean over the data ranks.  So each rank backpropagates its
+estimate over the data size; the gradients of the leaves split over
+``data`` come summed out of their gathers, the others are summed over
+``data`` after the backward (``parallel.sum_over_data``), and the step's
+loss is the all-reduced mean.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.models.registry import ModelBundle
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel import sum_over_data
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -56,15 +67,24 @@ def make_local_trainer(bundle: ModelBundle, fl: FLConfig):
     cache = (fl.cache_global_features and algo.two_stream
              and fl.local_epochs > 1)
 
+    tp = getattr(bundle, "tp", None)
+
     def step(trainable, state, global_model, batch, lr, feats_g):
+        n_data = 1 if tp is None else tp.data_size
         trainable = tree_map(lambda p: p.detach().requires_grad_(True),
                              trainable)
         loss, _ = loss_fn(trainable, global_model, batch, feats_g)
         leaves = tree_leaves(trainable)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss / n_data if n_data > 1 else loss,
+                                    leaves, allow_unused=True)
         # an unused leaf has zero gradient, as under jax.grad
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if n_data > 1:
+            grads = sum_over_data(grads, trainable,
+                                  {k: tp.specs[k] for k in trainable}, tp)
+            loss = tp.mp.all_reduce(loss.detach().clone(), group=tp.mp.place(
+                ("data",))[0]) / n_data
         with torch.no_grad():
             trainable, state = opt_update(
                 tree_map(torch.Tensor.detach, trainable),

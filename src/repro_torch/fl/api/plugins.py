@@ -17,8 +17,9 @@ from repro_torch.core.fusion import fusion_aggregate, fusion_apply, fusion_init
 from repro_torch.core.losses import cross_entropy, l2_tree_distance
 from repro_torch.core.mmd import mmd_loss
 from repro_torch.fl.api.algorithm import Algorithm, register_algorithm
-from repro_torch.parallel import model_dim, reduce_from_model
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.parallel import (data_dim, gather_from_data, model_dim,
+                                  reduce_from_model)
+from repro_torch.tree import tree_map
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 aux for the CNNs)
 
@@ -74,25 +75,37 @@ class FedMMD(Algorithm):
         cls, _, out = classify_loss(bundle, trainable["model"], batch)
         feats_g = _frozen_features(bundle, global_model, batch,
                                    cached_feats_g)
-        reg = mmd_loss(bundle.pool(out["features"]), bundle.pool(feats_g),
-                       fl.mmd_widths, fl.mmd_lambda)
+        pooled = [bundle.pool(out["features"]), bundle.pool(feats_g)]
+        tp = _tp(bundle)
+        if tp is not None and tp.data_rows:
+            # FSDP: the term compares the whole batch's pooled features
+            # (a mean of per-rank MMDs is another loss); the gather's
+            # backward sums the ranks' gradients and keeps this rank's rows
+            pooled = [gather_from_data(f, 0, tp.mp) for f in pooled]
+        reg = mmd_loss(*pooled, fl.mmd_widths, fl.mmd_lambda)
         return cls + reg, {"cls": cls, "mmd": reg}
 
 
 def _l2_distance(bundle, local, global_model):
     """``l2_tree_distance``; on a tensor-parallel bundle the split leaves'
-    part is summed over ``model`` (each rank holds its blocks)."""
-    mp = _mp(bundle)
-    if mp is None:
+    part is summed over ``model`` (each rank holds its blocks).  Under
+    FSDP it is this rank's estimate of the distance (``core/local.py``):
+    the part of the leaves split over ``data`` times the data size, whose
+    mean over the data ranks is their whole part."""
+    tp = _tp(bundle)
+    if tp is None or (not tp.active and tp.data_size == 1):
         return l2_tree_distance(local, global_model)
-    split = tree_leaves(tree_map(lambda x, s: model_dim(s) is not None,
-                                 local, bundle.tp.model_specs))
-    pairs = list(zip(tree_leaves(local), tree_leaves(global_model), split))
-    whole = l2_tree_distance([a for a, _, s in pairs if not s],
-                             [b for _, b, s in pairs if not s])
-    part = l2_tree_distance([a for a, _, s in pairs if s],
-                            [b for _, b, s in pairs if s])
-    return whole + reduce_from_model(torch.as_tensor(part), mp)
+    whole, part = [], []
+
+    def term(a, b, spec):
+        d = l2_tree_distance([a], [b])
+        if data_dim(spec) is not None:
+            d = d * tp.data_size
+        split = tp.active and model_dim(spec) is not None
+        (part if split else whole).append(d)
+
+    tree_map(term, local, global_model, tp.model_specs)
+    return sum(whole) + reduce_from_model(torch.as_tensor(sum(part)), tp.mp)
 
 
 class FedL2(Algorithm):

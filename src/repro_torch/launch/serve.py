@@ -10,7 +10,9 @@ A process that is one rank of several runs on the JAX launcher's mesh
 (``launch.train.mesh_from_devices``): prefill and each decode step are
 ``launch.steps.build_prefill_step`` / ``build_serve_step`` on this rank's
 blocks (the model split over ``model``, the batch over ``data`` where it
-divides, the KV cache's length over ``model``); ids are gathered and only
+divides, the KV cache's length over ``model``; an SSD or RG-LRU layer's
+state and conv window split on their channels, the encoder-decoder's
+cross cache on its frames), for every family; ids are gathered and only
 rank 0 prints.  A lone process serves on one device.
 
 The decode loop is a :class:`DecodeGraph`, the counterpart of the JAX

@@ -15,10 +15,24 @@ On a mesh the transformer is split over ``model``
 (:class:`repro_torch.parallel.TensorParallel`) and a round's clients
 over ``pod`` / ``data`` (:class:`repro_torch.core.aggregate.
 ClientSharding`: each data group trains its clients and the weighted
-average is all-reduced over the ranks that hold the same blocks).  The
-FSDP layout (``client_sequential``, leaves split over ``data`` of size >
-1) is computed, but its step raises ``NotImplementedError``: running it
-waits for the configs that use it (ROADMAP item 13).
+average is all-reduced over the ranks that hold the same blocks).
+
+The FSDP layout (``client_sequential`` with leaves split over a ``data``
+axis of more than one rank: arctic-480b, qwen2-vl-7b, recurrentgemma-9b
+on a mesh) runs the JAX semantics of ``client_sequential``: every rank
+visits every client in turn from the global model, and the clients'
+weighted running sums make the new state; each rank holds only its
+blocks of the global state, the client model, its optimizer state, the
+gradients and the running sums.  The batch arrives in JAX's layout
+(``train_batch_shardings``: the client axis over ``data`` where it
+divides), so the round gathers it over the ranks that split it and each
+data rank keeps its share of every client's rows (all of them where
+``data`` does not divide the client's batch).  A local step gathers the
+``data``-split leaves where the model uses them (``parallel.fsdp_gather``;
+inside a ``remat="layer"`` cycle, so the backward gathers again; the
+token table and the head move the rows' columns and partial logits
+instead, ``models/transformer.py``) and sums the gradients over ``data``
+(``core/local.py``).
 """
 from __future__ import annotations
 
@@ -136,14 +150,16 @@ def state_struct(cfg: ArchConfig, fl: FLConfig) -> Dict[str, Any]:
     return {"model": param_struct(cfg), **_extra_shapes(cfg, fl)}
 
 
-def tensor_parallel(mesh, specs, cache_specs=None):
+def tensor_parallel(mesh, specs, cache_specs=None, *, fsdp=False,
+                    rows_split=False):
     """The :class:`repro_torch.parallel.TensorParallel` of this rank on
     ``mesh`` for a state with specs ``specs`` (``{"model": ..., **the
-    algorithm's extra state}``)."""
+    algorithm's extra state}``); ``fsdp`` / ``rows_split`` as there."""
     from repro_torch.launch.mesh import axes_place
     from repro_torch.parallel import ModelParallel, TensorParallel
     return TensorParallel(ModelParallel(functools.partial(axes_place, mesh)),
-                          specs, cache_specs)
+                          specs, cache_specs, fsdp=fsdp,
+                          rows_split=rows_split)
 
 
 def _fsdp_split(mesh, shapes, specs) -> bool:
@@ -182,22 +198,50 @@ def build_train_step(cfg: ArchConfig, fl: FLConfig, shape: InputShape,
             f"{TP_ALGORITHMS} only")
     fsdp = mode == "client_sequential"
     state_specs = sh.param_shardings(mesh, state_shapes, fsdp=fsdp)
-    if fsdp and _fsdp_split(mesh, state_shapes, state_specs):
-        raise NotImplementedError(
-            f"{cfg.name}: the FSDP layout (client_sequential, leaves split "
-            f"over data) runs with the configs that use it (ROADMAP item "
-            f"13: qwen2-vl-7b, recurrentgemma-9b, arctic-480b); its specs "
-            f"are launch.sharding.param_shardings(..., fsdp=True)")
     batch_specs = sh.train_batch_shardings(
         mesh, {k: torch.Size(v[0]) for k, v in batch_shapes.items()})
     nex_spec = sh.train_batch_shardings(mesh, args[2][0])
+    in_layouts = (state_specs, batch_specs, nex_spec, ())
+    out_layouts = (state_specs, {"local_loss": ()})
+    if fsdp and _fsdp_split(mesh, state_shapes, state_specs):
+        return (_fsdp_round(cfg, fl, dtype, mesh, plan, state_specs,
+                            batch_specs, nex_spec), args, in_layouts,
+                out_layouts)
     from repro_torch.engine.sharded import client_sharding
     tp = tensor_parallel(mesh, state_specs)
     round_fn = make_round_fn(make_bundle(cfg, dtype, tp), fl, mode,
                              shard=client_sharding(mesh))
-    in_layouts = (state_specs, batch_specs, nex_spec, ())
-    out_layouts = (state_specs, {"local_loss": ()})
     return round_fn, args, in_layouts, out_layouts
+
+
+def _fsdp_round(cfg, fl, dtype, mesh, plan, state_specs, batch_specs,
+                nex_spec):
+    """The FSDP round (module docstring) on this rank's blocks: the
+    client-sequential round of one device, run by every rank on its blocks
+    of the state with the bundle's FSDP context, after the batch is
+    gathered whole and cut to this data rank's rows."""
+    from repro_torch.launch.mesh import axis_size
+    n_data = axis_size(mesh, "data")
+    tp = tensor_parallel(mesh, state_specs, fsdp=True,
+                         rows_split=plan.client_batch % n_data == 0)
+    inner = make_round_fn(make_bundle(cfg, dtype, tp), fl,
+                          "client_sequential")
+
+    def rows(x):
+        """This data rank's rows [C, steps, B / n_data, ...] of every
+        client (all of them unless ``rows_split``)."""
+        if not tp.data_rows:
+            return x
+        position = tp.mp.place(("data",))[2]
+        return x.chunk(n_data, dim=2)[position].contiguous()
+
+    def round_fn(state, batch, n_examples, lr):
+        whole = sh.gather_tree({"batch": batch, "n": n_examples},
+                               {"batch": batch_specs, "n": nex_spec}, mesh)
+        return inner(state, {k: rows(v) for k, v in whole["batch"].items()},
+                     whole["n"], lr)
+
+    return round_fn
 
 
 def _gather_v(cfg, logits, tp):

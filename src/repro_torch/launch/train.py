@@ -12,8 +12,10 @@ round on batches drawn, as the JAX loop draws them, with
 ``token_stream``, at ``exp_decay_per_round(lr, 0.995)``.  A process that is
 one rank of several (``torchrun --nproc-per-node=N``) runs the round on
 :func:`mesh_from_devices`'s mesh, the JAX launcher's rule: the model
-split over ``model``, the round's clients over ``data``; each rank draws
-the whole round's batch and state from the same seeds and cuts its block
+split over ``model``, the round's clients over ``data`` (a
+``client_sequential`` model's leaves over ``data`` instead: the FSDP
+round, ``launch.steps``); each rank draws the whole round's batch and
+state from the same seeds and cuts its block
 (``launch.sharding.shard_tree``), and only rank 0 prints.  A lone process
 keeps the one-device round.  With
 ``--engine`` (:func:`run_engine`) the same model trains through
@@ -136,9 +138,11 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
 
     ``global_state``: the initial state (e.g. converted from the JAX
     package); None draws one from seed 0 on the device.  ``mesh``: run
-    each round on this rank's blocks (``build_train_step(..., mesh)``);
-    every rank passes the same whole ``global_state`` (or none).  Each
-    round is timed on the host clock between device synchronisations.
+    each round on this rank's blocks (``build_train_step(..., mesh)``;
+    the FSDP round for a ``client_sequential`` model with ``data`` > 1),
+    keeping only them once cut; every rank passes the same whole
+    ``global_state`` (or none).  Each round is timed on the host clock
+    between device synchronisations.
     Returns (final state, whole on every rank; one ``{"round", "loss",
     "ms"}`` record per round)."""
     device = resolve_device(device)
@@ -160,6 +164,7 @@ def train_rounds(cfg: ArchConfig, fl: FLConfig, shape: InputShape, *,
 
     state = cut(tree_map(lambda t: t.to(device), global_state),
                 layouts and layouts[0])
+    del global_state       # a rank keeps only its blocks (the caller's own)
 
     draw = round_batches(cfg, shape, plan)
     lr_at = round_lr(fl)

@@ -47,8 +47,10 @@ def _split(spec, mp):
 
 
 def project_qkv(params, x, n_heads, n_kv_heads, head_dim, *, mp=None,
-                specs=None, gather=False):
-    """q [B,S,H,hd], k / v [B,S,KV,hd] from x [B,S,d].
+                specs=None, gather=False, names=("wq", "wk", "wv")):
+    """q [B,S,H,hd], k / v [B,S,KV,hd] from x [B,S,d] (``names`` picks
+    which of the three, in that order: a cross-attention projects q from
+    the decoder and k / v from the encoder).
 
     Tensor-parallel (``mp`` of more than one rank, ``specs`` the leaves'
     specs): head-parallel layers (:func:`head_parallel`) return this
@@ -60,16 +62,14 @@ def project_qkv(params, x, n_heads, n_kv_heads, head_dim, *, mp=None,
     rank-dependent parts, from this rank's block of the heads, and is
     summed there)."""
     B, S, _ = x.shape
+    heads = {"wq": n_heads, "wk": n_kv_heads, "wv": n_kv_heads}
     if mp is None or not mp.active or specs is None:
-        q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
-        k = (x @ params["wk"]).reshape(B, S, n_kv_heads, head_dim)
-        v = (x @ params["wv"]).reshape(B, S, n_kv_heads, head_dim)
-        return q, k, v
+        return tuple((x @ params[name]).reshape(B, S, heads[name], head_dim)
+                     for name in names)
     xin = copy_to_model(x, mp)
     local = head_parallel(n_heads, n_kv_heads, mp) and not gather
     out = []
-    for name, heads in (("wq", n_heads), ("wk", n_kv_heads),
-                        ("wv", n_kv_heads)):
+    for name in names:
         if _split(specs[name], mp):
             y = xin @ params[name]
             if not local:

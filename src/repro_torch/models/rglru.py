@@ -27,6 +27,21 @@ the backward; ``remat="layer"`` recomputes them instead.
 The depthwise causal conv is the same sum of W shifted products as
 :mod:`repro_torch.models.ssd`'s.  Decode carries ``{"h": [B, W] f32,
 "conv": [B, W_conv - 1, W]}`` and returns a new cache.
+
+Split over ``model`` (``mp`` of more than one rank, ``specs`` the leaves'
+specs with ``w_x`` split on W): the JAX layout's blocks, ``w_x``,
+``w_gate``, ``w_a``, ``w_i`` column-parallel on W and ``w_out``
+row-parallel, ``conv_w``, ``conv_b``, ``lam``, ``b_a``, ``b_i``
+replicated, the cache ``h`` and ``conv`` split on W.  Each rank computes
+its W block of the conv output ``u``; the gates multiply the WHOLE ``u``
+by their column blocks, so ``u`` is gathered over ``model`` before them
+(:func:`repro_torch.parallel.gather_from_model`: the gates' gradients
+are partial); the recurrence, the gate branch and the cache are the
+rank's W block; ``w_out``'s products are reduced.  The replicated leaves
+are used through the rank's W slice after a ``copy_to_model``, so their
+gradients sum the ranks' slices and the copies stay equal.  The stages
+(:func:`rglru_block_in`, :func:`rglru_block_out`) take a rank's blocks:
+a test runs them rank by rank in one process.
 """
 from __future__ import annotations
 
@@ -35,6 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
 from repro_torch.models.ssd import _causal_conv
+from repro_torch.parallel import (copy_to_model, gather_from_model,
+                                  model_dim, reduce_from_model)
 
 _C = 8.0
 
@@ -58,14 +75,53 @@ def rglru_init(generator, d_model, lru_width, conv_width=4,
     }
 
 
-def _gates(params, x):
-    """x [..., W] -> (log_a [..., W], gated input [..., W]) in f32."""
-    x32 = x.float()
-    r = torch.sigmoid(x32 @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(x32 @ params["w_i"].float() + params["b_i"].float())
-    log_a = -_C * F.softplus(params["lam"].float()) * r
+_REPLICATED = ("conv_w", "conv_b", "lam", "b_a", "b_i")
+
+
+def _gates(params, rep, u, u_all):
+    """The rank's (log_a, gated input) [..., W_loc] in f32: the gates are
+    the whole conv output ``u_all`` times the column blocks of ``w_a`` /
+    ``w_i``, the input the rank's block ``u`` (one device: both whole)."""
+    x32 = u_all.float()
+    r = torch.sigmoid(x32 @ params["w_a"].float() + rep["b_a"].float())
+    i = torch.sigmoid(x32 @ params["w_i"].float() + rep["b_i"].float())
+    log_a = -_C * F.softplus(rep["lam"].float()) * r
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
-    return log_a, beta * (i * x32)
+    return log_a, beta * (i * u.float())
+
+
+def _split(mp, specs) -> bool:
+    return (mp is not None and mp.active and specs is not None
+            and model_dim(specs["w_x"]) == 1)
+
+
+def _rank_parts(params, x, mp, split):
+    """(x as the column blocks' input, the replicated leaves as this rank
+    uses them: its W slice after a ``copy_to_model``)."""
+    if not split:
+        return x, {k: params[k] for k in _REPLICATED}
+    W_loc = params["w_x"].shape[1]
+    sl = slice(mp.rank * W_loc, (mp.rank + 1) * W_loc)
+    return copy_to_model(x, mp), {k: copy_to_model(params[k], mp)[..., sl]
+                                  for k in _REPLICATED}
+
+
+def rglru_block_in(params, x, rep):
+    """A rank's first stage: (the conv's input ``x @ w_x`` and output
+    ``u``), its W block [B,S,W_loc] (``rep``: its slices of the replicated
+    leaves)."""
+    u_in = x @ params["w_x"]
+    return u_in, _causal_conv(u_in, rep["conv_w"], rep["conv_b"])
+
+
+def rglru_block_out(params, x, rep, u, u_all):
+    """A rank's second stage from its ``u`` block and the gathered
+    ``u_all``: (its part of the output [B,S,d], a partial sum over the
+    ranks; its W block of the states [B,S,W_loc] f32)."""
+    log_a, b = _gates(params, rep, u, u_all)
+    hseq = linear_scan(torch.exp(log_a), b)
+    gate = F.gelu(x @ params["w_gate"], approximate="tanh")
+    return (hseq.to(x.dtype) * gate) @ params["w_out"], hseq
 
 
 def linear_scan(a, b):
@@ -81,17 +137,20 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_apply(params, x, conv_width=4, want_cache=False):
+def rglru_apply(params, x, conv_width=4, want_cache=False, *, mp=None,
+                specs=None):
     """Sequence mode. x [B,S,d] -> [B,S,d]; with ``want_cache`` (y, the
     decode cache after the sequence: the last state and the last
     ``conv_width - 1`` conv inputs, as ``transformer._rglru_seq_cache``
-    makes them in the JAX package)."""
-    u_in = x @ params["w_x"]
-    u = _causal_conv(u_in, params["conv_w"], params["conv_b"])
-    log_a, b = _gates(params, u)
-    hseq = linear_scan(torch.exp(log_a), b)
-    gate = F.gelu(x @ params["w_gate"], approximate="tanh")
-    y = (hseq.to(x.dtype) * gate) @ params["w_out"]
+    makes them in the JAX package; the rank's W block of each under
+    ``mp``, module docstring)."""
+    split = _split(mp, specs)
+    xin, rep = _rank_parts(params, x, mp, split)
+    u_in, u = rglru_block_in(params, xin, rep)
+    u_all = gather_from_model(u, -1, mp) if split else u
+    y, hseq = rglru_block_out(params, xin, rep, u, u_all)
+    if split:
+        y = reduce_from_model(y, mp)
     if not want_cache:
         return y
     S, W1 = x.shape[1], conv_width - 1
@@ -112,16 +171,22 @@ def rglru_init_cache(batch, lru_width, conv_width=4, dtype=torch.float32,
     }
 
 
-def rglru_decode(params, x, cache, conv_width=4):
+def rglru_decode(params, x, cache, conv_width=4, *, mp=None, specs=None):
     """x [B,1,d] -> (y [B,1,d], new cache): fresh tensors, the cache read
-    only."""
-    u = x @ params["w_x"]                                      # [B,1,W]
+    only (under ``mp`` the cache and the new one are the rank's W
+    blocks)."""
+    split = _split(mp, specs)
+    xin, rep = _rank_parts(params, x, mp, split)
+    u = xin @ params["w_x"]                                    # [B,1,W]
     win = torch.cat([cache["conv"], u], dim=1)
-    u1 = (win * params["conv_w"]).sum(1) + params["conv_b"]
-    log_a, b = _gates(params, u1)
+    u1 = (win * rep["conv_w"]).sum(1) + rep["conv_b"]
+    log_a, b = _gates(params, rep, u1,
+                      gather_from_model(u1, -1, mp) if split else u1)
     h = torch.exp(log_a) * cache["h"] + b
-    gate = F.gelu(x[:, 0] @ params["w_gate"], approximate="tanh")
+    gate = F.gelu(xin[:, 0] @ params["w_gate"], approximate="tanh")
     y = (h.to(x.dtype) * gate) @ params["w_out"]
+    if split:
+        y = reduce_from_model(y, mp)
     return y[:, None, :], {"h": h, "conv": win[:, 1:]}
 
 

@@ -31,6 +31,23 @@ Decode (:func:`ssd_decode`) carries ``{"h": [B, H, P, N] f32, "conv": [B,
 W - 1, conv_ch]}`` (the last W - 1 conv inputs, before the conv) and
 returns a new cache; ``models.transformer`` copies it into its cache in
 place.
+
+Split over ``model`` (``mp`` of more than one rank, ``specs`` the leaves'
+specs): the JAX layout replicates ``w_in`` and the small leaves, splits
+``w_out`` on its rows (d_inner, head-major), and splits the cache's state
+[B, H, P, N] on P and its conv window [B, W - 1, conv_ch] on conv_ch,
+which mixes the x, B and C channels.  The recurrence is independent over
+P, so each rank computes the P slice of every head: the projection and
+the conv run whole on every rank (their outputs enter the rank's part
+through ``copy_to_model``, so every replicated leaf's gradient sums the
+ranks' parts), the chunked scan and ``D x`` run on the rank's P slice,
+``y`` is gathered over ``model`` (P), the rank's row block of ``y *
+silu(z)`` meets its rows of ``w_out``, and the products are reduced.  A
+decode step gathers the small conv window, computes the rank's P slice of
+the new state and writes back only its conv_ch block.  The P and conv_ch
+splits follow the cache rule (``launch.sharding.cache_shardings``: a dim
+is split where ``model`` divides it).  :func:`ssd_block` is a rank's
+part of the scan: a test runs it rank by rank in one process.
 """
 from __future__ import annotations
 
@@ -38,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import (copy_to_model, gather_from_model,
+                                  model_dim, reduce_from_model)
 
 
 def ssd_init(generator, d_model, *, expand, d_state, head_dim, conv_width,
@@ -82,27 +101,66 @@ def _split_proj(params, x, cfg_dims):
     return z, xBC, dt
 
 
+def _splits(mp, specs, head_dim, conv_ch):
+    """(w_out split on its rows, the P split, the conv_ch split) over
+    ``model``, the last two by the cache rule."""
+    m = mp.size if mp is not None and mp.active and specs is not None else 1
+    rows = m > 1 and model_dim(specs["w_out"]) == 0
+    return rows, rows and head_dim % m == 0, m > 1 and conv_ch % m == 0
+
+
+def _rank_slice(mp, n_loc):
+    return slice(mp.rank * n_loc, (mp.rank + 1) * n_loc)
+
+
+def ssd_block(xs, Bmat, Cmat, dt, A, D, chunk):
+    """The scan's output y [B,S,H,P'] (P' = P or a rank's P slice) of
+    ``xs`` [B,S,H,P'] with the shared B / C [B,S,N], dt [B,S,H] (after
+    softplus), A [H] and the skip ``D`` [H]."""
+    y = _ssd_chunked(xs, Bmat, Cmat, dt, A, chunk)
+    return y + D.to(y.dtype)[None, None, :, None] * xs
+
+
+def _out(params, y, z, mp, rows):
+    """``(y * silu(z)) @ w_out`` of y [..., d_inner] whole; under ``rows``
+    the rank's row block meets its rows of ``w_out``, reduced."""
+    y = y * F.silu(z)
+    if not rows:
+        return y @ params["w_out"]
+    n = params["w_out"].shape[0]
+    return reduce_from_model(y[..., _rank_slice(mp, n)] @ params["w_out"],
+                             mp)
+
+
 def ssd_apply(params, x, *, expand, d_state, head_dim, chunk, conv_width,
-              want_cache=False):
+              want_cache=False, mp=None, specs=None):
     """Sequence mode. x [B,S,d] -> y [B,S,d]; with ``want_cache`` (y,
     the decode cache after the sequence): the last W - 1 conv inputs and
     the final state in the JAX package's closed form
     (``transformer._ssd_seq_with_cache``): h = sum_t exp(sum_{j>t} a_j)
-    dt_t x_t outer B_t."""
+    dt_t x_t outer B_t.  Under ``mp`` the cache is the rank's blocks
+    (module docstring)."""
     Bsz, S, d_model = x.shape
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
+    conv_ch = d_inner + 2 * d_state
+    rows, p_split, c_split = _splits(mp, specs, head_dim, conv_ch)
     z, xBC_in, dt = _split_proj(params, x, (d_inner, d_state, n_heads))
     xBC = F.silu(_causal_conv(xBC_in, params["conv_w"], params["conv_b"]))
+    dt = F.softplus(dt.float() + params["dt_bias"].float())    # [B,S,H]
+    A = -torch.exp(params["A_log"].float())                    # [H] < 0
+    D = params["D"]
+    if rows:     # the rank's part consumes them: sum their gradients
+        xBC, z, dt, A, D = (copy_to_model(t, mp) for t in (xBC, z, dt, A, D))
     xs = xBC[..., :d_inner].reshape(Bsz, S, n_heads, head_dim)
     Bmat = xBC[..., d_inner:d_inner + d_state]                 # [B,S,N]
     Cmat = xBC[..., d_inner + d_state:]                        # [B,S,N]
-    dt = F.softplus(dt.float() + params["dt_bias"].float())    # [B,S,H]
-    A = -torch.exp(params["A_log"].float())                    # [H] < 0
-    y = _ssd_chunked(xs, Bmat, Cmat, dt, A, chunk)
-    y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
-    y = y.reshape(Bsz, S, d_inner)
-    y = (y * F.silu(z)) @ params["w_out"]
+    if p_split:
+        xs = xs[..., _rank_slice(mp, head_dim // mp.size)]
+    y = ssd_block(xs, Bmat, Cmat, dt, A, D, chunk)
+    if p_split:
+        y = gather_from_model(y, -1, mp)
+    y = _out(params, y.reshape(Bsz, S, d_inner), z, mp, rows)
     if not want_cache:
         return y
     W1 = conv_width - 1
@@ -115,7 +173,10 @@ def ssd_apply(params, x, *, expand, d_state, head_dim, chunk, conv_width,
     w = torch.exp(rev_cum) * dt                              # [B,S,H]
     h = torch.einsum("bshp,bsn->bhpn", w[..., None] * xs.float(),
                      Bmat.float())
-    return y, {"h": h, "conv": xBC_in[:, S - W1:].contiguous()}
+    conv = xBC_in[:, S - W1:]
+    if c_split:
+        conv = conv[..., _rank_slice(mp, conv_ch // mp.size)]
+    return y, {"h": h, "conv": conv.contiguous()}
 
 
 def _ssd_chunked(xs, Bmat, Cmat, dt, A, chunk):
@@ -175,20 +236,29 @@ def ssd_init_cache(batch, d_model, *, expand, d_state, head_dim, conv_width,
     }
 
 
-def ssd_decode(params, x, cache, *, expand, d_state, head_dim, conv_width):
+def ssd_decode(params, x, cache, *, expand, d_state, head_dim, conv_width,
+               mp=None, specs=None):
     """x [B,1,d] -> (y [B,1,d], new cache): fresh tensors, the cache
-    read only."""
+    read only (under ``mp`` the rank's blocks, module docstring)."""
     Bsz, _, d_model = x.shape
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
+    conv_ch = d_inner + 2 * d_state
+    rows, p_split, c_split = _splits(mp, specs, head_dim, conv_ch)
     z, xBC, dt = _split_proj(params, x, (d_inner, d_state, n_heads))
     # conv over the stored window + the current input
-    win = torch.cat([cache["conv"], xBC], dim=1)             # [B,W,ch]
+    stored = gather_from_model(cache["conv"], -1, mp) if c_split \
+        else cache["conv"]
+    win = torch.cat([stored, xBC], dim=1)                    # [B,W,ch]
     conv_out = (win * params["conv_w"]).sum(1) + params["conv_b"]
     xBC = F.silu(conv_out)[:, None, :]
     new_conv = win[:, 1:]
+    if c_split:
+        new_conv = new_conv[..., _rank_slice(mp, conv_ch // mp.size)]
 
     xs = xBC[..., :d_inner].reshape(Bsz, n_heads, head_dim)
+    if p_split:
+        xs = xs[..., _rank_slice(mp, head_dim // mp.size)]
     Bv = xBC[:, 0, d_inner:d_inner + d_state]                # [B,N]
     Cv = xBC[:, 0, d_inner + d_state:]
     dtv = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # [B,H]
@@ -199,9 +269,10 @@ def ssd_decode(params, x, cache, *, expand, d_state, head_dim, conv_width):
     h = decay[:, :, None, None] * cache["h"] + upd
     y = torch.einsum("bhpn,bn->bhp", h, Cv.float())
     y = y + params["D"].float()[None, :, None] * xs
+    if p_split:
+        y = gather_from_model(y, -1, mp)
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    y = y * F.silu(z)
-    return y @ params["w_out"], {"h": h, "conv": new_conv}
+    return _out(params, y, z, mp, rows), {"h": h, "conv": new_conv}
 
 
 def ssd_reference(params, x, *, expand, d_state, head_dim, conv_width):

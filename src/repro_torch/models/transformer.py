@@ -76,10 +76,11 @@ computes the new state and the shifted window into fresh tensors and
 copies them into the cache leaves, so the step stays in place as for the
 K/V caches.  A prompt shorter than ``conv_width - 1`` raises
 ``ValueError`` (the JAX package would make a short conv cache that its own
-decode then fails on).  Under ``tp`` with a ``model`` axis of more than
-one rank they raise ``NotImplementedError``: their column / row split
-comes with the FSDP step (ROADMAP Queue 1 item 13); clients over
-``data`` run as for the dense stack.
+decode then fails on).  Under ``tp`` they run on the rank's blocks of
+the JAX layout (``models/rglru.py``: W split, the conv output gathered
+before the gates; ``models/ssd.py``: the P slice of every head, ``y``
+gathered; each module's docstring), their caches the rank's blocks of
+``h`` and ``conv`` (the layer's own cache specs).
 
 ``cfg.remat`` (activation checkpointing) follows the JAX package:
 ``"layer"`` wraps each full cycle of ``forward_seq`` (every layer of one
@@ -120,10 +121,26 @@ token embeddings (a shorter prompt raises ``ValueError``), and M-RoPE
 positions ``mrope_positions`` [3, B, S] (temporal, height, width); without
 them every stream is the token's position, as at decode.
 
-Under ``tp`` with a ``model`` axis of more than one rank the two families
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 13: their encoder,
-cross-attention and vision leaves split over ``model`` come with the mesh
-slice); clients over ``data`` run, as for the dense stack.
+Under ``tp`` the two families split as the dense stack does: the
+encoder's layers and the decoder's cross-attention run head-parallel (or
+gathered) with the MLP's column / row split; ``vis_proj`` and the
+encoder's ``in_proj`` (the JAX layouts' generic ``w``, split on its
+columns) have their blocks gathered before the residual stream; the cross
+cache ``xk`` / ``xv`` is the rank's block under ``cache_shardings`` (its
+F frames split over ``model``, say 1,500 as 750 + 750), and a decode step
+runs K9 on the rank's F slice with no valid length and each row's
+log-sum-exp, then merges the slices after one all-gather, as for the
+self cache.
+
+FSDP (``tp.fsdp``, the ``client_sequential`` round on a mesh with
+``data`` > 1; ``repro_torch.parallel``): every leaf split over ``data`` is
+gathered just before use, a layer's inside its ``remat="layer"`` cycle
+(so the backward gathers it again and only the blocks are kept); each
+data rank runs its share of the client's rows, except an MoE layer, whose
+gather dispatch routes the whole batch (:func:`_ffn`).  The token table
+and the head, the largest leaves, are not gathered where the rows are
+split: the lookup and the head move the rows' columns and the partial
+logits instead (:func:`_embed_tokens`, :func:`head_apply`).
 """
 from __future__ import annotations
 
@@ -140,8 +157,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attn import flash_decode_plain, merge_partials
 from repro_torch.kernels.flash_attn import make_flash_attention
-from repro_torch.parallel import (copy_to_model, model_dim,
-                                  reduce_from_model, spec_axes)
+from repro_torch.parallel import (columns_of_rows, copy_to_model, data_dim,
+                                  fsdp_gather, gather_from_data,
+                                  gather_replicated, model_dim,
+                                  reduce_from_model, rows_to_columns,
+                                  spec_axes, sum_onto_rows)
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
@@ -156,25 +176,12 @@ from repro_torch.tree import tree_map, tree_with_path
 
 _ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 _RECURRENT = (SSD, RGLRU)
-_MESH_SLICE = ("ROADMAP Queue 1 item 13: the mesh slice, with the FSDP "
-               "step; clients over data run")
 
 
 def _check_supported(cfg: ArchConfig, tp=None) -> None:
     bad = sorted(set(cfg.block_pattern) - set(_ATTN) - set(_RECURRENT))
     if bad:
         raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
-    if _mp(tp) is not None and set(cfg.block_pattern) & set(_RECURRENT):
-        raise NotImplementedError(
-            f"{cfg.name}: SSD / RG-LRU layers split over a model axis of "
-            "more than one rank are not ported yet (ROADMAP Queue 1 item "
-            "13: their column / row split comes with the FSDP step); "
-            "clients over data run")
-    if _mp(tp) is not None and (cfg.n_enc_layers or cfg.mrope
-                                or cfg.family in ("vlm", "audio")):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family split over a model axis "
-            f"of more than one rank is not ported yet ({_MESH_SLICE})")
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +271,11 @@ def _mp(tp):
 def _ffn(cfg: ArchConfig, p, hn, *, tp, ps, decode=False):
     """The layer's FFN on ``hn``: (out, aux), aux None for a dense MLP.
     MoE decode runs every expert at full capacity (T = B tokens, none
-    dropped), as the JAX package does."""
+    dropped), as the JAX package does.  Under FSDP with the rows split
+    over ``data`` the gather dispatch routes the client's whole batch:
+    its tokens are gathered over ``data`` (an expert's capacity and the
+    aux loss are the whole batch's, as on one device), and the rank keeps
+    its rows of the output."""
     if not cfg.n_experts:
         return mlp_apply(p["ffn"], hn, cfg.act, mp=_mp(tp),
                          specs=None if ps is None else ps["ffn"]), None
@@ -281,51 +292,71 @@ def _ffn(cfg: ArchConfig, p, hn, *, tp, ps, decode=False):
                              "launch.steps on a mesh)")
         return moe_apply_a2a(p["moe"], hn, tp.mp,
                              capacity_factor=cfg.moe_capacity, **kw)
-    return moe_apply(p["moe"], hn, capacity_factor=cfg.moe_capacity,
-                     shard_capacity=cfg.moe_shard_capacity, mp=mp, **kw)
+    rows = tp is not None and tp.data_rows
+    if rows:
+        hn = gather_from_data(hn, 0, mp)
+    out, aux = moe_apply(p["moe"], hn, capacity_factor=cfg.moe_capacity,
+                         shard_capacity=cfg.moe_shard_capacity, mp=mp, **kw)
+    if rows:
+        out = out.chunk(tp.data_size, 0)[mp.place(("data",))[2]]
+    return out, aux
 
 
-def _cache_split(tp, cache_spec) -> int:
-    """Over how many ranks a layer's cache length is split (1 without
-    ``tp``)."""
-    if tp is None or cache_spec is None:
-        return 1
-    return tp.mp.place(spec_axes(cache_spec[1]))[1]
+def _fsdp_layer(cfg: ArchConfig, p, ps, tp):
+    """A layer's parameters with their FSDP blocks gathered over ``data``
+    (and their specs without ``data``); the experts stay split where the
+    all-to-all dispatch reaches them there."""
+    a2a = cfg.moe_dispatch == "a2a"
+    return fsdp_gather(p, ps, tp, keep=lambda s: a2a and len(s) == 3
+                       and data_dim(s) == 0)
 
 
-def _refuse_split_cross(cfg, p, n):
-    if "xattn" in p and n > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a cross-attention cache split over {n} ranks is "
-            f"not ported yet ({_MESH_SLICE})")
+def _l_parts(tp, spec):
+    """(group, count, position) of the ranks a cache's length (dim 1 of
+    ``spec``) is split over: one rank without ``tp``."""
+    if tp is None or spec is None:
+        return None, 1, 0
+    return tp.mp.place(spec_axes(spec[1]))
 
 
-def _cross_attention(cfg: ArchConfig, p, h, enc_out):
+def _cross_attention(cfg: ArchConfig, p, h, enc_out, *, mp=None, ps=None):
     """The decoder layer's cross-attention branch in sequence mode:
-    (residual to add, its k, v [B,F,KV,hd]).  Bidirectional q [B,S,H,hd]
+    (residual to add, its k, v [B,F,KV',hd]).  Bidirectional q [B,S,H',hd]
     against the encoder's F frames, the plain masked softmax on every
     device (the JAX package's jnp ``flash_attention(..., causal=False)``;
-    the queries' k / v projections it also computes are unused)."""
+    the queries' k / v projections it also computes are unused).  Split
+    over ``model`` the heads are split as the self-attention's
+    (``attn.project_qkv``: this rank's heads, KV' = KV / m, where they
+    divide; gathered otherwise)."""
     hx = norm_apply(_norm_kind(cfg), p["lnx"], h, cfg.norm_eps)
-    B, S, _ = hx.shape
-    F_ = enc_out.shape[1]
     px = p["xattn"]
-    q = (hx @ px["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (enc_out @ px["wk"]).reshape(B, F_, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ px["wv"]).reshape(B, F_, cfg.n_kv_heads, cfg.head_dim)
+    kw = dict(mp=mp, specs=None if ps is None else ps["xattn"])
+    q, = attn.project_qkv(px, hx, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          names=("wq",), **kw)
+    k, v = attn.project_qkv(px, enc_out, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, names=("wk", "wv"), **kw)
     o = attn.flash_attention(q, k, v, causal=False)
-    return attn.project_out(px, o), k, v
+    return attn.project_out(px, o, **kw), k, v
+
+
+def _all_heads(cfg, mp, k, v):
+    """k, v with all KV heads (a head-parallel rank gathers them; no
+    autograd: the cache is not trained)."""
+    if mp is not None and k.shape[2] != cfg.n_kv_heads:
+        with torch.no_grad():
+            return mp.all_gather(k, 2), mp.all_gather(v, 2)
+    return k, v
 
 
 def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
                max_len, tp=None, ps=None, cache_spec=None, mrope_pos=None,
                enc_out=None):
     """Sequence-mode layer. Returns (h, aux or None, cache_or_None).
-    ``ps``: the layer's parameter specs, ``cache_spec`` its cache's k spec
+    ``ps``: the layer's parameter specs, ``cache_spec`` its cache's specs
     (under ``tp``); ``mrope_pos`` [3,B,S] M-RoPE positions; ``enc_out``
     the encoder's output [B,F,d] (a decoder layer with cross-attention)."""
     if kind in _RECURRENT:
-        return _recurrent_seq(cfg, kind, p, h, want_cache)
+        return _recurrent_seq(cfg, kind, p, h, want_cache, tp=tp, ps=ps)
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
@@ -346,19 +377,20 @@ def _layer_seq(cfg: ArchConfig, kind: str, p, h, *, positions, want_cache,
                              specs=None if ps is None else ps["attn"])
     cache = None
     if want_cache:
-        if mp is not None and k.shape[2] != cfg.n_kv_heads:
-            with torch.no_grad():     # head-parallel: the cache holds all
-                k = mp.all_gather(k, 2)
-                v = mp.all_gather(v, 2)
-        cache = _seq_kv_to_cache(cfg, kind, k, v, max_len)
+        # head-parallel: the cache holds all heads
+        cache = _seq_kv_to_cache(cfg, kind, *_all_heads(cfg, mp, k, v),
+                                 max_len)
         if tp is not None and cache_spec is not None:
-            cache = {n: _l_block(t, cache_spec, tp) for n, t in cache.items()}
+            cache = {n: _l_block(t, cache_spec["k"], tp)
+                     for n, t in cache.items()}
     if "xattn" in p:
-        if want_cache:
-            _refuse_split_cross(cfg, p, _cache_split(tp, cache_spec))
-        out, xk, xv = _cross_attention(cfg, p, h, enc_out)
+        out, xk, xv = _cross_attention(cfg, p, h, enc_out, mp=mp, ps=ps)
         h = h + out
         if want_cache:
+            xk, xv = _all_heads(cfg, mp, xk, xv)
+            if tp is not None and cache_spec is not None:
+                xk = _l_block(xk, cache_spec["xk"], tp)
+                xv = _l_block(xv, cache_spec["xv"], tp)
             cache["xk"], cache["xv"] = xk, xv
     ff, aux = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps),
                    tp=tp, ps=ps)
@@ -372,39 +404,56 @@ def _checkpoint(fn, *args):
                       preserve_rng_state=False)
 
 
-def _recurrent_seq(cfg: ArchConfig, kind: str, p, h, want_cache):
-    """Sequence-mode SSD or RG-LRU layer: (h, None, cache_or_None)."""
+def _recurrent_seq(cfg: ArchConfig, kind: str, p, h, want_cache, *,
+                   tp=None, ps=None):
+    """Sequence-mode SSD or RG-LRU layer: (h, None, cache_or_None); under
+    ``tp`` on the rank's blocks (``models/ssd.py``, ``models/rglru.py``),
+    the cache the rank's blocks of ``h`` and ``conv``."""
     nk = _norm_kind(cfg)
+    mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
     if kind == SSD:
         out = ssd_mod.ssd_apply(p["ssd"], hn, chunk=cfg.ssm_chunk,
-                                want_cache=want_cache, **_ssd_kw(cfg))
+                                want_cache=want_cache, mp=mp,
+                                specs=None if ps is None else ps["ssd"],
+                                **_ssd_kw(cfg))
     else:
-        out = rglru_mod.rglru_apply(p["rglru"], hn, want_cache=want_cache)
+        out = rglru_mod.rglru_apply(p["rglru"], hn, want_cache=want_cache,
+                                    mp=mp, specs=None if ps is None
+                                    else ps["rglru"])
     y, cache = out if want_cache else (out, None)
     h = h + y
     if kind == RGLRU:
         h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
-                                               cfg.norm_eps), cfg.act)
+                                               cfg.norm_eps), cfg.act,
+                          mp=mp, specs=None if ps is None else ps["ffn"])
     return h, None, cache
 
 
-def _recurrent_decode(cfg: ArchConfig, kind: str, p, h, cache):
+def _recurrent_decode(cfg: ArchConfig, kind: str, p, h, cache, *, tp=None,
+                      ps=None):
     """Decode-mode SSD or RG-LRU layer: h [B,1,d].  The new state and the
     shifted conv window are fresh tensors, copied into ``cache`` (its
-    leaves keep their storage: a captured step reads and writes them)."""
+    leaves keep their storage: a captured step reads and writes them);
+    under ``tp`` the rank's blocks."""
     nk = _norm_kind(cfg)
+    mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
     if kind == SSD:
-        y, new = ssd_mod.ssd_decode(p["ssd"], hn, cache, **_ssd_kw(cfg))
+        y, new = ssd_mod.ssd_decode(p["ssd"], hn, cache, mp=mp,
+                                    specs=None if ps is None else ps["ssd"],
+                                    **_ssd_kw(cfg))
     else:
-        y, new = rglru_mod.rglru_decode(p["rglru"], hn, cache)
+        y, new = rglru_mod.rglru_decode(p["rglru"], hn, cache, mp=mp,
+                                        specs=None if ps is None
+                                        else ps["rglru"])
     cache["h"].copy_(new["h"])
     cache["conv"].copy_(new["conv"])
     h = h + y
     if kind == RGLRU:
         h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
-                                               cfg.norm_eps), cfg.act)
+                                               cfg.norm_eps), cfg.act,
+                          mp=mp, specs=None if ps is None else ps["ffn"])
     return h, cache
 
 
@@ -441,6 +490,17 @@ def _seq_kv_to_cache(cfg, kind, k, v, max_len):
             "v": torch.roll(v[:, S - L:], shift, dims=1)}
 
 
+def _merge_slices(tp, o, lse, group, n):
+    """The attention over a cache split over ``n`` ranks from this rank's
+    ``(o, lse)`` on its slice: one all-gather, then
+    ``decode_attn.merge_partials``."""
+    B, _, H, hd = o.shape
+    both = tp.mp.all_gather(torch.cat([o.reshape(B, H * hd), lse],
+                                      dim=1)[None], 0, group=group, size=n)
+    return merge_partials(both[:, :, :H * hd].reshape(n, B, 1, H, hd),
+                          both[:, :, H * hd:])
+
+
 def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                   positions, tp=None, ps=None, cache_spec=None,
                   mrope_pos=None):
@@ -451,11 +511,12 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
     ``pos``; only whether the cache is split (a Python fact) picks the
     sliced write and the merge.  An SSD or RG-LRU layer updates its state
     and conv window in place (:func:`_recurrent_decode`).  A decoder layer
-    with cross-attention then attends over its whole cross cache ``xk`` /
+    with cross-attention then attends over its cross cache ``xk`` /
     ``xv`` (K9 under ``"pallas"``, no valid length), which it never
-    writes."""
+    writes; split over ranks (on F), K9 runs on the rank's slice with each
+    row's log-sum-exp and the slices are merged as the self cache's."""
     if kind in _RECURRENT:
-        return _recurrent_decode(cfg, kind, p, h, cache)
+        return _recurrent_decode(cfg, kind, p, h, cache, tp=tp, ps=ps)
     nk = _norm_kind(cfg)
     mp = _mp(tp)
     hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
@@ -464,9 +525,8 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
                                specs=None if ps is None else ps["attn"],
                                gather=True)
     q, k = _apply_rope_any(cfg, q, k, positions, mrope_pos)
-    group, n, position = (None, 1, 0) if tp is None else \
-        tp.mp.place(spec_axes(cache_spec[1]))
-    _refuse_split_cross(cfg, p, n)
+    group, n, position = _l_parts(tp, None if cache_spec is None
+                                  else cache_spec["k"])
     L_loc = cache["k"].shape[1]
     L = L_loc * n
     slot = pos % L if kind == ATTN_LOCAL else pos
@@ -487,21 +547,21 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, h, cache, *, pos,
               else flash_decode_plain)
     o = decode(q, cache["k"], cache["v"], valid, want_lse=n > 1)
     if n > 1:
-        o, lse = o
-        B, _, H, hd = o.shape
-        both = tp.mp.all_gather(
-            torch.cat([o.reshape(B, H * hd), lse], dim=1)[None], 0,
-            group=group, size=n)
-        o = merge_partials(both[:, :, :H * hd].reshape(n, B, 1, H, hd),
-                           both[:, :, H * hd:])
+        o = _merge_slices(tp, *o, group, n)
     h = h + attn.project_out(p["attn"], o, mp=mp,
                              specs=None if ps is None else ps["attn"])
     if "xattn" in p:
         hx = norm_apply(nk, p["lnx"], h, cfg.norm_eps)
-        qx = (hx @ p["xattn"]["wq"]).reshape(h.shape[0], 1, cfg.n_heads,
-                                             cfg.head_dim)
-        h = h + attn.project_out(p["xattn"],
-                                 decode(qx, cache["xk"], cache["xv"]))
+        kw = dict(mp=mp, specs=None if ps is None else ps["xattn"])
+        qx, = attn.project_qkv(p["xattn"], hx, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, gather=True, names=("wq",),
+                               **kw)
+        group, n, _ = _l_parts(tp, None if cache_spec is None
+                               else cache_spec["xk"])
+        o = decode(qx, cache["xk"], cache["xv"], want_lse=n > 1)
+        if n > 1:
+            o = _merge_slices(tp, *o, group, n)
+        h = h + attn.project_out(p["xattn"], o, **kw)
     ff, _ = _ffn(cfg, p, norm_apply(nk, p["ln2"], h, cfg.norm_eps), tp=tp,
                  ps=ps, decode=True)
     return h + ff, cache
@@ -562,17 +622,47 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # Forward: sequence mode (prefill)
 # ---------------------------------------------------------------------------
 
+def _leaf(tp, x, spec):
+    """Leaf ``x`` with its FSDP block gathered over ``data`` (under an FSDP
+    ``tp``; as it is otherwise)."""
+    if tp is None or tp.data_size == 1 or data_dim(spec) is None:
+        return x
+    return gather_from_data(x, data_dim(spec), tp.mp)
+
+
 def _embed_tokens(params, tokens, tp):
     """The token lookup; vocab-parallel when ``tp`` splits the table on V:
     each rank looks up the ids in its range, zeroes the others' rows and
-    the sum over ``model`` completes every row."""
+    the sum over ``model`` completes every row.  Under FSDP the table's
+    block split on d over ``data`` is not gathered: each rank looks up its
+    columns of the client's rows (gathered: the ids are small) and one
+    all-to-all hands each rank its own rows' whole width
+    (``parallel.rows_to_columns``), so the step moves the rows, not the
+    table; its gradient is then the whole gradient of the rank's columns.
+    Where every data rank holds the same rows, the columns are gathered
+    (``gather_from_data``)."""
+    table = params["embed"]["table"]
+    spec = None if tp is None else tp.model_specs["embed"]["table"]
+    if tp is None or tp.data_size == 1 or data_dim(spec) != 1:
+        if tp is not None:
+            table = _leaf(tp, table, spec)
+        return _lookup(table, tokens, tp, spec)
+    mp = tp.mp
+    if not tp.data_rows:
+        return gather_from_data(_lookup(table, tokens, tp, spec), -1, mp)
+    group, n, _ = mp.place(("data",))
+    ids = mp.all_gather(tokens, 0, group=group, size=n)
+    return rows_to_columns(_lookup(table, ids, tp, spec), mp)
+
+
+def _lookup(table, tokens, tp, spec):
+    """Rows of ``table`` (whole, or this rank's V block under ``tp``)."""
     # F.embedding, not ``table[tokens]``: the indexing backward on the CPU
     # (index_put_ with accumulate) adds the rows of repeated tokens in a
     # thread-dependent order, so two equal calls could differ by an ulp;
     # embedding's backward (index_add_) adds them in index order
-    table = params["embed"]["table"]
     mp = _mp(tp)
-    if mp is None or model_dim(tp.model_specs["embed"]["table"]) != 0:
+    if mp is None or model_dim(spec) != 0:
         return F.embedding(tokens, table)
     V_loc = table.shape[0]
     local = tokens - mp.rank * V_loc
@@ -581,13 +671,26 @@ def _embed_tokens(params, tokens, tp):
     return reduce_from_model(rows * own.unsqueeze(-1).to(rows.dtype), mp)
 
 
+def _column_proj(tp, x, p, spec):
+    """``x @ p["w"]`` for a generic projection ``w`` [d, d] whose output
+    enters the residual stream: split on its columns over ``model``, the
+    blocks are gathered (:func:`repro_torch.parallel.gather_replicated`:
+    every rank holds the stream's gradient whole)."""
+    mp = _mp(tp)
+    if mp is None or model_dim(spec["w"]) != 1:
+        return x @ _leaf(tp, p["w"], None if tp is None else spec["w"])
+    return gather_replicated(x @ _leaf(tp, p["w"], spec["w"]), -1, mp)
+
+
 def _embed_inputs(cfg, params, batch, tp=None):
     """The token embeddings, the projected vision embeddings in place of
     the first ``n_vision_tokens`` (VLM), plus sinusoidal positions
     (audio)."""
     h = _embed_tokens(params, batch["tokens"], tp)
     if cfg.family == "vlm" and "vision_embeds" in batch:
-        ve = batch["vision_embeds"] @ params["vis_proj"]["w"]
+        ve = _column_proj(tp, batch["vision_embeds"], params["vis_proj"],
+                          None if tp is None
+                          else tp.model_specs["vis_proj"])
         nv = ve.shape[1]
         if h.shape[1] < nv:
             # the JAX concat would return nv positions, not S
@@ -600,42 +703,54 @@ def _embed_inputs(cfg, params, batch, tp=None):
     return h
 
 
-def _run_encoder(cfg: ArchConfig, params, frames):
+def _run_encoder(cfg: ArchConfig, params, frames, tp=None):
     """The Whisper encoder over stub frame embeddings [B,F,d]: bidirectional
     self-attention (K8a / K8b / K8c with ``causal=False`` under
     ``"pallas"``, the plain masked softmax otherwise) and the GELU MLP per
-    layer, then the final layer norm."""
+    layer, then the final layer norm.  Under ``tp`` each layer runs on the
+    rank's blocks as a decoder layer does (head-parallel attention where
+    the heads divide, the MLP's column / row split), and ``in_proj``'s
+    column blocks are gathered before the residual stream."""
     nk = _norm_kind(cfg)
     enc = params["enc"]
-    h = frames @ enc["in_proj"]["w"]
+    es = None if tp is None else tp.model_specs["enc"]
+    mp = _mp(tp)
+    h = _column_proj(tp, frames, enc["in_proj"],
+                     None if es is None else es["in_proj"])
     h = h + sinusoidal_positions(frames.shape[1], cfg.d_model, h.dtype,
                                  h.device)[None]
     for i in range(cfg.n_enc_layers):
         p = tree_map(lambda x: x[i], enc["layers"])
+        ps = None if es is None else _drop_lead(es["layers"])
+        p, ps = _fsdp_layer(cfg, p, ps, tp)
         hn = norm_apply(nk, p["ln1"], h, cfg.norm_eps)
+        kw = dict(mp=mp, specs=None if ps is None else ps["attn"])
         q, k, v = attn.project_qkv(p["attn"], hn, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.head_dim)
+                                   cfg.n_kv_heads, cfg.head_dim, **kw)
         if cfg.attn_impl == "pallas":
             o = make_flash_attention(causal=False)(q, k, v)
         else:
             o = attn.flash_attention(q, k, v, causal=False)
-        h = h + attn.project_out(p["attn"], o)
+        h = h + attn.project_out(p["attn"], o, **kw)
         h = h + mlp_apply(p["ffn"], norm_apply(nk, p["ln2"], h,
-                                               cfg.norm_eps), cfg.act)
+                                               cfg.norm_eps), cfg.act,
+                          mp=mp, specs=None if ps is None else ps["ffn"])
     return norm_apply(nk, enc["norm"], h, cfg.norm_eps)
 
 
 def _layer_parts(tp, cycle, j):
     """The parameter and cache specs of a layer of cycle kind ``j``
-    (``cycle``), or of tail layer ``j``: (None, None) without ``tp``."""
+    (``cycle``), or of tail layer ``j``: (None, None) without ``tp``.  The
+    cache specs are the layer's own (``k`` / ``v``, the cross cache's
+    ``xk`` / ``xv``, a recurrent layer's ``h`` / ``conv``)."""
     if tp is None:
         return None, None
     group = "cycles" if cycle else "tail"
     ps = tp.model_specs[group][j]
-    cs = None if tp.cache_specs is None else tp.cache_specs[group][j]["k"]
+    cs = None if tp.cache_specs is None else tp.cache_specs[group][j]
     if cycle:     # drop the stacked (cycle) dim
         ps = _drop_lead(ps)
-        cs = None if cs is None else cs[1:]
+        cs = None if cs is None else _drop_lead(cs)
     return ps, cs
 
 
@@ -667,7 +782,7 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
         if "audio_frames" not in batch:
             raise ValueError(f"{cfg.name}: the batch needs 'audio_frames' "
                              "[B, F, d_model], the encoder's input")
-        enc_out = _run_encoder(cfg, params, batch["audio_frames"])
+        enc_out = _run_encoder(cfg, params, batch["audio_frames"], tp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     c, n_full, rem = cycle_split(cfg.block_pattern)
     caches = [[] for _ in range(c)]
@@ -678,6 +793,7 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
         for j, kind in enumerate(cfg.block_pattern[:c]):
             p = tree_map(lambda x: x[i], params["cycles"][j])
             ps, cs = _layer_parts(tp, True, j)
+            p, ps = _fsdp_layer(cfg, p, ps, tp)
             h, a, cache = _layer_seq(cfg, kind, p, h, positions=positions,
                                      want_cache=want_cache, max_len=max_len,
                                      tp=tp, ps=ps, cache_spec=cs,
@@ -702,7 +818,8 @@ def forward_seq(cfg: ArchConfig, params, batch, *, want_cache=False,
     for j in range(rem):
         kind = cfg.block_pattern[n_full * c + j]
         ps, cs = _layer_parts(tp, False, j)
-        h, a, cache = _layer_seq(cfg, kind, params["tail"][j], h,
+        p, ps = _fsdp_layer(cfg, params["tail"][j], ps, tp)
+        h, a, cache = _layer_seq(cfg, kind, p, h,
                                  positions=positions, want_cache=want_cache,
                                  max_len=max_len, tp=tp, ps=ps,
                                  cache_spec=cs, mrope_pos=mrope_pos,
@@ -740,10 +857,21 @@ def head_input(cfg: ArchConfig, feats, tp=None):
 def head_apply(cfg: ArchConfig, params, feats, tp=None):
     """Logits of ``feats``; under ``tp`` with the head split on V, this
     rank's block of them (``feats`` must come through :func:`head_input`
-    or a ``gather_from_model``)."""
-    if cfg.tie_embeddings:
-        return feats @ params["embed"]["table"].T
-    return feats @ params["head"]["w"]
+    or a ``gather_from_model``).  Under FSDP the head's block split on d
+    over ``data`` is not gathered where each data rank holds its share of
+    the rows: the rank multiplies its d columns of every rank's rows
+    (``parallel.columns_of_rows``) by its block and the partial logits are
+    summed over ``data`` onto their rows (``parallel.sum_onto_rows``), so
+    the step moves logits, not the head; elsewhere the block is gathered."""
+    tied = cfg.tie_embeddings
+    w = params["embed"]["table"] if tied else params["head"]["w"]
+    spec = None if tp is None else (tp.model_specs["embed"]["table"] if tied
+                                    else tp.model_specs["head"]["w"])
+    if tp is not None and tp.data_rows and data_dim(spec) == int(tied):
+        return sum_onto_rows(columns_of_rows(feats, tp.mp)
+                             @ (w.T if tied else w), tp.mp)
+    w = _leaf(tp, w, spec)
+    return feats @ (w.T if tied else w)
 
 
 # ---------------------------------------------------------------------------

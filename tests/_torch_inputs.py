@@ -53,3 +53,71 @@ def topk_edge_case(n, case):
     at = rng.choice(n, size=m, replace=False)
     x[at] = np.roll(special, -TOPK_EDGE_T.index(case))[:m]
     return x, np.float32(t)
+
+
+# --------------------------------------------------------------------------
+# the recurrent layers' model split, rank by rank in one process
+# --------------------------------------------------------------------------
+
+def rglru_by_ranks(params, x, m):
+    """``models.rglru``'s split over ``m`` model ranks, run rank by rank:
+    each rank's first stage on its blocks (``w_x`` / ``w_gate`` / ``w_a`` /
+    ``w_i`` columns, ``w_out`` rows, its W slice of the replicated leaves),
+    the conv outputs joined (the all-gather), each rank's second stage,
+    the parts summed (the all-reduce).  Returns (y [B,S,d], each rank's
+    cache blocks ``{"h", "conv"}``)."""
+    from repro_torch.models import rglru
+    W = params["w_x"].shape[1]
+    n = W // m
+    ranks = []
+    for r in range(m):
+        sl = slice(r * n, (r + 1) * n)
+        p = dict(params, w_x=params["w_x"][:, sl],
+                 w_gate=params["w_gate"][:, sl], w_a=params["w_a"][:, sl],
+                 w_i=params["w_i"][:, sl], w_out=params["w_out"][sl])
+        rep = {k: params[k][..., sl] for k in rglru._REPLICATED}
+        u_in, u = rglru.rglru_block_in(p, x, rep)
+        ranks.append((p, rep, u_in, u))
+    u_all = _cat([u for *_, u in ranks], -1)
+    y, caches = 0, []
+    for p, rep, u_in, u in ranks:
+        part, hseq = rglru.rglru_block_out(p, x, rep, u, u_all)
+        y = y + part
+        caches.append({"h": hseq[:, -1], "conv": u_in[:, -3:]})
+    return y, caches
+
+
+def ssd_by_ranks(params, x, m, *, expand, d_state, head_dim, chunk,
+                 conv_width):
+    """``models.ssd``'s split over ``m`` model ranks, run rank by rank: the
+    projection and the conv whole, each rank's scan on its P slice of
+    every head (:func:`repro_torch.models.ssd.ssd_block`), the slices
+    joined on P (the all-gather), each rank's row block of ``y *
+    silu(z)`` against its rows of ``w_out``, the parts summed.  Returns
+    y [B,S,d]."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssd
+    Bsz, S, d = x.shape
+    d_inner = expand * d
+    H = d_inner // head_dim
+    z, xBC_in, dt = ssd._split_proj(params, x, (d_inner, d_state, H))
+    xBC = F.silu(ssd._causal_conv(xBC_in, params["conv_w"],
+                                  params["conv_b"]))
+    xs = xBC[..., :d_inner].reshape(Bsz, S, H, head_dim)
+    Bm = xBC[..., d_inner:d_inner + d_state]
+    Cm = xBC[..., d_inner + d_state:]
+    dt = F.softplus(dt.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    P = head_dim // m
+    y = _cat([ssd.ssd_block(xs[..., r * P:(r + 1) * P], Bm, Cm, dt, A,
+                            params["D"], chunk) for r in range(m)], -1)
+    y = y.reshape(Bsz, S, d_inner) * F.silu(z)
+    rows = d_inner // m
+    return sum(y[..., r * rows:(r + 1) * rows]
+               @ params["w_out"][r * rows:(r + 1) * rows] for r in range(m))
+
+
+def _cat(parts, dim):
+    import torch
+    return torch.cat(parts, dim=dim)

@@ -200,7 +200,6 @@ def test_fusion_conv_kernel_matches_plain(cuda_device, T, C):
     """K2 at the CNN's shapes, smollm-135m's LM fusion (8,192 x 576), ragged
     ones and C % 4 != 0 (the scalar path, in both tilings), bitwise equal
     when run again."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     fg, fl, w = (torch.from_numpy(a).to(cuda_device)
                  for a in fusion_inputs((T,), C, T + C))
     before = tfc.fusion_conv_cuda.launches
@@ -1367,7 +1366,6 @@ def test_fusion_conv_kernel_takes_a_column_block(cuda_device, T, C, m):
     (smollm-135m's fusion at m = 2: N = 288; stablelm-3b's; N % 4 != 0 on
     the scalar path), against the plain version and the whole operator's
     columns."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     fg, fl, w = (torch.from_numpy(a).to(cuda_device)
                  for a in fusion_inputs((T,), C, T + C + m))
     N = C // m
@@ -2177,3 +2175,74 @@ def test_decode_graph_equals_eager_decode_with_cross_and_vision_inputs(
     assert loop.replays == 2 * G
     assert loop.stats["launches_per_replay"] == {
         "flash_decode": cfg.n_layers * (1 + bool(cfg.n_enc_layers))}
+
+
+# --------------------------------------------------------------------------
+# the mesh half: K9 over a split cross cache, the recurrent layers' blocks
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_flash_decode_over_cross_cache_slices_merges_to_the_whole(
+        cuda_device, n):
+    """whisper-large-v3's cross cache (4 x 1,500 frames, 20 heads of 64)
+    split as a (1, n) mesh splits it over ``model`` (750 frames a rank at
+    n = 2, 375 at n = 4): K9 on each slice with no valid length and each
+    row's log-sum-exp, merged (``merge_partials``), against K9 over the
+    whole cache and the plain version (K9's tolerances); each slice's
+    (o, lse) against the plain version's."""
+    rng = np.random.default_rng(n)
+    q = _randn(rng, (4, 1, 20, 64), cuda_device)
+    k = _randn(rng, (4, 1500, 20, 64), cuda_device)
+    v = _randn(rng, (4, 1500, 20, 64), cuda_device)
+    before = tda.flash_decode_cuda.launches
+    parts = []
+    for ks, vs in zip(k.chunk(n, dim=1), v.chunk(n, dim=1)):
+        assert ks.shape[1] == 1500 // n
+        ks, vs = ks.contiguous(), vs.contiguous()
+        o, lse = tda.flash_decode_cuda(q, ks, vs, want_lse=True)
+        po, plse = tda.flash_decode_plain(q, ks, vs, want_lse=True)
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+        parts.append((o, lse))
+    merged = tda.merge_partials(torch.stack([o for o, _ in parts]),
+                                torch.stack([lse for _, lse in parts]))
+    whole = tda.flash_decode_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert tda.flash_decode_cuda.launches == before + n + 1
+    torch.testing.assert_close(merged, whole, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(merged, tda.flash_decode_plain(q, k, v),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rglru", "ssd"])
+def test_recurrent_rank_blocks_on_the_card_match_the_whole(cuda_device,
+                                                            kind):
+    """The RG-LRU and SSD layers' model split (m = 2) run rank by rank on
+    the card (``tests/_torch_inputs.py``: each rank's blocks and slices
+    through the modules' own stages, the conv outputs or the P slices
+    joined, the parts summed) against the plain whole layer on the card,
+    at recurrentgemma-9b's width (W = 4,096) and mamba2-130m's (d 768,
+    24 heads of 64, state 128), a batch of 2 x 256: rtol 1e-4 with an
+    atol of 1e-5 of the output's scale (the parts' sum and cuBLAS at half
+    the width add in other orders)."""
+    from _torch_inputs import rglru_by_ranks, ssd_by_ranks
+    from repro_torch.models import rglru, ssd
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if kind == "rglru":
+        d = 4096
+        p = rglru.rglru_init(gen, d, d)
+        x = torch.randn((2, 256, d), generator=gen, device=cuda_device)
+        want = rglru.rglru_apply(p, x)
+        got, _ = rglru_by_ranks(p, x, 2)
+    else:
+        d = 768
+        kw = dict(expand=2, d_state=128, head_dim=64, conv_width=4)
+        p = ssd.ssd_init(gen, d, **kw)
+        x = torch.randn((2, 256, d), generator=gen, device=cuda_device)
+        want = ssd.ssd_apply(p, x, chunk=64, **kw)
+        got = ssd_by_ranks(p, x, 2, chunk=64, **kw)
+    assert got.is_cuda and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * want.abs().max().item())

@@ -32,7 +32,6 @@ each gradient's largest element, as ``tests/test_torch_flash_backward.py``.
 import dataclasses
 import importlib.util
 import os
-import types
 
 import jax
 import jax.numpy as jnp
@@ -376,32 +375,38 @@ def test_serving_entry_points_run_the_encoder_decoder(capsys):
 
 
 def test_a_model_axis_is_refused_and_frames_are_required():
-    """A ``model`` axis of more than one rank is refused, naming item 13
-    (a stand-in parallel context; nothing is split), and so is a cross
-    cache split over ranks (the layouts of a (2, 1) mesh at batch 1 split
-    the cache length over ``data``; a stand-in context places this rank
-    at 0 of 2 there); a batch without frame embeddings is refused by
-    name."""
+    """A ``model`` axis of more than one rank and a cross cache split over
+    ranks were refused; both run now (``tests/test_torch_mesh.py``).
+    Here the split cross cache's arithmetic: a (2, 1) mesh's layouts at
+    batch 1 split the 16 frames over ``data`` (8 + 8); one-token
+    attention over each slice with no valid length and each row's
+    log-sum-exp (K9's plain version), merged
+    (``decode_attn.merge_partials``), is the attention over the whole
+    cross cache that prefill wrote, within rtol 1e-6 / atol 1e-6 (the
+    merge's weighted sum rounds elements near 0 by ~1e-7).  A batch
+    without frame embeddings is refused by name."""
+    from repro_torch.kernels.decode_attn import (flash_decode_plain,
+                                                 merge_partials)
     from repro_torch.launch import mesh as t_mesh
     from repro_torch.launch import sharding as t_sh
     _, tcfg = _cfgs()
     params = tfm.init_params(tcfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    tp = types.SimpleNamespace(active=True, mp=types.SimpleNamespace())
     batch = _t(_batch(tcfg, 1, 4, seed=0))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.forward_seq(tcfg, params, batch, tp=tp)
     mesh = t_mesh.MeshSpec((2, 1), ("data", "model"))
-    specs = t_sh.param_shardings(mesh, steps.param_struct(tcfg), fsdp=False)
     cache_specs = t_sh.cache_shardings(mesh, tfm.cache_struct(tcfg, 1, 8))
     assert "data" in t_sh.spec_axes(cache_specs["cycles"][0]["xk"][2])
-    split = types.SimpleNamespace(
-        active=False, specs={"model": specs}, model_specs=specs,
-        cache_specs=cache_specs,
-        mp=types.SimpleNamespace(place=lambda axes: (None, 2, 0)))
-    cache = tfm.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="split over 2 ranks"):
-        tfm.decode_step(tcfg, params, batch["tokens"][:, :1], cache, 0,
-                        tp=split)
+    with torch.no_grad():
+        cache = tfm.forward_seq(tcfg, params, batch, want_cache=True,
+                                want_logits=False)["cache"]
+    xk, xv = cache["cycles"][0]["xk"][0], cache["cycles"][0]["xv"][0]
+    q = torch.randn((1, 1, tcfg.n_heads, tcfg.head_dim),
+                    generator=torch.Generator().manual_seed(1))
+    parts = [flash_decode_plain(q, k, v, want_lse=True) for k, v in
+             zip(xk.chunk(2, dim=1), xv.chunk(2, dim=1))]
+    merged = merge_partials(torch.stack([o for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    torch.testing.assert_close(merged, flash_decode_plain(q, xk, xv),
+                               rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="audio_frames"):
         tfm.forward_seq(tcfg, params, {"tokens": batch["tokens"]})

@@ -26,7 +26,6 @@ parameters and losses of a round rtol 1e-4 / atol 1e-5, as
 """
 import dataclasses
 import functools
-import types
 
 import jax
 import jax.numpy as jnp
@@ -537,13 +536,45 @@ def test_launch_train_fedavg_round_matches_jax_round_fn(name):
 
 
 def test_recurrent_layers_refuse_a_model_axis():
-    """A ``model`` axis of more than one rank: refused, naming item 13
-    (a stand-in parallel context; nothing is split)."""
+    """The refusal is gone: a ``model`` axis of more than one rank runs the
+    JAX layout's blocks.  Its arithmetic rank by rank in one process (m =
+    2; ``tests/_torch_inputs.py``'s emulations, which call the modules'
+    own stages): the RG-LRU layer (W split, the conv output joined before
+    the gates) and the SSD layer (each rank the P slice of every head)
+    against the whole layer, within rtol 1e-5 / atol 1e-6 (the parts'
+    sum adds in another order), and each rank's RG-LRU cache blocks
+    against the whole prefill cache's slices; ``init_cache`` under a
+    stand-in rank context of (1, 2) is the rank's blocks under
+    ``cache_shardings`` (SSD ``h`` on P, ``conv`` on conv_ch).  The mesh
+    runs themselves are ``tests/test_torch_mesh.py``'s."""
+    from _torch_inputs import rglru_by_ranks, ssd_by_ranks
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.parallel import ModelParallel, TensorParallel
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 12, 32), generator=gen)
+    rp = rglru.rglru_init(gen, 32, 32)
+    want, cache = rglru.rglru_apply(rp, x, want_cache=True)
+    got, blocks = rglru_by_ranks(rp, x, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for r, b in enumerate(blocks):
+        for k in ("h", "conv"):
+            torch.testing.assert_close(b[k], cache[k].chunk(2, dim=-1)[r],
+                                       rtol=1e-5, atol=1e-6)
+    kw = dict(expand=2, d_state=8, head_dim=16, conv_width=4)
+    sp = ssd.ssd_init(gen, 32, **kw)
+    torch.testing.assert_close(ssd_by_ranks(sp, x, 2, chunk=4, **kw),
+                               ssd.ssd_apply(sp, x, chunk=4, **kw),
+                               rtol=1e-5, atol=1e-6)
     _, tcfg = _configs("mamba2-130m")
-    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-    tp = types.SimpleNamespace(active=True, mp=types.SimpleNamespace())
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.forward_seq(tcfg, params, toks, tp=tp)
-    assert len(tree_leaves(tfm.init_cache(tcfg, 1, 8, device="cpu"))) == 2
+    mesh = MeshSpec((1, 2), ("data", "model"))
+    specs = t_sh.cache_shardings(mesh, tfm.cache_struct(tcfg, 2, 8))
+    tp = TensorParallel(ModelParallel(
+        lambda axes: (None, 2 if "model" in axes else 1, 0)), {}, specs)
+    whole = tfm.init_cache(tcfg, 2, 8, device="cpu")
+    local = tfm.init_cache(tcfg, 2, 8, device="cpu", tp=tp)
+    for a, b in zip(tree_leaves(whole), tree_leaves(local)):
+        assert b.shape[:-2] == a.shape[:-2]
+    layer = local["cycles"][0]
+    d_inner = tcfg.ssm_expand * tcfg.d_model
+    assert layer["h"].shape[-2] == tcfg.ssm_head_dim // 2
+    assert layer["conv"].shape[-1] == (d_inner + 2 * tcfg.ssm_state) // 2

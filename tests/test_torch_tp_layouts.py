@@ -358,7 +358,11 @@ def test_step_builders_shapes_and_the_fsdp_refusal():
     """``build_step`` on one device returns the JAX builders' argument
     shapes (the whole state, batch, cache) and no layouts; a
     client-sequential round on a mesh with ``data`` > 1 (the FSDP layout
-    splits leaves over it) raises, naming ROADMAP item 13."""
+    splits leaves over it), once refused, builds with JAX's layouts: its
+    state in and out ``param_shardings(..., fsdp=True)`` and its batch
+    ``train_batch_shardings``, leaf by leaf against JAX's on an
+    ``AbstractMesh`` of the same shape (its rounds run in
+    ``tests/test_torch_mesh.py``)."""
     cfg = reduced(get_config("smollm-135m"))
     jcfg = reduced(J_ARCHS["smollm-135m"])
     fl = FLConfig(algorithm="fedfusion", fusion_op="conv")
@@ -377,6 +381,14 @@ def test_step_builders_shapes_and_the_fsdp_refusal():
     assert args[2] == to_port(jax.eval_shape(
         lambda: j_tfm.init_cache(jcfg, 4, 48)))
     seq = dataclasses.replace(cfg, fl_mode="client_sequential")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_steps.build_train_step(seq, FLConfig(), train,
-                                 t_mesh.MeshSpec((2, 2), ("data", "model")))
+    tm, jm = meshes((2, 2))
+    fn, args, lin, lout = t_steps.build_train_step(seq, fl, train, tm)
+    assert callable(fn) and lout[0] is lin[0]
+    js = j_state("smollm-135m", "reduced", "fedfusion", "conv")
+    assert args[0] == to_port(js)
+    assert_specs_equal(lin[0], j_sh.param_shardings(jm, js, fsdp=True))
+    assert "data" in t_sh.spec_axes(lin[0]["model"]["embed"]["table"][1])
+    jb = j_specs.input_specs(
+        dataclasses.replace(jcfg, fl_mode="client_sequential"),
+        type(J_SHAPES["train_4k"])("t", 16, 4, "train"), jm, jnp.float32)
+    assert_specs_equal(lin[1], j_sh.train_batch_shardings(jm, jb))

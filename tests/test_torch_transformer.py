@@ -17,7 +17,6 @@ logits (|logits| up to ~20) agree to ~1e-5 of their scale: held at rtol
 1e-4 with an atol of 1e-4 of each output's scale; caches likewise.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -192,19 +191,46 @@ def test_every_jax_arch_config_is_representable(jname):
 
 @pytest.mark.parametrize("jname", ["whisper-large-v3", "qwen2-vl-7b"])
 def test_unported_families_raise(jname):
-    """The two families run on one device now; what stays unported is
-    their split over a ``model`` axis of more than one rank (the mesh
-    slice), refused naming ROADMAP item 13: a stand-in parallel context,
-    nothing is split.  Their clients over ``data`` run."""
+    """Both families were refused under a ``model`` axis of more than one
+    rank; they run there now (``tests/test_torch_mesh.py`` holds the mesh
+    runs to one device).  Here: the prefill and decode steps build on
+    (1, 2) and (2, 2) meshes of axis sizes (``MeshSpec``) with
+    ``cache_shardings``' layouts, qwen2-vl-7b's FSDP train step with
+    ``param_shardings(..., fsdp=True)``, and ``init_cache`` under a
+    stand-in context of rank 0 of (1, 2) is each leaf's block under those
+    specs (whisper-large-v3's cross cache split on its 16 frames)."""
+    from repro_torch.configs import FLConfig, InputShape
+    from repro_torch.launch import sharding as t_sh
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.parallel import ModelParallel, TensorParallel
     cfg = ArchConfig(**dataclasses.asdict(J_ARCHS[jname])).reduced()
-    params = tfm.init_params(cfg, torch.Generator(), device="cpu")
-    assert set(tfm.init_cache(cfg, 1, 8, device="cpu")) == {"cycles", "tail"}
-    tp = types.SimpleNamespace(active=True, mp=types.SimpleNamespace())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.forward_seq(cfg, params, {"tokens": torch.zeros(
-            (1, 8), dtype=torch.long)}, tp=tp)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.init_cache(cfg, 1, 8, device="cpu", tp=tp)
+    for shape in ((1, 2), (2, 2)):
+        mesh = MeshSpec(shape, ("data", "model"))
+        _, _, _, (_, cache_specs) = t_steps.build_prefill_step(
+            cfg, InputShape("p", 16, 2, "prefill"), mesh, max_len=32)
+        assert cache_specs == t_sh.cache_shardings(
+            mesh, tfm.cache_struct(cfg, 2, 32))
+        _, _, lin, _ = t_steps.build_serve_step(
+            cfg, InputShape("d", 32, 2, "decode"), mesh)
+        assert lin[2] == cache_specs
+    if cfg.fl_mode == "client_sequential":
+        mesh = MeshSpec((2, 2), ("data", "model"))
+        _, args, lin, lout = t_steps.build_train_step(
+            cfg, FLConfig(), InputShape("t", 16, 8, "train"), mesh)
+        assert lin[0] == lout[0] == t_sh.param_shardings(mesh, args[0],
+                                                         fsdp=True)
+    mesh = MeshSpec((1, 2), ("data", "model"))
+    specs = t_sh.cache_shardings(mesh, tfm.cache_struct(cfg, 2, 8))
+    tp = TensorParallel(ModelParallel(
+        lambda axes: (None, 2 if "model" in axes else 1, 0)), {}, specs)
+    whole = tfm.init_cache(cfg, 2, 8, device="cpu")
+    local = tfm.init_cache(cfg, 2, 8, device="cpu", tp=tp)
+    for name, t in local["cycles"][0].items():
+        want = list(whole["cycles"][0][name].shape)
+        want[2] //= 2             # [n, B, L or F, KV, hd]: L / F halved
+        assert list(t.shape) == want, name
+    assert ("xk" in local["cycles"][0]) == (cfg.n_enc_layers > 0)
 
 
 def test_remat_and_the_transformer_bundle_raise():

@@ -20,7 +20,6 @@ caches and rounds rtol 1e-4 with an atol of 1e-4 of each tensor's scale,
 as ``tests/test_torch_recurrent.py``.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -257,9 +256,14 @@ def test_param_and_cache_structs_match_jax_at_full_size():
 def test_serving_and_the_refusals(capsys):
     """``launch.serve.main`` serves reduced qwen2-vl-7b on the CPU (patch
     embeddings from ``serve.make_inputs``); a prompt shorter than its
-    vision tokens raises ``ValueError`` naming both lengths; a ``model``
-    axis of more than one rank is refused, naming item 13 (a stand-in
-    parallel context; nothing is split)."""
+    vision tokens raises ``ValueError`` naming both lengths.  A ``model``
+    axis of more than one rank, once refused, runs
+    (``tests/test_torch_mesh.py``); here the two facts its split rests
+    on, rank by rank in one process (m = 2): M-RoPE on a rank's heads
+    (head-parallel q and k) is that block of M-RoPE on all heads,
+    exactly, and ``vis_proj``'s column blocks joined (the all-gather
+    before the residual stream) are the whole projection (rtol 1e-6 /
+    atol 1e-6: a product of fewer columns may sum in another order)."""
     serve.main(["--arch", NAME, "--device", "cpu", "--prompt-len", "12",
                 "--gen-len", "3", "--batch", "2"])
     assert "decode 3 tokens" in capsys.readouterr().out
@@ -269,8 +273,22 @@ def test_serving_and_the_refusals(capsys):
     short = _t(_batch(tcfg, 1, 5, seed=0, mrope=False))
     with pytest.raises(ValueError, match="5 tokens.*8 vision tokens"):
         tfm.forward_seq(tcfg, params, short)
-    tp = types.SimpleNamespace(active=True, mp=types.SimpleNamespace())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.forward_seq(tcfg, params, _t(_batch(tcfg, 1, 9, seed=0)), tp=tp)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfm.init_cache(tcfg, 1, 8, device="cpu", tp=tp)
+    batch = _t(_batch(tcfg, 2, 9, seed=0))
+    gen = torch.Generator().manual_seed(1)
+    hd, H, KV = tcfg.head_dim, tcfg.n_heads, tcfg.n_kv_heads
+    q = torch.randn((2, 9, H, hd), generator=gen)
+    k = torch.randn((2, 9, KV, hd), generator=gen)
+    kw = dict(theta=tcfg.rope_theta, head_dim=hd,
+              sections=tcfg.mrope_sections)
+    wq, wk = rope.apply_mrope(q, k, batch["mrope_positions"], **kw)
+    for r in range(2):
+        qs, ks = slice(r * H // 2, (r + 1) * H // 2), \
+            slice(r * KV // 2, (r + 1) * KV // 2)
+        gq, gk = rope.apply_mrope(q[:, :, qs], k[:, :, ks],
+                                  batch["mrope_positions"], **kw)
+        assert torch.equal(gq, wq[:, :, qs]) and torch.equal(gk, wk[:, :, ks])
+    w = params["vis_proj"]["w"]
+    ve = batch["vision_embeds"]
+    torch.testing.assert_close(
+        torch.cat([ve @ b for b in w.chunk(2, dim=1)], -1), ve @ w,
+        rtol=1e-6, atol=1e-6)

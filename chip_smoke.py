@@ -166,8 +166,9 @@ is non-zero):
    rounds/s on a finite run;
 4f. the client-sharded engine on one rank of an NCCL group (the one-card
    host shows only S = 1; S > 1 is held on the CPU over gloo,
-   ``tests/test_torch_sharded.py``), at fig. 4's setting (40 rounds in
-   8-round chunks, cuDNN deterministic): a 1 x 1 ``make_engine_mesh()``
+   ``tests/test_torch_sharded.py``), at fig. 4's setting (24 rounds in
+   8-round chunks, 40 until phase 4j; cuDNN deterministic): a 1 x 1
+   ``make_engine_mesh()``
    run equal bit for bit to the ``mesh=None`` run (FedFusion-conv top-k);
    the shard-aware supersteps over a one-rank ``ClientSharding``, each
    chunk captured by the engine as one CUDA graph with the NCCL
@@ -183,7 +184,7 @@ is non-zero):
 4g. the engine over LM bundles at full width (CUDA-graph supersteps over
    the transformer, K8a-K8c inside the graphs, ``attn_impl="pallas"``,
    random weights from seed 0, lr 0.02): smollm-135m at full width cut to
-   6 of its 30 layers (to keep the script within its time limit) at
+   4 of its 30 layers (to keep the script within its time limit) at
    phase 4c's reference setting (8 clients by source, 4 a round,
    2 local steps of 4 x 512, eval on 8 test sequences every round, folded
    into the chunk), 4 rounds in 2-round chunks, for FedAvg,
@@ -199,10 +200,10 @@ is non-zero):
    clients a round at 2 x 1,024 (its 512-token local window binds), 4
    rounds in 2-round chunks; ``launch.train --engine`` on smollm-135m at
    its reduced scale (4 rounds at 512, batch 2,
-   ``superstep_rounds="auto"``); mamba2-130m at full width, 12 of its 24
+   ``superstep_rounds="auto"``); mamba2-130m at full width, 6 of its 24
    layers, FedAvg and FedFusion-conv (K2 in the graphs), 2 of 4 clients at 4 x
    256, 4 rounds in 2-round chunks, equal bit for bit to the reference
-   loop over the same rounds; smollm-135m (6 layers) FedAvg with
+   loop over the same rounds; smollm-135m (4 layers) FedAvg with
    ``remat="none"`` and ``"layer"`` through the engine, each equal to its
    reference loop, the graph pools' bytes side by side;
 4h. tensor parallelism on the one card: (b) a one-rank NCCL (1, 1) mesh
@@ -219,7 +220,8 @@ is non-zero):
    their formulas, ms beside one device's, labelled "gloo over one card";
 4i. the mesh families on the one card: two worker processes
    (``chip_smoke.py --mesh-worker``) over gloo.  On a (1, 2) mesh, the
-   model split: mamba2-130m at full width and depth (each rank the P
+   model split: mamba2-130m at full width cut to 8 of its 24 layers (all
+   24 until phase 4j was added: the script's time limit; each rank the P
    slice of every SSD head) at 2 x 512, recurrentgemma-9b at full width
    cut to one cycle (W blocks of the RG-LRU layers) at 2 x 512,
    whisper-large-v3 at full width cut to 2 encoder and 2 decoder layers
@@ -234,6 +236,16 @@ is non-zero):
    from the seeded state, the gathered state and the loss against the
    same round on one device: ms a local step, the bytes through gloo a
    step, each rank's persistent and peak bytes beside one device's;
+4j. the static analyzer (``repro_torch.analysis``): every point of the
+   quick matrix lowered inside the engine's CUDA-graph capture with the
+   op recorder on, at K and K + 1 rounds, the sharded points over a
+   one-rank NCCL group; every pass clean, the ``kernel:*`` entries'
+   launches equal to the kernel counters' deltas over each capture, the
+   cost model's FLOPs and bytes equal to the same point lowered on the
+   CPU (three ``--analysis-worker`` processes beside the card's loop); a
+   planted ``.item()`` caught; one dry-run point (smollm-135m x
+   decode_32k on the 16 x 16 mesh over a fake process group) with its
+   roofline terms;
 5. trace: one round per algorithm, and one int8-coded FedAvg round, under
    ``torch.profiler`` (a separate run): device kernels launched, the
    device's busy share of the wall time, and the kernels taking the most
@@ -248,8 +260,11 @@ is non-zero):
    card (kernels) and on the CPU (plain versions) must agree, with and
    without codecs; then the engine's graph replays against the reference
    loop on the card (cuDNN deterministic; FedFusion-conv top-k on the
-   dense and the host EF store 40 rounds, FedAvg and FedMMD 16, 40 until
-   the mesh families were added), which must be equal;
+   dense and the host EF store 24 rounds, 40 until the analyzer was
+   added; FedAvg and FedMMD 16, 40 until the mesh families were added),
+   which must be equal; fig. 6's first held probe segment in float64 on
+   the CPU beside both float32 paths, their ReLU and max-pool masks
+   compared call by call (printed, not held);
    then serving: gemma3-1b at full width cut to 6 layers, a 576-token
    prompt and 4 greedy steps, the same weights on the card and the CPU;
    then LM training: smollm-135m at full width cut to 2 layers,
@@ -311,8 +326,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 WIDTHS = (1.0, 2.0, 4.0, 8.0, 16.0)
 FIG4 = dict(clients_per_round=10, local_steps=4, local_batch=10, lr=0.08,
             mmd_lambda=0.1)
@@ -358,6 +371,10 @@ ENGINE_ROUNDS = 5 * ENGINE_CHUNK
 # the reference run beside each engine run (12 until the recurrent families
 # and the remat runs were added: the script's time limit)
 REF_ROUNDS = 8
+# phase 4f's engine runs, and phase 6's FedFusion-conv engine-vs-reference
+# runs: three chunks (40 rounds until phase 4j was added: the script's time
+# limit), so the steady rate spans two replays
+SHORT_ENGINE_ROUNDS = 3 * ENGINE_CHUNK
 # the engine runs of phases 4 and 6: algorithm, mode, uplink, EF store
 ENGINE_RUNS = [("fedavg", "client_parallel", "identity", "device"),
                ("fedfusion", "client_parallel", "topk", "device"),
@@ -451,6 +468,9 @@ def chunk_rates(chunk_times):
 
 
 def bound(n_bytes, n_flops):
+    """The least ms the card could take (the larger of bytes over HBM's
+    rate and float32 operations over their peak) and which one binds."""
+    from repro_torch.roofline import PEAK_BYTES, PEAK_F32_FLOPS
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2316,9 +2336,10 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
     return got
 
 
-# phase 4g: the LM engine at full width.  smollm-135m, cut to 6 of its 30
+# phase 4g: the LM engine at full width.  smollm-135m, cut to 4 of its 30
 # layers to keep the script within its time limit (10 until the decode
-# graph and the MoE runs were added to phases 4b, 4c and 6), at phase 4c's
+# graph and the MoE runs were added to phases 4b, 4c and 6, 6 until phase
+# 4j was added), at phase 4c's
 # train_reference setting (8 clients by source, 4 a round, 2 local steps of
 # 4 x 512, eval on 8 test sequences, here every round, folded into the
 # chunk), 4 rounds in 2-round chunks (8 until the recurrent families and
@@ -2327,7 +2348,7 @@ def train_reference(torch, counters, get_config, FLConfig, make_bundle,
 # window binds; the batch fits beside the stacked client models)
 LM_ENGINE = dict(clients=8, clients_per_round=4, local_steps=2,
                  local_batch=4, seq_len=512, eval_sequences=8, rounds=4,
-                 chunk=2, ref_rounds=2, layers=6)
+                 chunk=2, ref_rounds=2, layers=4)
 LM_ENGINE_RUNS = [("fedavg", "identity", "device"),
                   ("fedfusion", "identity", "device"),
                   ("fedmmd", "identity", "device"),
@@ -2668,8 +2689,9 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
 
 
 # phase 4g: mamba2-130m at full width cut to MAMBA_ENGINE_LAYERS of its 24
-# SSD layers (all 24 until the VLM and encoder-decoder runs were added:
-# the script's time limit; phase 4b serves all 24) through the LM engine,
+# SSD layers (all 24 until the VLM and encoder-decoder runs were added, 12
+# until phase 4j was added: the script's time limit; phase 4b serves all
+# 24) through the LM engine,
 # FedAvg and FedFusion-conv (K2 in the graphs), each held
 # exactly to the reference loop over the same rounds from the same state;
 # and smollm-135m (phase 4g's 6 layers) FedAvg with remat="none" and
@@ -2678,7 +2700,7 @@ def lm_engine_phase(torch, counters, *, get_config, FLConfig, make_bundle,
 LM_MAMBA = dict(clients=4, clients_per_round=2, local_steps=2, local_batch=4,
                 seq_len=256, eval_sequences=4, rounds=4, chunk=2)
 LM_REMAT = dict(rounds=4, chunk=2)
-MAMBA_ENGINE_LAYERS = 12
+MAMBA_ENGINE_LAYERS = 6
 
 
 def recurrent_engine_phase(torch, counters, *, get_config, FLConfig,
@@ -3180,7 +3202,7 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
     from repro_torch.core.aggregate import ClientSharding
     from repro_torch.engine import run_federated_engine
     from repro_torch.launch.mesh import make_engine_mesh
-    K, rounds = ENGINE_CHUNK, ENGINE_ROUNDS
+    K, rounds = ENGINE_CHUNK, SHORT_ENGINE_ROUNDS
     cp, seq = "client_parallel", "client_sequential"
     fls = {"fedavg": (FLConfig(algorithm="fedavg", **FIG4), cp),
            "fusion-topk": (FLConfig(algorithm="fedfusion", fusion_op="conv",
@@ -3203,12 +3225,13 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
             return run_federated_engine(*args, shard=shard, **kw)
 
         with torch.backends.cudnn.flags(**cudnn_exact):
-            single = {name: engine_run(fl, mode, "device", K)
+            single = {name: engine_run(fl, mode, "device", K,
+                                       n_rounds=rounds)
                       for name, (fl, mode) in fls.items()}
             # (1) a 1 x 1 mesh: the single-device program
             fl, mode = fls["fusion-topk"]
-            m_res, m_line, m_got, m_finite = engine_run(fl, mode, "device",
-                                                        K, mesh=mesh)
+            m_res, m_line, m_got, m_finite = engine_run(
+                fl, mode, "device", K, n_rounds=rounds, mesh=mesh)
             s_res, _, s_got, _ = single["fusion-topk"]
             checks = dict(
                 state=all(torch.equal(a, b) for a, b in zip(
@@ -3239,7 +3262,8 @@ def sharded_engine_phase(torch, engine_run, per_round_launches,
                 fl, mode = fls[base]
                 fused = opts.get("fused_collective", True)
                 res, line, got, finite = engine_run(
-                    fl, mode, store, K, runner=sharded_runner,
+                    fl, mode, store, K, n_rounds=rounds,
+                    runner=sharded_runner,
                     **{"sharded_eval": False, **opts})
                 ref_res, ref_line = single[base][:2]
                 st = res.stats
@@ -3653,8 +3677,9 @@ def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
 # gloo (NCCL refuses two ranks on one device), as phase 4h (a).  (1, 2)
 # mesh, the model split: each model serves a prompt and MESH_STEPS eager
 # decode steps teacher-forced on the one-device run's greedy tokens
-# (rank 0 runs it first): mamba2-130m at full width and depth (24 SSD
-# layers: each rank the P slice of every head), recurrentgemma-9b at full
+# (rank 0 runs it first): mamba2-130m at full width cut to 8 of its 24 SSD
+# layers (all 24 until phase 4j was added: the script's time limit; each
+# rank the P slice of every head), recurrentgemma-9b at full
 # width cut to one cycle (RG-LRU, RG-LRU, local attention: W split, the
 # conv output gathered before the gates), whisper-large-v3 at full width
 # cut to 2 encoder and 2 decoder layers (its 1,500-frame cross cache split
@@ -3665,7 +3690,7 @@ def tp_phase(torch, *, get_config, FLConfig, InputShape, train, serve,
 # same seeded state as the one-device round on rank 0: ms a local step,
 # the bytes through gloo a step (the collectives' payloads), each rank's
 # persistent and peak bytes beside one device's
-MESH_SERVE = (("mamba2-130m", None, 0, 2, 512),      # model, layers,
+MESH_SERVE = (("mamba2-130m", 8, 0, 2, 512),         # model, layers,
               ("recurrentgemma-9b", 3, 0, 2, 512),   # encoder layers,
               ("whisper-large-v3", 2, 2, 2, 64),     # batch, prompt
               ("qwen2-vl-7b", 1, 0, 2, 512))
@@ -3975,6 +4000,287 @@ def mesh_phase(card):
         raise AssertionError("phase 4i: a mesh run disagrees with one device "
                              "or with its launch formula")
     return launches
+
+
+ANALYSIS_CPU_WORKERS = 3      # phase 4j: CPU lowerings beside the card's
+ANALYSIS_TIMEOUT_S = 240
+# phase 4j lowers each point at K = 2 and 3 rounds (the matrix's default K
+# is 4): its contracts are per round and per chunk, and 4j's time is
+# mostly rounds run
+ANALYSIS_ROUNDS = 2
+
+
+def analysis_specs():
+    """Phase 4j's points: the quick matrix at ``ANALYSIS_ROUNDS``."""
+    from repro_torch.analysis import default_matrix
+    return [dataclasses.replace(s, n_rounds=ANALYSIS_ROUNDS)
+            for s in default_matrix("quick")]
+
+
+def cost_line(cost):
+    """A cost model's totals as exact JSON numbers."""
+    return {"flops": cost.flops, "bytes": cost.bytes,
+            "coll_bytes": dict(sorted(cost.coll_bytes.items())),
+            "coll_counts": dict(sorted(cost.coll_counts.items()))}
+
+
+def op_costs(record):
+    """``{op name: [flops, bytes]}`` summed over a record's entries: where
+    two records' totals part, the ops that part."""
+    from repro_torch.roofline import flops_breakdown
+    return {n: [f, b] for n, f, b in flops_breakdown(record, top=10_000)}
+
+
+def analysis_cpu_worker(argv):
+    """Phase 4j's CPU side: points ``IDX::N`` of the analyzer's quick
+    matrix lowered on the CPU (the sharded ones over a one-rank gloo
+    group), their costs at K and K + 1 rounds written to ``OUT``."""
+    idx, n, out = int(argv[0]), int(argv[1]), Path(argv[2])
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import lower_superstep
+    from repro_torch.roofline import analyze_record
+    torch.set_num_threads(1)
+    rdzv = out.parent / f"rdzv{idx}"
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    try:
+        costs = {}
+        for spec in analysis_specs()[idx::n]:
+            low = lower_superstep(spec, device="cpu")
+            costs[spec.point] = {
+                "cost": [cost_line(analyze_record(lw.record))
+                         for lw in low.lowerings],
+                "ops": op_costs(low.record)}
+    finally:
+        dist.destroy_process_group()
+    out.write_text(json.dumps(costs))
+
+
+def analysis_sync_worker(argv):
+    """Phase 4j's planted sync, in a process of its own (a capture the card
+    refuses may leave the caching allocator's capture state behind): the
+    quick matrix's top-k point lowered on the card with ``.item()``
+    called before its superstep; the host-sync findings and whether the
+    card still computes afterwards, written to ``OUT``."""
+    out = Path(argv[0])
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.analysis import (SuperstepSpec, lower_superstep,
+                                      make_pass)
+    from repro_torch.tree import tree_leaves
+
+    def add_sync(fn):
+        def g(*args, **kw):
+            tree_leaves(args[0])[0].sum().item()
+            return fn(*args, **kw)
+        return g
+
+    torch.set_num_threads(1)
+    spec = SuperstepSpec(codec="topk", n_rounds=ANALYSIS_ROUNDS)
+    low = lower_superstep(spec, device="cuda", inner_wrap=add_sync)
+    caught = [str(f) for f in make_pass("host-sync").run(low)]
+    torch.cuda.synchronize()
+    healthy = float(torch.ones(4, device="cuda").sum()) == 4.0
+    out.write_text(json.dumps({"point": spec.point, "caught": caught,
+                               "healthy": healthy}))
+
+
+def analysis_phase(torch, card):
+    """Phase 4j: the static analyzer on the card.
+
+    Every point of the quick matrix (``repro_torch.analysis``) is lowered
+    inside the engine's own CUDA-graph capture with the op recorder on, at
+    K and K + 1 rounds (``ANALYSIS_ROUNDS``); the sharded points over a
+    one-rank NCCL group.
+    Per point: every lowered pass (no finding allowed), the ``kernel:*``
+    entries' launches against the kernel counters' deltas over each
+    capture (equal), the all-reduces and their bytes, and the cost model's
+    FLOPs and bytes against the same point lowered on the CPU (in
+    ``ANALYSIS_CPU_WORKERS`` processes running beside the card's loop;
+    equal).  A planted ``.item()`` must come back as a host-sync finding
+    (``--analysis-sync-worker``, a process of its own), and one dry-run
+    point (``launch.dryrun``: smollm-135m x
+    decode_32k on the 16 x 16 mesh over a fake process group, ``meta``
+    blocks) runs in a subprocess and prints its roofline terms."""
+    import torch.distributed as dist
+    from repro_torch.analysis import (kernel_launches, lower_superstep,
+                                      make_pass, registered_passes)
+    from repro_torch.analysis.records import ALL_REDUCE, count_collectives
+    from repro_torch.roofline import analyze_record
+    work = ROOT / "build" / "analysis"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+    here = str(Path(__file__).resolve())
+    cpu = [subprocess.Popen(
+        [sys.executable, here, "--analysis-worker", str(i),
+         str(ANALYSIS_CPU_WORKERS), str(work / f"cpu{i}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(ANALYSIS_CPU_WORKERS)]
+    sync = subprocess.Popen(
+        [sys.executable, here, "--analysis-sync-worker",
+         str(work / "sync.json")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    dry = subprocess.Popen(
+        [sys.executable, "-c",
+         "import json, sys, torch\n"
+         "torch.set_num_threads(1)\n"
+         f"sys.path.insert(0, {str(SRC)!r})\n"
+         "from repro_torch.launch.dryrun import run_one\n"
+         "print(json.dumps(run_one('smollm-135m', 'decode_32k', False, "
+         "save=False)))\n"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    lowered = [n for n in registered_passes()
+               if make_pass(n).scope == "lowered"]
+    lint = make_pass("source-lint").run(None)
+    rdzv = ROOT / "build" / "nccl_rdzv_4j"
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    rows, bad, ops = [], [], {}
+    try:
+        for spec in analysis_specs():
+            t0 = time.perf_counter()
+            low = lower_superstep(spec, device="cuda")
+            findings = [str(f) for n in lowered
+                        for f in make_pass(n).run(low)]
+            kernels = [kernel_launches(lw.record) for lw in low.lowerings]
+            deltas = [lw.launches for lw in low.lowerings]
+            rows.append(dict(
+                point=spec.point, findings=findings,
+                kernels=kernels[0], kernels_next=kernels[1],
+                launch_deltas=deltas[0], launch_deltas_next=deltas[1],
+                kernels_equal_launches=kernels == deltas,
+                entries=len(low.record),
+                all_reduces=count_collectives(low.record, (ALL_REDUCE,)),
+                all_reduces_next=count_collectives(low.record_next,
+                                                   (ALL_REDUCE,)),
+                all_reduce_bytes=low.lowerings[0].collective_bytes,
+                peak_bytes=low.record.peak_bytes,
+                graph_launches_per_replay={
+                    k: v for k, v in (low.lowerings[0].graph or {}).get(
+                        "launches_per_replay", {}).items() if v},
+                cost=[cost_line(analyze_record(lw.record))
+                      for lw in low.lowerings],
+                seconds=time.perf_counter() - t0))
+            ops[spec.point] = op_costs(low.record)
+            if findings or kernels != deltas:
+                bad.append(spec.point)
+    finally:
+        dist.destroy_process_group()
+
+    costs = {}
+    for i, p in enumerate(cpu):
+        try:
+            log = p.communicate(timeout=ANALYSIS_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log = p.communicate()[0]
+        if p.returncode:
+            print(f"--- phase 4j CPU worker {i} ---\n{log[-6000:]}",
+                  flush=True)
+            raise AssertionError(f"phase 4j: CPU worker {i} exit "
+                                 f"{p.returncode}")
+        costs.update(json.loads((work / f"cpu{i}.json").read_text()))
+    for row in rows:
+        cpu_side = costs.get(row["point"], {})
+        row["cpu_cost_equal"] = cpu_side.get("cost") == row["cost"]
+        if not row["cpu_cost_equal"]:
+            # the ops whose [flops, bytes] part between card and CPU (K)
+            card_ops, cpu_ops = ops[row["point"]], cpu_side.get("ops", {})
+            row["cpu_cost"] = cpu_side.get("cost")
+            row["ops_parting"] = {
+                n: [card_ops.get(n), cpu_ops.get(n)]
+                for n in sorted(set(card_ops) | set(cpu_ops))
+                if card_ops.get(n) != cpu_ops.get(n)}
+            bad.append(row["point"])
+        emit("analysis_point", card=card, **row)
+    log = sync.communicate(timeout=ANALYSIS_TIMEOUT_S)[0]
+    planted = (json.loads((work / "sync.json").read_text())
+               if sync.returncode == 0 else {"caught": [], "healthy": False,
+                                             "error": log[-3000:]})
+    out = dry.communicate(timeout=ANALYSIS_TIMEOUT_S)[0]
+    rec = json.loads(out.strip().splitlines()[-1]) if dry.returncode == 0 \
+        else {"status": "error", "error": out[-3000:]}
+    roof = rec.get("roofline", {})
+    emit("analysis_dryrun", arch=rec.get("arch"), shape=rec.get("shape"),
+         mesh=rec.get("mesh"), status=rec["status"],
+         error=rec.get("error"), memory=rec.get("memory"),
+         t_lower_s=rec.get("t_lower_s"),
+         **{k: roof.get(k) for k in ("flops_per_chip", "hbm_bytes_per_chip",
+                                     "coll_bytes_per_chip", "t_compute",
+                                     "t_memory", "t_collective",
+                                     "bottleneck", "useful_ratio",
+                                     "mfu_bound")})
+    emit("analysis_summary", points=len(rows), lint_findings=len(lint),
+         mutation=planted, bad_points=bad)
+    if bad or lint or not planted["caught"] or not planted["healthy"] \
+            or rec["status"] != "ok":
+        raise AssertionError(
+            f"phase 4j: points {bad}, lint {lint[:3]}, mutation "
+            f"{planted}, dry run {rec['status']}")
+
+
+def probe_masks(torch, trainer, algo, start, newcomer, *, steps, batch,
+                lr, tree_map):
+    """Fig. 6's first held segment (phase 6) three ways: float32 on the
+    card, float32 on the CPU and float64 on the CPU, from one start state
+    and batch.  Each forward ReLU's mask (output > 0) and max-pool's
+    argmax indices are taped call by call; returned: the calls a local
+    step makes, the first call (and its step and op) where each float32
+    path's masks part from the float64 path's and from each other, and
+    the differing mask elements by step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Tape(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name
+            if name == "aten::relu":
+                self.calls.append(("relu", (out > 0).cpu()))
+            elif name == "aten::max_pool2d_with_indices":
+                self.calls.append(("max_pool", out[1].cpu()))
+            return out
+
+    runs = {}
+    for key, dev, dt in (("cuda_f32", "cuda", torch.float32),
+                         ("cpu_f32", "cpu", torch.float32),
+                         ("cpu_f64", "cpu", torch.float64)):
+        def cast(t):
+            t = t.to(dev)
+            return t.to(dt) if t.is_floating_point() else t
+        st = tree_map(cast, start)
+        data = {k: cast(torch.from_numpy(v[:steps * batch].reshape(
+            steps, batch, *v.shape[1:]))) for k, v in newcomer.items()}
+        tape = Tape()
+        with tape:
+            trainer(st["model"], algo.extra_from_state(st), data,
+                    torch.tensor(lr, device=dev, dtype=dt))
+        runs[key] = tape.calls
+    per_step = len(runs["cpu_f64"]) // steps
+
+    def parts(a, b):
+        first, by_step = None, [0] * steps
+        for i, ((op, ma), (_, mb)) in enumerate(zip(a, b)):
+            n = int((ma != mb).sum())
+            by_step[min(i // per_step, steps - 1)] += n
+            if n and first is None:
+                first = {"call": i, "step": i // per_step, "op": op,
+                         "elements": n, "of": ma.numel()}
+        return {"first": first, "differing_by_step": by_step}
+
+    return {"calls_per_step": per_step,
+            "cuda_f32_vs_cpu_f64": parts(runs["cuda_f32"], runs["cpu_f64"]),
+            "cpu_f32_vs_cpu_f64": parts(runs["cpu_f32"], runs["cpu_f64"]),
+            "cuda_f32_vs_cpu_f32": parts(runs["cuda_f32"], runs["cpu_f32"])}
 
 
 def mnist_data(FederatedDataset, class_images, partition, seed=0,
@@ -5248,6 +5554,13 @@ def main():
         train_launches[k] = train_launches.get(k, 0) + n
     emit("phase_4i", seconds=time.perf_counter() - t_4i)
 
+    # 4j. the static analyzer on the card: the quick matrix captured with
+    # the op recorder on, its costs against the CPU's, a planted sync, one
+    # dry-run point ------------------------------------------------------
+    t_4j = time.perf_counter()
+    analysis_phase(torch, card)
+    emit("phase_4j", seconds=time.perf_counter() - t_4j)
+
     t_phase = time.perf_counter()
     # 5. one traced round per algorithm, and with codecs (torch.profiler;
     # a separate run, so the rounds/s above are untraced); then the steady
@@ -5383,10 +5696,10 @@ def main():
                                  f"{ratio_l2})")
 
     # the engine against the reference loop on the card from the same
-    # seed: the FedFusion-conv top-k runs 40 rounds (five 8-round chunks:
-    # four replays with refilled static inputs, the host store's patch and
-    # write-back between chunks, the first pinned staging pool reused),
-    # FedAvg and FedMMD 16 (two chunks: one replay refilled; 40 until the
+    # seed: the FedFusion-conv top-k runs 24 rounds (three 8-round chunks:
+    # two replays with refilled static inputs, the host store's patch and
+    # write-back between chunks; 40 until phase 4j was added), FedAvg and
+    # FedMMD 16 (two chunks: one replay refilled; 40 until the
     # mesh families were added: the script's time limit).  cuDNN's default
     # weight-gradient algorithms differ run to run, so both run with its
     # deterministic algorithms; then the graph replays compute what the
@@ -5401,7 +5714,7 @@ def main():
         for algorithm, mode, up, store in ENGINE_RUNS:
             fl = FLConfig(algorithm=algorithm, fusion_op="conv",
                           uplink_codec=up, topk_frac=TOPK_FRAC, **FIG4)
-            R = ENGINE_ROUNDS if algorithm == "fedfusion" \
+            R = SHORT_ENGINE_ROUNDS if algorithm == "fedfusion" \
                 else 2 * ENGINE_CHUNK
             out = {}
             for name, fn, kw in [
@@ -5495,6 +5808,13 @@ def main():
                     torch.tensor(FIG6["lr"], device=dev))
                 out[dev] = flat(trained)
             segments.append(ratios(out["cuda"], out["cpu"], flat(start)))
+        # the first held segment in float64 on the CPU beside both float32
+        # paths: where their ReLU / max-pool masks part (ROADMAP Queue 3)
+        masks = probe_masks(torch, trainer, algo, state, newcomer,
+                            steps=steps, batch=batch, lr=FIG6["lr"],
+                            tree_map=tree_map)
+    emit("probe_masks", path="newclient_probe", segment=0,
+         segment_ratios=segments[0], **masks)
     emit("card_vs_cpu", path="newclient_probe", algorithm="fedfusion",
          fusion_op="conv", epochs=3, segment_steps=steps,
          cudnn_deterministic=True, segment_ratios_by_epoch=segments,
@@ -5720,5 +6040,9 @@ if __name__ == "__main__":
         tp_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--analysis-worker"]:
+        analysis_cpu_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--analysis-sync-worker"]:
+        analysis_sync_worker(sys.argv[2:])
     else:
         main()

@@ -327,6 +327,16 @@ class ArchConfig:
             n += self.n_layers * per_attn  # decoder cross-attention
         return n
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts), the JAX
+        package's formula."""
+        if not self.n_experts:
+            return self.param_count()
+        mlp_mult = 3 if self.act == "silu" else 2
+        per_expert = mlp_mult * self.d_model * self.moe_d_ff
+        inactive = self.n_layers * (self.n_experts - self.top_k) * per_expert
+        return self.param_count() - inactive
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 experts, tiny
         vocab; keeps the family shape (block kinds, GQA flavour)."""

@@ -28,7 +28,8 @@ class ClientSharding:
     ``shard_map``); by default the rank's index in ``group``.
     ``collectives`` counts the all-reduces issued through :meth:`all_reduce`
     (like the kernels' ``launches``: it ticks when Python issues one, so a
-    captured graph's count is taken during capture).
+    captured graph's count is taken during capture), and
+    ``collective_bytes`` their payload bytes.
     """
 
     def __init__(self, axes: Tuple[str, ...], sizes: Tuple[int, ...],
@@ -41,6 +42,7 @@ class ClientSharding:
             position = dist.get_rank(group) if group is not None else 0
         self.position = int(position)
         self.collectives = 0
+        self.collective_bytes = 0
 
     @property
     def n_shards(self) -> int:
@@ -54,6 +56,7 @@ class ClientSharding:
         import torch.distributed as dist
         dist.all_reduce(t, group=self.group)
         self.collectives += 1
+        self.collective_bytes += t.numel() * t.element_size()
         return t
 
     def __repr__(self):

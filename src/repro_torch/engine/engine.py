@@ -145,7 +145,8 @@ from repro_torch.obs.telemetry import Telemetry, make_telemetry
 from repro_torch.optim import exp_decay_per_round
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["ServerResult", "chunk_schedule", "run_federated_engine"]
+__all__ = ["ServerResult", "ChunkProgram", "chunk_body", "carried_tensors",
+           "load_chunk_inputs", "chunk_schedule", "run_federated_engine"]
 
 _NON_METRIC_KEYS = frozenset(
     ("round", "bytes_up", "bytes_down", "bytes_up_ideal", "cum_bytes_up"))
@@ -313,11 +314,13 @@ class _GraphStep:
     graphs share: they replay one at a time on one stream and keep their
     outputs alive, so a later capture may reuse what an earlier one freed,
     and every chunk length does not hold a local step's activations of its
-    own.
+    own.  ``capture_mode`` (a context manager, e.g. the analyzer's op
+    recorder) is entered around the body during the capture only.
     """
 
     def __init__(self, n_rounds: int, inputs: Dict, body: Callable,
-                 carried: List[torch.Tensor], shard=None, pool=None):
+                 carried: List[torch.Tensor], shard=None, pool=None,
+                 capture_mode=None):
         self.n_rounds = n_rounds
         self.inputs = inputs
         self.replays = 0
@@ -344,7 +347,8 @@ class _GraphStep:
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, pool=pool,
                               capture_error_mode="thread_local"):
-            self.outputs = body(inputs)
+            with capture_mode or contextlib.nullcontext():
+                self.outputs = body(inputs)
             t1 = time.perf_counter()
         # capture_s: the body's ops recorded; instantiate_s: the end of
         # the capture (cudaStreamEndCapture + cudaGraphInstantiate)
@@ -419,6 +423,134 @@ def _steady_rate(chunk_times):
     span = chunk_times[-1]["end_ms"] - chunk_times[1]["start_ms"]
     rounds = chunk_times[-1]["r1"] - chunk_times[1]["r0"]
     return 1e3 * rounds / span if span > 0 else None
+
+
+@dataclass
+class ChunkProgram:
+    """What one chunk's body reads and writes: the superstep's inputs
+    besides the staged chunk, and the carried state it updates in place.
+
+    ``run_federated_engine`` builds one per run; ``repro_torch.analysis``
+    builds one per matrix point, so the analyzer runs the program the
+    engine captures (:func:`chunk_body`) on the buffers it carries
+    (:func:`carried_tensors`), staged as the engine stages them
+    (:func:`load_chunk_inputs`).  ``supersteps`` caches the superstep of
+    each chunk length.
+    """
+    bundle: ModelBundle
+    fl: FLConfig
+    mode: str
+    device: torch.device
+    global_state: Dict
+    uplink: object = None
+    downlink: object = None
+    down_mirror: Optional[Dict] = None
+    ef_all: Optional[List[torch.Tensor]] = None
+    ef_paged: bool = False
+    tele: Optional[Telemetry] = None
+    controller: object = None
+    ctrl_state: Optional[Dict] = None
+    shard: object = None
+    fused: bool = True
+    eval_fn: Optional[Callable] = None
+    test_args: Tuple = ()
+    part_active: bool = False
+    supersteps: Dict[int, Callable] = field(default_factory=dict)
+
+    @property
+    def compressed(self) -> bool:
+        return self.fl.compressed
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+
+def chunk_body(prog: ChunkProgram, n_rounds: int) -> Callable:
+    """``body(inputs) -> metrics [K]``: the ``n_rounds`` superstep on
+    ``prog``'s carried state, written back in place (on a mesh the
+    shard-aware superstep, what ``make_sharded_superstep`` builds, at any
+    shard count)."""
+    if n_rounds not in prog.supersteps:
+        sharded = dict(shard=prog.shard, fused=prog.fused) \
+            if prog.shard is not None else {}
+        if prog.compressed:
+            prog.supersteps[n_rounds] = make_compressed_superstep(
+                prog.bundle, prog.fl, prog.mode, n_rounds, prog.uplink,
+                prog.downlink, eval_fn=prog.eval_fn, telemetry=prog.tele,
+                controller=prog.controller, **sharded)
+        else:
+            prog.supersteps[n_rounds] = make_plain_superstep(
+                prog.bundle, prog.fl, prog.mode, n_rounds,
+                eval_fn=prog.eval_fn, telemetry=prog.tele, **sharded)
+    superstep = prog.supersteps[n_rounds]
+
+    def body(inputs):
+        part = inputs.get("part")
+        if prog.compressed:
+            ef = inputs["ef_page"] if prog.ef_paged else prog.ef_all
+            new_state, mstack, _, new_mirror = superstep(
+                prog.global_state, ef, prog.down_mirror, inputs["batches"],
+                inputs["sizes"], inputs["lrs"], inputs["cids"],
+                inputs["noise"], *prog.test_args, part=part,
+                ctrl=prog.ctrl_state)
+            _copy_into(prog.down_mirror, new_mirror)
+        else:
+            new_state, mstack = superstep(
+                prog.global_state, inputs["batches"], inputs["sizes"],
+                inputs["lrs"], *prog.test_args, part=part)
+        _copy_into(prog.global_state, new_state)
+        return mstack
+    return body
+
+
+def carried_tensors(prog: ChunkProgram, inputs: Dict) -> List[torch.Tensor]:
+    """Every tensor the chunk body writes in place: the global state, the
+    broadcast mirror, the EF table (or the chunk's page) and the
+    controller state."""
+    leaves = tree_leaves(prog.global_state)
+    if prog.compressed:
+        leaves += tree_leaves(prog.down_mirror)
+        leaves += inputs["ef_page"] if prog.ef_paged else (prog.ef_all or [])
+    if prog.ctrl_state is not None:
+        leaves += tree_leaves(prog.ctrl_state)
+    return leaves
+
+
+def load_chunk_inputs(prog: ChunkProgram, n_rounds: int, staged: Dict, noise,
+                      cache: Dict) -> Tuple[Dict, Optional["_GraphStep"]]:
+    """The chunk's inputs on the device: on the card copied into the chunk
+    length's static buffers (those of its graph in ``cache``, or new), on
+    the CPU the staged tensors themselves (a paged EF store's page is a
+    fresh buffer the caller fills).  Returns (inputs, graph or None)."""
+    src = {"batches": staged["batches"], "sizes": staged["sizes"],
+           "lrs": staged["lrs"]}
+    if prog.part_active:
+        src["part"] = staged["part"]
+    if prog.compressed:
+        src["cids"] = staged["cids"]
+        src["noise"] = noise
+    paged = prog.compressed and prog.ef_paged
+    if not prog.on_card:
+        if paged:
+            src["ef_page"] = [torch.empty_like(p) for p in staged["ef_page"]]
+        return src, None
+    step = cache.get(n_rounds)
+    if step is None:
+        inputs = tree_map(lambda t: None if t is None else
+                          torch.empty(t.shape, dtype=t.dtype,
+                                      device=prog.device), src)
+        if paged:
+            inputs["ef_page"] = [torch.zeros(p.shape, device=prog.device)
+                                 for p in staged["ef_page"]]
+    else:
+        inputs = step.inputs
+    for d, s in zip(tree_leaves({k: v for k, v in inputs.items()
+                                 if k != "ef_page"}),
+                    tree_leaves(src)):
+        if d is not None:
+            d.copy_(s, non_blocking=True)
+    return inputs, step
 
 
 def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
@@ -800,100 +932,29 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
         return down, up
 
     # --- the chunk body: superstep on the carried state, in place --------
-    supersteps: Dict[int, Callable] = {}
-
-    def body_for(n_rounds):
-        if n_rounds not in supersteps:
-            ev = eval_fn if eval_in_chunk else None
-            # on a mesh: the shard-aware superstep (what
-            # make_sharded_superstep builds, at any shard count)
-            sharded = dict(shard=shard, fused=fused_collective) \
-                if shard is not None else {}
-            if compressed:
-                supersteps[n_rounds] = make_compressed_superstep(
-                    bundle, fl, mode, n_rounds, uplink, downlink, eval_fn=ev,
-                    telemetry=tele, controller=controller, **sharded)
-            else:
-                supersteps[n_rounds] = make_plain_superstep(
-                    bundle, fl, mode, n_rounds, eval_fn=ev, telemetry=tele,
-                    **sharded)
-        superstep = supersteps[n_rounds]
-
-        def body(inputs):
-            part = inputs.get("part")
-            if compressed:
-                ef = inputs["ef_page"] if ef_paged else ef_all
-                new_state, mstack, _, new_mirror = superstep(
-                    global_state, ef, down_mirror, inputs["batches"],
-                    inputs["sizes"], inputs["lrs"], inputs["cids"],
-                    inputs["noise"], *test_args, part=part, ctrl=ctrl_state)
-                _copy_into(down_mirror, new_mirror)
-            else:
-                new_state, mstack = superstep(
-                    global_state, inputs["batches"], inputs["sizes"],
-                    inputs["lrs"], *test_args, part=part)
-            _copy_into(global_state, new_state)
-            return mstack
-        return body
-
-    def carried(inputs):
-        leaves = tree_leaves(global_state)
-        if compressed:
-            leaves += tree_leaves(down_mirror)
-            leaves += inputs["ef_page"] if ef_paged else (ef_all or [])
-        if ctrl_active:
-            leaves += tree_leaves(ctrl_state)
-        return leaves
-
+    prog = ChunkProgram(
+        bundle=bundle, fl=fl, mode=mode, device=device,
+        global_state=global_state, uplink=uplink, downlink=downlink,
+        down_mirror=down_mirror, ef_all=ef_all, ef_paged=ef_paged,
+        tele=tele, controller=controller, ctrl_state=ctrl_state,
+        shard=shard, fused=fused_collective,
+        eval_fn=eval_fn if eval_in_chunk else None, test_args=test_args,
+        part_active=part_active)
     graphs: Dict[int, _GraphStep] = {}
     graph_pool = torch.cuda.graph_pool_handle() if on_card else None
-
-    def load_inputs(n_rounds, staged, noise, cache=graphs):
-        """The chunk's inputs on the device: on the card copied into the
-        chunk length's static buffers (those of its graph in ``cache``, or
-        new), on the CPU the staged tensors themselves.  Returns (inputs,
-        graph or None)."""
-        src = {"batches": staged["batches"], "sizes": staged["sizes"],
-               "lrs": staged["lrs"]}
-        if part_active:
-            src["part"] = staged["part"]
-        if compressed:
-            src["cids"] = staged["cids"]
-            src["noise"] = noise
-        if not on_card:
-            if compressed and ef_paged:
-                src["ef_page"] = [torch.empty_like(p)
-                                  for p in staged["ef_page"]]
-            return src, None
-        step = cache.get(n_rounds)
-        if step is None:
-            inputs = tree_map(lambda t: None if t is None else
-                              torch.empty(t.shape, dtype=t.dtype,
-                                          device=device), src)
-            if compressed and ef_paged:
-                inputs["ef_page"] = [torch.zeros(p.shape, device=device)
-                                     for p in staged["ef_page"]]
-        else:
-            inputs = step.inputs
-        for d, s in zip(tree_leaves({k: v for k, v in inputs.items()
-                                     if k != "ef_page"}),
-                        tree_leaves(src)):
-            if d is not None:
-                d.copy_(s, non_blocking=True)
-        return inputs, step
 
     def captured(n_rounds, inputs, step, cache=graphs):
         """On the card, the chunk length's graph (captured on first use
         around the loaded inputs, kept in ``cache``); None on the CPU."""
         if on_card and step is None:
             step = cache[n_rounds] = _GraphStep(
-                n_rounds, inputs, body_for(n_rounds), carried(inputs), shard,
-                graph_pool)
+                n_rounds, inputs, chunk_body(prog, n_rounds),
+                carried_tensors(prog, inputs), shard, graph_pool)
         return step
 
     def run_chunk(n_rounds, inputs, step):
         """Replay (card) or run (CPU) one chunk; returns its metrics."""
-        return step.replay() if on_card else body_for(n_rounds)(inputs)
+        return step.replay() if on_card else chunk_body(prog, n_rounds)(inputs)
 
     def release(staged):
         if staged["pool"] is not None:
@@ -920,13 +981,13 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
 
         def timed(n_rounds):
             staged = build_chunk(0, n_rounds, src=calib)
-            inputs, step = load_inputs(
-                n_rounds, staged, draw_noise(0, n_rounds, calib_noise),
+            inputs, step = load_chunk_inputs(
+                prog, n_rounds, staged, draw_noise(0, n_rounds, calib_noise),
                 calib_graphs)
             if compressed and ef_paged:
                 for d, s in zip(inputs["ef_page"], staged["ef_page"]):
                     d.copy_(s)
-            state0 = _host_snapshot(carried(inputs))
+            state0 = _host_snapshot(carried_tensors(prog, inputs))
             step = captured(n_rounds, inputs, step,    # outside the timing
                             calib_graphs)
             if on_card:
@@ -936,7 +997,7 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
             if on_card:
                 torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
-            _restore(carried(inputs), state0)
+            _restore(carried_tensors(prog, inputs), state0)
             return elapsed
 
         chunk_rounds = _auto_chunk_rounds(timed)
@@ -1026,10 +1087,11 @@ def run_federated_engine(bundle: ModelBundle, fl: FLConfig, data, *,
                 with chunk_range():
                     with rl.span("chunk.dispatch", r0=r0, r1=r1,
                                  compile=n_rounds not in (
-                                     graphs if on_card else supersteps)):
+                                     graphs if on_card else prog.supersteps)):
                         m_start = mark()
-                        inputs, step = load_inputs(
-                            n_rounds, staged, draw_noise(r0, r1, noise_fn))
+                        inputs, step = load_chunk_inputs(
+                            prog, n_rounds, staged,
+                            draw_noise(r0, r1, noise_fn), graphs)
                         if compressed and ef_paged:
                             page = [p.to(device, non_blocking=True)
                                     for p in staged["ef_page"]]

@@ -29,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.calls import kernel_entry, runs_plain
 
 __all__ = ["quant_pack", "quant_pack_multi", "quant_unpack",
            "quant_unpack_multi", "topk_select", "ef_gather", "ef_scatter",
@@ -573,6 +574,9 @@ def ef_scatter_cuda(table, idx, rows):
             table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
             rows.data_ptr(), k, n, vec)
     ef_scatter_cuda.launches += 1
+    # the write went through ctypes: tell autograd (and the analyzer's
+    # in-place check) that the table changed, as index_copy_ would
+    torch.autograd.graph.increment_version(table)
     return table
 
 
@@ -583,57 +587,77 @@ ef_scatter_cuda.launches = 0
 # dispatch: the plain version for CPU tensors only
 # --------------------------------------------------------------------------
 
+def _per_launch(n):
+    """Launches of a multi-leaf kernel over ``n`` leaves (one per
+    ``MAX_LEAVES``)."""
+    return -(-n // MAX_LEAVES)
+
+
+def _rows_launch(table, idx, *rest):
+    """K6 / K7 launch nothing for zero rows or an empty row."""
+    return int(idx.numel() > 0 and table.numel() > 0)
+
+
+@kernel_entry("quant_pack")
 def quant_pack(x, scale, noise, *, bits=8):
     """K3 on the card, its plain version for tensors on the CPU."""
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return quant_pack_plain(x, scale, noise, bits=bits)
     return quant_pack_cuda(x, scale, noise, bits=bits)
 
 
+@kernel_entry("quant_pack", lambda xs, *a, **k: {
+    "quant_pack": 2 * _per_launch(len(xs))})
 def quant_pack_multi(xs, noises, *, bits=8, level=None, ladder_qmax=None):
     """K3 over a message's leaves, scales included, in two launches (per 64
     leaves) on the card; the plain version leaf by leaf for tensors on the
     CPU.  ``level`` / ``ladder_qmax``: a ladder level (see
     :func:`quant_pack_multi_cuda`)."""
-    if xs[0].device.type == "cpu":
+    if runs_plain(xs[0]):
         return quant_pack_multi_plain(xs, noises, bits=bits, level=level,
                                       ladder_qmax=ladder_qmax)
     return quant_pack_multi_cuda(xs, noises, bits=bits, level=level,
                                  ladder_qmax=ladder_qmax)
 
 
+@kernel_entry("quant_unpack")
 def quant_unpack(packed, scale, *, bits=8, n=None):
     """K4 on the card, its plain version for tensors on the CPU."""
-    if packed.device.type == "cpu":
+    if runs_plain(packed):
         return quant_unpack_plain(packed, scale, bits=bits, n=n)
     return quant_unpack_cuda(packed, scale, bits=bits, n=n)
 
 
+@kernel_entry("quant_unpack", lambda packed, *a, **k: {
+    "quant_unpack": _per_launch(len(packed))})
 def quant_unpack_multi(packed, scales, *, bits=8, ns=None):
     """K4 over a message's leaves in one launch (per 64 leaves) on the
     card, the plain version leaf by leaf for tensors on the CPU."""
-    if packed[0].device.type == "cpu":
+    if runs_plain(packed[0]):
         return quant_unpack_multi_plain(packed, scales, bits=bits, ns=ns)
     return quant_unpack_multi_cuda(packed, scales, bits=bits, ns=ns)
 
 
+@kernel_entry("topk_select")
 def topk_select(x, thresh):
     """K5 on the card, its plain version for tensors on the CPU."""
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return topk_select_plain(x, thresh)
     return topk_select_cuda(x, thresh)
 
 
+@kernel_entry("ef_gather", lambda *a: {"ef_gather": _rows_launch(*a)})
 def ef_gather(table, idx):
     """K6 on the card, its plain version for tensors on the CPU."""
-    if table.device.type == "cpu":
+    if runs_plain(table):
         return ef_gather_plain(table, idx)
     return ef_gather_cuda(table, idx)
 
 
+@kernel_entry("ef_scatter", lambda *a: {"ef_scatter": _rows_launch(*a)})
 def ef_scatter(table, idx, rows):
     """K7 on the card (in place), its plain version for tensors on the
     CPU; returns the table."""
-    if table.device.type == "cpu":
+    if runs_plain(table):
         return ef_scatter_plain(table, idx, rows)
     return ef_scatter_cuda(table, idx, rows)

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.calls import kernel_entry, runs_plain
 from repro_torch.kernels.flash_attn import masked_softmax_attention
 
 # the head dims the kernel is built for: every one the repository's configs
@@ -213,12 +214,13 @@ def flash_decode_cuda(q, k_cache, v_cache, valid_len=None, *, split=None,
 flash_decode_cuda.launches = 0
 
 
+@kernel_entry("flash_decode")
 def flash_decode(q, k_cache, v_cache, valid_len=None, *, want_lse=False):
     """q [B,1,H,hd]; caches [B,L,KV,hd] -> [B,1,H,hd] (and lse [B, H] with
     ``want_lse``): the CUDA kernel for tensors on the card, the plain
     version for tensors on the CPU.  ``valid_len``: an int, an int tensor
     or None (= L)."""
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_decode_plain(q, k_cache, v_cache, valid_len,
                                   want_lse=want_lse)
     return flash_decode_cuda(q, k_cache, v_cache, valid_len,

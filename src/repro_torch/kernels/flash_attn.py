@@ -36,6 +36,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.calls import kernel_entry, runs_plain
 
 NEG_INF = -1e30
 # the head dims the kernels are built for: every one the repository's
@@ -484,18 +485,21 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, *, causal=True, window=None):
 flash_bwd_dkv_cuda.launches = 0
 
 
+@kernel_entry("flash_fwd")
 def flash_fwd(q, k, v, *, causal=True, window=None):
     """(o, lse) with scale hd^-0.5: the CUDA kernel for tensors on the
     card, the plain version for tensors on the CPU."""
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
     return flash_fwd_cuda(q, k, v, causal=causal, window=window)
 
 
+@kernel_entry("flash_bwd", lambda *a, **k: {"flash_bwd_dq": 1,
+                                            "flash_bwd_dkv": 1})
 def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
     """(dq, dk, dv): K8b and K8c for tensors on the card, the plain
     version for tensors on the CPU."""
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                window=window)
     dcap = flash_dcap(do, o, k.shape[2])

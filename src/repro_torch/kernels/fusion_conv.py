@@ -22,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.calls import kernel_entry, runs_plain
 
 
 def fusion_conv_plain(f_g, f_l, w):
@@ -112,13 +113,19 @@ def fusion_conv_cuda(f_g, f_l, w):
 fusion_conv_cuda.launches = 0
 
 
+@kernel_entry("fusion_conv")
+def _fusion_conv_forward(f_g, f_l, w):
+    """K2 on the card, its plain version for tensors on the CPU."""
+    if runs_plain(f_g):
+        return fusion_conv_plain(f_g, f_l, w)
+    return fusion_conv_cuda(f_g, f_l, w)
+
+
 class FusionConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f_g, f_l, w):
         ctx.save_for_backward(f_g, f_l, w)
-        if f_g.device.type == "cpu":
-            return fusion_conv_plain(f_g, f_l, w)
-        return fusion_conv_cuda(f_g, f_l, w)
+        return _fusion_conv_forward(f_g, f_l, w)
 
     @staticmethod
     def backward(ctx, g):

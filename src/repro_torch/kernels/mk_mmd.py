@@ -31,6 +31,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.calls import kernel_entry, runs_plain
 
 MAX_WIDTHS = 8
 FUSED_MAX_ROWS = 64  # n, m the fused term takes (csrc/gram_sum.cu)
@@ -115,14 +116,20 @@ def gram_sum_cuda(x, y, sigma, widths: Sequence[float]):
 gram_sum_cuda.launches = 0
 
 
+@kernel_entry("gram_sum")
+def _gram_sum_forward(x, y, sigma, widths):
+    """K1 on the card, its plain version for tensors on the CPU."""
+    if runs_plain(x):
+        return gram_sum_plain(x, y, sigma, widths)
+    return gram_sum_cuda(x, y, sigma, widths)
+
+
 class GramSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, sigma, widths):
         ctx.widths = widths
         ctx.save_for_backward(x, y, sigma)
-        if x.device.type == "cpu":
-            return gram_sum_plain(x, y, sigma, widths)
-        return gram_sum_cuda(x, y, sigma, widths)
+        return _gram_sum_forward(x, y, sigma, widths)
 
     @staticmethod
     def backward(ctx, g):
@@ -279,11 +286,7 @@ class MkMmd2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, widths):
-        if x.device.type == "cpu":
-            value, sigma = mk_mmd2_plain(x, y, widths)
-        else:
-            out = mk_mmd2_cuda(x, y, widths)
-            value, sigma = out[0], out[1:]
+        value, sigma = _mk_mmd2_forward(x, y, widths)
         ctx.widths = widths
         ctx.save_for_backward(x, y, sigma)
         return value
@@ -292,13 +295,29 @@ class MkMmd2(torch.autograd.Function):
     def backward(ctx, g):
         x, y, sigma = ctx.saved_tensors
         need_dx, need_dy = ctx.needs_input_grad[:2]
-        if x.device.type == "cpu":
-            dx, dy = mk_mmd2_grad_plain(x, y, sigma, g, ctx.widths, need_dx,
-                                        need_dy)
-        else:
-            dx, dy = mk_mmd2_grad_cuda(x, y, sigma, g.reshape(1).contiguous(),
-                                       ctx.widths, need_dx, need_dy)
+        dx, dy = _mk_mmd2_backward(x, y, sigma, g, ctx.widths, need_dx,
+                                   need_dy)
         return dx, dy, None
+
+
+@kernel_entry("mk_mmd2")
+def _mk_mmd2_forward(x, y, widths):
+    """(MMD^2, sigma): the fused kernel on the card, its plain version for
+    tensors on the CPU."""
+    if runs_plain(x):
+        return mk_mmd2_plain(x, y, widths)
+    out = mk_mmd2_cuda(x, y, widths)
+    return out[0], out[1:]
+
+
+@kernel_entry("mk_mmd2_grad")
+def _mk_mmd2_backward(x, y, sigma, g, widths, need_dx, need_dy):
+    """(dx, dy): the fused backward kernel on the card, its plain version
+    for tensors on the CPU."""
+    if runs_plain(x):
+        return mk_mmd2_grad_plain(x, y, sigma, g, widths, need_dx, need_dy)
+    return mk_mmd2_grad_cuda(x, y, sigma, g.reshape(1).contiguous(), widths,
+                             need_dx, need_dy)
 
 
 def mk_mmd2_gram(x, y, widths):

@@ -36,7 +36,7 @@ __all__ = ["MeshSpec", "make_mesh", "make_host_mesh", "make_engine_mesh",
            "make_production_mesh", "production_shape", "batch_axes",
            "client_axes", "axis_size", "axis_sizes", "client_position",
            "client_group", "axes_group", "axes_position", "axes_place",
-           "mesh_device"]
+           "mesh_device", "release_groups"]
 
 _CLIENT_AXES = ("pod", "data")
 
@@ -257,6 +257,12 @@ def axes_place(mesh, axes):
     for s in sizes:
         n *= s
     return (axes_group(mesh, axes) if n > 1 else None), n, position
+
+
+def release_groups() -> None:
+    """Forget the subgroups :func:`axes_group` made: call it after
+    ``destroy_process_group``, which destroyed them."""
+    _GROUPS.clear()
 
 
 def client_group(mesh):

@@ -2246,3 +2246,32 @@ def test_recurrent_rank_blocks_on_the_card_match_the_whole(cuda_device,
     assert got.is_cuda and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-5 * want.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# the static analyzer: a point captured on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["topk", "int8", "fusion-topk"])
+def test_analysis_point_captured_clean_on_the_card(cuda_device, codec):
+    """One unsharded point lowered inside the engine's CUDA-graph capture:
+    every lowered pass clean, the ``kernel:*`` entries' launches equal to
+    the kernel counters' deltas over each capture, and the cost model's
+    totals equal to the same point lowered on the CPU."""
+    from repro_torch.analysis import (SuperstepSpec, kernel_launches,
+                                      lower_superstep, make_pass,
+                                      registered_passes)
+    from repro_torch.roofline import analyze_record
+    spec = SuperstepSpec(codec=codec, n_rounds=2)
+    low = lower_superstep(spec, device="cuda")
+    cpu = lower_superstep(spec, device="cpu")
+    for name in registered_passes():
+        if make_pass(name).scope == "lowered":
+            assert make_pass(name).run(low) == [], name
+    for lw in low.lowerings:
+        assert lw.capture_error is None and lw.graph is not None
+        assert kernel_launches(lw.record) == lw.launches
+        assert lw.launches
+    assert [analyze_record(lw.record) for lw in low.lowerings] == \
+        [analyze_record(lw.record) for lw in cpu.lowerings]
